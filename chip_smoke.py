@@ -5,33 +5,47 @@
 
 Run from the root of a checkout on a machine with one NVIDIA H100. It
 builds the port's CUDA kernels from `paddle_tpu_torch/csrc/`, holds each
-one against its plain PyTorch version on the card, checks a cut-down
-model on the card against the same model on the CPU, and serves 16
-requests through the continuous-batching `LLMEngine` at the full width of
-`gpt3-1.3b` in bf16 (random weights from a seed). It prints one JSON line
-per phase, then the `{"kernels": [...]}` line, then the card's name and
-power limit as `nvidia-smi` reports them, and last
-`{"ok": true, "device": {...}}`. Any failure exits non-zero before the
-last two lines; with no GPU, or outside a checkout, it exits 2 at once.
+one against its plain PyTorch version on the card, checks cut-down models
+on the card against the same models on the CPU, serves 16 requests
+through the continuous-batching `LLMEngine` and trains 13 steps through
+`ScanTrainStep`, both at the full width of `gpt3-1.3b` in bf16 (random
+weights from a seed). It prints one JSON line per phase, then the
+`{"kernels": [...]}` line, then the card's name and power limit as
+`nvidia-smi` reports them, and last `{"ok": true, "device": {...}}`. Any
+failure exits non-zero before the last two lines; with no GPU, or outside
+a checkout, it exits 2 at once.
 
 Phases:
   1. device   — card name, count, nvidia-smi name/power limit
   2. build    — nvcc build of the kernel library, timed
-  3. kernels  — each kernel against its plain version at the serving
-                path's shapes (fp32 and bf16, GQA, edge shapes), timed on
-                the device (median of 21 CUDA-event samples of 10
-                back-to-back calls held behind a spin kernel) beside one
-                PyTorch library call for the same function and the least
-                time the card could take
-  4. model    — gpt3-1.3b widths cut to 2 layers, fp32: the engine's
-                unified steps on the card (kernels) against a CPU twin
-                with the same weights (plain versions): logits and tokens
+  3. kernels  — each kernel against its plain version at its path's
+                shapes (serving: paged attention and the LayerNorm
+                forward; training: flash attention forward, dq and dk/dv
+                at [4,16,1024,128] bf16 causal and the LayerNorm forward
+                and backward at 4096x2048 bf16), with fp32, GQA,
+                non-causal, Sq != Sk,
+                ragged and D=64 edge cases, timed on the device (median of
+                21 CUDA-event samples of back-to-back calls held behind a
+                spin kernel) beside one PyTorch library call for the same
+                function and the least time the card could take
+  4. model    — gpt3-1.3b widths cut to 2 layers, fp32, on the card
+                (kernels) against a CPU twin with the same weights (plain
+                versions): the engine's unified steps (logits and tokens),
+                and 3 AdamW steps through ScanTrainStep (first-step
+                gradient norms, losses, weights)
   5. serve    — full gpt3-1.3b, bf16, LLMEngine(num_slots=8, block_len=8,
                 n_blocks=64, prefill_chunk=64) on a MonotonicClock via
                 start(): 16 requests, prompts 32..400 tokens, 32 new tokens
                 each; kernel launch counts are zeroed just before and read
                 just after; 4 streams and their first-step logits are
                 compared with generate()
+  6. train    — full gpt3-1.3b, bf16, B=4, S=1024, AdamW (lr 1e-4, wd
+                0.01, fp32 moments), one batch repeated: a ScanTrainStep
+                chunk of 3 warm-up steps, then one of 10 timed steps with
+                the launch counts zeroed just before and read just after;
+                tokens/s, step time, MFU, peak memory, losses (finite and
+                falling) and exactly 24 flash and 49 LayerNorm launches of
+                each kind a step
 """
 from __future__ import annotations
 
@@ -320,8 +334,6 @@ def check_layernorm(torch, x, w, b, label, bf16_ulp=False, atol=1e-5):
 def phase_kernels():
     import torch
     import torch.nn.functional as F
-    from paddle_tpu_torch.ops.layernorm import (layer_norm_fwd_cuda,
-                                                layer_norm_fwd_plain)
     from paddle_tpu_torch.ops.paged_attention import (paged_attention_cuda,
                                                       paged_attention_plain)
     gen = torch.Generator(device="cuda")
@@ -405,27 +417,346 @@ def phase_kernels():
         be = torch.randn(n, generator=gen, device="cuda")
         ln_cases[f"fp32_{r}x{n}"] = check_layernorm(torch, xe, we, be,
                                                     f"fp32 {r}x{n}")
-    # a served step's LayerNorm reads the residual sum the op before it
-    # just wrote, so its input stays warm in L2 here too
-    ln_ms, ln_call_ms = time_cuda([partial(layer_norm_fwd_cuda, xb, wb, bb,
-                                           1e-5)])
-    ln_plain_ms, _ = time_cuda([partial(layer_norm_fwd_plain, xb, wb, bb,
-                                        1e-5)])
-    ln_lib_ms, _ = time_cuda([partial(F.layer_norm, xb, (N,), wb, bb,
-                                      1e-5)])
-    el = xb.element_size()
-    ln_bytes = 2 * R * N * el + 2 * N * el + 2 * R * 4
-    ln_ops = 8 * R * N
-    ln_bound, ln_by = bound_ms(ln_bytes, ln_ops, "bfloat16")
-    results["layernorm_fwd"] = dict(
-        max_abs_err=ln_cases["bf16"],
-        tol="one bf16 ulp of the output + 1e-5 (bf16); fp32 atol=rtol=1e-5",
-        ms=ln_ms, call_ms=ln_call_ms, plain_ms=ln_plain_ms,
-        library_ms=ln_lib_ms,
-        bound_ms=ln_bound, bound_by=ln_by, bytes=ln_bytes, ops=ln_ops,
-        shape=dict(R=R, N=N, dtype="bfloat16"), cases=ln_cases)
+    results["layernorm_fwd"] = layernorm_fwd_reading(torch, xb, wb, bb,
+                                                     ln_cases)
     emit({"phase": "kernel", "name": "layernorm_fwd",
           **results["layernorm_fwd"]})
+    return results
+
+
+def layernorm_fwd_reading(torch, xb, wb, bb, cases):
+    """The LayerNorm forward's line at the bf16 shape of `xb`: its error
+    (from `cases`, the checks already made), its time, the plain version's
+    and F.layer_norm's, and its bound. A step's LayerNorm reads the
+    residual sum the op before it just wrote, so its input stays warm in L2
+    here too."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.layernorm import (layer_norm_fwd_cuda,
+                                                layer_norm_fwd_plain)
+    R, N = xb.shape
+    ms, call_ms = time_cuda([partial(layer_norm_fwd_cuda, xb, wb, bb, 1e-5)])
+    plain_ms, _ = time_cuda([partial(layer_norm_fwd_plain, xb, wb, bb,
+                                     1e-5)])
+    lib_ms, _ = time_cuda([partial(F.layer_norm, xb, (N,), wb, bb, 1e-5)])
+    el = xb.element_size()
+    n_bytes = 2 * R * N * el + 2 * N * el + 2 * R * 4
+    n_ops = 8 * R * N
+    bound, by = bound_ms(n_bytes, n_ops, "bfloat16")
+    return dict(
+        max_abs_err=cases["bf16"],
+        tol="one bf16 ulp of the output + 1e-5 (bf16); fp32 atol=rtol=1e-5; "
+            "mean and rstd within 1e-5",
+        ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bound_ms=bound, bound_by=by, bytes=n_bytes, ops=n_ops,
+        shape=dict(R=R, N=N, dtype="bfloat16"), cases=cases)
+
+
+# ------------------------------------------------ phase 3b: training kernels
+# bf16 training kernels against their plain versions. The yardstick is the
+# plain version run in fp32 on the same bf16 inputs: the kernel's largest
+# error from it may be at most BF16_TRAIN_FACTOR times the bf16 plain
+# version's own, plus BF16_TRAIN_ATOL. Both bf16 sides round the same
+# values (p, ds and the outputs) to bf16 once, after fp32 sums taken in
+# another order, so their errors are of one size: a rounding that lands on
+# the other side of a midpoint moves an element by at most half an ulp
+# more than the plain version's worst, well inside the factor of 2. The
+# atol (a quarter of a bf16 ulp at 0.25) covers outputs whose plain error
+# happens to be near 0. A wrong mask, tile or formula moves elements by
+# their own size and fails; fp32 cases hold the algorithm to 1e-5 (forward
+# and dx, one op sequence) or 1e-4 (sums of up to 4096 products, dq, dk,
+# dv, dw, db, taken in another order).
+BF16_TRAIN_FACTOR = 2.0
+BF16_TRAIN_ATOL = 2.0 ** -12
+TRAIN_B, TRAIN_S = 4, 1024          # bench.py's gpt3-1.3b batch
+
+
+def bf16_vs_fp32_plain(torch, got, plain_bf16, plain_fp32):
+    """(kernel error, plain bf16 error, limit) against the fp32 plain
+    version, as maxima of absolute differences."""
+    ref = plain_fp32.float()
+    err_k = float((got.float() - ref).abs().max())
+    err_p = float((plain_bf16.float() - ref).abs().max())
+    return err_k, err_p, BF16_TRAIN_FACTOR * err_p + BF16_TRAIN_ATOL
+
+
+def _check_close(torch, got, ref, tol, what):
+    err = (got.float() - ref.float()).abs()
+    worst = float(err.max()) if err.numel() else 0.0
+    check(bool((err <= tol + tol * ref.float().abs()).all()),
+          f"{what}: max |kernel - plain| = {worst} exceeds atol = rtol = "
+          f"{tol}")
+    return worst
+
+
+def _check_bf16(torch, got, plain_bf16, plain_fp32, what):
+    err_k, err_p, limit = bf16_vs_fp32_plain(torch, got, plain_bf16,
+                                             plain_fp32)
+    check(err_k <= limit, f"{what}: kernel is {err_k} from the fp32 plain "
+                          f"version, limit {limit} ({BF16_TRAIN_FACTOR} x "
+                          f"the bf16 plain version's {err_p} + "
+                          f"{BF16_TRAIN_ATOL})")
+    return dict(err=err_k, plain_err=err_p)
+
+
+def _flash_inputs(torch, gen, B, H, Sq, Sk, D, dtype):
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    return r(B, H, Sq, D), r(B, H, Sk, D), r(B, H, Sk, D), r(B, H, Sq, D)
+
+
+def check_flash(torch, q, k, v, g, causal, label):
+    """Forward, dq and dk/dv kernels against the plain versions on one
+    case. Returns the readings."""
+    from paddle_tpu_torch.ops.attention import (flash_attention_delta,
+                                                flash_bwd_dkv_cuda,
+                                                flash_bwd_dq_cuda,
+                                                flash_bwd_plain,
+                                                flash_fwd_cuda,
+                                                flash_fwd_plain)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    out, lse = flash_fwd_cuda(q, k, v, causal, scale)
+    delta = flash_attention_delta(g, out)
+    dq = flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal, scale)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    for t, n in ((out, "out"), (lse, "lse"), (dq, "dq"), (dk, "dk"),
+                 (dv, "dv")):
+        check(bool(torch.isfinite(t.float()).all()),
+              f"flash {label}: non-finite {n}")
+    ref_out, ref_lse = flash_fwd_plain(q, k, v, causal, scale)
+    ref_b = flash_bwd_plain(q, k, v, g, lse, delta, causal, scale)
+    readings = {}
+    if q.dtype == torch.float32:
+        readings["out"] = _check_close(torch, out, ref_out, 1e-5,
+                                       f"flash {label} out")
+        readings["lse"] = _check_close(torch, lse, ref_lse, 1e-5,
+                                       f"flash {label} lse")
+        for n, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), ref_b):
+            readings[n] = _check_close(torch, got, ref, 1e-4,
+                                       f"flash {label} {n}")
+        return readings
+    f32 = [t.float() for t in (q, k, v, g)]
+    ref32_out, ref32_lse = flash_fwd_plain(*f32[:3], causal, scale)
+    ref32_b = flash_bwd_plain(*f32, lse, delta, causal, scale)
+    readings["out"] = _check_bf16(torch, out, ref_out, ref32_out,
+                                  f"flash {label} out")
+    # lse is fp32 on both sides, from the same bf16 inputs
+    readings["lse"] = _check_close(torch, lse, ref_lse, 1e-5,
+                                   f"flash {label} lse")
+    for n, got, ref, ref32 in zip(("dq", "dk", "dv"), (dq, dk, dv), ref_b,
+                                  ref32_b):
+        readings[n] = _check_bf16(torch, got, ref, ref32,
+                                  f"flash {label} {n}")
+    return readings
+
+
+def flash_bytes_ops(B, H, Sq, Sk, D, causal, el):
+    """(bytes, operations) of the forward, dq and dk/dv functions.
+
+    Pairs: the (query, key) pairs a causal (bottom-right aligned) or full
+    mask leaves visible. Forward reads q, k, v and writes out and the fp32
+    lse, doing QK and PV (4·D operations a pair); dq reads q, k, v, g, lse
+    and delta and writes dq, doing QK, g·v and ds·k (6·D); dk/dv reads the
+    same and writes dk and dv, doing QK, g·v, p·g and ds·q (8·D)."""
+    if causal:
+        pairs = sum(max(0, min(Sk, r + (Sk - Sq) + 1)) for r in range(Sq))
+    else:
+        pairs = Sq * Sk
+    pairs *= B * H
+    qb, kb = B * H * Sq * D * el, B * H * Sk * D * el
+    row = B * H * Sq * 4
+    return {"flash_fwd": (2 * qb + 2 * kb + row, 4 * D * pairs),
+            "flash_bwd_dq": (3 * qb + 2 * kb + 2 * row, 6 * D * pairs),
+            "flash_bwd_dkv": (2 * qb + 4 * kb + 2 * row, 8 * D * pairs)}
+
+
+def check_layernorm_bwd(torch, x, w, b, dy, label):
+    from paddle_tpu_torch.ops.layernorm import (layer_norm_bwd_cuda,
+                                                layer_norm_bwd_plain,
+                                                layer_norm_fwd_cuda)
+    _, mu, rstd = layer_norm_fwd_cuda(x, w, b, 1e-5)
+    got = layer_norm_bwd_cuda(x, w, mu, rstd, dy)
+    torch.cuda.synchronize()
+    ref = layer_norm_bwd_plain(x, w, mu, rstd, dy)
+    names = ("dx", "dw", "db")
+    for t, n in zip(got, names):
+        check(bool(torch.isfinite(t.float()).all()),
+              f"layernorm_bwd {label}: non-finite {n}")
+    if x.dtype == torch.float32:
+        return {n: _check_close(torch, a, r, 1e-5 if n == "dx" else 1e-4,
+                                f"layernorm_bwd {label} {n}")
+                for n, a, r in zip(names, got, ref)}
+    ref32 = layer_norm_bwd_plain(x.float(), w.float(), mu, rstd, dy.float())
+    return {n: _check_bf16(torch, a, r, r32, f"layernorm_bwd {label} {n}")
+            for n, a, r, r32 in zip(names, got, ref, ref32)}
+
+
+def _sdpa_bwd_call(torch, F, q, k, v, g):
+    """One backward of F.scaled_dot_product_attention(is_causal=True) on a
+    graph built once (the library's dq, dk and dv together)."""
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+    return partial(torch.autograd.grad, out, (qr, kr, vr), g,
+                   retain_graph=True)
+
+
+def _ln_bwd_call(torch, F, x, w, b, dy):
+    """One backward of F.layer_norm on a graph built once."""
+    xr, wr, br = (t.detach().requires_grad_() for t in (x, w, b))
+    y = F.layer_norm(xr, (x.shape[-1],), wr, br, 1e-5)
+    return partial(torch.autograd.grad, y, (xr, wr, br), dy,
+                   retain_graph=True)
+
+
+def phase_train_kernels():
+    """The training slice's kernels against their plain versions at the
+    training shapes (gpt3-1.3b: B=4, H=16, S=1024, D=128, bf16, causal;
+    LayerNorm R = 4096, N = 2048) and at edge shapes, then timed."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.attention import (flash_attention_delta,
+                                                flash_bwd_dkv_cuda,
+                                                flash_bwd_dq_cuda,
+                                                flash_bwd_plain,
+                                                flash_fwd_cuda,
+                                                flash_fwd_plain)
+    from paddle_tpu_torch.ops.layernorm import (layer_norm_bwd_cuda,
+                                                layer_norm_bwd_plain,
+                                                layer_norm_fwd_cuda)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    B, H, S, D = TRAIN_B, 16, TRAIN_S, 128
+    bf = torch.bfloat16
+    cases = {}
+    q, k, v, g = _flash_inputs(torch, gen, B, H, S, S, D, bf)
+    cases["bf16_train_causal"] = check_flash(torch, q, k, v, g, True,
+                                             "bf16 [4,16,1024,128] causal")
+    for name, (b_, h_, sq, sk, d_, dt, causal) in {
+            "fp32_causal": (2, 4, 256, 256, 128, torch.float32, True),
+            "fp32_noncausal": (2, 4, 256, 256, 128, torch.float32, False),
+            "fp32_sq_lt_sk": (1, 3, 100, 300, 64, torch.float32, True),
+            "fp32_sq_gt_sk": (1, 3, 300, 100, 64, torch.float32, True),
+            "fp32_ragged_d64": (2, 2, 200, 200, 64, torch.float32, True),
+            "fp32_ragged_d32_noncausal": (1, 2, 77, 130, 32,
+                                          torch.float32, False),
+            "bf16_ragged_d64": (2, 4, 333, 333, 64, bf, True),
+            "bf16_sq_gt_sk_noncausal": (1, 4, 190, 70, 128, bf, False)}.items():
+        cases[name] = check_flash(
+            torch, *_flash_inputs(torch, gen, b_, h_, sq, sk, d_, dt),
+            causal, name)
+    emit({"phase": "kernel_checks", "name": "flash_attention",
+          "cases": cases})
+
+    # LayerNorm backward: the training rows (4 x 1024) at width 2048
+    R, N = TRAIN_B * TRAIN_S, 2048
+    x32 = torch.randn(R, N, generator=gen, device="cuda") * 3 + 0.5
+    w32 = torch.randn(N, generator=gen, device="cuda")
+    b32 = torch.randn(N, generator=gen, device="cuda")
+    dy32 = torch.randn(R, N, generator=gen, device="cuda")
+    ln_cases = {"fp32": check_layernorm_bwd(torch, x32, w32, b32, dy32,
+                                            "fp32 4096x2048")}
+    xb, wb, bb, dyb = (t.to(bf) for t in (x32, w32, b32, dy32))
+    ln_cases["bf16"] = check_layernorm_bwd(torch, xb, wb, bb, dyb,
+                                           "bf16 4096x2048")
+    # the forward at the training rows: y, mean and rstd against the plain
+    # version, so the statistics the backward takes are held too
+    fwd_cases = {"fp32": check_layernorm(torch, x32, w32, b32,
+                                         "fp32 4096x2048"),
+                 "bf16": check_layernorm(torch, xb, wb, bb, "bf16 4096x2048",
+                                         bf16_ulp=True)}
+    for (r, n) in ((3, 8192), (5, 1000), (1, 1), (70001, 64)):
+        t = [torch.randn(*s, generator=gen, device="cuda")
+             for s in ((r, n), (n,), (n,), (r, n))]
+        ln_cases[f"fp32_{r}x{n}"] = check_layernorm_bwd(torch, *t,
+                                                        f"fp32 {r}x{n}")
+        fwd_cases[f"fp32_{r}x{n}"] = check_layernorm(torch, *t[:3],
+                                                     f"fp32 {r}x{n}")
+    emit({"phase": "kernel_checks", "name": "layernorm_bwd",
+          "cases": ln_cases})
+
+    # ---- timing at the training shapes. Attention's inputs (67 MB) and
+    # the LayerNorm backward's x and dy (34 MB) are cycled over two copies,
+    # so a call finds them out of L2, as a layer of a train step does.
+    results = {}
+    scale = 1.0 / math.sqrt(D)
+    copies = [(q, k, v, g)] + [tuple(t.clone() for t in (q, k, v, g))]
+    outs = []
+    for cq, ck, cv, cg in copies:
+        o, lse = flash_fwd_cuda(cq, ck, cv, True, scale)
+        outs.append((o, lse, flash_attention_delta(cg, o)))
+    t = {}
+    t["flash_fwd"] = time_cuda([partial(flash_fwd_cuda, cq, ck, cv, True,
+                                        scale) for cq, ck, cv, _ in copies])
+    t["flash_bwd_dq"] = time_cuda([
+        partial(flash_bwd_dq_cuda, cq, ck, cv, cg, lse, dl, True, scale)
+        for (cq, ck, cv, cg), (_, lse, dl) in zip(copies, outs)])
+    t["flash_bwd_dkv"] = time_cuda([
+        partial(flash_bwd_dkv_cuda, cq, ck, cv, cg, lse, dl, True, scale)
+        for (cq, ck, cv, cg), (_, lse, dl) in zip(copies, outs)])
+    plain_fwd, _ = time_cuda([partial(flash_fwd_plain, q, k, v, True,
+                                      scale)], per_rep=2)
+    o, lse, dl = outs[0]
+    plain_bwd, _ = time_cuda([partial(flash_bwd_plain, q, k, v, g, lse, dl,
+                                      True, scale)], per_rep=2)
+    lib_fwd, _ = time_cuda([partial(F.scaled_dot_product_attention, cq, ck,
+                                    cv, is_causal=True)
+                            for cq, ck, cv, _ in copies])
+    lib_bwd, _ = time_cuda([_sdpa_bwd_call(torch, F, *c) for c in copies])
+    del outs, copies
+    plain = {"flash_fwd": plain_fwd, "flash_bwd_dq": plain_bwd,
+             "flash_bwd_dkv": plain_bwd}
+    library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
+               "flash_bwd_dkv": lib_bwd}
+    bo = flash_bytes_ops(B, H, S, S, D, True, 2)
+    tol = (f"bf16: max error from the fp32 plain version <= "
+           f"{BF16_TRAIN_FACTOR} x the bf16 plain version's + "
+           f"{BF16_TRAIN_ATOL}; fp32 atol=rtol=1e-5 (out, lse), 1e-4 "
+           f"(dq, dk, dv)")
+    read = cases["bf16_train_causal"]
+    err = {"flash_fwd": read["out"]["err"], "flash_bwd_dq": read["dq"]["err"],
+           "flash_bwd_dkv": max(read["dk"]["err"], read["dv"]["err"])}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        n_bytes, n_ops = bo[name]
+        bound, by = bound_ms(n_bytes, n_ops, "bfloat16")
+        results[name] = dict(
+            max_abs_err=err[name], tol=tol, ms=t[name][0],
+            call_ms=t[name][1], plain_ms=plain[name],
+            library_ms=library[name], bound_ms=bound, bound_by=by,
+            bytes=n_bytes, ops=n_ops,
+            shape=dict(B=B, H=H, Sq=S, Sk=S, D=D, causal=True,
+                       dtype="bfloat16"),
+            note=(None if name == "flash_fwd" else
+                  "plain_ms and library_ms compute dq, dk and dv together"))
+        emit({"phase": "kernel", "name": name, **results[name]})
+
+    _, mu, rstd = layer_norm_fwd_cuda(xb, wb, bb, 1e-5)
+    ln_in = [(xb, dyb), (xb.clone(), dyb.clone())]
+    ln_ms, ln_call_ms = time_cuda([partial(layer_norm_bwd_cuda, x_, wb, mu,
+                                           rstd, dy_) for x_, dy_ in ln_in])
+    ln_plain, _ = time_cuda([partial(layer_norm_bwd_plain, xb, wb, mu, rstd,
+                                     dyb)])
+    ln_lib, _ = time_cuda([_ln_bwd_call(torch, F, x_, wb, bb, dy_)
+                           for x_, dy_ in ln_in])
+    el = xb.element_size()
+    ln_bytes = 3 * R * N * el + N * el + 2 * R * 4 + 2 * N * el
+    ln_ops = 13 * R * N     # the plain formula's operations an element
+    ln_bound, ln_by = bound_ms(ln_bytes, ln_ops, "bfloat16")
+    results["layernorm_bwd"] = dict(
+        max_abs_err=max(v["err"] for v in ln_cases["bf16"].values()),
+        tol=(f"bf16: max error from the fp32 plain version <= "
+             f"{BF16_TRAIN_FACTOR} x the bf16 plain version's + "
+             f"{BF16_TRAIN_ATOL}; fp32 atol=rtol=1e-5 (dx), 1e-4 (dw, db)"),
+        ms=ln_ms, call_ms=ln_call_ms, plain_ms=ln_plain, library_ms=ln_lib,
+        bound_ms=ln_bound, bound_by=ln_by, bytes=ln_bytes, ops=ln_ops,
+        shape=dict(R=R, N=N, dtype="bfloat16"),
+        note="library_ms: the backward of F.layer_norm (dx, dw, db)")
+    emit({"phase": "kernel", "name": "layernorm_bwd",
+          **results["layernorm_bwd"]})
+    results["layernorm_fwd_train"] = layernorm_fwd_reading(torch, xb, wb, bb,
+                                                           fwd_cases)
+    emit({"phase": "kernel", "name": "layernorm_fwd",
+          **results["layernorm_fwd_train"]})
+    torch.cuda.empty_cache()
     return results
 
 
@@ -488,8 +819,8 @@ def phase_model():
     steps = _record_steps(LLMEngine(card, cfg, clock=SimClock()), prompts, 4)
     launched = {k: v - launches0[k] for k, v in
                 _kernels.launch_counts().items()}
-    check(all(v > 0 for v in launched.values()),
-          f"card engine did not launch every kernel: {launched}")
+    check(all(launched[k] > 0 for k in SERVE_KERNELS),
+          f"card engine did not launch every served kernel: {launched}")
     twin = LLMEngine(cpu, cfg, clock=SimClock())
     # fp32 on both sides (TF32 off): GEMMs with K up to 8192 summed in
     # another order on the card and the CPU move logits of magnitude ~1 by
@@ -517,8 +848,140 @@ def phase_model():
     torch.cuda.empty_cache()
 
 
+def _train_steps(model, device, chunk, steps):
+    """`steps` AdamW steps (lr 1e-4, wd 0.01, global-norm clip 1.0) of
+    `model` through ScanTrainStep over `chunk`; the [K] losses on the
+    CPU."""
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ScanTrainStep
+    opt = AdamW(learning_rate=TRAIN_PARITY_LR, weight_decay=0.01,
+                parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    return ScanTrainStep(model, opt, scan_steps=steps,
+                         device=device)(*chunk).cpu()
+
+
+# train parity, card against a CPU twin, fp32 (TF32 off). Losses: GEMMs
+# with K up to 8192 and the chunked CE over 50304 columns summed in
+# another order move a loss of ~11 by ~1e-5; 1e-4 leaves room. Weights:
+# Adam normalises each gradient, so where a gradient is near 0 the two
+# sides' rounding can flip its sign and move that element's update by up
+# to 2 x lr a step: the largest difference may reach 6 x lr over 3 steps,
+# but such elements are rare; at most TRAIN_PARITY_SHARE of the elements
+# may differ by more than lr / 10. Adam's update barely depends on a
+# gradient's size, so the weights cannot see a gradient scaled by a
+# constant: the first step's gradient norm of every leaf, before the clip,
+# is held to rtol TRAIN_PARITY_GRAD_RTOL as well. fp32 sums taken in
+# another order move a norm by ~1e-7 of itself (PERF.md); a kernel that
+# returned 2*dk or dq/2 would move its leaves' norms by far more than
+# 1e-4.
+TRAIN_PARITY_LR = 1e-4
+TRAIN_PARITY_LOSS_TOL = 1e-4
+TRAIN_PARITY_SHARE = 1e-3
+TRAIN_PARITY_GRAD_RTOL = 1e-4
+
+
+def _grad_norms(model, device, ids, labels):
+    """{parameter name: fp32 norm of its gradient} of one forward and
+    backward of `model` on (ids, labels), before any clip; the gradients
+    are dropped again and the weights are left as they were."""
+    import torch
+    from paddle_tpu_torch.parallel import make_compute_loss
+    loss = make_compute_loss(model)(torch.from_numpy(ids).to(device),
+                                    torch.from_numpy(labels).to(device))
+    loss.backward()
+    norms = {}
+    for name, p in model.named_parameters():
+        if p.requires_grad:
+            # in fp64: an fp32 norm over a 12.6 M-element leaf on the CPU
+            # is itself off by ~5e-4 of the result
+            norms[name] = float(p.grad.double().norm())
+            p.grad = None
+    return norms
+
+
+def phase_model_train():
+    """gpt3-1.3b widths cut to 2 layers (a depth cut), fp32, B=2, S=128:
+    3 AdamW steps through ScanTrainStep on the card (kernels) and on a CPU
+    twin with the same weights (plain versions): the first step's gradient
+    norm of every leaf, per-step losses and the final parameters."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.bridge import export_state
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.ops import _kernels
+    from paddle_tpu_torch.parallel import stack_batches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(SEED + 3)
+    cpu = GPTForCausalLM.from_preset("gpt3-1.3b", device="cpu",
+                                     dtype="float32", generator=gen,
+                                     num_hidden_layers=2)
+    card = GPTForCausalLM.from_preset("gpt3-1.3b", device="cuda",
+                                      dtype="float32", num_hidden_layers=2)
+    card.load_state_dict(cpu.state_dict())
+    cpu.train()
+    card.train()
+    rng = np.random.RandomState(SEED + 3)
+    B, S, K = 2, 128, 3
+    ids = rng.randint(0, 50304, (B, S)).astype(np.int32)
+    labels = np.roll(ids, -1, axis=1)
+    labels[:, -1] = -100                    # ignored tokens on the path
+    chunk = stack_batches([(ids, labels)] * K)
+    g_card = _grad_norms(card, "cuda", ids, labels)
+    g_cpu = _grad_norms(cpu, "cpu", ids, labels)
+    grad_rel = {k: abs(g_card[k] - g_cpu[k]) / g_cpu[k] for k in g_cpu}
+    worst_grad = max(grad_rel, key=grad_rel.get)
+    _kernels.reset_launch_counts()
+    loss_card = _train_steps(card, "cuda", chunk, K)
+    launched = _kernels.launch_counts()
+    t0 = time.perf_counter()
+    loss_cpu = _train_steps(cpu, "cpu", chunk, K)
+    cpu_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(loss_card).all()), "non-finite train loss "
+                                                 "on the card")
+    want = {"flash_fwd": 2 * K, "flash_bwd_dq": 2 * K, "flash_bwd_dkv": 2 * K,
+            "layernorm_fwd": 5 * K, "layernorm_bwd": 5 * K}
+    loss_diff = float((loss_card - loss_cpu).abs().max())
+    wc, wp = export_state(card), export_state(cpu)
+    worst, far, total = 0.0, 0, 0
+    for k in wc:
+        d = np.abs(wc[k] - wp[k])
+        worst = max(worst, float(d.max()))
+        far += int((d > TRAIN_PARITY_LR / 10).sum())
+        total += d.size
+    emit({"phase": "model_train", "config": "gpt3-1.3b widths, 2 layers, "
+          "fp32, B=2, S=128, 3 AdamW steps", "loss_card": loss_card.tolist(),
+          "loss_cpu": loss_cpu.tolist(), "loss_max_abs_diff": loss_diff,
+          "loss_tol": TRAIN_PARITY_LOSS_TOL,
+          "grad_norm_max_rel_diff": grad_rel[worst_grad],
+          "grad_norm_worst_leaf": worst_grad,
+          "grad_norm_rtol": TRAIN_PARITY_GRAD_RTOL,
+          "grad_norm_leaves": len(grad_rel), "param_max_abs_diff": worst,
+          "param_tol": 6 * TRAIN_PARITY_LR,
+          "param_share_past_lr_over_10": far / total,
+          "param_share_tol": TRAIN_PARITY_SHARE, "cpu_twin_s": cpu_s,
+          "kernel_launches": launched})
+    check({k: launched[k] for k in want} == want,
+          f"train parity launched {launched}, want {want}")
+    check(grad_rel[worst_grad] <= TRAIN_PARITY_GRAD_RTOL,
+          f"card vs CPU first-step gradient norm of {worst_grad} differs by "
+          f"{grad_rel[worst_grad]} of itself > {TRAIN_PARITY_GRAD_RTOL}")
+    check(loss_diff <= TRAIN_PARITY_LOSS_TOL,
+          f"card vs CPU train losses differ by {loss_diff}")
+    check(worst <= 6 * TRAIN_PARITY_LR and far / total <= TRAIN_PARITY_SHARE,
+          f"card vs CPU weights after {K} steps: max diff {worst}, share "
+          f"past lr/10 {far / total}")
+    del cpu, card, wc, wp
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- phase 5
 SERVE_NEW_TOKENS = 32
+SERVE_KERNELS = ("paged_attention", "layernorm_fwd")
 
 
 def serve_workload():
@@ -604,8 +1067,9 @@ def phase_serve():
         launches = _kernels.launch_counts()
     finally:
         engine.stop(drain=True, timeout=60)
-    check(all(v > 0 for v in launches.values()),
-          f"the served path did not launch every kernel: {launches}")
+    check(all(launches[k] > 0 for k in SERVE_KERNELS),
+          f"the served path did not launch every served kernel: "
+          f"{launches}")
     for o, h in zip(outs, handles):
         check(o.shape == (SERVE_NEW_TOKENS,),
               f"stream of shape {o.shape}, want ({SERVE_NEW_TOKENS},)")
@@ -671,13 +1135,146 @@ def phase_serve():
     return launches
 
 
+# ---------------------------------------------------------------- phase 6
+TRAIN_WARMUP_STEPS = 3
+TRAIN_TIMED_STEPS = 10
+TRAIN_KERNELS_PER_STEP = {"flash_fwd": 24, "flash_bwd_dq": 24,
+                          "flash_bwd_dkv": 24, "layernorm_fwd": 49,
+                          "layernorm_bwd": 49}
+
+
+def train_workload():
+    """The train cell, shared with tools/profile_torch_training.py: full
+    gpt3-1.3b in bf16 with random weights from SEED, in training mode;
+    AdamW(lr 1e-4, wd 0.01, fp32 moments); one batch of B=4 x S=1024
+    token ids and next-token labels from SEED, repeated every step as
+    bench.py repeats its batch. Returns (model, opt, ids, labels,
+    model_init_s)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = GPTForCausalLM.from_preset("gpt3-1.3b", device="cuda",
+                                       dtype="bfloat16", generator=gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model.train()
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters(), moment_dtype="float32")
+    rng = np.random.RandomState(SEED + 4)
+    ids = rng.randint(0, 50304, (TRAIN_B, TRAIN_S)).astype(np.int32)
+    labels = rng.randint(0, 50304, (TRAIN_B, TRAIN_S)).astype(np.int32)
+    return model, opt, ids, labels, init_s
+
+
+def timed_chunk(step, ids, labels):
+    """Run one chunk of `step` (a ScanTrainStep) over (ids, labels) repeated
+    K times, with a CUDA event after every step. Returns (losses on the
+    CPU, wall s from the call to the end of the last step, per-step
+    device-timeline ms, per-step host ms). The host ms of a step runs from
+    its first launch to its last; nothing in a step waits for the device,
+    but the host blocks once the launch queue is full, so while the device
+    is the bottleneck it reads the step time, not the host's own work."""
+    import torch
+    from paddle_tpu_torch.parallel import stack_batches
+    K = step.scan_steps
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(K + 1)]
+    host_ms = []
+    inner = step._train_step
+
+    def marked(*a):
+        t = time.perf_counter()
+        loss = inner(*a)
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        events[len(host_ms)].record()
+        return loss
+
+    chunk = stack_batches([(ids, labels)] * K)
+    torch.cuda.synchronize()
+    step._train_step = marked
+    try:
+        t0 = time.perf_counter()
+        events[0].record()
+        losses = step(*chunk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del step._train_step
+    ms = [events[i].elapsed_time(events[i + 1]) for i in range(K)]
+    return losses.cpu(), wall, ms, host_ms
+
+
+def phase_train(device_name):
+    import torch
+    from paddle_tpu_torch.obs.flops import peak_flops, train_flops_per_step
+    from paddle_tpu_torch.ops import _kernels
+    from paddle_tpu_torch.parallel import ScanTrainStep
+
+    model, opt, ids, labels, init_s = train_workload()
+    n_params = sum(p.numel() for p in model.parameters())
+    warm = ScanTrainStep(model, opt, scan_steps=TRAIN_WARMUP_STEPS)
+    warm_losses, warm_s, _, _ = timed_chunk(warm, ids, labels)
+    step = ScanTrainStep(model, opt, scan_steps=TRAIN_TIMED_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    losses, wall, step_ms, _ = timed_chunk(step, ids, labels)
+    launches = _kernels.launch_counts()
+    per_step = {k: launches[k] / TRAIN_TIMED_STEPS
+                for k in TRAIN_KERNELS_PER_STEP}
+    tokens = TRAIN_B * TRAIN_S * TRAIN_TIMED_STEPS
+    step_s = wall / TRAIN_TIMED_STEPS
+    all_losses = warm_losses.tolist() + losses.tolist()
+    result = {
+        "phase": "train", "model": "gpt3-1.3b", "dtype": "bfloat16",
+        "batch": TRAIN_B, "seq": TRAIN_S, "optimizer": "AdamW lr 1e-4 "
+        "wd 0.01 fp32 moments", "n_params": n_params,
+        "warmup_steps": TRAIN_WARMUP_STEPS, "warmup_s": warm_s,
+        "timed_steps": TRAIN_TIMED_STEPS, "wall_s": wall,
+        "tokens_per_s": tokens / wall, "step_ms_mean": step_s * 1e3,
+        "step_ms_median": statistics.median(step_ms),
+        "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
+        "mfu": train_flops_per_step(n_params, TRAIN_B * TRAIN_S) / step_s
+        / peak_flops(device_name),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "loss_first": all_losses[0], "loss_last": all_losses[-1],
+        "losses": all_losses, "kernel_launches": launches,
+        "launches_per_step": per_step, "model_init_s": init_s,
+        "dispatch_count": warm.dispatch_count + step.dispatch_count}
+    emit(result)
+    check(all(math.isfinite(x) for x in all_losses), "non-finite loss")
+    check(all_losses[-1] < all_losses[0],
+          f"loss did not fall: {all_losses[0]} -> {all_losses[-1]}")
+    check(per_step == {k: float(v) for k, v in
+                       TRAIN_KERNELS_PER_STEP.items()},
+          f"launches per step {per_step}, want {TRAIN_KERNELS_PER_STEP}")
+    del model, opt, warm, step
+    torch.cuda.empty_cache()
+    return launches
+
+
 KERNEL_META = {
     "paged_attention": dict(
         source="paddle_tpu_torch/csrc/paged_attention.cu",
-        replaces="paddle_tpu/ops/paged_attention.py:136"),
+        replaces="paddle_tpu/ops/paged_attention.py:136", phase="serve"),
     "layernorm_fwd": dict(
         source="paddle_tpu_torch/csrc/layernorm.cu",
-        replaces="paddle_tpu/ops/layernorm.py:35"),
+        replaces="paddle_tpu/ops/layernorm.py:35", phase="serve"),
+    "flash_fwd": dict(
+        source="paddle_tpu_torch/csrc/flash_attention.cu",
+        replaces="paddle_tpu/ops/attention.py:174", phase="train"),
+    "flash_bwd_dq": dict(
+        source="paddle_tpu_torch/csrc/flash_attention.cu",
+        replaces="paddle_tpu/ops/attention.py:246", phase="train"),
+    "flash_bwd_dkv": dict(
+        source="paddle_tpu_torch/csrc/flash_attention.cu",
+        replaces="paddle_tpu/ops/attention.py:300", phase="train"),
+    "layernorm_bwd": dict(
+        source="paddle_tpu_torch/csrc/layernorm.cu",
+        replaces="paddle_tpu/ops/layernorm.py:48", phase="train"),
 }
 
 
@@ -701,15 +1298,24 @@ def main():
     name, count, smi_line = phase_device()
     phase_build()
     kern = phase_kernels()
+    kern.update(phase_train_kernels())
     phase_model()
-    launches = phase_serve()
-    emit({"kernels": [
-        dict(name=k, route="cuda", **KERNEL_META[k],
-             launches=launches[k], max_abs_err=kern[k]["max_abs_err"],
-             tol=kern[k]["tol"], ms=kern[k]["ms"], kernel_ms=kern[k]["ms"],
-             plain_ms=kern[k]["plain_ms"], bound_ms=kern[k]["bound_ms"],
-             bound_by=kern[k]["bound_by"], library_ms=kern[k]["library_ms"])
-        for k in ("paged_attention", "layernorm_fwd")]})
+    phase_model_train()
+    by_phase = {"serve": phase_serve(), "train": phase_train(name)}
+    keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    lines = []
+    for k in KERNEL_META:
+        line = dict(name=k, route="cuda", **KERNEL_META[k],
+                    launches=by_phase[KERNEL_META[k]["phase"]][k],
+                    launches_by_phase={ph: c[k] for ph, c in
+                                       by_phase.items()},
+                    **{x: kern[k][x] for x in keys}, kernel_ms=kern[k]["ms"])
+        if k + "_train" in kern:   # a served kernel the train step runs too
+            line["at_train_shape"] = {x: kern[k + "_train"][x] for x in
+                                      keys + ("shape",)}
+        lines.append(line)
+    emit({"kernels": lines})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": count}})

@@ -3,8 +3,9 @@
 The package mirrors `paddle_tpu/`'s module paths so each module's
 counterpart is easy to find. It imports torch and never jax, and nothing
 of `paddle_tpu`. Its entry points (`models.gpt.GPTForCausalLM`,
-`models.generation.generate`, `serving.llm.LLMEngine`) run on CUDA unless
-the caller asks for the CPU with `device="cpu"`.
+`models.generation.generate`, `serving.llm.LLMEngine`,
+`parallel.ScanTrainStep` / `ShardedTrainStep` with `optimizer.AdamW`) run
+on CUDA unless the caller asks for the CPU with `device="cpu"`.
 
 Every TPU kernel on a ported path is a hand-written Hopper kernel under
 `csrc/`, built at first use (see `ops/_kernels.py`); each keeps a plain

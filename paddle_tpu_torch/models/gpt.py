@@ -1,10 +1,12 @@
 """GPT model family (counterpart of paddle_tpu/models/gpt.py): pre-LN GPT
 with learned positions and a tanh-GELU MLP.
 
-This slice ports the dense model's cached-decode path — `init_cache`,
-`forward_with_cache` and `generate` — which is what serving runs. The
-no-cache forward reaches flash attention and waits for the training
-slice; MoE blocks and LoRA adapters wait for their own slices.
+The dense model has two paths: the cached decode — `init_cache`,
+`forward_with_cache` and `generate` — which serving runs, and the
+no-cache `forward(input_ids, labels=None)` of training, through flash
+attention and, with labels, the chunked lm-head + cross-entropy (the JAX
+package's FLAGS_fused_lm_ce default). MoE blocks and LoRA adapters wait
+for their own slices.
 
 Parameter names match the JAX package's `functional_state()` keys, and
 `Linear` weights keep Paddle's `[in, out]` layout, so `bridge.load_jax_state`
@@ -26,7 +28,9 @@ from ..distributed.meta_parallel.mp_layers import (ColumnParallelLinear,
                                                    VocabParallelEmbedding)
 from ..nn import Dropout, Embedding, LayerNorm
 from ..nn.layer.layers import Layer, LayerList, init_parameters
-from ..ops.attention import decode_attention, update_kv_cache
+from ..ops.attention import (decode_attention, flash_attention,
+                             update_kv_cache)
+from ..ops.softmax_ce import fused_linear_cross_entropy
 
 
 @dataclass
@@ -76,10 +80,6 @@ GPT_PRESETS = {
                                 intermediate_size=3072, moe_num_experts=8),
 }
 
-_TRAINING_SLICE = ("waits for the training slice (ROADMAP §2: flash "
-                   "attention forward/backward)")
-
-
 class GPTAttention(Layer):
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
@@ -94,15 +94,20 @@ class GPTAttention(Layer):
                                           device=device, dtype=dtype)
         self.dropout_p = config.attention_dropout_prob
 
-    def forward(self, hidden, cache, pos, paged=None):
-        """Cached attention: writes this call's K/V into `cache` in place
-        at `pos` and attends over it. Returns (out, (k_cache, v_cache))."""
+    def forward(self, hidden, cache=None, pos=None, paged=None):
+        """Without `cache`: causal self-attention over the whole sequence
+        through flash attention; returns out. With `cache`: writes this
+        call's K/V into it in place at `pos` and attends over it; returns
+        (out, (k_cache, v_cache)). (GPT passes no dropout to attention.)"""
         qkv = self.qkv_proj(hidden)
         hd = self.head_dim
         B, T = qkv.shape[0], qkv.shape[1]
         n_local = qkv.shape[-1] // (3 * hd)
         q, k, v = qkv.reshape(B, T, n_local, 3 * hd).split(hd, dim=-1)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        if cache is None:
+            out = flash_attention(qh, kh, vh, causal=True)
+            return self.out_proj(out.transpose(1, 2).reshape(B, T, -1))
         kc, vc = update_kv_cache(cache[0], cache[1], kh, vh, pos)
         out = decode_attention(qh, kc, vc, pos, scale=1.0 / (hd ** 0.5),
                                paged=paged)
@@ -129,7 +134,17 @@ class GPTDecoderLayer(Layer):
                                          device=device, dtype=dtype)
         self.dropout = Dropout(config.hidden_dropout_prob)
 
-    def forward(self, x, cache, pos, paged=None):
+    def _block(self, x):
+        """The training block: x + attn(LN(x)), then x + MLP(LN(x))."""
+        x = x + self.dropout(self.self_attn(self.norm1(x)))
+        h = F.gelu(self.linear1(self.norm2(x)), approximate="tanh")
+        return x + self.dropout(self.linear2(h))
+
+    def forward(self, x, cache=None, pos=None, paged=None):
+        """(x, new_cache) with a cache; (x, None) without (the JAX layer's
+        (x, aux_loss), aux None for a dense layer)."""
+        if cache is None:
+            return self._block(x), None
         h, new_cache = self.self_attn(self.norm1(x), cache, pos, paged=paged)
         x = x + self.dropout(h)
         # jax.nn.gelu defaults to the tanh approximation
@@ -159,12 +174,19 @@ class GPTModel(Layer):
                                     epsilon=config.layer_norm_eps,
                                     device=device, dtype=dtype)
 
-    def forward(self, input_ids, caches, pos, paged=None):
-        """(hidden, caches) with positions offset by `pos`: an int offsets
-        the whole batch, a [B] tensor each row."""
+    def forward(self, input_ids, caches=None, pos=None, paged=None):
+        """With `caches`: (hidden, caches) with positions offset by `pos`
+        (an int offsets the whole batch, a [B] tensor each row). Without:
+        (hidden, None), positions 0..S-1 (None: a dense model's aux loss)."""
         S = input_ids.shape[1]
         dev = input_ids.device
         ar = torch.arange(S, device=dev)
+        if caches is None:
+            hidden = self.dropout(self.word_embeddings(input_ids)
+                                  + self.position_embeddings(ar))
+            for layer in self.layers:
+                hidden, _ = layer(hidden)
+            return self.final_norm(hidden), None
         if torch.is_tensor(pos) and pos.ndim == 1:
             pos_ids = pos.to(device=dev, dtype=torch.long)[:, None] + ar
         else:
@@ -212,9 +234,15 @@ class GPTForCausalLM(Layer):
         return self.lm_head.weight.dtype
 
     def forward(self, input_ids, labels=None):
-        raise NotImplementedError(
-            f"GPTForCausalLM.forward (no KV cache) {_TRAINING_SLICE}; use "
-            "forward_with_cache / generate")
+        """No-cache forward. With `labels` [B, S]: the mean over all B*S
+        tokens of the chunked lm-head cross-entropy (ignore_index -100
+        tokens count as 0), an fp32 scalar. Without: logits [B, S, V]."""
+        hidden, _ = self.gpt(input_ids)
+        if labels is not None:
+            hs = hidden.reshape(-1, hidden.shape[-1])
+            return fused_linear_cross_entropy(
+                hs, self.lm_head.weight, labels.reshape(-1)).mean()
+        return self.lm_head(hidden)
 
     def init_cache(self, batch_size: int, max_len: int, dtype=None):
         cfg = self.config

@@ -1,10 +1,12 @@
 """Normalization functionals (counterpart of
 paddle_tpu/nn/functional/norm.py:15-47).
 
-layer_norm keeps fp32 statistics and casts back to the input dtype. On
-CUDA, a last-axis norm with weight and bias goes to the hand-written
-LayerNorm kernel (ops/layernorm.py); every other case, and every CPU
-tensor, takes the plain math in the JAX package's op order.
+layer_norm keeps fp32 statistics and casts back to the input dtype, and
+is differentiable. On CUDA, a last-axis norm with weight and bias goes to
+the hand-written LayerNorm kernels (ops/layernorm.py: the forward kernel,
+and the backward kernel for its gradient); every other case, and every
+CPU tensor, takes the plain math in the JAX package's op order, with
+autograd through it.
 """
 from __future__ import annotations
 

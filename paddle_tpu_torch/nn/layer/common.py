@@ -65,9 +65,9 @@ class Embedding(Layer):
 
 
 class Dropout(Layer):
-    """Identity in eval. The cached-decode path the port serves runs in
-    eval only, so training-mode dropout is refused rather than given a
-    different random stream from the JAX package's."""
+    """Identity in eval and at p = 0 (every GPT preset). Training-mode
+    dropout with p > 0 is refused rather than given a different random
+    stream from the JAX package's."""
 
     def __init__(self, p=0.5):
         super().__init__()
@@ -76,6 +76,6 @@ class Dropout(Layer):
     def forward(self, x):
         if self.training and self.p > 0:
             raise NotImplementedError(
-                "training-mode dropout waits for the training slice "
-                "(ROADMAP: training slice)")
+                "training-mode dropout with p > 0 waits for the dropout "
+                "slice (ROADMAP §1: mask and dropout variants)")
         return x

@@ -29,11 +29,13 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("layernorm.cu", "paged_attention.cu")
+SOURCES = ("flash_attention.cu", "layernorm.cu", "paged_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
-LAUNCHES = {"layernorm_fwd": 0, "paged_attention": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "layernorm_fwd": 0, "layernorm_bwd": 0,
+            "paged_attention": 0}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -48,6 +50,23 @@ _SIGNATURES = {
     # x, w, b, y, mu, rstd, R, N, eps, dtype, stream
     "pdtt_layernorm_fwd": (_P, _P, _P, _P, _P, _P, _c.c_longlong, _c.c_int,
                            _c.c_float, _c.c_int, _P),
+    # x, w, mu, rstd, dy, dx, dw, db, part, R, N, rows_per_cta, dtype,
+    # stream
+    "pdtt_layernorm_bwd": (_P,) * 9 + (_c.c_longlong, _c.c_int, _c.c_int,
+                                       _c.c_int, _P),
+    # q, k, v, out, lse, BH, Sq, Sk, D, scale, causal, dtype, stream
+    "pdtt_flash_fwd": (_P,) * 5 + (_c.c_int,) * 4 + (_c.c_float, _c.c_int,
+                                                     _c.c_int, _P),
+    # q, k, v, g, lse, delta, dq, BH, Sq, Sk, D, scale, causal, dtype,
+    # stream
+    "pdtt_flash_bwd_dq": (_P,) * 7 + (_c.c_int,) * 4 + (_c.c_float,
+                                                        _c.c_int, _c.c_int,
+                                                        _P),
+    # q, k, v, g, lse, delta, dk, dv, BH, Sq, Sk, D, scale, causal, dtype,
+    # stream
+    "pdtt_flash_bwd_dkv": (_P,) * 8 + (_c.c_int,) * 4 + (_c.c_float,
+                                                         _c.c_int, _c.c_int,
+                                                         _P),
     # q, k, v, table, seq_lens, q_pos, out, B, H, Tq, D, Hkv, L_slab,
     # n_blocks, block_len, pages_per_row, scale, dtype, stream
     "pdtt_paged_attention": (_P, _P, _P, _P, _P, _P, _P) + (_c.c_int,) * 9

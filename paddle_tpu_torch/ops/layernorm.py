@@ -1,15 +1,21 @@
-"""Fused LayerNorm forward (counterpart of paddle_tpu/ops/layernorm.py).
+"""Fused LayerNorm forward and backward (counterpart of
+paddle_tpu/ops/layernorm.py).
 
-The TPU kernel `_fwd_kernel` becomes the hand-written CUDA kernel in
-`csrc/layernorm.cu`: one pass per row, fp32 mean and rstd, fused affine,
-y cast back to the input dtype, and the statistics returned beside y
-(serving discards them; the training slice's backward will read them).
+The TPU kernels `_fwd_kernel` and `_bwd_kernel` become the hand-written
+CUDA kernels in `csrc/layernorm.cu`. The forward does one pass per row
+with fp32 mean and rstd, a fused affine and y cast back to the input
+dtype, and returns the statistics beside y. The backward reads them back:
+dx in one pass with the JAX kernel's two row means c1 and c2, and dw, db
+summed over the rows in fp32 (per-CTA partials and a fixed-order second
+pass in place of the TPU's sequential accumulator), cast to w's dtype.
 
-`layer_norm_fwd` takes the kernel for a CUDA tensor and the plain
-PyTorch version for a CPU tensor; nothing else decides. On CUDA the
-kernel always runs: the JAX package's FLAGS_use_fused_layernorm default
-of "off" rests on a TPU measurement and is not carried over, nor are its
-TPU tiling rules (N % 128, row blocks).
+`layer_norm_fwd` and `layer_norm_bwd` take the kernel for a CUDA tensor
+and the plain PyTorch version for a CPU tensor; nothing else decides. On
+CUDA the kernels always run: the JAX package's FLAGS_use_fused_layernorm
+default of "off" rests on a TPU measurement and is not carried over, nor
+are its TPU tiling rules (N % 128, row blocks). `fused_layer_norm` is
+differentiable on both devices: on CUDA through `LayerNormFn` (forward
+kernel, backward kernel), on the CPU by autograd through the plain math.
 """
 from __future__ import annotations
 
@@ -72,10 +78,110 @@ def layer_norm_fwd(x2d, w, b, eps):
     return layer_norm_fwd_plain(x2d, w, b, eps)
 
 
+# dw/db partial rows: about two CTAs a streaming multiprocessor (132 on an
+# H100 SXM), each over a contiguous run of rows; depends on R alone, so
+# the summation order, and the result, is the same in every run
+_BWD_TARGET_CTAS = 264
+
+
+def _bwd_rows_per_cta(R: int) -> int:
+    return max(1, -(-R // _BWD_TARGET_CTAS))
+
+
+def layer_norm_bwd_plain(x2d, w, mu, rstd, dy2d):
+    """The JAX backward kernel's arithmetic in PyTorch: (dx in x's dtype,
+    dw and db summed in fp32 and cast to w's dtype)."""
+    h = x2d.float()
+    dy = dy2d.float()
+    xhat = (h - mu) * rstd
+    a = dy * w.float()
+    c1 = (a * xhat).mean(dim=-1, keepdim=True)
+    c2 = a.mean(dim=-1, keepdim=True)
+    dx = ((a - c2 - xhat * c1) * rstd).to(x2d.dtype)
+    dw = (dy * xhat).sum(dim=0)
+    db = dy.sum(dim=0)
+    return dx, dw.to(w.dtype), db.to(w.dtype)
+
+
+def layer_norm_bwd_cuda(x2d, w, mu, rstd, dy2d):
+    """Launch the backward kernel: x2d, dy2d [R, N] contiguous of w's dtype
+    (float32 or bfloat16), mu/rstd [R, 1] fp32 from the forward, N <= 8192.
+    Returns (dx, dw, db)."""
+    tensors = (x2d, w, mu, rstd, dy2d)
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("layer_norm_bwd_cuda takes CUDA tensors")
+    if x2d.ndim != 2 or dy2d.shape != x2d.shape:
+        raise ValueError(f"x and dy must be one [R, N] shape, got "
+                         f"{tuple(x2d.shape)}/{tuple(dy2d.shape)}")
+    R, N = x2d.shape
+    if not 1 <= N <= MAX_N:
+        raise ValueError(f"LayerNorm kernel takes 1 <= N <= {MAX_N}, got {N}")
+    if w.shape != (N,) or mu.shape != (R, 1) or rstd.shape != (R, 1):
+        raise ValueError(f"weight must be [{N}] and mu/rstd [{R}, 1], got "
+                         f"{tuple(w.shape)}/{tuple(mu.shape)}/"
+                         f"{tuple(rstd.shape)}")
+    if not (w.dtype == dy2d.dtype == x2d.dtype):
+        raise TypeError(f"x, dy and weight must share one dtype, got "
+                        f"{x2d.dtype}/{dy2d.dtype}/{w.dtype}")
+    if mu.dtype != torch.float32 or rstd.dtype != torch.float32:
+        raise TypeError("mu and rstd must be float32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("LayerNorm kernel takes contiguous tensors")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("all LayerNorm tensors must be on one device")
+    code = _kernels.dtype_code(x2d.dtype)
+    dx = torch.empty_like(x2d)
+    dw = torch.empty_like(w)
+    db = torch.empty_like(w)
+    if R == 0:
+        return dx, dw.zero_(), db.zero_()
+    rows = _bwd_rows_per_cta(R)
+    n_cta = -(-R // rows)
+    part = torch.empty((2, n_cta, N), device=x2d.device,
+                       dtype=torch.float32)
+    lib = _kernels.load_library()
+    rc = lib.pdtt_layernorm_bwd(
+        x2d.data_ptr(), w.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
+        dy2d.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+        part.data_ptr(), R, N, rows, code,
+        _kernels.current_stream_handle(x2d.device))
+    _kernels.check_launch(rc, "layernorm_bwd")
+    _kernels.LAUNCHES["layernorm_bwd"] += 1
+    return dx, dw, db
+
+
+def layer_norm_bwd(x2d, w, mu, rstd, dy2d):
+    if x2d.is_cuda:
+        return layer_norm_bwd_cuda(x2d, w, mu, rstd, dy2d)
+    return layer_norm_bwd_plain(x2d, w, mu, rstd, dy2d)
+
+
+class LayerNormFn(torch.autograd.Function):
+    """y = LN(x2d) * w + b with the forward kernel; its gradient is the
+    backward kernel on the saved x, w, mu and rstd (the JAX package's
+    custom_vjp pair _fused_vjp_fwd / _fused_vjp_bwd)."""
+
+    @staticmethod
+    def forward(ctx, x2d, w, b, eps):
+        y, mu, rstd = layer_norm_fwd(x2d, w, b, eps)
+        ctx.save_for_backward(x2d, w, mu, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2d, w, mu, rstd = ctx.saved_tensors
+        dx, dw, db = layer_norm_bwd(x2d, w, mu, rstd, dy.contiguous())
+        return dx, dw, db, None
+
+
 def fused_layer_norm(x, weight, bias, eps=1e-5):
     """x: [..., N]; weight/bias: [N]. LayerNorm over the last axis with fp32
-    statistics, output in x's dtype."""
+    statistics, output in x's dtype. Differentiable: on CUDA through the
+    two kernels, on the CPU by autograd through the plain math."""
     N = x.shape[-1]
-    y, _, _ = layer_norm_fwd(x.contiguous().reshape(-1, N), weight, bias,
-                             eps)
+    x2d = x.contiguous().reshape(-1, N)
+    if x2d.is_cuda:
+        y = LayerNormFn.apply(x2d, weight, bias, eps)
+    else:
+        y, _, _ = layer_norm_fwd_plain(x2d, weight, bias, eps)
     return y.reshape(x.shape)

@@ -162,8 +162,11 @@ def test_unported_paths_raise(models):
     from paddle_tpu_torch.models.generation import generate
     from paddle_tpu_torch.models.gpt import GPTForCausalLM
     _, tm = models
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tm(torch.zeros((1, 4), dtype=torch.long))
+    drop = GPTForCausalLM.from_preset("gpt2-tiny", device="cpu",
+                                      hidden_dropout_prob=0.1)
+    drop.train()
+    with pytest.raises(NotImplementedError, match="dropout"):
+        drop(torch.zeros((1, 4), dtype=torch.long))
     with pytest.raises(NotImplementedError, match="sampling"):
         generate(tm, np.zeros((1, 2), np.int32), do_sample=True)
     with pytest.raises(ValueError, match="max_position_embeddings"):

@@ -1,10 +1,10 @@
 """Rules the PyTorch port keeps, checked without a GPU.
 
-- No file of `paddle_tpu_torch/`, nor `chip_smoke.py` or
-  `tools/profile_torch_serving.py`, imports `jax` or `paddle_tpu` (an AST
-  scan).
-- Entry points default to CUDA and raise without it; the CPU is used
-  only when asked for.
+- No file of `paddle_tpu_torch/`, nor `chip_smoke.py` or the
+  `tools/profile_torch_*.py` profilers, imports `jax` or `paddle_tpu` (an
+  AST scan).
+- Entry points default to CUDA and raise without it, the train steps
+  too; the CPU is used only when asked for.
 - A kernel wrapper handed a CPU tensor takes the plain version and counts
   no launch; the `_cuda` entry points refuse CPU tensors.
 - Importing the port builds nothing.
@@ -38,8 +38,9 @@ def _imports(path):
 
 
 def test_port_imports_neither_jax_nor_paddle_tpu():
-    files = sorted(PORT.rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_serving.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + sorted(
+        (REPO / "tools").glob("profile_torch_*.py"))
+    assert REPO / "tools" / "profile_torch_training.py" in files
     assert len(files) > 20
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imports(f)
@@ -59,6 +60,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     m = GPTForCausalLM.from_preset("gpt2-tiny", device="cpu")
     assert m.device == torch.device("cpu")
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ScanTrainStep, ShardedTrainStep
+    opt = AdamW(learning_rate=1e-3, parameters=m.parameters())
+    for cls in (ScanTrainStep, ShardedTrainStep):
+        with pytest.raises(NoCUDADeviceError, match="device='cpu'"):
+            cls(m, opt)
+        assert cls(m, opt, device="cpu").device == torch.device("cpu")
 
 
 def test_wrappers_take_plain_path_on_cpu_tensors():
@@ -85,12 +93,46 @@ def test_wrappers_take_plain_path_on_cpu_tensors():
     out = ragged_paged_attention(q, k, k, table, lens, qp, block_len=8)
     ref = paged_attention_plain(q, k, k, table, lens, qp, 8, 2, 8 ** -0.5)
     assert torch.equal(out, ref)
+    # the training slice's wrappers: flash attention forward/backward and
+    # the LayerNorm backward, through their autograd entry points
+    from paddle_tpu_torch.ops.attention import (
+        flash_attention, flash_bwd, flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
+        flash_bwd_plain, flash_fwd, flash_fwd_cuda, flash_fwd_plain)
+    from paddle_tpu_torch.ops.layernorm import (fused_layer_norm,
+                                                layer_norm_bwd,
+                                                layer_norm_bwd_cuda,
+                                                layer_norm_bwd_plain)
+    qa = torch.from_numpy(rng.standard_normal((1, 2, 5, 16))
+                          .astype(np.float32))
+    out, lse = flash_fwd(qa, qa, qa, True, 0.25)
+    ref_out, ref_lse = flash_fwd_plain(qa, qa, qa, True, 0.25)
+    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+    delta = (out * qa).sum(-1)
+    for got, want in zip(flash_bwd(qa, qa, qa, out, lse, qa, True, 0.25),
+                         flash_bwd_plain(qa, qa, qa, qa, lse, delta, True,
+                                         0.25)):
+        assert torch.equal(got, want)
+    qg = qa.clone().requires_grad_()
+    flash_attention(qg, qg, qg).sum().backward()
+    _, mu, rstd = layer_norm_fwd_plain(x, w, b, 1e-5)
+    for got, want in zip(layer_norm_bwd(x, w, mu, rstd, x),
+                         layer_norm_bwd_plain(x, w, mu, rstd, x)):
+        assert torch.equal(got, want)
+    xg = x.clone().requires_grad_()
+    fused_layer_norm(xg, w, b).sum().backward()
     assert launch_counts() == before
     assert _kernels._LIB is None              # nothing was built
     with pytest.raises(ValueError, match="CUDA tensors"):
         layer_norm_fwd_cuda(x, w, b, 1e-5)
     with pytest.raises(ValueError, match="CUDA tensors"):
+        layer_norm_bwd_cuda(x, w, mu, rstd, x)
+    with pytest.raises(ValueError, match="CUDA tensors"):
         paged_attention_cuda(q, k, k, table, lens, qp, 8, 2, 1.0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_fwd_cuda(qa, qa, qa, True, 1.0)
+    for fn in (flash_bwd_dq_cuda, flash_bwd_dkv_cuda):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fn(qa, qa, qa, qa, lse, delta, True, 1.0)
 
 
 def test_kernel_tests_are_marked_cuda_and_skip_inside():
