@@ -8,8 +8,8 @@ builds the port's CUDA kernels from `paddle_tpu_torch/csrc/`, holds each
 one against its plain PyTorch version on the card, checks cut-down models
 on the card against the same models on the CPU, serves 16 requests
 through the continuous-batching `LLMEngine` and trains 13 steps through
-`ScanTrainStep`, both at the full width of `gpt3-1.3b` in bf16 (random
-weights from a seed). It prints one JSON line per phase, then the
+`ScanTrainStep` twice, both at the full width of `gpt3-1.3b` in bf16
+(random weights from a seed). It prints one JSON line per phase, then the
 `{"kernels": [...]}` line, then the card's name and power limit as
 `nvidia-smi` reports them, and last `{"ok": true, "device": {...}}`. Any
 failure exits non-zero before the last two lines; with no GPU, or outside
@@ -22,8 +22,10 @@ Phases:
                 shapes (serving: paged attention and the LayerNorm
                 forward; training: flash attention forward, dq and dk/dv
                 at [4,16,1024,128] bf16 causal and the LayerNorm forward
-                and backward at 4096x2048 bf16), with fp32, GQA,
-                non-causal, Sq != Sk,
+                and backward at 4096x2048 bf16; the optimizer: fused Adam
+                bit for bit in every dtype, with and without a master
+                weight, at n = 1000, 2049, linear1.weight and the word
+                embedding), with fp32, GQA, non-causal, Sq != Sk,
                 ragged and D=64 edge cases, timed on the device (median of
                 21 CUDA-event samples of back-to-back calls held behind a
                 spin kernel) beside one PyTorch library call for the same
@@ -31,7 +33,8 @@ Phases:
   4. model    — gpt3-1.3b widths cut to 2 layers, fp32, on the card
                 (kernels) against a CPU twin with the same weights (plain
                 versions): the engine's unified steps (logits and tokens),
-                and 3 AdamW steps through ScanTrainStep (first-step
+                and twice 3 steps through ScanTrainStep, with AdamW and
+                with the train recipe's optimizer and recompute (first-step
                 gradient norms, losses, weights)
   5. serve    — full gpt3-1.3b, bf16, LLMEngine(num_slots=8, block_len=8,
                 n_blocks=64, prefill_chunk=64) on a MonotonicClock via
@@ -44,8 +47,15 @@ Phases:
                 chunk of 3 warm-up steps, then one of 10 timed steps with
                 the launch counts zeroed just before and read just after;
                 tokens/s, step time, MFU, peak memory, losses (finite and
-                falling) and exactly 24 flash and 49 LayerNorm launches of
-                each kind a step
+                falling) and exactly the launches a step that
+                TRAIN_KERNELS_PER_STEP states
+  7. train_recipe — the same cell with bench.py's recipe for this model
+                (recompute, bf16 moments) and GPT-3's optimizer settings
+                (a warm-up into a cosine schedule, global-norm clip,
+                weight decay 0.1 on all but biases and LayerNorms): the
+                same readings, the lr vector each step used (equal to the
+                scheduler's values on the host), RECIPE_KERNELS_PER_STEP
+                launches a step, and a peak memory below the train phase's
 """
 from __future__ import annotations
 
@@ -760,6 +770,146 @@ def phase_train_kernels():
     return results
 
 
+# ------------------------------------------------ phase 3c: the optimizer
+# Fused Adam against its plain version on the card: bit for bit (tolerance
+# 0). Both run _adam_math's operations in one order, each rounded once (the
+# kernel uses the explicitly rounded intrinsics, so nothing becomes an FMA;
+# PyTorch's elementwise kernels round every operation alike), and bf16
+# outputs are one round-to-nearest-even of the same fp32 value. The leaves:
+# a ragged n, n < 1024, linear1.weight and the largest, the word embedding
+# (lm_head.weight is as large).
+ADAM_LEAVES = {"n2049": 2049, "n1000": 1000,
+               "linear1.weight": 2048 * 8192,
+               "word_embeddings.weight": 50304 * 2048}
+ADAM_OPS = 16     # fp32 operations an element (_adam_math, either decay)
+ADAM_HP = dict(beta1=0.9, beta2=0.95, epsilon=1e-8)
+
+
+def _adam_leaf(torch, gen, n, pdtype, mdtype, master):
+    """p, g, m1, m2 and the optional fp32 master of one flat leaf."""
+    def r():
+        return torch.randn(n, generator=gen, device="cuda")
+    p32 = r()
+    return dict(p=p32.to(pdtype), g=r().to(pdtype), m1=(r() * 0.1).to(mdtype),
+                m2=(r().abs() * 0.01).to(mdtype),
+                master=p32 if master else None)
+
+
+def adam_scalars(torch, lr=1e-4, step=5):
+    """lr, beta1^t and beta2^t as 0-d fp32 tensors on the card."""
+    f32 = dict(dtype=torch.float32, device="cuda")
+    return (torch.tensor(lr, **f32),
+            torch.tensor(ADAM_HP["beta1"] ** step, **f32),
+            torch.tensor(ADAM_HP["beta2"] ** step, **f32))
+
+
+def adam_bytes_ops(n, p_el, m_el, master):
+    """Bytes fused Adam must move over a leaf of n elements (p, m1, m2 and
+    the master read and written, g read) and its operations."""
+    per = 2 * p_el + p_el + 4 * m_el + (8 if master else 0)
+    return n * per, n * ADAM_OPS
+
+
+def check_adam(torch, c, decoupled, label):
+    """Kernel against plain version on one leaf, bit for bit. Returns the
+    largest |difference| (0 when it passes)."""
+    from paddle_tpu_torch.ops.fused_adam import (fused_adam_cuda,
+                                                 fused_adam_plain)
+    ref = {k: None if v is None else v.clone() for k, v in c.items()}
+    kw = dict(ADAM_HP, decoupled=decoupled)
+    fused_adam_cuda(c["p"], c["g"], c["m1"], c["m2"], *adam_scalars(torch),
+                    0.1, master=c["master"], **kw)
+    fused_adam_plain(ref["p"], ref["g"], ref["m1"], ref["m2"],
+                     *adam_scalars(torch), 0.1, master=ref["master"], **kw)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for k in ("p", "m1", "m2", "master"):
+        if c[k] is None:
+            continue
+        check(bool(torch.isfinite(c[k].float()).all()),
+              f"fused_adam {label}: non-finite {k}")
+        d = float((c[k].float() - ref[k].float()).abs().max())
+        worst = max(worst, d)
+        check(torch.equal(c[k], ref[k]),
+              f"fused_adam {label}: {k} is not bit-equal to the plain "
+              f"version (max |kernel - plain| = {d})")
+    return worst
+
+
+def phase_adam_kernel():
+    """Fused Adam against its plain version over ADAM_LEAVES in every dtype
+    the path takes (p and g bf16 or fp32; moments fp32 or bf16; a master
+    weight), decoupled or not; then timed at the largest leaf with the
+    train cell's dtypes (bf16 p and g, fp32 moments) and the recipe's (bf16
+    moments), beside its plain version and torch._fused_adamw_."""
+    import torch
+    from paddle_tpu_torch.ops.fused_adam import (fused_adam_cuda,
+                                                 fused_adam_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    f32, bf = torch.float32, torch.bfloat16
+    dtypes = {"fp32": (f32, f32, False), "fp32_p_bf16_m": (f32, bf, False),
+              "bf16_p_fp32_m": (bf, f32, False), "bf16": (bf, bf, False),
+              "bf16_master_fp32_m": (bf, f32, True),
+              "bf16_master_bf16_m": (bf, bf, True)}
+    cases = {}
+    for leaf, n in ADAM_LEAVES.items():
+        for dname, (pd, md, master) in dtypes.items():
+            for decoupled in (False, True):
+                label = f"{leaf} {dname} decoupled={decoupled}"
+                c = _adam_leaf(torch, gen, n, pd, md, master)
+                cases[label] = check_adam(torch, c, decoupled, label)
+                del c
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel_checks", "name": "fused_adam", "cases": cases})
+
+    n = ADAM_LEAVES["word_embeddings.weight"]
+    readings = {}
+    for cfg, md in (("train", f32), ("recipe", bf)):
+        c = _adam_leaf(torch, gen, n, bf, md, False)
+        sc = adam_scalars(torch)
+        args = (c["p"], c["g"], c["m1"], c["m2"], *sc, 0.1)
+        kw = dict(ADAM_HP, decoupled=True)
+        # a leaf of 1.4-2.3 GB is far past the 50 MB L2: every call cold
+        ms, call_ms = time_cuda([partial(fused_adam_cuda, *args, **kw)])
+        plain_ms, _ = time_cuda([partial(fused_adam_plain, *args, **kw)],
+                                per_rep=2)
+        n_bytes, n_ops = adam_bytes_ops(n, 2, md.itemsize, False)
+        bound, by = bound_ms(n_bytes, n_ops, "float32")
+        readings[cfg] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                             bound_ms=bound, bound_by=by, bytes=n_bytes,
+                             ops=n_ops, shape=dict(n=n, p="bfloat16",
+                                                   g="bfloat16",
+                                                   moments=str(md)[6:]))
+        del c, args
+    # the library yardstick: torch._fused_adamw_ (torch.optim.AdamW's
+    # fused=True path) on the same leaf, all four tensors bf16: it takes
+    # one dtype for p, g and the moments
+    lib = [torch.randn(n, generator=gen, device="cuda").to(bf)
+           for _ in range(4)]
+    lib[3].abs_()
+    steps = [torch.tensor(5.0, device="cuda")]
+    lib_ms, _ = time_cuda([partial(
+        torch._fused_adamw_, [lib[0]], [lib[1]], [lib[2]], [lib[3]], [],
+        steps, lr=1e-4, beta1=ADAM_HP["beta1"], beta2=ADAM_HP["beta2"],
+        weight_decay=0.1, eps=ADAM_HP["epsilon"], amsgrad=False,
+        maximize=False)])
+    del lib
+    torch.cuda.empty_cache()
+    # the main path's reading is the recipe's (bf16 moments); the train
+    # phase's fp32 moments beside it
+    result = dict(
+        max_abs_err=max(cases.values()),
+        tol="0: bit for bit against the plain version on the card, every "
+            "dtype, master and decay case",
+        **readings["recipe"], library_ms=lib_ms,
+        at_train_dtypes=readings["train"],
+        note="library_ms: torch._fused_adamw_ on the same leaf with bf16 p, "
+             "g and moments (14 bytes an element, as the recipe's dtypes)")
+    emit({"phase": "kernel", "name": "fused_adam", **result})
+    return {"fused_adam": result}
+
+
 # ---------------------------------------------------------------- phase 4
 def _record_steps(engine, prompts, max_new):
     """Drive a SimClock engine to completion, recording every unified
@@ -848,18 +998,22 @@ def phase_model():
     torch.cuda.empty_cache()
 
 
-def _train_steps(model, device, chunk, steps):
-    """`steps` AdamW steps (lr 1e-4, wd 0.01, global-norm clip 1.0) of
-    `model` through ScanTrainStep over `chunk`; the [K] losses on the
-    CPU."""
+def _train_steps(model, device, chunk, steps, recipe=False):
+    """`steps` steps of `model` through ScanTrainStep over `chunk`: AdamW
+    (lr TRAIN_PARITY_LR, wd 0.01, global-norm clip 1.0) or, with `recipe`,
+    the train recipe's optimizer peaking at TRAIN_PARITY_LR. Returns (the
+    [K] losses on the CPU, the lr vector the steps used)."""
     from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import ScanTrainStep
-    opt = AdamW(learning_rate=TRAIN_PARITY_LR, weight_decay=0.01,
-                parameters=model.parameters(),
-                grad_clip=ClipGradByGlobalNorm(1.0))
-    return ScanTrainStep(model, opt, scan_steps=steps,
-                         device=device)(*chunk).cpu()
+    if recipe:
+        opt = recipe_optimizer(model.parameters(), TRAIN_PARITY_LR)
+    else:
+        opt = AdamW(learning_rate=TRAIN_PARITY_LR, weight_decay=0.01,
+                    parameters=model.parameters(),
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+    step = ScanTrainStep(model, opt, scan_steps=steps, device=device)
+    return step(*chunk).cpu(), step.lr_vector
 
 
 # train parity, card against a CPU twin, fp32 (TF32 off). Losses: GEMMs
@@ -901,11 +1055,25 @@ def _grad_norms(model, device, ids, labels):
     return norms
 
 
+def launches_per_step(n_layers, leaves, recompute):
+    """Kernel launches one train step of a GPT with `n_layers` layers and
+    `leaves` parameters must make: a flash forward and two LayerNorm
+    forwards a layer, twice with recompute (the backward reruns the
+    layer), plus the final LayerNorm; one dq, one dk/dv and two LayerNorm
+    backwards a layer plus the final one; one fused Adam a leaf."""
+    f = 2 if recompute else 1
+    return {"flash_fwd": n_layers * f, "flash_bwd_dq": n_layers,
+            "flash_bwd_dkv": n_layers, "layernorm_fwd": 2 * n_layers * f + 1,
+            "layernorm_bwd": 2 * n_layers + 1, "fused_adam": leaves}
+
+
 def phase_model_train():
     """gpt3-1.3b widths cut to 2 layers (a depth cut), fp32, B=2, S=128:
-    3 AdamW steps through ScanTrainStep on the card (kernels) and on a CPU
-    twin with the same weights (plain versions): the first step's gradient
-    norm of every leaf, per-step losses and the final parameters."""
+    3 steps through ScanTrainStep on the card (kernels) and on a CPU twin
+    with the same weights (plain versions), once with AdamW and once with
+    the train recipe (its optimizer at TRAIN_PARITY_LR's scale, and
+    recompute): the first step's gradient norm of every leaf, per-step
+    losses and the final parameters."""
     import numpy as np
     import torch
     from paddle_tpu_torch.bridge import export_state
@@ -915,68 +1083,79 @@ def phase_model_train():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(SEED + 3)
-    cpu = GPTForCausalLM.from_preset("gpt3-1.3b", device="cpu",
-                                     dtype="float32", generator=gen,
-                                     num_hidden_layers=2)
-    card = GPTForCausalLM.from_preset("gpt3-1.3b", device="cuda",
-                                      dtype="float32", num_hidden_layers=2)
-    card.load_state_dict(cpu.state_dict())
-    cpu.train()
-    card.train()
     rng = np.random.RandomState(SEED + 3)
     B, S, K = 2, 128, 3
     ids = rng.randint(0, 50304, (B, S)).astype(np.int32)
     labels = np.roll(ids, -1, axis=1)
     labels[:, -1] = -100                    # ignored tokens on the path
     chunk = stack_batches([(ids, labels)] * K)
-    g_card = _grad_norms(card, "cuda", ids, labels)
-    g_cpu = _grad_norms(cpu, "cpu", ids, labels)
-    grad_rel = {k: abs(g_card[k] - g_cpu[k]) / g_cpu[k] for k in g_cpu}
-    worst_grad = max(grad_rel, key=grad_rel.get)
-    _kernels.reset_launch_counts()
-    loss_card = _train_steps(card, "cuda", chunk, K)
-    launched = _kernels.launch_counts()
-    t0 = time.perf_counter()
-    loss_cpu = _train_steps(cpu, "cpu", chunk, K)
-    cpu_s = time.perf_counter() - t0
-    check(bool(torch.isfinite(loss_card).all()), "non-finite train loss "
-                                                 "on the card")
-    want = {"flash_fwd": 2 * K, "flash_bwd_dq": 2 * K, "flash_bwd_dkv": 2 * K,
-            "layernorm_fwd": 5 * K, "layernorm_bwd": 5 * K}
-    loss_diff = float((loss_card - loss_cpu).abs().max())
-    wc, wp = export_state(card), export_state(cpu)
-    worst, far, total = 0.0, 0, 0
-    for k in wc:
-        d = np.abs(wc[k] - wp[k])
-        worst = max(worst, float(d.max()))
-        far += int((d > TRAIN_PARITY_LR / 10).sum())
-        total += d.size
-    emit({"phase": "model_train", "config": "gpt3-1.3b widths, 2 layers, "
-          "fp32, B=2, S=128, 3 AdamW steps", "loss_card": loss_card.tolist(),
-          "loss_cpu": loss_cpu.tolist(), "loss_max_abs_diff": loss_diff,
-          "loss_tol": TRAIN_PARITY_LOSS_TOL,
-          "grad_norm_max_rel_diff": grad_rel[worst_grad],
-          "grad_norm_worst_leaf": worst_grad,
-          "grad_norm_rtol": TRAIN_PARITY_GRAD_RTOL,
-          "grad_norm_leaves": len(grad_rel), "param_max_abs_diff": worst,
-          "param_tol": 6 * TRAIN_PARITY_LR,
-          "param_share_past_lr_over_10": far / total,
-          "param_share_tol": TRAIN_PARITY_SHARE, "cpu_twin_s": cpu_s,
-          "kernel_launches": launched})
-    check({k: launched[k] for k in want} == want,
-          f"train parity launched {launched}, want {want}")
-    check(grad_rel[worst_grad] <= TRAIN_PARITY_GRAD_RTOL,
-          f"card vs CPU first-step gradient norm of {worst_grad} differs by "
-          f"{grad_rel[worst_grad]} of itself > {TRAIN_PARITY_GRAD_RTOL}")
-    check(loss_diff <= TRAIN_PARITY_LOSS_TOL,
-          f"card vs CPU train losses differ by {loss_diff}")
-    check(worst <= 6 * TRAIN_PARITY_LR and far / total <= TRAIN_PARITY_SHARE,
-          f"card vs CPU weights after {K} steps: max diff {worst}, share "
-          f"past lr/10 {far / total}")
-    del cpu, card, wc, wp
-    torch.cuda.empty_cache()
+    for recipe in (False, True):
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(SEED + 3)
+        over = dict(num_hidden_layers=2, use_recompute=recipe)
+        cpu = GPTForCausalLM.from_preset("gpt3-1.3b", device="cpu",
+                                         dtype="float32", generator=gen,
+                                         **over)
+        card = GPTForCausalLM.from_preset("gpt3-1.3b", device="cuda",
+                                          dtype="float32", **over)
+        card.load_state_dict(cpu.state_dict())
+        cpu.train()
+        card.train()
+        g_card = _grad_norms(card, "cuda", ids, labels)
+        g_cpu = _grad_norms(cpu, "cpu", ids, labels)
+        grad_rel = {k: abs(g_card[k] - g_cpu[k]) / g_cpu[k] for k in g_cpu}
+        worst_grad = max(grad_rel, key=grad_rel.get)
+        _kernels.reset_launch_counts()
+        loss_card, lr_card = _train_steps(card, "cuda", chunk, K, recipe)
+        launched = _kernels.launch_counts()
+        t0 = time.perf_counter()
+        loss_cpu, lr_cpu = _train_steps(cpu, "cpu", chunk, K, recipe)
+        cpu_s = time.perf_counter() - t0
+        check(bool(torch.isfinite(loss_card).all()), "non-finite train loss "
+                                                     "on the card")
+        leaves = sum(p.requires_grad for p in card.parameters())
+        want = dict.fromkeys(launched, 0)      # paged attention: none
+        want.update({k: v * K for k, v in
+                     launches_per_step(2, leaves, recipe).items()})
+        loss_diff = float((loss_card - loss_cpu).abs().max())
+        wc, wp = export_state(card), export_state(cpu)
+        worst, far, total = 0.0, 0, 0
+        for k in wc:
+            d = np.abs(wc[k] - wp[k])
+            worst = max(worst, float(d.max()))
+            far += int((d > TRAIN_PARITY_LR / 10).sum())
+            total += d.size
+        what = ("train recipe (schedule, clip, decay filter, bf16 moments, "
+                "recompute)" if recipe else "AdamW")
+        emit({"phase": "model_train", "config": "gpt3-1.3b widths, 2 layers, "
+              f"fp32, B=2, S=128, 3 steps, {what}",
+              "loss_card": loss_card.tolist(), "loss_cpu": loss_cpu.tolist(),
+              "lr_vector": lr_card.tolist(), "loss_max_abs_diff": loss_diff,
+              "loss_tol": TRAIN_PARITY_LOSS_TOL,
+              "grad_norm_max_rel_diff": grad_rel[worst_grad],
+              "grad_norm_worst_leaf": worst_grad,
+              "grad_norm_rtol": TRAIN_PARITY_GRAD_RTOL,
+              "grad_norm_leaves": len(grad_rel), "param_max_abs_diff": worst,
+              "param_tol": 6 * TRAIN_PARITY_LR,
+              "param_share_past_lr_over_10": far / total,
+              "param_share_tol": TRAIN_PARITY_SHARE, "cpu_twin_s": cpu_s,
+              "kernel_launches": launched})
+        check(launched == want,
+              f"train parity ({what}) launched {launched}, want {want}")
+        check(np.array_equal(lr_card, lr_cpu),
+              f"card and CPU lr vectors differ: {lr_card} vs {lr_cpu}")
+        check(grad_rel[worst_grad] <= TRAIN_PARITY_GRAD_RTOL,
+              f"card vs CPU first-step gradient norm of {worst_grad} differs "
+              f"by {grad_rel[worst_grad]} of itself > "
+              f"{TRAIN_PARITY_GRAD_RTOL}")
+        check(loss_diff <= TRAIN_PARITY_LOSS_TOL,
+              f"card vs CPU train losses ({what}) differ by {loss_diff}")
+        check(worst <= 6 * TRAIN_PARITY_LR
+              and far / total <= TRAIN_PARITY_SHARE,
+              f"card vs CPU weights after {K} steps ({what}): max diff "
+              f"{worst}, share past lr/10 {far / total}")
+        del cpu, card, wc, wp
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1138,18 +1317,58 @@ def phase_serve():
 # ---------------------------------------------------------------- phase 6
 TRAIN_WARMUP_STEPS = 3
 TRAIN_TIMED_STEPS = 10
+# launches_per_step(24, 293, recompute): gpt3-1.3b has 24 layers and 293
+# parameters (12 a layer, two embeddings, the final LayerNorm's two and
+# the untied lm_head), each with a gradient and one fused-Adam launch
 TRAIN_KERNELS_PER_STEP = {"flash_fwd": 24, "flash_bwd_dq": 24,
                           "flash_bwd_dkv": 24, "layernorm_fwd": 49,
-                          "layernorm_bwd": 49}
+                          "layernorm_bwd": 49, "fused_adam": 293}
+# recompute reruns every layer's forward (one flash forward, two LayerNorm
+# forwards) in the backward; the final LayerNorm is outside the layers
+RECIPE_KERNELS_PER_STEP = {"flash_fwd": 48, "flash_bwd_dq": 24,
+                           "flash_bwd_dkv": 24, "layernorm_fwd": 97,
+                           "layernorm_bwd": 49, "fused_adam": 293}
+RECIPE_PEAK_LR = 2e-4
 
 
-def train_workload():
+def recipe_decays(name):
+    """GPT-3's weight-decay filter: neither a bias nor a LayerNorm
+    parameter (`gpt.layers.0.norm1.weight`, `gpt.final_norm.bias`)."""
+    return not (name.endswith(".bias") or "norm" in name)
+
+
+def recipe_schedule(peak_lr):
+    """GPT-3's schedule cut to the smoke's 3 + 10 steps: a linear warm-up
+    from 0 over 4 steps into a cosine decay to peak/10 over 9."""
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+    return LinearWarmup(CosineAnnealingDecay(peak_lr, T_max=9,
+                                             eta_min=peak_lr / 10),
+                        warmup_steps=4, start_lr=0.0, end_lr=peak_lr)
+
+
+def recipe_optimizer(parameters, peak_lr):
+    """GPT-3's optimizer for its 1.3B model (Brown et al. 2020, Table 2.1
+    and Appendix B) with bench.py's bf16 moments: AdamW(0.9, 0.95, 1e-8),
+    weight decay 0.1 through recipe_decays, global-norm clip 1.0 and
+    recipe_schedule(peak_lr)."""
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    return AdamW(learning_rate=recipe_schedule(peak_lr), beta1=0.9,
+                 beta2=0.95, epsilon=1e-8, parameters=parameters,
+                 weight_decay=0.1, apply_decay_param_fun=recipe_decays,
+                 grad_clip=ClipGradByGlobalNorm(1.0),
+                 moment_dtype="bfloat16")
+
+
+def train_workload(recipe=False):
     """The train cell, shared with tools/profile_torch_training.py: full
     gpt3-1.3b in bf16 with random weights from SEED, in training mode;
-    AdamW(lr 1e-4, wd 0.01, fp32 moments); one batch of B=4 x S=1024
-    token ids and next-token labels from SEED, repeated every step as
-    bench.py repeats its batch. Returns (model, opt, ids, labels,
-    model_init_s)."""
+    AdamW(lr 1e-4, wd 0.01, fp32 moments), or with `recipe` bench.py's
+    recipe (use_recompute, bf16 moments) and recipe_optimizer at
+    RECIPE_PEAK_LR; one batch of B=4 x S=1024 token ids and next-token
+    labels from SEED, repeated every step as bench.py repeats its batch.
+    Returns (model, opt, ids, labels, model_init_s)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.models.gpt import GPTForCausalLM
@@ -1159,12 +1378,16 @@ def train_workload():
     gen.manual_seed(SEED)
     t0 = time.perf_counter()
     model = GPTForCausalLM.from_preset("gpt3-1.3b", device="cuda",
-                                       dtype="bfloat16", generator=gen)
+                                       dtype="bfloat16", generator=gen,
+                                       use_recompute=recipe)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     model.train()
-    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
-                parameters=model.parameters(), moment_dtype="float32")
+    if recipe:
+        opt = recipe_optimizer(model.parameters(), RECIPE_PEAK_LR)
+    else:
+        opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                    parameters=model.parameters(), moment_dtype="float32")
     rng = np.random.RandomState(SEED + 4)
     ids = rng.randint(0, 50304, (TRAIN_B, TRAIN_S)).astype(np.int32)
     labels = rng.randint(0, 50304, (TRAIN_B, TRAIN_S)).astype(np.int32)
@@ -1208,30 +1431,43 @@ def timed_chunk(step, ids, labels):
     return losses.cpu(), wall, ms, host_ms
 
 
-def phase_train(device_name):
+def phase_train(device_name, recipe=False, train_peak_gib=None):
+    """The train cell (phase 6), or with `recipe` the train_recipe cell
+    (phase 7), whose peak memory must stay below `train_peak_gib`.
+    Returns (launch counts of the timed chunk, peak memory in GiB)."""
+    import numpy as np
     import torch
     from paddle_tpu_torch.obs.flops import peak_flops, train_flops_per_step
     from paddle_tpu_torch.ops import _kernels
     from paddle_tpu_torch.parallel import ScanTrainStep
 
-    model, opt, ids, labels, init_s = train_workload()
+    model, opt, ids, labels, init_s = train_workload(recipe)
     n_params = sum(p.numel() for p in model.parameters())
     warm = ScanTrainStep(model, opt, scan_steps=TRAIN_WARMUP_STEPS)
     warm_losses, warm_s, _, _ = timed_chunk(warm, ids, labels)
+    lr_used = list(warm.lr_vector)
     step = ScanTrainStep(model, opt, scan_steps=TRAIN_TIMED_STEPS)
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launch_counts()
     losses, wall, step_ms, _ = timed_chunk(step, ids, labels)
     launches = _kernels.launch_counts()
-    per_step = {k: launches[k] / TRAIN_TIMED_STEPS
-                for k in TRAIN_KERNELS_PER_STEP}
+    lr_used += list(step.lr_vector)
+    want_launches = RECIPE_KERNELS_PER_STEP if recipe \
+        else TRAIN_KERNELS_PER_STEP
+    per_step = {k: launches[k] / TRAIN_TIMED_STEPS for k in want_launches}
     tokens = TRAIN_B * TRAIN_S * TRAIN_TIMED_STEPS
     step_s = wall / TRAIN_TIMED_STEPS
     all_losses = warm_losses.tolist() + losses.tolist()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    what = ("AdamW(0.9, 0.95, 1e-8) wd 0.1 but biases and LayerNorms, "
+            "bf16 moments, global-norm clip 1.0, LinearWarmup(4 steps, 0 -> "
+            f"{RECIPE_PEAK_LR}) into CosineAnnealingDecay(T_max 9, eta_min "
+            f"{RECIPE_PEAK_LR / 10}); use_recompute" if recipe else
+            "AdamW lr 1e-4 wd 0.01 fp32 moments")
     result = {
-        "phase": "train", "model": "gpt3-1.3b", "dtype": "bfloat16",
-        "batch": TRAIN_B, "seq": TRAIN_S, "optimizer": "AdamW lr 1e-4 "
-        "wd 0.01 fp32 moments", "n_params": n_params,
+        "phase": "train_recipe" if recipe else "train", "model": "gpt3-1.3b",
+        "dtype": "bfloat16", "batch": TRAIN_B, "seq": TRAIN_S,
+        "optimizer": what, "n_params": n_params,
         "warmup_steps": TRAIN_WARMUP_STEPS, "warmup_s": warm_s,
         "timed_steps": TRAIN_TIMED_STEPS, "wall_s": wall,
         "tokens_per_s": tokens / wall, "step_ms_mean": step_s * 1e3,
@@ -1239,21 +1475,33 @@ def phase_train(device_name):
         "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
         "mfu": train_flops_per_step(n_params, TRAIN_B * TRAIN_S) / step_s
         / peak_flops(device_name),
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "peak_mem_gib": peak_gib,
         "loss_first": all_losses[0], "loss_last": all_losses[-1],
-        "losses": all_losses, "kernel_launches": launches,
+        "losses": all_losses, "lr_vector": [float(x) for x in lr_used],
+        "kernel_launches": launches,
         "launches_per_step": per_step, "model_init_s": init_s,
         "dispatch_count": warm.dispatch_count + step.dispatch_count}
     emit(result)
     check(all(math.isfinite(x) for x in all_losses), "non-finite loss")
     check(all_losses[-1] < all_losses[0],
           f"loss did not fall: {all_losses[0]} -> {all_losses[-1]}")
-    check(per_step == {k: float(v) for k, v in
-                       TRAIN_KERNELS_PER_STEP.items()},
-          f"launches per step {per_step}, want {TRAIN_KERNELS_PER_STEP}")
+    check(per_step == {k: float(v) for k, v in want_launches.items()},
+          f"launches per step {per_step}, want {want_launches}")
+    if recipe:
+        host = recipe_schedule(RECIPE_PEAK_LR)
+        want_lr = []
+        for _ in lr_used:
+            want_lr.append(host())
+            host.step()
+        check(np.array_equal(np.asarray(lr_used, np.float32),
+                             np.asarray(want_lr, np.float32)),
+              f"lr vector {lr_used}, the schedule on the host {want_lr}")
+        check(peak_gib < train_peak_gib,
+              f"recipe peak memory {peak_gib} GiB is not below the train "
+              f"phase's {train_peak_gib} GiB")
     del model, opt, warm, step
     torch.cuda.empty_cache()
-    return launches
+    return launches, peak_gib
 
 
 KERNEL_META = {
@@ -1275,6 +1523,9 @@ KERNEL_META = {
     "layernorm_bwd": dict(
         source="paddle_tpu_torch/csrc/layernorm.cu",
         replaces="paddle_tpu/ops/layernorm.py:48", phase="train"),
+    "fused_adam": dict(
+        source="paddle_tpu_torch/csrc/fused_adam.cu",
+        replaces="paddle_tpu/ops/fused_adam.py:47", phase="train_recipe"),
 }
 
 
@@ -1299,9 +1550,13 @@ def main():
     phase_build()
     kern = phase_kernels()
     kern.update(phase_train_kernels())
+    kern.update(phase_adam_kernel())
     phase_model()
     phase_model_train()
-    by_phase = {"serve": phase_serve(), "train": phase_train(name)}
+    by_phase = {"serve": phase_serve()}
+    by_phase["train"], train_peak = phase_train(name)
+    by_phase["train_recipe"], _ = phase_train(name, recipe=True,
+                                              train_peak_gib=train_peak)
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     lines = []

@@ -7,6 +7,11 @@ identity: the port keeps the JAX package's parameter names and layouts
 (Paddle's `[in, out]` Linear weights included). Each array is cast to the
 parameter's dtype and device. `export_state(model)` goes the other way,
 so tests can compare parameters after training steps.
+`load_jax_optimizer_state(optimizer, model, state)` carries the slots of
+a JAX optimizer's `init_state`/`apply_gradients_fn` state (moment1,
+moment2, beta1_pow, beta2_pow, master_weight), keyed by the same names,
+into the port optimizer's `state`, so both sides can start from the same
+non-zero moments.
 """
 from __future__ import annotations
 
@@ -43,3 +48,32 @@ def export_state(model: torch.nn.Module) -> Dict[str, np.ndarray]:
     """{name: float32 numpy copy} of every parameter (bf16 widened)."""
     return {k: p.detach().float().cpu().numpy().copy()
             for k, p in model.named_parameters()}
+
+
+def load_jax_optimizer_state(optimizer, model: torch.nn.Module,
+                             state: Mapping[str, Mapping[str, np.ndarray]]):
+    """Set `optimizer.state[p]` for every named parameter of `model` from
+    `state[name][slot]` (numpy, any float dtype). Each slot takes the dtype,
+    shape and device the optimizer itself would give it (`_init_slots_mp`).
+    Raises KeyError on a missing or extra name or slot and ValueError on a
+    shape mismatch."""
+    named = dict(model.named_parameters())
+    missing = sorted(set(named) - set(state))
+    extra = sorted(set(state) - set(named))
+    if missing or extra:
+        raise KeyError(f"JAX optimizer state does not match the port model: "
+                       f"missing {missing}, extra {extra}")
+    with torch.no_grad():
+        for k, p in named.items():
+            slots = optimizer._init_slots_mp(p)
+            if set(slots) != set(state[k]):
+                raise KeyError(f"{k}: JAX slots {sorted(state[k])}, port "
+                               f"slots {sorted(slots)}")
+            for sname, t in slots.items():
+                arr = np.array(state[k][sname], dtype=np.float32)
+                if tuple(arr.shape) != tuple(t.shape):
+                    raise ValueError(f"{k}.{sname}: jax {arr.shape} vs port "
+                                     f"{tuple(t.shape)}")
+                t.copy_(torch.from_numpy(arr))
+            optimizer.state[p] = slots
+    return optimizer

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from ..core.device import resolve_device
 from ..core.dtype import convert_dtype
+from ..distributed.fleet.utils.recompute import recompute
 from ..distributed.meta_parallel.mp_layers import (ColumnParallelLinear,
                                                    RowParallelLinear,
                                                    VocabParallelEmbedding)
@@ -133,6 +134,7 @@ class GPTDecoderLayer(Layer):
                                          input_is_parallel=True,
                                          device=device, dtype=dtype)
         self.dropout = Dropout(config.hidden_dropout_prob)
+        self._use_recompute = config.use_recompute
 
     def _block(self, x):
         """The training block: x + attn(LN(x)), then x + MLP(LN(x))."""
@@ -142,8 +144,12 @@ class GPTDecoderLayer(Layer):
 
     def forward(self, x, cache=None, pos=None, paged=None):
         """(x, new_cache) with a cache; (x, None) without (the JAX layer's
-        (x, aux_loss), aux None for a dense layer)."""
+        (x, aux_loss), aux None for a dense layer). In training with
+        `use_recompute`, the block's activations are recomputed in the
+        backward instead of kept."""
         if cache is None:
+            if self._use_recompute and self.training:
+                return recompute(self._block, x), None
             return self._block(x), None
         h, new_cache = self.self_attn(self.norm1(x), cache, pos, paged=paged)
         x = x + self.dropout(h)

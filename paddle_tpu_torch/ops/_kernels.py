@@ -29,13 +29,14 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flash_attention.cu", "layernorm.cu", "paged_attention.cu")
+SOURCES = ("flash_attention.cu", "fused_adam.cu", "layernorm.cu",
+           "paged_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "layernorm_fwd": 0, "layernorm_bwd": 0,
-            "paged_attention": 0}
+            "paged_attention": 0, "fused_adam": 0}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -71,6 +72,10 @@ _SIGNATURES = {
     # n_blocks, block_len, pages_per_row, scale, dtype, stream
     "pdtt_paged_attention": (_P, _P, _P, _P, _P, _P, _P) + (_c.c_int,) * 9
                             + (_c.c_float, _c.c_int, _P),
+    # p, g, m1, m2, master, lr, b1p, b2p, n, b1, 1-b1, b2, 1-b2, eps, wd,
+    # decoupled, p dtype, g dtype, moment dtype, stream
+    "pdtt_fused_adam": (_P,) * 8 + (_c.c_longlong,) + (_c.c_float,) * 6
+                       + (_c.c_int,) * 4 + (_P,),
 }
 
 

@@ -1,43 +1,43 @@
 """Optimizers (counterpart of paddle_tpu/optimizer/optimizer.py).
 
 The port keeps the JAX package's compiled train path's semantics
-(`apply_gradients_fn`, optimizer.py:220-282): the weight decay, a float
-or an `L2Decay`, is applied to every parameter; `multi_precision` keeps
-an fp32 master copy of each bf16/fp16 parameter, updates it and writes it
-back rounded. Slots live in `state[param]`.
+(`apply_gradients_fn`, optimizer.py:220-282): clip, then per leaf fold an
+L1Decay into the gradient (`_reg_grad`), then update with the leaf's
+learning rate and weight decay. AdamW's `apply_decay_param_fun(name)` and
+`lr_ratio(proxy with .name)` see the parameter's structured name
+(`gpt.layers.0.norm1.weight`), which the train steps pass beside the
+pairs, as the JAX compiled path sees its name-keyed params dict.
+`multi_precision` keeps an fp32 master copy of each bf16/fp16 parameter.
+Slots live in `state[param]`. `learning_rate` is a float or an
+`LRScheduler` (`optimizer/lr.py`).
 
-Unlike the JAX package, whose arrays are immutable, `step()` updates
-every parameter IN PLACE under `torch.no_grad()` (`p.copy_(new)`), so
-the model's own tensors always hold the current weights. The update is
-the plain per-parameter math (`ops/fused_adam.adam_math`), about ten
-small launches a parameter; the single-pass kernel is the next slice's.
-
-Learning-rate schedulers, per-parameter lr ratios, decay filters and
-L1Decay wait for their slice (ROADMAP §1): `learning_rate` is a float
-here.
+Unlike the JAX package, whose arrays are immutable, an update happens IN
+PLACE under `torch.no_grad()`: the fused-Adam kernel (CUDA tensors) or
+its plain version (CPU tensors) writes the parameter, its moments and its
+master weight where they lie, so the model's own tensors always hold the
+current weights and `state[param]` keeps pointing at the live moments.
 """
 from __future__ import annotations
 
+import types
 from typing import Dict, List, Optional
 
 import torch
 
 from ..nn.clip import ClipGradBase
-from ..ops.fused_adam import adam_math
-from ..regularizer import L2Decay
-
-_LATER = "waits for the optimizer slice (ROADMAP §1: LR schedulers)"
+from ..ops.fused_adam import fused_adam
+from ..regularizer import L1Decay, L2Decay, WeightDecayRegularizer
+from .lr import LRScheduler
 
 
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip: Optional[ClipGradBase] = None,
                  name=None, multi_precision=False):
-        if not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                f"learning_rate of type {type(learning_rate).__name__} "
-                f"{_LATER}; pass a float")
-        self._learning_rate = float(learning_rate)
+        if not isinstance(learning_rate, (int, float, LRScheduler)):
+            raise TypeError(f"learning_rate must be a float or an "
+                            f"LRScheduler, got {type(learning_rate).__name__}")
+        self._learning_rate = learning_rate
         self._parameter_list: List[torch.Tensor] = (
             list(parameters) if parameters is not None else [])
         self._grad_clip = grad_clip
@@ -48,17 +48,27 @@ class Optimizer:
 
     # ---- lr ----
     def get_lr(self) -> float:
-        return self._learning_rate
+        if isinstance(self._learning_rate, LRScheduler):
+            return float(self._learning_rate())
+        return float(self._learning_rate)
 
     def set_lr(self, value):
-        self._learning_rate = float(value)
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError("cannot set_lr when using an LRScheduler")
+        self._learning_rate = value
+
+    @property
+    def _lr_scheduler(self):
+        return (self._learning_rate
+                if isinstance(self._learning_rate, LRScheduler) else None)
 
     # ---- the update rule: override in subclasses ----
     def _init_slots(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {}
 
-    def _rule(self, g, p, slots, lr, wd):
-        """(new p, new slots) from gradient g and parameter p; pure."""
+    def _update(self, p, g, slots, lr, wd):
+        """Update p and its slots in place from gradient g; lr is a 0-d
+        fp32 tensor on p's device, wd a float."""
         raise NotImplementedError
 
     def _init_slots_mp(self, p):
@@ -68,36 +78,60 @@ class Optimizer:
             slots["master_weight"] = p.detach().float().clone()
         return slots
 
-    def _rule_mp(self, g, p, slots, lr, wd):
-        master = slots.pop("master_weight", None)
-        if master is None:
-            return self._rule(g, p, slots, lr, wd)
-        new_master, new_slots = self._rule(g, master, slots, lr, wd)
-        new_slots["master_weight"] = new_master
-        return new_master.to(p.dtype), new_slots
-
-    def _leaf_wd(self) -> float:
+    # ---- per-leaf rules of the compiled path ----
+    def _base_wd(self) -> float:
         wd = self._weight_decay
-        return wd.coeff if isinstance(wd, L2Decay) else float(wd)
+        if isinstance(wd, L2Decay):
+            return wd.coeff
+        if isinstance(wd, WeightDecayRegularizer) or callable(wd):
+            return 0.0      # L1 is folded into the gradient by _reg_grad
+        return float(wd)
+
+    def _leaf_wd(self, name, wd):
+        return wd
+
+    def _leaf_lr(self, name, lr):
+        return lr
+
+    def _reg_grad(self, g, p):
+        if isinstance(self._weight_decay, L1Decay):
+            return g + self._weight_decay.coeff * torch.sign(p.to(g.dtype))
+        return g
 
     # ---- the step ----
     @torch.no_grad()
-    def apply_gradients(self, params_grads, lr=None):
+    def apply_gradients(self, params_grads, lr=None, names=None):
         """Clip, then update each (param, grad) pair in place; a None grad
-        leaves its param alone. `lr` defaults to get_lr()."""
-        lr = self.get_lr() if lr is None else float(lr)
+        leaves its param alone. `lr`: a float or a 0-d fp32 tensor,
+        default get_lr(). `names`: each pair's structured parameter name,
+        which a decay filter or lr_ratio needs."""
+        params_grads = list(params_grads)
+        if names is not None and len(names) != len(params_grads):
+            raise ValueError(f"{len(names)} names for {len(params_grads)} "
+                             "parameters")
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
         self._step_count += 1
-        wd = self._leaf_wd()
-        for p, g in params_grads:
+        if lr is None:
+            lr = self.get_lr()
+        wd = self._base_wd()
+        lr_on = {}          # the lr staged once on each device
+        for i, (p, g) in enumerate(params_grads):
             if g is None:
                 continue
+            lr_t = lr_on.get(p.device)
+            if lr_t is None:
+                lr_t = lr_on[p.device] = (
+                    lr.to(device=p.device, dtype=torch.float32)
+                    if torch.is_tensor(lr) else
+                    torch.tensor(float(lr), dtype=torch.float32,
+                                 device=p.device))
+            name = None if names is None else names[i]
             slots = self.state.get(p)
             if slots is None:
-                slots = self._init_slots_mp(p)
-            new_p, self.state[p] = self._rule_mp(g, p, dict(slots), lr, wd)
-            p.copy_(new_p)
+                slots = self.state[p] = self._init_slots_mp(p)
+            self._update(p, self._reg_grad(g, p), slots,
+                         self._leaf_lr(name, lr_t), self._leaf_wd(name, wd))
 
     def step(self):
         """One update of every parameter that has a gradient."""
@@ -116,14 +150,34 @@ class Optimizer:
 
     clear_gradients = clear_grad
 
+    # ---- checkpointing ----
     def state_dict(self):
-        """{"_step_count": n, "<i>__<slot>": tensor} with i the parameter's
-        index in `parameters`, as the JAX package keys unnamed params."""
+        """{"_step_count": n, "<i>__<slot>": tensor, "LR_Scheduler": {...}}
+        with i the parameter's index in `parameters`, as the JAX package
+        keys unnamed params; the scheduler's entry only with one."""
         out = {"_step_count": self._step_count}
         for i, p in enumerate(self._parameter_list):
             for sname, t in self.state.get(p, {}).items():
                 out[f"{i}__{sname}"] = t
+        if self._lr_scheduler is not None:
+            out["LR_Scheduler"] = self._lr_scheduler.state_dict()
         return out
+
+    def set_state_dict(self, state):
+        """Load what state_dict() wrote: slots are copied onto each
+        parameter's device, keeping their dtypes."""
+        self._step_count = int(state.get("_step_count", 0))
+        if "LR_Scheduler" in state and self._lr_scheduler is not None:
+            self._lr_scheduler.set_state_dict(state["LR_Scheduler"])
+        for i, p in enumerate(self._parameter_list):
+            prefix = f"{i}__"
+            slots = {k[len(prefix):]: torch.as_tensor(v).to(p.device).clone()
+                     for k, v in state.items()
+                     if isinstance(k, str) and k.startswith(prefix)}
+            if slots:
+                self.state[p] = slots
+
+    set_dict = set_state_dict
 
 
 class Adam(Optimizer):
@@ -154,35 +208,53 @@ class Adam(Optimizer):
     def _decoupled(self):
         return False
 
-    def _rule(self, g, p, slots, lr, wd):
-        b1, b2 = self._beta1, self._beta2
-        b1p = slots["beta1_pow"] * b1
-        b2p = slots["beta2_pow"] * b2
-        new_p32, m1, m2 = adam_math(
-            p.float(), g, slots["moment1"].float(), slots["moment2"].float(),
-            lr, b1p, b2p, wd or 0.0, b1=b1, b2=b2, eps=self._epsilon,
-            decoupled=self._decoupled())
-        md = self._moment_dtype
-        return new_p32.to(p.dtype), {"moment1": m1.to(md),
-                                     "moment2": m2.to(md),
-                                     "beta1_pow": b1p, "beta2_pow": b2p}
+    def _update(self, p, g, slots, lr, wd):
+        # beta^t advanced by one tiny op each before the launch: the kernel
+        # reads them, and a block writing them back would race the others
+        slots["beta1_pow"].mul_(self._beta1)
+        slots["beta2_pow"].mul_(self._beta2)
+        fused_adam(p, g, slots["moment1"], slots["moment2"], lr,
+                   slots["beta1_pow"], slots["beta2_pow"], wd,
+                   beta1=self._beta1, beta2=self._beta2,
+                   epsilon=self._epsilon, decoupled=self._decoupled(),
+                   master=slots.get("master_weight"))
 
 
 class AdamW(Adam):
-    """Adam with decoupled weight decay (default 0.01), applied to every
-    parameter."""
+    """Adam with decoupled weight decay (default 0.01).
+    `apply_decay_param_fun(name) -> bool` picks the parameters that decay;
+    `lr_ratio(param) -> float` scales a parameter's lr, called with a
+    proxy that carries `.name` (the JAX compiled path's convention)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-08, parameters=None, weight_decay=0.01,
                  apply_decay_param_fun=None, grad_clip=None,
                  lazy_mode=False, multi_precision=False, name=None,
                  lr_ratio=None, moment_dtype="float32"):
-        if apply_decay_param_fun is not None or lr_ratio is not None:
-            raise NotImplementedError(
-                f"apply_decay_param_fun / lr_ratio {_LATER}")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          weight_decay, grad_clip, lazy_mode, multi_precision,
                          name, moment_dtype)
+        self._apply_decay_param_fun = apply_decay_param_fun
+        self._lr_ratio = lr_ratio
 
     def _decoupled(self):
         return True
+
+    def _need_name(self, name, what):
+        if name is None:
+            raise ValueError(
+                f"AdamW's {what} needs each parameter's name: update through "
+                "ShardedTrainStep/ScanTrainStep or pass "
+                "apply_gradients(..., names=)")
+
+    def _leaf_wd(self, name, wd):
+        if self._apply_decay_param_fun is None:
+            return wd
+        self._need_name(name, "apply_decay_param_fun")
+        return wd if self._apply_decay_param_fun(name) else 0.0
+
+    def _leaf_lr(self, name, lr):
+        if self._lr_ratio is None:
+            return lr
+        self._need_name(name, "lr_ratio")
+        return lr * float(self._lr_ratio(types.SimpleNamespace(name=name)))

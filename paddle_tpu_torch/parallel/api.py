@@ -3,17 +3,25 @@
 `ShardedTrainStep` runs one step: forward, backward, clip, then update,
 in the order of the JAX package's `train_step` (api.py:473-600).
 `ScanTrainStep` runs K such steps over stacked `[K, ...]` inputs, with the
-JAX runner's per-step learning-rate vector and global steps 1..K, and
+JAX runner's per-step learning-rate vector (an attached `LRScheduler` is
+advanced once per step, api.py:881-892) and global steps 1..K, and
 returns the `[K]` fp32 loss vector, which stays on the device (nothing in
-the chunk waits for the host). The JAX runner fuses the K steps into one
-compiled dispatch; here they run eagerly, one after another, and
-`dispatch_count` counts chunks. A CUDA graph of the chunk is later work.
+the chunk waits for the host). The lr vector is staged on the device once
+a chunk, so each step hands the optimizer a device scalar. The JAX runner
+fuses the K steps into one compiled dispatch; here they run eagerly, one
+after another, and `dispatch_count` counts chunks. A CUDA graph of the
+chunk is later work.
+
+The optimizer gets each leaf's structured name beside its gradient (the
+keys of the JAX compiled path's params dict), so AdamW's decay filter and
+lr_ratio see `gpt.layers.0.norm1.weight` as they do there.
 
 The model's parameters are updated in place (see optimizer/optimizer.py);
 `state_dict()` is the model's. The gradients are dropped after every
 update. `mesh` is None or one device, so any `zero_stage` shards nothing;
-a mesh over more devices and strategy plans (AMP, recompute, gradient
-merge) wait for the multi-GPU slice and raise. The step runs on CUDA
+a mesh over more devices and strategy plans (AMP, gradient merge) wait
+for the multi-GPU slice and raise; recompute is the model's own
+(`GPTConfig.use_recompute`). The step runs on CUDA
 unless `device="cpu"` (or a one-device CPU mesh) is given, and raises
 without a GPU otherwise.
 """
@@ -84,6 +92,7 @@ class ShardedTrainStep:
         self._step_count = 0
         # sorted by name: the order of the JAX path's pytree leaves, which
         # the global-norm clip sums in
+        self._names = [k for k, p in named if p.requires_grad]
         self._params = [p for _, p in named if p.requires_grad]
         self._compute_loss = make_compute_loss(model, loss_fn)
 
@@ -92,11 +101,12 @@ class ShardedTrainStep:
         return t.to(self.device, non_blocking=True)
 
     def _train_step(self, arrays, lr):
-        """One step on staged arrays. Returns the detached loss."""
+        """One step on staged arrays with lr a 0-d fp32 tensor on the
+        device. Returns the detached loss."""
         loss = self._compute_loss(*arrays)
         loss.backward()
         self.optimizer.apply_gradients(
-            [(p, p.grad) for p in self._params], lr)
+            [(p, p.grad) for p in self._params], lr, names=self._names)
         for p in self._params:
             p.grad = None
         return loss.detach()
@@ -104,7 +114,9 @@ class ShardedTrainStep:
     def __call__(self, *args):
         arrays = [self._stage(a) for a in args]
         self._step_count += 1
-        return self._train_step(arrays, self.optimizer.get_lr())
+        lr = torch.tensor(self.optimizer.get_lr(), dtype=torch.float32,
+                          device=self.device)
+        return self._train_step(arrays, lr)
 
     def state_dict(self):
         return self.model.state_dict()
@@ -117,6 +129,7 @@ class ScanTrainStep(ShardedTrainStep):
         step = ScanTrainStep(model, opt, scan_steps=8)
         losses = step(ids_chunk, labels_chunk)   # [K, ...] stacked inputs
         # losses: [K] fp32 on the device, one per step
+        step.lr_vector                           # [K] lrs the chunk used
     """
 
     def __init__(self, model, optimizer, mesh=None, scan_steps: int = 8,
@@ -128,10 +141,19 @@ class ScanTrainStep(ShardedTrainStep):
         if self.scan_steps < 1:
             raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
         self.dispatch_count = 0
+        self.lr_vector = None     # the last chunk's [K] lrs, numpy fp32
 
     def _lr_vector(self, K):
-        """The per-step learning rates: constant with a float lr."""
-        return np.full((K,), float(self.optimizer.get_lr()), np.float32)
+        """Length-K per-step LR schedule: constant with a float lr; an
+        LRScheduler is advanced once per step (its current value first)."""
+        sched = self.optimizer._lr_scheduler
+        if sched is None:
+            return np.full((K,), float(self.optimizer.get_lr()), np.float32)
+        vals = []
+        for _ in range(K):
+            vals.append(float(sched()))
+            sched.step()
+        return np.asarray(vals, np.float32)
 
     def __call__(self, *args):
         K = self.scan_steps
@@ -142,12 +164,12 @@ class ScanTrainStep(ShardedTrainStep):
                     f"ScanTrainStep expects stacked [K={K}, ...] inputs; got "
                     f"shape {tuple(a.shape)} (stack per-step batches with "
                     "parallel.stack_batches)")
-        lr_vec = self._lr_vector(K)
+        self.lr_vector = self._lr_vector(K)
+        lr_dev = torch.from_numpy(self.lr_vector).to(self.device)
         self._step_count += K
         losses = torch.empty((K,), dtype=torch.float32, device=self.device)
         for i in range(K):
-            losses[i] = self._train_step([a[i] for a in arrays],
-                                         float(lr_vec[i]))
+            losses[i] = self._train_step([a[i] for a in arrays], lr_dev[i])
         self.dispatch_count += 1
         return losses
 

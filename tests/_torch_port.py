@@ -77,6 +77,66 @@ def ulp_bf16(a):
     return np.exp2(np.floor(np.log2(a)) - 7)
 
 
+def train_batches(seed, K=3, B=2, S=64, vocab=512):
+    """[K, B, S] token ids and next-token labels with ignored (-100)
+    tokens: each row's last label and the first 7 of row 0."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (K, B, S)).astype(np.int32)
+    labels = np.roll(ids, -1, axis=2)
+    labels[:, :, -1] = -100
+    labels[:, 0, :7] = -100
+    return ids, labels
+
+
+def train_models(**overrides):
+    """A fresh JAX gpt2-tiny (seed 0) and the port model with its weights,
+    both built with the GPTConfig `overrides`, the port's in train mode."""
+    import paddle_tpu as paddle
+    from paddle_tpu.models.gpt import GPTForCausalLM as JaxGPT
+    from paddle_tpu_torch.bridge import load_jax_state
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    paddle.seed(0)
+    jm = JaxGPT.from_preset("gpt2-tiny", **overrides)
+    params, _ = jm.functional_state()
+    tm = GPTForCausalLM.from_preset("gpt2-tiny", device="cpu", **overrides)
+    load_jax_state(tm, {k: np.asarray(v) for k, v in params.items()})
+    tm.train()
+    return jm, tm
+
+
+def one_cpu_mesh():
+    import jax
+    from jax.sharding import Mesh
+    return Mesh(np.array(jax.devices()[:1]), ("data",))
+
+
+def _key_bias(name, d, n_heads=4):
+    """The key columns of a qkv bias ([head][q | k | v] x head_dim)."""
+    if not name.endswith("qkv_proj.bias"):
+        return np.zeros(d.shape, bool)
+    mask = np.zeros((n_heads, 3, d.size // (3 * n_heads)), bool)
+    mask[:, 1] = True
+    return mask.reshape(d.shape)
+
+
+def assert_params_match(jax_params, tm, steps, lr=1e-3):
+    """The port model's parameters against a JAX train step's, to the
+    limits tests/test_torch_train_step.py states and explains: every
+    element within 2 x lr x steps; outside the key part of the qkv biases
+    at most 1e-4 of the elements more than 1e-5 apart."""
+    from paddle_tpu_torch.bridge import export_state
+    got = export_state(tm)
+    assert set(got) == set(jax_params)
+    far = total = 0
+    for k, v in jax_params.items():
+        d = np.abs(got[k] - np.asarray(v, np.float32))
+        assert d.max() <= 2 * lr * steps, (k, float(d.max()))
+        rest = d[~_key_bias(k, d)]
+        far += int((rest > 1e-5).sum())
+        total += rest.size
+    assert far <= 1e-4 * total, (far, total)
+
+
 
 def assert_bf16_attention_close(out, ref):
     """bf16 paged attention against its plain version, to the limits that

@@ -17,7 +17,9 @@ atol/rtol 1e-5 for outputs of one op sequence, 1e-4 for sums of many
 products in another order; bf16 within `chip_smoke.py`'s
 BF16_TRAIN_FACTOR times the bf16 plain version's own error from the fp32
 plain version, plus BF16_TRAIN_ATOL. Their sums run in a fixed order, so
-two runs are bit-equal, which is tested too.
+two runs are bit-equal, which is tested too. Fused Adam: bit for bit
+(tolerance 0) against its plain version on the card, in every dtype, with
+and without a master weight, at ragged, tiny and misaligned n.
 """
 import pytest
 import torch
@@ -288,3 +290,102 @@ def test_cuda_flash_refuses_mask_dropout_and_bad_inputs():
                        torch.zeros((1, 2, 8, 40), device="cuda"), True, 1.0)
     with pytest.raises(TypeError, match="one dtype"):
         flash_fwd_cuda(q, q.bfloat16(), q, True, 1.0)
+
+
+def _adam_case(rng, n, pdtype, mdtype, master, offset=0):
+    """p, g, m1, m2 (and the fp32 master) of n elements on the card, each a
+    slice at `offset` elements into its own buffer (offset 1 misaligns
+    every pointer and takes the kernel's one-element path)."""
+    import numpy as np
+
+    def buf(a, dtype):
+        t = torch.zeros(n + offset, dtype=dtype, device="cuda")
+        t[offset:] = torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
+        return t[offset:]
+
+    p32 = rng.standard_normal(n)
+    out = dict(p=buf(p32, pdtype), g=buf(rng.standard_normal(n), pdtype),
+               m1=buf(rng.standard_normal(n) * 0.1, mdtype),
+               m2=buf(np.abs(rng.standard_normal(n)) * 0.01, mdtype),
+               master=buf(p32, torch.float32) if master else None)
+    return out
+
+
+def _adam_scalars():
+    f32 = dict(dtype=torch.float32, device="cuda")
+    return (torch.tensor(3e-3, **f32), torch.tensor(0.9 ** 5, **f32),
+            torch.tensor(0.95 ** 5, **f32))
+
+
+# The kernel runs _adam_math's operations in the same order, each rounded
+# once (no FMA), as PyTorch's elementwise kernels do: bit for bit.
+@pytest.mark.cuda
+@pytest.mark.parametrize("decoupled", [False, True])
+@pytest.mark.parametrize("pdtype,mdtype,master", [
+    (torch.float32, torch.float32, False),
+    (torch.float32, torch.bfloat16, False),
+    (torch.bfloat16, torch.float32, False),
+    (torch.bfloat16, torch.bfloat16, False),
+    (torch.bfloat16, torch.float32, True),
+    (torch.bfloat16, torch.bfloat16, True),
+])
+def test_cuda_fused_adam_matches_plain_bitwise(pdtype, mdtype, master,
+                                               decoupled):
+    require_cuda()
+    import numpy as np
+    from paddle_tpu_torch.ops import launch_counts
+    from paddle_tpu_torch.ops.fused_adam import (fused_adam,
+                                                 fused_adam_cuda,
+                                                 fused_adam_plain)
+    rng = np.random.RandomState(41)
+    kw = dict(beta1=0.9, beta2=0.95, epsilon=1e-8, decoupled=decoupled)
+    for n, offset in ((1, 0), (7, 0), (300, 0), (2049, 0), (2049, 1),
+                      (1 << 20, 0)):
+        c = _adam_case(rng, n, pdtype, mdtype, master, offset)
+        ref = {k: None if v is None else v.clone() for k, v in c.items()}
+        before = launch_counts()["fused_adam"]
+        fused_adam_cuda(c["p"], c["g"], c["m1"], c["m2"], *_adam_scalars(),
+                        0.1, master=c["master"], **kw)
+        fused_adam_plain(ref["p"], ref["g"], ref["m1"], ref["m2"],
+                         *_adam_scalars(), 0.1, master=ref["master"], **kw)
+        torch.cuda.synchronize()
+        assert launch_counts()["fused_adam"] == before + 1
+        for k in ("p", "m1", "m2", "master"):
+            if c[k] is not None:
+                assert c[k].dtype == ref[k].dtype
+                assert torch.equal(c[k], ref[k]), (n, offset, k)
+        # the dispatching entry point takes the kernel for CUDA tensors,
+        # and the same call on the same inputs gives the same bits
+        again = {k: None if v is None else v.clone() for k, v in c.items()}
+        twice = {k: None if v is None else v.clone() for k, v in c.items()}
+        for d in (again, twice):
+            fused_adam(d["p"], d["g"], d["m1"], d["m2"], *_adam_scalars(),
+                       0.1, master=d["master"], **kw)
+        torch.cuda.synchronize()
+        assert launch_counts()["fused_adam"] == before + 3
+        for k in ("p", "m1", "m2"):
+            assert torch.equal(again[k], twice[k]), (n, k)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_adam_refuses_bad_inputs():
+    require_cuda()
+    from paddle_tpu_torch.ops.fused_adam import fused_adam_cuda
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, decoupled=True)
+    s = _adam_scalars()
+    z = torch.zeros(64, device="cuda")
+    with pytest.raises(TypeError):
+        fused_adam_cuda(z.half(), z.half(), z, z, *s, 0.0, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        w = torch.zeros((8, 16), device="cuda").t()
+        fused_adam_cuda(w, w, w, w, *s, 0.0, **kw)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused_adam_cuda(z, z, z, z, torch.tensor(1e-3), s[1], s[2], 0.0,
+                        **kw)
+    with pytest.raises(ValueError, match="shape"):
+        fused_adam_cuda(z, torch.zeros(65, device="cuda"), z, z, *s, 0.0,
+                        **kw)
+    with pytest.raises(TypeError, match="device memory"):
+        fused_adam_cuda(z, z, z, z, 1e-3, s[1], s[2], 0.0, **kw)
+    with pytest.raises(TypeError, match="master"):
+        fused_adam_cuda(z, z, z, z, *s, 0.0, master=z.clone(), **kw)

@@ -120,6 +120,21 @@ def test_wrappers_take_plain_path_on_cpu_tensors():
         assert torch.equal(got, want)
     xg = x.clone().requires_grad_()
     fused_layer_norm(xg, w, b).sum().backward()
+    # the optimizer slice's wrapper: fused Adam, through the optimizer too
+    from paddle_tpu_torch.ops.fused_adam import (fused_adam,
+                                                 fused_adam_cuda,
+                                                 fused_adam_plain)
+    one = torch.tensor(0.5)
+    adam = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, decoupled=True)
+    pa, pb = x.clone(), x.clone()
+    ma, mb = torch.zeros(4, 16), torch.zeros(4, 16)
+    fused_adam(pa, x, ma, ma.clone(), one, one, one, 0.01, **adam)
+    fused_adam_plain(pb, x, mb, mb.clone(), one, one, one, 0.01, **adam)
+    assert torch.equal(pa, pb) and torch.equal(ma, mb)
+    from paddle_tpu_torch.optimizer import AdamW
+    par = torch.nn.Parameter(x.clone())
+    par.grad = x.clone()
+    AdamW(learning_rate=0.1, parameters=[par]).step()
     assert launch_counts() == before
     assert _kernels._LIB is None              # nothing was built
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -133,6 +148,8 @@ def test_wrappers_take_plain_path_on_cpu_tensors():
     for fn in (flash_bwd_dq_cuda, flash_bwd_dkv_cuda):
         with pytest.raises(ValueError, match="CUDA tensors"):
             fn(qa, qa, qa, qa, lse, delta, True, 1.0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused_adam_cuda(pa, x, ma, mb, one, one, one, 0.0, **adam)
 
 
 def test_kernel_tests_are_marked_cuda_and_skip_inside():

@@ -174,7 +174,148 @@ def test_step_updates_parameters_in_place_and_clear_grad():
 
 def test_unported_options_raise():
     from paddle_tpu_torch.optimizer import Adam, AdamW
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AdamW(learning_rate=0.1, parameters=[], lr_ratio=lambda p: 1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="sparse"):
+        Adam(learning_rate=0.1, parameters=[], lazy_mode=True)
+    with pytest.raises(TypeError, match="LRScheduler"):
         Adam(learning_rate=object(), parameters=[])
+    # a decay filter or lr_ratio needs the parameter's name, which the
+    # train steps pass and a bare step() does not have
+    p = torch.nn.Parameter(torch.ones(3))
+    p.grad = torch.ones(3)
+    for kw in (dict(lr_ratio=lambda q: 1.0),
+               dict(apply_decay_param_fun=lambda n: True)):
+        with pytest.raises(ValueError, match="name"):
+            AdamW(learning_rate=0.1, parameters=[p], **kw).step()
+
+
+def _decays(name):
+    return not name.endswith("bias") and not name.startswith("norm")
+
+
+def _ratio(param):
+    return {"a.weight": 0.5, "b.weight": 2.0}.get(param.name, 1.0)
+
+
+@pytest.mark.parametrize("kind,dtype,moments,mp,opts", [
+    ("adamw", torch.float32, "float32", False, "filter"),
+    ("adamw", torch.float32, "float32", False, "ratio"),
+    ("adamw", torch.bfloat16, "bfloat16", True, "filter+ratio"),
+    ("adam", torch.float32, "float32", False, "l1"),
+    ("adamw", torch.float32, "float32", False, "l1"),
+    ("adamw", torch.bfloat16, "float32", True, "schedule"),
+])
+def test_adam_options_match_apply_gradients_fn(kind, dtype, moments, mp,
+                                               opts):
+    """The decay filter by name, lr_ratio, L1Decay and an LRScheduler's
+    value, from the same non-zero moments on both sides: the JAX optimizer
+    steps twice alone, its state and parameters cross with
+    `bridge.load_jax_optimizer_state`, then both step three more times.
+    Tolerances as in the module docstring."""
+    from paddle_tpu import optimizer as jopt
+    from paddle_tpu.regularizer import L1Decay as JL1
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.bridge import load_jax_optimizer_state
+    from paddle_tpu_torch.regularizer import L1Decay
+    jkw, tkw = {}, {}
+    if "filter" in opts:
+        jkw["apply_decay_param_fun"] = tkw["apply_decay_param_fun"] = _decays
+    if "ratio" in opts:
+        jkw["lr_ratio"] = tkw["lr_ratio"] = _ratio
+    if opts == "l1":
+        jkw["weight_decay"], tkw["weight_decay"] = JL1(0.01), L1Decay(0.01)
+    elif kind == "adamw":
+        jkw["weight_decay"] = tkw["weight_decay"] = 0.05
+    lr = 1e-2
+    if opts == "schedule":
+        import paddle_tpu_torch.optimizer.lr as tlr
+        tkw["learning_rate"] = tlr.ExponentialDecay(lr, gamma=0.5)
+        tkw["learning_rate"].step()
+        lr = tkw["learning_rate"]()             # what get_lr() now reads
+    JCls = jopt.AdamW if kind == "adamw" else jopt.Adam
+    TCls = topt.AdamW if kind == "adamw" else topt.Adam
+    jax_opt = JCls(learning_rate=1e-2, multi_precision=mp,
+                   moment_dtype=moments, **jkw)
+    apply = jax_opt.apply_gradients_fn()
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jparams = {k: jnp.asarray(v, jdt) for k, v in _params(0).items()}
+    jstate = jax_opt.init_state(jparams)
+    names = sorted(jparams)
+    for i in range(5):
+        g = _grads(30 + i)
+        if i == 2:
+            tparams = {k: torch.from_numpy(
+                np.array(jparams[k].astype(jnp.float32))).to(dtype)
+                for k in names}
+            holder = _Named(tparams)
+            opt = TCls(parameters=list(tparams.values()), multi_precision=mp,
+                       moment_dtype=moments,
+                       **({} if "learning_rate" in tkw
+                          else {"learning_rate": 1e-2}), **tkw)
+            load_jax_optimizer_state(opt, holder, {
+                k: {s: np.asarray(v.astype(jnp.float32))
+                    for s, v in jstate[k].items()} for k in names})
+            assert float(opt.state[tparams["a.weight"]]["beta1_pow"]) == \
+                float(jstate["a.weight"]["beta1_pow"])
+        jparams, jstate = apply(jparams, {k: jnp.asarray(v, jdt)
+                                          for k, v in g.items()},
+                                jstate, jnp.float32(lr), jnp.int32(i + 1))
+        if i >= 2:
+            opt.apply_gradients(
+                [(tparams[k], torch.from_numpy(g[k]).to(dtype))
+                 for k in names], None if opts == "schedule" else lr,
+                names=names)
+    for k, t in tparams.items():
+        want = np.asarray(jparams[k].astype(jnp.float32))
+        if dtype == torch.float32:
+            np.testing.assert_allclose(t.numpy(), want, atol=1e-6, rtol=1e-6)
+        else:
+            _ulp_close(t.float().numpy(), want)
+        for s in ("moment1", "moment2"):
+            g_s = opt.state[t][s].float().numpy()
+            w_s = np.asarray(jstate[k][s].astype(jnp.float32))
+            if moments == "bfloat16":
+                _ulp_close(g_s, w_s)
+            else:
+                np.testing.assert_allclose(g_s, w_s, atol=1e-6, rtol=1e-6)
+
+
+class _Named(torch.nn.Module):
+    """A module whose named_parameters() are `params` under their dotted
+    names (what load_jax_optimizer_state walks)."""
+
+    def __init__(self, params):
+        super().__init__()
+        self._named = params
+
+    def named_parameters(self, *a, **k):
+        return iter(self._named.items())
+
+
+def test_state_dict_round_trip_carries_the_scheduler():
+    import paddle_tpu_torch.optimizer.lr as tlr
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def make():
+        p = torch.nn.Parameter(torch.ones(4))
+        sched = tlr.StepDecay(0.1, step_size=2, gamma=0.5)
+        return p, sched, AdamW(learning_rate=sched, parameters=[p])
+
+    p, sched, opt = make()
+    for _ in range(3):
+        p.grad = torch.full((4,), 0.3)
+        opt.step()
+        sched.step()
+    with pytest.raises(RuntimeError, match="LRScheduler"):
+        opt.set_lr(0.5)
+    sd = opt.state_dict()
+    assert sd["LR_Scheduler"]["last_epoch"] == 3 and opt.get_lr() == 0.05
+    p2, sched2, opt2 = make()
+    p2.data.copy_(p.data)
+    opt2.set_state_dict(sd)
+    assert opt2._step_count == 3 and sched2.last_epoch == 3
+    assert opt2.get_lr() == opt.get_lr()
+    for a, b in ((p, opt), (p2, opt2)):
+        a.grad = torch.full((4,), -0.2)
+        b.step()
+    assert torch.equal(p, p2)
+    assert torch.equal(opt.state[p]["moment2"], opt2.state[p2]["moment2"])

@@ -23,33 +23,11 @@ import numpy as np
 import pytest
 import torch
 
-import jax
+
+from _torch_port import assert_params_match, one_cpu_mesh, train_batches, \
+    train_models
 
 K, B, S = 3, 2, 64
-
-
-def _batches(seed):
-    rng = np.random.RandomState(seed)
-    ids = rng.randint(0, 512, (K, B, S)).astype(np.int32)
-    labels = np.roll(ids, -1, axis=2)
-    labels[:, :, -1] = -100
-    labels[:, 0, :7] = -100
-    return ids, labels
-
-
-def _models():
-    """A fresh JAX gpt2-tiny (seed 0) and the port model with its weights."""
-    import paddle_tpu as paddle
-    from paddle_tpu.models.gpt import GPTForCausalLM as JaxGPT
-    from paddle_tpu_torch.bridge import load_jax_state
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM
-    paddle.seed(0)
-    jm = JaxGPT.from_preset("gpt2-tiny")
-    params, _ = jm.functional_state()
-    tm = GPTForCausalLM.from_preset("gpt2-tiny", device="cpu")
-    load_jax_state(tm, {k: np.asarray(v) for k, v in params.items()})
-    tm.train()
-    return jm, tm
 
 
 def _optimizers(jm, tm):
@@ -65,41 +43,13 @@ def _optimizers(jm, tm):
     return jo, to
 
 
-def _mesh():
-    from jax.sharding import Mesh
-    return Mesh(np.array(jax.devices()[:1]), ("data",))
-
-
-def _key_bias(name, d, n_heads=4):
-    """The key columns of a qkv bias ([head][q | k | v] x head_dim)."""
-    if not name.endswith("qkv_proj.bias"):
-        return np.zeros(d.shape, bool)
-    mask = np.zeros((n_heads, 3, d.size // (3 * n_heads)), bool)
-    mask[:, 1] = True
-    return mask.reshape(d.shape)
-
-
-def _assert_params_match(jax_params, tm, steps, lr=1e-3):
-    from paddle_tpu_torch.bridge import export_state
-    got = export_state(tm)
-    assert set(got) == set(jax_params)
-    far = total = 0
-    for k, v in jax_params.items():
-        d = np.abs(got[k] - np.asarray(v))
-        assert d.max() <= 2 * lr * steps, (k, float(d.max()))
-        rest = d[~_key_bias(k, d)]
-        far += int((rest > 1e-5).sum())
-        total += rest.size
-    assert far <= 1e-4 * total, (far, total)
-
-
 def test_scan_train_step_matches_jax():
     from paddle_tpu.parallel import ScanTrainStep as JaxScan
     from paddle_tpu_torch.parallel import ScanTrainStep
-    jm, tm = _models()
+    jm, tm = train_models()
     jo, to = _optimizers(jm, tm)
-    ids, labels = _batches(0)
-    jstep = JaxScan(jm, jo, _mesh(), scan_steps=K, zero_stage=0,
+    ids, labels = train_batches(0)
+    jstep = JaxScan(jm, jo, one_cpu_mesh(), scan_steps=K, zero_stage=0,
                     donate=False)
     want = np.asarray(jstep(ids, labels).data)
     step = ScanTrainStep(tm, to, scan_steps=K, device="cpu")
@@ -109,29 +59,29 @@ def test_scan_train_step_matches_jax():
     assert got[-1] < got[0]
     assert step.dispatch_count == 1 and step._step_count == K
     np.testing.assert_allclose(step._lr_vector(K), jstep._lr_vector(K))
-    _assert_params_match(jstep._params, tm, K)
+    assert_params_match(jstep._params, tm, K)
 
 
 def test_sharded_train_step_one_step_matches_jax():
     from paddle_tpu.parallel import ShardedTrainStep as JaxStep
     from paddle_tpu_torch.parallel import ShardedTrainStep
-    jm, tm = _models()
+    jm, tm = train_models()
     jo, to = _optimizers(jm, tm)
-    ids, labels = _batches(1)
-    jstep = JaxStep(jm, jo, _mesh(), zero_stage=0, donate=False)
+    ids, labels = train_batches(1)
+    jstep = JaxStep(jm, jo, one_cpu_mesh(), zero_stage=0, donate=False)
     want = float(np.asarray(jstep(ids[0], labels[0]).data))
     step = ShardedTrainStep(tm, to, device="cpu")
     got = step(ids[0], labels[0])
     assert got.ndim == 0 and got.dtype == torch.float32
     np.testing.assert_allclose(float(got), want, atol=1e-5, rtol=1e-5)
-    _assert_params_match(jstep._params, tm, 1)
+    assert_params_match(jstep._params, tm, 1)
     assert all(p.grad is None for p in tm.parameters())
 
 
 def test_stack_batches_matches_jax():
     from paddle_tpu.parallel import stack_batches as jstack
     from paddle_tpu_torch.parallel import stack_batches
-    ids, labels = _batches(2)
+    ids, labels = train_batches(2)
     per_step = [(ids[i], torch.from_numpy(labels[i])) for i in range(K)]
     got = stack_batches(per_step)
     want = jstack([(ids[i], labels[i]) for i in range(K)])
@@ -143,8 +93,8 @@ def test_stack_batches_matches_jax():
 
 def test_forward_without_labels_returns_logits_like_jax():
     import paddle_tpu as paddle
-    jm, tm = _models()
-    ids, _ = _batches(3)
+    jm, tm = train_models()
+    ids, _ = train_batches(3)
     want = np.asarray(jm(paddle.to_tensor(ids[0])).data)
     got = tm(torch.from_numpy(ids[0]))
     np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-5,
@@ -166,7 +116,7 @@ def test_step_refuses_what_it_does_not_carry(monkeypatch):
     with pytest.raises(NoCUDADeviceError):
         ScanTrainStep(tm, opt, scan_steps=2)
     step = ScanTrainStep(tm, opt, mesh=["cpu"], scan_steps=2)
-    ids, labels = _batches(4)
+    ids, labels = train_batches(4)
     with pytest.raises(ValueError, match="stacked"):
         step(ids, labels)                    # K=3 chunk for a K=2 step
 
@@ -180,3 +130,97 @@ def test_flops_match_jax_and_peak_is_the_h100s():
     for other in ("some other card", "NVIDIA H100 PCIe"):
         with pytest.raises(KeyError):
             peak_flops(other)
+
+
+def _decays(name):
+    """The recipe's decay filter: neither a bias nor a LayerNorm
+    parameter (`gpt.layers.0.norm1.weight`, `gpt.final_norm.bias`)."""
+    return not (name.endswith(".bias") or "norm" in name)
+
+
+def _half_first_layer(param):
+    return 0.5 if ".layers.0." in param.name else 1.0
+
+
+def _option_optimizers(case, jm, tm):
+    """(JAX optimizer, port optimizer, fresh JAX scheduler or None, peak
+    lr) for one case of test_scan_train_step_options_match_jax."""
+    import paddle_tpu as paddle
+    from paddle_tpu import optimizer as jopt
+    from paddle_tpu.regularizer import L1Decay as JL1
+    import paddle_tpu_torch.optimizer.lr as tlr
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.regularizer import L1Decay
+
+    def sched(m):
+        if case == "schedule":
+            return m.LinearWarmup(m.CosineAnnealingDecay(
+                1e-3, T_max=4, eta_min=1e-4), warmup_steps=1, start_lr=2e-4,
+                end_lr=1e-3)
+        return m.LinearWarmup(m.CosineAnnealingDecay(
+            1e-3, T_max=9, eta_min=1e-4), warmup_steps=2, start_lr=0.0,
+            end_lr=1e-3)
+
+    clip = dict(j=paddle.nn.ClipGradByGlobalNorm(1.0),
+                t=ClipGradByGlobalNorm(1.0))
+    if case == "l1":
+        kw = dict(learning_rate=1e-3)
+        return (jopt.Adam(parameters=jm.parameters(), weight_decay=JL1(0.01),
+                          grad_clip=clip["j"], **kw),
+                topt.Adam(parameters=tm.parameters(),
+                          weight_decay=L1Decay(0.01), grad_clip=clip["t"],
+                          **kw), None, 1e-3)
+    if case == "filter_ratio":
+        kw = dict(learning_rate=1e-3, weight_decay=0.1,
+                  apply_decay_param_fun=_decays, lr_ratio=_half_first_layer)
+        return (jopt.AdamW(parameters=jm.parameters(), grad_clip=clip["j"],
+                           **kw),
+                topt.AdamW(parameters=tm.parameters(), grad_clip=clip["t"],
+                           **kw), None, 1e-3)
+    kw = dict(weight_decay=0.01)
+    if case == "recipe":
+        kw = dict(beta1=0.9, beta2=0.95, epsilon=1e-8, weight_decay=0.1,
+                  moment_dtype="bfloat16", apply_decay_param_fun=_decays)
+    return (jopt.AdamW(learning_rate=sched(jopt.lr),
+                       parameters=jm.parameters(), grad_clip=clip["j"], **kw),
+            topt.AdamW(learning_rate=sched(tlr), parameters=tm.parameters(),
+                       grad_clip=clip["t"], **kw), sched(jopt.lr), 1e-3)
+
+
+@pytest.mark.parametrize("case", ["schedule", "filter_ratio", "l1",
+                                  "recipe"])
+def test_scan_train_step_options_match_jax(case):
+    """LR schedule, decay filter by name with lr_ratio, L1Decay, and the
+    whole recipe (bf16 moments, clip, schedule, decay filter, recompute)
+    through both ScanTrainSteps: the lr vector each step used, the losses
+    and the final weights, to this file's limits."""
+    from paddle_tpu.parallel import ScanTrainStep as JaxScan
+    from paddle_tpu_torch.parallel import ScanTrainStep
+    over = dict(use_recompute=True) if case == "recipe" else {}
+    jm, tm = train_models(**over)
+    jo, to, jsched, peak = _option_optimizers(case, jm, tm)
+    ids, labels = train_batches(5)
+    jstep = JaxScan(jm, jo, one_cpu_mesh(), scan_steps=K, zero_stage=0,
+                    donate=False)
+    want = np.asarray(jstep(ids, labels).data)
+    step = ScanTrainStep(tm, to, scan_steps=K, device="cpu")
+    got = step(ids, labels)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    if jsched is None:
+        np.testing.assert_array_equal(step.lr_vector,
+                                      np.full(K, 1e-3, np.float32))
+    else:
+        host = []
+        for _ in range(K):
+            host.append(jsched())
+            jsched.step()
+        np.testing.assert_array_equal(step.lr_vector,
+                                      np.asarray(host, np.float32))
+        assert len(set(host)) == K                 # the schedule moved
+        assert to._lr_scheduler.last_epoch == \
+            jo._lr_scheduler.last_epoch == K
+    assert_params_match(jstep._params, tm, K, lr=peak)
+    if case == "recipe":
+        slots = to.state[tm.gpt.layers[0].norm1.weight]
+        assert slots["moment1"].dtype == torch.bfloat16

@@ -3,21 +3,24 @@
 
     python3 tools/profile_torch_training.py [--steps K] [--trace DIR]
 
-Trains `chip_smoke.py`'s train cell — the same model, optimizer and
-batch, built by `chip_smoke.train_workload()` and driven through
-`ScanTrainStep` as the train phase drives them — for a warm-up chunk of
-3 steps, a plain chunk of K steps (wall time and the host's time per
-step), and a chunk of K steps under `torch.profiler`. It prints JSON
-lines: the card (name and power limit from nvidia-smi), the step's wall
-time, the host's time per step, the device-busy time and its ratio to the
-wall time, and device time per step by family — flash attention forward
-and backward (port kernels), LayerNorm (port kernels), GEMMs of the
-layers (cuBLAS), the lm-head + cross-entropy, the optimizer (AdamW and
-the global-norm clip), and the elementwise rest — and by kernel name.
-The lm-head + CE and the optimizer are told apart by profiler ranges
-put around `FusedLinearCrossEntropyFn` and `Optimizer.apply_gradients`
-for the profiled chunk only. With `--trace` it writes a chrome trace
-there. Needs a GPU; exits 2 without one.
+Trains `chip_smoke.py`'s train cells, one after the other — `train`
+(AdamW, fp32 moments) and `train_recipe` (recompute, bf16 moments, LR
+schedule, clip, decay filter): the same model, optimizer and batch, built
+by `chip_smoke.train_workload()` and driven through `ScanTrainStep` as
+the smoke's train phases drive them — for a warm-up chunk of 3 steps, a
+plain chunk of K steps (wall time and the host's time per step), and a
+chunk of K steps under `torch.profiler`. It prints JSON lines: the card
+(name and power limit from nvidia-smi), then for each cell the step's
+wall time, the host's time per step, the device-busy time and its ratio
+to the wall time, and device time per step by family — flash attention
+forward and backward (port kernels), LayerNorm (port kernels), GEMMs of
+the layers (cuBLAS), the lm-head + cross-entropy, fused Adam (port
+kernel), the rest of the optimizer (the global-norm clip, the beta
+powers), and the elementwise rest — and by kernel name. The lm-head + CE
+and the optimizer are told apart by profiler ranges put around
+`FusedLinearCrossEntropyFn` and `Optimizer.apply_gradients` for the
+profiled chunk only. With `--trace` it writes a chrome trace of each
+cell there. Needs a GPU; exits 2 without one.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import sys
 
 CE_RANGE = "lm_head_ce"
 OPT_RANGE = "optimizer"
+FUSED_ADAM = "fused Adam (port kernel)"
 
 
 def emit(obj):
@@ -44,6 +48,8 @@ def family(name: str) -> str:
         return "flash attention backward (port kernels)"
     if "layernorm_" in n:
         return "LayerNorm forward and backward (port kernels)"
+    if "fused_adam_kernel" in n:
+        return FUSED_ADAM
     if any(t in n for t in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
         return "GEMMs of the layers (cuBLAS)"
     return "elementwise and other"
@@ -67,17 +73,10 @@ def _kernels_under(evt):
     return out
 
 
-def main(argv):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--trace", default=None)
-    args = ap.parse_args(argv)
+def profile_cell(cell, K, trace):
+    """Warm up, time and profile one train cell of chip_smoke.py; emit
+    its lines. Returns 1 when the profiler saw no device time."""
     import torch
-    if not torch.cuda.is_available():
-        print("profile_torch_training: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -86,13 +85,8 @@ def main(argv):
     from paddle_tpu_torch.optimizer.optimizer import Optimizer
     from paddle_tpu_torch.parallel import ScanTrainStep
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    emit({"device": torch.cuda.get_device_name(0),
-          "nvidia_smi": smi.stdout.strip()})
-    model, opt, ids, labels, _ = chip_smoke.train_workload()
-    K = args.steps
+    model, opt, ids, labels, _ = chip_smoke.train_workload(
+        recipe=cell == "train_recipe")
     warm = ScanTrainStep(model, opt, scan_steps=chip_smoke.TRAIN_WARMUP_STEPS)
     step = ScanTrainStep(model, opt, scan_steps=K)
 
@@ -117,6 +111,8 @@ def main(argv):
         FusedLinearCrossEntropyFn.forward = staticmethod(saved[0])
         FusedLinearCrossEntropyFn.backward = staticmethod(saved[1])
         Optimizer.apply_gradients = saved[2]
+    del model, opt, warm, step
+    torch.cuda.empty_cache()
 
     by_name = {}     # kernel name -> device ms over the profiled chunk
     launches = 0
@@ -136,16 +132,20 @@ def main(argv):
     fams = {}
     for k, v in by_name.items():
         fams[family(k)] = fams.get(family(k), 0.0) + v
-    # move the kernels launched under the two ranges into their own rows
+    # move the kernels launched under the two ranges into their own rows;
+    # fused Adam keeps its own row inside the optimizer's
     ranged = {CE_RANGE: "lm-head + cross-entropy (GEMMs and elementwise)",
-              OPT_RANGE: "optimizer (AdamW and the global-norm clip)"}
+              OPT_RANGE: "optimizer without fused Adam (global-norm clip, "
+                         "beta powers)"}
     for e in prof.events():
         if e.name in ranged:
             for kname, us in _kernels_under(e):
+                if family(kname) == FUSED_ADAM:
+                    continue
                 fams[family(kname)] -= us / 1e3
                 fams[ranged[e.name]] = fams.get(ranged[e.name], 0.0) \
                     + us / 1e3
-    emit({"phase": "run", "steps": K, "wall_ms": plain_ms,
+    emit({"cell": cell, "phase": "run", "steps": K, "wall_ms": plain_ms,
           "step_ms": plain_ms / K,
           "host_ms_per_step_p50": statistics.median(host_ms),
           "host_ms_per_step": host_ms,
@@ -156,15 +156,36 @@ def main(argv):
           # raw ratios, unclamped
           "device_busy_over_wall_profiled": busy_ms / prof_ms,
           "device_busy_over_wall_unprofiled": busy_ms / plain_ms})
-    emit({"phase": "families", "ms_per_step": {
+    emit({"cell": cell, "phase": "families", "ms_per_step": {
         k: v / K for k, v in sorted(fams.items(), key=lambda kv: -kv[1])}})
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:20]
-    emit({"phase": "kernels", "ms_per_step": [
+    emit({"cell": cell, "phase": "kernels", "ms_per_step": [
         [k[:120], v / K] for k, v in top]})
-    if args.trace:
-        os.makedirs(args.trace, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.trace,
-                                              "training_steps.json"))
+    if trace:
+        os.makedirs(trace, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(trace, f"{cell}_steps.json"))
+    return 0
+
+
+def main(argv):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--trace", default=None)
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_torch_training: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    emit({"device": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi.stdout.strip()})
+    for cell in ("train", "train_recipe"):
+        if profile_cell(cell, args.steps, args.trace):
+            return 1
     return 0
 
 
