@@ -17,7 +17,10 @@ a checkout, it exits 2 at once.
 
 Phases:
   1. device   — card name, count, nvidia-smi name/power limit
-  2. build    — nvcc build of the kernel library, timed
+  2. build    — nvcc build of the kernel library, timed, with ptxas's
+                register and spill report, and the tensor-core (HGMMA)
+                instructions of the bf16 flash forward and dk/dv kernels
+                counted in their machine code (cuobjdump -sass)
   3. kernels  — each kernel against its plain version at its path's
                 shapes (serving: paged attention and the LayerNorm
                 forward; training: flash attention forward, dq and dk/dv
@@ -26,10 +29,13 @@ Phases:
                 bit for bit in every dtype, with and without a master
                 weight, at n = 1000, 2049, linear1.weight and the word
                 embedding), with fp32, GQA, non-causal, Sq != Sk,
-                ragged and D=64 edge cases, timed on the device (median of
-                21 CUDA-event samples of back-to-back calls held behind a
-                spin kernel) beside one PyTorch library call for the same
-                function and the least time the card could take
+                ragged, D=16..64 and B*H > 132 edge cases, the bf16 flash
+                forward and dk/dv run twice and held bit-equal, timed on
+                the device (median of 21 CUDA-event samples of
+                back-to-back calls held behind a spin kernel) beside one
+                PyTorch library call for the same function and the least
+                time the card could take (flash kernels: with their
+                achieved TFLOP/s and share of that bound)
   4. model    — gpt3-1.3b widths cut to 2 layers, fp32, on the card
                 (kernels) against a CPU twin with the same weights (plain
                 versions): the engine's unified steps (logits and tokens),
@@ -170,13 +176,27 @@ def phase_device():
 
 
 # ---------------------------------------------------------------- phase 2
+# the kernels that must run on the tensor cores: their machine code has to
+# hold warpgroup products (HGMMA)
+TENSOR_CORE_KERNELS = ("flash_fwd_kernel_tc", "flash_bwd_dkv_kernel_tc")
+
+
 def phase_build():
     from paddle_tpu_torch.ops import _kernels
     t0 = time.perf_counter()
     _kernels.load_library()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    sass = _kernels.sass_instruction_counts()
+    tensor_core = {}
+    for name in TENSOR_CORE_KERNELS:
+        found = {k: c for k, c in sass.items() if name in k}
+        check(found and all(c["HGMMA"] > 0 for c in found.values()),
+              f"{name}: no HGMMA instruction in its machine code ({found})")
+        tensor_core[name] = list(found.values())
+    emit({"phase": "build", "seconds": seconds,
           "nvcc_seconds": _kernels.build_seconds,
           "sources": [f"paddle_tpu_torch/csrc/{s}" for s in _kernels.SOURCES],
+          "tensor_core_instructions": tensor_core,
           "ptxas": _kernels.ptxas_report or None})
 
 
@@ -650,12 +670,29 @@ def phase_train_kernels():
             "fp32_ragged_d32_noncausal": (1, 2, 77, 130, 32,
                                           torch.float32, False),
             "bf16_ragged_d64": (2, 4, 333, 333, 64, bf, True),
-            "bf16_sq_gt_sk_noncausal": (1, 4, 190, 70, 128, bf, False)}.items():
+            "bf16_sq_gt_sk_noncausal": (1, 4, 190, 70, 128, bf, False),
+            "bf16_sq_lt_sk_d32": (1, 3, 100, 300, 32, bf, True),
+            "bf16_one_row_d16": (1, 2, 1, 1, 16, bf, True),
+            "bf16_bh160": (4, 40, 128, 128, 128, bf, True)}.items():
         cases[name] = check_flash(
             torch, *_flash_inputs(torch, gen, b_, h_, sq, sk, d_, dt),
             causal, name)
     emit({"phase": "kernel_checks", "name": "flash_attention",
           "cases": cases})
+    # fixed summation order, no atomics: two runs are bit-equal
+    scale = 1.0 / math.sqrt(D)
+    runs = []
+    for _ in range(2):
+        out, lse = flash_fwd_cuda(q, k, v, True, scale)
+        delta = flash_attention_delta(g, out)
+        runs.append((out, lse, *flash_bwd_dkv_cuda(q, k, v, g, lse, delta,
+                                                   True, scale)))
+    torch.cuda.synchronize()
+    for n, a, b in zip(("out", "lse", "dk", "dv"), *runs):
+        check(torch.equal(a, b), f"flash bf16 {n}: two runs differ")
+    emit({"phase": "kernel_checks", "name": "flash_attention_bitwise",
+          "runs": 2, "equal": ["out", "lse", "dk", "dv"]})
+    del runs
 
     # LayerNorm backward: the training rows (4 x 1024) at width 2048
     R, N = TRAIN_B * TRAIN_S, 2048
@@ -688,7 +725,6 @@ def phase_train_kernels():
     # the LayerNorm backward's x and dy (34 MB) are cycled over two copies,
     # so a call finds them out of L2, as a layer of a train step does.
     results = {}
-    scale = 1.0 / math.sqrt(D)
     copies = [(q, k, v, g)] + [tuple(t.clone() for t in (q, k, v, g))]
     outs = []
     for cq, ck, cv, cg in copies:
@@ -733,6 +769,8 @@ def phase_train_kernels():
             call_ms=t[name][1], plain_ms=plain[name],
             library_ms=library[name], bound_ms=bound, bound_by=by,
             bytes=n_bytes, ops=n_ops,
+            tflops=n_ops / t[name][0] / 1e9,
+            share_of_bound=bound / t[name][0],
             shape=dict(B=B, H=H, Sq=S, Sk=S, D=D, causal=True,
                        dtype="bfloat16"),
             note=(None if name == "flash_fwd" else
@@ -1512,13 +1550,13 @@ KERNEL_META = {
         source="paddle_tpu_torch/csrc/layernorm.cu",
         replaces="paddle_tpu/ops/layernorm.py:35", phase="serve"),
     "flash_fwd": dict(
-        source="paddle_tpu_torch/csrc/flash_attention.cu",
+        source="paddle_tpu_torch/csrc/flash_attention_tc.cu",
         replaces="paddle_tpu/ops/attention.py:174", phase="train"),
     "flash_bwd_dq": dict(
         source="paddle_tpu_torch/csrc/flash_attention.cu",
         replaces="paddle_tpu/ops/attention.py:246", phase="train"),
     "flash_bwd_dkv": dict(
-        source="paddle_tpu_torch/csrc/flash_attention.cu",
+        source="paddle_tpu_torch/csrc/flash_attention_tc.cu",
         replaces="paddle_tpu/ops/attention.py:300", phase="train"),
     "layernorm_bwd": dict(
         source="paddle_tpu_torch/csrc/layernorm.cu",
@@ -1566,6 +1604,9 @@ def main():
                     launches_by_phase={ph: c[k] for ph, c in
                                        by_phase.items()},
                     **{x: kern[k][x] for x in keys}, kernel_ms=kern[k]["ms"])
+        for x in ("tflops", "share_of_bound"):   # the flash kernels
+            if x in kern[k]:
+                line[x] = kern[k][x]
         if k + "_train" in kern:   # a served kernel the train step runs too
             line["at_train_shape"] = {x: kern[k + "_train"][x] for x in
                                       keys + ("shape",)}

@@ -34,8 +34,16 @@
 // operations a byte or more, near the H100's bf16 ridge point, so the
 // least time is set by the tensor cores' 989 TFLOP/s.
 //
-// Design (a simple, correct first kernel; no tensor cores, TMA or
-// pipelining yet, so it runs on the CUDA cores at fp32 rate, far from that
+// Routes: bf16 (dtype 1) forward and dk/dv run on the tensor cores, in
+// flash_attention_tc.cu (wgmma fed by TMA through mbarrier rings, P and
+// dS^T kept in registers; see its note). Everything else
+// here is the scalar design below: the fp32 path of all three kernels
+// (kept true fp32: no TF32, since the model phase holds fp32 train steps to
+// a CPU twin within 1e-4) and dq in both dtypes (dq's tensor-core version
+// is queued; it can reuse the forward's q-stationary tile machinery).
+//
+// Scalar design (a simple, correct first kernel; no tensor cores, TMA or
+// pipelining, so it runs on the CUDA cores at fp32 rate, far from that
 // bound): one CTA of 256 threads per (64-row tile, batch*head). Tiles of q,
 // k, v (and g) are staged in shared memory as fp32 (bf16 widened once on
 // load), 64 rows x D, padded to 129 floats a row so the strided reads hit
@@ -550,6 +558,15 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* g,
 
 }  // namespace
 
+// The bf16 forward and dk/dv on the tensor cores (flash_attention_tc.cu).
+int flash_fwd_bf16_tc(const void* q, const void* k, const void* v, void* out,
+                      void* lse, int BH, int Sq, int Sk, int D, float scale,
+                      int causal, cudaStream_t s);
+int flash_bwd_dkv_bf16_tc(const void* q, const void* k, const void* v,
+                          const void* g, const void* lse, const void* delta,
+                          void* dk, void* dv, int BH, int Sq, int Sk, int D,
+                          float scale, int causal, cudaStream_t s);
+
 // dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError() after
 // its launch (0 on success); the caller raises on anything else.
 extern "C" int pdtt_flash_fwd(const void* q, const void* k, const void* v,
@@ -562,8 +579,8 @@ extern "C" int pdtt_flash_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return fwd<float>(q, k, v, out, lse, BH, Sq, Sk, D, scale, causal, s);
   if (dtype == 1)
-    return fwd<__nv_bfloat16>(q, k, v, out, lse, BH, Sq, Sk, D, scale,
-                              causal, s);
+    return flash_fwd_bf16_tc(q, k, v, out, lse, BH, Sq, Sk, D, scale, causal,
+                             s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -597,7 +614,7 @@ extern "C" int pdtt_flash_bwd_dkv(const void* q, const void* k,
     return bwd_dkv<float>(q, k, v, g, lse, delta, dk, dv, BH, Sq, Sk, D,
                           scale, causal, s);
   if (dtype == 1)
-    return bwd_dkv<__nv_bfloat16>(q, k, v, g, lse, delta, dk, dv, BH, Sq, Sk,
-                                  D, scale, causal, s);
+    return flash_bwd_dkv_bf16_tc(q, k, v, g, lse, delta, dk, dv, BH, Sq, Sk,
+                                 D, scale, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -29,8 +29,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flash_attention.cu", "fused_adam.cu", "layernorm.cu",
-           "paged_attention.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_tc.cu", "fused_adam.cu",
+           "layernorm.cu", "paged_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -44,6 +44,7 @@ build_seconds = None   # wall time of the last build in this process (None:
 #                        the library was already built)
 ptxas_report = ""      # nvcc/ptxas output of the last build: registers,
 #                        shared memory and spills of every kernel
+library_path = None    # the loaded library's file
 
 _c = ctypes
 _P = _c.c_void_p
@@ -156,7 +157,7 @@ def _build(out: Path, flags):
 
 def load_library():
     """The loaded kernel library, building it first when needed."""
-    global _LIB
+    global _LIB, library_path
     if _LIB is not None:
         return _LIB
     with _LOCK:
@@ -172,7 +173,40 @@ def load_library():
             f.argtypes = list(argtypes)
             f.restype = ctypes.c_int
         _LIB = lib
+        library_path = out
     return _LIB
+
+
+def sass_instruction_counts(opcodes=("HMMA", "HGMMA")) -> dict:
+    """{kernel symbol: {opcode: count}} in the loaded library's machine
+    code (`cuobjdump -sass`), for every kernel that has one of `opcodes`:
+    the proof that a kernel runs on the tensor cores."""
+    load_library()
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    r = subprocess.run([str(tool), "-sass", str(library_path)],
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed:\n{r.stdout}")
+    return count_sass_opcodes(r.stdout, opcodes)
+
+
+def count_sass_opcodes(sass: str, opcodes) -> dict:
+    """Count the instructions of `opcodes` (with any modifiers, as in
+    `HGMMA.64x64x16.F32.BF16`) under each `Function :` of a cuobjdump -sass
+    listing; functions without any are left out."""
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function : "):
+            fn = line[len("Function : "):]
+            continue
+        if fn is None:
+            continue
+        for op in opcodes:
+            if f" {op}." in line or f" {op} " in line:
+                counts.setdefault(fn, dict.fromkeys(opcodes, 0))[op] += 1
+    return counts
 
 
 def dtype_code(dtype) -> int:

@@ -2,9 +2,10 @@
 
 Two parts. `flash_attention` is the no-cache attention of training: the
 TPU kernels `_fwd_kernel`, `_bwd_dq_kernel` and `_bwd_dkv_kernel` become
-the hand-written CUDA kernels in `csrc/flash_attention.cu`, tied together
-by `FlashAttentionFn` (the JAX package's custom_vjp). Their plain PyTorch
-versions run the same arithmetic on whole score matrices
+the hand-written CUDA kernels in `csrc/flash_attention.cu` (the bf16
+forward and dk/dv run on the tensor cores, `csrc/flash_attention_tc.cu`),
+tied together by `FlashAttentionFn` (the JAX package's custom_vjp).
+Their plain PyTorch versions run the same arithmetic on whole score matrices
 (`_attention_reference`'s op sequence, plus lse and the JAX backward
 kernels' formulas); a CPU tensor takes them and a CUDA tensor launches
 the kernels. The TPU-only dispatch rules (S >= 512, block divisibility,
@@ -135,7 +136,17 @@ def _check_qkv(q, k, v, what):
         raise ValueError("flash attention kernels take contiguous tensors")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
+    if q.dtype == torch.bfloat16:
+        _check_aligned((q, k, v))
     return B, H, Sq, k.shape[2], D
+
+
+def _check_aligned(tensors):
+    """The bf16 tensor-core kernels read their inputs by TMA, which takes
+    16-byte aligned addresses."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("bf16 flash attention kernels take tensors whose "
+                         "data starts on a 16-byte boundary")
 
 
 def flash_fwd_cuda(q, k, v, causal, scale):
@@ -159,6 +170,8 @@ def _check_grad_side(q, g, lse, delta):
     if g.shape != q.shape or g.dtype != q.dtype or not g.is_contiguous():
         raise ValueError(f"g must be a contiguous {tuple(q.shape)} "
                          f"{q.dtype} tensor, got {tuple(g.shape)} {g.dtype}")
+    if g.dtype == torch.bfloat16:
+        _check_aligned((g,))
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.shape != (B, H, Sq) or t.dtype != torch.float32
                 or not t.is_contiguous() or t.device != q.device):

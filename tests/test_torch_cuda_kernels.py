@@ -17,7 +17,10 @@ atol/rtol 1e-5 for outputs of one op sequence, 1e-4 for sums of many
 products in another order; bf16 within `chip_smoke.py`'s
 BF16_TRAIN_FACTOR times the bf16 plain version's own error from the fp32
 plain version, plus BF16_TRAIN_ATOL. Their sums run in a fixed order, so
-two runs are bit-equal, which is tested too. Fused Adam: bit for bit
+two runs are bit-equal, which is tested too (forward and backward). The
+bf16 forward and dk/dv run on the tensor cores: their machine code holds
+wgmma's HGMMA instructions, and a bf16 input they cannot take raises
+instead of going anywhere else. Fused Adam: bit for bit
 (tolerance 0) against its plain version on the card, in every dtype, with
 and without a master weight, at ragged, tiny and misaligned n.
 """
@@ -163,7 +166,18 @@ def _assert_bf16_train(got, plain_bf16, plain_fp32):
     (torch.float32, 2, 2, 77, 130, 32, False),
     (torch.float32, 1, 1, 5, 5, 16, True),
     (torch.bfloat16, 2, 4, 256, 256, 128, True),
-    (torch.bfloat16, 1, 4, 190, 70, 64, False),
+    (torch.bfloat16, 1, 4, 190, 70, 64, False),     # Sq > Sk, not causal
+    # the tensor-core path's edges: D = 16..128 (96 runs padded to 128),
+    # one-row and ragged tiles, Sq < Sk and Sq > Sk, B*H past 132 SMs
+    (torch.bfloat16, 1, 2, 1, 1, 16, True),
+    (torch.bfloat16, 1, 3, 63, 63, 32, True),
+    (torch.bfloat16, 2, 2, 65, 65, 64, False),
+    (torch.bfloat16, 1, 2, 333, 333, 128, True),
+    (torch.bfloat16, 1, 2, 77, 77, 96, True),
+    (torch.bfloat16, 1, 2, 100, 300, 64, True),     # Sq < Sk
+    (torch.bfloat16, 1, 2, 100, 300, 128, False),
+    (torch.bfloat16, 1, 2, 300, 100, 32, True),     # Sq > Sk: empty rows
+    (torch.bfloat16, 4, 40, 128, 128, 128, True),   # B*H = 160
 ])
 def test_cuda_flash_attention_matches_plain(dtype, B, H, Sq, Sk, D, causal):
     require_cuda()
@@ -223,7 +237,11 @@ def test_cuda_flash_backward_is_bitwise_deterministic():
     rng = np.random.RandomState(32)
     q, k, v, g = (_t(rng, (2, 4, 320, 128), torch.bfloat16)
                   for _ in range(4))
-    out, lse = flash_fwd_cuda(q, k, v, True, 128 ** -0.5)
+    # the forward too: fixed-order sums, no atomics
+    fwd = [flash_fwd_cuda(q, k, v, True, 128 ** -0.5) for _ in range(2)]
+    for a, b in zip(*fwd):
+        assert torch.equal(a, b)
+    out, lse = fwd[0]
     delta = flash_attention_delta(g, out)
     runs = [(flash_bwd_dq_cuda(q, k, v, g, lse, delta, True, 128 ** -0.5),
              *flash_bwd_dkv_cuda(q, k, v, g, lse, delta, True, 128 ** -0.5))
@@ -290,6 +308,50 @@ def test_cuda_flash_refuses_mask_dropout_and_bad_inputs():
                        torch.zeros((1, 2, 8, 40), device="cuda"), True, 1.0)
     with pytest.raises(TypeError, match="one dtype"):
         flash_fwd_cuda(q, q.bfloat16(), q, True, 1.0)
+
+
+# A bf16 input the tensor-core kernels cannot take raises: it is never
+# routed to the scalar kernel or the plain version.
+@pytest.mark.cuda
+def test_cuda_flash_bf16_never_reaches_another_route():
+    require_cuda()
+    from paddle_tpu_torch.ops import launch_counts
+    from paddle_tpu_torch.ops.attention import (flash_attention_delta,
+                                                flash_bwd_dkv_cuda,
+                                                flash_fwd_cuda)
+    bf = torch.bfloat16
+    q = torch.randn((1, 2, 64, 64), device="cuda").to(bf)
+    before = launch_counts()
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_fwd_cuda(q.transpose(2, 3), q, q, True, 1.0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_fwd_cuda(q.half(), q.half(), q.half(), True, 1.0)
+    flat = torch.zeros(q.numel() + 1, device="cuda", dtype=bf)
+    off = flat[1:].view(q.shape)          # contiguous, 2 bytes off 16
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_fwd_cuda(off, q, q, True, 1.0)
+    out, lse = flash_fwd_cuda(q, q, q, True, 1.0)
+    delta = flash_attention_delta(q, out)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_bwd_dkv_cuda(q, q, q, off, lse, delta, True, 1.0)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after["flash_fwd"] == before["flash_fwd"] + 1
+    assert after["flash_bwd_dkv"] == before["flash_bwd_dkv"]
+
+
+# The machine code of the bf16 forward and dk/dv kernels holds warpgroup
+# products, wgmma's HGMMA (cuobjdump -sass).
+@pytest.mark.cuda
+def test_cuda_flash_bf16_kernels_run_on_tensor_cores():
+    require_cuda()
+    from chip_smoke import TENSOR_CORE_KERNELS
+    from paddle_tpu_torch.ops import _kernels
+    counts = _kernels.sass_instruction_counts()
+    for name in TENSOR_CORE_KERNELS:
+        found = {k: c for k, c in counts.items() if name in k}
+        assert found, f"no tensor-core instruction in {name}"
+        assert all(c["HGMMA"] > 0 for c in found.values())
 
 
 def _adam_case(rng, n, pdtype, mdtype, master, offset=0):

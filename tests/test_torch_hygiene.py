@@ -181,6 +181,25 @@ def test_launch_count_reset():
         _kernels.LAUNCHES.update(saved)
 
 
+def test_sass_opcode_count():
+    """The tensor-core proof reads cuobjdump's listing function by
+    function, opcode with or without modifiers."""
+    from paddle_tpu_torch.ops._kernels import count_sass_opcodes
+    sass = """
+        Function : _Z19flash_fwd_kernel_tc
+        /*0100*/          HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;
+        /*0110*/          HGMMA.64x128x16.F32.BF16 R88, R8, gdesc[UR8] ;
+        /*0120*/                   FMUL R2, R3, R4 ;
+        Function : _Z16layernorm_kernel
+        /*0100*/                   FADD R2, R3, R4 ;
+        Function : _Z8mma_demo
+        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+    """
+    assert count_sass_opcodes(sass, ("HMMA", "HGMMA")) == {
+        "_Z19flash_fwd_kernel_tc": {"HMMA": 0, "HGMMA": 2},
+        "_Z8mma_demo": {"HMMA": 1, "HGMMA": 0}}
+
+
 def test_kernel_build_is_keyed_by_sources():
     from paddle_tpu_torch.ops import _kernels
     key = _kernels._source_key(list(_kernels.NVCC_FLAGS))

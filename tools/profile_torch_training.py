@@ -13,7 +13,7 @@ chunk of K steps under `torch.profiler`. It prints JSON lines: the card
 (name and power limit from nvidia-smi), then for each cell the step's
 wall time, the host's time per step, the device-busy time and its ratio
 to the wall time, and device time per step by family — flash attention
-forward and backward (port kernels), LayerNorm (port kernels), GEMMs of
+forward, dq and dk/dv (port kernels), LayerNorm (port kernels), GEMMs of
 the layers (cuBLAS), the lm-head + cross-entropy, fused Adam (port
 kernel), the rest of the optimizer (the global-norm clip, the beta
 powers), and the elementwise rest — and by kernel name. The lm-head + CE
@@ -44,8 +44,10 @@ def family(name: str) -> str:
     n = name.lower()
     if "flash_fwd_kernel" in n:
         return "flash attention forward (port kernel)"
-    if "flash_bwd_" in n:
-        return "flash attention backward (port kernels)"
+    if "flash_bwd_dq" in n:
+        return "flash attention dq (port kernel)"
+    if "flash_bwd_dkv" in n:
+        return "flash attention dk/dv (port kernel)"
     if "layernorm_" in n:
         return "LayerNorm forward and backward (port kernels)"
     if "fused_adam_kernel" in n:
