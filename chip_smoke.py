@@ -18,9 +18,11 @@ a checkout, it exits 2 at once.
 Phases:
   1. device   — card name, count, nvidia-smi name/power limit
   2. build    — nvcc build of the kernel library, timed, with ptxas's
-                register and spill report, and the tensor-core (HGMMA)
-                instructions of the bf16 flash forward and dk/dv kernels
-                counted in their machine code (cuobjdump -sass)
+                register and spill report (the tensor-core kernels must not
+                spill), and the tensor-core instructions (wgmma's HGMMA,
+                mma.sync's HMMA) of the bf16 flash forward, dq and dk/dv
+                and the bf16 paged attention counted in their machine code
+                (cuobjdump -sass)
   3. kernels  — each kernel against its plain version at its path's
                 shapes (serving: paged attention and the LayerNorm
                 forward; training: flash attention forward, dq and dk/dv
@@ -28,14 +30,15 @@ Phases:
                 and backward at 4096x2048 bf16; the optimizer: fused Adam
                 bit for bit in every dtype, with and without a master
                 weight, at n = 1000, 2049, linear1.weight and the word
-                embedding), with fp32, GQA, non-causal, Sq != Sk,
-                ragged, D=16..64 and B*H > 132 edge cases, the bf16 flash
-                forward and dk/dv run twice and held bit-equal, timed on
-                the device (median of 21 CUDA-event samples of
-                back-to-back calls held behind a spin kernel) beside one
-                PyTorch library call for the same function and the least
-                time the card could take (flash kernels: with their
-                achieved TFLOP/s and share of that bound)
+                embedding), with fp32, GQA, block_len 12..64, non-causal,
+                Sq != Sk, ragged, D=16..64 and B*H > 132 edge cases, the
+                bf16 paged attention and flash forward, dq and dk/dv run
+                twice and held bit-equal, timed on the device (median of
+                21 CUDA-event samples of back-to-back calls held behind a
+                spin kernel) beside one PyTorch library call for the same
+                function and the least time the card could take (flash
+                and paged attention: with their achieved TFLOP/s and share
+                of that bound)
   4. model    — gpt3-1.3b widths cut to 2 layers, fp32, on the card
                 (kernels) against a CPU twin with the same weights (plain
                 versions): the engine's unified steps (logits and tokens),
@@ -176,9 +179,23 @@ def phase_device():
 
 
 # ---------------------------------------------------------------- phase 2
-# the kernels that must run on the tensor cores: their machine code has to
-# hold warpgroup products (HGMMA)
-TENSOR_CORE_KERNELS = ("flash_fwd_kernel_tc", "flash_bwd_dkv_kernel_tc")
+# the kernels that must run on the tensor cores, each with the instructions
+# that show it in its machine code: warpgroup products (wgmma's HGMMA) or
+# warp products (mma.sync's HMMA)
+TENSOR_CORE_KERNELS = {"flash_fwd_kernel_tc": ("HGMMA",),
+                       "flash_bwd_dq_kernel_tc": ("HGMMA",),
+                       "flash_bwd_dkv_kernel_tc": ("HGMMA",),
+                       "paged_attention_kernel_tc": ("HMMA", "HGMMA")}
+
+
+def tensor_core_instructions(sass, name, opcodes):
+    """{symbol: counts} of the functions of `name` in a
+    sass_instruction_counts() result; empty unless every one of them holds
+    one of `opcodes`."""
+    found = {k: c for k, c in sass.items() if name in k}
+    if all(sum(c[op] for op in opcodes) > 0 for c in found.values()):
+        return found
+    return {}
 
 
 def phase_build():
@@ -187,16 +204,26 @@ def phase_build():
     _kernels.load_library()
     seconds = time.perf_counter() - t0
     sass = _kernels.sass_instruction_counts()
-    tensor_core = {}
-    for name in TENSOR_CORE_KERNELS:
-        found = {k: c for k, c in sass.items() if name in k}
-        check(found and all(c["HGMMA"] > 0 for c in found.values()),
-              f"{name}: no HGMMA instruction in its machine code ({found})")
+    stats = _kernels.ptxas_kernel_stats(_kernels.ptxas_report)
+    tensor_core, resources = {}, {}
+    for name, opcodes in TENSOR_CORE_KERNELS.items():
+        found = tensor_core_instructions(sass, name, opcodes)
+        check(found, f"{name}: no {' or '.join(opcodes)} instruction in its "
+                     f"machine code ({sass})")
         tensor_core[name] = list(found.values())
+        if not _kernels.ptxas_report:
+            continue     # loaded from an earlier build: no report to read
+        mine = {k: v for k, v in stats.items() if name in k}
+        check(mine, f"{name}: not in ptxas's report")
+        spills = {k: v for k, v in mine.items()
+                  if v["spill_stores"] or v["spill_loads"]}
+        check(not spills, f"{name}: ptxas spills registers: {spills}")
+        resources[name] = sorted({v["registers"] for v in mine.values()})
     emit({"phase": "build", "seconds": seconds,
           "nvcc_seconds": _kernels.build_seconds,
           "sources": [f"paddle_tpu_torch/csrc/{s}" for s in _kernels.SOURCES],
           "tensor_core_instructions": tensor_core,
+          "tensor_core_registers": resources or None,
           "ptxas": _kernels.ptxas_report or None})
 
 
@@ -365,7 +392,8 @@ def phase_kernels():
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.paged_attention import (paged_attention_cuda,
-                                                      paged_attention_plain)
+                                                      paged_attention_plain,
+                                                      paged_route)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     results = {}
@@ -395,6 +423,38 @@ def phase_kernels():
                       lens=[48, 17], decode_rows=(0, 1))
     cases["decode_fp32_bl16"] = check_paged(torch, odd, "decode fp32 bl16",
                                             1e-5)[0]
+    # bf16 at the other block lengths: every tensor-core instantiation the
+    # tests reach (block_len 16, 24, 64; D 64; Tq past one 64-row tile;
+    # decode rows) and block_len 12, which the route sends to the scalar
+    # kernel; lengths of the served kind
+    for label, kw in {
+            "bf16_gqa_d64_bl16": dict(H=8, Hkv=2, D=64, B=3, Tq=90,
+                                      block_len=16, n_blocks=12, pad=8,
+                                      lens=[192, 100, 150],
+                                      decode_rows=(1,)),
+            "bf16_bl24": dict(H=4, Hkv=4, D=128, B=3, Tq=33, block_len=24,
+                              n_blocks=9, pad=0, lens=[216, 80, 130],
+                              decode_rows=(1,)),
+            "bf16_gqa_bl64_decode": dict(H=8, Hkv=1, D=128, B=2, Tq=1,
+                                         block_len=64, n_blocks=5, pad=0,
+                                         lens=[320, 77], decode_rows=(0, 1)),
+            "bf16_bl12_scalar": dict(H=4, Hkv=2, D=128, B=3, Tq=20,
+                                     block_len=12, n_blocks=10, pad=4,
+                                     lens=[120, 45, 90])
+            }.items():
+        c = _paged_case(torch, gen, dtype=torch.bfloat16, **kw)
+        cases[label] = check_paged(torch, c, label)[0]
+        cases[label]["route"] = paged_route(torch.bfloat16, kw["block_len"],
+                                            kw["D"])
+    # a row's sums run in one fixed order: two runs are bit-equal
+    for label, c in (("bf16 H16 D128", bf), ("GQA bf16", gqa)):
+        a = (c["q"], c["k"], c["v"], c["table"], c["lens"], c["q_pos"],
+             c["block_len"], c["pages_per_row"], 1.0 / math.sqrt(128))
+        runs = [paged_attention_cuda(*a) for _ in range(2)]
+        torch.cuda.synchronize()
+        check(torch.equal(*runs), f"paged attention {label}: two runs differ")
+    emit({"phase": "kernel_checks", "name": "paged_attention_bitwise",
+          "runs": 2, "equal": ["bf16 H16 D128", "GQA bf16"]})
 
     # each layer of a served step reads its own slabs, which the layers
     # before it have pushed out of L2: every timing cycles input copies
@@ -418,6 +478,7 @@ def phase_kernels():
     n_bytes, n_ops = _paged_bytes_ops(bf)
     pa_bound, pa_by = bound_ms(n_bytes, n_ops, "bfloat16")
     results["paged_attention"] = dict(
+        route=paged_route(torch.bfloat16, 8, 128),
         max_abs_err=cases["bf16"]["max_abs_err"],
         tol=f"bf16: each element within {BF16_PA_ULPS} bf16 ulps + "
             f"{BF16_PA_ATOL}, at most {BF16_PA_SHARE} of them past one ulp; "
@@ -425,6 +486,7 @@ def phase_kernels():
         ms=pa_ms, call_ms=pa_call_ms, plain_ms=pa_plain_ms,
         library_ms=pa_lib_ms,
         bound_ms=pa_bound, bound_by=pa_by, bytes=n_bytes, ops=n_ops,
+        tflops=n_ops / pa_ms / 1e9, share_of_bound=pa_bound / pa_ms,
         shape=dict(B=8, H=16, Hkv=16, Tq=64, D=128, block_len=8,
                    pages_per_row=64, seq_lens=lens, dtype="bfloat16"),
         cases=cases)
@@ -685,13 +747,16 @@ def phase_train_kernels():
     for _ in range(2):
         out, lse = flash_fwd_cuda(q, k, v, True, scale)
         delta = flash_attention_delta(g, out)
-        runs.append((out, lse, *flash_bwd_dkv_cuda(q, k, v, g, lse, delta,
-                                                   True, scale)))
+        runs.append((out, lse,
+                     flash_bwd_dq_cuda(q, k, v, g, lse, delta, True, scale),
+                     *flash_bwd_dkv_cuda(q, k, v, g, lse, delta, True,
+                                         scale)))
     torch.cuda.synchronize()
-    for n, a, b in zip(("out", "lse", "dk", "dv"), *runs):
+    names = ("out", "lse", "dq", "dk", "dv")
+    for n, a, b in zip(names, *runs):
         check(torch.equal(a, b), f"flash bf16 {n}: two runs differ")
     emit({"phase": "kernel_checks", "name": "flash_attention_bitwise",
-          "runs": 2, "equal": ["out", "lse", "dk", "dv"]})
+          "runs": 2, "equal": list(names)})
     del runs
 
     # LayerNorm backward: the training rows (4 x 1024) at width 2048
@@ -1544,7 +1609,7 @@ def phase_train(device_name, recipe=False, train_peak_gib=None):
 
 KERNEL_META = {
     "paged_attention": dict(
-        source="paddle_tpu_torch/csrc/paged_attention.cu",
+        source="paddle_tpu_torch/csrc/paged_attention_tc.cu",
         replaces="paddle_tpu/ops/paged_attention.py:136", phase="serve"),
     "layernorm_fwd": dict(
         source="paddle_tpu_torch/csrc/layernorm.cu",
@@ -1553,7 +1618,7 @@ KERNEL_META = {
         source="paddle_tpu_torch/csrc/flash_attention_tc.cu",
         replaces="paddle_tpu/ops/attention.py:174", phase="train"),
     "flash_bwd_dq": dict(
-        source="paddle_tpu_torch/csrc/flash_attention.cu",
+        source="paddle_tpu_torch/csrc/flash_attention_tc.cu",
         replaces="paddle_tpu/ops/attention.py:246", phase="train"),
     "flash_bwd_dkv": dict(
         source="paddle_tpu_torch/csrc/flash_attention_tc.cu",

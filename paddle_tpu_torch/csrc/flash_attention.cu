@@ -34,20 +34,18 @@
 // operations a byte or more, near the H100's bf16 ridge point, so the
 // least time is set by the tensor cores' 989 TFLOP/s.
 //
-// Routes: bf16 (dtype 1) forward and dk/dv run on the tensor cores, in
-// flash_attention_tc.cu (wgmma fed by TMA through mbarrier rings, P and
-// dS^T kept in registers; see its note). Everything else
-// here is the scalar design below: the fp32 path of all three kernels
-// (kept true fp32: no TF32, since the model phase holds fp32 train steps to
-// a CPU twin within 1e-4) and dq in both dtypes (dq's tensor-core version
-// is queued; it can reuse the forward's q-stationary tile machinery).
+// Routes: bf16 (dtype 1) forward, dq and dk/dv run on the tensor cores, in
+// flash_attention_tc.cu (wgmma fed by TMA through mbarrier rings, P, dS
+// and dS^T kept in registers; see its note). The fp32 path of all three
+// kernels is the scalar design below, kept true fp32: no TF32, since the
+// model phase holds fp32 train steps to a CPU twin within 1e-4.
 //
 // Scalar design (a simple, correct first kernel; no tensor cores, TMA or
 // pipelining, so it runs on the CUDA cores at fp32 rate, far from that
 // bound): one CTA of 256 threads per (64-row tile, batch*head). Tiles of q,
-// k, v (and g) are staged in shared memory as fp32 (bf16 widened once on
-// load), 64 rows x D, padded to 129 floats a row so the strided reads hit
-// distinct banks. Each thread owns a 4 x 4 block of the 64 x 64 score tile
+// k, v (and g) are staged in shared memory, 64 rows x D, padded to 129
+// floats a row so the strided reads hit distinct banks. Each thread owns
+// a 4 x 4 block of the 64 x 64 score tile
 // (rows ty + 16i, columns tx + 16j) and, for the same rows, 4 x D/16
 // output columns, so the online-softmax rescale needs no exchange: the
 // row max and row sum are reduced across the 16 lanes that share a row
@@ -57,7 +55,6 @@
 // that can see its k tile; the forward schedules its longest (last) q
 // tiles first. Every sum runs in a fixed order inside one CTA, so two runs
 // are bit-equal.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -74,18 +71,11 @@ constexpr int kC = 4;                   // score columns per thread
 constexpr int kDC = kDMax / 16;         // output columns per thread (max)
 
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
 template <>
 __device__ __forceinline__ float from_float<float>(float v) {
   return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, like astype
 }
 // x.astype(T) seen again as fp32: the roundings of p and ds before a dot
 template <typename T>
@@ -558,10 +548,15 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* g,
 
 }  // namespace
 
-// The bf16 forward and dk/dv on the tensor cores (flash_attention_tc.cu).
+// The bf16 forward, dq and dk/dv on the tensor cores
+// (flash_attention_tc.cu).
 int flash_fwd_bf16_tc(const void* q, const void* k, const void* v, void* out,
                       void* lse, int BH, int Sq, int Sk, int D, float scale,
                       int causal, cudaStream_t s);
+int flash_bwd_dq_bf16_tc(const void* q, const void* k, const void* v,
+                         const void* g, const void* lse, const void* delta,
+                         void* dq, int BH, int Sq, int Sk, int D, float scale,
+                         int causal, cudaStream_t s);
 int flash_bwd_dkv_bf16_tc(const void* q, const void* k, const void* v,
                           const void* g, const void* lse, const void* delta,
                           void* dk, void* dv, int BH, int Sq, int Sk, int D,
@@ -596,8 +591,8 @@ extern "C" int pdtt_flash_bwd_dq(const void* q, const void* k, const void* v,
     return bwd_dq<float>(q, k, v, g, lse, delta, dq, BH, Sq, Sk, D, scale,
                          causal, s);
   if (dtype == 1)
-    return bwd_dq<__nv_bfloat16>(q, k, v, g, lse, delta, dq, BH, Sq, Sk, D,
-                                 scale, causal, s);
+    return flash_bwd_dq_bf16_tc(q, k, v, g, lse, delta, dq, BH, Sq, Sk, D,
+                                scale, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

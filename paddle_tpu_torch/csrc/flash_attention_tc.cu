@@ -1,12 +1,13 @@
-// Flash attention forward and dk/dv in bf16 on Hopper's tensor cores
+// Flash attention forward, dq and dk/dv in bf16 on Hopper's tensor cores
 // (sm_90a), built by ops/_kernels.py into the port's kernel library and
-// reached through pdtt_flash_fwd / pdtt_flash_bwd_dkv (flash_attention.cu)
-// when dtype == 1. The fp32 path and dq stay flash_attention.cu's scalar
-// kernels.
+// reached through pdtt_flash_fwd / pdtt_flash_bwd_dq / pdtt_flash_bwd_dkv
+// (flash_attention.cu) when dtype == 1. The fp32 path stays
+// flash_attention.cu's scalar kernels.
 //
-// Replaces: paddle_tpu/ops/attention.py::_fwd_kernel (flash_fwd_kernel_tc)
-// and ::_bwd_dkv_kernel (flash_bwd_dkv_kernel_tc), the TPU kernels of every
-// no-cache attention of GPT training.
+// Replaces: paddle_tpu/ops/attention.py::_fwd_kernel (flash_fwd_kernel_tc),
+// ::_bwd_dq_kernel (flash_bwd_dq_kernel_tc) and ::_bwd_dkv_kernel
+// (flash_bwd_dkv_kernel_tc), the TPU kernels of every no-cache attention of
+// GPT training.
 //
 // Contract: flash_attention.cu's (attention.py:174-362), kept exactly:
 //   s = (q . k) summed in fp32, then * scale; causal keeps col <= row +
@@ -15,8 +16,9 @@
 //   outputs 0 and lse = -1e30. Forward: p (against the running max) is
 //   rounded to bf16 before PV. dk/dv: p = exp(s - lse) rounded to bf16 for
 //   dv = p^T g, ds = p (dp - delta) scale rounded to bf16 for dk = ds^T q;
-//   every sum in fp32. Any Sq, Sk >= 1 (rows and keys past the end are
-//   zero-filled and never stored); D a multiple of 16 up to 128, run at a
+//   dq: the same ds rounded to bf16 for dq = ds k; every sum in fp32. Any
+//   Sq, Sk >= 1 (rows and keys past the end are zero-filled and never
+//   stored); D a multiple of 16 up to 128, run at a
 //   padded head dim of 64 or 128 (the padded columns are zero and add exact
 //   zeros). No atomics and a fixed summation order: two runs are bit-equal.
 //   exp(x - m) is computed as 2^(x log2 e - m log2 e) on the SFU
@@ -25,7 +27,8 @@
 // What bounds it on this card: both limits are close. At the training
 // shape (B=4, H=16, S=1024, D=128, causal) the forward does 17.2 GFLOP on
 // 67.4 MB (0.0174 ms at 989 TFLOP/s, 0.0201 ms at 3.35 TB/s: bytes by a
-// little) and dk/dv 34.4 GFLOP on 101 MB (0.0348 ms against 0.0302 ms:
+// little), dq 25.8 GFLOP on 84.4 MB (0.0261 ms against 0.0252 ms:
+// operations) and dk/dv 34.4 GFLOP on 101 MB (0.0348 ms against 0.0302 ms:
 // operations), ~250 operations a byte, near the H100's bf16 ridge. So the
 // work belongs on the tensor cores, with every input read once from DRAM.
 //
@@ -69,6 +72,19 @@
 //     and computes dS^T while it runs, then issues dK += dS^T Q. dK and dV
 //     stay in registers and are stored once (no atomics; dq is the
 //     separate kernel). The k tiles that see the most q tiles run first.
+//   - dq: the forward's shape. A CTA owns 128 query rows of one
+//     (batch*head); Q and dO come in once by TMA and stay, lse and delta sit
+//     in registers, and a producer warpgroup (one thread issues; the
+//     warpgroup gives its registers to the consumers with setmaxnreg)
+//     streams 64-key tiles of V and K through two-stage rings with free
+//     mbarriers (V is let go as soon as
+//     dP has read it, K a step later, after dQ += dS K). Per tile a
+//     warpgroup issues S = Q K^T and dP = dO V^T together with the last
+//     tile's dQ += dS K (K as an MN-major B, as V is in the forward's P V),
+//     turns S into P while dP runs and dP into dS while dS K runs, then
+//     packs dS to bf16 in registers as the next dS K's A operand. dQ stays
+//     in registers and is stored once; the longest causal q tiles run first
+//     and the loop stops at the last visible k tile.
 // <cuda.h> for CUtensorMap's types only: the encoder is fetched at run time
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -86,6 +102,7 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kFwdBQ = 16 * kWarps;  // query rows of a forward CTA
 constexpr int kFwdThreads = kThreads + 32;  // and one producer warp
+constexpr int kDqThreads = kThreads + 128;  // and a producer warpgroup
 constexpr int kFwdBK = 64;           // keys of a streamed K/V tile
 constexpr int kBwdBK = 16 * kWarps;  // keys of a dk/dv CTA
 constexpr int kBwdBQ = 64;           // query rows of a streamed Q/dO tile
@@ -752,6 +769,217 @@ __global__ void __launch_bounds__(kThreads, 1)
                          D, lane);
 }
 
+// --------------------------------------------------------------------- dq
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kDqThreads, 1)
+    flash_bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tg,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dq, int Sq, int Sk, int D,
+                           float scale, int causal) {
+  constexpr int kQBytes = kFwdBQ * kD * 2;
+  constexpr int kKBytes = kFwdBK * kD * 2;
+  extern __shared__ uint8_t smem_tc[];
+  uint8_t* q_s = align1024(smem_tc);
+  uint8_t* g_s = q_s + kQBytes;
+  uint8_t* k_s = g_s + kQBytes;          // 2 stages
+  uint8_t* v_s = k_s + 2 * kKBytes;      // 2 stages
+  uint64_t* bar = reinterpret_cast<uint64_t*>(v_s + 2 * kKBytes);
+  // bar[0]: Q and dO landed; bar[1 + s] / bar[3 + s]: K / V of stage s
+  // landed; bar[5 + s] / bar[7 + s]: both warpgroups are done with K / V of
+  // stage s
+  uint64_t* qg_full = bar;
+  uint64_t* k_full = bar + 1;
+  uint64_t* v_full = bar + 3;
+  uint64_t* k_free = bar + 5;
+  uint64_t* v_free = bar + 7;
+
+  const int q0 =
+      (static_cast<int>(gridDim.y) - 1 - static_cast<int>(blockIdx.y)) *
+      kFwdBQ;
+  const int bh = static_cast<int>(blockIdx.x);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int offset = Sk - Sq;
+  int n_kt = (Sk + kFwdBK - 1) / kFwdBK;
+  if (causal) {
+    const int last_col = min(q0 + kFwdBQ, Sq) - 1 + offset;
+    n_kt = last_col < 0 ? 0 : min(n_kt, last_col / kFwdBK + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 5; ++i) mbar_init(&bar[i]);
+    for (int i = 5; i < 9; ++i) mbar_init(&bar[i], 2);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kWarps) {
+    // the producer warpgroup: one thread loads Q and dO once, then V and K
+    // of every tile, each into a stage as soon as both consumer warpgroups
+    // have let go of it (V is let go one step before K, whose dQ product
+    // runs a step later). The warpgroup hands its registers to the
+    // consumers, whose S, dP, dS and dQ fragments need more than the 168
+    // a thread that ptxas gives a 384-thread CTA. setmaxnreg moves them
+    // through the CTA's own pool: the producers free 4 x 32 x (168 - 24) =
+    // 18,432 and the consumers take 8 x 32 x (232 - 168) = 16,384 (taking
+    // more than is freed would leave setmaxnreg.inc waiting forever).
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp == kWarps && lane == 0 && n_kt > 0) {
+      mbar_expect_tx(qg_full, 2 * kQBytes);
+      tma_tile<kD, kFwdBQ>(q_s, &tq, qg_full, q0, bh);
+      tma_tile<kD, kFwdBQ>(g_s, &tg, qg_full, q0, bh);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int st = kt & 1;
+        if (kt >= 2) mbar_wait(&v_free[st], ((kt >> 1) - 1) & 1);
+        mbar_expect_tx(&v_full[st], kKBytes);
+        tma_tile<kD, kFwdBK>(v_s + st * kKBytes, &tv, &v_full[st],
+                             kt * kFwdBK, bh);
+        if (kt >= 2) mbar_wait(&k_free[st], ((kt >> 1) - 1) & 1);
+        mbar_expect_tx(&k_full[st], kKBytes);
+        tma_tile<kD, kFwdBK>(k_s + st * kKBytes, &tk, &k_full[st],
+                             kt * kFwdBK, bh);
+      }
+    }
+  } else {
+    // the consumers (one path to the end: setmaxnreg needs paths that never
+    // reconverge)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int g = lane >> 2, t4 = lane & 3;
+    const int wg = warp >> 2;
+    const int rb = 16 * warp;      // the warp's rows in the tile
+    const int wg_row = 64 * wg;    // its warpgroup's
+    const int wq0 = q0 + rb;
+    const bool wg_leader = (threadIdx.x & 127) == 0;
+    const long long rbh = static_cast<long long>(bh) * Sq;
+    // -lse log2 e and delta of this thread's rows wq0 + g and wq0 + g + 8
+    float nl[2], dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wq0 + g + 8 * h;
+      nl[h] = row < Sq ? -(lse[rbh + row] * kLog2e) : 0.f;
+      dl[h] = row < Sq ? delta[rbh + row] : 0.f;
+    }
+
+    float acc[kD / 2];
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
+    float s[32], dp[32];
+    uint32_t a[kFwdBK / 16][4];  // dS of the last tile, the A operand of dS K
+    // S = Q K^T and dP = dO V^T of tile kt, the warpgroup's 64 rows x 64 keys
+    auto issue_s_dp = [&](int kt) {
+      const uint8_t* ks = k_s + (kt & 1) * kKBytes;
+      const uint8_t* vs = v_s + (kt & 1) * kKBytes;
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_ss_n64(s, kmajor_desc<kFwdBQ>(q_s, wg_row, kk),
+                     kmajor_desc<kFwdBK>(ks, 0, kk), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_ss_n64(dp, kmajor_desc<kFwdBQ>(g_s, wg_row, kk),
+                     kmajor_desc<kFwdBK>(vs, 0, kk), kk > 0);
+      wgmma_commit();
+    };
+    // dQ += dS K of tile kt, dS from registers, K as an MN-major B
+    auto issue_dq = [&](int kt) {
+      const uint8_t* ks = k_s + (kt & 1) * kKBytes;
+#pragma unroll
+      for (int kk = 0; kk < kFwdBK / 16; ++kk)
+        wgmma_rs<kD>(acc, a[kk], mnmajor_desc<kFwdBK>(ks, kk));
+      wgmma_commit();
+    };
+    // s -> p = exp(s scale - lse), an exact 0 where masked; this thread
+    // holds rows wq0 + g (elements 4 j, 4 j + 1) and wq0 + g + 8 (4 j + 2,
+    // 4 j + 3), key columns k0 + 8 j + 2 t4 (+1)
+    auto probs = [&](int kt) {
+      const int k0 = kt * kFwdBK;
+      const bool masked = wq0 + 16 > Sq || k0 + kFwdBK > Sk ||
+                          (causal && k0 + kFwdBK - 1 > wq0 + offset);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1;
+        float x = __fmul_rn(s[i], scale);
+        if (masked && !visible(wq0 + g + 8 * h, k0 + 8 * (i >> 2) + 2 * t4 +
+                                                    (i & 1),
+                               Sq, Sk, offset, causal))
+          x = kNegInf;
+        s[i] = x <= kNegInf / 2 ? 0.f : exp2_ftz(fmaf(x, kLog2e, nl[h]));
+      }
+    };
+    // dp -> ds = p (dp - delta) scale
+    auto dsoft = [&]() {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        dp[i] = __fmul_rn(__fmul_rn(s[i], dp[i] - dl[(i >> 1) & 1]), scale);
+    };
+
+    if (n_kt > 0) {
+      mbar_wait(qg_full, 0);
+      mbar_wait(&k_full[0], 0);
+      mbar_wait(&v_full[0], 0);
+      wgmma_fence();
+      issue_s_dp(0);
+      wgmma_wait<1>();  // S landed; dP may still run
+      fence_regs(s);
+      probs(0);
+      wgmma_wait<0>();
+      fence_regs(dp);
+      if (wg_leader) mbar_arrive(&v_free[0]);
+      dsoft();
+#pragma unroll
+      for (int kk = 0; kk < kFwdBK / 16; ++kk) frag_to_a(a[kk], dp + 8 * kk);
+    }
+    // Tile kt's S and dP are issued together with tile kt-1's dS K, so the
+    // probabilities and dS of tile kt are computed while dS K runs.
+    for (int kt = 1; kt < n_kt; ++kt) {
+      mbar_wait(&k_full[kt & 1], (kt >> 1) & 1);
+      mbar_wait(&v_full[kt & 1], (kt >> 1) & 1);
+      fence_regs(acc);
+      wgmma_fence();
+      issue_s_dp(kt);
+      issue_dq(kt - 1);
+      wgmma_wait<2>();  // S landed
+      fence_regs(s);
+      probs(kt);
+      wgmma_wait<1>();  // dP landed; dS K of tile kt-1 may still run
+      fence_regs(dp);
+      if (wg_leader) mbar_arrive(&v_free[kt & 1]);
+      dsoft();
+      wgmma_wait<0>();  // dS K is done with K of tile kt-1 and the registers
+      fence_regs(acc);
+      fence_frags(a);
+      if (wg_leader) mbar_arrive(&k_free[(kt - 1) & 1]);
+      // dS rounded to bf16 in registers as the next dS K's A operand
+#pragma unroll
+      for (int kk = 0; kk < kFwdBK / 16; ++kk) frag_to_a(a[kk], dp + 8 * kk);
+    }
+    if (n_kt > 0) {
+      fence_regs(acc);
+      wgmma_fence();
+      issue_dq(n_kt - 1);
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+
+    // stage dQ in the warp's own rows of Q (only its warpgroup's products
+    // read them, and those are done)
+    store_rows<kD, kFwdBQ>(q_s, rb, acc, 1.f, 1.f, dq + rbh * D, wq0, Sq, D,
+                           lane);
+  }
+}
+
 // cuTensorMapEncodeTiled from the driver, fetched once through the runtime
 // (no link against libcuda)
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -847,6 +1075,30 @@ int bwd_dkv_tc(const void* q, const void* k, const void* v, const void* g,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kD>
+int bwd_dq_tc(const void* q, const void* k, const void* v, const void* g,
+              const void* lse, const void* delta, void* dq, int BH, int Sq,
+              int Sk, int D, float scale, int causal, cudaStream_t s) {
+  constexpr size_t smem = 1024 + (2 * kFwdBQ + 4 * kFwdBK) * kD * 2 + 9 * 8;
+  const int n_qt = (Sq + kFwdBQ - 1) / kFwdBQ;
+  if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv, tg;
+  int rc = make_map(&tq, q, BH, Sq, D, kFwdBQ);
+  if (!rc) rc = make_map(&tg, g, BH, Sq, D, kFwdBQ);
+  if (!rc) rc = make_map(&tk, k, BH, Sk, D, kFwdBK);
+  if (!rc) rc = make_map(&tv, v, BH, Sk, D, kFwdBK);
+  if (!rc)
+    rc = static_cast<int>(cudaFuncSetAttribute(
+        flash_bwd_dq_kernel_tc<kD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+  if (rc) return rc;
+  flash_bwd_dq_kernel_tc<kD><<<dim3(BH, n_qt), kDqThreads, smem, s>>>(
+      tq, tk, tv, tg, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), Sq, Sk, D,
+      scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // bf16 launchers for flash_attention.cu's entry points; pointers must be
@@ -868,4 +1120,15 @@ int flash_bwd_dkv_bf16_tc(const void* q, const void* k, const void* v,
                           scale, causal, s);
   return bwd_dkv_tc<128>(q, k, v, g, lse, delta, dk, dv, BH, Sq, Sk, D,
                          scale, causal, s);
+}
+
+int flash_bwd_dq_bf16_tc(const void* q, const void* k, const void* v,
+                         const void* g, const void* lse, const void* delta,
+                         void* dq, int BH, int Sq, int Sk, int D, float scale,
+                         int causal, cudaStream_t s) {
+  if (D <= 64)
+    return bwd_dq_tc<64>(q, k, v, g, lse, delta, dq, BH, Sq, Sk, D, scale,
+                         causal, s);
+  return bwd_dq_tc<128>(q, k, v, g, lse, delta, dq, BH, Sq, Sk, D, scale,
+                        causal, s);
 }

@@ -32,8 +32,14 @@
 // out once; at head_dim 128 and one q-tile the arithmetic is ~2 operations
 // per byte of K/V per query row, far under the H100's ridge point.
 //
-// Design (a simple, correct first kernel; no tensor cores, TMA or pipelining
-// yet): one CTA of 128 threads per (q-tile of 16 query rows, head, batch
+// Routes: bf16 at a block_len that is a multiple of 8 (the engine's 8 and
+// DEFAULT_KV_BLOCK among them) and D 64 or 128 runs on the tensor cores, in
+// paged_attention_tc.cu (mma.sync fed by cp.async page gathers; see its
+// note). fp32, kept true fp32 (the model phase holds fp32 served steps to a
+// CPU twin), and bf16 at other block lengths run the scalar kernel below.
+//
+// Scalar design (a simple, correct first kernel; no tensor cores, TMA or
+// pipelining): one CTA of 128 threads per (q-tile of 16 query rows, head, batch
 // row), so a 64-wide prefill chunk over 8 rows and 16 heads gives 512 CTAs
 // for the 132 SMs. The CTA loads its own table row, length and position in
 // place of scalar prefetch, stages the q tile in shared memory as fp32,
@@ -232,6 +238,22 @@ int launch(const void* q, const void* k, const void* v, const int* table,
 
 }  // namespace
 
+// bf16 on the tensor cores (paged_attention_tc.cu).
+int paged_attention_bf16_tc(const void* q, const void* k, const void* v,
+                            const int* table, const int* seq_lens,
+                            const int* q_pos, void* out, int B, int H,
+                            int Tq, int D, int Hkv, int L_slab, int n_blocks,
+                            int block_len, int pages_per_row, float scale,
+                            cudaStream_t s);
+
+// The route rule, in this one place (ops/paged_attention.py::paged_route
+// mirrors it): bf16 at a block_len that is a multiple of 8 and a head dim
+// of 64 or 128 runs on the tensor cores; everything else on the scalar
+// kernel above.
+static bool tensor_core_route(int dtype, int block_len, int D) {
+  return dtype == 1 && block_len % 8 == 0 && (D == 64 || D == 128);
+}
+
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
 // launch (0 on success); the caller raises on anything else.
 extern "C" int pdtt_paged_attention(const void* q, const void* k,
@@ -249,6 +271,10 @@ extern "C" int pdtt_paged_attention(const void* q, const void* k,
   const int* tb = static_cast<const int*>(table);
   const int* sl = static_cast<const int*>(seq_lens);
   const int* qp = static_cast<const int*>(q_pos);
+  if (tensor_core_route(dtype, block_len, D))
+    return paged_attention_bf16_tc(q, k, v, tb, sl, qp, out, B, H, Tq, D,
+                                   Hkv, L_slab, n_blocks, block_len,
+                                   pages_per_row, scale, s);
   if (dtype == 0)
     return launch<float>(q, k, v, tb, sl, qp, out, B, H, Tq, D, Hkv, L_slab,
                          n_blocks, block_len, pages_per_row, scale, s);

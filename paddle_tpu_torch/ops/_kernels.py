@@ -30,7 +30,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flash_attention.cu", "flash_attention_tc.cu", "fused_adam.cu",
-           "layernorm.cu", "paged_attention.cu")
+           "layernorm.cu", "paged_attention.cu", "paged_attention_tc.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -207,6 +207,31 @@ def count_sass_opcodes(sass: str, opcodes) -> dict:
             if f" {op}." in line or f" {op} " in line:
                 counts.setdefault(fn, dict.fromkeys(opcodes, 0))[op] += 1
     return counts
+
+
+def ptxas_kernel_stats(report: str) -> dict:
+    """{kernel symbol: {"registers", "spill_stores", "spill_loads"}} from
+    `nvcc -Xptxas -v` output (`ptxas_report`)."""
+    stats, fn = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function '" in line:
+            fn = line.split("'")[1]
+            stats[fn] = {"registers": None, "spill_stores": 0,
+                         "spill_loads": 0}
+        elif "Function properties for " in line:
+            # a non-inlined device function's properties are not a kernel's
+            name = line.split("Function properties for ")[1].strip()
+            fn = name if name in stats else None
+        elif fn is None:
+            continue
+        elif "bytes spill stores" in line:
+            words = line.replace(",", " ").split()
+            stats[fn]["spill_stores"] = int(words[words.index("spill") - 2])
+            stats[fn]["spill_loads"] = int(words[-4])
+        elif "Used " in line and " registers" in line:
+            words = line.split()
+            stats[fn]["registers"] = int(words[words.index("Used") + 1])
+    return stats
 
 
 def dtype_code(dtype) -> int:

@@ -3,7 +3,7 @@
 Two parts. `flash_attention` is the no-cache attention of training: the
 TPU kernels `_fwd_kernel`, `_bwd_dq_kernel` and `_bwd_dkv_kernel` become
 the hand-written CUDA kernels in `csrc/flash_attention.cu` (the bf16
-forward and dk/dv run on the tensor cores, `csrc/flash_attention_tc.cu`),
+forward, dq and dk/dv run on the tensor cores, `csrc/flash_attention_tc.cu`),
 tied together by `FlashAttentionFn` (the JAX package's custom_vjp).
 Their plain PyTorch versions run the same arithmetic on whole score matrices
 (`_attention_reference`'s op sequence, plus lse and the JAX backward
@@ -34,8 +34,8 @@ _NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 _MASK_DROPOUT_SLICE = (
     "flash_attention's additive mask and dropout on CUDA wait for the "
-    "scaled_dot_product_attention slice (ROADMAP §1: mask and dropout "
-    "variants of kernels 3-5)")
+    "scaled_dot_product_attention slice (ROADMAP §1, modules still "
+    "missing: mask and dropout variants of kernels 3-5)")
 
 
 def causal_mask(n_rows: int, n_cols: int, q_offset=0, k_offset=0,

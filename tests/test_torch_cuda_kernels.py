@@ -17,9 +17,12 @@ atol/rtol 1e-5 for outputs of one op sequence, 1e-4 for sums of many
 products in another order; bf16 within `chip_smoke.py`'s
 BF16_TRAIN_FACTOR times the bf16 plain version's own error from the fp32
 plain version, plus BF16_TRAIN_ATOL. Their sums run in a fixed order, so
-two runs are bit-equal, which is tested too (forward and backward). The
-bf16 forward and dk/dv run on the tensor cores: their machine code holds
-wgmma's HGMMA instructions, and a bf16 input they cannot take raises
+two runs are bit-equal, which is tested too (forward and backward, and
+bf16 paged attention). The bf16 flash forward, dq and dk/dv run on the
+tensor cores (their machine code holds wgmma's HGMMA instructions), and
+so does bf16 paged attention at a block_len that is a multiple of 8
+(mma.sync's HMMA); the profiler's kernel names show that such calls never
+reach the scalar kernels, and a bf16 input they cannot take raises
 instead of going anywhere else. Fused Adam: bit for bit
 (tolerance 0) against its plain version on the card, in every dtype, with
 and without a master weight, at ragged, tiny and misaligned n.
@@ -31,19 +34,32 @@ from _torch_port import assert_bf16_attention_close, layernorm_inputs, \
     paged_inputs, require_cuda, ulp_bf16
 
 
+# the served kind of lengths (tens to hundreds of keys a row), in slabs of
+# 40 pages a row
+_SERVED = dict(lens=(300, 97, 150), ppr=40)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,H,Hkv,D,bl", [
-    (torch.float32, 4, 2, 128, 8),
-    (torch.float32, 8, 2, 64, 32),
-    (torch.bfloat16, 16, 16, 128, 8),
+@pytest.mark.parametrize("dtype,H,Hkv,D,bl,Tq,more", [
+    (torch.float32, 4, 2, 128, 8, 64, {}),
+    (torch.float32, 8, 2, 64, 32, 64, {}),
+    (torch.bfloat16, 16, 16, 128, 8, 64, {}),
+    # the tensor-core route's other instantiations and edges: GQA, D=64,
+    # block_len 16..64, Tq past one 64-row tile and Tq = 1
+    (torch.bfloat16, 16, 4, 128, 8, 90, _SERVED),
+    (torch.bfloat16, 8, 2, 64, 16, 64, {}),
+    (torch.bfloat16, 4, 4, 128, 24, 7, {}),
+    (torch.bfloat16, 8, 1, 128, 64, 1, {}),
+    # bf16 at a block_len the route sends to the scalar kernel
+    (torch.bfloat16, 4, 2, 128, 12, 64, {}),
 ])
-def test_cuda_paged_attention_matches_plain(dtype, H, Hkv, D, bl):
+def test_cuda_paged_attention_matches_plain(dtype, H, Hkv, D, bl, Tq, more):
     require_cuda()
     from paddle_tpu_torch.ops import launch_counts
     from paddle_tpu_torch.ops.paged_attention import (paged_attention_cuda,
                                                       paged_attention_plain,
                                                       ragged_paged_attention)
-    c = paged_inputs(21, H=H, Hkv=Hkv, D=D, bl=bl, Tq=64)
+    c = paged_inputs(21, H=H, Hkv=Hkv, D=D, bl=bl, Tq=Tq, **more)
     t = lambda a: torch.from_numpy(a).to("cuda", dtype)    # noqa: E731
     i = lambda a: torch.from_numpy(a).to("cuda")            # noqa: E731
     args = (t(c["q"]), t(c["k"]), t(c["v"]), i(c["table"]), i(c["lens"]),
@@ -64,19 +80,57 @@ def test_cuda_paged_attention_matches_plain(dtype, H, Hkv, D, bl):
                                     ref.float().cpu().numpy())
 
 
-# The kernel computes each query row alone, walking the blocks in table
+# Rows that see only a handful of keys (Tq = 90 rows past lengths of 17, 9
+# and 4, GQA). The two versions sum s = q . k in another order, so a p
+# that lies within an fp32 ulp of a bf16 rounding midpoint can round to
+# either neighbour, and the output moves by up to 2^-8 p |v| / l: large
+# where l is near 1. The limits above leave a few ulps for that (such rows
+# are rare on the served path); here most rows are short, so they are held
+# as the training kernels are (chip_smoke.bf16_vs_fp32_plain): the
+# kernel's largest error from the plain version run in fp32 on the same
+# bf16 inputs is at most BF16_TRAIN_FACTOR times the bf16 plain version's
+# own, plus BF16_TRAIN_ATOL. A wrong mask, page or rescale moves outputs
+# by their own size and fails.
+@pytest.mark.cuda
+@pytest.mark.parametrize("bl", [8, 16])
+def test_cuda_paged_attention_short_rows_within_plain_error(bl):
+    require_cuda()
+    from paddle_tpu_torch.ops.paged_attention import (paged_attention_cuda,
+                                                      paged_attention_plain)
+    c = paged_inputs(21, H=16, Hkv=4, D=128, bl=bl, Tq=90)
+    i = lambda a: torch.from_numpy(a).to("cuda")            # noqa: E731
+    side = (i(c["table"]), i(c["lens"]), i(c["q_pos"]), bl, c["ppr"],
+            128 ** -0.5)
+    bf = [torch.from_numpy(c[n]).to("cuda", torch.bfloat16)
+          for n in ("q", "k", "v")]
+    out = paged_attention_cuda(*bf, *side)
+    ref = paged_attention_plain(*bf, *side)
+    ref32 = paged_attention_plain(*(t.float() for t in bf), *side)
+    _assert_bf16_train(out, ref, ref32)
+
+
+# The kernels compute each query row alone, walking the blocks in table
 # order, so a row's output does not depend on the chunk (or the q tile) it
 # arrives in: chunked prefill equals the whole prompt bit for bit, the
-# contract that makes engine streams equal generate().
+# contract that makes engine streams equal generate(). bf16 takes the
+# tensor cores at block_len 8 and 16, with GQA putting four heads' rows
+# (and the 90-row tail) into one kv group's tiles.
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_chunked_prefill_bitwise_equals_whole_prompt(dtype):
+@pytest.mark.parametrize("dtype,H,Hkv,bl", [
+    (torch.float32, 4, 4, 8),
+    (torch.bfloat16, 4, 4, 8),
+    (torch.bfloat16, 16, 4, 8),
+    (torch.bfloat16, 4, 4, 16),
+    (torch.bfloat16, 16, 4, 16),
+])
+def test_cuda_chunked_prefill_bitwise_equals_whole_prompt(dtype, H, Hkv, bl):
     require_cuda()
     import numpy as np
     from paddle_tpu_torch.ops.paged_attention import paged_attention_cuda
     rng = np.random.RandomState(8)
-    H, D, bl, nb, L, C = 4, 128, 8, 12, 90, 64
-    k, v = (torch.from_numpy(rng.standard_normal((1, H, nb * bl, D))
+    D, L, C = 128, 90, 64
+    nb = -(-96 // bl)
+    k, v = (torch.from_numpy(rng.standard_normal((1, Hkv, nb * bl, D))
                              .astype(np.float32)).to("cuda", dtype)
             for _ in range(2))
     q = torch.from_numpy(rng.standard_normal((1, H, L, D))
@@ -312,12 +366,22 @@ def test_cuda_flash_refuses_mask_dropout_and_bad_inputs():
 
 # A bf16 input the tensor-core kernels cannot take raises: it is never
 # routed to the scalar kernel or the plain version.
+def _kernel_names(fn):
+    """The names of the CUDA kernels `fn()` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()}
+
+
 @pytest.mark.cuda
 def test_cuda_flash_bf16_never_reaches_another_route():
     require_cuda()
     from paddle_tpu_torch.ops import launch_counts
     from paddle_tpu_torch.ops.attention import (flash_attention_delta,
                                                 flash_bwd_dkv_cuda,
+                                                flash_bwd_dq_cuda,
                                                 flash_fwd_cuda)
     bf = torch.bfloat16
     q = torch.randn((1, 2, 64, 64), device="cuda").to(bf)
@@ -334,24 +398,90 @@ def test_cuda_flash_bf16_never_reaches_another_route():
     delta = flash_attention_delta(q, out)
     with pytest.raises(ValueError, match="16-byte"):
         flash_bwd_dkv_cuda(q, q, q, off, lse, delta, True, 1.0)
+    for bad in ((off, q, q, q), (q, off, q, q), (q, q, q, off)):
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_bwd_dq_cuda(*bad, lse, delta, True, 1.0)
     torch.cuda.synchronize()
     after = launch_counts()
     assert after["flash_fwd"] == before["flash_fwd"] + 1
+    assert after["flash_bwd_dq"] == before["flash_bwd_dq"]
     assert after["flash_bwd_dkv"] == before["flash_bwd_dkv"]
+    # bf16 dq runs the tensor-core kernel and never the scalar one
+    names = _kernel_names(lambda: flash_bwd_dq_cuda(q, q, q, q, lse, delta,
+                                                    True, 1.0))
+    assert any("flash_bwd_dq_kernel_tc" in n for n in names), names
+    assert not any("flash_bwd_dq_kernel<" in n for n in names), names
 
 
-# The machine code of the bf16 forward and dk/dv kernels holds warpgroup
-# products, wgmma's HGMMA (cuobjdump -sass).
+# The route rule of pdtt_paged_attention, seen from the kernels a call
+# launches: bf16 at block_len 8 (the engine's) or any multiple of 8 runs
+# the tensor-core kernel and never the scalar one; fp32 and bf16 at other
+# block lengths run the scalar kernel, as paged_route says. A misaligned
+# bf16 input raises.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bl", [
+    (torch.bfloat16, 8), (torch.bfloat16, 16), (torch.bfloat16, 40),
+    (torch.bfloat16, 12), (torch.float32, 8)])
+def test_cuda_paged_bf16_never_reaches_another_route(dtype, bl):
+    require_cuda()
+    from paddle_tpu_torch.ops import launch_counts
+    from paddle_tpu_torch.ops.paged_attention import (TENSOR_CORES,
+                                                      paged_attention_cuda,
+                                                      paged_route)
+    c = paged_inputs(22, H=4, Hkv=2, D=128, bl=bl, Tq=16)
+    t = lambda a: torch.from_numpy(a).to("cuda", dtype)    # noqa: E731
+    i = lambda a: torch.from_numpy(a).to("cuda")            # noqa: E731
+    args = [t(c["q"]), t(c["k"]), t(c["v"]), i(c["table"]), i(c["lens"]),
+            i(c["q_pos"]), bl, c["ppr"], 128 ** -0.5]
+    names = _kernel_names(lambda: paged_attention_cuda(*args))
+    tc = any("paged_attention_kernel_tc" in n for n in names)
+    scalar = any("paged_attention_kernel<" in n for n in names)
+    assert (tc, scalar) == ((True, False)
+                            if paged_route(dtype, bl, 128) == TENSOR_CORES
+                            else (False, True)), names
+    if paged_route(dtype, bl, 128) != TENSOR_CORES:
+        return
+    before = launch_counts()["paged_attention"]
+    for j in range(3):
+        flat = torch.zeros(args[j].numel() + 1, device="cuda", dtype=dtype)
+        bad = list(args)
+        bad[j] = flat[1:].view(args[j].shape)   # 2 bytes off 16
+        with pytest.raises(ValueError, match="16-byte"):
+            paged_attention_cuda(*bad)
+    assert launch_counts()["paged_attention"] == before
+
+
+# bf16 paged attention sums every row in one fixed order: two runs are
+# bit-equal, at the served shape and with GQA.
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv", [(16, 16), (16, 4)])
+def test_cuda_paged_attention_is_bitwise_deterministic(H, Hkv):
+    require_cuda()
+    from paddle_tpu_torch.ops.paged_attention import paged_attention_cuda
+    c = paged_inputs(23, H=H, Hkv=Hkv, D=128, bl=8, Tq=64, ppr=40,
+                     lens=(300, 17, 129), decode_rows=(1,))
+    t = lambda a: torch.from_numpy(a).to("cuda", torch.bfloat16)  # noqa
+    i = lambda a: torch.from_numpy(a).to("cuda")                  # noqa
+    args = (t(c["q"]), t(c["k"]), t(c["v"]), i(c["table"]), i(c["lens"]),
+            i(c["q_pos"]), 8, c["ppr"], 128 ** -0.5)
+    runs = [paged_attention_cuda(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*runs)
+
+
+# The machine code of the bf16 flash forward, dq and dk/dv kernels holds
+# warpgroup products (wgmma's HGMMA), that of the bf16 paged attention warp
+# products (mma.sync's HMMA), as chip_smoke.TENSOR_CORE_KERNELS states
+# (cuobjdump -sass).
 @pytest.mark.cuda
 def test_cuda_flash_bf16_kernels_run_on_tensor_cores():
     require_cuda()
-    from chip_smoke import TENSOR_CORE_KERNELS
+    from chip_smoke import TENSOR_CORE_KERNELS, tensor_core_instructions
     from paddle_tpu_torch.ops import _kernels
     counts = _kernels.sass_instruction_counts()
-    for name in TENSOR_CORE_KERNELS:
-        found = {k: c for k, c in counts.items() if name in k}
-        assert found, f"no tensor-core instruction in {name}"
-        assert all(c["HGMMA"] > 0 for c in found.values())
+    for name, opcodes in TENSOR_CORE_KERNELS.items():
+        assert tensor_core_instructions(counts, name, opcodes), \
+            f"no {opcodes} instruction in {name}"
 
 
 def _adam_case(rng, n, pdtype, mdtype, master, offset=0):

@@ -200,6 +200,53 @@ def test_sass_opcode_count():
         "_Z8mma_demo": {"HMMA": 1, "HGMMA": 0}}
 
 
+def test_ptxas_report_parse():
+    """The spill check reads ptxas's -v report entry function by entry
+    function; a non-inlined device function's properties are not
+    counted against the kernel before it."""
+    from paddle_tpu_torch.ops._kernels import ptxas_kernel_stats
+    report = """== paged_attention_tc.cu
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z25paged_attention_kernel_tcILi128ELi1EEv' for 'sm_90a'
+ptxas info    : Function properties for _Z25paged_attention_kernel_tcILi128ELi1EEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, 384 bytes cmem[0]
+ptxas info    : Function properties for _Z6helperv
+    16 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Compiling entry function '_Z22flash_bwd_dq_kernel_tcILi64EEv' for 'sm_90a'
+ptxas info    : Function properties for _Z22flash_bwd_dq_kernel_tcILi64EEv
+    0 bytes stack frame, 48 bytes spill stores, 52 bytes spill loads
+ptxas info    : Used 167 registers, used 1 barriers, 528 bytes cmem[0]
+"""
+    assert ptxas_kernel_stats(report) == {
+        "_Z25paged_attention_kernel_tcILi128ELi1EEv": {
+            "registers": 168, "spill_stores": 0, "spill_loads": 0},
+        "_Z22flash_bwd_dq_kernel_tcILi64EEv": {
+            "registers": 167, "spill_stores": 48, "spill_loads": 52}}
+
+
+def test_tensor_core_kernels_need_their_instructions():
+    """chip_smoke's tensor-core proof: every instantiation of a kernel must
+    hold one of the instructions TENSOR_CORE_KERNELS names for it (HGMMA
+    for the wgmma kernels, HMMA or HGMMA for the mma.sync one)."""
+    import chip_smoke
+    counts = {"_Z22flash_bwd_dq_kernel_tcILi64E": {"HMMA": 0, "HGMMA": 24},
+              "_Z22flash_bwd_dq_kernel_tcILi128E": {"HMMA": 4, "HGMMA": 0},
+              "_Z25paged_attention_kernel_tcILi64E": {"HMMA": 60,
+                                                      "HGMMA": 0}}
+    table = chip_smoke.TENSOR_CORE_KERNELS
+    assert set(table) == {"flash_fwd_kernel_tc", "flash_bwd_dq_kernel_tc",
+                          "flash_bwd_dkv_kernel_tc",
+                          "paged_attention_kernel_tc"}
+    got = chip_smoke.tensor_core_instructions
+    assert got(counts, "paged_attention_kernel_tc",
+               table["paged_attention_kernel_tc"])
+    # one instantiation of dq without HGMMA fails the whole kernel
+    assert not got(counts, "flash_bwd_dq_kernel_tc",
+                   table["flash_bwd_dq_kernel_tc"])
+    assert not got(counts, "flash_fwd_kernel_tc", ("HGMMA",))
+
+
 def test_kernel_build_is_keyed_by_sources():
     from paddle_tpu_torch.ops import _kernels
     key = _kernels._source_key(list(_kernels.NVCC_FLAGS))
