@@ -18,11 +18,12 @@ a checkout, it exits 2 at once.
 Phases:
   1. device   — card name, count, nvidia-smi name/power limit
   2. build    — nvcc build of the kernel library, timed, with ptxas's
-                register and spill report (the tensor-core kernels must not
-                spill), and the tensor-core instructions (wgmma's HGMMA,
-                mma.sync's HMMA) of the bf16 flash forward, dq and dk/dv
-                and the bf16 paged attention counted in their machine code
-                (cuobjdump -sass)
+                register and spill report (no instantiation of a
+                tensor-core kernel may spill), and the tensor-core
+                instructions (wgmma's HGMMA, mma.sync's HMMA) of every
+                instantiation of the bf16 flash forward, dq and dk/dv
+                (plain, mask and dropout) and the bf16 paged attention
+                counted in their machine code (cuobjdump -sass)
   3. kernels  — each kernel against its plain version at its path's
                 shapes (serving: paged attention and the LayerNorm
                 forward; training: flash attention forward, dq and dk/dv
@@ -39,6 +40,18 @@ Phases:
                 function and the least time the card could take (flash
                 and paged attention: with their achieved TFLOP/s and share
                 of that bound)
+  3d. attention_variants — the additive-mask and dropout variants of the
+                flash forward, dq and dk/dv at gpt3-1.3b's attention width
+                ([4,16,1024,128] bf16; fp32 at [2,4,256,64]): key padding
+                (causal or not), a per-head bf16 mask, a 3-D mask, dropout
+                0.1, each against its plain version (the dropout keep-mask
+                of the kernels, philox.cuh, against its plain twin bit for
+                bit), run twice bit-equal; then driven through
+                scaled_dot_product_attention (forward and backward) with
+                the launch counts zeroed just before and read just after,
+                mask plus dropout taking the plain reference (the JAX
+                package's rule) with its mask gradient; timed beside the
+                kernels without the variant and F.scaled_dot_product_attention
   4. model    — gpt3-1.3b widths cut to 2 layers, fp32, on the card
                 (kernels) against a CPU twin with the same weights (plain
                 versions): the engine's unified steps (logits and tokens),
@@ -68,6 +81,7 @@ Phases:
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -218,8 +232,19 @@ def phase_build():
         spills = {k: v for k, v in mine.items()
                   if v["spill_stores"] or v["spill_loads"]}
         check(not spills, f"{name}: ptxas spills registers: {spills}")
-        resources[name] = sorted({v["registers"] for v in mine.values()})
+        # every instantiation (the flash kernels': head dim 64/128 x plain,
+        # mask, dropout) with its registers and HGMMA/HMMA count
+        resources[name] = {k: dict(registers=v["registers"],
+                                   spill_stores=v["spill_stores"],
+                                   **found.get(k, {}))
+                           for k, v in mine.items()}
+    # ptxas's notes that it serialised a kernel's wgmmas (C7510-C7519):
+    # reported, they cost the products their overlap
+    serialized = sorted({line.split("function '")[1].split("'")[0]
+                         for line in _kernels.ptxas_report.splitlines()
+                         if "(C751" in line and "function '" in line})
     emit({"phase": "build", "seconds": seconds,
+          "wgmma_serialized": serialized,
           "nvcc_seconds": _kernels.build_seconds,
           "sources": [f"paddle_tpu_torch/csrc/{s}" for s in _kernels.SOURCES],
           "tensor_core_instructions": tensor_core,
@@ -642,6 +667,14 @@ def check_flash(torch, q, k, v, g, causal, label):
     return readings
 
 
+def visible_pairs(Sq, Sk, causal):
+    """The (query, key) pairs of one batch*head a causal (bottom-right
+    aligned) or full mask leaves visible."""
+    if causal:
+        return sum(max(0, min(Sk, r + (Sk - Sq) + 1)) for r in range(Sq))
+    return Sq * Sk
+
+
 def flash_bytes_ops(B, H, Sq, Sk, D, causal, el):
     """(bytes, operations) of the forward, dq and dk/dv functions.
 
@@ -650,11 +683,7 @@ def flash_bytes_ops(B, H, Sq, Sk, D, causal, el):
     lse, doing QK and PV (4·D operations a pair); dq reads q, k, v, g, lse
     and delta and writes dq, doing QK, g·v and ds·k (6·D); dk/dv reads the
     same and writes dk and dv, doing QK, g·v, p·g and ds·q (8·D)."""
-    if causal:
-        pairs = sum(max(0, min(Sk, r + (Sk - Sq) + 1)) for r in range(Sq))
-    else:
-        pairs = Sq * Sk
-    pairs *= B * H
+    pairs = visible_pairs(Sq, Sk, causal) * B * H
     qb, kb = B * H * Sq * D * el, B * H * Sk * D * el
     row = B * H * Sq * 4
     return {"flash_fwd": (2 * qb + 2 * kb + row, 4 * D * pairs),
@@ -1011,6 +1040,428 @@ def phase_adam_kernel():
              "g and moments (14 bytes an element, as the recipe's dtypes)")
     emit({"phase": "kernel", "name": "fused_adam", **result})
     return {"fused_adam": result}
+
+
+# ---------------------------------- phase 3d: the mask and dropout variants
+# The additive-mask and dropout variants of the flash forward, dq and dk/dv
+# at gpt3-1.3b's attention width ([4, 16, 1024, 128] bf16), each against
+# its plain version under the training kernels' rule (fp32 cases at
+# [2, 4, 256, 64] under the fp32 flash limits), the device keep-mask
+# against its plain twin bit for bit, then driven through the entry points
+# (scaled_dot_product_attention, [B, S, H, D]) with the launch counts
+# zeroed just before and read just after, and timed.
+VARIANT_LENGTHS = (1024, 777, 512, 129)   # case a's valid keys a row
+VARIANT_P = 0.1
+VARIANT_SEED = 0x5EED0F1A5                # above 2**32: both key words
+VARIANT_CASES = {  # mask, causal, dropout p; "plain": the reference's rule
+    "a": ("padding", False, 0.0), "b": ("padding", True, 0.0),
+    "c": ("normal_bf16_per_head", False, 0.0), "d": ("normal_3d", False, 0.0),
+    "e": (None, True, VARIANT_P), "f": ("padding", True, VARIANT_P)}
+# case f's dmask: the plain reference run in bf16 rounds p, dp and out to
+# bf16 once each on the way; four bf16 ulps at the largest |dmask| (2^-6
+# of it) bound what that rounding can move an element
+VARIANT_DMASK_PLAIN_REL = 2.0 ** -6
+
+
+def padding_mask(torch, lengths, S, device="cuda"):
+    """Key padding as an additive mask [B, 1, S, S] fp32: 0 on the first
+    lengths[b] keys, -inf past them."""
+    cols = torch.arange(S, device=device)
+    lens = torch.tensor(lengths, device=device)
+    m = torch.where(cols[None, :] < lens[:, None], 0.0, float("-inf"))
+    return m[:, None, None, :].expand(len(lengths), 1, S, S).contiguous()
+
+
+def _variant_mask(torch, gen, kind, B, H, S):
+    if kind == "padding":
+        return padding_mask(torch, VARIANT_LENGTHS[:B], S)
+    if kind == "normal_bf16_per_head":
+        return torch.randn(B, H, S, S, generator=gen,
+                           device="cuda").bfloat16()
+    if kind == "normal_3d":
+        return torch.randn(B, S, S, generator=gen, device="cuda")
+    return None
+
+
+def variant_bytes_ops(B, H, S, D, causal, el, mask_rows):
+    """flash_bytes_ops of the plain kernels plus the fp32 mask each
+    variant reads once: of each of its rows ([rows, Sq, Sk]), the entries
+    of the visible pairs only (a causal function needs none above the
+    diagonal); dropout adds no bytes, and its Philox (integer work on the
+    CUDA cores) is not counted in the operations, which stay the products
+    on the tensor cores."""
+    bo = flash_bytes_ops(B, H, S, S, D, causal, el)
+    extra = mask_rows * visible_pairs(S, S, causal) * 4
+    return {k: (b + extra, o) for k, (b, o) in bo.items()}
+
+
+def check_variant(torch, q, k, v, g, causal, mask, p, seed, label):
+    """The variant kernels against their plain versions on one case, as
+    check_flash does. Returns (readings, (out, lse, dq, dk, dv))."""
+    from paddle_tpu_torch.ops.attention import (dropout_keep_mask,
+                                                flash_attention_delta,
+                                                flash_bwd_dkv_cuda,
+                                                flash_bwd_dq_cuda,
+                                                flash_bwd_plain,
+                                                flash_fwd_cuda,
+                                                flash_fwd_plain)
+    B, H, S, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    keep = dropout_keep_mask(seed, B, H, S, S, p, "cuda") if p else None
+    out, lse = flash_fwd_cuda(q, k, v, causal, scale, mask, p, seed)
+    delta = flash_attention_delta(g, out)
+    dq = flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal, scale, mask, p,
+                           seed)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal, scale, mask,
+                                p, seed)
+    torch.cuda.synchronize()
+    got = (out, lse, dq, dk, dv)
+    for t, n in zip(got, ("out", "lse", "dq", "dk", "dv")):
+        check(bool(torch.isfinite(t.float()).all()),
+              f"flash variant {label}: non-finite {n}")
+    ref_out, ref_lse = flash_fwd_plain(q, k, v, causal, scale, mask, keep, p)
+    ref_b = flash_bwd_plain(q, k, v, g, lse, delta, causal, scale, mask,
+                            keep, p)
+    readings = {"lse": _check_close(torch, lse, ref_lse, 1e-5,
+                                    f"flash variant {label} lse")}
+    if q.dtype == torch.float32:
+        readings["out"] = _check_close(torch, out, ref_out, 1e-5,
+                                       f"flash variant {label} out")
+        for n, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref_b):
+            readings[n] = _check_close(torch, a, r, 1e-4,
+                                       f"flash variant {label} {n}")
+        return readings, got
+    f32 = [t.float() for t in (q, k, v, g)]
+    ref32_out, _ = flash_fwd_plain(*f32[:3], causal, scale, mask, keep, p)
+    ref32_b = flash_bwd_plain(*f32, lse, delta, causal, scale, mask, keep, p)
+    readings["out"] = _check_bf16(torch, out, ref_out, ref32_out,
+                                  f"flash variant {label} out")
+    for n, a, r, r32 in zip(("dq", "dk", "dv"), (dq, dk, dv), ref_b,
+                            ref32_b):
+        readings[n] = _check_bf16(torch, a, r, r32,
+                                  f"flash variant {label} {n}")
+    return readings, got
+
+
+def _sdpa_masked_bwd_call(torch, F, q, k, v, g, **kw):
+    """One backward of F.scaled_dot_product_attention(**kw) on a graph
+    built once (dq, dk and dv together)."""
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qr, kr, vr, **kw)
+    return partial(torch.autograd.grad, out, (qr, kr, vr), g,
+                   retain_graph=True)
+
+
+def _sdpa_fwd_bwd_call(torch, sdpa, copy, causal, mask):
+    """One forward + backward of the port's scaled_dot_product_attention
+    on `copy` (q, k, v, g [B, H, S, D], passed as [B, S, H, D] views)."""
+    q, k, v, g = (t.transpose(1, 2) for t in copy)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def run():
+        o = sdpa(*leaves, attn_mask=mask, is_causal=causal, training=True)
+        torch.autograd.grad(o, leaves, g)
+    return run
+
+
+def phase_attention_variants():
+    """Phase 3d. Returns ({kernel name: reading}, launch counts of the
+    entry-point run)."""
+    import torch
+    import torch.nn.functional as F
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.core.random import next_seed
+    from paddle_tpu_torch.ops import _kernels, scaled_dot_product_attention
+    from paddle_tpu_torch.ops.attention import (_attention_reference,
+                                                _mask_grad,
+                                                dropout_keep_mask,
+                                                dropout_keep_mask_cuda,
+                                                flash_attention_delta,
+                                                flash_bwd_dkv_cuda,
+                                                flash_bwd_dq_cuda,
+                                                flash_bwd_plain,
+                                                flash_fwd_cuda,
+                                                flash_fwd_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 6)
+    B, H, S, D = TRAIN_B, 16, TRAIN_S, 128
+    bf = torch.bfloat16
+    scale = 1.0 / math.sqrt(D)
+
+    # ---- the keep-mask: device (philox.cuh) against the plain twin
+    keep_dev = dropout_keep_mask_cuda(VARIANT_SEED, B, H, S, S, VARIANT_P)
+    keep = dropout_keep_mask(VARIANT_SEED, B, H, S, S, VARIANT_P, "cuda")
+    check(torch.equal(keep_dev, keep),
+          "the device keep-mask differs from dropout_keep_mask")
+    n = keep.numel()
+    rate = float(keep.float().mean())
+    sigma = math.sqrt(VARIANT_P * (1 - VARIANT_P) / n)
+    check(abs(rate - (1 - VARIANT_P)) < 5 * sigma,
+          f"keep rate {rate} is not within 5 sigma ({sigma}) of "
+          f"{1 - VARIANT_P}")
+    other = dropout_keep_mask_cuda(VARIANT_SEED + 1, B, H, S, S, VARIANT_P)
+    check(not torch.equal(other, keep_dev), "a second seed gave the same "
+                                            "keep-mask")
+    keep_reading = dict(elements=n, keep_rate=rate, sigma=sigma,
+                        bit_equal=True, second_seed_differs=True)
+    del keep_dev, keep, other
+
+    # ---- every variant kernel against its plain version
+    q, k, v, g = _flash_inputs(torch, gen, B, H, S, S, D, bf)
+    masks = {c: _variant_mask(torch, gen, kind, B, H, S)
+             for c, (kind, _, _) in VARIANT_CASES.items() if c != "f"}
+    masks["f"] = masks["a"]
+    cases, outs = {}, {}
+    for c in "abcde":
+        _, causal, p = VARIANT_CASES[c]
+        cases[c], outs[c] = check_variant(
+            torch, q, k, v, g, causal, masks[c], p, VARIANT_SEED,
+            f"{c} bf16 [4,16,1024,128]")
+    gen32 = torch.Generator(device="cuda")
+    gen32.manual_seed(SEED + 7)
+    t32 = _flash_inputs(torch, gen32, 2, 4, 256, 256, 64, torch.float32)
+    pad32 = padding_mask(torch, (256, 129), 256)
+    for c in "abe":
+        _, causal, p = VARIANT_CASES[c]
+        cases[f"fp32_{c}"], _ = check_variant(
+            torch, *t32, causal, None if p else pad32, p, VARIANT_SEED,
+            f"{c} fp32 [2,4,256,64]")
+    del t32, pad32
+    # bf16 variants run twice are bit-equal; another seed moves dropout
+    for c in "abcde":
+        _, causal, p = VARIANT_CASES[c]
+        _, again = check_variant(torch, q, k, v, g, causal, masks[c], p,
+                                 VARIANT_SEED, f"{c} again")
+        for n_, a, b_ in zip(("out", "lse", "dq", "dk", "dv"), outs[c],
+                             again):
+            check(torch.equal(a, b_), f"flash variant {c} {n_}: two runs "
+                                      f"differ")
+    moved = flash_fwd_cuda(q, k, v, True, scale, None, VARIANT_P,
+                           VARIANT_SEED + 1)[0]
+    check(not torch.equal(moved, outs["e"][0]),
+          "dropout with another seed gave the same output")
+    # dmask through the kernels (case a, mask.requires_grad): _mask_grad
+    # on the kernels' lse against the plain versions'
+    out_a, lse_a = outs["a"][:2]
+    dm = _mask_grad(q, k, v, masks["a"], lse_a, g,
+                    flash_attention_delta(g, out_a), False, scale)
+    ro, rl = flash_fwd_plain(q, k, v, False, scale, masks["a"])
+    dm_plain = _mask_grad(q, k, v, masks["a"], rl, g,
+                          flash_attention_delta(g, ro), False, scale)
+    f32 = [t.float() for t in (q, k, v, g)]
+    ro32, rl32 = flash_fwd_plain(*f32[:3], False, scale, masks["a"])
+    dm32 = _mask_grad(*f32[:3], masks["a"], rl32, f32[3],
+                      flash_attention_delta(f32[3], ro32), False, scale)
+    cases["a"]["dmask"] = _check_bf16(torch, dm, dm_plain, dm32,
+                                      "flash variant a dmask")
+    del dm, dm_plain, dm32, ro, rl, ro32, rl32
+    emit({"phase": "kernel_checks", "name": "flash_attention_variants",
+          "keep_mask": keep_reading, "cases": cases,
+          "bitwise_runs": 2, "cases_by_letter": {
+              c: dict(mask=m, causal=cz, dropout_p=p)
+              for c, (m, cz, p) in VARIANT_CASES.items()}})
+
+    # ---- the entry points, counts zeroed just before and read just after
+    bshd = [t.transpose(1, 2) for t in (q, k, v)]     # [B, S, H, D] views
+    g_bshd = g.transpose(1, 2)
+    ptt.seed(SEED)
+    seed_e = next_seed()
+    ptt.seed(SEED)
+    entry = {}
+    _kernels.reset_launch_counts()
+    for c in "abcdef":
+        _, causal, p = VARIANT_CASES[c]
+        leaves = [t.detach().requires_grad_() for t in bshd]
+        m = masks[c]
+        if c == "f":
+            m = m.detach().clone().requires_grad_()
+        before = _kernels.launch_counts()
+        o = scaled_dot_product_attention(*leaves, attn_mask=m, dropout_p=p,
+                                         is_causal=causal, training=True)
+        o.backward(g_bshd)
+        torch.cuda.synchronize()
+        after = _kernels.launch_counts()
+        entry[c] = dict(out=o.detach(), grads=[t.grad for t in leaves],
+                        dmask=m.grad if c == "f" else None,
+                        launched={n_: after[n_] - before[n_]
+                                  for n_ in after if after[n_] > before[n_]})
+    launches = _kernels.launch_counts()
+    for c in "abcd":
+        check(entry[c]["launched"] == dict.fromkeys(
+            ("flash_fwd_mask", "flash_bwd_dq_mask", "flash_bwd_dkv_mask"), 1),
+            f"case {c} launched {entry[c]['launched']}")
+    check(entry["e"]["launched"] == dict.fromkeys(
+        ("flash_fwd_dropout", "flash_bwd_dq_dropout",
+         "flash_bwd_dkv_dropout"), 1),
+        f"case e launched {entry['e']['launched']}")
+    check(entry["f"]["launched"] == {},
+          f"case f (mask and dropout: the plain reference) launched "
+          f"{entry['f']['launched']}")
+    # a-d through the entry point are the kernels' outputs, bit for bit
+    for c in "abcd":
+        o, dq_, dk_, dv_ = (entry[c]["out"], *entry[c]["grads"])
+        ref = outs[c]
+        check(torch.equal(o.transpose(1, 2), ref[0])
+              and torch.equal(dq_.transpose(1, 2), ref[2])
+              and torch.equal(dk_.transpose(1, 2), ref[3])
+              and torch.equal(dv_.transpose(1, 2), ref[4]),
+              f"case {c}: the entry point differs from its kernels")
+    # e drew its seed from core.random: the kernels at that seed
+    want_e = check_variant(torch, q, k, v, g, True, None, VARIANT_P, seed_e,
+                           "e at the entry point's seed")[1]
+    check(torch.equal(entry["e"]["out"].transpose(1, 2), want_e[0])
+          and torch.equal(entry["e"]["grads"][0].transpose(1, 2), want_e[2]),
+          "case e: the entry point differs from its kernels at its seed")
+    del want_e
+    # f: the plain reference with the Philox keep-mask of its seed
+    ptt.seed(SEED)
+    next_seed()                      # case e's
+    seed_f = next_seed()
+    keep_f = dropout_keep_mask(seed_f, B, H, S, S, VARIANT_P, "cuda")
+    mf = masks["f"].detach().clone().requires_grad_()
+    lf = [t.detach().requires_grad_() for t in (q, k, v)]
+    of = _attention_reference(*lf, True, scale, mf, VARIANT_P, keep_f)
+    of.backward(g)
+    check(torch.equal(entry["f"]["out"].transpose(1, 2), of.detach())
+          and torch.equal(entry["f"]["dmask"], mf.grad),
+          "case f: the entry point is not the plain reference with its "
+          "keep-mask")
+    m32 = masks["f"].detach().clone().requires_grad_()
+    l32 = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    o32 = _attention_reference(*l32, True, scale, m32, VARIANT_P, keep_f)
+    o32.backward(g.float())
+    dm_err = float((mf.grad.float() - m32.grad).abs().max())
+    dm_lim = VARIANT_DMASK_PLAIN_REL * float(m32.grad.abs().max())
+    check(dm_err <= dm_lim, f"case f dmask is {dm_err} from the fp32 plain "
+                            f"reference, limit {dm_lim}")
+    cases["f"] = dict(route="plain", dmask_err=dm_err, dmask_limit=dm_lim,
+                      out_err=float((of.float() - o32).abs().max().detach()))
+    del of, o32, mf, m32, lf, l32, keep_f, entry
+    emit({"phase": "attention_variants", "entry": "scaled_dot_product_"
+          "attention([B,S,H,D], attn_mask, dropout_p, is_causal, training)",
+          "launches": {n_: c for n_, c in launches.items() if c},
+          "case_f": cases["f"]})
+
+    # ---- timing at [4,16,1024,128] bf16: cases a (mask), b (mask, causal)
+    # and e (dropout, causal), each beside the kernel without the variant
+    # and one library call; inputs cycled over two copies (67 MB each)
+    copies = [(q, k, v, g), tuple(t.clone() for t in (q, k, v, g))]
+    results = {}
+    for c in "abe":
+        _, causal, p = VARIANT_CASES[c]
+        mask = masks[c]
+        fwd_outs = [flash_fwd_cuda(cq, ck, cv, causal, scale, mask, p,
+                                   VARIANT_SEED) for cq, ck, cv, _ in copies]
+        deltas = [flash_attention_delta(cg, o) for (_, _, _, cg), (o, _)
+                  in zip(copies, fwd_outs)]
+        t = {"flash_fwd": time_cuda([
+            partial(flash_fwd_cuda, cq, ck, cv, causal, scale, mask, p,
+                    VARIANT_SEED) for cq, ck, cv, _ in copies])}
+        t["flash_bwd_dq"] = time_cuda([
+            partial(flash_bwd_dq_cuda, cq, ck, cv, cg, lse, dl, causal, scale,
+                    mask, p, VARIANT_SEED)
+            for (cq, ck, cv, cg), (_, lse), dl in zip(copies, fwd_outs,
+                                                      deltas)])
+        t["flash_bwd_dkv"] = time_cuda([
+            partial(flash_bwd_dkv_cuda, cq, ck, cv, cg, lse, dl, causal,
+                    scale, mask, p, VARIANT_SEED)
+            for (cq, ck, cv, cg), (_, lse), dl in zip(copies, fwd_outs,
+                                                      deltas)])
+        # the same kernels without the variant
+        base = {"flash_fwd": time_cuda([
+            partial(flash_fwd_cuda, cq, ck, cv, causal, scale)
+            for cq, ck, cv, _ in copies])[0]}
+        base["flash_bwd_dq"] = time_cuda([
+            partial(flash_bwd_dq_cuda, cq, ck, cv, cg, lse, dl, causal,
+                    scale) for (cq, ck, cv, cg), (_, lse), dl
+            in zip(copies, fwd_outs, deltas)])[0]
+        base["flash_bwd_dkv"] = time_cuda([
+            partial(flash_bwd_dkv_cuda, cq, ck, cv, cg, lse, dl, causal,
+                    scale) for (cq, ck, cv, cg), (_, lse), dl
+            in zip(copies, fwd_outs, deltas)])[0]
+        keep_c = (dropout_keep_mask(VARIANT_SEED, B, H, S, S, p, "cuda")
+                  if p else None)
+        lse0, dl0 = fwd_outs[0][1], deltas[0]
+        plain_fwd, _ = time_cuda([partial(flash_fwd_plain, q, k, v, causal,
+                                          scale, mask, keep_c, p)],
+                                 per_rep=2)
+        plain_bwd, _ = time_cuda([partial(flash_bwd_plain, q, k, v, g, lse0,
+                                          dl0, causal, scale, mask, keep_c,
+                                          p)], per_rep=2)
+        if p:
+            kw = dict(dropout_p=p, is_causal=True)
+        else:
+            lib_mask = mask if not causal else torch.where(
+                torch.ones(S, S, dtype=torch.bool, device="cuda").tril(),
+                mask, float("-inf"))
+            kw = dict(attn_mask=lib_mask.to(q.dtype))
+        lib_fwd, _ = time_cuda([partial(F.scaled_dot_product_attention, cq,
+                                        ck, cv, **kw)
+                                for cq, ck, cv, _ in copies])
+        lib_bwd, _ = time_cuda([_sdpa_masked_bwd_call(torch, F, *cp, **kw)
+                                for cp in copies])
+        rows = 0 if p else mask.shape[0]
+        bo = variant_bytes_ops(B, H, S, D, causal, 2, rows)
+        suffix = "_dropout" if p else "_mask"
+        plain = {"flash_fwd": plain_fwd, "flash_bwd_dq": plain_bwd,
+                 "flash_bwd_dkv": plain_bwd}
+        read = cases[c]
+        err = {"flash_fwd": read["out"]["err"],
+               "flash_bwd_dq": read["dq"]["err"],
+               "flash_bwd_dkv": max(read["dk"]["err"], read["dv"]["err"])}
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            n_bytes, n_ops = bo[name]
+            bound, by = bound_ms(n_bytes, n_ops, "bfloat16")
+            reading = dict(
+                case=c, max_abs_err=err[name],
+                tol=(f"bf16: max error from the fp32 plain version <= "
+                     f"{BF16_TRAIN_FACTOR} x the bf16 plain version's + "
+                     f"{BF16_TRAIN_ATOL}; fp32 cases atol=rtol=1e-5 (out, "
+                     f"lse), 1e-4 (dq, dk, dv); keep-mask bit for bit"),
+                ms=t[name][0], call_ms=t[name][1], plain_ms=plain[name],
+                library_ms=lib_fwd if name == "flash_fwd" else lib_bwd,
+                without_variant_ms=base[name], bound_ms=bound, bound_by=by,
+                bytes=n_bytes, ops=n_ops, tflops=n_ops / t[name][0] / 1e9,
+                share_of_bound=bound / t[name][0],
+                shape=dict(B=B, H=H, Sq=S, Sk=S, D=D, causal=causal,
+                           dtype="bfloat16",
+                           mask=None if p else list(mask.shape),
+                           dropout_p=p),
+                note=(None if name == "flash_fwd" else
+                      "plain_ms and library_ms compute dq, dk and dv "
+                      "together; library_ms: F.scaled_dot_product_"
+                      "attention's backward with " + ", ".join(kw)))
+            emit({"phase": "kernel", "name": name + suffix, **reading})
+            if c == "b":
+                results[name + suffix]["causal_case_b"] = reading
+            else:
+                results[name + suffix] = reading
+        del fwd_outs, deltas, keep_c
+    # the entry point converts a mask to the kernels' fp32 rows once a
+    # forward (FlashAttentionFn): forward + backward with the README's
+    # key padding [B, 1, 1, Sk] and case c's bf16 per-head mask, each
+    # beside the same mask handed over already in that layout
+    for name, c, given in (("key_padding_b11s", "a",
+                            masks["a"][:, :, :1].contiguous()),
+                           ("per_head_bf16", "c", masks["c"])):
+        _, causal, _ = VARIANT_CASES[c]
+        laid = masks[c].float().contiguous()
+        ms = {}
+        for how, m in (("given", given), ("laid_out", laid)):
+            ms[how] = time_cuda([_sdpa_fwd_bwd_call(
+                torch, scaled_dot_product_attention, cp, causal, m)
+                for cp in copies])[0]
+        results["flash_fwd_mask"][f"entry_{name}"] = dict(
+            case=c, mask=list(given.shape), mask_dtype=str(given.dtype)[6:],
+            fwd_bwd_ms=ms["given"], laid_out_fwd_bwd_ms=ms["laid_out"],
+            conversion_ms=ms["given"] - ms["laid_out"],
+            note="scaled_dot_product_attention forward + backward "
+                 "([B,S,H,D]); laid_out: the same mask as fp32 [rows, Sq, "
+                 "Sk], which the kernels take without a copy")
+        del laid
+    del copies, masks, outs
+    torch.cuda.empty_cache()
+    return results, launches
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1544,6 +1995,11 @@ def phase_train(device_name, recipe=False, train_peak_gib=None):
     from paddle_tpu_torch.ops import _kernels
     from paddle_tpu_torch.parallel import ScanTrainStep
 
+    # an earlier phase's model held by a reference cycle (the serve phase's
+    # engine) is freed only by the cyclic collector: collect it now, or the
+    # peak below counts it whenever the collector has not yet run
+    gc.collect()
+    torch.cuda.empty_cache()
     model, opt, ids, labels, init_s = train_workload(recipe)
     n_params = sum(p.numel() for p in model.parameters())
     warm = ScanTrainStep(model, opt, scan_steps=TRAIN_WARMUP_STEPS)
@@ -1590,6 +2046,8 @@ def phase_train(device_name, recipe=False, train_peak_gib=None):
           f"loss did not fall: {all_losses[0]} -> {all_losses[-1]}")
     check(per_step == {k: float(v) for k, v in want_launches.items()},
           f"launches per step {per_step}, want {want_launches}")
+    check(not any(launches[k] for k in _kernels.FLASH_VARIANTS),
+          f"the train step launched a mask or dropout variant: {launches}")
     if recipe:
         host = recipe_schedule(RECIPE_PEAK_LR)
         want_lr = []
@@ -1629,6 +2087,15 @@ KERNEL_META = {
     "fused_adam": dict(
         source="paddle_tpu_torch/csrc/fused_adam.cu",
         replaces="paddle_tpu/ops/fused_adam.py:47", phase="train_recipe"),
+    # the mask and dropout variants of kernels 3-5 (the TPU kernels'
+    # has_mask and dropout_p > 0 branches)
+    **{f"{k}_{v}": dict(
+        source="paddle_tpu_torch/csrc/flash_attention_tc.cu",
+        replaces=f"paddle_tpu/ops/attention.py:{line}",
+        phase="attention_variants")
+       for k, line in (("flash_fwd", 174), ("flash_bwd_dq", 246),
+                       ("flash_bwd_dkv", 300))
+       for v in ("mask", "dropout")},
 }
 
 
@@ -1654,9 +2121,12 @@ def main():
     kern = phase_kernels()
     kern.update(phase_train_kernels())
     kern.update(phase_adam_kernel())
+    variants, variant_launches = phase_attention_variants()
+    kern.update(variants)
     phase_model()
     phase_model_train()
-    by_phase = {"serve": phase_serve()}
+    by_phase = {"attention_variants": variant_launches,
+                "serve": phase_serve()}
     by_phase["train"], train_peak = phase_train(name)
     by_phase["train_recipe"], _ = phase_train(name, recipe=True,
                                               train_peak_gib=train_peak)
@@ -1669,7 +2139,9 @@ def main():
                     launches_by_phase={ph: c[k] for ph, c in
                                        by_phase.items()},
                     **{x: kern[k][x] for x in keys}, kernel_ms=kern[k]["ms"])
-        for x in ("tflops", "share_of_bound"):   # the flash kernels
+        for x in ("tflops", "share_of_bound", "without_variant_ms",
+                  "causal_case_b", "entry_key_padding_b11s",
+                  "entry_per_head_bf16"):   # the flash kernels and variants
             if x in kern[k]:
                 line[x] = kern[k][x]
         if k + "_train" in kern:   # a served kernel the train step runs too

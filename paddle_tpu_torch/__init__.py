@@ -12,3 +12,5 @@ Every TPU kernel on a ported path is a hand-written Hopper kernel under
 PyTorch version beside it that the CPU takes.
 """
 __version__ = "0.1.0"
+
+from .core.random import seed  # noqa: E402,F401

@@ -23,6 +23,17 @@
 //   dkv: p rounded to g's dtype for dv = p^T @ g, ds rounded to q's dtype
 //        for dk = ds^T @ q.
 //   delta = rowsum(g * out) in fp32 is computed outside, as JAX does.
+// Variants (has_mask and dropout_p > 0 in the TPU kernels; compile-time
+// flags here, so the plain instantiation is unchanged):
+//   mask: s += mask[bh / row_div][row][col] in fp32 after the causal
+//        -1e30, then the p = 0 test (a -inf or finfo.min mask gives an
+//        exact 0; a row masked whole outputs 0 and zero gradients).
+//   dropout: keep bits from philox.cuh (per element, so every kernel and
+//        tiling draws the same bit); the forward's l sums the undropped
+//        p and PV takes keep ? p / (1 - p_drop) : 0; dq and dk/dv drop dp
+//        alike, dk/dv drops p for dV, and ds takes the undropped p.
+//   Each costs one fp32 load (mask) or one Philox4x32-10 (dropout) per
+//   score element on top of the plain kernel.
 // The TPU rules that only served its tiling are dropped: no S >= 512
 // threshold and no block divisibility; ragged tiles are masked here (key
 // columns >= Sk score -1e30, query rows >= Sq are never stored and, in
@@ -56,6 +67,8 @@
 // tiles first. Every sum runs in a fixed order inside one CTA, so two runs
 // are bit-equal.
 #include <cuda_runtime.h>
+
+#include "flash_attention.cuh"
 
 namespace {
 
@@ -125,13 +138,45 @@ __device__ __forceinline__ int k_tiles_for(int q0, int Sq, int Sk, int offset,
   return n;
 }
 
+// The first element of batch*head bh's mask row (nullptr without a mask).
+template <bool kMask>
+__device__ __forceinline__ const float* mask_rows(const AttnMask& mask,
+                                                  long long bh, int Sq,
+                                                  int Sk) {
+  if constexpr (!kMask) return nullptr;
+  return mask.ptr + (bh / mask.row_div) * Sq * static_cast<long long>(Sk);
+}
+
+// s + mask[row][col] in fp32 (after the causal -1e30, as
+// _apply_mask_block adds it); elements past Sq or Sk keep s.
+template <bool kMask>
+__device__ __forceinline__ float add_mask(float s, const float* mb, int row,
+                                          int col, int Sq, int Sk) {
+  if constexpr (!kMask) return s;
+  return row < Sq && col < Sk
+             ? s + mb[static_cast<long long>(row) * Sk + col]
+             : s;
+}
+
+// keep ? x / (1 - p) : 0 (by the fp32 reciprocal) for element (row, col)
+template <bool kDrop>
+__device__ __forceinline__ float dropped(float x, const DropoutParams& d,
+                                         long long bh, int row, int col) {
+  if constexpr (!kDrop) return x;
+  return dropout_keep(d, static_cast<uint32_t>(bh),
+                      static_cast<uint32_t>(row), static_cast<uint32_t>(col))
+             ? __fmul_rn(x, d.rescale)
+             : 0.f;
+}
+
 // ---------------------------------------------------------------- forward
-template <typename T>
+template <typename T, bool kMask, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse, int Sq, int Sk, int D,
-                     float scale, int causal) {
+                     float scale, int causal, AttnMask mask,
+                     DropoutParams drop) {
   extern __shared__ float smem[];
   float* q_s = smem;
   float* k_s = q_s + kBQ * kStride;
@@ -144,6 +189,7 @@ __global__ void __launch_bounds__(kThreads)
   const T* qb = q + bh * Sq * D;
   const T* kb = k + bh * Sk * D;
   const T* vb = v + bh * Sk * D;
+  const float* mb = mask_rows<kMask>(mask, bh, Sq, Sk);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int offset = Sk - Sq;
   const int nd = D >> 4;
@@ -191,7 +237,9 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < kC; ++j) {
         const int col = k0 + tx + 16 * j;
         const float x = __fmul_rn(s[i][j], scale);
-        s[i][j] = visible(row, col, Sq, Sk, offset, causal) ? x : kNegInf;
+        s[i][j] = add_mask<kMask>(
+            visible(row, col, Sq, Sk, offset, causal) ? x : kNegInf, mb, row,
+            col, Sq, Sk);
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], row_max(mx));
@@ -201,8 +249,9 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < kC; ++j) {
         const float p =
             s[i][j] <= kNegInf / 2 ? 0.f : expf(s[i][j] - m_new);
-        ps += p;
-        p_s[(ty + 16 * i) * kPStride + tx + 16 * j] = round_to<T>(p);
+        ps += p;  // l sums the undropped p; the numerator the dropped one
+        p_s[(ty + 16 * i) * kPStride + tx + 16 * j] = round_to<T>(
+            dropped<kDrop>(p, drop, bh, row, k0 + tx + 16 * j));
       }
       l[i] = l[i] * alpha + row_sum(ps);
       m[i] = m_new;
@@ -239,13 +288,14 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // --------------------------------------------------------------------- dq
-template <typename T>
+template <typename T, bool kMask, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ g,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
-                        int Sq, int Sk, int D, float scale, int causal) {
+                        int Sq, int Sk, int D, float scale, int causal,
+                        AttnMask mask, DropoutParams drop) {
   extern __shared__ float smem[];
   float* q_s = smem;
   float* g_s = q_s + kBQ * kStride;
@@ -258,6 +308,7 @@ __global__ void __launch_bounds__(kThreads)
   const long long bh = blockIdx.y;
   const T* kb = k + bh * Sk * D;
   const T* vb = v + bh * Sk * D;
+  const float* mb = mask_rows<kMask>(mask, bh, Sq, Sk);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int offset = Sk - Sq;
   const int nd = D >> 4;
@@ -314,11 +365,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < kC; ++j) {
         const int col = k0 + tx + 16 * j;
-        const float x = visible(row, col, Sq, Sk, offset, causal)
-                            ? __fmul_rn(s[i][j], scale)
-                            : kNegInf;
+        const float x = add_mask<kMask>(
+            visible(row, col, Sq, Sk, offset, causal)
+                ? __fmul_rn(s[i][j], scale)
+                : kNegInf,
+            mb, row, col, Sq, Sk);
         const float p = x <= kNegInf / 2 ? 0.f : expf(x - lse_r[i]);
-        const float ds = __fmul_rn(__fmul_rn(p, dp[i][j] - delta_r[i]), scale);
+        const float dpd = dropped<kDrop>(dp[i][j], drop, bh, row, col);
+        const float ds = __fmul_rn(__fmul_rn(p, dpd - delta_r[i]), scale);
         ds_s[(ty + 16 * i) * kPStride + tx + 16 * j] = round_to<T>(ds);
       }
     }
@@ -350,14 +404,15 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------------------------ dk/dv
-template <typename T>
+template <typename T, bool kMask, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ g,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ dk,
                          T* __restrict__ dv, int Sq, int Sk, int D,
-                         float scale, int causal) {
+                         float scale, int causal, AttnMask mask,
+                         DropoutParams drop) {
   extern __shared__ float smem[];
   float* k_s = smem;
   float* v_s = k_s + kBK * kStride;
@@ -372,6 +427,7 @@ __global__ void __launch_bounds__(kThreads)
   const long long bh = blockIdx.y;
   const T* qb = q + bh * Sq * D;
   const T* gb = g + bh * Sq * D;
+  const float* mb = mask_rows<kMask>(mask, bh, Sq, Sk);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int offset = Sk - Sq;
   const int nd = D >> 4;
@@ -432,13 +488,22 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < kC; ++j) {
         const int r = tx + 16 * j;
-        const float x = visible(q0 + r, col, Sq, Sk, offset, causal)
-                            ? __fmul_rn(st[i][j], scale)
-                            : kNegInf;
+        const float x = add_mask<kMask>(
+            visible(q0 + r, col, Sq, Sk, offset, causal)
+                ? __fmul_rn(st[i][j], scale)
+                : kNegInf,
+            mb, q0 + r, col, Sq, Sk);
         const float p = x <= kNegInf / 2 ? 0.f : expf(x - lse_s[r]);
-        const float ds =
-            __fmul_rn(__fmul_rn(p, dpt[i][j] - delta_s[r]), scale);
-        pt_s[(ty + 16 * i) * kPStride + r] = round_to<T>(p);
+        // the same keep bit drops p for dV and dp for dS; dS takes the
+        // undropped p
+        const bool keep = !kDrop || dropout_keep(drop, bh, q0 + r, col);
+        const float dpd =
+            kDrop ? (keep ? __fmul_rn(dpt[i][j], drop.rescale) : 0.f)
+                  : dpt[i][j];
+        const float ds = __fmul_rn(__fmul_rn(p, dpd - delta_s[r]), scale);
+        const float pv =
+            kDrop ? (keep ? __fmul_rn(p, drop.rescale) : 0.f) : p;
+        pt_s[(ty + 16 * i) * kPStride + r] = round_to<T>(pv);
         dst_s[(ty + 16 * i) * kPStride + r] = round_to<T>(ds);
       }
     }
@@ -502,80 +567,110 @@ bool shapes_ok(int BH, int Sq, int Sk, int D) {
          D <= kDMax && D % 16 == 0;
 }
 
-template <typename T>
+template <typename T, bool kMask, bool kDrop>
 int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
         int BH, int Sq, int Sk, int D, float scale, int causal,
-        cudaStream_t s) {
-  int rc = allow_smem(flash_fwd_kernel<T>, kFwdSmem);
+        AttnMask mask, DropoutParams drop, cudaStream_t s) {
+  auto kernel = flash_fwd_kernel<T, kMask, kDrop>;
+  int rc = allow_smem(kernel, kFwdSmem);
   if (rc) return rc;
   const dim3 grid((Sq + kBQ - 1) / kBQ, BH);
-  flash_fwd_kernel<T><<<grid, kThreads, kFwdSmem, s>>>(
+  kernel<<<grid, kThreads, kFwdSmem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), Sq, Sk, D, scale, causal);
+      static_cast<float*>(lse), Sq, Sk, D, scale, causal, mask, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kMask, bool kDrop>
 int bwd_dq(const void* q, const void* k, const void* v, const void* g,
            const void* lse, const void* delta, void* dq, int BH, int Sq,
-           int Sk, int D, float scale, int causal, cudaStream_t s) {
-  int rc = allow_smem(flash_bwd_dq_kernel<T>, kDqSmem);
+           int Sk, int D, float scale, int causal, AttnMask mask,
+           DropoutParams drop, cudaStream_t s) {
+  auto kernel = flash_bwd_dq_kernel<T, kMask, kDrop>;
+  int rc = allow_smem(kernel, kDqSmem);
   if (rc) return rc;
   const dim3 grid((Sq + kBQ - 1) / kBQ, BH);
-  flash_bwd_dq_kernel<T><<<grid, kThreads, kDqSmem, s>>>(
+  kernel<<<grid, kThreads, kDqSmem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), Sq, Sk, D, scale, causal);
+      static_cast<T*>(dq), Sq, Sk, D, scale, causal, mask, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kMask, bool kDrop>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* g,
             const void* lse, const void* delta, void* dk, void* dv, int BH,
-            int Sq, int Sk, int D, float scale, int causal, cudaStream_t s) {
-  int rc = allow_smem(flash_bwd_dkv_kernel<T>, kDkvSmem);
+            int Sq, int Sk, int D, float scale, int causal, AttnMask mask,
+            DropoutParams drop, cudaStream_t s) {
+  auto kernel = flash_bwd_dkv_kernel<T, kMask, kDrop>;
+  int rc = allow_smem(kernel, kDkvSmem);
   if (rc) return rc;
   const dim3 grid((Sk + kBK - 1) / kBK, BH);
-  flash_bwd_dkv_kernel<T><<<grid, kThreads, kDkvSmem, s>>>(
+  kernel<<<grid, kThreads, kDkvSmem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, D, scale, causal);
+      static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, D, scale, causal,
+      mask, drop);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The keep-mask as the kernels draw it, one element a thread (tests hold
+// it against ops/attention.py::dropout_keep_mask bit for bit).
+__global__ void dropout_keep_mask_kernel(bool* __restrict__ keep, int Sq,
+                                         int Sk, long long n,
+                                         DropoutParams drop) {
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       e < n; e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long row = e / Sk;
+    keep[e] = dropout_keep(drop, static_cast<uint32_t>(row / Sq),
+                           static_cast<uint32_t>(row % Sq),
+                           static_cast<uint32_t>(e % Sk));
+  }
+}
+
+// The variant's arguments from the C entry point's: the mask (nullptr:
+// none), its row divisor, the seed and dropout_p. 0, or an error: a mask
+// and dropout together, a bad divisor or p outside [0, 1).
+int variant(const void* mask_ptr, int mask_div, unsigned long long seed,
+            double dropout_p, AttnMask* mask, DropoutParams* drop) {
+  if (!(dropout_p >= 0.0 && dropout_p < 1.0) ||
+      (mask_ptr && (mask_div < 1 || dropout_p > 0.0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  *mask = AttnMask{static_cast<const float*>(mask_ptr), mask_div};
+  *drop = make_dropout_params(seed, dropout_p);
+  return 0;
 }
 
 }  // namespace
 
-// The bf16 forward, dq and dk/dv on the tensor cores
-// (flash_attention_tc.cu).
-int flash_fwd_bf16_tc(const void* q, const void* k, const void* v, void* out,
-                      void* lse, int BH, int Sq, int Sk, int D, float scale,
-                      int causal, cudaStream_t s);
-int flash_bwd_dq_bf16_tc(const void* q, const void* k, const void* v,
-                         const void* g, const void* lse, const void* delta,
-                         void* dq, int BH, int Sq, int Sk, int D, float scale,
-                         int causal, cudaStream_t s);
-int flash_bwd_dkv_bf16_tc(const void* q, const void* k, const void* v,
-                          const void* g, const void* lse, const void* delta,
-                          void* dk, void* dv, int BH, int Sq, int Sk, int D,
-                          float scale, int causal, cudaStream_t s);
-
-// dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError() after
-// its launch (0 on success); the caller raises on anything else.
+// dtype: 0 = float32, 1 = bfloat16. mask_rows: fp32 [rows, Sq, Sk] or
+// null; batch*head bh reads row bh / mask_div. dropout_p > 0: in-kernel
+// dropout keyed by seed (philox.cuh). A mask and dropout are not taken
+// together. Each returns cudaGetLastError() after its launch (0 on
+// success); the caller raises on anything else.
 extern "C" int pdtt_flash_fwd(const void* q, const void* k, const void* v,
                               void* out, void* lse, int BH, int Sq, int Sk,
-                              int D, float scale, int causal, int dtype,
-                              void* stream) {
-  if (!shapes_ok(BH, Sq, Sk, D))
+                              int D, float scale, int causal,
+                              const void* mask_rows, int mask_div,
+                              unsigned long long seed, double dropout_p,
+                              int dtype, void* stream) {
+  AttnMask mask;
+  DropoutParams drop;
+  if (!shapes_ok(BH, Sq, Sk, D) ||
+      variant(mask_rows, mask_div, seed, dropout_p, &mask, &drop))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool dropout = dropout_p > 0.0;
   if (dtype == 0)
-    return fwd<float>(q, k, v, out, lse, BH, Sq, Sk, D, scale, causal, s);
+    PDTT_VARIANT_RETURN(fwd, float, q, k, v, out, lse, BH, Sq, Sk, D, scale,
+                        causal, mask, drop, s);
   if (dtype == 1)
     return flash_fwd_bf16_tc(q, k, v, out, lse, BH, Sq, Sk, D, scale, causal,
-                             s);
+                             mask, drop, dropout, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -583,16 +678,22 @@ extern "C" int pdtt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* g, const void* lse,
                                  const void* delta, void* dq, int BH, int Sq,
                                  int Sk, int D, float scale, int causal,
+                                 const void* mask_rows, int mask_div,
+                                 unsigned long long seed, double dropout_p,
                                  int dtype, void* stream) {
-  if (!shapes_ok(BH, Sq, Sk, D))
+  AttnMask mask;
+  DropoutParams drop;
+  if (!shapes_ok(BH, Sq, Sk, D) ||
+      variant(mask_rows, mask_div, seed, dropout_p, &mask, &drop))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool dropout = dropout_p > 0.0;
   if (dtype == 0)
-    return bwd_dq<float>(q, k, v, g, lse, delta, dq, BH, Sq, Sk, D, scale,
-                         causal, s);
+    PDTT_VARIANT_RETURN(bwd_dq, float, q, k, v, g, lse, delta, dq, BH, Sq,
+                        Sk, D, scale, causal, mask, drop, s);
   if (dtype == 1)
     return flash_bwd_dq_bf16_tc(q, k, v, g, lse, delta, dq, BH, Sq, Sk, D,
-                                scale, causal, s);
+                                scale, causal, mask, drop, dropout, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -600,16 +701,38 @@ extern "C" int pdtt_flash_bwd_dkv(const void* q, const void* k,
                                   const void* v, const void* g,
                                   const void* lse, const void* delta,
                                   void* dk, void* dv, int BH, int Sq, int Sk,
-                                  int D, float scale, int causal, int dtype,
-                                  void* stream) {
-  if (!shapes_ok(BH, Sq, Sk, D))
+                                  int D, float scale, int causal,
+                                  const void* mask_rows, int mask_div,
+                                  unsigned long long seed, double dropout_p,
+                                  int dtype, void* stream) {
+  AttnMask mask;
+  DropoutParams drop;
+  if (!shapes_ok(BH, Sq, Sk, D) ||
+      variant(mask_rows, mask_div, seed, dropout_p, &mask, &drop))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool dropout = dropout_p > 0.0;
   if (dtype == 0)
-    return bwd_dkv<float>(q, k, v, g, lse, delta, dk, dv, BH, Sq, Sk, D,
-                          scale, causal, s);
+    PDTT_VARIANT_RETURN(bwd_dkv, float, q, k, v, g, lse, delta, dk, dv, BH,
+                        Sq, Sk, D, scale, causal, mask, drop, s);
   if (dtype == 1)
     return flash_bwd_dkv_bf16_tc(q, k, v, g, lse, delta, dk, dv, BH, Sq, Sk,
-                                 D, scale, causal, s);
+                                 D, scale, causal, mask, drop, dropout, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// keep: bool [BH, Sq, Sk], written with the kernels' keep-mask for seed
+// and p.
+extern "C" int pdtt_dropout_keep_mask(void* keep, int BH, int Sq, int Sk,
+                                      unsigned long long seed, double p,
+                                      void* stream) {
+  if (BH < 1 || Sq < 1 || Sk < 1 || !(p >= 0.0 && p < 1.0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = static_cast<long long>(BH) * Sq * Sk;
+  const int blocks = static_cast<int>(
+      n / 256 + 1 < 65536 ? n / 256 + 1 : 65536);
+  dropout_keep_mask_kernel<<<blocks, 256, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<bool*>(keep), Sq, Sk, n, make_dropout_params(seed, p));
+  return static_cast<int>(cudaGetLastError());
 }

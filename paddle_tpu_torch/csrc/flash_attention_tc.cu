@@ -85,12 +85,36 @@
 //     packs dS to bf16 in registers as the next dS K's A operand. dQ stays
 //     in registers and is stored once; the longest causal q tiles run first
 //     and the loop stops at the last visible k tile.
+// Variants (the TPU kernels' has_mask and dropout_p > 0), compile-time
+// flags <kD, kMask, kDrop>, so the instantiation the train step runs
+// (<kD, false, false>) is the code it was:
+//   - mask: fp32 rows (flash_attention.cuh's AttnMask) added to the scaled
+//     scores in the natural-log domain after the causal -1e30 and before
+//     the -5e29 test and the exp2; every visited tile adds it (the skip of
+//     tiles wholly above the causal diagonal stays). Read in the
+//     accumulator layout: a column pair as one 8-byte load where Sk is
+//     even, predicated 4-byte loads otherwise and at ragged edges (the
+//     forward and dq); dk/dv, whose fragments hold keys in rows, first
+//     copies its 64 x 128 tile of the mask into shared memory, coalesced
+//     (cp.async), while S^T and dP^T run.
+//   - dropout: the keep bits of philox.cuh (per element), drawn into one
+//     32-bit register per tile (the forward and dk/dv right after the
+//     tile's products are issued, so Philox runs while they are on the
+//     tensor cores; dq just before, where its registers allow); lanes
+//     that hold neighbouring key columns share each Philox call. The
+//     forward sums the undropped p into l and feeds keep ? p / (1 - p) :
+//     0 to P V; dq drops dp; dk/dv drops p for dV and dp for dS^T.
+//   No branch encloses a wgmma: the variants change only the elementwise
+//   work between the products. A simple, correct first version: the
+//   mask loads and Philox are not yet hidden further.
 // <cuda.h> for CUtensorMap's types only: the encoder is fetched at run time
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "flash_attention.cuh"
 
 namespace {
 
@@ -123,6 +147,16 @@ __device__ __forceinline__ void cp_commit() {
 // wait until at most one committed group is still in flight
 __device__ __forceinline__ void cp_wait_but_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// wait until every committed group has landed
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // two fp32 values rounded to nearest even into a bf16 pair (lo first)
@@ -162,6 +196,163 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ------------------------------------------- the mask and dropout variants
+// An accumulator fragment of 16 rows x 64 columns: this thread's element i
+// sits at row row0 + 8 ((i >> 1) & 1), column col0 + 8 (i >> 2) + (i & 1)
+// (row0 = the warp's first row + lane / 4, col0 = the tile's first column
+// + 2 (lane % 4)).
+
+// The first element of batch*head bh's mask row.
+__device__ __forceinline__ const float* mask_rows(const AttnMask& mask,
+                                                  int bh, int Sq, int Sk) {
+  return mask.ptr + static_cast<long long>(bh / mask.row_div) * Sq *
+                        static_cast<long long>(Sk);
+}
+
+// x[i] += mask[row][col] in fp32 for the fragment's elements inside Sq x
+// Sk (the rest keep their -1e30): a column pair as one 8-byte load where
+// Sk is even and the rows 8-byte aligned, else two predicated 4-byte ones.
+__device__ __forceinline__ void add_mask_frag(float (&x)[32], const float* mb,
+                                              int row0, int col0, int Sq,
+                                              int Sk) {
+  const bool pairs =
+      (Sk & 1) == 0 && (reinterpret_cast<uintptr_t>(mb) & 7) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    const float* mr = mb + static_cast<long long>(row) * Sk;
+    const bool rok = row < Sq;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = col0 + 8 * jj;
+      float2 v = make_float2(0.f, 0.f);
+      if (pairs) {
+        if (rok && col < Sk) v = *reinterpret_cast<const float2*>(mr + col);
+      } else {
+        if (rok && col < Sk) v.x = mr[col];
+        if (rok && col + 1 < Sk) v.y = mr[col + 1];
+      }
+      x[4 * jj + 2 * h] += v.x;
+      x[4 * jj + 2 * h + 1] += v.y;
+    }
+    // one row's eight loads in flight at a time: all sixteen at once
+    // spill the forward past its 168 registers
+    asm volatile("" ::: "memory");
+  }
+}
+
+// dk/dv's mask: its fragments hold keys in rows and query rows in columns,
+// so a thread's mask reads would stride Sk apart. The CTA's tile of the
+// mask (kBwdBQ query rows x kBwdBK keys, fp32) is copied into shared
+// memory first, coalesced, by cp.async (16 bytes where Sk % 4 == 0 and the
+// rows are 16-byte aligned, else 4): zeros past Sq and Sk. A row of
+// kMaskStride floats: the 8 keys x 4 query rows a warp reads at once fall
+// in 32 different banks.
+constexpr int kMaskStride = 128 + 4;
+template <int kRows, int kCols>
+__device__ __forceinline__ void load_mask_tile(float* tile, const float* mb,
+                                               int q0, int k0, int Sq,
+                                               int Sk) {
+  const int tid = static_cast<int>(threadIdx.x);
+  const int nthreads = static_cast<int>(blockDim.x);
+  if ((Sk & 3) == 0 && (reinterpret_cast<uintptr_t>(mb) & 15) == 0) {
+    for (int c = tid; c < kRows * kCols / 4; c += nthreads) {
+      const int r = c / (kCols / 4), col = 4 * (c % (kCols / 4));
+      const bool ok = q0 + r < Sq && k0 + col < Sk;
+      cp_async16(smem_u32(tile + r * kMaskStride + col),
+                 ok ? mb + static_cast<long long>(q0 + r) * Sk + k0 + col
+                    : mb,
+                 ok);
+    }
+  } else {
+    for (int c = tid; c < kRows * kCols; c += nthreads) {
+      const int r = c / kCols, col = c % kCols;
+      const bool ok = q0 + r < Sq && k0 + col < Sk;
+      cp_async4(smem_u32(tile + r * kMaskStride + col),
+                ok ? mb + static_cast<long long>(q0 + r) * Sk + k0 + col
+                   : mb,
+                ok);
+    }
+  }
+}
+
+// One Philox call gives the keep words of four neighbouring key columns,
+// and the lanes that hold those columns share the call: each computes a
+// share of the calls and passes the words along with shuffles. The calls
+// run one after another (not unrolled): interleaved, their temporaries
+// spill the kernels whose accumulators are in flight meanwhile.
+__device__ __forceinline__ uint32_t pick_word(const uint4& w, int k) {
+  return k == 0 ? w.x : k == 1 ? w.y : k == 2 ? w.z : w.w;
+}
+
+// The keep bits of a fragment whose rows are query rows (forward, dq): bit
+// i for element i. Lanes 2b and 2b + 1 of a quad hold columns 4b..4b+3 of
+// the same rows, so one Philox call serves both: the lane of parity par
+// draws the calls of row row0 + 8 par and hands the other lane its two
+// words (8 calls a lane, not 16).
+__device__ __forceinline__ uint32_t keep_bits(const DropoutParams& d, int bh,
+                                              int row0, int col0) {
+  const int par = static_cast<int>(threadIdx.x) & 1;
+  uint32_t bits = 0;
+#pragma unroll 1
+  for (int jj = 0; jj < 8; ++jj) {
+    const uint4 w = philox4x32_10(
+        make_uint4(static_cast<uint32_t>(col0 + 8 * jj) >> 2,
+                   static_cast<uint32_t>(row0 + 8 * par),
+                   static_cast<uint32_t>(bh), 0u),
+        d.key0, d.key1);
+    const uint32_t m0 = par ? w.z : w.x, m1 = par ? w.w : w.y;
+    const uint32_t o0 = __shfl_xor_sync(0xffffffffu, par ? w.x : w.z, 1);
+    const uint32_t o1 = __shfl_xor_sync(0xffffffffu, par ? w.y : w.w, 1);
+    bits |= (static_cast<uint32_t>(m0 >= d.threshold) |
+             static_cast<uint32_t>(m1 >= d.threshold) << 1)
+            << (4 * jj + 2 * par);
+    bits |= (static_cast<uint32_t>(o0 >= d.threshold) |
+             static_cast<uint32_t>(o1 >= d.threshold) << 1)
+            << (4 * jj + 2 * (1 - par));
+  }
+  return bits;
+}
+
+// The keep bits of a transposed fragment (dk/dv: rows are keys, columns
+// query rows): bit i for element i. The four lanes whose keys are
+// key0 - (key0 & 3) .. + 3 (lane / 4 = 4a .. 4a + 3, one lane % 4) need
+// the same 32 calls, each one word of it: member m draws the calls of
+// elements 4t + m and deals their words round the four in three
+// shuffles (8 calls a lane, not 32).
+__device__ __forceinline__ uint32_t keep_bits_t(const DropoutParams& d,
+                                                int bh, int key0, int q0) {
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int m = (lane >> 2) & 3;
+  uint32_t bits = 0;
+#pragma unroll 1
+  for (int t = 0; t < 8; ++t) {
+    const uint4 w = philox4x32_10(
+        make_uint4(static_cast<uint32_t>(key0 + 8 * ((m >> 1) & 1)) >> 2,
+                   static_cast<uint32_t>(q0 + 8 * t + (m & 1)),
+                   static_cast<uint32_t>(bh), 0u),
+        d.key0, d.key1);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      // round r: read member (m + r) % 4's call, which offers the word
+      // of member (its index - r) % 4, that is, this lane's
+      const int src = (m + r) & 3;
+      const uint32_t give = pick_word(w, (m - r) & 3);
+      const uint32_t got =
+          r == 0 ? give
+                 : __shfl_sync(0xffffffffu, give, lane + 4 * (src - m));
+      bits |= static_cast<uint32_t>(got >= d.threshold) << (4 * t + src);
+    }
+  }
+  return bits;
+}
+
+// keep ? x / (1 - p) : 0 (by the fp32 reciprocal), element by element
+__device__ __forceinline__ float keep_or_zero(float x, uint32_t bits, int i,
+                                              float rescale) {
+  return (bits >> i) & 1u ? __fmul_rn(x, rescale) : 0.f;
 }
 
 // ------------------------------------------ TMA, mbarrier and wgmma pieces
@@ -415,12 +606,15 @@ __device__ __forceinline__ void store_rows(uint8_t* tile_bytes, int rb,
 // (4 j + 2, 4 j + 3), key columns k0 + 8 j + 2 t4 (+1). Leaves p in s and
 // updates the running max m and this lane's part of the row sum l; returns
 // the rescale factors of the earlier output in al.
-__device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2],
-                                               float (&l)[2], float (&al)[2],
-                                               bool masked, int wq0, int k0,
-                                               int g, int t4, int Sq, int Sk,
-                                               int offset, int causal,
-                                               float scale) {
+// With kMask the mask (rows of mask_row0) is added after the causal -1e30, and
+// the -5e29 test runs after the add; with kDrop, p is summed into l
+// undropped and then dropped by `keep` (keep_bits) for the P V product.
+template <bool kMask, bool kDrop>
+__device__ __forceinline__ void online_softmax(
+    float (&s)[32], float (&m)[2], float (&l)[2], float (&al)[2],
+    bool masked, int wq0, int k0, int g, int t4, int Sq, int Sk, int offset,
+    int causal, float scale, const float* mask_row0, uint32_t keep,
+    float rescale) {
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
@@ -431,7 +625,14 @@ __device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2],
       if (!visible(row, col, Sq, Sk, offset, causal)) x = kNegInf;
     }
     s[i] = x;
-    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    // (the plain instantiation keeps its one loop: same machine code)
+    if constexpr (!kMask) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+  }
+  if constexpr (kMask) {
+    add_mask_frag(s, mask_row0, wq0 + g, k0 + 2 * t4, Sq, Sk);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
   }
   float mb[2], ps[2] = {0.f, 0.f};
 #pragma unroll
@@ -451,15 +652,20 @@ __device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2],
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) l[h] = l[h] * al[h] + ps[h];
+  if constexpr (kDrop) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = keep_or_zero(s[i], keep, i, rescale);
+  }
 }
 
-template <int kD>
+template <int kD, bool kMask, bool kDrop>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
                         bf16* __restrict__ out, float* __restrict__ lse,
-                        int Sq, int Sk, int D, float scale, int causal) {
+                        int Sq, int Sk, int D, float scale, int causal,
+                        AttnMask mask, DropoutParams drop) {
   constexpr int kQBytes = kFwdBQ * kD * 2;
   constexpr int kKBytes = kFwdBK * kD * 2;
   extern __shared__ uint8_t smem_tc[];
@@ -529,6 +735,13 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, al[2];
   float s[32];
   uint32_t a[kFwdBK / 16][4];  // P of the last tile, the A operand of PV
+  const float* mb = kMask ? mask_rows(mask, bh, Sq, Sk) : nullptr;
+  uint32_t keep = 0;  // dropout's keep bits of the tile being softmaxed
+  // drawn while the tile's S is on the tensor cores
+  auto draw_keep = [&](int kt) {
+    if constexpr (kDrop) keep = keep_bits(drop, bh, wq0 + g,
+                                          kt * kFwdBK + 2 * t4);
+  };
   // S = Q K^T of tile kt: the warpgroup's 64 rows x 64 keys
   auto issue_s = [&](int kt) {
     const uint8_t* ks = k_s + (kt & 1) * kKBytes;
@@ -550,14 +763,16 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     const int k0 = kt * kFwdBK;
     const bool masked = wq0 + 16 > Sq || k0 + kFwdBK > Sk ||
                         (causal && k0 + kFwdBK - 1 > wq0 + offset);
-    online_softmax(s, m, l, al, masked, wq0, k0, g, t4, Sq, Sk, offset,
-                   causal, scale);
+    online_softmax<kMask, kDrop>(s, m, l, al, masked, wq0, k0, g, t4, Sq,
+                                 Sk, offset, causal, scale, mb, keep,
+                                 drop.rescale);
   };
   if (n_kt > 0) {
     mbar_wait(q_full, 0);
     mbar_wait(&k_full[0], 0);
     wgmma_fence();
     issue_s(0);
+    draw_keep(0);
     wgmma_wait<0>();
     fence_regs(s);
     if (wg_leader) mbar_arrive(&k_free[0]);
@@ -574,6 +789,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     wgmma_fence();
     issue_s(kt);
     issue_pv(kt - 1);
+    draw_keep(kt);
     wgmma_wait<1>();  // S landed; P V may still run
     fence_regs(s);
     if (wg_leader) mbar_arrive(&k_free[kt & 1]);
@@ -610,7 +826,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 }
 
 // ------------------------------------------------------------------ dk/dv
-template <int kD>
+template <int kD, bool kMask, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel_tc(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
@@ -619,7 +835,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
                             bf16* __restrict__ dk, bf16* __restrict__ dv,
-                            int Sq, int Sk, int D, float scale, int causal) {
+                            int Sq, int Sk, int D, float scale, int causal,
+                            AttnMask mask, DropoutParams drop) {
   constexpr int kKVBytes = kBwdBK * kD * 2;
   constexpr int kQBytes = kBwdBQ * kD * 2;
   extern __shared__ uint8_t smem_tc[];
@@ -629,7 +846,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint8_t* g_s = q_s + 2 * kQBytes;      // 2 stages
   float* lse_s = reinterpret_cast<float*>(g_s + 2 * kQBytes);
   float* delta_s = lse_s + 2 * kBwdBQ;   // 2 stages each
-  uint64_t* bar = reinterpret_cast<uint64_t*>(delta_s + 2 * kBwdBQ);
+  // with the mask: its tile for the q tile in hand (load_mask_tile)
+  float* mask_s = delta_s + 2 * kBwdBQ;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(
+      mask_s + (kMask ? kBwdBQ * kMaskStride : 0));
   // bar[0]: K and V; bar[1 + s]: Q and dO of stage s
 
   const int k0 = static_cast<int>(blockIdx.y) * kBwdBK;
@@ -645,6 +865,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int offset = Sk - Sq;
   const int n_qt = (Sq + kBwdBQ - 1) / kBwdBQ;
   const int qt_first = causal ? max(0, k0 - offset) / kBwdBQ : 0;
+  const float* mb = kMask ? mask_rows(mask, bh, Sq, Sk) : nullptr;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < 3; ++i) mbar_init(&bar[i]);
@@ -708,6 +929,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_ss_n64(dp, kmajor_desc<kBwdBK>(v_s, wg_row, kk),
                    kmajor_desc<kBwdBQ>(gs, 0, kk), kk > 0);
     wgmma_commit();
+    // dropout's keep bits, drawn while S^T and dP^T are on the tensor cores
+    const uint32_t keep =
+        kDrop ? keep_bits_t(drop, bh, wk0 + gr, q0 + 2 * t4) : 0u;
+    if constexpr (kMask) {
+      // the mask tile, copied while they run (the last reads of the
+      // buffer ended before the previous step's closing barrier)
+      load_mask_tile<kBwdBQ, kBwdBK>(mask_s, mb, q0, k0, Sq, Sk);
+      cp_commit();
+      cp_wait_all();
+      __syncthreads();
+    }
     wgmma_wait<1>();  // S^T landed; dP^T may still run
     fence_regs(p);
     const bool masked = q0 + kBwdBQ > Sq || wk0 + 16 > Sk ||
@@ -715,19 +947,31 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int qi = 8 * (i >> 2) + 2 * t4 + (i & 1);
+      const int key = wk0 + gr + ((i >> 1) & 1) * 8;
       float x = __fmul_rn(p[i], scale);
-      if (masked && !visible(q0 + qi, wk0 + gr + ((i >> 1) & 1) * 8, Sq, Sk,
-                             offset, causal))
+      if (masked && !visible(q0 + qi, key, Sq, Sk, offset, causal))
         x = kNegInf;
+      if constexpr (kMask) x += mask_s[qi * kMaskStride + (key - k0)];
       p[i] = x <= kNegInf / 2 ? 0.f
                               : exp2_ftz(fmaf(x, kLog2e, -ls[qi] * kLog2e));
     }
 
-    // dV += P^T dO with P^T rounded to bf16 in registers, issued at once:
-    // dS^T is computed while it runs
+    // dV += P^T dO with P^T (dropped, with dropout) rounded to bf16 in
+    // registers, issued at once: dS^T is computed while it runs
     uint32_t a[kBwdBQ / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBwdBQ / 16; ++kk) frag_to_a(a[kk], p + 8 * kk);
+    for (int kk = 0; kk < kBwdBQ / 16; ++kk) {
+      if constexpr (kDrop) {
+        float pd[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          pd[e] = keep_or_zero(p[8 * kk + e], keep, 8 * kk + e,
+                               drop.rescale);
+        frag_to_a(a[kk], pd);
+      } else {
+        frag_to_a(a[kk], p + 8 * kk);
+      }
+    }
     fence_regs(dv_acc);
     wgmma_fence();
 #pragma unroll
@@ -736,11 +980,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_commit();
     wgmma_wait<1>();  // dP^T landed; dV may still run
     fence_regs(dp);
-    // dS^T = P^T (dP^T - delta) scale
+    // dS^T = P^T (dP^T - delta) scale, dP^T dropped with dropout and P^T
+    // not
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int qi = 8 * (i >> 2) + 2 * t4 + (i & 1);
-      dp[i] = __fmul_rn(__fmul_rn(p[i], dp[i] - ds[qi]), scale);
+      const float dpd =
+          kDrop ? keep_or_zero(dp[i], keep, i, drop.rescale) : dp[i];
+      dp[i] = __fmul_rn(__fmul_rn(p[i], dpd - ds[qi]), scale);
     }
     wgmma_wait<0>();  // dV is done with the P^T registers
     fence_regs(dv_acc);
@@ -778,7 +1025,7 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-template <int kD>
+template <int kD, bool kMask, bool kDrop>
 __global__ void __launch_bounds__(kDqThreads, 1)
     flash_bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -787,7 +1034,8 @@ __global__ void __launch_bounds__(kDqThreads, 1)
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
                            bf16* __restrict__ dq, int Sq, int Sk, int D,
-                           float scale, int causal) {
+                           float scale, int causal, AttnMask mask,
+                           DropoutParams drop) {
   constexpr int kQBytes = kFwdBQ * kD * 2;
   constexpr int kKBytes = kFwdBK * kD * 2;
   extern __shared__ uint8_t smem_tc[];
@@ -877,6 +1125,15 @@ __global__ void __launch_bounds__(kDqThreads, 1)
     for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
     float s[32], dp[32];
     uint32_t a[kFwdBK / 16][4];  // dS of the last tile, the A operand of dS K
+    const float* mb = kMask ? mask_rows(mask, bh, Sq, Sk) : nullptr;
+    uint32_t keep = 0;  // dropout's keep bits of the tile in hand
+    // drawn before the tile's products are issued: with S, dP and dQ in
+    // flight the consumers have no registers left for Philox, and ptxas
+    // serialises the wgmmas (C7511)
+    auto draw_keep = [&](int kt) {
+      if constexpr (kDrop) keep = keep_bits(drop, bh, wq0 + g,
+                                            kt * kFwdBK + 2 * t4);
+    };
     // S = Q K^T and dP = dO V^T of tile kt, the warpgroup's 64 rows x 64 keys
     auto issue_s_dp = [&](int kt) {
       const uint8_t* ks = k_s + (kt & 1) * kKBytes;
@@ -915,20 +1172,37 @@ __global__ void __launch_bounds__(kDqThreads, 1)
                                                     (i & 1),
                                Sq, Sk, offset, causal))
           x = kNegInf;
-        s[i] = x <= kNegInf / 2 ? 0.f : exp2_ftz(fmaf(x, kLog2e, nl[h]));
+        // (the plain instantiation keeps its one loop: same machine code)
+        if constexpr (kMask)
+          s[i] = x;
+        else
+          s[i] = x <= kNegInf / 2 ? 0.f : exp2_ftz(fmaf(x, kLog2e, nl[h]));
+      }
+      if constexpr (kMask) {
+        add_mask_frag(s, mb, wq0 + g, k0 + 2 * t4, Sq, Sk);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int h = (i >> 1) & 1;
+          s[i] = s[i] <= kNegInf / 2 ? 0.f
+                                     : exp2_ftz(fmaf(s[i], kLog2e, nl[h]));
+        }
       }
     };
-    // dp -> ds = p (dp - delta) scale
+    // dp -> ds = p (dp - delta) scale, dp dropped with dropout
     auto dsoft = [&]() {
 #pragma unroll
-      for (int i = 0; i < 32; ++i)
-        dp[i] = __fmul_rn(__fmul_rn(s[i], dp[i] - dl[(i >> 1) & 1]), scale);
+      for (int i = 0; i < 32; ++i) {
+        const float dpd =
+            kDrop ? keep_or_zero(dp[i], keep, i, drop.rescale) : dp[i];
+        dp[i] = __fmul_rn(__fmul_rn(s[i], dpd - dl[(i >> 1) & 1]), scale);
+      }
     };
 
     if (n_kt > 0) {
       mbar_wait(qg_full, 0);
       mbar_wait(&k_full[0], 0);
       mbar_wait(&v_full[0], 0);
+      draw_keep(0);
       wgmma_fence();
       issue_s_dp(0);
       wgmma_wait<1>();  // S landed; dP may still run
@@ -946,6 +1220,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
     for (int kt = 1; kt < n_kt; ++kt) {
       mbar_wait(&k_full[kt & 1], (kt >> 1) & 1);
       mbar_wait(&v_full[kt & 1], (kt >> 1) & 1);
+      draw_keep(kt);
       fence_regs(acc);
       wgmma_fence();
       issue_s_dp(kt);
@@ -1027,10 +1302,10 @@ int make_map(CUtensorMap* map, const void* ptr, int BH, int S, int D,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int kD>
+template <int kD, bool kMask, bool kDrop>
 int fwd_tc(const void* q, const void* k, const void* v, void* out, void* lse,
            int BH, int Sq, int Sk, int D, float scale, int causal,
-           cudaStream_t s) {
+           AttnMask mask, DropoutParams drop, cudaStream_t s) {
   constexpr size_t smem = 1024 + (kFwdBQ + 4 * kFwdBK) * kD * 2 + 9 * 8;
   const int n_qt = (Sq + kFwdBQ - 1) / kFwdBQ;
   if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidValue);
@@ -1040,22 +1315,25 @@ int fwd_tc(const void* q, const void* k, const void* v, void* out, void* lse,
   if (!rc) rc = make_map(&tv, v, BH, Sk, D, kFwdBK);
   if (!rc)
     rc = static_cast<int>(cudaFuncSetAttribute(
-        flash_fwd_kernel_tc<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem)));
+        flash_fwd_kernel_tc<kD, kMask, kDrop>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
   if (rc) return rc;
-  flash_fwd_kernel_tc<kD><<<dim3(BH, n_qt), kFwdThreads, smem, s>>>(
-      tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(lse), Sq, Sk,
-      D, scale, causal);
+  flash_fwd_kernel_tc<kD, kMask, kDrop>
+      <<<dim3(BH, n_qt), kFwdThreads, smem, s>>>(
+          tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(lse), Sq,
+          Sk, D, scale, causal, mask, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kD>
+template <int kD, bool kMask, bool kDrop>
 int bwd_dkv_tc(const void* q, const void* k, const void* v, const void* g,
                const void* lse, const void* delta, void* dk, void* dv,
                int BH, int Sq, int Sk, int D, float scale, int causal,
-               cudaStream_t s) {
-  constexpr size_t smem = 1024 + (2 * kBwdBK + 4 * kBwdBQ) * kD * 2 +
-                          4 * kBwdBQ * sizeof(float) + 3 * 8;
+               AttnMask mask, DropoutParams drop, cudaStream_t s) {
+  constexpr size_t smem =
+      1024 + (2 * kBwdBK + 4 * kBwdBQ) * kD * 2 +
+      (4 * kBwdBQ + (kMask ? kBwdBQ * kMaskStride : 0)) * sizeof(float) +
+      3 * 8;
   const int n_kt = (Sk + kBwdBK - 1) / kBwdBK;
   if (n_kt > 65535) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv, tg;
@@ -1065,20 +1343,22 @@ int bwd_dkv_tc(const void* q, const void* k, const void* v, const void* g,
   if (!rc) rc = make_map(&tv, v, BH, Sk, D, kBwdBK);
   if (!rc)
     rc = static_cast<int>(cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel_tc<kD>,
+        flash_bwd_dkv_kernel_tc<kD, kMask, kDrop>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
   if (rc) return rc;
-  flash_bwd_dkv_kernel_tc<kD><<<dim3(BH, n_kt), kThreads, smem, s>>>(
-      tq, tk, tv, tg, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), Sq, Sk, D, scale, causal);
+  flash_bwd_dkv_kernel_tc<kD, kMask, kDrop>
+      <<<dim3(BH, n_kt), kThreads, smem, s>>>(
+          tq, tk, tv, tg, static_cast<const float*>(lse),
+          static_cast<const float*>(delta), static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), Sq, Sk, D, scale, causal, mask, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kD>
+template <int kD, bool kMask, bool kDrop>
 int bwd_dq_tc(const void* q, const void* k, const void* v, const void* g,
               const void* lse, const void* delta, void* dq, int BH, int Sq,
-              int Sk, int D, float scale, int causal, cudaStream_t s) {
+              int Sk, int D, float scale, int causal, AttnMask mask,
+              DropoutParams drop, cudaStream_t s) {
   constexpr size_t smem = 1024 + (2 * kFwdBQ + 4 * kFwdBK) * kD * 2 + 9 * 8;
   const int n_qt = (Sq + kFwdBQ - 1) / kFwdBQ;
   if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidValue);
@@ -1089,46 +1369,52 @@ int bwd_dq_tc(const void* q, const void* k, const void* v, const void* g,
   if (!rc) rc = make_map(&tv, v, BH, Sk, D, kFwdBK);
   if (!rc)
     rc = static_cast<int>(cudaFuncSetAttribute(
-        flash_bwd_dq_kernel_tc<kD>,
+        flash_bwd_dq_kernel_tc<kD, kMask, kDrop>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
   if (rc) return rc;
-  flash_bwd_dq_kernel_tc<kD><<<dim3(BH, n_qt), kDqThreads, smem, s>>>(
-      tq, tk, tv, tg, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), Sq, Sk, D,
-      scale, causal);
+  flash_bwd_dq_kernel_tc<kD, kMask, kDrop>
+      <<<dim3(BH, n_qt), kDqThreads, smem, s>>>(
+          tq, tk, tv, tg, static_cast<const float*>(lse),
+          static_cast<const float*>(delta), static_cast<bf16*>(dq), Sq, Sk,
+          D, scale, causal, mask, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// bf16 launchers for flash_attention.cu's entry points; pointers must be
-// 16-byte aligned (the wrapper checks). Each returns cudaGetLastError().
+// The variant's instantiation: the mask, dropout or neither (the one the
+// train step runs), at a padded head dim of 64 or 128.
+#define PDTT_TC_DISPATCH(fn, ...)                                   \
+  do {                                                              \
+    if (D <= 64) PDTT_VARIANT_RETURN(fn, 64, __VA_ARGS__);          \
+    PDTT_VARIANT_RETURN(fn, 128, __VA_ARGS__);                      \
+  } while (0)
+
+// bf16 launchers for flash_attention.cu's entry points (declared in
+// flash_attention.cuh); pointers must be 16-byte aligned (the wrapper
+// checks). Each returns cudaGetLastError().
 int flash_fwd_bf16_tc(const void* q, const void* k, const void* v, void* out,
                       void* lse, int BH, int Sq, int Sk, int D, float scale,
-                      int causal, cudaStream_t s) {
-  if (D <= 64)
-    return fwd_tc<64>(q, k, v, out, lse, BH, Sq, Sk, D, scale, causal, s);
-  return fwd_tc<128>(q, k, v, out, lse, BH, Sq, Sk, D, scale, causal, s);
+                      int causal, AttnMask mask, DropoutParams drop,
+                      bool dropout, cudaStream_t s) {
+  PDTT_TC_DISPATCH(fwd_tc, q, k, v, out, lse, BH, Sq, Sk, D, scale, causal,
+                   mask, drop, s);
 }
 
 int flash_bwd_dkv_bf16_tc(const void* q, const void* k, const void* v,
                           const void* g, const void* lse, const void* delta,
                           void* dk, void* dv, int BH, int Sq, int Sk, int D,
-                          float scale, int causal, cudaStream_t s) {
-  if (D <= 64)
-    return bwd_dkv_tc<64>(q, k, v, g, lse, delta, dk, dv, BH, Sq, Sk, D,
-                          scale, causal, s);
-  return bwd_dkv_tc<128>(q, k, v, g, lse, delta, dk, dv, BH, Sq, Sk, D,
-                         scale, causal, s);
+                          float scale, int causal, AttnMask mask,
+                          DropoutParams drop, bool dropout, cudaStream_t s) {
+  PDTT_TC_DISPATCH(bwd_dkv_tc, q, k, v, g, lse, delta, dk, dv, BH, Sq, Sk, D,
+                   scale, causal, mask, drop, s);
 }
 
 int flash_bwd_dq_bf16_tc(const void* q, const void* k, const void* v,
                          const void* g, const void* lse, const void* delta,
                          void* dq, int BH, int Sq, int Sk, int D, float scale,
-                         int causal, cudaStream_t s) {
-  if (D <= 64)
-    return bwd_dq_tc<64>(q, k, v, g, lse, delta, dq, BH, Sq, Sk, D, scale,
-                         causal, s);
-  return bwd_dq_tc<128>(q, k, v, g, lse, delta, dq, BH, Sq, Sk, D, scale,
-                        causal, s);
+                         int causal, AttnMask mask, DropoutParams drop,
+                         bool dropout, cudaStream_t s) {
+  PDTT_TC_DISPATCH(bwd_dq_tc, q, k, v, g, lse, delta, dq, BH, Sq, Sk, D,
+                   scale, causal, mask, drop, s);
 }

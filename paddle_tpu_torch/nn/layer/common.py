@@ -9,6 +9,7 @@ import math
 
 import torch
 
+from .. import functional as F
 from .layers import Layer, create_parameter
 
 
@@ -65,17 +66,14 @@ class Embedding(Layer):
 
 
 class Dropout(Layer):
-    """Identity in eval and at p = 0 (every GPT preset). Training-mode
-    dropout with p > 0 is refused rather than given a different random
-    stream from the JAX package's."""
+    """F.dropout in training, the identity (or the downscale) in eval."""
 
-    def __init__(self, p=0.5):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train"):
         super().__init__()
         self.p = p
+        self.axis = axis
+        self.mode = mode
 
     def forward(self, x):
-        if self.training and self.p > 0:
-            raise NotImplementedError(
-                "training-mode dropout with p > 0 waits for the dropout "
-                "slice (ROADMAP §1: mask and dropout variants)")
-        return x
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)

@@ -5,8 +5,9 @@ At first use they are compiled for Hopper (`-gencode
 arch=compute_90a,code=sm_90a`) with one `nvcc` per source, all started
 together, linked into one shared library, and loaded with ctypes. The
 library goes into `build/paddle_tpu_torch/` at the root of the checkout
-(or `$PADDLE_TPU_TORCH_BUILD_DIR`), named by a hash of the sources and
-flags, so a changed source rebuilds and an unchanged one loads at once.
+(or `$PADDLE_TPU_TORCH_BUILD_DIR`), named by a hash of every file under
+`csrc/` (the sources and the headers they include) and the flags, so a
+changed source or header rebuilds and an unchanged tree loads at once.
 
 Nothing here runs at import: the CPU tests import every module, and the
 CPU path never needs the compiler.
@@ -34,9 +35,15 @@ SOURCES = ("flash_attention.cu", "flash_attention_tc.cu", "fused_adam.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
+# the flash kernels' mask and dropout variants count apart from the plain
+# (causal or not) instantiation the train step runs
+FLASH_VARIANTS = tuple(f"{k}{v}" for k in ("flash_fwd", "flash_bwd_dq",
+                                            "flash_bwd_dkv")
+                       for v in ("_mask", "_dropout"))
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "layernorm_fwd": 0, "layernorm_bwd": 0,
-            "paged_attention": 0, "fused_adam": 0}
+            "paged_attention": 0, "fused_adam": 0,
+            **dict.fromkeys(FLASH_VARIANTS, 0)}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -48,6 +55,10 @@ library_path = None    # the loaded library's file
 
 _c = ctypes
 _P = _c.c_void_p
+# a flash kernel's variant: mask rows (fp32 [rows, Sq, Sk]) or null, the
+# batch*head -> row divisor, the dropout seed and dropout_p (a double, so
+# the kernel's threshold is int(p * (2**32 - 1)) as on the host)
+_VARIANT = (_P, _c.c_int, _c.c_ulonglong, _c.c_double)
 _SIGNATURES = {
     # x, w, b, y, mu, rstd, R, N, eps, dtype, stream
     "pdtt_layernorm_fwd": (_P, _P, _P, _P, _P, _P, _c.c_longlong, _c.c_int,
@@ -56,19 +67,23 @@ _SIGNATURES = {
     # stream
     "pdtt_layernorm_bwd": (_P,) * 9 + (_c.c_longlong, _c.c_int, _c.c_int,
                                        _c.c_int, _P),
-    # q, k, v, out, lse, BH, Sq, Sk, D, scale, causal, dtype, stream
-    "pdtt_flash_fwd": (_P,) * 5 + (_c.c_int,) * 4 + (_c.c_float, _c.c_int,
-                                                     _c.c_int, _P),
-    # q, k, v, g, lse, delta, dq, BH, Sq, Sk, D, scale, causal, dtype,
-    # stream
+    # q, k, v, out, lse, BH, Sq, Sk, D, scale, causal, then the variant
+    # (mask rows or 0, mask row divisor, seed, dropout_p), dtype, stream
+    "pdtt_flash_fwd": (_P,) * 5 + (_c.c_int,) * 4 + (_c.c_float, _c.c_int)
+                      + _VARIANT + (_c.c_int, _P),
+    # q, k, v, g, lse, delta, dq, BH, Sq, Sk, D, scale, causal, variant,
+    # dtype, stream
     "pdtt_flash_bwd_dq": (_P,) * 7 + (_c.c_int,) * 4 + (_c.c_float,
-                                                        _c.c_int, _c.c_int,
-                                                        _P),
-    # q, k, v, g, lse, delta, dk, dv, BH, Sq, Sk, D, scale, causal, dtype,
-    # stream
+                                                        _c.c_int)
+                         + _VARIANT + (_c.c_int, _P),
+    # q, k, v, g, lse, delta, dk, dv, BH, Sq, Sk, D, scale, causal,
+    # variant, dtype, stream
     "pdtt_flash_bwd_dkv": (_P,) * 8 + (_c.c_int,) * 4 + (_c.c_float,
-                                                         _c.c_int, _c.c_int,
-                                                         _P),
+                                                         _c.c_int)
+                          + _VARIANT + (_c.c_int, _P),
+    # keep (bool [BH, Sq, Sk]), BH, Sq, Sk, seed, dropout_p, stream
+    "pdtt_dropout_keep_mask": (_P,) + (_c.c_int,) * 3
+                              + (_c.c_ulonglong, _c.c_double, _P),
     # q, k, v, table, seq_lens, q_pos, out, B, H, Tq, D, Hkv, L_slab,
     # n_blocks, block_len, pages_per_row, scale, dtype, stream
     "pdtt_paged_attention": (_P, _P, _P, _P, _P, _P, _P) + (_c.c_int,) * 9
@@ -108,10 +123,13 @@ def _nvcc() -> str:
 
 
 def _source_key(flags) -> str:
+    """Hash of every source and header under CSRC and the flags: an
+    edited header changes it as an edited source does."""
     h = hashlib.sha256()
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(p for p in CSRC.iterdir()
+                       if p.suffix in (".cu", ".cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 

@@ -10,8 +10,12 @@ Their plain PyTorch versions run the same arithmetic on whole score matrices
 kernels' formulas); a CPU tensor takes them and a CUDA tensor launches
 the kernels. The TPU-only dispatch rules (S >= 512, block divisibility,
 FLAGS_flash_attention) are not carried over: on CUDA the kernels always
-run. The additive mask and in-kernel dropout (reached only through
-`scaled_dot_product_attention`) wait for their slice: on CUDA they raise.
+run. The additive mask and in-kernel dropout are variants of the same
+three kernels (reached through `scaled_dot_product_attention`,
+`incubate.flash_attention` or `flash_attention(mask=, dropout_p=)`);
+dropout's keep-mask is Philox4x32-10 keyed per element
+(`dropout_keep_mask`), so the kernels and the plain versions draw the
+same bits.
 
 The static-cache decode primitives (attention.py:714-786) are one numeric
 path shared by GPT's cached forward, one-shot generate() and the serving
@@ -32,10 +36,6 @@ from .paged_attention import (DEFAULT_KV_BLOCK, ragged_paged_attention,
 
 _NEG_INF = -1e30
 MAX_HEAD_DIM = 128
-_MASK_DROPOUT_SLICE = (
-    "flash_attention's additive mask and dropout on CUDA wait for the "
-    "scaled_dot_product_attention slice (ROADMAP §1, modules still "
-    "missing: mask and dropout variants of kernels 3-5)")
 
 
 def causal_mask(n_rows: int, n_cols: int, q_offset=0, k_offset=0,
@@ -47,10 +47,26 @@ def causal_mask(n_rows: int, n_cols: int, q_offset=0, k_offset=0,
     return (q_offset + rows) >= (k_offset + cols)
 
 
-def _attention_reference(q, k, v, causal, scale, mask=None):
+def _mask_4d(mask):
+    """An additive mask as a 4-D tensor broadcastable to [B, H, Sq, Sk]:
+    [B, Sq, Sk] gets a head axis, as the JAX package's `_mask_3d` and
+    reference do."""
+    if mask.ndim == 3:
+        return mask[:, None]
+    if mask.ndim != 4:
+        raise ValueError(f"an additive mask is [B|1, H|1, Sq, Sk] or "
+                         f"[B, Sq, Sk], got {tuple(mask.shape)}")
+    return mask
+
+
+def _attention_reference(q, k, v, causal, scale, mask=None, dropout_p=0.0,
+                         keep=None):
     """Plain attention (fp32 softmax), the JAX package's XLA reference:
     q [B, H, Sq, D], k/v [B, H, Sk, D], optional additive mask
-    [B, 1|H, Sq, Sk] or [B, Sq, Sk]. Differentiable by autograd."""
+    [B, 1|H, Sq, Sk] or [B, Sq, Sk]; with dropout_p > 0 the kept
+    probabilities (`keep`, bool [B, H, Sq, Sk]) are scaled by
+    1 / (1 - dropout_p) and the rest dropped. Differentiable by autograd,
+    in the mask too."""
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     Sq, Sk = logits.shape[-2], logits.shape[-1]
     cm = None
@@ -58,57 +74,203 @@ def _attention_reference(q, k, v, causal, scale, mask=None):
         cm = causal_mask(Sq, Sk, q_offset=Sk - Sq, device=q.device)
         logits = torch.where(cm, logits, _NEG_INF)
     if mask is not None:
-        if mask.ndim == 3:
-            mask = mask[:, None]
-        logits = logits + mask.float()
+        logits = logits + _mask_4d(mask).float()
     probs = torch.softmax(logits, dim=-1)
     if cm is not None:
         # rows with no causally visible key (Sq > Sk) output zeros
         probs = torch.where(cm.any(dim=-1, keepdim=True), probs, 0.0)
+    if dropout_p > 0.0:
+        probs = torch.where(keep, probs / (1.0 - dropout_p), 0.0)
     return torch.matmul(probs.to(q.dtype).float(),
                         v.float()).to(q.dtype)
 
 
-def _masked_scores(q, k, causal, scale):
-    """s = (q . k) in fp32 * scale, masked to _NEG_INF (causal, bottom-right
-    aligned): [B, H, Sq, Sk] fp32 and the boolean visibility."""
+# ---- dropout's keep-mask: Philox4x32-10, keyed per element
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo(a, m):
+    """(hi, lo) 32-bit halves of a * m for uint32 values held in int64
+    tensors: a 32 x 32-bit product overflows int64, so a is split into
+    16-bit halves (each partial product stays below 2**48)."""
+    t = (a & 0xFFFF) * m
+    u = (a >> 16) * m
+    x = t + ((u & 0xFFFF) << 16)
+    return (u >> 16) + (x >> 32), x & _U32
+
+
+def philox4x32_10(c0, c1, c2, c3, key0, key1):
+    """Random123's Philox4x32-10 over broadcastable int64 tensors of
+    uint32 counter words, key (key0, key1) python ints: the four output
+    words, as `csrc/philox.cuh` computes them."""
+    k0, k1 = key0 & _U32, key1 & _U32
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W[0]) & _U32
+            k1 = (k1 + _PHILOX_W[1]) & _U32
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def dropout_threshold(p: float) -> int:
+    """The uint32 below which a Philox word drops its element: the JAX
+    package's `_block_keep` threshold."""
+    return int(p * (2 ** 32 - 1))
+
+
+def dropout_keep_mask(seed: int, B: int, H: int, Sq: int, Sk: int,
+                      p: float, device=None):
+    """The kernels' keep-mask in plain PyTorch: bool [B, H, Sq, Sk].
+
+    Element (bh = b*H + h, query row i, key column j) is kept when word
+    j & 3 of Philox4x32-10(counter=(j >> 2, i, bh, 0), key=(seed mod 2**32,
+    seed >> 32)) is >= dropout_threshold(p). Keyed per element, so every
+    kernel (forward, dq, dk/dv, whatever its tiles) and this version draw
+    the same bit. The JAX package draws its bits from the TPU PRNG per
+    tile; those cannot be reproduced."""
+    seed = int(seed) & ((1 << 64) - 1)
+    i64 = dict(dtype=torch.int64, device=device)
+    groups = (Sk + 3) // 4
+    words = philox4x32_10(torch.arange(groups, **i64)[None, None, :],
+                          torch.arange(Sq, **i64)[None, :, None],
+                          torch.arange(B * H, **i64)[:, None, None],
+                          torch.zeros((), **i64), seed & _U32, seed >> 32)
+    bits = torch.stack(words, dim=-1).reshape(B * H, Sq, 4 * groups)
+    keep = bits[..., :Sk] >= dropout_threshold(p)
+    return keep.reshape(B, H, Sq, Sk)
+
+
+def _masked_scores(q, k, causal, scale, mask=None):
+    """s = (q . k) in fp32 * scale; causal entries (bottom-right aligned)
+    set to _NEG_INF, then the additive mask summed in fp32: the TPU
+    kernels' `_apply_mask_block` order. [B, H, Sq, Sk] fp32."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     Sq, Sk = s.shape[-2], s.shape[-1]
-    if not causal:
-        return s, None
-    cm = causal_mask(Sq, Sk, q_offset=Sk - Sq, device=q.device)
-    return torch.where(cm, s, _NEG_INF), cm
+    if causal:
+        cm = causal_mask(Sq, Sk, q_offset=Sk - Sq, device=q.device)
+        s = torch.where(cm, s, _NEG_INF)
+    if mask is not None:
+        s = s + _mask_4d(mask).float()
+    return s
 
 
-def flash_fwd_plain(q, k, v, causal, scale):
+def _dropped(x, keep, dropout_p):
+    """keep ? x / (1 - p) : 0, the multiply by the fp32 reciprocal the
+    kernels use."""
+    return torch.where(keep, x * (1.0 / (1.0 - dropout_p)), 0.0)
+
+
+def flash_fwd_plain(q, k, v, causal, scale, mask=None, keep=None,
+                    dropout_p=0.0):
     """The forward kernel's function in PyTorch on whole score rows:
-    (out in q's dtype, lse [B, H, Sq] fp32). Masked scores give an exact
-    0, l is floored at 1e-30 (a row with no visible key outputs 0), and
-    p is rounded to v's dtype before PV."""
-    s, _ = _masked_scores(q, k, causal, scale)
-    m = s.amax(dim=-1, keepdim=True)
+    (out in q's dtype, lse [B, H, Sq] fp32). p = 0 exactly where the
+    masked score is <= -5e29; the row max starts at -1e30, as the
+    kernel's running max does, and l (the sum of the undropped p) is
+    floored at 1e-30, so a row with no visible key outputs 0. With
+    dropout_p > 0 the PV numerator takes the dropped p (`keep`); p is
+    rounded to v's dtype before PV."""
+    s = _masked_scores(q, k, causal, scale, mask)
+    m = s.amax(dim=-1, keepdim=True).clamp_min(_NEG_INF)
     p = torch.where(s <= _NEG_INF / 2, 0.0, torch.exp(s - m))
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    if dropout_p > 0.0:
+        p = _dropped(p, keep, dropout_p)
     acc = torch.matmul(p.to(v.dtype).float(), v.float())
     out = (acc / l).to(q.dtype)
     return out, (m + torch.log(l)).squeeze(-1)
 
 
-def flash_bwd_plain(q, k, v, g, lse, delta, causal, scale):
+def flash_bwd_plain(q, k, v, g, lse, delta, causal, scale, mask=None,
+                    keep=None, dropout_p=0.0):
     """The dq and dk/dv kernels' arithmetic in PyTorch: p = exp(s - lse)
-    (exact 0 where masked), dp = g . v, ds = p * (dp - delta) * scale;
-    dq = ds(k's dtype) @ k, dv = p(g's dtype)^T @ g, dk = ds(q's dtype)^T
-    @ q, each summed in fp32 and cast to its input's dtype."""
-    s, _ = _masked_scores(q, k, causal, scale)
+    (exact 0 where masked), dp = g . v, dropped with `keep` when
+    dropout_p > 0, ds = p * (dp - delta) * scale with the undropped p;
+    dq = ds(k's dtype) @ k, dv = p_dropped(g's dtype)^T @ g, dk = ds(q's
+    dtype)^T @ q, each summed in fp32 and cast to its input's dtype."""
+    s = _masked_scores(q, k, causal, scale, mask)
     p = torch.where(s <= _NEG_INF / 2, 0.0, torch.exp(s - lse[..., None]))
     dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
+    p_v = p
+    if dropout_p > 0.0:
+        dp = _dropped(dp, keep, dropout_p)
+        p_v = _dropped(p, keep, dropout_p)
     ds = p * (dp - delta[..., None]) * scale
     dq = torch.matmul(ds.to(k.dtype).float(), k.float()).to(q.dtype)
-    dv = torch.matmul(p.to(g.dtype).float().transpose(-1, -2),
+    dv = torch.matmul(p_v.to(g.dtype).float().transpose(-1, -2),
                       g.float()).to(v.dtype)
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
                       q.float()).to(k.dtype)
     return dq, dk, dv
+
+
+def _check_mask(mask, B, H, Sq, Sk):
+    """The 4-D additive mask `mask` broadcasts as the kernels read it: a
+    batch dim of 1 or B, a head dim of 1 or H, Sq and Sk or 1. Raises
+    ValueError otherwise."""
+    mb, mh = mask.shape[0], mask.shape[1]
+    if mb not in (1, B):
+        raise ValueError(
+            f"additive mask batch dim {mb} must be 1 or match batch {B}")
+    if mh not in (1, H):
+        raise ValueError(
+            f"additive mask head dim {mh} must be 1 or match heads {H}")
+    if mask.shape[2] not in (1, Sq) or mask.shape[3] not in (1, Sk):
+        raise ValueError(f"additive mask {tuple(mask.shape)} does not "
+                         f"broadcast to [{B}, {H}, {Sq}, {Sk}]")
+
+
+def _mask_3d(mask, B, H, Sq, Sk):
+    """An additive mask as [rows, Sq, Sk] and the divisor that maps a
+    batch*head index to its row (row = bh // divisor), as the JAX
+    package's `_mask_3d`: [B, 1, Sq, Sk] stays unbroadcast (divisor H),
+    [1, 1, ...] is one row (divisor B*H), [B|1, H, ...] is flattened to
+    B*H rows. Size-1 Sq or Sk dims are expanded. A batch dim other than
+    1 or B raises ValueError."""
+    mask = _mask_4d(mask)
+    _check_mask(mask, B, H, Sq, Sk)
+    mb, mh = mask.shape[0], mask.shape[1]
+    if mh == 1:
+        return mask.expand(mb, 1, Sq, Sk).reshape(mb, Sq, Sk), (
+            B * H if mb == 1 else H)
+    flat = mask.expand(B, H, Sq, Sk).reshape(B * H, Sq, Sk)
+    return flat, 1
+
+
+def _mask_grad(q, k, v, mask, lse, g, delta, causal, scale, keep=None,
+               dropout_p=0.0):
+    """d(loss)/d(additive mask) in plain PyTorch: the cotangent at the
+    mask-add point is p * (dp - delta) (no scale: the mask is added after
+    the scaling), dp dropped as in dq when dropout_p > 0; reduced over
+    the mask's broadcast dims and returned in its shape and dtype. The
+    JAX package computes it in XLA, outside any kernel."""
+    s = _masked_scores(q, k, causal, scale, mask)
+    p = torch.where(s <= _NEG_INF / 2, 0.0, torch.exp(s - lse[..., None]))
+    dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
+    if dropout_p > 0.0:
+        dp = _dropped(dp, keep, dropout_p)
+    dm = p * (dp - delta[..., None])
+    m4 = _mask_4d(mask)
+    dims = [d for d in range(4) if m4.shape[d] == 1 and dm.shape[d] != 1]
+    if dims:
+        dm = dm.sum(dim=dims, keepdim=True)
+    return dm.reshape(mask.shape).to(mask.dtype)
+
+
+def _kernel_mask(mask, B, H, Sq, Sk):
+    """The additive mask once in the layout the kernels read: fp32,
+    contiguous, [B|1, 1|H, Sq, Sk] with a per-head mask's batch expanded,
+    so that `_mask_3d` of it is a view. FlashAttentionFn converts a mask
+    once a forward and hands the result to all three kernels; a mask
+    already in this layout is taken without a copy."""
+    mask = _mask_4d(mask)
+    _check_mask(mask, B, H, Sq, Sk)
+    mh = mask.shape[1]
+    rows = B if mh == H else mask.shape[0]
+    return mask.float().expand(rows, mh, Sq, Sk).contiguous()
 
 
 def _check_qkv(q, k, v, what):
@@ -149,9 +311,41 @@ def _check_aligned(tensors):
                          "data starts on a 16-byte boundary")
 
 
-def flash_fwd_cuda(q, k, v, causal, scale):
-    """Launch the forward kernel. Returns (out, lse [B, H, Sq] fp32)."""
+def _variant(q, Sk, mask, dropout_p, seed):
+    """(fp32 mask rows or None, the C entry points' trailing variant
+    arguments: mask pointer (0: none), row divisor, seed, dropout_p, and
+    the launch counter's suffix). The caller holds the rows until the
+    launch. A mask and dropout together are refused: flash_attention
+    sends them to the plain reference, by the JAX package's rule."""
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
+    B, H, Sq, _ = q.shape
+    if mask is None:
+        if dropout_p > 0.0:
+            return None, (0, 1, int(seed) & ((1 << 64) - 1),
+                          float(dropout_p)), "_dropout"
+        return None, (0, 1, 0, 0.0), ""
+    if dropout_p > 0.0:
+        raise ValueError("the flash kernels take an additive mask or "
+                         "dropout, not both: flash_attention runs the two "
+                         "together through the plain reference")
+    if mask.device != q.device:
+        raise ValueError("the additive mask must be on q's device")
+    if not mask.is_floating_point():
+        raise TypeError(f"the additive mask must be a float tensor, got "
+                        f"{mask.dtype}")
+    rows, div = _mask_3d(_kernel_mask(mask, B, H, Sq, Sk), B, H, Sq, Sk)
+    return rows, (rows.data_ptr(), div, 0, 0.0), "_mask"
+
+
+def flash_fwd_cuda(q, k, v, causal, scale, mask=None, dropout_p=0.0,
+                   seed=0):
+    """Launch the forward kernel. Returns (out, lse [B, H, Sq] fp32).
+    `mask`: an additive mask broadcastable to [B, H, Sq, Sk] (any float
+    dtype, summed in fp32); `dropout_p > 0`: in-kernel dropout keyed by
+    `seed` (dropout_keep_mask's contract)."""
     B, H, Sq, Sk, D = _check_qkv(q, k, v, "flash_fwd_cuda")
+    rows, extra, suffix = _variant(q, Sk, mask, dropout_p, seed)
     code = _kernels.dtype_code(q.dtype)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), device=q.device, dtype=torch.float32)
@@ -159,9 +353,10 @@ def flash_fwd_cuda(q, k, v, causal, scale):
     rc = lib.pdtt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B * H, Sq, Sk, D, float(scale), int(bool(causal)),
-        code, _kernels.current_stream_handle(q.device))
-    _kernels.check_launch(rc, "flash_fwd")
-    _kernels.LAUNCHES["flash_fwd"] += 1
+        *extra, code,
+        _kernels.current_stream_handle(q.device))
+    _kernels.check_launch(rc, "flash_fwd" + suffix)
+    _kernels.LAUNCHES["flash_fwd" + suffix] += 1
     return out, lse
 
 
@@ -180,27 +375,32 @@ def _check_grad_side(q, g, lse, delta):
                              f"{tuple(t.shape)} {t.dtype}")
 
 
-def flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal, scale):
+def flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal, scale, mask=None,
+                      dropout_p=0.0, seed=0):
     """Launch the dq kernel. Returns dq in q's dtype."""
     B, H, Sq, Sk, D = _check_qkv(q, k, v, "flash_bwd_dq_cuda")
     _check_grad_side(q, g, lse, delta)
+    rows, extra, suffix = _variant(q, Sk, mask, dropout_p, seed)
     code = _kernels.dtype_code(q.dtype)
     dq = torch.empty_like(q)
     lib = _kernels.load_library()
     rc = lib.pdtt_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B * H, Sq, Sk, D,
-        float(scale), int(bool(causal)), code,
+        float(scale), int(bool(causal)),
+        *extra, code,
         _kernels.current_stream_handle(q.device))
-    _kernels.check_launch(rc, "flash_bwd_dq")
-    _kernels.LAUNCHES["flash_bwd_dq"] += 1
+    _kernels.check_launch(rc, "flash_bwd_dq" + suffix)
+    _kernels.LAUNCHES["flash_bwd_dq" + suffix] += 1
     return dq
 
 
-def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal, scale):
+def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal, scale, mask=None,
+                       dropout_p=0.0, seed=0):
     """Launch the dk/dv kernel. Returns (dk, dv) in k's dtype."""
     B, H, Sq, Sk, D = _check_qkv(q, k, v, "flash_bwd_dkv_cuda")
     _check_grad_side(q, g, lse, delta)
+    rows, extra, suffix = _variant(q, Sk, mask, dropout_p, seed)
     code = _kernels.dtype_code(q.dtype)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -208,11 +408,26 @@ def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal, scale):
     rc = lib.pdtt_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B * H, Sq, Sk, D, float(scale), int(bool(causal)), code,
+        B * H, Sq, Sk, D, float(scale), int(bool(causal)),
+        *extra, code,
         _kernels.current_stream_handle(q.device))
-    _kernels.check_launch(rc, "flash_bwd_dkv")
-    _kernels.LAUNCHES["flash_bwd_dkv"] += 1
+    _kernels.check_launch(rc, "flash_bwd_dkv" + suffix)
+    _kernels.LAUNCHES["flash_bwd_dkv" + suffix] += 1
     return dk, dv
+
+
+def dropout_keep_mask_cuda(seed, B, H, Sq, Sk, p, device=None):
+    """The keep-mask as the kernels draw it, written out by a small kernel
+    that calls `csrc/philox.cuh` (for tests against dropout_keep_mask;
+    no launch is counted). bool [B, H, Sq, Sk] on the card."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = torch.empty((B, H, Sq, Sk), dtype=torch.bool, device=device)
+    lib = _kernels.load_library()
+    rc = lib.pdtt_dropout_keep_mask(
+        out.data_ptr(), B * H, Sq, Sk, int(seed) & ((1 << 64) - 1),
+        float(p), _kernels.current_stream_handle(device))
+    _kernels.check_launch(rc, "dropout_keep_mask")
+    return out
 
 
 def flash_attention_delta(g, out):
@@ -221,64 +436,111 @@ def flash_attention_delta(g, out):
     return (g.float() * out.float()).sum(dim=-1)
 
 
-def flash_fwd(q, k, v, causal, scale):
+def _keep(q, k, dropout_p, seed):
+    if dropout_p <= 0.0:
+        return None
+    B, H, Sq, _ = q.shape
+    return dropout_keep_mask(seed, B, H, Sq, k.shape[2], dropout_p,
+                             q.device)
+
+
+def flash_fwd(q, k, v, causal, scale, mask=None, dropout_p=0.0, seed=0):
     if q.is_cuda:
-        return flash_fwd_cuda(q, k, v, causal, scale)
-    return flash_fwd_plain(q, k, v, causal, scale)
+        return flash_fwd_cuda(q, k, v, causal, scale, mask, dropout_p, seed)
+    return flash_fwd_plain(q, k, v, causal, scale, mask,
+                           _keep(q, k, dropout_p, seed), dropout_p)
 
 
-def flash_bwd(q, k, v, out, lse, g, causal, scale):
+def flash_bwd(q, k, v, out, lse, g, causal, scale, mask=None,
+              dropout_p=0.0, seed=0):
     """(dq, dk, dv): the two backward kernels on CUDA, the plain version
     on the CPU."""
     delta = flash_attention_delta(g, out)
     if q.is_cuda:
-        dq = flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal, scale)
-        dk, dv = flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal, scale)
+        dq = flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal, scale, mask,
+                               dropout_p, seed)
+        dk, dv = flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal, scale,
+                                    mask, dropout_p, seed)
         return dq, dk, dv
-    return flash_bwd_plain(q, k, v, g, lse, delta, causal, scale)
+    return flash_bwd_plain(q, k, v, g, lse, delta, causal, scale, mask,
+                           _keep(q, k, dropout_p, seed), dropout_p)
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """out = attention(q, k, v) by the forward kernel, saving out and lse;
-    the gradient by the dq and dk/dv kernels (the JAX package's
-    _flash_vjp_fwd / _flash_vjp_bwd)."""
+    """out = attention(q, k, v, mask) by the forward kernel, saving out
+    and lse; the gradient by the dq and dk/dv kernels (the JAX package's
+    _flash_vjp_fwd / _flash_vjp_bwd), and the mask's by `_mask_grad` when
+    the mask requires it. On CUDA the mask is converted to the kernels'
+    fp32 layout once (`_kernel_mask`) and saved for the backward, so the
+    three launches share one copy. Dropout regenerates its keep-mask from
+    `seed` in every kernel, so nothing of it is stored."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_fwd(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(ctx, q, k, v, mask, causal, scale, dropout_p=0.0, seed=0):
+        kmask = mask
+        if mask is not None and q.is_cuda:
+            B, H, Sq, _ = q.shape
+            kmask = _kernel_mask(mask, B, H, Sq, k.shape[2])
+        out, lse = flash_fwd(q, k, v, causal, scale, kmask, dropout_p, seed)
+        ctx.save_for_backward(q, k, v, mask, kmask, out, lse)
         ctx.causal, ctx.scale = causal, scale
+        ctx.dropout_p, ctx.seed = dropout_p, seed
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, out, lse, g.contiguous(),
-                               ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+        q, k, v, mask, kmask, out, lse = ctx.saved_tensors
+        g = g.contiguous()
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, g, ctx.causal, ctx.scale,
+                               kmask, ctx.dropout_p, ctx.seed)
+        dmask = None
+        if mask is not None and ctx.needs_input_grad[3]:
+            dmask = _mask_grad(q, k, v, mask, lse, g,
+                               flash_attention_delta(g, out), ctx.causal,
+                               ctx.scale, _keep(q, k, ctx.dropout_p,
+                                                ctx.seed), ctx.dropout_p)
+        return dq, dk, dv, dmask, None, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True, scale=None, mask=None,
-                    dropout_p: float = 0.0):
+                    dropout_p: float = 0.0, dropout_seed: int = 0):
     """q: [B, H, Sq, D], k/v: [B, H, Sk, D]. Returns [B, H, Sq, D] in q's
     dtype. Causal masking is bottom-right aligned when Sq != Sk; a row
-    with no visible key outputs 0. Differentiable.
+    with no visible key outputs 0. Differentiable, in an additive `mask`
+    ([B|1, 1|H, Sq, Sk] or [B, Sq, Sk]) too.
 
     CUDA tensors go through the forward, dq and dk/dv kernels (D a
-    multiple of 16 up to 128, fp32 or bf16, any sequence lengths); CPU
-    tensors through their plain versions. An additive `mask` runs the
-    plain reference on the CPU and raises on CUDA; `dropout_p > 0` raises
-    on both (the TPU's random bits cannot be reproduced)."""
+    multiple of 16 up to 128, fp32 or bf16, any sequence lengths), with
+    the mask or in-kernel dropout (keyed by `dropout_seed`, see
+    dropout_keep_mask) as variants of those kernels; CPU tensors through
+    their plain versions. A mask and dropout together take the plain
+    reference on either device, by the JAX package's rule (its in-kernel
+    keep-mask has no mask gradient), with the same Philox keep-mask."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if dropout_p > 0.0:
-        raise NotImplementedError(_MASK_DROPOUT_SLICE)
-    if mask is not None:
-        if q.is_cuda:
-            raise NotImplementedError(_MASK_DROPOUT_SLICE)
-        return _attention_reference(q, k, v, causal, scale, mask)
+    if mask is not None and dropout_p > 0.0:
+        return _attention_reference(q, k, v, causal, scale, mask, dropout_p,
+                                    _keep(q, k, dropout_p, dropout_seed))
     q, k, v = (t.contiguous() for t in (q, k, v))
-    return FlashAttentionFn.apply(q, k, v, causal, scale)
+    return FlashAttentionFn.apply(q, k, v, mask, causal, scale,
+                                  float(dropout_p), int(dropout_seed))
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, name=None):
+    """paddle.nn.functional.scaled_dot_product_attention: tensors are
+    [B, S, H, D] (Paddle's layout); `attn_mask` an additive mask as
+    flash_attention takes it. With `training` and dropout_p > 0 each call
+    draws a fresh seed from `core.random.next_seed()`, as the JAX package
+    draws a key from `next_key()`."""
+    from ..core.random import next_seed
+    pd = dropout_p if training else 0.0
+    seed = next_seed() if pd > 0 else 0
+    out = flash_attention(query.transpose(1, 2), key.transpose(1, 2),
+                          value.transpose(1, 2), causal=is_causal,
+                          mask=attn_mask, dropout_p=pd, dropout_seed=seed)
+    return out.transpose(1, 2)
 
 
 def update_kv_cache(k_cache, v_cache, k_new, v_new, pos):

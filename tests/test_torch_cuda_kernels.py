@@ -23,7 +23,9 @@ tensor cores (their machine code holds wgmma's HGMMA instructions), and
 so does bf16 paged attention at a block_len that is a multiple of 8
 (mma.sync's HMMA); the profiler's kernel names show that such calls never
 reach the scalar kernels, and a bf16 input they cannot take raises
-instead of going anywhere else. Fused Adam: bit for bit
+instead of going anywhere else. The mask and dropout variants of the
+flash kernels are held the same way, and the keep-mask the kernels draw
+equals the plain twin's bit for bit. Fused Adam: bit for bit
 (tolerance 0) against its plain version on the card, in every dtype, with
 and without a master weight, at ragged, tiny and misaligned n.
 """
@@ -345,23 +347,200 @@ def test_cuda_layernorm_backward_matches_plain(dtype, R, N):
         assert torch.equal(t.grad, want)
 
 
+# (The name predates the variants.) A mask or dropout on CUDA now launches
+# its variant kernel; a mask with dropout goes to the plain reference
+# through flash_attention and is refused by the kernels' wrappers; bad
+# inputs still raise.
 @pytest.mark.cuda
 def test_cuda_flash_refuses_mask_dropout_and_bad_inputs():
     require_cuda()
+    from paddle_tpu_torch.ops import launch_counts
     from paddle_tpu_torch.ops.attention import flash_attention, \
         flash_fwd_cuda
     q = torch.zeros((1, 2, 8, 64), device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attention(q, q, q, mask=torch.zeros((1, 1, 8, 8),
-                                                  device="cuda"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attention(q, q, q, dropout_p=0.1)
+    before = launch_counts()
+    out = flash_attention(q, q, q, mask=torch.zeros((1, 1, 8, 8),
+                                                    device="cuda"))
+    out = flash_attention(q, q, q, dropout_p=0.1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    after = launch_counts()
+    for name in ("flash_fwd_mask", "flash_fwd_dropout"):
+        assert after[name] == before[name] + 1, name
+    assert after["flash_fwd"] == before["flash_fwd"]
+    with pytest.raises(ValueError, match="not both"):
+        flash_fwd_cuda(q, q, q, True, 1.0, torch.zeros((1, 1, 8, 8),
+                                                       device="cuda"), 0.1)
+    with pytest.raises(ValueError, match="batch dim"):
+        flash_fwd_cuda(q, q, q, True, 1.0, torch.zeros((3, 1, 8, 8),
+                                                       device="cuda"))
+    with pytest.raises(ValueError, match="dropout_p"):
+        flash_fwd_cuda(q, q, q, True, 1.0, dropout_p=1.0)
     with pytest.raises(ValueError, match="head_dim"):
         flash_fwd_cuda(torch.zeros((1, 2, 8, 40), device="cuda"),
                        torch.zeros((1, 2, 8, 40), device="cuda"),
                        torch.zeros((1, 2, 8, 40), device="cuda"), True, 1.0)
     with pytest.raises(TypeError, match="one dtype"):
-        flash_fwd_cuda(q, q.bfloat16(), q, True, 1.0)
+        flash_fwd_cuda(q, q, q.bfloat16(), True, 1.0)
+
+
+# ---- the mask and dropout variants of the forward, dq and dk/dv kernels:
+# each against its plain version (fp32 1e-5 / 1e-4; bf16 the training
+# kernels' rule), the dropout keep-mask bit for bit, the bf16 route, and
+# two runs bit-equal
+VARIANT_CASES = [  # dtype, B, H, Sq, Sk, D, causal, variant
+    (torch.float32, 2, 3, 100, 130, 64, False, "mask_b1"),
+    (torch.float32, 1, 2, 128, 128, 128, True, "mask_bh_inf"),
+    (torch.float32, 1, 2, 77, 64, 32, True, "mask_3d"),
+    (torch.float32, 2, 2, 100, 130, 64, True, "dropout"),
+    (torch.float32, 1, 2, 300, 100, 64, True, "dropout"),   # empty rows
+    (torch.bfloat16, 2, 3, 100, 130, 64, False, "mask_b1"),
+    (torch.bfloat16, 2, 4, 256, 256, 128, True, "mask_bh_inf"),
+    (torch.bfloat16, 1, 2, 77, 77, 96, True, "mask_3d_bf16"),
+    (torch.bfloat16, 1, 2, 129, 257, 128, False, "mask_odd_sk"),
+    (torch.float32, 2, 3, 100, 130, 64, True, "mask_b11_bf16"),
+    (torch.bfloat16, 2, 4, 256, 256, 128, False, "mask_b11_bf16"),
+    (torch.bfloat16, 2, 4, 256, 256, 128, True, "dropout"),
+    (torch.bfloat16, 1, 2, 100, 300, 64, False, "dropout"),
+    (torch.bfloat16, 1, 2, 300, 100, 32, True, "dropout"),  # empty rows
+]
+
+
+def _variant_inputs(rng, dtype, B, H, Sq, Sk, variant):
+    """(mask, dropout_p, seed) of a variant case."""
+    import numpy as np
+    if variant == "dropout":
+        return None, 0.1, (5 << 32) + 12345
+    shape = {"mask_b1": (B, 1, Sq, Sk), "mask_bh_inf": (B, H, Sq, Sk),
+             "mask_3d": (B, Sq, Sk), "mask_3d_bf16": (B, Sq, Sk),
+             "mask_odd_sk": (1, 1, Sq, Sk),
+             "mask_b11_bf16": (B, 1, 1, Sk)}[variant]
+    m = rng.standard_normal(shape).astype(np.float32)
+    if variant == "mask_bh_inf":
+        m = np.where(rng.rand(*shape) < 0.3, -np.inf, 0.0).astype(np.float32)
+        m[..., 7, :] = -np.inf                   # a row masked whole
+    mask = torch.from_numpy(m).to("cuda")
+    return (mask.bfloat16() if variant.endswith("_bf16") else mask), 0.0, 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,H,Sq,Sk,D,causal,variant", VARIANT_CASES)
+def test_cuda_flash_variants_match_plain(dtype, B, H, Sq, Sk, D, causal,
+                                         variant):
+    require_cuda()
+    import numpy as np
+    from paddle_tpu_torch.ops import launch_counts
+    from paddle_tpu_torch.ops.attention import (dropout_keep_mask,
+                                                flash_attention,
+                                                flash_attention_delta,
+                                                flash_bwd_dkv_cuda,
+                                                flash_bwd_dq_cuda,
+                                                flash_bwd_plain,
+                                                flash_fwd_cuda,
+                                                flash_fwd_plain)
+    rng = np.random.RandomState(41)
+    q, g = _t(rng, (B, H, Sq, D), dtype), _t(rng, (B, H, Sq, D), dtype)
+    k, v = _t(rng, (B, H, Sk, D), dtype), _t(rng, (B, H, Sk, D), dtype)
+    mask, p, seed = _variant_inputs(rng, dtype, B, H, Sq, Sk, variant)
+    keep = dropout_keep_mask(seed, B, H, Sq, Sk, p, "cuda") if p else None
+    scale = D ** -0.5
+    before = launch_counts()
+    out, lse = flash_fwd_cuda(q, k, v, causal, scale, mask, p, seed)
+    delta = flash_attention_delta(g, out)
+    dq = flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal, scale, mask, p,
+                           seed)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal, scale, mask,
+                                p, seed)
+    ref_out, ref_lse = flash_fwd_plain(q, k, v, causal, scale, mask, keep, p)
+    ref = flash_bwd_plain(q, k, v, g, lse, delta, causal, scale, mask, keep,
+                          p)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref_out, atol=1e-5, rtol=1e-5)
+        for got, want in zip((dq, dk, dv), ref):
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        f32 = [t.float() for t in (q, k, v, g)]
+        _assert_bf16_train(out, ref_out, flash_fwd_plain(
+            *f32[:3], causal, scale, mask, keep, p)[0])
+        ref32 = flash_bwd_plain(*f32, lse, delta, causal, scale, mask, keep,
+                                p)
+        for got, want, want32 in zip((dq, dk, dv), ref, ref32):
+            _assert_bf16_train(got, want, want32)
+    if variant == "mask_bh_inf":      # the row masked whole: 0 everywhere
+        assert not out[..., 7, :].any() and not dq[..., 7, :].any()
+    # the autograd entry point launches the three variant kernels once each
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    o2 = flash_attention(qr, kr, vr, causal=causal, scale=scale, mask=mask,
+                         dropout_p=p, dropout_seed=seed)
+    o2.backward(g)
+    torch.cuda.synchronize()
+    assert torch.equal(o2.detach(), out)
+    assert torch.equal(qr.grad, dq) and torch.equal(kr.grad, dk) \
+        and torch.equal(vr.grad, dv)
+    suffix = "_dropout" if p else "_mask"
+    after = launch_counts()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert after[name + suffix] == before[name + suffix] + 2, name
+        assert after[name] == before[name], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Sq,Sk,seed,p", [
+    (2, 3, 100, 130, 0, 0.1), (1, 4, 257, 63, (1 << 40) + 7, 0.5),
+    (4, 16, 1024, 1024, 123456789, 0.1)])
+def test_cuda_dropout_keep_mask_is_the_plain_twin_bit_for_bit(B, H, Sq, Sk,
+                                                              seed, p):
+    require_cuda()
+    import math
+    from paddle_tpu_torch.ops.attention import (dropout_keep_mask,
+                                                dropout_keep_mask_cuda)
+    got = dropout_keep_mask_cuda(seed, B, H, Sq, Sk, p)
+    want = dropout_keep_mask(seed, B, H, Sq, Sk, p, "cuda")
+    assert torch.equal(got, want)
+    n = got.numel()
+    assert abs(float(got.float().mean()) - (1 - p)) < 5 * math.sqrt(
+        p * (1 - p) / n)
+    assert not torch.equal(dropout_keep_mask_cuda(seed + 1, B, H, Sq, Sk, p),
+                           got)
+
+
+# bf16 variants: two runs bit-equal, another seed another result, and the
+# kernels launched are the tensor-core ones (torch.profiler's names)
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["mask_b1", "dropout"])
+def test_cuda_flash_bf16_variants_are_deterministic_on_tensor_cores(variant):
+    require_cuda()
+    import numpy as np
+    from paddle_tpu_torch.ops.attention import (flash_attention_delta,
+                                                flash_bwd_dkv_cuda,
+                                                flash_bwd_dq_cuda,
+                                                flash_fwd_cuda)
+    rng = np.random.RandomState(42)
+    bf = torch.bfloat16
+    q, k, v, g = (_t(rng, (2, 4, 320, 128), bf) for _ in range(4))
+    mask, p, seed = _variant_inputs(rng, bf, 2, 4, 320, 320, variant)
+
+    def run(seed_):
+        out, lse = flash_fwd_cuda(q, k, v, True, 128 ** -0.5, mask, p, seed_)
+        delta = flash_attention_delta(g, out)
+        return (out, lse,
+                flash_bwd_dq_cuda(q, k, v, g, lse, delta, True, 128 ** -0.5,
+                                  mask, p, seed_),
+                *flash_bwd_dkv_cuda(q, k, v, g, lse, delta, True,
+                                    128 ** -0.5, mask, p, seed_))
+
+    first, second = run(seed), run(seed)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    if p:
+        assert not torch.equal(run(seed + 1)[0], first[0])
+    names = _kernel_names(lambda: run(seed))
+    for kern in ("flash_fwd_kernel_tc", "flash_bwd_dq_kernel_tc",
+                 "flash_bwd_dkv_kernel_tc"):
+        assert any(kern in n for n in names), (kern, names)
+    assert not any("flash_fwd_kernel<" in n or "flash_bwd_dq_kernel<" in n
+                   or "flash_bwd_dkv_kernel<" in n for n in names), names
 
 
 # A bf16 input the tensor-core kernels cannot take raises: it is never
@@ -581,3 +760,123 @@ def test_cuda_fused_adam_refuses_bad_inputs():
         fused_adam_cuda(z, z, z, z, 1e-3, s[1], s[2], 0.0, **kw)
     with pytest.raises(TypeError, match="master"):
         fused_adam_cuda(z, z, z, z, *s, 0.0, master=z.clone(), **kw)
+
+
+# ---- where the engine's and generate()'s bf16 streams part (ROADMAP §3
+# item 2). One 64-token prompt runs through the engine's unified step (8
+# slots x a 64-token chunk: 512 rows a GEMM) and through generate()'s
+# prefill (64 rows), then one decode step each (512 rows against 1); every
+# leaf module's output (and the attention core's, the input of out_proj)
+# is recorded by hooks and compared for the prompt's rows in execution
+# order. The first op to differ is named in the output. A port kernel (the
+# LayerNorm forward, paged attention) given equal inputs must give equal
+# outputs whatever the batch around it; a cuBLAS GEMM may choose another
+# algorithm by M and differ. gpt3-1.3b widths, 2 layers, bf16, random
+# weights.
+class _OpRecorder:
+    """Inputs and outputs of every leaf module, one list per call of the
+    model's transformer (`model.gpt`), in execution order."""
+
+    def __init__(self, model):
+        self.calls, self.on, self._hooks = [], False, []
+        self._hooks.append(model.gpt.register_forward_pre_hook(
+            lambda *_: self.calls.append([]) if self.on else None))
+        for name, mod in model.named_modules():
+            if not list(mod.children()):
+                self._hooks.append(mod.register_forward_hook(
+                    self._hook(name)))
+
+    def _hook(self, name):
+        def record(_mod, args, out):
+            if not self.on or not torch.is_tensor(out):
+                return
+            arg = args[0] if args and torch.is_tensor(args[0]) else None
+            self.calls[-1].append((name, None if arg is None
+                                   else arg.detach().clone(),
+                                   out.detach().clone()))
+        return record
+
+    def remove(self):
+        for h in self._hooks:
+            h.remove()
+
+
+def _first_differing_op(eng_ops, gen_ops, row, cols):
+    """(report of the first op whose output differs for the prompt's
+    rows, ops compared). Tensors of another rank on the two sides (the
+    decode step's position ids) are not compared."""
+    assert [n for n, _, _ in eng_ops] == [n for n, _, _ in gen_ops]
+
+    def same(e, g):
+        if e is None or g is None or e.ndim != g.ndim or e.ndim < 2:
+            return None
+        return torch.equal(e[row, cols], g[0, cols])
+
+    for (name, ei, eo), (_, gi, go) in zip(eng_ops, gen_ops):
+        checks = [("output", eo, go, same(ei, gi))]
+        if name.endswith("out_proj"):       # the attention core's output
+            checks.insert(0, ("attention core output", ei, gi, True))
+        for what, e, g, inputs_equal in checks:
+            if same(e, g) is False:
+                diff = (e[row, cols].float() - g[0, cols].float()).abs()
+                return dict(op=name, what=what,
+                            max_abs_diff=float(diff.max()),
+                            inputs_equal=inputs_equal), len(eng_ops)
+    return None, len(eng_ops)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_and_generate_first_differing_op():
+    require_cuda()
+    import json
+    import numpy as np
+    from paddle_tpu_torch.models.generation import generate
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.serving.clock import SimClock
+    from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    model = GPTForCausalLM.from_preset("gpt3-1.3b", device="cuda",
+                                       dtype="bfloat16", generator=gen,
+                                       num_hidden_layers=2)
+    model.eval()
+    prompt = np.random.RandomState(1).randint(0, 50304, (64,)).astype(
+        np.int32)
+    rec = _OpRecorder(model)
+    try:
+        eng = LLMEngine(model, LLMEngineConfig(
+            num_slots=8, block_len=8, n_blocks=64, prefill_chunk=64,
+            max_new_tokens=2), clock=SimClock())
+        eng.submit(prompt, max_new_tokens=2)
+        rec.on = True
+        eng.pump()                       # prefill: the whole 64-token chunk
+        eng.pump()                       # one decode step
+        rec.on = False
+        eng_calls = rec.calls
+        rec.calls = []
+        rec.on = True
+        generate(model, prompt[None], max_new_tokens=2)
+        rec.on = False
+        gen_calls = rec.calls
+    finally:
+        rec.remove()
+    assert len(eng_calls) == 2 and len(gen_calls) == 2
+    ids = next(i for n, i, _ in eng_calls[0]
+               if n.endswith("word_embeddings"))   # the step's tokens [N, C]
+    want = torch.from_numpy(prompt).to(ids.device, ids.dtype)
+    row = next(r for r in range(ids.shape[0]) if torch.equal(ids[r], want))
+    findings = {}
+    for step, cols in (("prefill", slice(0, 64)), ("decode", slice(0, 1))):
+        i = 0 if step == "prefill" else 1
+        first, n = _first_differing_op(eng_calls[i], gen_calls[i], row, cols)
+        findings[step] = dict(ops_compared=n, first_differing=first)
+    print("engine_vs_generate " + json.dumps(findings))
+    for step, f in findings.items():
+        first = f["first_differing"]
+        if first is None:
+            continue
+        assert first["inputs_equal"], (step, first)
+        # a port kernel with equal inputs must not be the one that differs
+        port_kernel = (first["what"] == "attention core output"
+                       or "norm" in first["op"])
+        assert not port_kernel, (step, first)

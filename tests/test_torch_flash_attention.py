@@ -7,7 +7,10 @@ dk/dv kernels in interpret mode — and against `_attention_reference`:
 out, lse and the gradients of q, k and v, causal and not, Sq < Sk, and
 Sq > Sk with rows that see no key. fp32 throughout, at atol = rtol = 1e-5
 (out, lse: one op sequence, sums of at most 48 products in another
-order) and 1e-4 (gradients: three chained products).
+order) and 1e-4 (gradients: three chained products). With an additive
+mask, the plain versions and the mask's gradient are held to the Pallas
+kernels in interpret mode at 1e-5 (test_torch_dropout.py and
+test_torch_sdpa.py hold dropout and the entry points).
 """
 import numpy as np
 import pytest
@@ -129,8 +132,14 @@ def test_bf16_plain_version_tracks_the_pallas_kernel():
 
 
 def test_mask_takes_the_plain_reference_and_dropout_raises():
+    """(The name predates the mask and dropout variants.) An additive mask
+    runs the flash path's plain versions and matches the JAX reference;
+    dropout no longer raises: it runs the plain versions with the Philox
+    keep-mask that the CUDA kernels draw."""
     from paddle_tpu.ops.attention import _attention_reference as jax_ref
-    from paddle_tpu_torch.ops.attention import flash_attention
+    from paddle_tpu_torch.ops.attention import (dropout_keep_mask,
+                                                flash_attention,
+                                                flash_fwd_plain)
     q, k, v, _ = _inputs(5, 1, 2, 16, 16, 16)
     mask = np.zeros((1, 1, 16, 16), np.float32)
     mask[..., :3] = -1e9
@@ -139,8 +148,111 @@ def test_mask_takes_the_plain_reference_and_dropout_raises():
     t = [torch.from_numpy(a) for a in (q, k, v)]
     out = flash_attention(*t, causal=False, mask=torch.from_numpy(mask))
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attention(*t, dropout_p=0.1)
+    dropped = flash_attention(*t, dropout_p=0.1, dropout_seed=9)
+    keep = dropout_keep_mask(9, 1, 2, 16, 16, 0.1)
+    want, _ = flash_fwd_plain(*t, True, 0.25, keep=keep, dropout_p=0.1)
+    assert torch.equal(dropped, want)
+    assert torch.isfinite(dropped).all() and not keep.all()
+
+
+# ---- the additive mask: the port's plain versions against the JAX Pallas
+# kernels in interpret mode (`_flash_attention` with the mask operand),
+# out, dq, dk, dv and dmask (jax.grad through its custom_vjp, whose mask
+# cotangent is `_mask_grad`) at atol = rtol = 1e-5
+MASK_CASES = [  # mask shape, causal, Sq, Sk, values
+    ("b1", False, 32, 32, "normal"),
+    ("b1", True, 32, 32, "big"),
+    ("bh", True, 32, 64, "normal"),       # Sq < Sk
+    ("bh", False, 64, 32, "-inf"),
+    ("11", True, 64, 32, "normal"),       # Sq > Sk: rows with no key
+    ("11", False, 32, 48, "big"),
+    ("3d", False, 32, 32, "normal"),
+    ("3d", True, 48, 48, "-inf"),
+    ("b1", False, 32, 32, "row"),         # a row masked whole
+    ("bh", True, 32, 32, "finfo"),
+]
+
+
+def _mask(kind, values, B, H, Sq, Sk, seed):
+    shape = {"b1": (B, 1, Sq, Sk), "bh": (B, H, Sq, Sk),
+             "11": (1, 1, Sq, Sk), "3d": (B, Sq, Sk)}[kind]
+    rng = np.random.RandomState(seed)
+    if values == "normal":
+        return rng.standard_normal(shape).astype(np.float32)
+    hidden = rng.rand(*shape) < 0.3
+    fill = {"big": -1e9, "-inf": -np.inf, "row": -np.inf,
+            "finfo": np.finfo(np.float32).min}[values]
+    m = np.where(hidden, fill, 0.0).astype(np.float32)
+    if values == "row":
+        m[..., 5, :] = -np.inf
+    return m
+
+
+@pytest.mark.parametrize("kind,causal,Sq,Sk,values", MASK_CASES)
+def test_mask_matches_pallas_kernels_in_interpret_mode(kind, causal, Sq, Sk,
+                                                       values):
+    from paddle_tpu.ops.attention import _flash_attention
+    from paddle_tpu_torch.ops.attention import flash_attention
+    B, H, D, scale = 2, 2, 16, 0.25
+    q, k, v, g = _inputs(6, B, H, Sq, Sk, D)
+    mask = _mask(kind, values, B, H, Sq, Sk, 7)
+
+    def fn(q_, k_, v_, m_):
+        return _flash_attention(q_, k_, v_, m_, jnp.int32(0), causal, scale,
+                                64, 64, 0.0)
+
+    jargs = [jnp.asarray(a) for a in (q, k, v, mask)]
+    ref_out = np.asarray(fn(*jargs))
+    ref_grads = jax.grad(lambda *a: jnp.sum(fn(*a) * jnp.asarray(g)),
+                         argnums=(0, 1, 2, 3))(*jargs)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v, mask)]
+    out = flash_attention(*leaves[:3], causal=causal, scale=scale,
+                          mask=leaves[3])
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), ref_out, atol=1e-5,
+                               rtol=1e-5)
+    for t, want in zip(leaves, ref_grads):
+        assert t.grad.shape == t.shape
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=1e-5)
+    if values == "row":             # a row masked whole: 0 out, 0 grads
+        assert not out.detach()[..., 5, :].any()
+        assert not leaves[0].grad[..., 5, :].any()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_mask_plain_forward_lse_matches_the_pallas_forward(causal):
+    from paddle_tpu.ops.attention import _flash_fwd
+    from paddle_tpu_torch.ops.attention import flash_fwd_plain
+    q, k, v, _ = _inputs(8, 2, 2, 32, 48, 16)
+    mask = _mask("b1", "-inf", 2, 2, 32, 48, 9)
+    jout, jlse = _flash_fwd(*(jnp.asarray(a) for a in (q, k, v, mask)),
+                            causal, 0.25, 64, 64, 0.0, 0)
+    out, lse = flash_fwd_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                               causal, 0.25, mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_bf16_mask_plain_version_tracks_the_pallas_kernel():
+    """bf16 q, k, v and a bf16 mask (summed in fp32 on both sides): two
+    bf16 ulps of the output's scale, as without a mask."""
+    from paddle_tpu.ops.attention import _flash_attention
+    from paddle_tpu_torch.ops.attention import flash_attention
+    q, k, v, _ = _inputs(10, 1, 2, 64, 64, 32)
+    mask = _mask("b1", "normal", 1, 2, 64, 64, 11)
+    jq, jk, jv, jm = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, mask))
+    ref = np.asarray(_flash_attention(jq, jk, jv, jm, jnp.int32(0), True,
+                                      1.0 / np.sqrt(32), 64, 64, 0.0)
+                     .astype(jnp.float32))
+    tq, tk, tv, tm = (torch.from_numpy(np.asarray(a.astype(jnp.float32)))
+                      .to(torch.bfloat16) for a in (jq, jk, jv, jm))
+    out = flash_attention(tq, tk, tv, causal=True, mask=tm)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=2.0 ** -6,
+                               rtol=0)
 
 
 def test_causal_mask_matches_jax():

@@ -260,6 +260,39 @@ def test_kernel_build_is_keyed_by_sources():
         assert "What bounds it on this card" in text
 
 
+def test_kernel_build_key_covers_every_header(tmp_path, monkeypatch):
+    """The library's name hashes every file under csrc/, headers too: an
+    edited philox.cuh (which no SOURCES entry names) rebuilds."""
+    from paddle_tpu_torch.ops import _kernels
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_kernels.CSRC, csrc)
+    headers = sorted(p.name for p in csrc.glob("*.cuh"))
+    assert "philox.cuh" in headers and "flash_attention.cuh" in headers
+    flags = list(_kernels.NVCC_FLAGS)
+    key = _kernels._source_key(flags)
+    monkeypatch.setattr(_kernels, "CSRC", csrc)
+    assert _kernels._source_key(flags) == key      # the copy hashes alike
+    for name in headers:
+        path = csrc / name
+        text = path.read_text()
+        path.write_text(text + "\n// edited\n")
+        assert _kernels._source_key(flags) != key, name
+        path.write_text(text)
+    assert _kernels._source_key(flags) == key
+
+
+def test_kernel_sources_include_neither_jax_nor_paddle_tpu():
+    """The CUDA sources and headers include only CUDA's and their own."""
+    from paddle_tpu_torch.ops import _kernels
+    files = sorted(_kernels.CSRC.glob("*.cu*"))
+    assert {"philox.cuh", "flash_attention.cu"} <= {f.name for f in files}
+    for f in files:
+        for line in f.read_text().splitlines():
+            if line.lstrip().startswith("#include"):
+                assert "jax" not in line and "paddle_tpu" not in line, (
+                    f.name, line)
+
+
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_refuses_without_gpu(tmp_path, alone):
     script = REPO / "chip_smoke.py"
