@@ -19,19 +19,23 @@ Phases:
   1. device   — card name, count, nvidia-smi name/power limit
   2. build    — nvcc build of the kernel library, timed, with ptxas's
                 register and spill report (no instantiation of a
-                tensor-core kernel may spill), and the tensor-core
-                instructions (wgmma's HGMMA, mma.sync's HMMA) of every
-                instantiation of the bf16 flash forward, dq and dk/dv
-                (plain, mask and dropout) and the bf16 paged attention
-                counted in their machine code (cuobjdump -sass)
+                tensor-core kernel or of a LayerNorm kernel may spill),
+                the tensor-core instructions (wgmma's HGMMA, mma.sync's
+                HMMA) of every instantiation of the bf16 flash forward, dq
+                and dk/dv (plain, mask and dropout) and the bf16 paged
+                attention counted in their machine code (cuobjdump -sass),
+                and 16-byte loads and stores (LDG.E.128, STG.E.128) in
+                every bf16 LayerNorm instantiation of the 16-byte path
   3. kernels  — each kernel against its plain version at its path's
                 shapes (serving: paged attention and the LayerNorm
                 forward; training: flash attention forward, dq and dk/dv
                 at [4,16,1024,128] bf16 causal and the LayerNorm forward
-                and backward at 4096x2048 bf16; the optimizer: fused Adam
-                bit for bit in every dtype, with and without a master
-                weight, at n = 1000, 2049, linear1.weight and the word
-                embedding), with fp32, GQA, block_len 12..64, non-causal,
+                and backward at 4096x2048 bf16, the forward also with its
+                input cycled past L2, and a row's forward bit-equal alone,
+                among 64 or 512 rows and at scalar width; the optimizer:
+                fused Adam bit for bit in every dtype, with and without a
+                master weight, at n = 1000, 2049, linear1.weight and the
+                word embedding), with fp32, GQA, block_len 12..64, non-causal,
                 Sq != Sk, ragged, D=16..64 and B*H > 132 edge cases, the
                 bf16 paged attention and flash forward, dq and dk/dv run
                 twice and held bit-equal, timed on the device (median of
@@ -85,6 +89,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -249,7 +254,43 @@ def phase_build():
           "sources": [f"paddle_tpu_torch/csrc/{s}" for s in _kernels.SOURCES],
           "tensor_core_instructions": tensor_core,
           "tensor_core_registers": resources or None,
+          "layernorm": layernorm_build_checks(_kernels, stats),
           "ptxas": _kernels.ptxas_report or None})
+
+
+# the LayerNorm kernels' 16-byte accesses, as cuobjdump names them
+WIDE_OPCODES = ("LDG.E.128", "STG.E.128")
+
+
+def layernorm_build_checks(_kernels, stats):
+    """Every bf16 LayerNorm instantiation on the 16-byte path (the forward's
+    and the backward's first pass, `kWide` true: `Lb1E` right after the
+    type in the mangled name; one a table entry of ops/layernorm.py)
+    holds LDG.E.128 and STG.E.128 in its machine code, and no LayerNorm
+    kernel spills."""
+    import torch
+    from paddle_tpu_torch.ops import layernorm as ln
+    sass = _kernels.sass_instruction_counts(WIDE_OPCODES)
+    wide_re = re.compile(r"layernorm_(fwd|bwd)_kernelI13__nv_bfloat16Lb1E")
+    wide = {k: c for k, c in sass.items() if wide_re.search(k)}
+    want = (len(ln.FWD_BUCKETS[torch.bfloat16])
+            + len(ln.BWD_BUCKETS[torch.bfloat16]))
+    check(len(wide) == want and all(all(c[op] for op in WIDE_OPCODES)
+                                    for c in wide.values()),
+          f"bf16 LayerNorm kernels on the 16-byte path: {len(wide)} of "
+          f"{want} found with {' and '.join(WIDE_OPCODES)}: {wide}; every "
+          f"LayerNorm function's counts: "
+          f"{ {k: c for k, c in sass.items() if 'layernorm' in k} }")
+    mine = {k: v for k, v in stats.items() if "layernorm" in k}
+    if _kernels.ptxas_report:
+        check(mine, "no LayerNorm kernel in ptxas's report")
+        spills = {k: v for k, v in mine.items()
+                  if v["spill_stores"] or v["spill_loads"]}
+        check(not spills, f"LayerNorm kernels spill registers: {spills}")
+    return {"wide_bf16": {k: dict(c, registers=mine.get(k, {}).get(
+                "registers")) for k, c in wide.items()},
+            "registers": {k: v["registers"] for k, v in mine.items()},
+            "spills": 0 if _kernels.ptxas_report else None}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -534,6 +575,8 @@ def phase_kernels():
         be = torch.randn(n, generator=gen, device="cuda")
         ln_cases[f"fp32_{r}x{n}"] = check_layernorm(torch, xe, we, be,
                                                     f"fp32 {r}x{n}")
+    emit({"phase": "kernel_checks", "name": "layernorm_rows",
+          **check_layernorm_rows(torch, gen)})
     results["layernorm_fwd"] = layernorm_fwd_reading(torch, xb, wb, bb,
                                                      ln_cases)
     emit({"phase": "kernel", "name": "layernorm_fwd",
@@ -541,12 +584,51 @@ def phase_kernels():
     return results
 
 
-def layernorm_fwd_reading(torch, xb, wb, bb, cases):
+def check_layernorm_rows(torch, gen, R=512, head=64):
+    """A row's forward does not depend on the rows around it: the first
+    `head` rows of an R-row call equal a `head`-row call on those rows, and
+    each equals a one-row call, bit for bit (y, mean and rstd), as the
+    engine's steps and generate() need. The same rows at an odd storage
+    offset (scalar accesses) equal them too. bf16 at N = 2048 (the
+    served width) and fp32 at N = 1000 (a width of whole packs whose
+    rows are still 16-byte aligned)."""
+    from paddle_tpu_torch.ops.layernorm import layer_norm_fwd_cuda
+    done = {}
+    for dtype, N in ((torch.bfloat16, 2048), (torch.float32, 1000)):
+        x, w, b = (torch.randn(*s, generator=gen, device="cuda").to(dtype)
+                   for s in ((R, N), (N,), (N,)))
+        full = layer_norm_fwd_cuda(x, w, b, 1e-5)
+        part = layer_norm_fwd_cuda(x[:head], w, b, 1e-5)
+        buf = torch.empty(head * N + 1, device="cuda", dtype=dtype)
+        odd = buf[1:].view(head, N)
+        odd.copy_(x[:head])
+        scalar = layer_norm_fwd_cuda(odd, w, b, 1e-5)
+        label = f"{str(dtype).split('.')[-1]} {R}x{N}"
+        for name, f, p, q in zip(("y", "mean", "rstd"), full, part, scalar):
+            check(torch.equal(f[:head], p),
+                  f"layernorm {label}: rows 0..{head} of the {R}-row call "
+                  f"differ from a {head}-row call ({name})")
+            check(torch.equal(p, q),
+                  f"layernorm {label}: the scalar-access path differs from "
+                  f"the 16-byte one ({name})")
+        for i in range(head):
+            one = layer_norm_fwd_cuda(x[i:i + 1], w, b, 1e-5)
+            for name, p, o in zip(("y", "mean", "rstd"), part, one):
+                check(torch.equal(p[i:i + 1], o),
+                      f"layernorm {label}: row {i} alone differs from the "
+                      f"{head}-row call ({name})")
+        done[label] = {"rows": head, "equal": ["y", "mean", "rstd"]}
+    return {"bitwise": done}
+
+
+def layernorm_fwd_reading(torch, xb, wb, bb, cases, cold=False):
     """The LayerNorm forward's line at the bf16 shape of `xb`: its error
     (from `cases`, the checks already made), its time, the plain version's
     and F.layer_norm's, and its bound. A step's LayerNorm reads the
     residual sum the op before it just wrote, so its input stays warm in L2
-    here too."""
+    here too (`ms`). With `cold`, a second reading cycles the input over
+    L2_COPIES copies, kernel and F.layer_norm alike (`cold_ms`,
+    `cold_library_ms`): a warm L2 can read under the HBM bound."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.layernorm import (layer_norm_fwd_cuda,
                                                 layer_norm_fwd_plain)
@@ -559,13 +641,23 @@ def layernorm_fwd_reading(torch, xb, wb, bb, cases):
     n_bytes = 2 * R * N * el + 2 * N * el + 2 * R * 4
     n_ops = 8 * R * N
     bound, by = bound_ms(n_bytes, n_ops, "bfloat16")
-    return dict(
+    line = dict(
         max_abs_err=cases["bf16"],
         tol="one bf16 ulp of the output + 1e-5 (bf16); fp32 atol=rtol=1e-5; "
             "mean and rstd within 1e-5",
         ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
         bound_ms=bound, bound_by=by, bytes=n_bytes, ops=n_ops,
+        share_of_bound=bound / ms,
         shape=dict(R=R, N=N, dtype="bfloat16"), cases=cases)
+    if cold:
+        xs = [xb] + [xb.clone() for _ in range(L2_COPIES - 1)]
+        line["cold_ms"], _ = time_cuda([
+            partial(layer_norm_fwd_cuda, x_, wb, bb, 1e-5) for x_ in xs])
+        line["cold_library_ms"], _ = time_cuda([
+            partial(F.layer_norm, x_, (N,), wb, bb, 1e-5) for x_ in xs])
+        line["cold_share_of_bound"] = bound / line["cold_ms"]
+        del xs
+    return line
 
 
 # ------------------------------------------------ phase 3b: training kernels
@@ -890,12 +982,13 @@ def phase_train_kernels():
              f"{BF16_TRAIN_ATOL}; fp32 atol=rtol=1e-5 (dx), 1e-4 (dw, db)"),
         ms=ln_ms, call_ms=ln_call_ms, plain_ms=ln_plain, library_ms=ln_lib,
         bound_ms=ln_bound, bound_by=ln_by, bytes=ln_bytes, ops=ln_ops,
+        share_of_bound=ln_bound / ln_ms,
         shape=dict(R=R, N=N, dtype="bfloat16"),
         note="library_ms: the backward of F.layer_norm (dx, dw, db)")
     emit({"phase": "kernel", "name": "layernorm_bwd",
           **results["layernorm_bwd"]})
-    results["layernorm_fwd_train"] = layernorm_fwd_reading(torch, xb, wb, bb,
-                                                           fwd_cases)
+    results["layernorm_fwd_train"] = layernorm_fwd_reading(
+        torch, xb, wb, bb, fwd_cases, cold=True)
     emit({"phase": "kernel", "name": "layernorm_fwd",
           **results["layernorm_fwd_train"]})
     torch.cuda.empty_cache()
@@ -2145,8 +2238,10 @@ def main():
             if x in kern[k]:
                 line[x] = kern[k][x]
         if k + "_train" in kern:   # a served kernel the train step runs too
-            line["at_train_shape"] = {x: kern[k + "_train"][x] for x in
-                                      keys + ("shape",)}
+            line["at_train_shape"] = {
+                x: kern[k + "_train"][x] for x in
+                keys + ("shape", "share_of_bound", "cold_ms",
+                        "cold_library_ms", "cold_share_of_bound")}
         lines.append(line)
     emit({"kernels": lines})
     print(smi_line, flush=True)

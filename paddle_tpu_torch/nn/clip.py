@@ -48,18 +48,22 @@ class ClipGradByNorm(ClipGradBase):
 
 class ClipGradByGlobalNorm(ClipGradBase):
     """All gradients together to a global norm of at most `clip_norm`:
-    factor = min(clip_norm / max(norm, clip_norm), 1)."""
+    factor = min(clip_norm / max(norm, clip_norm), 1). A parameter whose
+    `need_clip` is False is left out of the norm and its gradient passes
+    through untouched, as in the JAX class."""
 
     def __init__(self, clip_norm, group_name="default_group"):
         self.clip_norm = clip_norm
 
     def __call__(self, params_grads):
-        grads = [g for _, g in params_grads if g is not None]
+        grads = [g for p, g in params_grads
+                 if g is not None and getattr(p, "need_clip", True)]
         if not grads:
             return list(params_grads)
         gsq = torch.stack([g.float().square().sum() for g in grads]).sum()
         gnorm = gsq.sqrt()
         f = torch.clamp_max(
             self.clip_norm / gnorm.clamp_min(self.clip_norm), 1.0)
-        return [(p, None if g is None else (g.float() * f).to(g.dtype))
+        return [(p, g if g is None or not getattr(p, "need_clip", True)
+                 else (g.float() * f).to(g.dtype))
                 for p, g in params_grads]

@@ -9,6 +9,11 @@ dx in one pass with the JAX kernel's two row means c1 and c2, and dw, db
 summed over the rows in fp32 (per-CTA partials and a fixed-order second
 pass in place of the TPU's sequential accumulator), cast to w's dtype.
 
+The kernels' launch configuration comes from N and the dtype alone
+(`fwd_config`, `bwd_config`, mirrors of the tables in `layernorm.cu`), so
+a row's result never depends on how many rows come with it; the pointers'
+alignment picks 16-byte or scalar accesses, which give the same bits.
+
 `layer_norm_fwd` and `layer_norm_bwd` take the kernel for a CUDA tensor
 and the plain PyTorch version for a CPU tensor; nothing else decides. On
 CUDA the kernels always run: the JAX package's FLAGS_use_fused_layernorm
@@ -19,11 +24,82 @@ kernel, backward kernel), on the CPU by autograd through the plain math.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import _kernels
 
 MAX_N = 8192
+
+# The instantiations of csrc/layernorm.cu (PDTT_LN_FWD_*, PDTT_LN_BWD_*),
+# smallest first: (threads a row, 16-byte packs a thread) for the forward,
+# plus (rows a batch, shared-memory stages) for the backward. A row of N
+# values is ceil(N / pack) packs and takes the first entry that covers
+# them.
+FWD_BUCKETS = {
+    torch.float32: ((8, 1), (16, 1), (32, 1), (32, 2), (32, 4), (64, 4),
+                    (128, 4), (256, 4), (512, 4)),
+    torch.bfloat16: ((8, 1), (16, 1), (32, 1), (32, 2), (32, 4), (128, 2),
+                     (128, 4), (256, 4)),
+}
+BWD_BUCKETS = {
+    torch.float32: ((32, 1, 4, 3), (64, 1, 4, 3), (128, 1, 4, 3),
+                    (256, 1, 2, 3), (256, 2, 2, 3), (256, 4, 1, 3),
+                    (256, 8, 1, 2)),
+    torch.bfloat16: ((32, 1, 4, 3), (64, 1, 4, 3), (128, 1, 4, 3),
+                     (256, 1, 2, 3), (256, 2, 1, 4), (256, 4, 1, 3)),
+}
+_FWD_CTA_THREADS = 128      # a forward CTA, unless one row takes more
+
+
+class LnConfig(NamedTuple):
+    """One launch of a LayerNorm kernel, as csrc/layernorm.cu picks it."""
+    threads_per_row: int
+    packs_per_thread: int
+    width: int          # values an access: a 16-byte pack, or 1 (scalar)
+    rows: int           # forward: rows a CTA; backward: rows a batch
+    stages: int         # backward: batches staged in shared memory
+
+
+def pack_of(dtype) -> int:
+    """Values of `dtype` in 16 bytes."""
+    if dtype not in FWD_BUCKETS:
+        raise TypeError(f"the LayerNorm kernels take float32 or bfloat16, "
+                        f"got {dtype}")
+    return 16 // torch.empty((), dtype=dtype).element_size()
+
+
+def _bucket(table, N, dtype):
+    if not 1 <= N <= MAX_N:
+        raise ValueError(f"LayerNorm kernel takes 1 <= N <= {MAX_N}, got {N}")
+    packs = -(-N // pack_of(dtype))
+    return next(e for e in table[dtype] if e[0] * e[1] >= packs)
+
+
+def _width(N, dtype, aligned) -> int:
+    pack = pack_of(dtype)
+    return pack if aligned and N % pack == 0 else 1
+
+
+def fwd_config(N: int, dtype, aligned: bool) -> LnConfig:
+    """The forward's launch for rows of N values of `dtype`; `aligned`:
+    every pointer it is given is 16-byte aligned. Nothing here depends on
+    the number of rows."""
+    tpr, per = _bucket(FWD_BUCKETS, N, dtype)
+    return LnConfig(tpr, per, _width(N, dtype, aligned),
+                    max(tpr, _FWD_CTA_THREADS) // tpr, 0)
+
+
+def bwd_config(N: int, dtype, aligned: bool) -> LnConfig:
+    """The backward's launch, as `fwd_config` (its grid comes from R)."""
+    tpr, per, rows, stages = _bucket(BWD_BUCKETS, N, dtype)
+    return LnConfig(tpr, per, _width(N, dtype, aligned), rows, stages)
+
+
+def aligned16(*tensors) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def layer_norm_fwd_plain(x2d, w, b, eps):
@@ -79,13 +155,17 @@ def layer_norm_fwd(x2d, w, b, eps):
 
 
 # dw/db partial rows: about two CTAs a streaming multiprocessor (132 on an
-# H100 SXM), each over a contiguous run of rows; depends on R alone, so
-# the summation order, and the result, is the same in every run
-_BWD_TARGET_CTAS = 264
+# H100 SXM), each over a contiguous run of rows, and at most
+# BWD_MAX_ROWS rows a run, so that no fp32 partial sums more rows in one
+# sequence than that (past R = 16,896 the runs stop growing and G grows
+# instead). Depends on R alone, so the summation order, and the result,
+# is the same in every run.
+BWD_TARGET_CTAS = 264
+BWD_MAX_ROWS = 64
 
 
 def _bwd_rows_per_cta(R: int) -> int:
-    return max(1, -(-R // _BWD_TARGET_CTAS))
+    return max(1, min(BWD_MAX_ROWS, -(-R // BWD_TARGET_CTAS)))
 
 
 def layer_norm_bwd_plain(x2d, w, mu, rstd, dy2d):

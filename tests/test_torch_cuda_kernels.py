@@ -11,7 +11,10 @@ fp32 atol/rtol 1e-5 (same op sequence, sums in another order); bf16
 paged attention the limits `chip_smoke.py` states and explains (a few
 bf16 ulps of each element, and a ceiling on the share past one ulp); bf16
 LayerNorm one bf16 ulp of the output + 1e-5 (both round one fp32 value
-once; near y = 0 the fp32 difference itself survives). The training
+once; near y = 0 the fp32 difference itself survives). The LayerNorm
+forward is also held bit-equal across runs, for a row alone against the
+same row among 64 or 512, and at scalar width (a view at an odd offset)
+against 16-byte width. The training
 kernels (flash attention forward, dq, dk/dv; LayerNorm backward): fp32
 atol/rtol 1e-5 for outputs of one op sequence, 1e-4 for sums of many
 products in another order; bf16 within `chip_smoke.py`'s
@@ -153,17 +156,48 @@ def test_cuda_chunked_prefill_bitwise_equals_whole_prompt(dtype, H, Hkv, bl):
             f"chunk at offset {off} diverged from whole-prompt prefill"
 
 
+# LayerNorm shapes: every width bucket of csrc/layernorm.cu that the
+# repo's models reach (GPT widths 768..4096), ragged widths (1000 is whole
+# 16-byte packs in both dtypes, 8191 is not), one to 70001 rows, and bf16
+# rows at an odd storage offset (element 1 of a buffer), which take the
+# scalar-access instantiations.
+_LN_WIDTHS = (64, 128, 768, 1000, 1024, 2048, 4096, 8191, 8192)
+_LN_ROWS = (1, 7, 512, 4096, 70001)
+_LN_CASES = (
+    [(dt, 7, n, 0) for n in _LN_WIDTHS
+     for dt in (torch.float32, torch.bfloat16)]
+    + [(torch.bfloat16, r, 2048, 0) for r in _LN_ROWS if r != 7]
+    + [(torch.float32, r, 1000, 0) for r in _LN_ROWS if r != 7]
+    + [(torch.float32, 70001, 64, 0), (torch.bfloat16, 70001, 768, 0),
+       (torch.float32, 512, 2048, 0), (torch.float32, 3, 8192, 0),
+       (torch.float32, 5, 1000, 0),
+       (torch.bfloat16, 512, 2048, 1), (torch.bfloat16, 7, 1000, 1),
+       (torch.bfloat16, 3, 8192, 1), (torch.bfloat16, 4096, 8191, 1)])
+
+
+def _ln_to_cuda(a, dtype, offset=0):
+    """`a` on the card in `dtype`; with `offset`, as a view starting
+    `offset` elements into its buffer (contiguous, not 16-byte aligned)."""
+    t = torch.from_numpy(a).to("cuda", dtype)
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, device="cuda", dtype=dtype)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,R,N", [
-    (torch.float32, 512, 2048), (torch.bfloat16, 512, 2048),
-    (torch.float32, 3, 8192), (torch.float32, 5, 1000),
-])
-def test_cuda_layernorm_matches_plain(dtype, R, N):
+@pytest.mark.parametrize("dtype,R,N,offset", _LN_CASES)
+def test_cuda_layernorm_matches_plain(dtype, R, N, offset):
     require_cuda()
-    from paddle_tpu_torch.ops.layernorm import (layer_norm_fwd_cuda,
+    from paddle_tpu_torch.ops.layernorm import (aligned16, fwd_config,
+                                                layer_norm_fwd_cuda,
                                                 layer_norm_fwd_plain)
-    x, w, b = (torch.from_numpy(a).to("cuda", dtype)
+    x, w, b = (_ln_to_cuda(a, dtype, offset)
                for a in layernorm_inputs(4, (R, N), N))
+    if offset:
+        assert fwd_config(N, dtype, aligned16(x, w, b)).width == 1
     y, mu, rstd = layer_norm_fwd_cuda(x, w, b, 1e-5)
     ry, rmu, rrstd = layer_norm_fwd_plain(x, w, b, 1e-5)
     torch.cuda.synchronize()
@@ -175,6 +209,47 @@ def test_cuda_layernorm_matches_plain(dtype, R, N):
         assert (err <= ulp_bf16(big) + 1e-5).all()
     torch.testing.assert_close(mu, rmu, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(rstd, rrstd, atol=1e-5, rtol=1e-5)
+    if offset:
+        # both access widths visit the values in one order: the same bits
+        aligned = layer_norm_fwd_cuda(*(t.contiguous().clone()
+                                        for t in (x, w, b)), 1e-5)
+        for a, o in zip(aligned, (y, mu, rstd)):
+            assert torch.equal(a, o)
+
+
+# A row's forward is its own: the first 64 rows of a 512-row call equal a
+# 64-row call, and each equals a one-row call, bit for bit. The engine's
+# 512-row steps and generate()'s 64-row prefill rely on it.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,N", [(torch.bfloat16, 2048),
+                                     (torch.float32, 1000)])
+def test_cuda_layernorm_rows_are_independent(dtype, N):
+    require_cuda()
+    from paddle_tpu_torch.ops.layernorm import layer_norm_fwd_cuda
+    x, w, b = (torch.from_numpy(a).to("cuda", dtype)
+               for a in layernorm_inputs(9, (512, N), N))
+    full = layer_norm_fwd_cuda(x, w, b, 1e-5)
+    head = layer_norm_fwd_cuda(x[:64], w, b, 1e-5)
+    for f, h in zip(full, head):
+        assert torch.equal(f[:64], h)
+    for i in range(64):
+        one = layer_norm_fwd_cuda(x[i:i + 1], w, b, 1e-5)
+        for h, o in zip(head, one):
+            assert torch.equal(h[i:i + 1], o), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,R,N", [(torch.bfloat16, 4096, 2048),
+                                       (torch.float32, 7, 8191),
+                                       (torch.bfloat16, 70001, 768)])
+def test_cuda_layernorm_forward_is_bitwise_deterministic(dtype, R, N):
+    require_cuda()
+    from paddle_tpu_torch.ops.layernorm import layer_norm_fwd_cuda
+    x, w, b = (torch.from_numpy(a).to("cuda", dtype)
+               for a in layernorm_inputs(10, (R, N), N))
+    runs = [layer_norm_fwd_cuda(x, w, b, 1e-5) for _ in range(2)]
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.cuda
@@ -306,22 +381,38 @@ def test_cuda_flash_backward_is_bitwise_deterministic():
         assert torch.equal(a, b)
 
 
+# fp32 dw and db at 70001 rows and 1000 columns are held by the test
+# after this one: any two fp32 orders of those sums part by more than the
+# 1e-4 that covers sums of up to 4096 products (the plain version itself
+# is 1.7e-4 from the fp64 sum there, on the H100); fp32 at 70001 rows
+# stays here at N = 64.
+_LN_BWD_CASES = (
+    [(dt, 7, n, 0) for n in _LN_WIDTHS
+     for dt in (torch.float32, torch.bfloat16)]
+    + [(torch.bfloat16, r, 2048, 0) for r in _LN_ROWS if r != 7]
+    + [(torch.float32, r, 1000, 0) for r in _LN_ROWS if r not in (7, 70001)]
+    + [(torch.float32, 4096, 2048, 0), (torch.float32, 3, 8192, 0),
+       (torch.float32, 70001, 64, 0), (torch.bfloat16, 70001, 64, 0),
+       (torch.bfloat16, 4096, 2048, 1), (torch.bfloat16, 7, 1000, 1),
+       (torch.bfloat16, 3, 8192, 1), (torch.bfloat16, 512, 8191, 1)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,R,N", [
-    (torch.float32, 4096, 2048), (torch.bfloat16, 4096, 2048),
-    (torch.float32, 3, 8192), (torch.float32, 5, 1000),
-    (torch.float32, 70001, 64),
-])
-def test_cuda_layernorm_backward_matches_plain(dtype, R, N):
+@pytest.mark.parametrize("dtype,R,N,offset", _LN_BWD_CASES)
+def test_cuda_layernorm_backward_matches_plain(dtype, R, N, offset):
     require_cuda()
     import numpy as np
-    from paddle_tpu_torch.ops.layernorm import (fused_layer_norm,
+    from paddle_tpu_torch.ops.layernorm import (aligned16, bwd_config,
+                                                fused_layer_norm,
                                                 layer_norm_bwd_cuda,
                                                 layer_norm_bwd_plain,
                                                 layer_norm_fwd_cuda)
-    x, w, b = (torch.from_numpy(a).to("cuda", dtype)
+    x, w, b = (_ln_to_cuda(a, dtype, offset)
                for a in layernorm_inputs(5, (R, N), N))
-    dy = _t(np.random.RandomState(6), (R, N), dtype)
+    dy = _ln_to_cuda(np.random.RandomState(6).standard_normal((R, N))
+                     .astype(np.float32), dtype, offset)
+    if offset:
+        assert bwd_config(N, dtype, aligned16(x, w, dy)).width == 1
     _, mu, rstd = layer_norm_fwd_cuda(x, w, b, 1e-5)
     got = layer_norm_bwd_cuda(x, w, mu, rstd, dy)
     ref = layer_norm_bwd_plain(x, w, mu, rstd, dy)
@@ -345,6 +436,42 @@ def test_cuda_layernorm_backward_matches_plain(dtype, R, N):
     torch.cuda.synchronize()
     for t, want in zip((xr, wr, br), got):
         assert torch.equal(t.grad, want)
+    if offset:
+        # both access widths visit the values in one order: the same bits
+        aligned = layer_norm_bwd_cuda(x.clone(), w.clone(), mu, rstd,
+                                      dy.clone())
+        for a, o in zip(aligned, got):
+            assert torch.equal(a, o)
+
+
+# dw and db over many rows in fp32: each side's largest error from the
+# fp64 sum of the same terms; the kernel's may be at most
+# BF16_TRAIN_FACTOR times the plain version's, plus 1e-5 (the rule the
+# bf16 kernels follow, with fp64 as the yardstick). A run of rows a CTA
+# longer than BWD_MAX_ROWS, or a partial summed out of order, moves the
+# kernel's error away from the plain version's.
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,N", [(70001, 1000), (20000, 2048)])
+def test_cuda_layernorm_backward_long_sums_within_plain_error(R, N):
+    require_cuda()
+    import numpy as np
+    from chip_smoke import BF16_TRAIN_FACTOR
+    from paddle_tpu_torch.ops.layernorm import (layer_norm_bwd_cuda,
+                                                layer_norm_bwd_plain,
+                                                layer_norm_fwd_cuda)
+    x, w, b = (torch.from_numpy(a).to("cuda")
+               for a in layernorm_inputs(11, (R, N), N))
+    dy = _t(np.random.RandomState(12), (R, N), torch.float32)
+    _, mu, rstd = layer_norm_fwd_cuda(x, w, b, 1e-5)
+    got = layer_norm_bwd_cuda(x, w, mu, rstd, dy)[1:]
+    plain = layer_norm_bwd_plain(x, w, mu, rstd, dy)[1:]
+    xhat = (x.double() - mu.double()) * rstd.double()
+    exact = ((dy.double() * xhat).sum(0), dy.double().sum(0))
+    for name, k, p, e in zip(("dw", "db"), got, plain, exact):
+        err_k = float((k.double() - e).abs().max())
+        err_p = float((p.double() - e).abs().max())
+        assert err_k <= BF16_TRAIN_FACTOR * err_p + 1e-5, \
+            (name, err_k, err_p)
 
 
 # (The name predates the variants.) A mask or dropout on CUDA now launches
