@@ -8,12 +8,14 @@ builds the port's CUDA kernels from `paddle_tpu_torch/csrc/`, holds each
 one against its plain PyTorch version on the card, checks cut-down models
 on the card against the same models on the CPU, serves 16 requests
 through the continuous-batching `LLMEngine` and trains 13 steps through
-`ScanTrainStep` twice, both at the full width of `gpt3-1.3b` in bf16
-(random weights from a seed). It prints one JSON line per phase, then the
-`{"kernels": [...]}` line, then the card's name and power limit as
-`nvidia-smi` reports them, and last `{"ok": true, "device": {...}}`. Any
-failure exits non-zero before the last two lines; with no GPU, or outside
-a checkout, it exits 2 at once.
+`ScanTrainStep` twice, both at the full width of `gpt3-1.3b` in bf16,
+then does the same for the Llama-2 family: serves `llama2-7b` whole and
+`llama2-70b`'s widths cut in depth, and trains `llama2-7b` whole with the
+Llama 2 recipe (random weights from a seed). It prints one JSON line per
+phase, then each phase's wall seconds, the `{"kernels": [...]}` line,
+the card's name and power limit as `nvidia-smi` reports them, and last
+`{"ok": true, "device": {...}}`. Any failure exits non-zero before the
+last two lines; with no GPU, or outside a checkout, it exits 2 at once.
 
 Phases:
   1. device   — card name, count, nvidia-smi name/power limit
@@ -82,6 +84,21 @@ Phases:
                 same readings, the lr vector each step used (equal to the
                 scheduler's values on the host), RECIPE_KERNELS_PER_STEP
                 launches a step, and a peak memory below the train phase's
+  8. llama_model — llama2-7b widths cut to 2 layers, fp32, on the card
+                against a CPU twin, as phase 4 with AdamW only (two lines:
+                llama_model, llama_model_train), the same limits
+  9. llama_serve — full llama2-7b, bf16, phase 5's engine and 16 requests:
+                paged attention launched, no LayerNorm kernel (RMSNorm is
+                plain torch), phase 5's checks, and the device-busy time of
+                a step beside its wall time (is serving still host-bound?)
+ 10. llama_serve_gqa — llama2-70b's widths (64 query heads over 8 kv
+                heads) cut to 4 of 80 layers, 8 of the same requests, the
+                same checks: n_rep = 8 through the engine
+ 11. llama_train — full llama2-7b, bf16, B=1 x S=4096, the Llama 2 recipe
+                (Touvron et al. 2023, sec. 2.2: AdamW 0.9/0.95, eps 1e-5, wd
+                0.1 but norms, clip 1.0, warm-up into a cosine to peak/10
+                at a 3e-4 peak) with recompute and bf16 moments: phase 7's
+                readings and exactly LLAMA_KERNELS_PER_STEP launches a step
 """
 from __future__ import annotations
 
@@ -512,6 +529,22 @@ def phase_kernels():
         cases[label] = check_paged(torch, c, label)[0]
         cases[label]["route"] = paged_route(torch.bfloat16, kw["block_len"],
                                             kw["D"])
+    # the Llama serve cells' layouts behind the same engine: llama2-7b's
+    # heads (H = Hkv = 32) and llama2-70b's grouped-query heads (64 over 8:
+    # 512 rows a kv group at Tq = 64, 8 at Tq = 1); a generator of their
+    # own leaves the other cases' inputs as they were
+    lgen = torch.Generator(device="cuda")
+    lgen.manual_seed(SEED + 8)
+    llama = {}
+    for label, kw in {
+            "bf16_llama2_7b": dict(H=32, Hkv=32, decode_rows=decode_rows),
+            "bf16_llama2_70b_gqa": dict(H=64, Hkv=8,
+                                        decode_rows=decode_rows),
+            "bf16_llama2_70b_gqa_decode": dict(
+                H=64, Hkv=8, Tq=1, decode_rows=tuple(range(8)))}.items():
+        llama[label] = _paged_case(torch, lgen, dtype=torch.bfloat16, D=128,
+                                   lens=lens, **kw)
+        cases[label] = check_paged(torch, llama[label], label)[0]
     # a row's sums run in one fixed order: two runs are bit-equal
     for label, c in (("bf16 H16 D128", bf), ("GQA bf16", gqa)):
         a = (c["q"], c["k"], c["v"], c["table"], c["lens"], c["q_pos"],
@@ -541,6 +574,24 @@ def phase_kernels():
         partial(F.scaled_dot_product_attention, q, k, v, attn_mask=mask,
                 scale=scale) for k, v in lib_kv])
     del slabs, lib_kv
+    at_llama = {}
+    for label in ("bf16_llama2_7b", "bf16_llama2_70b_gqa"):
+        c = llama[label]
+        a = (c["q"], c["k"], c["v"], c["table"], c["lens"], c["q_pos"],
+             c["block_len"], c["pages_per_row"], scale)
+        ms, _ = time_cuda([partial(paged_attention_cuda, *a)])
+        lq, lk, lv, lm = _sdpa_inputs(torch, c)
+        lib_ms, _ = time_cuda([partial(F.scaled_dot_product_attention, lq,
+                                       lk, lv, attn_mask=lm, scale=scale)])
+        n_bytes, n_ops = _paged_bytes_ops(c)
+        bound, by = bound_ms(n_bytes, n_ops, "bfloat16")
+        at_llama[label] = dict(
+            ms=ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
+            tflops=n_ops / ms / 1e9, share_of_bound=bound / ms,
+            shape=dict(B=8, H=c["q"].shape[1], Hkv=c["k"].shape[1], Tq=64,
+                       D=128, block_len=8, seq_lens=lens))
+        del lq, lk, lv, lm
+    del llama
     n_bytes, n_ops = _paged_bytes_ops(bf)
     pa_bound, pa_by = bound_ms(n_bytes, n_ops, "bfloat16")
     results["paged_attention"] = dict(
@@ -555,7 +606,7 @@ def phase_kernels():
         tflops=n_ops / pa_ms / 1e9, share_of_bound=pa_bound / pa_ms,
         shape=dict(B=8, H=16, Hkv=16, Tq=64, D=128, block_len=8,
                    pages_per_row=64, seq_lens=lens, dtype="bfloat16"),
-        cases=cases)
+        at_llama_shapes=at_llama, cases=cases)
     emit({"phase": "kernel", "name": "paged_attention",
           **results["paged_attention"]})
 
@@ -677,6 +728,7 @@ def layernorm_fwd_reading(torch, xb, wb, bb, cases, cold=False):
 BF16_TRAIN_FACTOR = 2.0
 BF16_TRAIN_ATOL = 2.0 ** -12
 TRAIN_B, TRAIN_S = 4, 1024          # bench.py's gpt3-1.3b batch
+LLAMA_FLASH_SHAPE = (1, 32, 4096, 128)   # llama2-7b's B, H, S, head_dim
 
 
 def bf16_vs_fp32_plain(torch, got, plain_bf16, plain_fp32):
@@ -860,6 +912,14 @@ def phase_train_kernels():
         cases[name] = check_flash(
             torch, *_flash_inputs(torch, gen, b_, h_, sq, sk, d_, dt),
             causal, name)
+    # llama2-7b's train step: one sequence of 4096, 32 heads; a generator
+    # of its own leaves the other cases' inputs as they were
+    lgen = torch.Generator(device="cuda")
+    lgen.manual_seed(SEED + 9)
+    lB, lH, lS, lD = LLAMA_FLASH_SHAPE
+    llama = _flash_inputs(torch, lgen, lB, lH, lS, lS, lD, bf)
+    cases["bf16_llama2_7b_causal"] = check_flash(
+        torch, *llama, True, "bf16 [1,32,4096,128] causal")
     emit({"phase": "kernel_checks", "name": "flash_attention",
           "cases": cases})
     # fixed summation order, no atomics: two runs are bit-equal
@@ -961,7 +1021,34 @@ def phase_train_kernels():
                        dtype="bfloat16"),
             note=(None if name == "flash_fwd" else
                   "plain_ms and library_ms compute dq, dk and dv together"))
+    # at llama2-7b's train shape, beside F.scaled_dot_product_attention;
+    # 134 MB of inputs a call, past L2
+    lq, lk, lv, lg = llama
+    lo, llse = flash_fwd_cuda(lq, lk, lv, True, scale)
+    ldl = flash_attention_delta(lg, lo)
+    lt = {"flash_fwd": time_cuda([partial(flash_fwd_cuda, lq, lk, lv, True,
+                                          scale)])[0],
+          "flash_bwd_dq": time_cuda([partial(
+              flash_bwd_dq_cuda, lq, lk, lv, lg, llse, ldl, True,
+              scale)])[0],
+          "flash_bwd_dkv": time_cuda([partial(
+              flash_bwd_dkv_cuda, lq, lk, lv, lg, llse, ldl, True,
+              scale)])[0]}
+    llib_fwd = time_cuda([partial(F.scaled_dot_product_attention, lq, lk,
+                                  lv, is_causal=True)])[0]
+    llib_bwd = time_cuda([_sdpa_bwd_call(torch, F, lq, lk, lv, lg)])[0]
+    lbo = flash_bytes_ops(lB, lH, lS, lS, lD, True, 2)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        n_bytes, n_ops = lbo[name]
+        bound, by = bound_ms(n_bytes, n_ops, "bfloat16")
+        results[name]["at_llama_shape"] = dict(
+            ms=lt[name], library_ms=llib_fwd if name == "flash_fwd"
+            else llib_bwd, bound_ms=bound, bound_by=by,
+            tflops=n_ops / lt[name] / 1e9, share_of_bound=bound / lt[name],
+            shape=dict(B=lB, H=lH, Sq=lS, Sk=lS, D=lD, causal=True,
+                       dtype="bfloat16"))
         emit({"phase": "kernel", "name": name, **results[name]})
+    del llama, lq, lk, lv, lg, lo, llse, ldl
 
     _, mu, rstd = layer_norm_fwd_cuda(xb, wb, bb, 1e-5)
     ln_in = [(xb, dyb), (xb.clone(), dyb.clone())]
@@ -1001,11 +1088,12 @@ def phase_train_kernels():
 # kernel uses the explicitly rounded intrinsics, so nothing becomes an FMA;
 # PyTorch's elementwise kernels round every operation alike), and bf16
 # outputs are one round-to-nearest-even of the same fp32 value. The leaves:
-# a ragged n, n < 1024, linear1.weight and the largest, the word embedding
-# (lm_head.weight is as large).
+# a ragged n, n < 1024, linear1.weight, the word embedding (lm_head.weight
+# is as large) and the Llama train cell's largest, llama2-7b's embedding.
 ADAM_LEAVES = {"n2049": 2049, "n1000": 1000,
                "linear1.weight": 2048 * 8192,
-               "word_embeddings.weight": 50304 * 2048}
+               "word_embeddings.weight": 50304 * 2048,
+               "llama.embed_tokens.weight": 32000 * 4096}
 ADAM_OPS = 16     # fp32 operations an element (_adam_math, either decay)
 ADAM_HP = dict(beta1=0.9, beta2=0.95, epsilon=1e-8)
 
@@ -1582,44 +1670,87 @@ def _record_steps(engine, prompts, max_new):
     return steps
 
 
-def phase_model():
-    """gpt3-1.3b widths cut to 2 layers (a depth cut), fp32: the engine's
-    unified steps on the card, with the CUDA kernels, replayed step by step
-    on a CPU twin with the same weights and the plain versions. Each step
-    feeds both sides the same rows, so a near-tie that flips one greedy
-    token cannot make later steps diverge."""
+def model_class(preset):
+    """The port's causal-LM class of a preset's family (the Llama-2 presets
+    are named llama*, as bench.py tells them apart)."""
+    if preset.startswith("llama"):
+        from paddle_tpu_torch.models.llama import LlamaForCausalLM
+        return LlamaForCausalLM
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    return GPTForCausalLM
+
+
+def preset_config(preset):
+    """The config a preset names, from its family's preset table."""
+    from paddle_tpu_torch.models import GPT_PRESETS, LLAMA_PRESETS
+    return (LLAMA_PRESETS if preset.startswith("llama")
+            else GPT_PRESETS)[preset]
+
+
+def served_kernels(preset):
+    """(kernels a served step of the preset's family must launch, kernels
+    it must not): GPT's LayerNorms run the port's LayerNorm kernel,
+    Llama's RMSNorms are plain torch, as in the JAX package."""
+    if preset.startswith("llama"):
+        return ("paged_attention",), ("layernorm_fwd", "layernorm_bwd")
+    return SERVE_KERNELS, ()
+
+
+def _twins(preset, seed, **overrides):
+    """(CPU model, card model) of `preset` cut to 2 layers, fp32, with the
+    same weights drawn on the CPU from `seed`."""
+    import torch
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    cls = model_class(preset)
+    over = dict(num_hidden_layers=2, **overrides)
+    cpu = cls.from_preset(preset, device="cpu", dtype="float32",
+                          generator=gen, **over)
+    card = cls.from_preset(preset, device="cuda", dtype="float32", **over)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+# the model phases: the preset whose widths they run, cut to 2 layers
+MODEL_PHASES = {"model": "gpt3-1.3b", "llama_model": "llama2-7b"}
+
+
+def phase_model(phase="model"):
+    """The MODEL_PHASES preset's widths cut to 2 layers (a depth cut),
+    fp32: the engine's unified steps on the card, with the CUDA kernels,
+    replayed step by step on a CPU twin with the same weights and the
+    plain versions. Each step feeds both sides the same rows, so a
+    near-tie that flips one greedy token cannot make later steps
+    diverge."""
     import numpy as np
     import torch
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM
     from paddle_tpu_torch.ops import _kernels
     from paddle_tpu_torch.serving.clock import SimClock
     from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(SEED)
-    cpu = GPTForCausalLM.from_preset("gpt3-1.3b", device="cpu",
-                                     dtype="float32", generator=gen,
-                                     num_hidden_layers=2)
-    card = GPTForCausalLM.from_preset("gpt3-1.3b", device="cuda",
-                                      dtype="float32", num_hidden_layers=2)
-    card.load_state_dict(cpu.state_dict())
+    preset = MODEL_PHASES[phase]
+    cpu, card = _twins(preset, SEED)
+    vocab = preset_config(preset).vocab_size
     rng = np.random.RandomState(SEED)
     # 8 slots: two prompts longer than one 64-wide chunk, the rest shorter,
     # so the steps mix prefill chunks with decode rows
     plens = (100, 5, 130, 30, 12, 64, 7, 45)
-    prompts = [rng.randint(0, 50304, (n,)).astype(np.int32) for n in plens]
+    prompts = [rng.randint(0, vocab, (n,)).astype(np.int32) for n in plens]
     cfg = LLMEngineConfig(num_slots=8, block_len=8, n_blocks=64,
                           prefill_chunk=64)
     launches0 = _kernels.launch_counts()
     steps = _record_steps(LLMEngine(card, cfg, clock=SimClock()), prompts, 4)
     launched = {k: v - launches0[k] for k, v in
                 _kernels.launch_counts().items()}
-    check(all(launched[k] > 0 for k in SERVE_KERNELS),
-          f"card engine did not launch every served kernel: {launched}")
+    must, must_not = served_kernels(preset)
+    check(all(launched[k] > 0 for k in must)
+          and not any(launched[k] for k in must_not),
+          f"card engine launched {launched}: want each of {must}, none of "
+          f"{must_not}")
     twin = LLMEngine(cpu, cfg, clock=SimClock())
-    # fp32 on both sides (TF32 off): GEMMs with K up to 8192 summed in
+    # fp32 on both sides (TF32 off): GEMMs with K up to 11008 summed in
     # another order on the card and the CPU move logits of magnitude ~1 by
     # ~1e-5; 1e-3 leaves room and still catches any real kernel fault
     tol = 1e-3
@@ -1636,12 +1767,13 @@ def phase_model():
             b = lg_cpu[r, :n].argmax(-1)
             real_cols += n
             equal_cols += int((a == b).sum())
-    emit({"phase": "model", "config": "gpt3-1.3b widths, 2 layers, fp32",
+    emit({"phase": phase, "config": f"{preset} widths, 2 layers, fp32",
           "steps": len(steps), "logits_max_abs_diff": worst, "tol": tol,
           "greedy_tokens_equal": equal_cols, "greedy_tokens": real_cols,
           "kernel_launches": launched})
     check(worst <= tol, f"card vs CPU logits differ by {worst} > {tol}")
     del cpu, card, twin, steps
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -1664,8 +1796,9 @@ def _train_steps(model, device, chunk, steps, recipe=False):
 
 
 # train parity, card against a CPU twin, fp32 (TF32 off). Losses: GEMMs
-# with K up to 8192 and the chunked CE over 50304 columns summed in
-# another order move a loss of ~11 by ~1e-5; 1e-4 leaves room. Weights:
+# with K up to 11008 and the cross-entropy over the vocabulary (GPT's
+# chunked 50304 columns, Llama's full 32000) summed in another order move
+# a loss of ~11 by ~1e-5; 1e-4 leaves room. Weights:
 # Adam normalises each gradient, so where a gradient is near 0 the two
 # sides' rounding can flip its sign and move that element's update by up
 # to 2 x lr a step: the largest difference may reach 6 x lr over 3 steps,
@@ -1702,50 +1835,53 @@ def _grad_norms(model, device, ids, labels):
     return norms
 
 
-def launches_per_step(n_layers, leaves, recompute):
-    """Kernel launches one train step of a GPT with `n_layers` layers and
-    `leaves` parameters must make: a flash forward and two LayerNorm
-    forwards a layer, twice with recompute (the backward reruns the
-    layer), plus the final LayerNorm; one dq, one dk/dv and two LayerNorm
-    backwards a layer plus the final one; one fused Adam a leaf."""
+def launches_per_step(n_layers, leaves, recompute, layer_norms=True):
+    """Kernel launches one train step of a model with `n_layers` layers and
+    `leaves` parameters must make: a flash forward a layer, twice with
+    recompute (the backward reruns the layer); one dq and one dk/dv a
+    layer; one fused Adam a leaf. With `layer_norms` (GPT) also two
+    LayerNorm forwards a layer, twice with recompute, plus the final
+    LayerNorm, and two LayerNorm backwards a layer plus the final one;
+    Llama's RMSNorms launch none."""
     f = 2 if recompute else 1
+    ln = 1 if layer_norms else 0
     return {"flash_fwd": n_layers * f, "flash_bwd_dq": n_layers,
-            "flash_bwd_dkv": n_layers, "layernorm_fwd": 2 * n_layers * f + 1,
-            "layernorm_bwd": 2 * n_layers + 1, "fused_adam": leaves}
+            "flash_bwd_dkv": n_layers,
+            "layernorm_fwd": ln * (2 * n_layers * f + 1),
+            "layernorm_bwd": ln * (2 * n_layers + 1), "fused_adam": leaves}
 
 
-def phase_model_train():
-    """gpt3-1.3b widths cut to 2 layers (a depth cut), fp32, B=2, S=128:
-    3 steps through ScanTrainStep on the card (kernels) and on a CPU twin
-    with the same weights (plain versions), once with AdamW and once with
-    the train recipe (its optimizer at TRAIN_PARITY_LR's scale, and
-    recompute): the first step's gradient norm of every leaf, per-step
-    losses and the final parameters."""
+# the train parity phases: the preset whose widths they run, cut to 2
+# layers, and their optimizers (AdamW, and for GPT the train recipe's)
+MODEL_TRAIN_PHASES = {"model_train": ("gpt3-1.3b", (False, True)),
+                      "llama_model_train": ("llama2-7b", (False,))}
+
+
+def phase_model_train(phase="model_train"):
+    """The MODEL_TRAIN_PHASES preset's widths cut to 2 layers (a depth
+    cut), fp32, B=2, S=128: 3 steps through ScanTrainStep on the card
+    (kernels) and on a CPU twin with the same weights (plain versions),
+    with AdamW and (GPT) once more with the train recipe (its optimizer at
+    TRAIN_PARITY_LR's scale, and recompute): the first step's gradient
+    norm of every leaf, per-step losses and the final parameters."""
     import numpy as np
     import torch
     from paddle_tpu_torch.bridge import export_state
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM
     from paddle_tpu_torch.ops import _kernels
     from paddle_tpu_torch.parallel import stack_batches
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    preset, recipes = MODEL_TRAIN_PHASES[phase]
     rng = np.random.RandomState(SEED + 3)
     B, S, K = 2, 128, 3
-    ids = rng.randint(0, 50304, (B, S)).astype(np.int32)
+    ids = rng.randint(0, preset_config(preset).vocab_size, (B, S)).astype(
+        np.int32)
     labels = np.roll(ids, -1, axis=1)
     labels[:, -1] = -100                    # ignored tokens on the path
     chunk = stack_batches([(ids, labels)] * K)
-    for recipe in (False, True):
-        gen = torch.Generator(device="cpu")
-        gen.manual_seed(SEED + 3)
-        over = dict(num_hidden_layers=2, use_recompute=recipe)
-        cpu = GPTForCausalLM.from_preset("gpt3-1.3b", device="cpu",
-                                         dtype="float32", generator=gen,
-                                         **over)
-        card = GPTForCausalLM.from_preset("gpt3-1.3b", device="cuda",
-                                          dtype="float32", **over)
-        card.load_state_dict(cpu.state_dict())
+    for recipe in recipes:
+        cpu, card = _twins(preset, SEED + 3, use_recompute=recipe)
         cpu.train()
         card.train()
         g_card = _grad_norms(card, "cuda", ids, labels)
@@ -1762,8 +1898,9 @@ def phase_model_train():
                                                      "on the card")
         leaves = sum(p.requires_grad for p in card.parameters())
         want = dict.fromkeys(launched, 0)      # paged attention: none
-        want.update({k: v * K for k, v in
-                     launches_per_step(2, leaves, recipe).items()})
+        want.update({k: v * K for k, v in launches_per_step(
+            2, leaves, recipe,
+            layer_norms=not preset.startswith("llama")).items()})
         loss_diff = float((loss_card - loss_cpu).abs().max())
         wc, wp = export_state(card), export_state(cpu)
         worst, far, total = 0.0, 0, 0
@@ -1774,7 +1911,7 @@ def phase_model_train():
             total += d.size
         what = ("train recipe (schedule, clip, decay filter, bf16 moments, "
                 "recompute)" if recipe else "AdamW")
-        emit({"phase": "model_train", "config": "gpt3-1.3b widths, 2 layers, "
+        emit({"phase": phase, "config": f"{preset} widths, 2 layers, "
               f"fp32, B=2, S=128, 3 steps, {what}",
               "loss_card": loss_card.tolist(), "loss_cpu": loss_cpu.tolist(),
               "lr_vector": lr_card.tolist(), "loss_max_abs_diff": loss_diff,
@@ -1802,39 +1939,57 @@ def phase_model_train():
               f"card vs CPU weights after {K} steps ({what}): max diff "
               f"{worst}, share past lr/10 {far / total}")
         del cpu, card, wc, wp
+        gc.collect()
         torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 5
 SERVE_NEW_TOKENS = 32
 SERVE_KERNELS = ("paged_attention", "layernorm_fwd")
+# the serve cells: the preset served in bf16 (overrides cut its depth) and
+# how many of the 16 prompts it takes; every cell runs one engine
+# configuration, LLMEngine(num_slots=8, block_len=8, n_blocks=64,
+# prefill_chunk=64), and its prompts have the same lengths
+SERVE_CELLS = {
+    "serve": dict(preset="gpt3-1.3b", requests=16),
+    "llama_serve": dict(preset="llama2-7b", requests=16),
+    # llama2-70b's widths, 4 of its 80 layers: 64 query heads over 8 kv
+    # heads, the only grouped-query layout served at full width
+    "llama_serve_gqa": dict(preset="llama2-70b", requests=8,
+                            num_hidden_layers=4),
+}
+SERVE_BUSY_STEPS = 8     # the burst's steps replayed to read device busy
 
 
-def serve_workload():
-    """The serve cell, shared with tools/profile_torch_serving.py: full
-    gpt3-1.3b in bf16 with random weights from SEED behind
-    LLMEngine(num_slots=8, block_len=8, n_blocks=64, prefill_chunk=64) on
-    a MonotonicClock, and its 16 prompts of 32..400 tokens. Returns
-    (model, engine, prompts, model_init_s); the engine is not started."""
+def serve_workload(cell="serve"):
+    """A serve cell of SERVE_CELLS, shared with
+    tools/profile_torch_serving.py: its model in bf16 with random weights
+    from SEED behind LLMEngine(num_slots=8, block_len=8, n_blocks=64,
+    prefill_chunk=64) on a MonotonicClock, and its prompts of 32..400
+    tokens. Returns (model, engine, prompts, model_init_s); the engine is
+    not started."""
     import numpy as np
     import torch
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM
     from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
 
+    over = dict(SERVE_CELLS[cell])
+    preset, n_req = over.pop("preset"), over.pop("requests")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     t0 = time.perf_counter()
-    model = GPTForCausalLM.from_preset("gpt3-1.3b", device="cuda",
-                                       dtype="bfloat16", generator=gen)
+    model = model_class(preset).from_preset(preset, device="cuda",
+                                            dtype="bfloat16", generator=gen,
+                                            **over)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     cfg = LLMEngineConfig(num_slots=8, block_len=8, n_blocks=64,
                           prefill_chunk=64, max_new_tokens=SERVE_NEW_TOKENS)
     engine = LLMEngine(model, cfg)
+    vocab = model.config.vocab_size
     rng = np.random.RandomState(SEED + 1)
-    prompts = [rng.randint(0, 50304, (int(n),)).astype(np.int32)
+    prompts = [rng.randint(0, vocab, (int(n),)).astype(np.int32)
                for n in rng.randint(32, 401, size=16)]
-    return model, engine, prompts, init_s
+    return model, engine, prompts[:n_req], init_s
 
 
 def serve_warm_up(engine, prompts):
@@ -1858,24 +2013,63 @@ def serve_burst(engine, prompts, logprobs=False):
             engine.decode_iterations - dec0)
 
 
-def phase_serve():
+def step_busy(step_logits, recorded):
+    """(device-busy ms, wall ms) of one unified step: SERVE_BUSY_STEPS of
+    the burst's recorded step inputs, spread over it, replayed through the
+    engine's `step_logits` after the burst. Wall: host clock around the
+    replay to its synchronize. Busy: the kernels' device time under
+    torch.profiler, None when it recorded none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n = min(SERVE_BUSY_STEPS, len(recorded))
+    picks = [recorded[i * len(recorded) // n] for i in range(n)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in picks:
+        step_logits(*a)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for a in picks:
+            step_logits(*a)
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    return (busy_us / 1e3 / n if busy_us > 0 else None), wall_ms
+
+
+def phase_serve(cell="serve"):
+    """A serve cell of SERVE_CELLS through the started engine: its prompts
+    submitted at once, launch counts zeroed just before and read just
+    after; every stream checked, 4 against generate(); then the
+    device-busy time of a step beside its wall time."""
     import numpy as np
     import torch
     from paddle_tpu_torch.models.generation import generate
     from paddle_tpu_torch.ops import _kernels
 
-    model, engine, prompts, init_s = serve_workload()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, engine, prompts, init_s = serve_workload(cell)
+    preset = SERVE_CELLS[cell]["preset"]
+    vocab = model.config.vocab_size
     plens = [len(p) for p in prompts]
     n_compare = 4
     # the first-token logits row of each compared request, copied out of
     # the step that lands its last prompt chunk (on the scheduler thread,
-    # which alone changes engine._active while the engine runs)
+    # which alone changes engine._active while the engine runs); every
+    # step's inputs are kept for the busy reading
     watch = {prompts[i].tobytes(): i for i in range(n_compare)}
     first_logits = {}
+    recorded = []
     step_logits = engine._step_logits
 
     def capturing_step_logits(toks, pos, adv):
         lg = step_logits(toks, pos, adv)
+        recorded.append((toks.copy(), pos.copy(), adv.copy()))
         for slot, req in engine._active.items():
             i = watch.get(req.prompt.tobytes())
             if i is not None and req.chunk_off < len(req.prompt) \
@@ -1887,19 +2081,22 @@ def phase_serve():
     engine.start()
     try:
         serve_warm_up(engine, prompts)
+        recorded.clear()
         _kernels.reset_launch_counts()
         handles, outs, wall, steps, decode_iters = serve_burst(
             engine, prompts, logprobs=True)
         launches = _kernels.launch_counts()
     finally:
         engine.stop(drain=True, timeout=60)
-    check(all(launches[k] > 0 for k in SERVE_KERNELS),
-          f"the served path did not launch every served kernel: "
-          f"{launches}")
+    must, must_not = served_kernels(preset)
+    check(all(launches[k] > 0 for k in must)
+          and not any(launches[k] for k in must_not),
+          f"the served path launched {launches}: want each of {must}, none "
+          f"of {must_not}")
     for o, h in zip(outs, handles):
         check(o.shape == (SERVE_NEW_TOKENS,),
               f"stream of shape {o.shape}, want ({SERVE_NEW_TOKENS},)")
-        check(((o >= 0) & (o < 50304)).all(), "token id out of range")
+        check(((o >= 0) & (o < vocab)).all(), "token id out of range")
         lps = np.asarray(h.logprobs_so_far(), np.float64)
         check(np.isfinite(lps).all() and (lps <= 0).all(),
               "non-finite or positive logprob")
@@ -1939,10 +2136,17 @@ def phase_serve():
             first_logits_max_abs_diff=float(
                 (first_logits[i] - lg_ref).abs().max()),
             first_logprob_diff=abs(lp_eng - lp_ref)))
+        del caches, lg
     worst_logits = max(c["first_logits_max_abs_diff"] for c in compare)
     stats = engine.metrics.snapshot()
+    busy_ms, replay_ms = step_busy(step_logits, recorded)
+    step_ms = wall * 1e3 / steps
     result = {
-        "phase": "serve", "model": "gpt3-1.3b", "dtype": "bfloat16",
+        "phase": cell, "model": preset, "overrides": {
+            k: v for k, v in SERVE_CELLS[cell].items()
+            if k not in ("preset", "requests")},
+        "n_params": sum(p.numel() for p in model.parameters()),
+        "dtype": "bfloat16",
         "requests": len(prompts), "prompt_lens": [int(n) for n in plens],
         "max_new_tokens": SERVE_NEW_TOKENS, "generated_tokens": gen_tokens,
         "wall_s": wall, "generated_tok_s": gen_tokens / wall,
@@ -1951,6 +2155,9 @@ def phase_serve():
                                  int(round(0.99 * (len(ttfts) - 1))))],
         "decode_step_p50_ms": stats["intertoken_p50_ms"],
         "steps": steps, "decode_iterations": decode_iters,
+        "step_ms": step_ms, "step_device_busy_ms": busy_ms,
+        "step_replay_wall_ms": replay_ms,
+        "busy_over_step": None if busy_ms is None else busy_ms / step_ms,
         "kernel_launches": launches, "model_init_s": init_s,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "vs_generate": compare, "first_logits_tol": logits_tol}
@@ -1958,6 +2165,9 @@ def phase_serve():
     check(worst_logits <= logits_tol,
           f"engine vs generate() first-step logits differ by {worst_logits} "
           f"> {logits_tol}")
+    del model, engine, handles, recorded
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1975,18 +2185,47 @@ TRAIN_KERNELS_PER_STEP = {"flash_fwd": 24, "flash_bwd_dq": 24,
 RECIPE_KERNELS_PER_STEP = {"flash_fwd": 48, "flash_bwd_dq": 24,
                            "flash_bwd_dkv": 24, "layernorm_fwd": 97,
                            "layernorm_bwd": 49, "fused_adam": 293}
+# launches_per_step(32, 291, True, layer_norms=False): llama2-7b has 32
+# layers and 291 parameters (9 a layer: q, k, v, o, gate, up, down and two
+# RMSNorm weights; the embedding, the final RMSNorm and the untied
+# lm_head); recompute reruns each layer's flash forward; RMSNorm is plain
+# torch, so no LayerNorm kernel runs
+LLAMA_KERNELS_PER_STEP = {"flash_fwd": 64, "flash_bwd_dq": 32,
+                          "flash_bwd_dkv": 32, "layernorm_fwd": 0,
+                          "layernorm_bwd": 0, "fused_adam": 291}
 RECIPE_PEAK_LR = 2e-4
+# the published optimizers the recipe cells follow: GPT-3 1.3B (Brown et
+# al. 2020, Table 2.1 and Appendix B) and Llama 2 (Touvron et al. 2023,
+# sec. 2.2); both AdamW(0.9, 0.95), wd 0.1, clip 1.0, warm-up into a
+# cosine to peak/10
+GPT3_RECIPE = dict(peak_lr=RECIPE_PEAK_LR, epsilon=1e-8)
+LLAMA2_RECIPE = dict(peak_lr=3e-4, epsilon=1e-5)
+# the train cells: preset (bf16, full depth), batch B x S, the recipe
+# (None: AdamW lr 1e-4, wd 0.01, fp32 moments, no recompute; else
+# recipe_optimizer, use_recompute, bf16 moments) and the launches a step
+TRAIN_CELLS = {
+    "train": dict(preset="gpt3-1.3b", batch=(TRAIN_B, TRAIN_S), recipe=None,
+                  launches=TRAIN_KERNELS_PER_STEP),
+    "train_recipe": dict(preset="gpt3-1.3b", batch=(TRAIN_B, TRAIN_S),
+                         recipe=GPT3_RECIPE,
+                         launches=RECIPE_KERNELS_PER_STEP),
+    # one sequence at Llama 2's context length (its batch is 4 M tokens)
+    "llama_train": dict(preset="llama2-7b", batch=(1, 4096),
+                        recipe=LLAMA2_RECIPE,
+                        launches=LLAMA_KERNELS_PER_STEP),
+}
 
 
 def recipe_decays(name):
-    """GPT-3's weight-decay filter: neither a bias nor a LayerNorm
-    parameter (`gpt.layers.0.norm1.weight`, `gpt.final_norm.bias`)."""
+    """The recipes' weight-decay filter: neither a bias nor a norm
+    parameter (`gpt.layers.0.norm1.weight`, `gpt.final_norm.bias`,
+    `llama.layers.0.input_layernorm.weight`, `llama.norm.weight`)."""
     return not (name.endswith(".bias") or "norm" in name)
 
 
 def recipe_schedule(peak_lr):
-    """GPT-3's schedule cut to the smoke's 3 + 10 steps: a linear warm-up
-    from 0 over 4 steps into a cosine decay to peak/10 over 9."""
+    """The recipes' schedule cut to the smoke's 3 + 10 steps: a linear
+    warm-up from 0 over 4 steps into a cosine decay to peak/10 over 9."""
     from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
                                                LinearWarmup)
     return LinearWarmup(CosineAnnealingDecay(peak_lr, T_max=9,
@@ -1994,50 +2233,49 @@ def recipe_schedule(peak_lr):
                         warmup_steps=4, start_lr=0.0, end_lr=peak_lr)
 
 
-def recipe_optimizer(parameters, peak_lr):
-    """GPT-3's optimizer for its 1.3B model (Brown et al. 2020, Table 2.1
-    and Appendix B) with bench.py's bf16 moments: AdamW(0.9, 0.95, 1e-8),
-    weight decay 0.1 through recipe_decays, global-norm clip 1.0 and
-    recipe_schedule(peak_lr)."""
+def recipe_optimizer(parameters, peak_lr, epsilon=1e-8):
+    """A recipe cell's optimizer with bench.py's bf16 moments:
+    AdamW(0.9, 0.95, epsilon), weight decay 0.1 through recipe_decays,
+    global-norm clip 1.0 and recipe_schedule(peak_lr). epsilon 1e-8 is
+    GPT-3's, 1e-5 Llama 2's."""
     from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
     return AdamW(learning_rate=recipe_schedule(peak_lr), beta1=0.9,
-                 beta2=0.95, epsilon=1e-8, parameters=parameters,
+                 beta2=0.95, epsilon=epsilon, parameters=parameters,
                  weight_decay=0.1, apply_decay_param_fun=recipe_decays,
                  grad_clip=ClipGradByGlobalNorm(1.0),
                  moment_dtype="bfloat16")
 
 
-def train_workload(recipe=False):
-    """The train cell, shared with tools/profile_torch_training.py: full
-    gpt3-1.3b in bf16 with random weights from SEED, in training mode;
-    AdamW(lr 1e-4, wd 0.01, fp32 moments), or with `recipe` bench.py's
-    recipe (use_recompute, bf16 moments) and recipe_optimizer at
-    RECIPE_PEAK_LR; one batch of B=4 x S=1024 token ids and next-token
-    labels from SEED, repeated every step as bench.py repeats its batch.
-    Returns (model, opt, ids, labels, model_init_s)."""
+def train_workload(cell="train"):
+    """A train cell of TRAIN_CELLS, shared with
+    tools/profile_torch_training.py: its model in bf16 with random weights
+    from SEED, in training mode, with its optimizer; one batch of B x S
+    token ids and labels from SEED, repeated every step as bench.py
+    repeats its batch. Returns (model, opt, ids, labels, model_init_s)."""
     import numpy as np
     import torch
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
 
+    c = TRAIN_CELLS[cell]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     t0 = time.perf_counter()
-    model = GPTForCausalLM.from_preset("gpt3-1.3b", device="cuda",
-                                       dtype="bfloat16", generator=gen,
-                                       use_recompute=recipe)
+    model = model_class(c["preset"]).from_preset(
+        c["preset"], device="cuda", dtype="bfloat16", generator=gen,
+        use_recompute=c["recipe"] is not None)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     model.train()
-    if recipe:
-        opt = recipe_optimizer(model.parameters(), RECIPE_PEAK_LR)
+    if c["recipe"] is not None:
+        opt = recipe_optimizer(model.parameters(), **c["recipe"])
     else:
         opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
                     parameters=model.parameters(), moment_dtype="float32")
+    vocab = model.config.vocab_size
     rng = np.random.RandomState(SEED + 4)
-    ids = rng.randint(0, 50304, (TRAIN_B, TRAIN_S)).astype(np.int32)
-    labels = rng.randint(0, 50304, (TRAIN_B, TRAIN_S)).astype(np.int32)
+    ids = rng.randint(0, vocab, c["batch"]).astype(np.int32)
+    labels = rng.randint(0, vocab, c["batch"]).astype(np.int32)
     return model, opt, ids, labels, init_s
 
 
@@ -2078,10 +2316,12 @@ def timed_chunk(step, ids, labels):
     return losses.cpu(), wall, ms, host_ms
 
 
-def phase_train(device_name, recipe=False, train_peak_gib=None):
-    """The train cell (phase 6), or with `recipe` the train_recipe cell
-    (phase 7), whose peak memory must stay below `train_peak_gib`.
-    Returns (launch counts of the timed chunk, peak memory in GiB)."""
+def phase_train(device_name, cell="train", train_peak_gib=None):
+    """A train cell of TRAIN_CELLS (phases 6, 7 and 11): a warm-up chunk
+    of TRAIN_WARMUP_STEPS, then one of TRAIN_TIMED_STEPS with the launch
+    counts zeroed just before and read just after. The train_recipe
+    cell's peak memory must stay below `train_peak_gib`. Returns (launch
+    counts of the timed chunk, peak memory in GiB)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.obs.flops import peak_flops, train_flops_per_step
@@ -2093,7 +2333,10 @@ def phase_train(device_name, recipe=False, train_peak_gib=None):
     # peak below counts it whenever the collector has not yet run
     gc.collect()
     torch.cuda.empty_cache()
-    model, opt, ids, labels, init_s = train_workload(recipe)
+    c = TRAIN_CELLS[cell]
+    recipe = c["recipe"]
+    B, S = c["batch"]
+    model, opt, ids, labels, init_s = train_workload(cell)
     n_params = sum(p.numel() for p in model.parameters())
     warm = ScanTrainStep(model, opt, scan_steps=TRAIN_WARMUP_STEPS)
     warm_losses, warm_s, _, _ = timed_chunk(warm, ids, labels)
@@ -2104,28 +2347,31 @@ def phase_train(device_name, recipe=False, train_peak_gib=None):
     losses, wall, step_ms, _ = timed_chunk(step, ids, labels)
     launches = _kernels.launch_counts()
     lr_used += list(step.lr_vector)
-    want_launches = RECIPE_KERNELS_PER_STEP if recipe \
-        else TRAIN_KERNELS_PER_STEP
+    want_launches = c["launches"]
     per_step = {k: launches[k] / TRAIN_TIMED_STEPS for k in want_launches}
-    tokens = TRAIN_B * TRAIN_S * TRAIN_TIMED_STEPS
+    tokens = B * S * TRAIN_TIMED_STEPS
     step_s = wall / TRAIN_TIMED_STEPS
     all_losses = warm_losses.tolist() + losses.tolist()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    what = ("AdamW(0.9, 0.95, 1e-8) wd 0.1 but biases and LayerNorms, "
-            "bf16 moments, global-norm clip 1.0, LinearWarmup(4 steps, 0 -> "
-            f"{RECIPE_PEAK_LR}) into CosineAnnealingDecay(T_max 9, eta_min "
-            f"{RECIPE_PEAK_LR / 10}); use_recompute" if recipe else
-            "AdamW lr 1e-4 wd 0.01 fp32 moments")
+    if recipe is None:
+        what = "AdamW lr 1e-4 wd 0.01 fp32 moments"
+    else:
+        peak = recipe["peak_lr"]
+        what = (f"AdamW(0.9, 0.95, {recipe['epsilon']}) wd 0.1 but biases "
+                f"and norms, bf16 moments, global-norm clip 1.0, "
+                f"LinearWarmup(4 steps, 0 -> {peak}) into "
+                f"CosineAnnealingDecay(T_max 9, eta_min {peak / 10}); "
+                f"use_recompute")
     result = {
-        "phase": "train_recipe" if recipe else "train", "model": "gpt3-1.3b",
-        "dtype": "bfloat16", "batch": TRAIN_B, "seq": TRAIN_S,
+        "phase": cell, "model": c["preset"],
+        "dtype": "bfloat16", "batch": B, "seq": S,
         "optimizer": what, "n_params": n_params,
         "warmup_steps": TRAIN_WARMUP_STEPS, "warmup_s": warm_s,
         "timed_steps": TRAIN_TIMED_STEPS, "wall_s": wall,
         "tokens_per_s": tokens / wall, "step_ms_mean": step_s * 1e3,
         "step_ms_median": statistics.median(step_ms),
         "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
-        "mfu": train_flops_per_step(n_params, TRAIN_B * TRAIN_S) / step_s
+        "mfu": train_flops_per_step(n_params, B * S) / step_s
         / peak_flops(device_name),
         "peak_mem_gib": peak_gib,
         "loss_first": all_losses[0], "loss_last": all_losses[-1],
@@ -2141,8 +2387,8 @@ def phase_train(device_name, recipe=False, train_peak_gib=None):
           f"launches per step {per_step}, want {want_launches}")
     check(not any(launches[k] for k in _kernels.FLASH_VARIANTS),
           f"the train step launched a mask or dropout variant: {launches}")
-    if recipe:
-        host = recipe_schedule(RECIPE_PEAK_LR)
+    if recipe is not None:
+        host = recipe_schedule(recipe["peak_lr"])
         want_lr = []
         for _ in lr_used:
             want_lr.append(host())
@@ -2150,10 +2396,12 @@ def phase_train(device_name, recipe=False, train_peak_gib=None):
         check(np.array_equal(np.asarray(lr_used, np.float32),
                              np.asarray(want_lr, np.float32)),
               f"lr vector {lr_used}, the schedule on the host {want_lr}")
+    if train_peak_gib is not None:
         check(peak_gib < train_peak_gib,
-              f"recipe peak memory {peak_gib} GiB is not below the train "
+              f"{cell} peak memory {peak_gib} GiB is not below the train "
               f"phase's {train_peak_gib} GiB")
     del model, opt, warm, step
+    gc.collect()
     torch.cuda.empty_cache()
     return launches, peak_gib
 
@@ -2209,20 +2457,37 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, repo)
-    name, count, smi_line = phase_device()
-    phase_build()
-    kern = phase_kernels()
-    kern.update(phase_train_kernels())
-    kern.update(phase_adam_kernel())
-    variants, variant_launches = phase_attention_variants()
+    seconds = {}
+
+    def timed(phase, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[phase] = time.perf_counter() - t0
+        return out
+
+    name, count, smi_line = timed("device", phase_device)
+    timed("build", phase_build)
+    kern = timed("kernels", phase_kernels)
+    kern.update(timed("train_kernels", phase_train_kernels))
+    kern.update(timed("adam_kernel", phase_adam_kernel))
+    variants, variant_launches = timed("attention_variants",
+                                       phase_attention_variants)
     kern.update(variants)
-    phase_model()
-    phase_model_train()
+    timed("model", phase_model)
+    timed("model_train", phase_model_train)
     by_phase = {"attention_variants": variant_launches,
-                "serve": phase_serve()}
-    by_phase["train"], train_peak = phase_train(name)
-    by_phase["train_recipe"], _ = phase_train(name, recipe=True,
-                                              train_peak_gib=train_peak)
+                "serve": timed("serve", phase_serve)}
+    by_phase["train"], train_peak = timed("train", phase_train, name)
+    by_phase["train_recipe"], _ = timed("train_recipe", phase_train, name,
+                                        "train_recipe",
+                                        train_peak_gib=train_peak)
+    timed("llama_model", phase_model, "llama_model")
+    timed("llama_model_train", phase_model_train, "llama_model_train")
+    for cell in ("llama_serve", "llama_serve_gqa"):
+        by_phase[cell] = timed(cell, phase_serve, cell)
+    by_phase["llama_train"], _ = timed("llama_train", phase_train, name,
+                                       "llama_train")
+    emit({"phase": "phase_seconds", **seconds})
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     lines = []
@@ -2234,7 +2499,8 @@ def main():
                     **{x: kern[k][x] for x in keys}, kernel_ms=kern[k]["ms"])
         for x in ("tflops", "share_of_bound", "without_variant_ms",
                   "causal_case_b", "entry_key_padding_b11s",
-                  "entry_per_head_bf16"):   # the flash kernels and variants
+                  "entry_per_head_bf16",    # the flash kernels and variants
+                  "at_llama_shape", "at_llama_shapes"):
             if x in kern[k]:
                 line[x] = kern[k][x]
         if k + "_train" in kern:   # a served kernel the train step runs too

@@ -1,2 +1,2 @@
-from .mp_layers import (ColumnParallelLinear, RowParallelLinear,  # noqa: F401
-                        VocabParallelEmbedding)
+from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,  # noqa: F401
+                        RowParallelLinear, VocabParallelEmbedding)

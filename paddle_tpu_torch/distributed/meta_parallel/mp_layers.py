@@ -1,14 +1,16 @@
 """Tensor-parallel layers at degree 1 (counterpart of
-paddle_tpu/distributed/meta_parallel/mp_layers.py:43-146).
+paddle_tpu/distributed/meta_parallel/mp_layers.py:43-162).
 
 Plain layers with the JAX package's parameter names and layouts: the
 vocab-sharded embedding and the column/row-split linears hold the full
-logical weight. Real tensor parallelism waits for the multi-GPU slice.
+logical weight, and the vocab-sharded cross-entropy is the unsharded
+one. Real tensor parallelism waits for the multi-GPU slice.
 """
 from __future__ import annotations
 
 import torch
 
+from ...nn.functional.loss import softmax_with_cross_entropy
 from ...nn.layer.common import Linear, xavier_normal_
 from ...nn.layer.layers import Layer, create_parameter
 
@@ -55,3 +57,18 @@ class RowParallelLinear(_ParallelLinear):
                  input_is_parallel=False, device=None, dtype=None):
         super().__init__(in_features, out_features, has_bias, device, dtype)
         self.input_is_parallel = input_is_parallel
+
+
+class ParallelCrossEntropy(Layer):
+    """Softmax cross-entropy over vocab-sharded logits; at degree 1 it is
+    `softmax_with_cross_entropy`: the per-token fp32 loss, 0 where the
+    label is `ignore_index`. (The JAX layer's unsharded path drops
+    `ignore_index` and always ignores -100; this one honours it.)"""
+
+    def __init__(self, mp_group=None, name=None, ignore_index=-100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, input, label):
+        return softmax_with_cross_entropy(input, label,
+                                          ignore_index=self.ignore_index)

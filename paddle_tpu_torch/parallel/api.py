@@ -21,7 +21,7 @@ The model's parameters are updated in place (see optimizer/optimizer.py);
 update. `mesh` is None or one device, so any `zero_stage` shards nothing;
 a mesh over more devices and strategy plans (AMP, gradient merge) wait
 for the multi-GPU slice and raise; recompute is the model's own
-(`GPTConfig.use_recompute`). The step runs on CUDA
+(`use_recompute` of `GPTConfig` and `LlamaConfig`). The step runs on CUDA
 unless `device="cpu"` (or a one-device CPU mesh) is given, and raises
 without a GPU otherwise.
 """

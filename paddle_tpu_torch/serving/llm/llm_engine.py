@@ -145,7 +145,8 @@ class _GenRequest:
 
 class LLMEngine:
     """The model must implement `init_cache` / `forward_with_cache` (e.g.
-    `models.gpt.GPTForCausalLM`); it is switched to eval mode."""
+    `models.gpt.GPTForCausalLM`, `models.llama.LlamaForCausalLM`); it is
+    switched to eval mode."""
 
     def __init__(self, model, config: Optional[LLMEngineConfig] = None,
                  clock: Optional[Clock] = None,

@@ -20,22 +20,168 @@ def require_cuda():
                     "instead)")
 
 
-def tiny_models():
-    """(jax_model, port_model) gpt2-tiny pair with the JAX weights bridged
+def _families(preset):
+    """(JAX class, port class) of the model family a preset names."""
+    if preset.startswith("llama"):
+        from paddle_tpu.models.llama import LlamaForCausalLM as Jax
+        from paddle_tpu_torch.models.llama import LlamaForCausalLM as Port
+    else:
+        from paddle_tpu.models.gpt import GPTForCausalLM as Jax
+        from paddle_tpu_torch.models.gpt import GPTForCausalLM as Port
+    return Jax, Port
+
+
+def _port_twin(jm, preset, **overrides):
+    """The port model of `preset` on the CPU with jm's weights bridged."""
+    from paddle_tpu_torch.bridge import load_jax_state
+    params, _ = jm.functional_state()
+    tm = _families(preset)[1].from_preset(preset, device="cpu", **overrides)
+    load_jax_state(tm, {k: np.asarray(v) for k, v in params.items()})
+    return tm
+
+
+def tiny_models(preset="gpt2-tiny", **overrides):
+    """(jax_model, port_model) pair of a tiny preset (gpt2-tiny or
+    llama2-tiny, with config `overrides`) with the JAX weights bridged
     into the port. The JAX model is built once per process (seed 0)."""
     import paddle_tpu as paddle
-    from paddle_tpu.models.gpt import GPTForCausalLM as JaxGPT
-    from paddle_tpu_torch.bridge import load_jax_state
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM
 
-    if "gpt2-tiny" not in _TINY_JAX:
+    key = (preset, tuple(sorted(overrides.items())))
+    if key not in _TINY_JAX:
         paddle.seed(0)
-        _TINY_JAX["gpt2-tiny"] = JaxGPT.from_preset("gpt2-tiny")
-    jm = _TINY_JAX["gpt2-tiny"]
-    params, _ = jm.functional_state()
-    tm = GPTForCausalLM.from_preset("gpt2-tiny", device="cpu")
-    load_jax_state(tm, {k: np.asarray(v) for k, v in params.items()})
-    return jm, tm
+        _TINY_JAX[key] = _families(preset)[0].from_preset(preset,
+                                                          **overrides)
+    jm = _TINY_JAX[key]
+    return jm, _port_twin(jm, preset, **overrides)
+
+
+def jax_prefill(jm, ids, caches, pos, paged=None):
+    """The JAX model's cached forward through its decoder functions:
+    (logits as numpy, new caches)."""
+    import jax.numpy as jnp
+    from paddle_tpu.models.generation import make_decoder_fns
+    params, prefill, _ = make_decoder_fns(jm)
+    logits, new = prefill(params, jnp.asarray(ids), caches, pos, paged=paged)
+    return np.asarray(logits), new
+
+
+def jax_caches(jm, B, L):
+    """The JAX model's init_cache(B, L) as raw (k, v) arrays."""
+    return [(k.data, v.data) if hasattr(k, "data") else (k, v)
+            for k, v in jm.init_cache(B, L)]
+
+
+# The cached-decode cases both model families are held to (tests/
+# test_torch_gpt.py, tests/test_torch_llama.py): a JAX model and its port
+# twin with the same weights, fp32. Logits within CACHE_ATOL (sums in
+# another order put them ~1e-6 apart); generated tokens equal.
+CACHE_ATOL = 1e-4
+
+
+def check_cache_scalar_pos(jm, tm):
+    import jax.numpy as jnp
+    import torch
+    ids = np.random.RandomState(0).randint(0, 512, (2, 7)).astype(np.int32)
+    ref, _ = jax_prefill(jm, ids, jax_caches(jm, 2, 24), jnp.int32(3))
+    out, _ = tm.forward_with_cache(torch.from_numpy(ids),
+                                   tm.init_cache(2, 24), 3)
+    np.testing.assert_allclose(out.numpy(), ref, atol=CACHE_ATOL, rtol=0)
+
+
+def check_cache_vector_pos_two_steps(jm, tm):
+    """Per-row offsets over a cache already holding a prefix: the second
+    call reads the KV the first one wrote (and a rotary model rotates its
+    tokens at each row's position past them)."""
+    import jax.numpy as jnp
+    import torch
+    rng = np.random.RandomState(1)
+    a = rng.randint(0, 512, (3, 5)).astype(np.int32)
+    bb = rng.randint(0, 512, (3, 2)).astype(np.int32)
+    pos = np.array([0, 4, 9], np.int32)
+    jc = jax_caches(jm, 3, 24)
+    _, jc = jax_prefill(jm, a, jc, jnp.asarray(pos))
+    ref, _ = jax_prefill(jm, bb, jc, jnp.asarray(pos + 5))
+    tc = tm.init_cache(3, 24)
+    assert tuple(tc[0][0].shape) == tuple(jc[0][0].shape)
+    _, tc = tm.forward_with_cache(torch.from_numpy(a), tc,
+                                  torch.from_numpy(pos))
+    out, _ = tm.forward_with_cache(torch.from_numpy(bb), tc,
+                                   torch.from_numpy(pos + 5))
+    np.testing.assert_allclose(out.numpy(), ref, atol=CACHE_ATOL, rtol=0)
+
+
+def check_cache_paged(jm, tm):
+    """The serving step's form: slab rows with chunk write-padding, per-row
+    positions, block tables and ragged seq_lens."""
+    import jax.numpy as jnp
+    import torch
+    rng = np.random.RandomState(2)
+    N, bl, nb, C = 3, 8, 4, 6
+    L = nb * bl + C
+    toks = rng.randint(0, 512, (N, C)).astype(np.int32)
+    pos = np.array([0, 3, nb * bl], np.int32)         # last: a free row
+    adv = np.array([6, 2, 0], np.int32)
+    table = (np.arange(N, dtype=np.int32)[:, None] * nb
+             + np.arange(nb, dtype=np.int32)[None])
+    seq = (pos + adv).astype(np.int32)
+    ref, _ = jax_prefill(jm, toks, jax_caches(jm, N, L), jnp.asarray(pos),
+                         paged=(jnp.asarray(table), jnp.asarray(seq), bl,
+                                nb))
+    out, _ = tm.forward_with_cache(
+        torch.from_numpy(toks), tm.init_cache(N, L), torch.from_numpy(pos),
+        paged=(torch.from_numpy(table), torch.from_numpy(seq), bl, nb))
+    for r in range(N):      # real columns only; the rest are discarded
+        n = int(adv[r])
+        np.testing.assert_allclose(out.numpy()[r, :n], ref[r, :n],
+                                   atol=CACHE_ATOL, rtol=0)
+
+
+def check_generate(jm, tm, B, S0, new):
+    """Greedy generate() against the JAX generate function (the JAX
+    models' generate methods misbind their arguments)."""
+    import torch
+    from paddle_tpu.models.generation import generate as jax_generate
+    from paddle_tpu_torch.models.generation import generate
+    ids = np.random.RandomState(B + S0).randint(0, 512, (B, S0)).astype(
+        np.int32)
+    ref = np.asarray(jax_generate(jm, ids, max_new_tokens=new).data)
+    out = generate(tm, ids, max_new_tokens=new)
+    assert out.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert tm._last_decode_steps == jm._last_decode_steps == new - 1
+
+
+def check_generate_eos(jm, tm):
+    from paddle_tpu.models.generation import generate as jax_generate
+    from paddle_tpu_torch.models.generation import generate
+    ids = np.random.RandomState(7).randint(0, 512, (2, 6)).astype(np.int32)
+    free = np.asarray(jax_generate(jm, ids, max_new_tokens=10).data)
+    # EOS = row 0's 4th new token: row 0 stops there and pads with EOS
+    eos = int(free[0, 6 + 3])
+    ref = np.asarray(jax_generate(jm, ids, max_new_tokens=10,
+                                  eos_token_id=eos).data)
+    out = generate(tm, ids, max_new_tokens=10, eos_token_id=eos).numpy()
+    np.testing.assert_array_equal(out, ref)
+    assert tm._last_decode_steps == jm._last_decode_steps
+    # one row: the loop stops as soon as it emits EOS
+    ref1 = np.asarray(jax_generate(jm, ids[:1], max_new_tokens=10,
+                                   eos_token_id=eos).data)
+    out1 = generate(tm, ids[:1], max_new_tokens=10, eos_token_id=eos)
+    np.testing.assert_array_equal(out1.numpy(), ref1)
+    assert tm._last_decode_steps == jm._last_decode_steps == 3
+
+
+def check_generate_method(tm):
+    """The port model's generate method binds by keyword, so it equals the
+    generate() function, eos_token_id included (the JAX method would
+    treat token 0 as EOS)."""
+    from paddle_tpu_torch.models.generation import generate
+    ids = np.array([[5, 6, 7]], np.int32)
+    np.testing.assert_array_equal(tm.generate(ids, max_new_tokens=5),
+                                  generate(tm, ids, max_new_tokens=5))
+    np.testing.assert_array_equal(
+        tm.generate(ids, max_new_tokens=5, eos_token_id=0),
+        generate(tm, ids, max_new_tokens=5, eos_token_id=0))
 
 
 def paged_inputs(seed, B=3, H=4, Hkv=2, Tq=6, D=16, bl=4, ppr=5, N=3,
@@ -88,18 +234,14 @@ def train_batches(seed, K=3, B=2, S=64, vocab=512):
     return ids, labels
 
 
-def train_models(**overrides):
-    """A fresh JAX gpt2-tiny (seed 0) and the port model with its weights,
-    both built with the GPTConfig `overrides`, the port's in train mode."""
+def train_models(preset="gpt2-tiny", **overrides):
+    """A fresh JAX model of a tiny preset (seed 0) and the port model with
+    its weights, both built with the config `overrides`, the port's in
+    train mode."""
     import paddle_tpu as paddle
-    from paddle_tpu.models.gpt import GPTForCausalLM as JaxGPT
-    from paddle_tpu_torch.bridge import load_jax_state
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM
     paddle.seed(0)
-    jm = JaxGPT.from_preset("gpt2-tiny", **overrides)
-    params, _ = jm.functional_state()
-    tm = GPTForCausalLM.from_preset("gpt2-tiny", device="cpu", **overrides)
-    load_jax_state(tm, {k: np.asarray(v) for k, v in params.items()})
+    jm = _families(preset)[0].from_preset(preset, **overrides)
+    tm = _port_twin(jm, preset, **overrides)
     tm.train()
     return jm, tm
 

@@ -42,6 +42,13 @@ from _torch_port import assert_bf16_attention_close, layernorm_inputs, \
 # the served kind of lengths (tens to hundreds of keys a row), in slabs of
 # 40 pages a row
 _SERVED = dict(lens=(300, 97, 150), ppr=40)
+# llama2-70b's head layout behind the serve cells' engine: 8 slots of 64
+# pages at block_len 8, 64 query heads over 8 kv heads (512 rows a kv
+# group at Tq = 64, 8 at Tq = 1), ragged served lengths
+_LLAMA70 = dict(B=8, N=8, ppr=64, pad=64,
+                lens=(512, 37, 200, 1, 448, 64, 300, 129))
+_LLAMA70_PREFILL = dict(_LLAMA70, decode_rows=(1, 3, 6))
+_LLAMA70_DECODE = dict(_LLAMA70, decode_rows=tuple(range(8)))
 
 
 @pytest.mark.cuda
@@ -57,6 +64,10 @@ _SERVED = dict(lens=(300, 97, 150), ppr=40)
     (torch.bfloat16, 8, 1, 128, 64, 1, {}),
     # bf16 at a block_len the route sends to the scalar kernel
     (torch.bfloat16, 4, 2, 128, 12, 64, {}),
+    # llama2-70b's grouped-query layout (n_rep = 8): a prefill chunk and
+    # decode rows
+    (torch.bfloat16, 64, 8, 128, 8, 64, _LLAMA70_PREFILL),
+    (torch.bfloat16, 64, 8, 128, 8, 1, _LLAMA70_DECODE),
 ])
 def test_cuda_paged_attention_matches_plain(dtype, H, Hkv, D, bl, Tq, more):
     require_cuda()
@@ -309,6 +320,7 @@ def _assert_bf16_train(got, plain_bf16, plain_fp32):
     (torch.bfloat16, 1, 2, 100, 300, 128, False),
     (torch.bfloat16, 1, 2, 300, 100, 32, True),     # Sq > Sk: empty rows
     (torch.bfloat16, 4, 40, 128, 128, 128, True),   # B*H = 160
+    (torch.bfloat16, 1, 32, 4096, 4096, 128, True),  # llama2-7b's train step
 ])
 def test_cuda_flash_attention_matches_plain(dtype, B, H, Sq, Sk, D, causal):
     require_cuda()

@@ -55,6 +55,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(NoCUDADeviceError, match="device='cpu'"):
         GPTForCausalLM.from_preset("gpt2-tiny")
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    with pytest.raises(NoCUDADeviceError, match="device='cpu'"):
+        LlamaForCausalLM.from_preset("llama2-tiny")
     with pytest.raises(NoCUDADeviceError):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")

@@ -1,7 +1,8 @@
 """The PyTorch port's continuous-batching LLMEngine against the JAX one.
 
 Both engines run on a SimClock with the same gpt2-tiny weights (bridged
-into the port) and the same mixed-length prompts, some longer than
+into the port; the streams also with llama2-tiny's, with and without
+grouped-query attention) and the same mixed-length prompts, some longer than
 `prefill_chunk`; the JAX engine has its prefix cache off, which the port
 does not have yet. Token streams must be identical, logprobs within
 1e-4, and the port's streams equal to the port's own `generate()`. Also
@@ -40,12 +41,11 @@ def _drain(engine):
         engine.pump()
 
 
-def test_streams_match_jax_engine_and_generate(models):
+def _streams_match_jax_engine_and_generate(jm, tm):
     from paddle_tpu.serving.clock import SimClock as JaxSimClock
     from paddle_tpu.serving.llm import LLMEngine as JaxEngine
     from paddle_tpu.serving.llm import LLMEngineConfig as JaxConfig
     from paddle_tpu_torch.models.generation import generate
-    jm, tm = models
     prompts = _prompts(1, (5, 21, 9, 40, 3, 17, 33))
     je = JaxEngine(jm, JaxConfig(enable_prefix_cache=False, **CFG),
                    clock=JaxSimClock())
@@ -67,6 +67,19 @@ def test_streams_match_jax_engine_and_generate(models):
     assert te.pool.check_balance()
     snap = te.metrics.snapshot()
     assert snap["completed"] == len(prompts) and snap["tokens_out"] > 0
+
+
+def test_streams_match_jax_engine_and_generate(models):
+    _streams_match_jax_engine_and_generate(*models)
+
+
+@pytest.mark.parametrize("kv_heads", [4, 2])
+def test_llama_streams_match_jax_engine_and_generate(kv_heads):
+    """llama2-tiny behind both engines, as given (4 kv heads) and with
+    grouped-query attention (2 kv heads a 4 query heads): its pool holds
+    kv_heads-head slabs."""
+    jm, tm = tiny_models("llama2-tiny", num_key_value_heads=kv_heads)
+    _streams_match_jax_engine_and_generate(jm, tm)
 
 
 def test_eos_streams_match_jax_engine(models):

@@ -15,7 +15,8 @@ updates are rounding noise on both sides and get that bound alone; of
 the other elements at most 1e-4 may be more than 1e-5 apart (4 of
 ~590,000 were when this was written); a wrong gradient moves most of
 them. A one-step
-`ShardedTrainStep` case holds the same. The port's step also refuses what
+`ShardedTrainStep` case holds the same, and so does llama2-tiny (with
+and without grouped-query attention and recompute), which has no biases. The port's step also refuses what
 it does not carry: a mesh of several devices, strategy plans, and
 running without a GPU unless asked for the CPU.
 """
@@ -43,12 +44,15 @@ def _optimizers(jm, tm):
     return jo, to
 
 
-def test_scan_train_step_matches_jax():
+def _scan_train_step_matches_jax(jm, tm, one_batch=False):
+    """K steps of both ScanTrainSteps over train_batches(0), or over its
+    first batch K times with `one_batch`."""
     from paddle_tpu.parallel import ScanTrainStep as JaxScan
     from paddle_tpu_torch.parallel import ScanTrainStep
-    jm, tm = train_models()
     jo, to = _optimizers(jm, tm)
     ids, labels = train_batches(0)
+    if one_batch:
+        ids, labels = (np.repeat(a[:1], K, axis=0) for a in (ids, labels))
     jstep = JaxScan(jm, jo, one_cpu_mesh(), scan_steps=K, zero_stage=0,
                     donate=False)
     want = np.asarray(jstep(ids, labels).data)
@@ -60,6 +64,23 @@ def test_scan_train_step_matches_jax():
     assert step.dispatch_count == 1 and step._step_count == K
     np.testing.assert_allclose(step._lr_vector(K), jstep._lr_vector(K))
     assert_params_match(jstep._params, tm, K)
+
+
+def test_scan_train_step_matches_jax():
+    _scan_train_step_matches_jax(*train_models())
+
+
+@pytest.mark.parametrize("kv_heads,recompute", [(4, False), (2, False),
+                                                (4, True), (2, True)])
+def test_llama_scan_train_step_matches_jax(kv_heads, recompute):
+    """llama2-tiny through both ScanTrainSteps, as given and with
+    grouped-query attention, with recompute off and on: the loss through
+    ParallelCrossEntropy over the full logits. One batch repeated, as the
+    chip's train cells repeat theirs, so the loss must fall in 3 steps
+    (over three different random batches it need not)."""
+    _scan_train_step_matches_jax(*train_models(
+        "llama2-tiny", num_key_value_heads=kv_heads,
+        use_recompute=recompute), one_batch=True)
 
 
 def test_sharded_train_step_one_step_matches_jax():

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's served path goes, on one GPU.
 
-    python3 tools/profile_torch_serving.py [--trace DIR]
+    python3 tools/profile_torch_serving.py [--trace DIR] [--cell CELL]
 
-Serves `chip_smoke.py`'s serve cell — the same model, engine and 16
-requests, built by `chip_smoke.serve_workload()` and driven through the
+Serves a serve cell of `chip_smoke.py` (`serve` by default; `llama_serve`,
+`llama_serve_gqa`) — the same model, engine and requests, built by
+`chip_smoke.serve_workload(cell)` and driven through the
 engine's scheduler thread (`start()`) as the serve phase drives them —
 three times: twice plain, for the wall time, and once under
 `torch.profiler`. It prints JSON lines: the card (name and power limit
@@ -47,6 +48,8 @@ def family(name: str) -> str:
 def main(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--cell", default="serve",
+                    help="a cell of chip_smoke.SERVE_CELLS")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -64,7 +67,7 @@ def main(argv):
                          text=True, timeout=60)
     emit({"device": torch.cuda.get_device_name(0),
           "nvidia_smi": smi.stdout.strip()})
-    _, engine, prompts, _ = chip_smoke.serve_workload()
+    _, engine, prompts, _ = chip_smoke.serve_workload(args.cell)
 
     # host time to enqueue one step's forward, on the scheduler thread:
     # nothing in the forward waits for the device (the step's only sync is
@@ -114,7 +117,8 @@ def main(argv):
     fams = {}
     for k, v in by_name.items():
         fams[family(k)] = fams.get(family(k), 0.0) + v
-    emit({"phase": "run", "requests": len(prompts), "steps": steps,
+    emit({"phase": "run", "cell": args.cell, "requests": len(prompts),
+          "steps": steps,
           "decode_steps": decode_steps, "wall_ms_first_pass": first_ms,
           "wall_ms": plain_ms,
           "step_ms": plain_ms / steps,

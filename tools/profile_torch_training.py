@@ -2,12 +2,14 @@
 """Where the time of the PyTorch port's train step goes, on one GPU.
 
     python3 tools/profile_torch_training.py [--steps K] [--trace DIR]
+        [--cells train,train_recipe,llama_train]
 
-Trains `chip_smoke.py`'s train cells, one after the other — `train`
-(AdamW, fp32 moments) and `train_recipe` (recompute, bf16 moments, LR
-schedule, clip, decay filter): the same model, optimizer and batch, built
-by `chip_smoke.train_workload()` and driven through `ScanTrainStep` as
-the smoke's train phases drive them — for a warm-up chunk of 3 steps, a
+Trains `chip_smoke.py`'s train cells, one after the other — by default
+`train` (AdamW, fp32 moments) and `train_recipe` (recompute, bf16
+moments, LR schedule, clip, decay filter); `llama_train` on request: the
+same model, optimizer and batch, built by `chip_smoke.train_workload()`
+and driven through `ScanTrainStep` as the smoke's train phases drive
+them — for a warm-up chunk of 3 steps, a
 plain chunk of K steps (wall time and the host's time per step), and a
 chunk of K steps under `torch.profiler`. It prints JSON lines: the card
 (name and power limit from nvidia-smi), then for each cell the step's
@@ -18,8 +20,9 @@ the layers (cuBLAS), the lm-head + cross-entropy, fused Adam (port
 kernel), the rest of the optimizer (the global-norm clip, the beta
 powers), and the elementwise rest — and by kernel name. The lm-head + CE
 and the optimizer are told apart by profiler ranges put around
-`FusedLinearCrossEntropyFn` and `Optimizer.apply_gradients` for the
-profiled chunk only. With `--trace` it writes a chrome trace of each
+`FusedLinearCrossEntropyFn` (GPT), `ParallelCrossEntropy` (Llama: the
+cross-entropy alone, its lm-head GEMM counts with the layers') and
+`Optimizer.apply_gradients` for the profiled chunk only. With `--trace` it writes a chrome trace of each
 cell there. Needs a GPU; exits 2 without one.
 """
 from __future__ import annotations
@@ -83,12 +86,13 @@ def profile_cell(cell, K, trace):
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
+    from paddle_tpu_torch.distributed.meta_parallel import \
+        ParallelCrossEntropy
     from paddle_tpu_torch.ops.softmax_ce import FusedLinearCrossEntropyFn
     from paddle_tpu_torch.optimizer.optimizer import Optimizer
     from paddle_tpu_torch.parallel import ScanTrainStep
 
-    model, opt, ids, labels, _ = chip_smoke.train_workload(
-        recipe=cell == "train_recipe")
+    model, opt, ids, labels, _ = chip_smoke.train_workload(cell)
     warm = ScanTrainStep(model, opt, scan_steps=chip_smoke.TRAIN_WARMUP_STEPS)
     step = ScanTrainStep(model, opt, scan_steps=K)
 
@@ -99,12 +103,14 @@ def profile_cell(cell, K, trace):
     plain_ms = wall_s * 1e3
 
     saved = (FusedLinearCrossEntropyFn.forward,
-             FusedLinearCrossEntropyFn.backward, Optimizer.apply_gradients)
+             FusedLinearCrossEntropyFn.backward, Optimizer.apply_gradients,
+             ParallelCrossEntropy.forward)
     FusedLinearCrossEntropyFn.forward = staticmethod(
         _ranged(saved[0], CE_RANGE))
     FusedLinearCrossEntropyFn.backward = staticmethod(
         _ranged(saved[1], CE_RANGE))
     Optimizer.apply_gradients = _ranged(saved[2], OPT_RANGE)
+    ParallelCrossEntropy.forward = _ranged(saved[3], CE_RANGE)
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -113,6 +119,7 @@ def profile_cell(cell, K, trace):
         FusedLinearCrossEntropyFn.forward = staticmethod(saved[0])
         FusedLinearCrossEntropyFn.backward = staticmethod(saved[1])
         Optimizer.apply_gradients = saved[2]
+        ParallelCrossEntropy.forward = saved[3]
     del model, opt, warm, step
     torch.cuda.empty_cache()
 
@@ -173,6 +180,8 @@ def main(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--cells", default="train,train_recipe",
+                    help="comma-separated cells of chip_smoke.TRAIN_CELLS")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -185,7 +194,7 @@ def main(argv):
                          text=True, timeout=60)
     emit({"device": torch.cuda.get_device_name(0),
           "nvidia_smi": smi.stdout.strip()})
-    for cell in ("train", "train_recipe"):
+    for cell in args.cells.split(","):
         if profile_cell(cell, args.steps, args.trace):
             return 1
     return 0
