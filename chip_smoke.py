@@ -70,6 +70,26 @@ Phases:
                 each; kernel launch counts are zeroed just before and read
                 just after; 4 streams and their first-step logits are
                 compared with generate()
+  5b. sampling — the sampling slice's arithmetic on the card against the
+                port's CPU path at gpt3-1.3b's vocabulary: threefry lane
+                keys, fold_in, split and random bits over [8, 50304] and
+                [512, 50304] bit-equal (16 seed/index pairs, seeds up to
+                2^31 - 1), gumbel noise within 2 ulps, and select_tokens
+                over [8, 64, 50304] fp32 logits in every mode (greedy,
+                temperature, top-k, top-p, both, constrained) giving the
+                same tokens and DFA states
+  5c. sample_serve — phase 5's cell with a mixed burst: greedy, seeded
+                top-k and top-p, and JSON-schema-constrained requests (half
+                greedy, half sampled, 64 new tokens, ending at EOS); greedy
+                streams equal phase 5's bit for bit, top-k streams equal
+                when resubmitted in reverse beside other batch-mates, four
+                first tokens equal the CPU's select_tokens on the captured
+                logits row, every constrained stream parses as the
+                schema's JSON; tok/s, TTFT and decode step beside phase 5's,
+                the selection's device time and ops a step (torch.profiler
+                over 8 replayed selections), the host time a step of its
+                operands, and 8 sampled steps replayed with greedy and
+                with sampled selection
   6. train    — full gpt3-1.3b, bf16, B=4, S=1024, AdamW (lr 1e-4, wd
                 0.01, fp32 moments), one batch repeated: a ScanTrainStep
                 chunk of 3 warm-up steps, then one of 10 timed steps with
@@ -1957,6 +1977,8 @@ SERVE_CELLS = {
     # heads, the only grouped-query layout served at full width
     "llama_serve_gqa": dict(preset="llama2-70b", requests=8,
                             num_hidden_layers=4),
+    # the serve cell's model and prompts under a mixed burst (sample_burst)
+    "sample_serve": dict(preset="gpt3-1.3b", requests=16),
 }
 SERVE_BUSY_STEPS = 8     # the burst's steps replayed to read device busy
 
@@ -2040,11 +2062,13 @@ def step_busy(step_logits, recorded):
     return (busy_us / 1e3 / n if busy_us > 0 else None), wall_ms
 
 
-def phase_serve(cell="serve"):
+def phase_serve(cell="serve", record=None):
     """A serve cell of SERVE_CELLS through the started engine: its prompts
     submitted at once, launch counts zeroed just before and read just
     after; every stream checked, 4 against generate(); then the
-    device-busy time of a step beside its wall time."""
+    device-busy time of a step beside its wall time. `record`, a dict,
+    receives the burst's streams and its tok/s, TTFT and decode step
+    (phase_sample_serve holds its greedy streams to them)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.models.generation import generate
@@ -2162,10 +2186,490 @@ def phase_serve(cell="serve"):
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "vs_generate": compare, "first_logits_tol": logits_tol}
     emit(result)
+    if record is not None:
+        record.update({k: result[k] for k in (
+            "generated_tok_s", "ttft_p50_ms", "decode_step_p50_ms")},
+            streams=dict(enumerate(outs)))
     check(worst_logits <= logits_tol,
           f"engine vs generate() first-step logits differ by {worst_logits} "
           f"> {logits_tol}")
     del model, engine, handles, recorded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------- phase 5b
+SAMPLE_ROWS = (8, 512)     # rows of a lane draw: the engine's emission rows
+#                            a step, and a whole unified step's N*C rows
+SAMPLE_PAIRS = 16          # (seed, stream index) pairs of the lane checks
+GUMBEL_ULPS = 2            # of max(|g|, 1), see gumbel_ulps
+SELECT_NC = (8, 64)        # the serve cell's unified step: N slots x C
+
+
+def sample_pairs():
+    """SAMPLE_PAIRS (seed, index) pairs: the edge seeds 0, 1, 2^31 - 1
+    and random ones, at stream indices from 0 to 2^31 - 1."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 9)
+    n = SAMPLE_PAIRS - 3
+    seeds = [0, 1, 2 ** 31 - 1] + rng.randint(0, 2 ** 31, n).tolist()
+    index = [0, 2 ** 31 - 1, 31] + rng.randint(0, 2 ** 20, n).tolist()
+    return seeds, index
+
+
+def gumbel_ulps(torch, got, want):
+    """Largest |got - want| in fp32 ulps of max(|want|, 1). The noise is
+    -log(L), L = -log(u): one ulp of L (2^-23 of it) is an absolute
+    error of 2^-23 in the result, which is one ulp at |g| = 1 and many
+    ulps of a value near 0, where the noise crosses zero."""
+    scale = torch.maximum(want.abs(), torch.ones_like(want))
+    ulp = torch.nextafter(scale, torch.full_like(scale, math.inf)) - scale
+    return float(((got.double() - want.double()).abs() / ulp.double()).max())
+
+
+def lane_mismatches(torch, vocab):
+    """({draw: words that differ between the card and the CPU}, gumbel's
+    largest distance in ulps) for the lane keys, fold_in, split and
+    random_bits over SAMPLE_ROWS x vocab, one key for the whole draw
+    (generate()'s form) and one key a row (the engine's)."""
+    from paddle_tpu_torch.core import threefry
+    from paddle_tpu_torch.serving.llm.sampling import lane_key
+    seeds, index = sample_pairs()
+    keys = {d: lane_key(torch.tensor(seeds, device=d),
+                        torch.tensor(index, device=d))
+            for d in ("cuda", "cpu")}
+
+    def rows_draw(r, d):
+        return threefry.random_bits(keys[d][r % SAMPLE_PAIRS], (r, vocab))
+
+    draws = {
+        "lane_key": lambda d: keys[d],
+        "fold_in": lambda d: threefry.fold_in(
+            keys[d], torch.tensor(index, device=d)),
+        "split": lambda d: threefry.split(keys[d], 3),
+        "random_bits_per_row": lambda d: threefry.random_bits(
+            keys[d], (vocab,)),
+        **{f"random_bits_{r}x{vocab}": partial(rows_draw, r)
+           for r in SAMPLE_ROWS}}
+    out = {}
+    for name, fn in draws.items():
+        card, cpu = fn("cuda").cpu(), fn("cpu")
+        out[name] = (int((card != cpu).sum()) if card.shape == cpu.shape
+                     else -1)
+    worst = 0.0
+    for r in SAMPLE_ROWS:
+        key = r % SAMPLE_PAIRS
+        card = threefry.gumbel(keys["cuda"][key], (r, vocab)).cpu()
+        cpu = threefry.gumbel(keys["cpu"][key], (r, vocab))
+        worst = max(worst, gumbel_ulps(torch, card, cpu))
+    card = threefry.gumbel(keys["cuda"], (vocab,)).cpu()
+    worst = max(worst, gumbel_ulps(torch, card,
+                                   threefry.gumbel(keys["cpu"], (vocab,))))
+    return out, worst
+
+
+# the constrained requests' JSON schema (a string enum, an integer and a
+# boolean) over a token table of a few dozen short texts; integers come
+# as whole tokens with their comma, so a stream closes within 64 tokens
+# whatever the model's weights, and the decoys are never legal
+SAMPLE_SCHEMA = {"type": "object", "properties": {
+    "color": {"enum": ["red", "green", "blue"]},
+    "count": {"type": "integer"},
+    "ok": {"type": "boolean"}}}
+SAMPLE_TEXTS = ("{", "}", ",", ":", '"color"', '"count"', '"ok"', '"red"',
+                '"green"', '"blue"', "0,", "7,", "42,", "-5,", "100,",
+                "true", "false", '"color":', '"ok":true', '"count":',
+                "x", "null", "[", "]", '"', " ", "True", "1.5", "{}",
+                '"size"', "0.", "-")
+SAMPLE_TOKEN0 = 1000       # the texts take ids 1000, 1001, ...
+SAMPLE_EOS = 50256         # GPT-2's end-of-text id, in the table as ""
+
+
+def sample_grammar():
+    """(grammar dict, eos id) of the constrained requests."""
+    tokens = {SAMPLE_TOKEN0 + j: t for j, t in enumerate(SAMPLE_TEXTS)}
+    tokens[SAMPLE_EOS] = ""
+    return {"schema": SAMPLE_SCHEMA, "tokens": tokens}, SAMPLE_EOS
+
+
+def select_case(torch, vocab, device):
+    """select_tokens over fp32 logits [SELECT_NC x vocab] on `device`,
+    every mode in a row of its own: greedy, temperature 0.7, top-k 50,
+    top-p 0.9, top-k + top-p, a constrained greedy row, a constrained
+    sampled row (one at the start state, one mid-object) and a free row
+    (adv 0), in the engine's [9, 128, vocab] grammar bank. The logits
+    come from SEED on the card and are copied to `device`. Returns
+    (tokens [N, C], new DFA states [N]) on the CPU."""
+    import numpy as np
+    from paddle_tpu_torch.serving.llm.sampling import (
+        SamplingParams, SlotSamplingTable, compile_grammar, select_tokens)
+    N, C = SELECT_NC
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    logits = (torch.randn((N, C, vocab), generator=gen, device="cuda")
+              * 3).to(device)
+    grammar, eos = sample_grammar()
+    tab = SlotSamplingTable(N, vocab)
+    gid = tab.intern(SamplingParams(grammar=grammar).grammar_key(),
+                     compile_grammar(grammar, vocab, eos))
+    mid = int(tab.bank[gid, 0, SAMPLE_TOKEN0])          # after "{"
+    rng = np.random.RandomState(SEED + 12)
+    seeds, _ = sample_pairs()
+
+    def t(a, dt):
+        return torch.tensor(a, dtype=dt, device=device)
+
+    return tuple(x.cpu() for x in select_tokens(
+        logits, t([1, 64, 33, 1, 64, 1, 17, 0], torch.int32),
+        t([1.0, 0.7, 1.0, 1.0, 0.8, 1.0, 1.0, 1.0], torch.float32),
+        t([0, 0, 50, 0, 50, 0, 0, 0], torch.int32),
+        t([1.0, 1.0, 1.0, 0.9, 0.9, 1.0, 0.9, 1.0], torch.float32),
+        t([False, True, True, True, True, False, True, True], torch.bool),
+        t(seeds[:N], torch.int32),
+        t(rng.randint(0, 4096, N).tolist(), torch.int32),
+        t([0, 0, 0, 0, 0, 0, mid, 0], torch.int32),
+        t([0, 0, 0, 0, 0, gid, gid, 0], torch.int32),
+        torch.from_numpy(tab.bank).to(device)))
+
+
+def phase_sampling():
+    """The sampling slice's arithmetic on the card against the port's own
+    CPU path (neither side needs JAX; the tier-1 tests tie the CPU side
+    to jax.random): lanes, folds, splits and random bits bit-equal,
+    gumbel noise within GUMBEL_ULPS, select_tokens's tokens and DFA
+    states equal, at gpt3-1.3b's vocabulary."""
+    import torch
+    vocab = preset_config("gpt3-1.3b").vocab_size
+    t0 = time.perf_counter()
+    words, ulps = lane_mismatches(torch, vocab)
+    lanes_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toks_card, state_card = select_case(torch, vocab, "cuda")
+    toks_cpu, state_cpu = select_case(torch, vocab, "cpu")
+    select_s = time.perf_counter() - t0
+    tok_diff = int((toks_card != toks_cpu).sum())
+    emit({"phase": "sampling", "vocab": vocab, "pairs": SAMPLE_PAIRS,
+          "rows": list(SAMPLE_ROWS), "differing_words": words,
+          "gumbel_max_ulps": ulps, "gumbel_tol_ulps": GUMBEL_ULPS,
+          "select_shape": [*SELECT_NC, vocab],
+          "select_tokens_differing": tok_diff,
+          "dfa_states": state_card.tolist(),
+          "dfa_states_cpu": state_cpu.tolist(),
+          "lanes_s": lanes_s, "select_s": select_s})
+    check(all(v == 0 for v in words.values()),
+          f"threefry draws differ between the card and the CPU: {words}")
+    check(ulps <= GUMBEL_ULPS,
+          f"gumbel noise {ulps} ulps from the CPU's > {GUMBEL_ULPS}")
+    check(tok_diff == 0 and torch.equal(state_card, state_cpu),
+          f"select_tokens: {tok_diff} tokens differ from the CPU's, states "
+          f"{state_card.tolist()} against {state_cpu.tolist()}")
+
+
+# ---------------------------------------------------------------- phase 5c
+SAMPLE_CONSTRAINED_NEW = 64   # a constrained request's budget: its object
+#                               closes well inside it
+
+
+def sample_params(i):
+    """(SamplingParams or None, max_new_tokens, eos id or None) of
+    request i of the mixed burst: i % 4 == 0 greedy; 1 temperature 0.8,
+    top-k 50; 2 temperature 1.0, top-p 0.9; 3 constrained by
+    SAMPLE_SCHEMA, greedy for i = 3, 11 and sampled for i = 7, 15."""
+    from paddle_tpu_torch.serving.llm.sampling import SamplingParams
+    mode = i % 4
+    if mode == 0:
+        return None, SERVE_NEW_TOKENS, None
+    if mode == 1:
+        return (SamplingParams(temperature=0.8, top_k=50, seed=1000 + i),
+                SERVE_NEW_TOKENS, None)
+    if mode == 2:
+        return (SamplingParams(temperature=1.0, top_p=0.9, seed=1000 + i),
+                SERVE_NEW_TOKENS, None)
+    grammar, eos = sample_grammar()
+    seed = 1000 + i if i % 8 == 7 else None
+    return (SamplingParams(seed=seed, grammar=grammar),
+            SAMPLE_CONSTRAINED_NEW, eos)
+
+
+def submit_all(engine, prompts, which):
+    """Submit requests `which` (indices into prompts) at once with their
+    sample_params; {i: handle}."""
+    out = {}
+    for i in which:
+        sp, mnt, eos = sample_params(i)
+        out[i] = engine.submit(prompts[i], max_new_tokens=mnt,
+                               eos_token_id=eos, sampling=sp)
+    return out
+
+
+def sample_warm_up(engine, prompts):
+    """serve_warm_up, then one short constrained sampled request: the
+    first such step uploads the grammar bank and loads the sort and scan
+    kernels, outside any counted burst."""
+    import torch
+    serve_warm_up(engine, prompts)
+    sp, _, eos = sample_params(7)
+    engine.generate(prompts[0][:40], max_new_tokens=2, eos_token_id=eos,
+                    sampling=sp, timeout=600)
+    torch.cuda.synchronize()
+
+
+def sample_burst(engine, prompts):
+    """The mixed burst of the sample_serve cell, like serve_burst: every
+    prompt submitted at once with its sample_params. Returns ({i:
+    handle}, {i: stream}, wall_s, steps, decode_iterations)."""
+    steps0, dec0 = engine.steps, engine.decode_iterations
+    t0 = time.perf_counter()
+    handles = submit_all(engine, prompts, range(len(prompts)))
+    outs = {i: h.result(timeout=900) for i, h in handles.items()}
+    wall = time.perf_counter() - t0
+    return (handles, outs, wall, engine.steps - steps0,
+            engine.decode_iterations - dec0)
+
+
+def _picks(recorded):
+    n = min(SERVE_BUSY_STEPS, len(recorded))
+    return [recorded[i * len(recorded) // n] for i in range(n)]
+
+
+def _replay_wall_ms(torch, fn, picks):
+    """Host wall ms a call of `fn` over `picks`, to a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in picks:
+        fn(*a)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / len(picks)
+
+
+def selection_busy(engine, steps):
+    """(device ms, device ops, wall ms) a step of the engine's selection
+    (`select_rows`): SERVE_BUSY_STEPS of the burst's sampled steps
+    (toks, pos, adv, ctr, constrained) replayed after it through
+    `_run_sampled_step` to capture their selection's inputs, then those
+    calls replayed: device time and ops from torch.profiler (None when it
+    saw no device time), wall from the host clock. Capturing after the
+    burst keeps the burst's allocations as the engine makes them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.serving.llm import llm_engine
+    select_rows = llm_engine.select_rows
+    picks = []
+
+    def capture(*a):
+        picks.append(a)
+        return select_rows(*a)
+
+    llm_engine.select_rows = capture
+    try:
+        for a in _picks(steps):
+            engine._run_sampled_step(*a)
+    finally:
+        llm_engine.select_rows = select_rows
+    _replay_wall_ms(torch, select_rows, picks)          # warm
+    wall = _replay_wall_ms(torch, select_rows, picks)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for a in picks:
+            select_rows(*a)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in ev)
+    if busy_us <= 0:
+        return None, None, wall
+    return busy_us / 1e3 / len(picks), sum(e.count for e in ev) / len(picks), \
+        wall
+
+
+def sampled_step_cost(torch, engine, steps):
+    """(greedy ms, sampled ms) of one unified step with its selection,
+    SERVE_BUSY_STEPS of the burst's sampled steps (toks, pos, adv, ctr,
+    constrained) replayed after it through the engine's greedy
+    `_run_step` and its `_run_sampled_step`, host clock to a
+    synchronize, in turns (greedy, sampled, sampled, greedy)."""
+    picks = _picks(steps)
+
+    def greedy(toks, pos, adv, ctr, constrained):
+        engine._run_step(toks, pos, adv)
+
+    g = [_replay_wall_ms(torch, greedy, picks)]
+    s = [_replay_wall_ms(torch, engine._run_sampled_step, picks)
+         for _ in range(2)]
+    g.append(_replay_wall_ms(torch, greedy, picks))
+    return statistics.mean(g), statistics.mean(s)
+
+
+def _first_token_on_cpu(torch, row, sp):
+    """The port's CPU select_tokens on one captured fp32 logits row, at
+    stream index 0 of the request's lane, no grammar."""
+    from paddle_tpu_torch.serving.llm.sampling import select_tokens
+
+    def t(a, dt):
+        return torch.tensor([a], dtype=dt)
+
+    tok, _ = select_tokens(
+        row[None, None], t(1, torch.int32), t(sp.temperature, torch.float32),
+        t(sp.top_k, torch.int32), t(sp.top_p, torch.float32),
+        t(True, torch.bool), t(sp.seed, torch.int32), t(0, torch.int32),
+        t(0, torch.int32), t(0, torch.int32),
+        torch.zeros((1, 1, row.shape[-1]), dtype=torch.int32))
+    return int(tok[0, 0])
+
+
+def phase_sample_serve(serve):
+    """The serve cell (full gpt3-1.3b, bf16, the same engine and 16
+    prompts) with a burst that mixes greedy, sampled and constrained
+    requests by index (sample_params), launch counts zeroed just before
+    it and read just after. Checks: every stream in-vocab and of its
+    length; each greedy stream equal to the serve phase's stream of its
+    prompt (`serve`, the record phase_serve filled); the top-k streams
+    equal when resubmitted in reverse order beside other batch-mates;
+    the first token of four sampled requests equal to the CPU's
+    select_tokens on that step's logits row; every constrained stream
+    valid JSON of the schema's shape, ending at EOS; paged attention and
+    the LayerNorm forward launched. Reads tok/s, TTFT and decode step
+    beside the serve phase's, the selection's device time and ops a
+    step, and the host time a step of its operand assembly."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import _kernels
+    from paddle_tpu_torch.serving.llm.sampling import compile_grammar
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, engine, prompts, init_s = serve_workload("sample_serve")
+    vocab = model.config.vocab_size
+    grammar, eos = sample_grammar()
+    dfa = compile_grammar(grammar, vocab, eos)
+    watch = {prompts[i].tobytes(): i for i in (1, 2, 5, 6)}
+    first_logits = {}
+    sampled_steps = []
+    step_logits = engine._step_logits
+    run_sampled_step = engine._run_sampled_step
+
+    def capturing_step_logits(toks, pos, adv):
+        lg = step_logits(toks, pos, adv)
+        for slot, req in engine._active.items():
+            i = watch.get(req.prompt.tobytes())
+            if i is not None and req.chunk_off < len(req.prompt) \
+                    and req.chunk_off + int(adv[slot]) == len(req.prompt):
+                first_logits[i] = lg[slot, int(adv[slot]) - 1].float().cpu()
+        return lg
+
+    def recording_sampled_step(toks, pos, adv, ctr, constrained):
+        sampled_steps.append((toks.copy(), pos.copy(), adv.copy(),
+                              ctr.copy(), constrained))
+        return run_sampled_step(toks, pos, adv, ctr, constrained)
+
+    engine._step_logits = capturing_step_logits
+    engine._run_sampled_step = recording_sampled_step
+    engine.start()
+    try:
+        sample_warm_up(engine, prompts)
+        sampled_steps.clear()
+        first_logits.clear()
+        overhead0 = len(engine.metrics._mask_overhead_ms)
+        _kernels.reset_launch_counts()
+        handles, outs, wall, steps, _ = sample_burst(engine, prompts)
+        launches = _kernels.launch_counts()
+        watch.clear()
+        stats = engine.metrics.snapshot()
+        overhead = list(engine.metrics._mask_overhead_ms)[overhead0:]
+        n_sampled = len(sampled_steps)
+        topk = [i for i in range(len(prompts)) if i % 4 == 1]
+        again = submit_all(engine, prompts, topk[::-1])
+        mates = [engine.submit(prompts[i][:48], max_new_tokens=8)
+                 for i in range(0, len(prompts), 4)]
+        again = {i: h.result(timeout=900) for i, h in again.items()}
+        for h in mates:
+            h.result(timeout=900)
+    finally:
+        engine.stop(drain=True, timeout=60)
+        engine._run_sampled_step = run_sampled_step
+    must, _ = served_kernels("gpt3-1.3b")
+    check(all(launches[k] > 0 for k in must),
+          f"the mixed burst launched {launches}: want each of {must}")
+    for i, o in outs.items():
+        check(((o >= 0) & (o < vocab)).all(), f"request {i}: id out of range")
+        sp, mnt, _ = sample_params(i)
+        check(len(o) == mnt or (sp is not None and sp.constrained),
+              f"request {i}: {len(o)} tokens, want {mnt}")
+    greedy_equal = {i: bool(np.array_equal(outs[i], serve["streams"][i]))
+                    for i in outs if i % 4 == 0}
+    reorder_equal = {i: bool(np.array_equal(outs[i], again[i]))
+                     for i in topk}
+    first_equal = {i: _first_token_on_cpu(torch, first_logits[i],
+                                          sample_params(i)[0])
+                   == int(outs[i][0]) for i in sorted(first_logits)}
+    texts = {SAMPLE_TOKEN0 + j: s for j, s in enumerate(SAMPLE_TEXTS)}
+    texts[eos] = ""
+    constrained = {}
+    for i in (i for i in outs if i % 4 == 3):
+        o, q = outs[i], 0
+        for tkn in o:
+            q = int(dfa.trans[q, int(tkn)]) if q >= 0 else -1
+        text = "".join(texts.get(int(tkn), "�") for tkn in o)
+        try:
+            obj = json.loads(text)
+        except ValueError:
+            obj = None
+        constrained[i] = dict(
+            text=text, tokens=len(o), ends_at_eos=int(o[-1]) == eos,
+            final_state_legal=q >= 0, shape_ok=(
+                isinstance(obj, dict)
+                and set(obj) == {"color", "count", "ok"}
+                and obj["color"] in ("red", "green", "blue")
+                and type(obj["count"]) is int and type(obj["ok"]) is bool))
+    ttfts = sorted(h.ttft_ms for h in handles.values())
+    gen_tokens = sum(len(o) for o in outs.values())
+    engine.pool.check_balance()
+    sel_ms, sel_ops, sel_wall = selection_busy(engine,
+                                               sampled_steps[:n_sampled])
+    greedy_ms, sampled_ms = sampled_step_cost(torch, engine,
+                                              sampled_steps[:n_sampled])
+    result = {
+        "phase": "sample_serve", "model": "gpt3-1.3b", "dtype": "bfloat16",
+        "requests": len(prompts),
+        "modes": {m: [i for i in outs if i % 4 == k] for k, m in enumerate(
+            ("greedy", "top_k", "top_p", "constrained"))},
+        "generated_tokens": gen_tokens, "wall_s": wall,
+        "generated_tok_s": gen_tokens / wall,
+        "ttft_p50_ms": statistics.median(ttfts),
+        "decode_step_p50_ms": stats["intertoken_p50_ms"],
+        "serve_phase": {k: serve[k] for k in (
+            "generated_tok_s", "ttft_p50_ms", "decode_step_p50_ms")},
+        "steps": steps, "step_ms": wall * 1e3 / steps,
+        "sampled_steps": n_sampled,
+        "selection_device_ms_per_step": sel_ms,
+        "selection_device_ops_per_step": sel_ops,
+        "selection_wall_ms_per_step": sel_wall,
+        "step_replay_greedy_select_ms": greedy_ms,
+        "step_replay_sampled_select_ms": sampled_ms,
+        "operand_host_ms_p50": (statistics.median(overhead)
+                                if overhead else None),
+        "sampled_tokens": stats["sampled_tokens"],
+        "constrained_tokens": stats["constrained_tokens"],
+        "greedy_equal_serve_phase": greedy_equal,
+        "topk_equal_reordered": reorder_equal,
+        "first_token_equal_cpu_select": first_equal,
+        "constrained": constrained, "kernel_launches": launches,
+        "model_init_s": init_s,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit(result)
+    check(all(greedy_equal.values()),
+          f"greedy streams differ from the serve phase's: {greedy_equal}")
+    check(all(reorder_equal.values()),
+          f"top-k streams changed with their batch-mates: {reorder_equal}")
+    check(sorted(first_equal) == [1, 2, 5, 6] and all(first_equal.values()),
+          f"first tokens against the CPU's select_tokens: {first_equal}")
+    check(all(c["shape_ok"] and c["final_state_legal"] and c["ends_at_eos"]
+              for c in constrained.values()),
+          f"constrained streams: {constrained}")
+    check(sel_ms is not None, "the profiler saw no selection kernel")
+    del model, engine, handles, sampled_steps
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -2475,8 +2979,12 @@ def main():
     kern.update(variants)
     timed("model", phase_model)
     timed("model_train", phase_model_train)
+    serve = {}
     by_phase = {"attention_variants": variant_launches,
-                "serve": timed("serve", phase_serve)}
+                "serve": timed("serve", phase_serve, record=serve)}
+    timed("sampling", phase_sampling)
+    by_phase["sample_serve"] = timed("sample_serve", phase_sample_serve,
+                                     serve)
     by_phase["train"], train_peak = timed("train", phase_train, name)
     by_phase["train_recipe"], _ = timed("train_recipe", phase_train, name,
                                         "train_recipe",

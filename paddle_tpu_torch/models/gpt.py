@@ -273,13 +273,15 @@ class GPTForCausalLM(Layer):
         return self.lm_head(hidden), new_caches
 
     def generate(self, input_ids, max_new_tokens=32, do_sample=False,
-                 temperature=1.0, top_k=0, eos_token_id=None, seed=0):
+                 temperature=1.0, top_k=0, eos_token_id=None, seed=0,
+                 top_p=1.0):
         from .generation import generate
         # keywords: the JAX method passes these positionally into the wrong
         # parameters of generation.generate (ROADMAP §3)
         return generate(self, input_ids, max_new_tokens=max_new_tokens,
                         do_sample=do_sample, temperature=temperature,
-                        top_k=top_k, eos_token_id=eos_token_id, seed=seed)
+                        top_k=top_k, top_p=top_p, eos_token_id=eos_token_id,
+                        seed=seed)
 
     @classmethod
     def from_preset(cls, name: str, device=None, dtype=None,

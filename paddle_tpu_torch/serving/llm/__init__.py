@@ -1,3 +1,5 @@
 from .kv_pool import SlotPagedKVPool, SlotsExhaustedError  # noqa: F401
 from .llm_engine import (GenerationHandle, LLMEngine,  # noqa: F401
                          LLMEngineConfig)
+from .sampling import (SamplingParams, SlotSamplingTable,  # noqa: F401
+                       TokenDFA, compile_grammar)

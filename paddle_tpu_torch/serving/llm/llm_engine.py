@@ -1,7 +1,7 @@
 """Continuous-batching LLM decode engine over the slot-paged KV pool
 (counterpart of paddle_tpu/serving/llm/llm_engine.py).
 
-`submit()` a prompt, get a `GenerationHandle` that streams greedy tokens.
+`submit()` a prompt, get a `GenerationHandle` that streams its tokens.
 Every `pump()` runs ONE unified mixed step over all slots: each slot
 contributes a fixed-width `[prefill_chunk]` row — a prompt chunk for a
 prefilling request, `[last_tok, 0, ...]` for a decoding one, zeros for a
@@ -15,10 +15,21 @@ emits its first token. Between steps the scheduler admits queued
 requests into freed slots and retires rows on EOS, max tokens or
 deadline.
 
-Selection is greedy on fp32 logits, with each token's log-probability
-(fp32 log-softmax of the raw logits at the chosen token) streamed beside
-it. At a shared `block_len` of 8 a stream equals the port's one-shot
-`generate()` on the CPU.
+Selection is greedy on fp32 logits unless a request carries
+`SamplingParams` (`sampling.py`): a seed makes it a temperature / top-k /
+top-p draw on the lane `(seed, stream index)` of JAX's threefry, and a
+grammar masks every step to the tokens its DFA allows, as in the JAX
+engine. Each token's log-probability (fp32 log-softmax of the raw logits
+at the chosen token) streams beside it. At a shared `block_len` of 8 a
+greedy stream equals the port's one-shot `generate()` on the CPU.
+
+A step in which no active request samples or is constrained runs the
+greedy selection alone: no threefry, no grammar bank. Otherwise the
+step selects only what the engine consumes, the emission column adv-1
+of every row, each drawn on its lane `(seed, sample_offset + emitted)`.
+The JAX step selects all N x C columns (it needs them for speculative
+decoding's verify window, which is not ported); the emission column's
+lane and draw are the same, so the tokens are too.
 
 Admission control keeps the JAX engine's vocabulary: three SLO-class
 queues admitted in strict priority order, a bounded queue (a full queue
@@ -31,15 +42,16 @@ Under a `SimClock` the engine runs threadless and the harness calls
 `pump()`; under the default `MonotonicClock`, `start()` runs the same
 `pump()` on a scheduler thread.
 
-Not ported yet (each is a ROADMAP item): speculative decoding, sampling
-and grammars, the prefix cache, the host KV tier, LoRA adapters, the
-serving economics ledger, the compile observatory, supervisor retries
-and blame probes, tracing, and rolling deploys.
+Not ported yet (each is a ROADMAP item): speculative decoding, the
+prefix cache, the host KV tier, LoRA adapters, the serving economics
+ledger, the compile observatory, supervisor retries and blame probes,
+tracing, and rolling deploys.
 """
 from __future__ import annotations
 
 import logging
 import threading
+import time
 from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass
@@ -52,6 +64,8 @@ from ..clock import Clock, MonotonicClock, SimClock
 from ..engine import DeadlineExceededError, RejectedError
 from ..metrics import SLO_CLASSES, LLMMetrics
 from .kv_pool import SlotPagedKVPool, SlotsExhaustedError
+from .sampling import (GREEDY, SamplingParams, SlotSamplingTable,
+                       compile_grammar, select_rows)
 
 _log = logging.getLogger("paddle_tpu_torch.serving.llm")
 
@@ -71,6 +85,10 @@ class LLMEngineConfig:
     #                                the unified step's fixed row width
     drain_timeout_s: float = 60.0
     cache_dtype: Optional[object] = None  # pool slab dtype override
+    max_grammars: int = 8          # distinct compiled grammars the fixed-
+    #                                shape DFA bank holds; a request needing
+    #                                one more is rejected ("grammar_capacity")
+    max_dfa_states: int = 128      # per-grammar token-DFA state ceiling
 
     def __post_init__(self):
         if self.num_slots < 1:
@@ -84,6 +102,12 @@ class LLMEngineConfig:
         if self.prefill_chunk < 1:
             raise ValueError(
                 f"prefill_chunk must be >= 1, got {self.prefill_chunk}")
+        if self.max_grammars < 1:
+            raise ValueError(
+                f"max_grammars must be >= 1, got {self.max_grammars}")
+        if self.max_dfa_states < 1:
+            raise ValueError(
+                f"max_dfa_states must be >= 1, got {self.max_dfa_states}")
 
 
 class GenerationHandle:
@@ -125,7 +149,8 @@ class GenerationHandle:
 class _GenRequest:
     __slots__ = ("prompt", "max_new_tokens", "eos_token_id", "arrival",
                  "deadline", "handle", "slot", "emitted", "last_tok", "slo",
-                 "chunk_off", "want_logprobs")
+                 "chunk_off", "want_logprobs", "sampling", "sample_offset",
+                 "gid", "dfa_state0")
 
     def __init__(self, prompt, max_new_tokens, eos_token_id, arrival,
                  deadline, slo, want_logprobs=False):
@@ -141,6 +166,11 @@ class _GenRequest:
         self.last_tok: int = 0
         self.chunk_off: int = 0           # prompt tokens already prefilled
         self.want_logprobs = want_logprobs
+        self.sampling: Optional[SamplingParams] = None
+        self.sample_offset: int = 0       # stream index of the first token
+        #                                   this admission emits
+        self.gid: int = 0                 # grammar bank row (0: none)
+        self.dfa_state0: int = 0          # DFA state at admission
 
 
 class LLMEngine:
@@ -165,6 +195,18 @@ class LLMEngine:
             self.config.n_blocks, dtype=self.config.cache_dtype,
             pad_tokens=self.config.prefill_chunk)
         self.metrics.set_slots(0, self.pool.num_slots)
+        # per-slot sampling + grammar bank, sized off the model's vocab
+        vocab_size = int(getattr(getattr(model, "config", None),
+                                 "vocab_size", 0))
+        if vocab_size < 1:
+            raise ValueError(
+                "model must expose config.vocab_size for the sampling "
+                "subsystem's grammar mask")
+        self.sampling_table = SlotSamplingTable(
+            self.config.num_slots, vocab_size,
+            max_grammars=self.config.max_grammars,
+            max_dfa_states=self.config.max_dfa_states,
+            device=self.pool.device)
         self._queues: Dict[str, deque] = {c: deque() for c in SLO_CLASSES}
         self._active: Dict[int, _GenRequest] = {}   # slot -> request
         self._cond = threading.Condition()
@@ -198,12 +240,41 @@ class LLMEngine:
 
     @torch.no_grad()
     def _run_step(self, toks: np.ndarray, pos: np.ndarray, adv: np.ndarray):
-        """`_step_logits` plus selection: the per-position greedy tokens
+        """`_step_logits` plus greedy selection: the per-position tokens
         and their fp32 log-probabilities, both [N, C] numpy."""
         lf = self._step_logits(toks, pos, adv).float()
         sel = torch.argmax(lf, dim=-1)
         lp = torch.log_softmax(lf, dim=-1).gather(-1, sel[..., None])[..., 0]
         return (sel.to(torch.int32).cpu().numpy(), lp.cpu().numpy())
+
+    @torch.no_grad()
+    def _run_sampled_step(self, toks: np.ndarray, pos: np.ndarray,
+                          adv: np.ndarray, ctr: np.ndarray,
+                          constrained: bool):
+        """`_step_logits` plus per-slot selection of each row's emission
+        column adv-1 (`select_rows`): ([N] tokens, [N] fp32
+        log-probabilities of the raw logits, [N] DFA states after the
+        tokens), numpy. Row n draws on its lane (seed, ctr[n]); the
+        grammar bank goes to the device only when a row is constrained."""
+        t0 = time.perf_counter()
+        tab = self.sampling_table
+        keys = tab.lane_keys(ctr)
+        temp, topk, topp, samp, dstate, gid = tab.device_args()
+        bank = tab.device_bank() if constrained else None
+        N, C = toks.shape
+        rows = torch.from_numpy(np.arange(N) * C + np.maximum(adv - 1, 0))
+        rows = rows.to(self.pool.device)
+        self.metrics.on_mask_overhead((time.perf_counter() - t0) * 1e3)
+        lg = self._step_logits(toks, pos, adv)
+        lf = lg.reshape(N * C, lg.shape[-1])[rows].float()
+        sel, new_state = select_rows(lf, keys, temp, topk, topp, samp,
+                                     dstate, gid, bank)
+        lp = torch.log_softmax(lf, dim=-1).gather(
+            -1, sel[:, None].long())[:, 0]
+        # one copy back: tokens, logprob bits, states
+        out = torch.stack([sel, lp.view(torch.int32),
+                           new_state.to(torch.int32)]).cpu().numpy()
+        return out[0], out[1].view(np.float32), out[2]
 
     # ---- lifecycle ----
     def start(self) -> "LLMEngine":
@@ -246,7 +317,7 @@ class LLMEngine:
                     req.handle.future.set_exception(RejectedError(
                         "engine shut down mid-decode", reason="shutdown"))
                     self.metrics.on_reject("shutdown")
-                    self.pool.free(slot)
+                    self._free_slot_locked(slot)
                 self._active.clear()
                 self.metrics.set_queue_depth(0)
                 self.metrics.set_slots(0, self.pool.num_slots)
@@ -288,7 +359,7 @@ class LLMEngine:
                     "engine drain timed out mid-decode",
                     reason="drain_timeout"))
                 self.metrics.on_reject("drain_timeout")
-                self.pool.free(slot)
+                self._free_slot_locked(slot)
                 stranded += 1
             self._active.clear()
             if stranded:
@@ -333,13 +404,32 @@ class LLMEngine:
                eos_token_id: Optional[int] = None,
                deadline_ms: Optional[float] = None,
                slo: Optional[str] = None,
-               logprobs: bool = False) -> GenerationHandle:
-        """Admit one prompt (1-D int token ids). Raises RejectedError when
-        the sequence can never fit a slot, the queue is full and nothing
-        lower-priority can be shed, or the engine is draining."""
+               logprobs: bool = False,
+               sampling: Optional[SamplingParams] = None,
+               sample_offset: int = 0,
+               lane: Optional[dict] = None) -> GenerationHandle:
+        """Admit one prompt (1-D int token ids).
+
+        `sampling` carries the request's sampling contract; None is
+        greedy. `sample_offset` is the stream index of the first token
+        this admission emits (the tokens already emitted elsewhere,
+        re-prefilled as the prompt's tail), so draw i of the stream stays
+        keyed by (seed, i) across a resubmission; a constrained request
+        walks that tail through its grammar's DFA to resume the mask, or
+        takes the DFA state from `lane` (an `export_sampling_lanes`
+        entry) when its grammar and next index match.
+
+        Raises RejectedError when the sequence can never fit a slot, the
+        queue is full and nothing lower-priority can be shed, the grammar
+        bank is full, or the engine is draining; ValueError on invalid
+        sampling params or a resumed tail the grammar forbids."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must contain at least one token")
+        sample_offset = int(sample_offset)
+        if sample_offset < 0:
+            raise ValueError(
+                f"sample_offset must be >= 0, got {sample_offset}")
         mnt = (self.config.max_new_tokens if max_new_tokens is None
                else int(max_new_tokens))
         if mnt < 1:
@@ -350,6 +440,12 @@ class LLMEngine:
                 f"slo must be one of {SLO_CLASSES}, got {slo!r}")
         eos = (self.config.eos_token_id if eos_token_id is None
                else eos_token_id)
+        gid, dstate0 = 0, 0
+        if sampling is not None:
+            sampling.validate()
+            if sampling.grammar is not None:
+                gid, dstate0 = self._grammar_row(sampling, eos, prompt,
+                                                 sample_offset, lane)
         if prompt.size + mnt > self.pool.capacity:
             self.metrics.on_reject("prompt_too_long")
             raise RejectedError(
@@ -373,21 +469,91 @@ class LLMEngine:
                     "shed", reason="queue_full")
             req = _GenRequest(prompt, mnt, eos, now, deadline, slo,
                               want_logprobs=bool(logprobs))
+            req.sampling = sampling
+            req.sample_offset = sample_offset
+            req.gid = gid
+            req.dfa_state0 = dstate0
             self._queues[slo].append(req)
             self.metrics.on_submit(self._queue_len_locked(), slo=slo)
             self._cond.notify_all()
         return req.handle
 
+    def _grammar_row(self, sampling: SamplingParams, eos, prompt,
+                     sample_offset: int, lane: Optional[dict]):
+        """(bank row, starting DFA state) of a constrained request: its
+        grammar compiled and interned on first use (a full bank is a
+        typed reject, "grammar_capacity"), and the state after the tail
+        it resumes from when sample_offset > 0."""
+        tab = self.sampling_table
+        gkey = sampling.grammar_key()
+        gid = tab.lookup(gkey)
+        if gid is None:
+            dfa = compile_grammar(sampling.grammar, tab.vocab_size, eos)
+            try:
+                gid = tab.intern(gkey, dfa)
+            except ValueError as e:
+                # bank capacity is an admission-control condition, not a
+                # caller bug: typed reject, not ValueError
+                self.metrics.on_reject("grammar_capacity")
+                raise RejectedError(str(e), reason="grammar_capacity")
+            self.metrics.set_grammars(tab.grammars_compiled)
+        if not sample_offset:
+            return gid, 0
+        if lane is not None and lane.get("grammar_key") == gkey \
+                and int(lane.get("next_index", -1)) == sample_offset:
+            # the exported lane carries the DFA state at exactly this
+            # admission's resume index: restore it directly, no re-walk
+            return gid, int(lane["dfa_state"])
+        # the prompt's tail is the constrained stream emitted so far:
+        # walk it through the DFA so the mask resumes mid-grammar
+        bank, q = tab.bank[gid], 0
+        for t in prompt[-min(sample_offset, prompt.size):]:
+            nq = int(bank[q, int(t)])
+            if nq < 0:
+                raise ValueError("resumed tail violates the request "
+                                 f"grammar at token {int(t)}")
+            q = nq
+        return gid, q
+
     def generate(self, prompt, max_new_tokens: Optional[int] = None,
                  eos_token_id: Optional[int] = None,
                  deadline_ms: Optional[float] = None,
                  timeout: Optional[float] = None,
-                 slo: Optional[str] = None) -> np.ndarray:
+                 slo: Optional[str] = None,
+                 sampling: Optional[SamplingParams] = None) -> np.ndarray:
         """Synchronous convenience: submit + wait for the generated tokens."""
         return self.submit(prompt, max_new_tokens=max_new_tokens,
                            eos_token_id=eos_token_id,
-                           deadline_ms=deadline_ms,
-                           slo=slo).result(timeout)
+                           deadline_ms=deadline_ms, slo=slo,
+                           sampling=sampling).result(timeout)
+
+    def export_sampling_lanes(self, slots) -> dict:
+        """The sampling-lane state of active `slots`: per slot, the
+        request's seed, the next stream index, the sampling params and,
+        for a constrained row, the grammar key and current DFA state. A
+        resubmission that passes these back (seed -> SamplingParams,
+        next_index -> sample_offset, the entry -> lane) continues the
+        stream as the uninterrupted run would."""
+        out: Dict[int, dict] = {}
+        with self._cond:
+            tab = self.sampling_table
+            for slot in slots:
+                slot = int(slot)
+                req = self._active.get(slot)
+                if req is None:
+                    raise ValueError(f"slot {slot} has no active request")
+                sp = req.sampling or GREEDY
+                out[slot] = {
+                    "seed": None if sp.seed is None else int(sp.seed),
+                    "next_index": req.sample_offset + len(req.emitted),
+                    "temperature": float(sp.temperature),
+                    "top_k": int(sp.top_k),
+                    "top_p": float(sp.top_p),
+                    "grammar_key": (sp.grammar_key()
+                                    if sp.constrained else None),
+                    "dfa_state": int(tab.dfa_state[slot]),
+                }
+        return out
 
     # ---- scheduling ----
     def has_work(self) -> bool:
@@ -444,24 +610,34 @@ class LLMEngine:
                     return
                 req.slot = slot
                 req.chunk_off = 0
+                self.sampling_table.bind(slot, req.sampling or GREEDY,
+                                         gid=req.gid,
+                                         dfa_state=req.dfa_state0)
                 self._active[slot] = req
                 self.metrics.set_slots(self.pool.active_slots(),
                                        self.pool.num_slots)
+                self.metrics.set_sample_slots(
+                    self.sampling_table.mode_counts(self._active))
 
     def _build_rows_locked(self):
-        """(toks [N, C], pos [N], adv [N], prefill_slots, decode_slots).
-        Free slots stay all-zero with adv=0 and write their discarded
-        C-wide stripe into the slab's pad region (pos = capacity), which
-        no block table addresses."""
+        """(toks [N, C], pos [N], adv [N], ctr [N], prefill_slots,
+        decode_slots). Free slots stay all-zero with adv=0 and write their
+        discarded C-wide stripe into the slab's pad region (pos =
+        capacity), which no block table addresses. `ctr` is each row's
+        stream index at its emission column adv-1, sample_offset +
+        emitted for prefill and decode rows alike (the JAX engine backs
+        column 0 of a prefill row off by adv-1 to land there)."""
         N = self.pool.num_slots
         C = self.config.prefill_chunk
         toks = np.zeros((N, C), np.int32)
         pos = np.full((N,), self.pool.capacity, np.int32)
         adv = np.zeros((N,), np.int32)
+        ctr = np.zeros((N,), np.int32)
         prefill_slots: List[int] = []
         decode_slots: List[int] = []
         for slot, req in self._active.items():
             plen = len(req.prompt)
+            ctr[slot] = req.sample_offset + len(req.emitted)
             if req.chunk_off < plen:
                 off = req.chunk_off
                 n = min(C, plen - off)
@@ -474,7 +650,7 @@ class LLMEngine:
                 pos[slot] = self.pool.lengths[slot]
                 adv[slot] = 1
                 decode_slots.append(slot)
-        return toks, pos, adv, prefill_slots, decode_slots
+        return toks, pos, adv, ctr, prefill_slots, decode_slots
 
     def _step_once(self) -> int:
         """Run ONE unified step over every slot and commit its results.
@@ -484,11 +660,21 @@ class LLMEngine:
         with self._cond:
             if not self._active:
                 return 0
-            toks, pos, adv, prefill_slots, decode_slots = \
+            toks, pos, adv, ctr, prefill_slots, decode_slots = \
                 self._build_rows_locked()
+            modes = self.sampling_table.mode_counts(self._active)
         t0 = self.clock.now()
+        emit_col = np.maximum(adv - 1, 0)
+        new_dstate = None
         try:
-            nxt, lps = self._run_step(toks, pos, adv)
+            if modes["sampled"] or modes["constrained"]:
+                nxt, lps, new_dstate = self._run_sampled_step(
+                    toks, pos, adv, ctr, modes["constrained"] > 0)
+            else:
+                # greedy alone: today's selection, no sampling operand
+                nxt, lps = self._run_step(toks, pos, adv)
+                rows = np.arange(len(adv))
+                nxt, lps = nxt[rows, emit_col], lps[rows, emit_col]
         except Exception as e:
             self._fail_all_active(e)
             raise
@@ -512,8 +698,7 @@ class LLMEngine:
                     # final chunk landed: first token emitted, TTFT ends
                     req.handle.ttft_ms = (now - req.arrival) * 1e3
                     self.metrics.on_prefill(req.handle.ttft_ms, slo=req.slo)
-                    self._emit(req, int(nxt[slot, n - 1]),
-                               float(lps[slot, n - 1]))
+                    self._emit(req, slot, nxt, lps, new_dstate)
                     if self._finish_if_done(req, now):
                         del self._active[slot]
                     elif req.deadline is not None and now >= req.deadline:
@@ -527,13 +712,15 @@ class LLMEngine:
                 if req is None:
                     continue
                 self.pool.set_length(slot, int(pos[slot]) + 1)
-                self._emit(req, int(nxt[slot, 0]), float(lps[slot, 0]))
+                self._emit(req, slot, nxt, lps, new_dstate)
                 if self._finish_if_done(req, now):
                     del self._active[slot]
                 elif req.deadline is not None and now >= req.deadline:
                     self._evict_expired_locked(req, slot, now)
             self.metrics.set_slots(self.pool.active_slots(),
                                    self.pool.num_slots)
+            self.metrics.set_sample_slots(
+                self.sampling_table.mode_counts(self._active))
         if decode_slots:
             self.metrics.on_decode_step(len(decode_slots), (now - t0) * 1e3,
                                         tokens=len(decode_slots))
@@ -545,7 +732,7 @@ class LLMEngine:
             for slot, req in list(self._active.items()):
                 req.handle.future.set_exception(err)
                 self.metrics.on_fail()
-                self.pool.free(slot)
+                self._free_slot_locked(slot)
             self._active.clear()
             self.metrics.set_slots(0, self.pool.num_slots)
 
@@ -559,26 +746,47 @@ class LLMEngine:
             f"deadline expired after {len(req.emitted)} of "
             f"{req.max_new_tokens} tokens (evicted {stage})"))
         self.metrics.on_expire()
-        self.pool.free(slot)
+        self._free_slot_locked(slot)
         del self._active[slot]
 
-    def _emit(self, req: _GenRequest, tok: int, lp: float):
+    def _free_slot_locked(self, slot: int):
+        """Free a slot's pool row and reset its sampling row to greedy."""
+        self.pool.free(slot)
+        self.sampling_table.clear(slot)
+
+    def _emit(self, req: _GenRequest, slot: int, nxt: np.ndarray,
+              lps: np.ndarray, new_dstate: Optional[np.ndarray]):
+        """Append the slot's selected token (and its logprob) to the
+        stream; a constrained row commits the DFA state the step
+        advanced past it."""
+        tok = int(nxt[slot])
         req.emitted.append(tok)
         req.last_tok = tok
-        req.handle._append(tok, lp if req.want_logprobs else None)
+        req.handle._append(tok, float(lps[slot]) if req.want_logprobs
+                           else None)
+        if req.gid > 0:
+            self.sampling_table.set_dfa_state(slot, int(new_dstate[slot]))
+            self.metrics.on_sample_token("constrained")
+        elif req.sampling is not None and req.sampling.do_sample:
+            self.metrics.on_sample_token("sampled")
 
     def _finish_if_done(self, req: _GenRequest, now: float) -> bool:
-        """Retire a request whose last token ended it (EOS or max tokens)
-        and free its slot."""
+        """Retire a request whose last token ended it (EOS, max tokens,
+        or for a constrained request a terminal DFA state: accepting with
+        no legal continuation) and free its slot."""
         done = (len(req.emitted) >= req.max_new_tokens
                 or (req.eos_token_id is not None
-                    and req.emitted[-1] == req.eos_token_id))
+                    and req.emitted[-1] == req.eos_token_id)
+                or (req.gid > 0 and req.slot is not None
+                    and self.sampling_table.is_terminal(
+                        req.gid,
+                        int(self.sampling_table.dfa_state[req.slot]))))
         if not done:
             return False
         req.handle.future.set_result(np.asarray(req.emitted, np.int32))
         self.metrics.on_complete((now - req.arrival) * 1e3, slo=req.slo)
         if req.slot is not None and self.pool.active[req.slot]:
-            self.pool.free(req.slot)
+            self._free_slot_locked(req.slot)
         return True
 
     # ---- scheduler thread ----

@@ -1,9 +1,11 @@
 """LLM serving metrics (counterpart of paddle_tpu/serving/metrics.py).
 
 Only the `LLMMetrics` callbacks the ported engine calls: request outcomes,
-queue depth, slot occupancy, TTFT, decode steps and tokens, and
-`snapshot()`. Prometheus exposition, tenants and the economics providers
-wait for the serving front-end slice.
+queue depth, slot occupancy, TTFT, decode steps and tokens, the sampling
+modes (slots and tokens per mode, compiled grammars, the host cost of a
+step's sampling operands), and `snapshot()`. Prometheus exposition,
+tenants and the economics providers wait for the serving front-end
+slice.
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ class LLMMetrics:
         self._decode_window: deque = deque(maxlen=self.window)
         self.counters: Dict[str, int] = {
             "submitted": 0, "completed": 0, "rejected": 0, "expired": 0,
-            "failed": 0, "prefills": 0, "decode_steps": 0, "tokens_out": 0}
+            "failed": 0, "prefills": 0, "decode_steps": 0, "tokens_out": 0,
+            "sampled_tokens": 0, "constrained_tokens": 0}
         self.reject_reasons: Dict[str, int] = {}
         self.class_counters: Dict[str, Dict[str, int]] = {
             c: {"submitted": 0, "completed": 0} for c in SLO_CLASSES}
@@ -42,6 +45,13 @@ class LLMMetrics:
         self.queue_depth = 0
         self.slots_active = 0
         self.slots_total = 0
+        # per-slot sampling modes: slot occupancy broken down by mode, the
+        # grammars compiled, and the host-side cost of assembling a step's
+        # sampling operands (lane keys, per-slot params, the bank)
+        self.sample_slots: Dict[str, int] = {
+            "greedy": 0, "sampled": 0, "constrained": 0}
+        self.grammars_compiled = 0
+        self._mask_overhead_ms: deque = deque(maxlen=self.window)
 
     # ---- engine callbacks ----
     def on_submit(self, queue_depth: int, slo: Optional[str] = None):
@@ -99,6 +109,30 @@ class LLMMetrics:
             self._intertoken_ms.append(float(step_ms))
             self._decode_window.append((tokens, float(step_ms)))
 
+    def on_sample_token(self, mode: str):
+        """One emitted token from a non-greedy slot: `mode` is "sampled"
+        (temperature/top-k/top-p lane) or "constrained" (grammar-masked
+        lane). Greedy emissions stay in `tokens_out` alone."""
+        with self._lock:
+            self.counters[f"{mode}_tokens"] += 1
+
+    def set_sample_slots(self, counts: Dict[str, int]):
+        """Refresh the per-mode slot occupancy gauge from the engine's
+        sampling table (greedy / sampled / constrained active slots)."""
+        with self._lock:
+            self.sample_slots = {
+                m: int(counts.get(m, 0))
+                for m in ("greedy", "sampled", "constrained")}
+
+    def on_mask_overhead(self, ms: float):
+        """Host-side sampling-operand assembly time of one sampled step."""
+        with self._lock:
+            self._mask_overhead_ms.append(float(ms))
+
+    def set_grammars(self, compiled: int):
+        with self._lock:
+            self.grammars_compiled = int(compiled)
+
     # ---- views ----
     def ttft_quantile_ms(self, q: float) -> Optional[float]:
         with self._lock:
@@ -113,6 +147,11 @@ class LLMMetrics:
     def intertoken_quantile_ms(self, q: float) -> Optional[float]:
         with self._lock:
             vals = sorted(self._intertoken_ms)
+        return _quantile(vals, q)
+
+    def mask_overhead_quantile_ms(self, q: float) -> Optional[float]:
+        with self._lock:
+            vals = sorted(self._mask_overhead_ms)
         return _quantile(vals, q)
 
     def tokens_per_s(self) -> float:
@@ -135,6 +174,8 @@ class LLMMetrics:
             s["queue_depth"] = self.queue_depth
             s["slots_active"] = self.slots_active
             s["slots_total"] = self.slots_total
+            s["sample_slots"] = dict(self.sample_slots)
+            s["grammars_compiled"] = self.grammars_compiled
         s["slot_occupancy"] = (s["slots_active"] / s["slots_total"]
                                if s["slots_total"] else 0.0)
         s["tokens_per_s"] = self.tokens_per_s()
@@ -142,4 +183,5 @@ class LLMMetrics:
             s[f"ttft_{key}_ms"] = self.ttft_quantile_ms(q)
             s[f"intertoken_{key}_ms"] = self.intertoken_quantile_ms(q)
             s[f"{key}_ms"] = self.latency_quantile_ms(q)
+            s[f"mask_overhead_{key}_ms"] = self.mask_overhead_quantile_ms(q)
         return s

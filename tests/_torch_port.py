@@ -174,7 +174,8 @@ def check_generate_eos(jm, tm):
 def check_generate_method(tm):
     """The port model's generate method binds by keyword, so it equals the
     generate() function, eos_token_id included (the JAX method would
-    treat token 0 as EOS)."""
+    treat token 0 as EOS), and a sampled call too (the JAX method would
+    pass its seed as top_p)."""
     from paddle_tpu_torch.models.generation import generate
     ids = np.array([[5, 6, 7]], np.int32)
     np.testing.assert_array_equal(tm.generate(ids, max_new_tokens=5),
@@ -182,6 +183,11 @@ def check_generate_method(tm):
     np.testing.assert_array_equal(
         tm.generate(ids, max_new_tokens=5, eos_token_id=0),
         generate(tm, ids, max_new_tokens=5, eos_token_id=0))
+    knobs = dict(do_sample=True, temperature=0.9, top_k=40, top_p=0.9,
+                 seed=1234)
+    np.testing.assert_array_equal(
+        tm.generate(ids, max_new_tokens=6, **knobs),
+        generate(tm, ids, max_new_tokens=6, **knobs))
 
 
 def paged_inputs(seed, B=3, H=4, Hkv=2, Tq=6, D=16, bl=4, ppr=5, N=3,

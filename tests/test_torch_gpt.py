@@ -73,9 +73,10 @@ def test_bridge_names_match_functional_state(models):
 
 
 def test_unported_paths_raise(models):
-    """The paths still unported raise; training-mode dropout, which this
-    test once saw raise, now runs (tests/test_torch_dropout.py holds it to
-    the JAX model)."""
+    """The paths still unported raise; training-mode dropout and sampled
+    generate(), which this test once saw raise, now run
+    (tests/test_torch_dropout.py and tests/test_torch_sampling.py hold
+    them to the JAX package)."""
     from paddle_tpu_torch.models.generation import generate
     from paddle_tpu_torch.models.gpt import GPTForCausalLM
     _, tm = models
@@ -84,8 +85,8 @@ def test_unported_paths_raise(models):
     drop.train()
     logits = drop(torch.zeros((1, 4), dtype=torch.long))
     assert logits.shape == (1, 4, 512) and torch.isfinite(logits).all()
-    with pytest.raises(NotImplementedError, match="sampling"):
-        generate(tm, np.zeros((1, 2), np.int32), do_sample=True)
+    out = generate(tm, np.zeros((1, 2), np.int32), do_sample=True)
+    assert out.shape == (1, 34) and ((out >= 0) & (out < 512)).all()
     with pytest.raises(ValueError, match="max_position_embeddings"):
         tm.init_cache(1, 513)
     with pytest.raises(NotImplementedError, match="MoE"):

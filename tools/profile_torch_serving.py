@@ -4,16 +4,19 @@
     python3 tools/profile_torch_serving.py [--trace DIR] [--cell CELL]
 
 Serves a serve cell of `chip_smoke.py` (`serve` by default; `llama_serve`,
-`llama_serve_gqa`) — the same model, engine and requests, built by
-`chip_smoke.serve_workload(cell)` and driven through the
-engine's scheduler thread (`start()`) as the serve phase drives them —
-three times: twice plain, for the wall time, and once under
-`torch.profiler`. It prints JSON lines: the card (name and power limit
-from nvidia-smi), steps and wall time, the host's time to enqueue one
-step's forward, the device-busy time and its ratio to the wall time, and
+`llama_serve_gqa`, `sample_serve`) — the same model, engine and requests,
+built by `chip_smoke.serve_workload(cell)` and driven through the
+engine's scheduler thread (`start()`) as the serve phases drive them
+(`sample_serve` with `chip_smoke.sample_burst`'s mix of greedy, sampled
+and JSON-constrained requests) — three times: twice plain, for the wall
+time, and once under `torch.profiler`. It prints JSON lines: the card
+(name and power limit from nvidia-smi), steps and wall time, the host's
+time a step (the whole step, enqueueing its forward, enqueueing its
+sampled selection), the device-busy time and its ratio to the wall time,
 device time by kernel family (the port's two CUDA kernels, GEMMs, and the
-rest) and by kernel name. With `--trace` it writes a chrome trace there.
-Needs a GPU; exits 2 without one.
+rest) and by kernel name, and the host's time by operator. With
+`--trace` it writes a chrome trace there. Needs a GPU; exits 2 without
+one.
 """
 from __future__ import annotations
 
@@ -67,36 +70,48 @@ def main(argv):
                          text=True, timeout=60)
     emit({"device": torch.cuda.get_device_name(0),
           "nvidia_smi": smi.stdout.strip()})
+    from paddle_tpu_torch.serving.llm import llm_engine
+
     _, engine, prompts, _ = chip_smoke.serve_workload(args.cell)
+    sampled = args.cell == "sample_serve"
+    burst = chip_smoke.sample_burst if sampled else chip_smoke.serve_burst
+    warm_up = (chip_smoke.sample_warm_up if sampled
+               else chip_smoke.serve_warm_up)
 
-    # host time to enqueue one step's forward, on the scheduler thread:
-    # nothing in the forward waits for the device (the step's only sync is
-    # the selection's copy back), so this is the host's share of a step
-    enqueue_ms = []
-    step_logits = engine._step_logits
+    # host time on the scheduler thread: a whole step (_step_once), the
+    # enqueue of its forward (nothing in the forward waits for the device;
+    # the step's only sync is the selection's copy back) and of its
+    # sampled selection (select_rows)
+    host_ms = {"step": [], "forward_enqueue": [], "select_enqueue": []}
+    originals = (engine._step_once, engine._step_logits,
+                 llm_engine.select_rows)
 
-    def timed_step_logits(*a):
-        t = time.perf_counter()
-        out = step_logits(*a)
-        enqueue_ms.append((time.perf_counter() - t) * 1e3)
-        return out
+    def timed(fn, key):
+        def wrapper(*a):
+            t = time.perf_counter()
+            out = fn(*a)
+            host_ms[key].append((time.perf_counter() - t) * 1e3)
+            return out
+        return wrapper
 
     def serve():
         """(wall ms, steps, decode steps) of one burst of the workload."""
-        _, _, wall, steps, decode_steps = chip_smoke.serve_burst(engine,
-                                                                 prompts)
+        _, _, wall, steps, decode_steps = burst(engine, prompts)
         torch.cuda.synchronize()
         return wall * 1e3, steps, decode_steps
 
     engine.start()
     try:
-        chip_smoke.serve_warm_up(engine, prompts)
+        warm_up(engine, prompts)
         # two plain bursts: the first can still pay one-time costs (clocks
         # ramping from idle, allocator growth); the second is the wall time
         first_ms, _, _ = serve()
-        engine._step_logits = timed_step_logits
+        engine._step_once = timed(originals[0], "step")
+        engine._step_logits = timed(originals[1], "forward_enqueue")
+        llm_engine.select_rows = timed(originals[2], "select_enqueue")
         plain_ms, steps, decode_steps = serve()
-        engine._step_logits = step_logits
+        engine._step_once, engine._step_logits = originals[:2]
+        llm_engine.select_rows = originals[2]
         # CUPTI records every kernel of the process, whichever thread
         # launched it
         with profile(activities=[ProfilerActivity.CPU,
@@ -122,7 +137,10 @@ def main(argv):
           "decode_steps": decode_steps, "wall_ms_first_pass": first_ms,
           "wall_ms": plain_ms,
           "step_ms": plain_ms / steps,
-          "host_enqueue_ms_per_step_p50": statistics.median(enqueue_ms),
+          "host_enqueue_ms_per_step_p50": statistics.median(
+              host_ms["forward_enqueue"]),
+          "host_ms_per_step_p50": {k: statistics.median(v) if v else None
+                                   for k, v in host_ms.items()},
           "wall_ms_profiled": prof_ms,
           "device_busy_ms": busy_ms,
           "device_busy_ms_per_step": busy_ms / steps,
@@ -138,6 +156,13 @@ def main(argv):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     emit({"phase": "kernels", "ms_per_step": [
         [k[:120], v / steps] for k, v in top]})
+    # the host's side: operators by self CPU time, with their calls a step
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU),
+                 key=lambda e: -e.self_cpu_time_total)[:20]
+    emit({"phase": "host_ops", "ms_and_calls_per_step": [
+        [e.key[:80], e.self_cpu_time_total / 1e3 / steps, e.count / steps]
+        for e in ops]})
     if args.trace:
         os.makedirs(args.trace, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.trace,
