@@ -9,7 +9,8 @@ one against its plain PyTorch version on the card, checks cut-down models
 on the card against the same models on the CPU, serves 16 requests
 through the continuous-batching `LLMEngine` and trains 13 steps through
 `ScanTrainStep` twice, both at the full width of `gpt3-1.3b` in bf16,
-then does the same for the Llama-2 family: serves `llama2-7b` whole and
+serves a shared system prompt through the prefix cache, its host tier
+and a stream handoff at the same width, then does the same for the Llama-2 family: serves `llama2-7b` whole and
 `llama2-70b`'s widths cut in depth, and trains `llama2-7b` whole with the
 Llama 2 recipe (random weights from a seed). It prints one JSON line per
 phase, then each phase's wall seconds, the `{"kernels": [...]}` line,
@@ -45,7 +46,9 @@ Phases:
                 spin kernel) beside one PyTorch library call for the same
                 function and the least time the card could take (flash
                 and paged attention: with their achieved TFLOP/s and share
-                of that bound)
+                of that bound); the prefix cache's layout, 8 rows reading one
+                row's 32 pages, bit-equal to the rows reading private copies
+                and timed beside them
   3d. attention_variants — the additive-mask and dropout variants of the
                 flash forward, dq and dk/dv at gpt3-1.3b's attention width
                 ([4,16,1024,128] bf16; fp32 at [2,4,256,64]): key padding
@@ -65,7 +68,8 @@ Phases:
                 with the train recipe's optimizer and recompute (first-step
                 gradient norms, losses, weights)
   5. serve    — full gpt3-1.3b, bf16, LLMEngine(num_slots=8, block_len=8,
-                n_blocks=64, prefill_chunk=64) on a MonotonicClock via
+                n_blocks=64, prefill_chunk=64, prefix cache off, as in the
+                runs before it was ported) on a MonotonicClock via
                 start(): 16 requests, prompts 32..400 tokens, 32 new tokens
                 each; kernel launch counts are zeroed just before and read
                 just after; 4 streams and their first-step logits are
@@ -90,6 +94,17 @@ Phases:
                 over 8 replayed selections), the host time a step of its
                 operands, and 8 sampled steps replayed with greedy and
                 with sampled selection
+  5d. prefix_serve — phase 5's model and engine with the prefix cache on
+                and a 1 GiB host KV tier, pumped on one thread: a 256-token
+                shared prefix (a donor, then 15 requests with suffixes of
+                16..144 at once: each prefills len - 256, every stream equal
+                bit for bit to a cold twin's, TTFT, tok/s and prefilled
+                tokens beside it), an exact duplicate (one prefilled token,
+                one COW), cache pressure until the prefix lives only in
+                the host tier and its onboarding (the cold stream again),
+                another tenant (no hit), and a stream handed off after its
+                first token to a second engine (one prefilled token, the
+                cold stream); the ledgers balanced after each part
   6. train    — full gpt3-1.3b, bf16, B=4, S=1024, AdamW (lr 1e-4, wd
                 0.01, fp32 moments), one batch repeated: a ScanTrainStep
                 chunk of 3 warm-up steps, then one of 10 timed steps with
@@ -359,6 +374,47 @@ def _paged_case(torch, gen, *, dtype, H, Hkv, D, B=8, Tq=64, block_len=8,
                 block_len=block_len, pages_per_row=n_blocks)
 
 
+SHARED_PAGES = 32     # the shared_pages case: a 256-token prefix of 8-wide
+SHARED_SUFFIXES = (64, 16, 144, 1, 100, 33, 64, 120)   # pages, each row's
+
+
+def shared_pages_cases(torch, gen, H=16, D=128, Tq=64, block_len=8,
+                       n_blocks=64, pad=64, decode_rows=(3,)):
+    """The prefix cache's layout for the paged kernel, at the serve cell's
+    shapes: (shared, private). In `shared`, all 8 rows' tables point at
+    the same SHARED_PAGES pages of row 0 and then at their own pages past
+    them; in `private`, each row holds a copy of those pages in its own
+    row and reads it through the identity table. Same queries, same
+    lengths (256 + SHARED_SUFFIXES), so the outputs must be bit-equal."""
+    B = len(SHARED_SUFFIXES)
+    dev = "cuda"
+    L = n_blocks * block_len + pad
+    k = torch.randn(B, H, L, D, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, H, L, D, generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn(B, H, Tq, D, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    n_sh = SHARED_PAGES * block_len
+    lens = [n_sh + n for n in SHARED_SUFFIXES]
+    shared = torch.full((B, n_blocks), -1, dtype=torch.int32)
+    ident = torch.full((B, n_blocks), -1, dtype=torch.int32)
+    for b, n in enumerate(lens):
+        used = -(-n // block_len)
+        own = torch.arange(used, dtype=torch.int32) + b * n_blocks
+        ident[b, :used] = own
+        shared[b, :used] = own
+        shared[b, :SHARED_PAGES] = torch.arange(SHARED_PAGES)
+    kp, vp = k.clone(), v.clone()
+    kp[:, :, :n_sh] = k[:1, :, :n_sh]
+    vp[:, :, :n_sh] = v[:1, :, :n_sh]
+    i32 = dict(dtype=torch.int32, device=dev)
+    q_pos = torch.tensor([n - 1 if b in decode_rows else n - Tq
+                          for b, n in enumerate(lens)], **i32)
+    common = dict(q=q, lens=torch.tensor(lens, **i32), q_pos=q_pos,
+                  block_len=block_len, pages_per_row=n_blocks)
+    return (dict(common, k=k, v=v, table=shared.to(dev)),
+            dict(common, k=kp, v=vp, table=ident.to(dev)))
+
+
 def _paged_bytes_ops(c):
     """Bytes the function must move and the operations it must do.
 
@@ -574,6 +630,28 @@ def phase_kernels():
         check(torch.equal(*runs), f"paged attention {label}: two runs differ")
     emit({"phase": "kernel_checks", "name": "paged_attention_bitwise",
           "runs": 2, "equal": ["bf16 H16 D128", "GQA bf16"]})
+    # the prefix cache's layout: 8 rows reading one row's 32 pages, held
+    # bit-equal to the same rows reading private copies, and timed beside
+    # that identity layout (one input copy each: the shared pages stay in
+    # L2 for the rows after the first, which is the layout's point)
+    sh, priv = shared_pages_cases(torch, gen)
+    cases["shared_pages"] = check_paged(torch, sh, "shared pages")[0]
+    a_sh = (sh["q"], sh["k"], sh["v"], sh["table"], sh["lens"],
+            sh["q_pos"], 8, 64, 1.0 / math.sqrt(128))
+    a_pr = (priv["q"], priv["k"], priv["v"], priv["table"], priv["lens"],
+            priv["q_pos"], 8, 64, 1.0 / math.sqrt(128))
+    sh_equal = torch.equal(paged_attention_cuda(*a_sh),
+                           paged_attention_cuda(*a_pr))
+    sh_ms, _ = time_cuda([partial(paged_attention_cuda, *a_sh)])
+    pr_ms, _ = time_cuda([partial(paged_attention_cuda, *a_pr)])
+    shared_pages = dict(
+        equal_to_private_copies=sh_equal, ms=sh_ms, identity_ms=pr_ms,
+        shape=dict(B=8, H=16, Tq=64, D=128, block_len=8,
+                   shared_pages=SHARED_PAGES,
+                   seq_lens=sh["lens"].tolist()))
+    del sh, priv, a_sh, a_pr
+    check(sh_equal, "paged attention over shared pages differs from the "
+                    "same rows over private copies")
 
     # each layer of a served step reads its own slabs, which the layers
     # before it have pushed out of L2: every timing cycles input copies
@@ -626,7 +704,7 @@ def phase_kernels():
         tflops=n_ops / pa_ms / 1e9, share_of_bound=pa_bound / pa_ms,
         shape=dict(B=8, H=16, Hkv=16, Tq=64, D=128, block_len=8,
                    pages_per_row=64, seq_lens=lens, dtype="bfloat16"),
-        at_llama_shapes=at_llama, cases=cases)
+        at_llama_shapes=at_llama, shared_pages=shared_pages, cases=cases)
     emit({"phase": "kernel", "name": "paged_attention",
           **results["paged_attention"]})
 
@@ -1981,21 +2059,21 @@ SERVE_CELLS = {
     "sample_serve": dict(preset="gpt3-1.3b", requests=16),
 }
 SERVE_BUSY_STEPS = 8     # the burst's steps replayed to read device busy
+# the serve cells' engine: the prefix cache is off, so that the burst's
+# prompts (and serve_warm_up's prompts[0][:40], which would warm-hit the
+# burst) cost the same prefill as in the runs before the cache was ported;
+# the prefix_serve phase turns it on
+SERVE_ENGINE = dict(num_slots=8, block_len=8, n_blocks=64, prefill_chunk=64,
+                    max_new_tokens=SERVE_NEW_TOKENS, enable_prefix_cache=False)
 
 
-def serve_workload(cell="serve"):
-    """A serve cell of SERVE_CELLS, shared with
-    tools/profile_torch_serving.py: its model in bf16 with random weights
-    from SEED behind LLMEngine(num_slots=8, block_len=8, n_blocks=64,
-    prefill_chunk=64) on a MonotonicClock, and its prompts of 32..400
-    tokens. Returns (model, engine, prompts, model_init_s); the engine is
-    not started."""
-    import numpy as np
+def serve_model(cell="serve"):
+    """(model, model_init_s): a serve cell's model in bf16 on the card,
+    random weights from SEED."""
     import torch
-    from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
-
     over = dict(SERVE_CELLS[cell])
-    preset, n_req = over.pop("preset"), over.pop("requests")
+    preset = over.pop("preset")
+    over.pop("requests")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     t0 = time.perf_counter()
@@ -2003,10 +2081,22 @@ def serve_workload(cell="serve"):
                                             dtype="bfloat16", generator=gen,
                                             **over)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    cfg = LLMEngineConfig(num_slots=8, block_len=8, n_blocks=64,
-                          prefill_chunk=64, max_new_tokens=SERVE_NEW_TOKENS)
-    engine = LLMEngine(model, cfg)
+    return model, time.perf_counter() - t0
+
+
+def serve_workload(cell="serve"):
+    """A serve cell of SERVE_CELLS, shared with
+    tools/profile_torch_serving.py: its model (serve_model) behind
+    LLMEngine(num_slots=8, block_len=8, n_blocks=64, prefill_chunk=64)
+    with the prefix cache off (SERVE_ENGINE) on a MonotonicClock, and its
+    prompts of 32..400 tokens. Returns (model, engine, prompts,
+    model_init_s); the engine is not started."""
+    import numpy as np
+    from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
+
+    n_req = SERVE_CELLS[cell]["requests"]
+    model, init_s = serve_model(cell)
+    engine = LLMEngine(model, LLMEngineConfig(**SERVE_ENGINE))
     vocab = model.config.vocab_size
     rng = np.random.RandomState(SEED + 1)
     prompts = [rng.randint(0, vocab, (int(n),)).astype(np.int32)
@@ -2063,9 +2153,9 @@ def step_busy(step_logits, recorded):
 
 
 def phase_serve(cell="serve", record=None):
-    """A serve cell of SERVE_CELLS through the started engine: its prompts
-    submitted at once, launch counts zeroed just before and read just
-    after; every stream checked, 4 against generate(); then the
+    """A serve cell of SERVE_CELLS through the started engine (prefix
+    cache off, SERVE_ENGINE): its prompts submitted at once, launch counts
+    zeroed just before and read just after; every stream checked, 4 against generate(); then the
     device-busy time of a step beside its wall time. `record`, a dict,
     receives the burst's streams and its tok/s, TTFT and decode step
     (phase_sample_serve holds its greedy streams to them)."""
@@ -2519,8 +2609,8 @@ def _first_token_on_cpu(torch, row, sp):
 
 
 def phase_sample_serve(serve):
-    """The serve cell (full gpt3-1.3b, bf16, the same engine and 16
-    prompts) with a burst that mixes greedy, sampled and constrained
+    """The serve cell (full gpt3-1.3b, bf16, the same engine, prefix cache
+    off, and 16 prompts) with a burst that mixes greedy, sampled and constrained
     requests by index (sample_params), launch counts zeroed just before
     it and read just after. Checks: every stream in-vocab and of its
     length; each greedy stream equal to the serve phase's stream of its
@@ -2670,6 +2760,323 @@ def phase_sample_serve(serve):
           f"constrained streams: {constrained}")
     check(sel_ms is not None, "the profiler saw no selection kernel")
     del model, engine, handles, sampled_steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------- phase 5d
+PREFIX_SHARED = 256          # the shared system prompt: 32 blocks of 8
+PREFIX_DONOR_SUFFIX = 32
+PREFIX_SUFFIXES = [16 + (144 - 16) * i // 14 for i in range(15)]  # 16..144
+PREFIX_HOST_BYTES = 1 << 30  # the host tier: ~680 pages of 1.5 MiB
+PREFIX_PRESSURE_LEN = 264    # 33 blocks, sharing no block with the rest
+PREFIX_PRESSURE_MAX = 32     # prompts allowed before the prefix must spill
+
+
+def prefix_prompts(vocab):
+    """(shared prefix, donor prompt, 15 warm prompts), drawn from SEED + 2:
+    256 shared tokens, then a 32-token suffix (the donor) or suffixes of
+    16..144 tokens."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 2)
+    shared = rng.randint(0, vocab, (PREFIX_SHARED,)).astype(np.int32)
+
+    def with_suffix(n):
+        return np.concatenate(
+            [shared, rng.randint(0, vocab, (n,)).astype(np.int32)])
+
+    donor = with_suffix(PREFIX_DONOR_SUFFIX)
+    return shared, donor, [with_suffix(n) for n in PREFIX_SUFFIXES]
+
+
+def _drive(engine):
+    """Pump an engine on this thread until it is idle."""
+    while engine.has_work():
+        engine.pump()
+
+
+def _prefix_burst(engine, donor, warm):
+    """The donor alone, then the warm prompts at once. Returns (donor
+    handle, warm handles, the burst's readings)."""
+    import torch
+    h0 = engine.submit(donor, logprobs=True)
+    _drive(engine)
+    torch.cuda.synchronize()
+    pre0, steps0 = engine.prefill_tokens, engine.steps
+    t0 = time.perf_counter()
+    hs = [engine.submit(p, logprobs=True) for p in warm]
+    _drive(engine)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ttfts = sorted(h.ttft_ms for h in hs)
+    gen = sum(len(h.result(0)) for h in hs)
+    return h0, hs, dict(
+        prefilled_tokens=engine.prefill_tokens - pre0,
+        steps=engine.steps - steps0, wall_s=wall,
+        generated_tok_s=gen / wall,
+        ttft_p50_ms=statistics.median(ttfts), ttft_min_ms=ttfts[0],
+        ttft_max_ms=ttfts[-1],
+        decode_step_p50_ms=engine.metrics.snapshot()["intertoken_p50_ms"])
+
+
+def phase_prefix_serve():
+    """The serve cell's model (full gpt3-1.3b, bf16, random weights from
+    SEED) behind the serve engine with the prefix cache on and a 1 GiB
+    host tier, pumped on this thread on a MonotonicClock; launch counts
+    zeroed just before the parts and read just after.
+
+    a. Shared prefix: a donor (256 shared + 32 tokens) alone, then 15
+       prompts of the same 256 tokens with suffixes of 16..144 at once.
+       Each warm request hits exactly 256 tokens, so it prefills
+       len - 256; prefix_hits is 15. A cold twin (cache off) serves the
+       same prompts in the same order first; every warm stream equals its
+       cold stream bit for bit. Readings: prefilled tokens, TTFT p50 and
+       max, generated tok/s, decode step p50, warm beside cold.
+    b. The last warm prompt again: one prefilled token, one more COW, its
+       stream equal to its first run.
+    c. Distinct 264-token prompts (2 new tokens) until the trie holds none
+       of the shared prefix while prefix_probe still finds all 256 tokens
+       (in the host tier), at most 32; then the second warm prompt again:
+       at least 256 tokens onboarded, a multiple of 8, the rest
+       prefilled, its cold stream. Readings: pages spilled, ms a spilled
+       page, ms a page onboarded, the host ms of an admission that
+       spilled.
+    d. The same prompt under tenant "b": no hit, no onboard, its cold
+       stream.
+    e. Handoff: the third warm prompt's stream exported after its first
+       token and resubmitted with its kv_row and lane into a second
+       engine: len(prompt) tokens imported, one prefilled, the cold
+       stream.
+    check_balance() after each part; paged attention (tensor-core route)
+    and the LayerNorm forward launched."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import _kernels
+    from paddle_tpu_torch.ops.paged_attention import (TENSOR_CORES,
+                                                      paged_route)
+    from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = serve_model("serve")
+    vocab = model.config.vocab_size
+    shared, donor, warm = prefix_prompts(vocab)
+    warm_cfg = dict(SERVE_ENGINE, enable_prefix_cache=True,
+                    host_kv_bytes=PREFIX_HOST_BYTES)
+    ns = "default"
+    _kernels.reset_launch_counts()
+
+    # a. the cold twin first (it also warms the process), then cache on
+    cold_eng = LLMEngine(model, LLMEngineConfig(**SERVE_ENGINE))
+    c0, cold_hs, cold = _prefix_burst(cold_eng, donor, warm)
+    c_pre = cold["prefilled_tokens"]
+    cold_streams = [c0.result(0)] + [h.result(0) for h in cold_hs]
+    cold_lps = [c0.logprobs_so_far()] + [h.logprobs_so_far()
+                                         for h in cold_hs]
+    cold_eng.pool.check_balance()
+    del cold_eng, cold_hs
+    gc.collect()
+    eng = LLMEngine(model, LLMEngineConfig(**warm_cfg))
+    lookups = []
+    on_lookup = eng.metrics.on_prefix_lookup
+
+    def record_lookup(tenant, hit, n):
+        lookups.append((tenant, int(hit), int(n)))
+        on_lookup(tenant, hit, n)
+
+    eng.metrics.on_prefix_lookup = record_lookup
+    # each pressure eviction walks the whole trie for its LRU victim
+    walks = []
+    lru_victim = eng.prefix_cache._lru_victim
+
+    def timed_victim():
+        t0 = time.perf_counter()
+        out = lru_victim()
+        walks.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    eng.prefix_cache._lru_victim = timed_victim
+    w0, warm_hs, warm_r = _prefix_burst(eng, donor, warm)
+    w_pre = warm_r["prefilled_tokens"]
+    # the spills that pressure made inside the warm burst, on its path
+    warm_r.update(spilled_pages=eng.prefix_cache.spilled_pages,
+                  spill_s=eng.prefix_cache.spill_seconds,
+                  alloc_failures=eng.pool.stats["alloc_failures"])
+    warm_streams = [w0.result(0)] + [h.result(0) for h in warm_hs]
+    eng.pool.check_balance()
+    snap = eng.metrics.snapshot()
+    hits = [hit for _, hit, _ in lookups[1:]]
+    equal = [bool(np.array_equal(a, b))
+             for a, b in zip(warm_streams, cold_streams)]
+    lp_diff = max(float(np.max(np.abs(np.asarray(h.logprobs_so_far())
+                                      - np.asarray(c))))
+                  for h, c in zip([w0] + warm_hs, cold_lps))
+    part_a = dict(cold=cold, warm=warm_r, prefix_hits=snap["prefix_hits"],
+                  hit_tokens=hits, streams_equal=equal,
+                  logprob_max_abs_diff=lp_diff,
+                  first_divergence={
+                      i: int(np.flatnonzero(a != b)[0])
+                      for i, (a, b) in enumerate(zip(warm_streams,
+                                                     cold_streams))
+                      if not equal[i]})
+    check(lookups[0][1] == 0 and c_pre == sum(len(p) for p in warm),
+          f"donor lookup {lookups[0]}, cold burst prefilled {c_pre}")
+    check(hits == [PREFIX_SHARED] * len(warm)
+          and w_pre == sum(len(p) - PREFIX_SHARED for p in warm),
+          f"warm hits {hits}, prefilled {w_pre}: want each request to "
+          f"prefill len - {PREFIX_SHARED}")
+    check(snap["prefix_hits"] == len(warm),
+          f"prefix_hits {snap['prefix_hits']}, want {len(warm)}")
+
+    # b. an exact duplicate of the last warm prompt, whose chain is the
+    # newest in the trie (no allocation followed its insert)
+    dup = warm[-1]
+    pre0, cow0 = eng.prefill_tokens, eng.pool.stats["cow_copies"]
+    hd = eng.submit(dup)
+    _drive(eng)
+    part_b = dict(prompt_len=len(dup), prefilled=eng.prefill_tokens - pre0,
+                  cow_copies=eng.pool.stats["cow_copies"] - cow0,
+                  stream_equal=bool(np.array_equal(hd.result(0),
+                                                   warm_streams[-1])))
+    eng.pool.check_balance()
+
+    # c. pressure until the shared prefix lives only in the host tier
+    admits, imports = [], []
+    spilled = [eng.prefix_cache.spilled_pages]
+    admit = eng._admit
+
+    def timed_admit():
+        t0 = time.perf_counter()
+        admit()
+        torch.cuda.synchronize()
+        admits.append(((time.perf_counter() - t0) * 1e3,
+                       eng.prefix_cache.spilled_pages - spilled[0]))
+        spilled[0] = eng.prefix_cache.spilled_pages
+
+    eng._admit = timed_admit
+    rng = np.random.RandomState(SEED + 3)
+    n_pressure = 0
+    while n_pressure < PREFIX_PRESSURE_MAX and (
+            eng.prefix_cache.probe(ns, shared) != 0
+            or eng.prefix_probe(shared) != PREFIX_SHARED):
+        eng.submit(rng.randint(0, vocab, (PREFIX_PRESSURE_LEN,)).astype(
+            np.int32), max_new_tokens=2)
+        _drive(eng)
+        n_pressure += 1
+    check(eng.prefix_cache.probe(ns, shared) == 0
+          and eng.prefix_probe(shared) == PREFIX_SHARED,
+          f"after {n_pressure} pressure prompts the trie holds "
+          f"{eng.prefix_cache.probe(ns, shared)} shared tokens and both "
+          f"tiers {eng.prefix_probe(shared)}")
+    eng.pool.check_balance()
+    back = warm[1]
+    import_page = eng.pool.import_page
+
+    def timed_import(*args):
+        t0 = time.perf_counter()
+        import_page(*args)
+        torch.cuda.synchronize()
+        imports.append((time.perf_counter() - t0) * 1e3)
+
+    eng.pool.import_page = timed_import
+    on0, pre0 = eng.host_onboard_tokens, eng.prefill_tokens
+    hb = eng.submit(back)
+    _drive(eng)
+    eng.pool.import_page = import_page
+    onboarded = eng.host_onboard_tokens - on0
+    spill_admits = [ms for ms, n in admits if n > 0]
+    part_c = dict(
+        pressure_prompts=n_pressure,
+        spilled_pages=eng.prefix_cache.spilled_pages,
+        spill_ms_per_page=(eng.prefix_cache.spill_seconds * 1e3
+                           / max(eng.prefix_cache.spilled_pages, 1)),
+        onboarded_tokens=onboarded,
+        prefilled=eng.prefill_tokens - pre0,
+        onboard_ms_per_page=(statistics.median(imports) if imports
+                             else None),
+        spill_admission_host_ms=dict(
+            n=len(spill_admits),
+            p50=statistics.median(spill_admits) if spill_admits else None,
+            max=max(spill_admits) if spill_admits else None,
+            pages=[n for _, n in admits if n > 0]),
+        lru_walks=dict(n=len(walks), ms_p50=statistics.median(walks),
+                       ms_max=max(walks), ms_total=sum(walks)),
+        host_kv=eng.host_kv.snapshot(),
+        stream_equal=bool(np.array_equal(hb.result(0), cold_streams[2])))
+    eng.pool.check_balance()
+
+    # d. the same prompt under another tenant: no hit in either tier
+    hits0 = eng.metrics.snapshot()["prefix_hits"]
+    on0, pre0 = eng.host_onboard_tokens, eng.prefill_tokens
+    ht = eng.submit(back, tenant="b")
+    _drive(eng)
+    part_d = dict(hits=eng.metrics.snapshot()["prefix_hits"] - hits0,
+                  onboarded=eng.host_onboard_tokens - on0,
+                  prefilled=eng.prefill_tokens - pre0,
+                  stream_equal=bool(np.array_equal(ht.result(0),
+                                                   cold_streams[2])))
+    eng.pool.check_balance()
+
+    # e. handoff after the first token into a second engine
+    src_p = warm[2]
+    hs = eng.submit(src_p, rid="handoff")
+    while not hs.tokens_so_far():
+        eng.pump()
+    payload = eng.export_stream("handoff")
+    eng.pool.check_balance()
+    pool_snap = eng.pool.snapshot()
+    cache_snap = {k: v for k, v in eng.prefix_cache.snapshot().items()
+                  if k != "tenants"}
+    del eng
+    gc.collect()
+    dst = LLMEngine(model, LLMEngineConfig(**warm_cfg))
+    emitted = payload["emitted"]
+    h2 = dst.submit(np.concatenate([src_p, emitted]).astype(np.int32),
+                    max_new_tokens=SERVE_NEW_TOKENS - len(emitted),
+                    kv_row=payload["kv_row"], lane=payload["lane"],
+                    sample_offset=len(emitted))
+    _drive(dst)
+    stream = np.asarray(list(emitted) + list(h2.result(0)), np.int32)
+    part_e = dict(emitted_at_export=len(emitted),
+                  kv_import_tokens=dst.kv_import_tokens,
+                  prefilled=dst.prefill_tokens,
+                  stream_equal=bool(np.array_equal(stream,
+                                                   cold_streams[3])))
+    dst.pool.check_balance()
+    launches = _kernels.launch_counts()
+    head_dim = model.config.hidden_size // model.config.num_attention_heads
+    result = {
+        "phase": "prefix_serve", "model": "gpt3-1.3b", "dtype": "bfloat16",
+        "engine": warm_cfg, "shared_prefix": PREFIX_SHARED,
+        "suffixes": PREFIX_SUFFIXES, "a_shared_prefix": part_a,
+        "b_duplicate": part_b, "c_pressure_host_tier": part_c,
+        "d_tenant": part_d, "e_handoff": part_e, "pool": pool_snap,
+        "prefix_cache": cache_snap, "kernel_launches": launches,
+        "paged_route": paged_route(torch.bfloat16, warm_cfg["block_len"],
+                                   head_dim),
+        "model_init_s": init_s,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit(result)
+    check(all(equal), f"warm streams differ from cold ones: {equal}")
+    check(part_b["prefilled"] == 1 and part_b["cow_copies"] == 1
+          and part_b["stream_equal"], f"duplicate: {part_b}")
+    check(onboarded >= PREFIX_SHARED and onboarded % 8 == 0
+          and part_c["prefilled"] == len(back) - onboarded
+          and part_c["stream_equal"], f"host onboard: {part_c}")
+    check(part_d["hits"] == 0 and part_d["onboarded"] == 0
+          and part_d["prefilled"] == len(back) and part_d["stream_equal"],
+          f"tenant b: {part_d}")
+    check(part_e["kv_import_tokens"] == len(src_p) + len(emitted) - 1
+          and part_e["prefilled"] == 1 and part_e["stream_equal"],
+          f"handoff: {part_e}")
+    check(launches["paged_attention"] > 0 and launches["layernorm_fwd"] > 0
+          and result["paged_route"] == TENSOR_CORES,
+          f"prefix_serve launched {launches} on the {result['paged_route']} "
+          "route: want paged attention on the tensor cores and the "
+          "LayerNorm forward")
+    del model, dst, payload
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -2985,6 +3392,7 @@ def main():
     timed("sampling", phase_sampling)
     by_phase["sample_serve"] = timed("sample_serve", phase_sample_serve,
                                      serve)
+    by_phase["prefix_serve"] = timed("prefix_serve", phase_prefix_serve)
     by_phase["train"], train_peak = timed("train", phase_train, name)
     by_phase["train_recipe"], _ = timed("train_recipe", phase_train, name,
                                         "train_recipe",
@@ -3008,7 +3416,7 @@ def main():
         for x in ("tflops", "share_of_bound", "without_variant_ms",
                   "causal_case_b", "entry_key_padding_b11s",
                   "entry_per_head_bf16",    # the flash kernels and variants
-                  "at_llama_shape", "at_llama_shapes"):
+                  "at_llama_shape", "at_llama_shapes", "shared_pages"):
             if x in kern[k]:
                 line[x] = kern[k][x]
         if k + "_train" in kern:   # a served kernel the train step runs too

@@ -10,7 +10,7 @@ class RejectedError(RuntimeError):
     """Admission control fast-fail. `reason` is machine-readable and
     matches the reject-reason metric label ("queue_full", "shed",
     "draining", "prompt_too_long", "drain_timeout", "shutdown",
-    "grammar_capacity")."""
+    "grammar_capacity", "tenant_quota")."""
 
     def __init__(self, msg: str, reason: str = "rejected"):
         super().__init__(msg)

@@ -31,27 +31,42 @@ The JAX step selects all N x C columns (it needs them for speculative
 decoding's verify window, which is not ported); the emission column's
 lane and draw are the same, so the tokens are too.
 
+Prefix sharing, as in the JAX engine and on by default: admission looks
+the prompt up in a per-tenant radix `PrefixCache`; matched full blocks
+are attached (the slot's block table points at the donor's refcounted
+pages), a matched partial block is copied-on-write into the slot's own
+page, and only the rest of the prompt is prefilled. A finished prefill
+is indexed at the step that lands its last chunk. Under slot pressure
+the cache evicts least-recently-used pages nobody reads; with
+`host_kv_bytes > 0` each evicted full block spills to a host-RAM LRU
+(`HostKVPool`) and a later admission onboards it instead of prefilling.
+`export_stream(rid)` hands a decoding stream's KV and sampling lane to
+another engine, whose `submit(prompt + emitted, kv_row=, lane=)`
+continues it with a one-token prefill.
+
 Admission control keeps the JAX engine's vocabulary: three SLO-class
-queues admitted in strict priority order, a bounded queue (a full queue
-sheds the newest request of a lower class before it rejects with
-`RejectedError(reason="queue_full")`), absolute deadlines (queued
-requests are dropped, active rows evicted, both with
-`DeadlineExceededError`), and a graceful `stop(drain=True)`.
+queues admitted in strict priority order and tenant-fair within a class,
+a bounded queue (a full queue sheds the newest request of a lower class
+before it rejects with `RejectedError(reason="queue_full")`), an
+optional per-tenant in-flight token quota (reason "tenant_quota"),
+absolute deadlines (queued requests are dropped, active rows evicted,
+both with `DeadlineExceededError`), and a graceful `stop(drain=True)`.
 
 Under a `SimClock` the engine runs threadless and the harness calls
 `pump()`; under the default `MonotonicClock`, `start()` runs the same
 `pump()` on a scheduler thread.
 
-Not ported yet (each is a ROADMAP item): speculative decoding, the
-prefix cache, the host KV tier, LoRA adapters, the serving economics
-ledger, the compile observatory, supervisor retries and blame probes,
-tracing, and rolling deploys.
+Not ported yet (each is a ROADMAP item): speculative decoding (and the
+draft pool's prefix cache), LoRA adapters, the serving economics ledger,
+the compile observatory, supervisor retries and blame probes, tracing,
+and rolling deploys with their cache flush.
 """
 from __future__ import annotations
 
 import logging
 import threading
 import time
+import uuid
 from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass
@@ -63,7 +78,9 @@ import torch
 from ..clock import Clock, MonotonicClock, SimClock
 from ..engine import DeadlineExceededError, RejectedError
 from ..metrics import SLO_CLASSES, LLMMetrics
+from .host_kv import HostKVPool
 from .kv_pool import SlotPagedKVPool, SlotsExhaustedError
+from .prefix_cache import PrefixCache
 from .sampling import (GREEDY, SamplingParams, SlotSamplingTable,
                        compile_grammar, select_rows)
 
@@ -89,6 +106,19 @@ class LLMEngineConfig:
     #                                shape DFA bank holds; a request needing
     #                                one more is rejected ("grammar_capacity")
     max_dfa_states: int = 128      # per-grammar token-DFA state ceiling
+    # ---- prefix cache, tenants, host KV tier ----
+    enable_prefix_cache: bool = True   # radix KV prefix sharing on admission
+    default_tenant: str = "default"    # tenant when submit() names none
+    tenant_max_inflight_tokens: Optional[int] = None  # per-tenant quota:
+    #                                  sum of (prompt + max_new_tokens) over
+    #                                  one tenant's queued + active requests
+    #                                  (None: off); exceeding it is a typed
+    #                                  "tenant_quota" reject, checked before
+    #                                  shedding (shedding other tenants
+    #                                  cannot relieve it)
+    host_kv_bytes: int = 0         # host-RAM spill tier byte budget: > 0
+    #                                keeps pages evicted under pressure in a
+    #                                HostKVPool for onboarding at admission
 
     def __post_init__(self):
         if self.num_slots < 1:
@@ -108,6 +138,16 @@ class LLMEngineConfig:
         if self.max_dfa_states < 1:
             raise ValueError(
                 f"max_dfa_states must be >= 1, got {self.max_dfa_states}")
+        if not self.default_tenant:
+            raise ValueError("default_tenant must be a non-empty string")
+        if (self.tenant_max_inflight_tokens is not None
+                and self.tenant_max_inflight_tokens < 1):
+            raise ValueError(
+                f"tenant_max_inflight_tokens must be >= 1, got "
+                f"{self.tenant_max_inflight_tokens}")
+        if self.host_kv_bytes < 0:
+            raise ValueError(
+                f"host_kv_bytes must be >= 0, got {self.host_kv_bytes}")
 
 
 class GenerationHandle:
@@ -124,6 +164,7 @@ class GenerationHandle:
         self.slo = slo
         self.future: Future = Future()
         self.ttft_ms: Optional[float] = None
+        self.rid: Optional[str] = None       # request id (always assigned)
         self._lock = threading.Lock()
         self._tokens: List[int] = []
         self._logprobs: List[Optional[float]] = []
@@ -149,22 +190,33 @@ class GenerationHandle:
 class _GenRequest:
     __slots__ = ("prompt", "max_new_tokens", "eos_token_id", "arrival",
                  "deadline", "handle", "slot", "emitted", "last_tok", "slo",
-                 "chunk_off", "want_logprobs", "sampling", "sample_offset",
-                 "gid", "dfa_state0")
+                 "cost", "chunk_off", "tenant", "attached_pages", "rid",
+                 "want_logprobs", "sampling", "sample_offset", "gid",
+                 "dfa_state0", "kv_row")
 
     def __init__(self, prompt, max_new_tokens, eos_token_id, arrival,
-                 deadline, slo, want_logprobs=False):
+                 deadline, slo, want_logprobs=False, tenant="default"):
         self.prompt = prompt              # np.int32 [S]
         self.max_new_tokens = max_new_tokens
         self.eos_token_id = eos_token_id
         self.arrival = arrival            # clock seconds
         self.deadline = deadline          # absolute clock seconds or None
         self.slo = slo
+        self.cost = len(prompt) + max_new_tokens  # token-budget estimate
         self.handle = GenerationHandle(len(prompt), max_new_tokens, slo)
         self.slot: Optional[int] = None
         self.emitted: List[int] = []
         self.last_tok: int = 0
-        self.chunk_off: int = 0           # prompt tokens already prefilled
+        self.chunk_off: int = 0           # prompt tokens already prefilled,
+        #                                   or attached / COW'd / onboarded /
+        #                                   imported at admission
+        self.tenant = tenant
+        self.attached_pages: List[int] = []   # shared pages this request
+        #                                       reads (refcounted in pool)
+        self.rid: Optional[str] = None    # request id (always assigned)
+        self.kv_row: Optional[dict] = None  # KV of the prompt's first
+        #                                   `length` tokens from another
+        #                                   engine's export_stream
         self.want_logprobs = want_logprobs
         self.sampling: Optional[SamplingParams] = None
         self.sample_offset: int = 0       # stream index of the first token
@@ -195,6 +247,15 @@ class LLMEngine:
             self.config.n_blocks, dtype=self.config.cache_dtype,
             pad_tokens=self.config.prefill_chunk)
         self.metrics.set_slots(0, self.pool.num_slots)
+        # the host spill tier under the prefix cache, which wires itself as
+        # the pool's on_pressure hook
+        self.host_kv: Optional[HostKVPool] = (
+            HostKVPool(self.config.host_kv_bytes, self.config.block_len)
+            if self.config.host_kv_bytes > 0 else None)
+        self.prefix_cache: Optional[PrefixCache] = (
+            PrefixCache(self.pool, host_pool=self.host_kv,
+                        clock=self.clock.now)
+            if self.config.enable_prefix_cache else None)
         # per-slot sampling + grammar bank, sized off the model's vocab
         vocab_size = int(getattr(getattr(model, "config", None),
                                  "vocab_size", 0))
@@ -217,6 +278,10 @@ class LLMEngine:
         self.prefill_dispatches = 0  # lifetime steps carrying only prefill
         self.prefill_tokens = 0      # lifetime prompt tokens prefilled
         self.steps = 0               # lifetime unified steps run
+        self.host_onboard_tokens = 0  # prompt tokens onboarded from the
+        #                               host tier (prefill skipped)
+        self.kv_import_tokens = 0    # prompt tokens imported from a
+        #                              kv_row (prefill skipped)
 
     # ---- the unified step ----
     @torch.no_grad()
@@ -373,11 +438,36 @@ class LLMEngine:
         return sum(len(q) for q in self._queues.values())
 
     def _pop_next_locked(self) -> Optional[_GenRequest]:
-        """Strict SLO-class priority, FIFO within a class."""
+        """Strict SLO-class priority, tenant-fair WITHIN a class: the
+        oldest request of the tenant with the least active token usage
+        (sum of cost over its slot-holding requests), so one tenant's
+        burst cannot starve another at equal priority. With one tenant
+        queued this is FIFO."""
         for cls in SLO_CLASSES:
-            if self._queues[cls]:
-                return self._queues[cls].popleft()
+            q = self._queues[cls]
+            if not q:
+                continue
+            if len({r.tenant for r in q}) <= 1:
+                return q.popleft()
+            usage: Dict[str, int] = {}
+            for r in self._active.values():
+                usage[r.tenant] = usage.get(r.tenant, 0) + r.cost
+            best_i = 0
+            best_u = None
+            for i, r in enumerate(q):           # FIFO tie-break
+                u = usage.get(r.tenant, 0)
+                if best_u is None or u < best_u:
+                    best_i, best_u = i, u
+            req = q[best_i]
+            del q[best_i]
+            return req
         return None
+
+    def _tenant_inflight_locked(self, tenant: str) -> int:
+        return (sum(r.cost for q in self._queues.values()
+                    for r in q if r.tenant == tenant)
+                + sum(r.cost for r in self._active.values()
+                      if r.tenant == tenant))
 
     def _make_room_locked(self, slo: str) -> bool:
         """While the queue is full, fail the NEWEST queued request of the
@@ -397,7 +487,7 @@ class LLMEngine:
             victim.handle.future.set_exception(RejectedError(
                 f"shed ({victim.slo}) to admit {slo} traffic under "
                 "overload", reason="shed"))
-            self.metrics.on_reject("shed")
+            self.metrics.on_reject("shed", tenant=victim.tenant)
         return True
 
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
@@ -407,8 +497,19 @@ class LLMEngine:
                logprobs: bool = False,
                sampling: Optional[SamplingParams] = None,
                sample_offset: int = 0,
-               lane: Optional[dict] = None) -> GenerationHandle:
+               lane: Optional[dict] = None,
+               tenant: Optional[str] = None,
+               rid: Optional[str] = None,
+               kv_row: Optional[dict] = None) -> GenerationHandle:
         """Admit one prompt (1-D int token ids).
+
+        `tenant` names the request's isolation domain
+        (config.default_tenant when None): fair dequeue within a class,
+        the optional in-flight token quota and a private prefix-cache
+        namespace. `rid` is the request id (generated when None; it keys
+        `export_stream`). `kv_row` (an `export_stream` payload's) carries
+        the KV of the prompt's first `kv_row["length"]` tokens, which
+        admission lands in the slot instead of prefilling them.
 
         `sampling` carries the request's sampling contract; None is
         greedy. `sample_offset` is the stream index of the first token
@@ -420,9 +521,10 @@ class LLMEngine:
         entry) when its grammar and next index match.
 
         Raises RejectedError when the sequence can never fit a slot, the
-        queue is full and nothing lower-priority can be shed, the grammar
-        bank is full, or the engine is draining; ValueError on invalid
-        sampling params or a resumed tail the grammar forbids."""
+        tenant's quota is spent, the queue is full and nothing
+        lower-priority can be shed, the grammar bank is full, or the
+        engine is draining; ValueError on invalid sampling params, a
+        resumed tail the grammar forbids or a kv_row that does not fit."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must contain at least one token")
@@ -438,6 +540,10 @@ class LLMEngine:
         if slo not in SLO_CLASSES:
             raise ValueError(
                 f"slo must be one of {SLO_CLASSES}, got {slo!r}")
+        tenant = self.config.default_tenant if tenant is None else tenant
+        if not isinstance(tenant, str) or not tenant:
+            raise ValueError("tenant must be a non-empty string")
+        rid = rid or uuid.uuid4().hex
         eos = (self.config.eos_token_id if eos_token_id is None
                else eos_token_id)
         gid, dstate0 = 0, 0
@@ -446,6 +552,18 @@ class LLMEngine:
             if sampling.grammar is not None:
                 gid, dstate0 = self._grammar_row(sampling, eos, prompt,
                                                  sample_offset, lane)
+        if kv_row is not None:
+            if int(kv_row.get("block_len", -1)) != self.pool.block_len:
+                raise ValueError(
+                    f"kv_row block_len {kv_row.get('block_len')!r} does "
+                    f"not match the pool's ({self.pool.block_len}): KV "
+                    "pages are not portable across block geometries")
+            klen = int(kv_row["length"])
+            if not 0 < klen <= prompt.size - 1:
+                raise ValueError(
+                    f"kv_row length {klen} must cover 1..{prompt.size - 1} "
+                    "prompt tokens (at least one token always prefills — "
+                    "that step emits the first token's logits)")
         if prompt.size + mnt > self.pool.capacity:
             self.metrics.on_reject("prompt_too_long")
             raise RejectedError(
@@ -461,6 +579,16 @@ class LLMEngine:
                 self.metrics.on_reject("draining")
                 raise RejectedError("engine is draining; request rejected",
                                     reason="draining")
+            quota = self.config.tenant_max_inflight_tokens
+            if quota is not None and (
+                    self._tenant_inflight_locked(tenant)
+                    + prompt.size + mnt > quota):
+                # checked BEFORE shedding: shedding OTHER tenants'
+                # requests cannot relieve this tenant's own quota
+                self.metrics.on_reject("tenant_quota", tenant=tenant)
+                raise RejectedError(
+                    f"tenant {tenant!r} in-flight token quota exhausted "
+                    f"({quota} tokens)", reason="tenant_quota")
             if not self._make_room_locked(slo):
                 self.metrics.on_reject("queue_full")
                 raise RejectedError(
@@ -468,13 +596,17 @@ class LLMEngine:
                     f"pending requests); nothing below class {slo!r} to "
                     "shed", reason="queue_full")
             req = _GenRequest(prompt, mnt, eos, now, deadline, slo,
-                              want_logprobs=bool(logprobs))
+                              want_logprobs=bool(logprobs), tenant=tenant)
+            req.rid = rid
+            req.handle.rid = rid
             req.sampling = sampling
             req.sample_offset = sample_offset
             req.gid = gid
             req.dfa_state0 = dstate0
+            req.kv_row = kv_row
             self._queues[slo].append(req)
-            self.metrics.on_submit(self._queue_len_locked(), slo=slo)
+            self.metrics.on_submit(self._queue_len_locked(), slo=slo,
+                                   tenant=tenant)
             self._cond.notify_all()
         return req.handle
 
@@ -520,12 +652,48 @@ class LLMEngine:
                  deadline_ms: Optional[float] = None,
                  timeout: Optional[float] = None,
                  slo: Optional[str] = None,
-                 sampling: Optional[SamplingParams] = None) -> np.ndarray:
+                 sampling: Optional[SamplingParams] = None,
+                 tenant: Optional[str] = None) -> np.ndarray:
         """Synchronous convenience: submit + wait for the generated tokens."""
         return self.submit(prompt, max_new_tokens=max_new_tokens,
                            eos_token_id=eos_token_id,
                            deadline_ms=deadline_ms, slo=slo,
-                           sampling=sampling).result(timeout)
+                           sampling=sampling, tenant=tenant).result(timeout)
+
+    @staticmethod
+    def _kv_ns(tenant: str) -> str:
+        """The prefix-cache and host-tier namespace of a stream. The JAX
+        engine composes (tenant, adapter); the port serves no adapters
+        yet, so its namespace is the tenant."""
+        return tenant
+
+    def prefix_probe(self, prompt, tenant: Optional[str] = None) -> int:
+        """Longest block-aligned cached prefix of `prompt`, in tokens, in
+        either tier (device trie or host pool); 0 with both off.
+        Read-only: no refcounts, ticks or stats move."""
+        tenant = self.config.default_tenant if tenant is None else tenant
+        ns = self._kv_ns(tenant)
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        host = (self.host_kv.probe(ns, prompt)
+                if self.host_kv is not None else 0)
+        if self.prefix_cache is None:
+            return host
+        return max(self.prefix_cache.probe(ns, prompt), host)
+
+    @staticmethod
+    def _lane(req: "_GenRequest", dfa_state: int) -> dict:
+        """A request's sampling lane at its next stream index: what a
+        resubmission needs to continue the stream elsewhere."""
+        sp = req.sampling or GREEDY
+        return {
+            "seed": None if sp.seed is None else int(sp.seed),
+            "next_index": req.sample_offset + len(req.emitted),
+            "temperature": float(sp.temperature),
+            "top_k": int(sp.top_k),
+            "top_p": float(sp.top_p),
+            "grammar_key": (sp.grammar_key() if sp.constrained else None),
+            "dfa_state": int(dfa_state),
+        }
 
     def export_sampling_lanes(self, slots) -> dict:
         """The sampling-lane state of active `slots`: per slot, the
@@ -542,18 +710,55 @@ class LLMEngine:
                 req = self._active.get(slot)
                 if req is None:
                     raise ValueError(f"slot {slot} has no active request")
-                sp = req.sampling or GREEDY
-                out[slot] = {
-                    "seed": None if sp.seed is None else int(sp.seed),
-                    "next_index": req.sample_offset + len(req.emitted),
-                    "temperature": float(sp.temperature),
-                    "top_k": int(sp.top_k),
-                    "top_p": float(sp.top_p),
-                    "grammar_key": (sp.grammar_key()
-                                    if sp.constrained else None),
-                    "dfa_state": int(tab.dfa_state[slot]),
-                }
+                out[slot] = self._lane(req, tab.dfa_state[slot])
         return out
+
+    def export_stream(self, rid: str) -> dict:
+        """Export ONE decoding stream for a handoff and free its row, under
+        one lock acquisition, so no step advances the stream between the
+        snapshot and the release.
+
+        The stream must have emitted a token: its row's KV then covers
+        ``len(prompt) + len(emitted) - 1`` tokens (the last token's KV is
+        written by the step that consumes it), so a peer that resubmits
+        ``prompt + emitted`` with this payload's `kv_row` and `lane`
+        (sample_offset = len(emitted)) prefills one token and continues
+        the stream as the uninterrupted run would. The payload's KV is
+        CPU tensors in the slab dtype. This engine's handle is left
+        unresolved: the receiving engine's handle carries the stream on.
+        Raises ValueError when the rid is not active or still
+        mid-prefill."""
+        with self._cond:
+            found = next(((slot, req) for slot, req in self._active.items()
+                          if req.rid == rid), None)
+            if found is None:
+                raise ValueError(f"no active stream with rid {rid!r}")
+            slot, req = found
+            if req.chunk_off < len(req.prompt) or not req.emitted:
+                raise ValueError(
+                    f"stream {rid!r} has not completed prefill: a handoff "
+                    "exports post-prefill KV only")
+            row = self.pool.export_rows([slot])["rows"][slot]
+            payload = {
+                "rid": rid,
+                "tenant": req.tenant,
+                "prompt": np.asarray(req.prompt, np.int32).copy(),
+                "emitted": list(req.emitted),
+                "logprobs": (req.handle.logprobs_so_far()
+                             if req.want_logprobs else None),
+                "kv_row": {
+                    "block_len": self.pool.block_len,
+                    "length": int(row["length"]),
+                    "layers": row["layers"],
+                },
+                "lane": self._lane(req, self.sampling_table.dfa_state[slot]),
+            }
+            self._free_slot_locked(slot)
+            del self._active[slot]
+            self.metrics.set_slots(self.pool.active_slots(),
+                                   self.pool.num_slots)
+            self._cond.notify_all()
+        return payload
 
     # ---- scheduling ----
     def has_work(self) -> bool:
@@ -568,7 +773,22 @@ class LLMEngine:
         now = self.clock.now()
         self._drop_expired_queued(now)
         self._admit()
-        return self._step_once()
+        n = self._step_once()
+        with self._cond:
+            per_tenant: Dict[str, int] = {}
+            for r in [r for q in self._queues.values() for r in q] \
+                    + list(self._active.values()):
+                per_tenant[r.tenant] = per_tenant.get(r.tenant, 0) + r.cost
+            self.metrics.set_tenant_inflight(per_tenant)
+        if self.prefix_cache is not None:
+            self.metrics.set_prefix_cache(
+                self.prefix_cache.stats["cached_blocks"],
+                self.prefix_cache.stats["evictions"],
+                {t: s["cached_blocks"]
+                 for t, s in self.prefix_cache.tenant_stats.items()})
+        if self.host_kv is not None:
+            self.metrics.set_host_kv(self.host_kv.snapshot())
+        return n
 
     def _drop_expired_queued(self, now: float):
         with self._cond:
@@ -593,8 +813,13 @@ class LLMEngine:
                 self.metrics.set_queue_depth(self._queue_len_locked())
 
     def _admit(self):
-        """Move queued requests into free slots, highest SLO class first —
-        bookkeeping only; their prompt chunks ride the next unified step."""
+        """Move queued requests into free slots, highest SLO class first.
+        A request's covered prefix is settled here, on the slot's own
+        device: a handed-off `kv_row` is imported, else the prefix cache's
+        full blocks are attached and its partial block copied-on-write,
+        then the host tier's spilled blocks are onboarded past a block
+        boundary. Its remaining prompt chunks ride the next unified
+        steps."""
         with self._cond:
             while self.pool.free_slots() > 0:
                 req = self._pop_next_locked()
@@ -602,14 +827,64 @@ class LLMEngine:
                     return
                 self.metrics.set_queue_depth(self._queue_len_locked())
                 try:
-                    slot = self.pool.allocate(len(req.prompt)
-                                              + req.max_new_tokens)
+                    slot = self.pool.allocate(req.cost)
                 except SlotsExhaustedError:
+                    # every free row is pinned by cached pages with live
+                    # readers; retry once readers drain
                     self._queues[req.slo].appendleft(req)
                     self.metrics.set_queue_depth(self._queue_len_locked())
                     return
                 req.slot = slot
                 req.chunk_off = 0
+                req.attached_pages = []
+                ns = self._kv_ns(req.tenant)
+                bl = self.pool.block_len
+                if req.kv_row is not None:
+                    # land the exported row in the slot's own pages; the
+                    # next chunk's set_length claims them as a cold
+                    # prefill would
+                    klen = int(req.kv_row["length"])
+                    layers = req.kv_row["layers"]
+                    for j in range(0, klen, bl):
+                        w = min(bl, klen - j)
+                        self.pool.import_page(
+                            slot, j // bl, [(k[:, j:j + w], v[:, j:j + w])
+                                            for k, v in layers])
+                    req.chunk_off = klen
+                    self.kv_import_tokens += klen
+                elif self.prefix_cache is not None:
+                    # cap at plen-1: one prompt token always prefills
+                    plan = self.prefix_cache.acquire(
+                        ns, req.prompt, max_tokens=len(req.prompt) - 1)
+                    if plan.pages:
+                        self.pool.attach_blocks(slot, plan.pages)
+                        req.attached_pages = list(plan.pages)
+                    if plan.tail_page is not None:
+                        self.pool.cow_copy(plan.tail_page, slot)
+                    req.chunk_off = plan.attach_len
+                    # the slot holds its own refs and tail copy now
+                    self.prefix_cache.release(plan)
+                    self.metrics.on_prefix_lookup(
+                        req.tenant, plan.attach_len, len(req.prompt))
+                # host-tier onboard: from a block-aligned coverage end,
+                # walk the spilled blocks into the slot's own pages (a COW
+                # tail ends the walk); the completed prefill re-indexes
+                # them in the device trie
+                if (self.host_kv is not None and req.kv_row is None
+                        and req.chunk_off % bl == 0):
+                    j = req.chunk_off // bl
+                    onboarded = 0
+                    while (j + 1) * bl <= len(req.prompt) - 1:
+                        layers = self.host_kv.get(ns,
+                                                  req.prompt[:(j + 1) * bl])
+                        if layers is None:
+                            break
+                        self.pool.import_page(slot, j, layers)
+                        j += 1
+                        onboarded += 1
+                    if onboarded:
+                        req.chunk_off = j * bl
+                        self.host_onboard_tokens += onboarded * bl
                 self.sampling_table.bind(slot, req.sampling or GREEDY,
                                          gid=req.gid,
                                          dfa_state=req.dfa_state0)
@@ -698,6 +973,12 @@ class LLMEngine:
                     # final chunk landed: first token emitted, TTFT ends
                     req.handle.ttft_ms = (now - req.arrival) * 1e3
                     self.metrics.on_prefill(req.handle.ttft_ms, slo=req.slo)
+                    if self.prefix_cache is not None:
+                        # index the prefill while the slot is active, so
+                        # requests queued behind it attach at once
+                        self.prefix_cache.insert(
+                            self._kv_ns(req.tenant), req.prompt, slot,
+                            req.attached_pages)
                     self._emit(req, slot, nxt, lps, new_dstate)
                     if self._finish_if_done(req, now):
                         del self._active[slot]
@@ -784,7 +1065,8 @@ class LLMEngine:
         if not done:
             return False
         req.handle.future.set_result(np.asarray(req.emitted, np.int32))
-        self.metrics.on_complete((now - req.arrival) * 1e3, slo=req.slo)
+        self.metrics.on_complete((now - req.arrival) * 1e3, slo=req.slo,
+                                 tenant=req.tenant)
         if req.slot is not None and self.pool.active[req.slot]:
             self._free_slot_locked(req.slot)
         return True

@@ -3,9 +3,11 @@
 Only the `LLMMetrics` callbacks the ported engine calls: request outcomes,
 queue depth, slot occupancy, TTFT, decode steps and tokens, the sampling
 modes (slots and tokens per mode, compiled grammars, the host cost of a
-step's sampling operands), and `snapshot()`. Prometheus exposition,
-tenants and the economics providers wait for the serving front-end
-slice.
+step's sampling operands), the prefix cache (lookups, hit tokens, cached
+blocks, evictions), per-tenant counters and in-flight tokens, the host
+KV tier's snapshot, and `snapshot()`, whose keys are the JAX class's.
+Prometheus exposition and the economics providers wait for the serving
+front-end slice.
 """
 from __future__ import annotations
 
@@ -37,7 +39,9 @@ class LLMMetrics:
         self.counters: Dict[str, int] = {
             "submitted": 0, "completed": 0, "rejected": 0, "expired": 0,
             "failed": 0, "prefills": 0, "decode_steps": 0, "tokens_out": 0,
-            "sampled_tokens": 0, "constrained_tokens": 0}
+            "sampled_tokens": 0, "constrained_tokens": 0,
+            "prefix_hits": 0, "prefix_misses": 0, "prefix_hit_tokens": 0,
+            "prefix_lookup_tokens": 0}
         self.reject_reasons: Dict[str, int] = {}
         self.class_counters: Dict[str, Dict[str, int]] = {
             c: {"submitted": 0, "completed": 0} for c in SLO_CLASSES}
@@ -52,31 +56,59 @@ class LLMMetrics:
             "greedy": 0, "sampled": 0, "constrained": 0}
         self.grammars_compiled = 0
         self._mask_overhead_ms: deque = deque(maxlen=self.window)
+        # prefix cache and tenants: aggregate cache gauges plus a breakdown
+        # per tenant id (created on first sight)
+        self.cached_blocks = 0
+        self.cache_evictions = 0
+        self.tenants: Dict[str, Dict[str, int]] = {}
+        # the host KV tier's snapshot, pushed each pump; None until a
+        # tiered engine reports
+        self.host_kv: Optional[Dict[str, int]] = None
+
+    def _tenant(self, tenant) -> Optional[Dict[str, int]]:
+        if not tenant:
+            return None
+        return self.tenants.setdefault(tenant, {
+            "submitted": 0, "completed": 0, "rejected": 0,
+            "prefix_hits": 0, "prefix_misses": 0, "prefix_hit_tokens": 0,
+            "prefix_lookup_tokens": 0, "inflight_tokens": 0,
+            "cached_blocks": 0})
 
     # ---- engine callbacks ----
-    def on_submit(self, queue_depth: int, slo: Optional[str] = None):
+    def on_submit(self, queue_depth: int, slo: Optional[str] = None,
+                  tenant: Optional[str] = None):
         with self._lock:
             self.counters["submitted"] += 1
             self.queue_depth = queue_depth
             if slo in self.class_counters:
                 self.class_counters[slo]["submitted"] += 1
+            t = self._tenant(tenant)
+            if t is not None:
+                t["submitted"] += 1
 
-    def on_reject(self, reason: str):
+    def on_reject(self, reason: str, tenant: Optional[str] = None):
         with self._lock:
             self.counters["rejected"] += 1
             self.reject_reasons[reason] = \
                 self.reject_reasons.get(reason, 0) + 1
+            t = self._tenant(tenant)
+            if t is not None:
+                t["rejected"] += 1
 
     def on_expire(self, n: int = 1):
         with self._lock:
             self.counters["expired"] += n
 
-    def on_complete(self, latency_ms: float, slo: Optional[str] = None):
+    def on_complete(self, latency_ms: float, slo: Optional[str] = None,
+                    tenant: Optional[str] = None):
         with self._lock:
             self.counters["completed"] += 1
             self._latencies_ms.append(float(latency_ms))
             if slo in self.class_counters:
                 self.class_counters[slo]["completed"] += 1
+            t = self._tenant(tenant)
+            if t is not None:
+                t["completed"] += 1
 
     def on_fail(self, n: int = 1):
         with self._lock:
@@ -133,6 +165,48 @@ class LLMMetrics:
         with self._lock:
             self.grammars_compiled = int(compiled)
 
+    def on_prefix_lookup(self, tenant: Optional[str], hit_tokens: int,
+                         prompt_tokens: int):
+        """One admission-time prefix-cache lookup: `hit_tokens` of
+        `prompt_tokens` served from cached KV (attach + COW)."""
+        with self._lock:
+            hit = hit_tokens > 0
+            self.counters["prefix_hits" if hit else "prefix_misses"] += 1
+            self.counters["prefix_hit_tokens"] += int(hit_tokens)
+            self.counters["prefix_lookup_tokens"] += int(prompt_tokens)
+            t = self._tenant(tenant)
+            if t is not None:
+                t["prefix_hits" if hit else "prefix_misses"] += 1
+                t["prefix_hit_tokens"] += int(hit_tokens)
+                t["prefix_lookup_tokens"] += int(prompt_tokens)
+
+    def set_tenant_inflight(self, per_tenant: Dict[str, int]):
+        """Refresh per-tenant in-flight token gauges; tenants absent from
+        the map read 0."""
+        with self._lock:
+            for t in self.tenants.values():
+                t["inflight_tokens"] = 0
+            for tenant, tokens in per_tenant.items():
+                t = self._tenant(tenant)
+                if t is not None:
+                    t["inflight_tokens"] = int(tokens)
+
+    def set_prefix_cache(self, cached_blocks: int, evictions: int,
+                         per_tenant_cached: Optional[Dict[str, int]] = None):
+        with self._lock:
+            self.cached_blocks = int(cached_blocks)
+            self.cache_evictions = int(evictions)
+            for tenant, n in (per_tenant_cached or {}).items():
+                t = self._tenant(tenant)
+                if t is not None:
+                    t["cached_blocks"] = int(n)
+
+    def set_host_kv(self, snap: Dict[str, int]):
+        """The host tier's `HostKVPool.snapshot()` (pages, bytes, spills,
+        onboards, hits, misses, evictions, rejected)."""
+        with self._lock:
+            self.host_kv = dict(snap)
+
     # ---- views ----
     def ttft_quantile_ms(self, q: float) -> Optional[float]:
         with self._lock:
@@ -176,6 +250,18 @@ class LLMMetrics:
             s["slots_total"] = self.slots_total
             s["sample_slots"] = dict(self.sample_slots)
             s["grammars_compiled"] = self.grammars_compiled
+            s["cached_blocks"] = self.cached_blocks
+            s["cache_evictions"] = self.cache_evictions
+            s["tenants"] = {t: dict(v) for t, v in self.tenants.items()}
+            s["host_kv"] = (dict(self.host_kv)
+                            if self.host_kv is not None else None)
+        for t in s["tenants"].values():
+            t["cache_hit_rate"] = (
+                t["prefix_hit_tokens"] / t["prefix_lookup_tokens"]
+                if t["prefix_lookup_tokens"] else 0.0)
+        s["prefix_hit_rate"] = (
+            s["prefix_hit_tokens"] / s["prefix_lookup_tokens"]
+            if s["prefix_lookup_tokens"] else 0.0)
         s["slot_occupancy"] = (s["slots_active"] / s["slots_total"]
                                if s["slots_total"] else 0.0)
         s["tokens_per_s"] = self.tokens_per_s()

@@ -302,3 +302,78 @@ def assert_bf16_attention_close(out, ref):
     share = float((err > ulp).mean())
     assert share <= BF16_PA_SHARE, \
         f"{share} of the elements are more than one bf16 ulp apart"
+
+
+# ---- engines with the prefix cache (tests/test_torch_prefix_cache.py,
+# tests/test_torch_host_kv.py) ----
+
+def record_evictions(pool):
+    """Wrap `pool.release_cached` to record the pages it releases, in
+    order; returns the list it appends to."""
+    pages = []
+    orig = pool.release_cached
+
+    def release(page):
+        pages.append(int(page))
+        return orig(page)
+
+    pool.release_cached = release
+    return pages
+
+
+def engine_pair(jm, tm, cfg, **over):
+    """(JAX engine, port engine) on SimClocks with the config `cfg` and
+    `over`, each pool recording its evicted pages in `engine.evicted`."""
+    from paddle_tpu.serving.clock import SimClock as JaxSimClock
+    from paddle_tpu.serving.llm import LLMEngine as JaxEngine
+    from paddle_tpu.serving.llm import LLMEngineConfig as JaxConfig
+    from paddle_tpu_torch.serving.clock import SimClock
+    from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
+    cfg = {**cfg, **over}
+    je = JaxEngine(jm, JaxConfig(**cfg), clock=JaxSimClock())
+    te = LLMEngine(tm, LLMEngineConfig(**cfg), clock=SimClock())
+    assert (te.prefix_cache is not None) == te.config.enable_prefix_cache
+    je.evicted = record_evictions(je.pool)
+    te.evicted = record_evictions(te.pool)
+    return je, te
+
+
+def drain(engine):
+    while engine.has_work():
+        engine.pump()
+
+
+PREFIX_KEYS = ("prefix_hits", "prefix_misses", "prefix_hit_tokens",
+               "prefix_lookup_tokens", "prefix_hit_rate", "cached_blocks",
+               "cache_evictions", "tenants", "host_kv")
+
+
+def assert_engines_equal(je, te, jh, th):
+    """The JAX engine `je` and the port's `te` after the same requests
+    (handles `jh`, `th`): equal streams and logprobs within 1e-4; equal
+    prefill, onboard and import token counts and decode steps; equal
+    prefix and host-tier metrics, reject reasons, pool stats, refcounts,
+    cached pages, trie stats and evicted pages; both ledgers balanced."""
+    for a, b in zip(jh, th):
+        assert b.future.done() == a.future.done()
+        np.testing.assert_array_equal(b.tokens_so_far(), a.tokens_so_far())
+        lj, lt = a.logprobs_so_far(), b.logprobs_so_far()
+        assert [x is None for x in lt] == [x is None for x in lj]
+        if lj and lj[0] is not None:
+            np.testing.assert_allclose(lt, lj, atol=1e-4, rtol=0)
+    for attr in ("prefill_tokens", "host_onboard_tokens",
+                 "kv_import_tokens", "decode_iterations"):
+        assert getattr(te, attr) == getattr(je, attr), attr
+    js, ts = je.metrics.snapshot(), te.metrics.snapshot()
+    for k in PREFIX_KEYS:
+        assert ts[k] == js[k], (k, js[k], ts[k])
+    assert te.metrics.reject_reasons == je.metrics.reject_reasons
+    assert te.pool.stats == je.pool.stats
+    assert te.pool.snapshot() == je.pool.snapshot()
+    assert te.pool.refcount == je.pool.refcount
+    assert te.pool.cached == je.pool.cached
+    assert te.evicted == je.evicted
+    if je.prefix_cache is not None:
+        assert te.prefix_cache.snapshot() == je.prefix_cache.snapshot()
+        assert te.prefix_cache.spilled_pages == je.prefix_cache.spilled_pages
+    assert te.pool.check_balance() and je.pool.check_balance()

@@ -3,9 +3,10 @@
 Both engines run on a SimClock with the same gpt2-tiny weights (bridged
 into the port; the streams also with llama2-tiny's, with and without
 grouped-query attention) and the same mixed-length prompts, some longer than
-`prefill_chunk`; the JAX engine has its prefix cache off, which the port
-does not have yet. Token streams must be identical, logprobs within
-1e-4, and the port's streams equal to the port's own `generate()`. Also
+`prefill_chunk`; both engines have their prefix cache off (its parity is
+tests/test_torch_prefix_cache.py's). Token streams must be identical,
+logprobs within 1e-4, and the port's streams equal to the port's own
+`generate()`. Also
 covered: the pool ledger, slot reuse, queue-full rejects and shedding,
 deadline drops and evictions, drain and shutdown, and the threaded
 scheduler on a MonotonicClock.
@@ -16,7 +17,7 @@ import pytest
 from _torch_port import tiny_models
 
 CFG = dict(num_slots=3, block_len=8, n_blocks=8, prefill_chunk=16,
-           max_new_tokens=7)
+           max_new_tokens=7, enable_prefix_cache=False)
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +48,7 @@ def _streams_match_jax_engine_and_generate(jm, tm):
     from paddle_tpu.serving.llm import LLMEngineConfig as JaxConfig
     from paddle_tpu_torch.models.generation import generate
     prompts = _prompts(1, (5, 21, 9, 40, 3, 17, 33))
-    je = JaxEngine(jm, JaxConfig(enable_prefix_cache=False, **CFG),
+    je = JaxEngine(jm, JaxConfig(**CFG),
                    clock=JaxSimClock())
     te = _port_engine(tm)
     jh = [je.submit(p, logprobs=True) for p in prompts]
@@ -92,7 +93,7 @@ def test_eos_streams_match_jax_engine(models):
     free = [te.submit(p) for p in prompts]
     _drain(te)
     eos = int(free[1].result(0)[2])      # stream 1 ends at its 3rd token
-    je = JaxEngine(jm, JaxConfig(enable_prefix_cache=False, **CFG),
+    je = JaxEngine(jm, JaxConfig(**CFG),
                    clock=JaxSimClock())
     jh = [je.submit(p, eos_token_id=eos) for p in prompts]
     th = [te.submit(p, eos_token_id=eos) for p in prompts]

@@ -8,8 +8,8 @@
   against the JAX `generate()` function called by keywords (the JAX
   models' methods misbind their arguments);
 - the engine: greedy, sampled and constrained requests submitted together
-  to the port's and the JAX engine (SimClock, the same config; the JAX
-  prefix cache off, as the port has none) give the same streams, and
+  to the port's and the JAX engine (SimClock, the same config, both
+  prefix caches off) give the same streams, and
   logprobs within 1e-4, for gpt2-tiny and a llama2-tiny with grouped-query
   attention. Then the reference's contracts on the port alone, after
   tests/test_sampling.py minus speculative decoding and failover:
@@ -56,7 +56,7 @@ GRAMMARS = {"nested": (SCHEMA, TOKENS), "bool": (OTHER, TOKENS),
 V = 512
 PROMPT = np.arange(1, 9, dtype=np.int32)
 CFG = dict(num_slots=3, block_len=8, n_blocks=8, prefill_chunk=16,
-           max_new_tokens=12)
+           max_new_tokens=12, enable_prefix_cache=False)
 
 
 @pytest.fixture(scope="module")
@@ -400,7 +400,7 @@ def test_mixed_streams_match_jax_engine(preset, over):
     rng = np.random.RandomState(1)
     prompts = [rng.randint(0, V, (n,)).astype(np.int32)
                for n in (5, 21, 9, 30, 3, 17, 12)]
-    je = JaxEngine(jm, JaxConfig(enable_prefix_cache=False, **CFG),
+    je = JaxEngine(jm, JaxConfig(**CFG),
                    clock=JaxSimClock())
     te = _port_engine(tm)
     rows = {}
