@@ -10,7 +10,9 @@ on the card against the same models on the CPU, serves 16 requests
 through the continuous-batching `LLMEngine` and trains 13 steps through
 `ScanTrainStep` twice, both at the full width of `gpt3-1.3b` in bf16,
 serves a shared system prompt through the prefix cache, its host tier
-and a stream handoff at the same width, then does the same for the Llama-2 family: serves `llama2-7b` whole and
+and a stream handoff at the same width, trains it in fp32 master weights
+through a DistributedStrategy (AMP bf16 and fp16 with dynamic loss
+scaling, recompute, gradient merge), then does the same for the Llama-2 family: serves `llama2-7b` whole and
 `llama2-70b`'s widths cut in depth, and trains `llama2-7b` whole with the
 Llama 2 recipe (random weights from a seed). It prints one JSON line per
 phase, then each phase's wall seconds, the `{"kernels": [...]}` line,
@@ -48,7 +50,12 @@ Phases:
                 and paged attention: with their achieved TFLOP/s and share
                 of that bound); the prefix cache's layout, 8 rows reading one
                 row's 32 pages, bit-equal to the rows reading private copies
-                and timed beside them
+                and timed beside them; the fp16 flash forward, dq and dk/dv
+                (AMP in float16) at [4,16,1024,128] causal and edge shapes
+                under the FP16_TRAIN_* rule, run twice bit-equal, timed
+                beside fp16 F.scaled_dot_product_attention; fused Adam's
+                do_update flag (0: p, m1, m2, master and, through AdamW,
+                the beta powers bit-unchanged; 1 and null: the same bits)
   3d. attention_variants — the additive-mask and dropout variants of the
                 flash forward, dq and dk/dv at gpt3-1.3b's attention width
                 ([4,16,1024,128] bf16; fp32 at [2,4,256,64]): key padding
@@ -67,6 +74,12 @@ Phases:
                 and twice 3 steps through ScanTrainStep, with AdamW and
                 with the train recipe's optimizer and recompute (first-step
                 gradient norms, losses, weights)
+  4b. model_amp — the same widths in fp32 master weights through
+                parallelize(model, opt, strategy=s) on the card against
+                the CPU: AMP bf16 with recompute and gradient merge k = 2,
+                and AMP fp16 with dynamic loss scaling and a first step
+                forced to overflow; loss scale, counters and merge count
+                exactly equal, losses and weights within stated limits
   5. serve    — full gpt3-1.3b, bf16, LLMEngine(num_slots=8, block_len=8,
                 n_blocks=64, prefill_chunk=64, prefix cache off, as in the
                 runs before it was ported) on a MonotonicClock via
@@ -134,6 +147,16 @@ Phases:
                 0.1 but norms, clip 1.0, warm-up into a cosine to peak/10
                 at a 3e-4 peak) with recompute and bf16 moments: phase 7's
                 readings and exactly LLAMA_KERNELS_PER_STEP launches a step
+ 12. train_amp — full gpt3-1.3b in fp32 master weights through
+                parallelize(): AMP O1 bf16, whole-loss recompute, gradient
+                merge k = 2 (avg), AdamW fp32 moments, clip 1.0, 4 x 1024,
+                scan_steps 4: tokens/s, micro-step ms, MFU, peak memory,
+                falling losses, exactly AMP_KERNELS_PER_MICRO_STEP a
+                micro-step (fused Adam on applying micro-steps only), the
+                LayerNorms fed fp32 and the attention bf16
+ 13. train_amp_fp16 — the same in fp16 with dynamic loss scaling (init
+                32768), fewer timed steps: the fp16 flash kernels
+                launched, the skipped micro-steps and the final scale
 """
 from __future__ import annotations
 
@@ -151,6 +174,7 @@ from functools import partial
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"bfloat16": 989e12,    # dense tensor-core rate
+            "float16": 989e12,     # the same rate in fp16
             "float32": 67e12}      # fp32 outside the tensor cores
 L2_COPIES = 4   # distinct input copies cycled where the caller finds its
 #                 inputs cold: four sets of paged-attention slabs exceed
@@ -825,16 +849,28 @@ def layernorm_fwd_reading(torch, xb, wb, bb, cases, cold=False):
 # dv, dw, db, taken in another order).
 BF16_TRAIN_FACTOR = 2.0
 BF16_TRAIN_ATOL = 2.0 ** -12
+# fp16 (AMP in float16) under the same rule scaled to its ulp: fp16 keeps
+# 11 significant bits against bf16's 8, so its ulp at a given magnitude
+# is 8 times smaller and the atol is a quarter of an fp16 ulp at 0.25;
+# the factor stays 2 for the same reason as bf16's (both sides round the
+# same values once after fp32 sums in another order). fp16's narrower
+# range adds nothing here: p, ds and the outputs of these inputs lie far
+# inside it, and a value that left it would fail as non-finite.
+FP16_TRAIN_FACTOR = 2.0
+FP16_TRAIN_ATOL = 2.0 ** -15
 TRAIN_B, TRAIN_S = 4, 1024          # bench.py's gpt3-1.3b batch
 LLAMA_FLASH_SHAPE = (1, 32, 4096, 128)   # llama2-7b's B, H, S, head_dim
 
 
 def bf16_vs_fp32_plain(torch, got, plain_bf16, plain_fp32):
-    """(kernel error, plain bf16 error, limit) against the fp32 plain
-    version, as maxima of absolute differences."""
+    """(kernel error, plain bf16 or fp16 error, limit) against the fp32
+    plain version, as maxima of absolute differences; the limit is the
+    BF16_TRAIN_* rule, or FP16_TRAIN_* for fp16 results."""
     ref = plain_fp32.float()
     err_k = float((got.float() - ref).abs().max())
     err_p = float((plain_bf16.float() - ref).abs().max())
+    if got.dtype == torch.float16:
+        return err_k, err_p, FP16_TRAIN_FACTOR * err_p + FP16_TRAIN_ATOL
     return err_k, err_p, BF16_TRAIN_FACTOR * err_p + BF16_TRAIN_ATOL
 
 
@@ -848,12 +884,14 @@ def _check_close(torch, got, ref, tol, what):
 
 
 def _check_bf16(torch, got, plain_bf16, plain_fp32, what):
+    """bf16 or fp16 `got` against the fp32 plain version under its
+    dtype's training rule."""
     err_k, err_p, limit = bf16_vs_fp32_plain(torch, got, plain_bf16,
                                              plain_fp32)
     check(err_k <= limit, f"{what}: kernel is {err_k} from the fp32 plain "
-                          f"version, limit {limit} ({BF16_TRAIN_FACTOR} x "
-                          f"the bf16 plain version's {err_p} + "
-                          f"{BF16_TRAIN_ATOL})")
+                          f"version, limit {limit} (the {got.dtype} rule: "
+                          f"a factor of the plain version's {err_p} plus an "
+                          f"atol)")
     return dict(err=err_k, plain_err=err_p)
 
 
@@ -1180,6 +1218,109 @@ def phase_train_kernels():
     return results
 
 
+# ------------------------------------ phase 3b': the fp16 flash kernels
+# The fp16 instantiations of the tensor-core forward, dq and dk/dv (AMP in
+# float16) at the train step's shape, [4, 16, 1024, 128] causal, against
+# their plain versions under the FP16_TRAIN_* rule, plus edge shapes; two
+# runs bit-equal; timed beside F.scaled_dot_product_attention in fp16
+# (forward, and its backward for the pair) and their bounds.
+FP16_FLASH_EDGES = {"fp16_ragged_d64": (2, 4, 333, 333, 64, True),
+                    "fp16_sq_gt_sk_noncausal": (1, 4, 190, 70, 128, False),
+                    "fp16_sq_lt_sk_d32": (1, 3, 100, 300, 32, True),
+                    "fp16_bh160": (4, 40, 128, 128, 128, True)}
+
+
+def phase_fp16_kernels():
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.attention import (flash_attention_delta,
+                                                flash_bwd_dkv_cuda,
+                                                flash_bwd_dq_cuda,
+                                                flash_bwd_plain,
+                                                flash_fwd_cuda,
+                                                flash_fwd_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    B, H, S, D = TRAIN_B, 16, TRAIN_S, 128
+    h = torch.float16
+    q, k, v, g = _flash_inputs(torch, gen, B, H, S, S, D, h)
+    cases = {"fp16_train_causal": check_flash(
+        torch, q, k, v, g, True, "fp16 [4,16,1024,128] causal")}
+    for name, (b_, h_, sq, sk, d_, causal) in FP16_FLASH_EDGES.items():
+        cases[name] = check_flash(
+            torch, *_flash_inputs(torch, gen, b_, h_, sq, sk, d_, h),
+            causal, name)
+    scale = 1.0 / math.sqrt(D)
+    runs = []
+    for _ in range(2):
+        out, lse = flash_fwd_cuda(q, k, v, True, scale)
+        delta = flash_attention_delta(g, out)
+        runs.append((out, lse,
+                     flash_bwd_dq_cuda(q, k, v, g, lse, delta, True, scale),
+                     *flash_bwd_dkv_cuda(q, k, v, g, lse, delta, True,
+                                         scale)))
+    torch.cuda.synchronize()
+    names = ("out", "lse", "dq", "dk", "dv")
+    for n, a, b in zip(names, *runs):
+        check(torch.equal(a, b), f"flash fp16 {n}: two runs differ")
+    del runs
+    emit({"phase": "kernel_checks", "name": "flash_attention_fp16",
+          "cases": cases, "bitwise_runs": 2, "equal": list(names)})
+    # timing, inputs cycled over two copies as in the bf16 phase
+    copies = [(q, k, v, g)] + [tuple(t.clone() for t in (q, k, v, g))]
+    outs = []
+    for cq, ck, cv, cg in copies:
+        o, lse = flash_fwd_cuda(cq, ck, cv, True, scale)
+        outs.append((lse, flash_attention_delta(cg, o)))
+    t = {"flash_fwd_fp16": time_cuda([
+        partial(flash_fwd_cuda, cq, ck, cv, True, scale)
+        for cq, ck, cv, _ in copies]),
+         "flash_bwd_dq_fp16": time_cuda([
+             partial(flash_bwd_dq_cuda, cq, ck, cv, cg, lse, dl, True, scale)
+             for (cq, ck, cv, cg), (lse, dl) in zip(copies, outs)]),
+         "flash_bwd_dkv_fp16": time_cuda([
+             partial(flash_bwd_dkv_cuda, cq, ck, cv, cg, lse, dl, True,
+                     scale)
+             for (cq, ck, cv, cg), (lse, dl) in zip(copies, outs)])}
+    plain_fwd, _ = time_cuda([partial(flash_fwd_plain, q, k, v, True,
+                                      scale)], per_rep=2)
+    lse, dl = outs[0]
+    plain_bwd, _ = time_cuda([partial(flash_bwd_plain, q, k, v, g, lse, dl,
+                                      True, scale)], per_rep=2)
+    lib_fwd, _ = time_cuda([partial(F.scaled_dot_product_attention, cq, ck,
+                                    cv, is_causal=True)
+                            for cq, ck, cv, _ in copies])
+    lib_bwd, _ = time_cuda([_sdpa_bwd_call(torch, F, *c) for c in copies])
+    del outs, copies
+    bo = flash_bytes_ops(B, H, S, S, D, True, 2)
+    read = cases["fp16_train_causal"]
+    err = {"flash_fwd": read["out"]["err"], "flash_bwd_dq": read["dq"]["err"],
+           "flash_bwd_dkv": max(read["dk"]["err"], read["dv"]["err"])}
+    tol = (f"fp16: max error from the fp32 plain version <= "
+           f"{FP16_TRAIN_FACTOR} x the fp16 plain version's + "
+           f"{FP16_TRAIN_ATOL}")
+    results = {}
+    for base in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        name = base + "_fp16"
+        n_bytes, n_ops = bo[base]
+        bound, by = bound_ms(n_bytes, n_ops, "float16")
+        results[name] = dict(
+            max_abs_err=err[base], tol=tol, ms=t[name][0],
+            call_ms=t[name][1],
+            plain_ms=plain_fwd if base == "flash_fwd" else plain_bwd,
+            library_ms=lib_fwd if base == "flash_fwd" else lib_bwd,
+            bound_ms=bound, bound_by=by, bytes=n_bytes, ops=n_ops,
+            tflops=n_ops / t[name][0] / 1e9,
+            share_of_bound=bound / t[name][0],
+            shape=dict(B=B, H=H, Sq=S, Sk=S, D=D, causal=True,
+                       dtype="float16"),
+            note=(None if base == "flash_fwd" else
+                  "plain_ms and library_ms compute dq, dk and dv together"))
+        emit({"phase": "kernel", "name": name, **results[name]})
+    torch.cuda.empty_cache()
+    return results
+
+
 # ------------------------------------------------ phase 3c: the optimizer
 # Fused Adam against its plain version on the card: bit for bit (tolerance
 # 0). Both run _adam_math's operations in one order, each rounded once (the
@@ -1247,6 +1388,69 @@ def check_adam(torch, c, decoupled, label):
     return worst
 
 
+def check_adam_flag(torch, gen):
+    """The kernel's do_update flag (the strategy step's skipped update):
+    flag False leaves p, m1, m2 (and a master) bit for bit as they were,
+    flag True and a null flag give the same bits; through AdamW a skipped
+    step also keeps both beta powers, so apply, skip, apply equals apply,
+    apply bit for bit. Returns the readings."""
+    from paddle_tpu_torch.ops.fused_adam import fused_adam_cuda
+    from paddle_tpu_torch.optimizer import AdamW
+    f32, bf = torch.float32, torch.bfloat16
+    kw = dict(ADAM_HP, decoupled=True)
+    out = {}
+    for name, (pd, md, master) in {"fp32": (f32, f32, False),
+                                   "bf16_master": (bf, bf, True)}.items():
+        c = _adam_leaf(torch, gen, ADAM_LEAVES["linear1.weight"], pd, md,
+                       master)
+        runs = {}
+        for flag in (None, True, False):
+            d = {k: None if v is None else v.clone() for k, v in c.items()}
+            f = None if flag is None else torch.tensor(flag, device="cuda")
+            fused_adam_cuda(d["p"], d["g"], d["m1"], d["m2"],
+                            *adam_scalars(torch), 0.1, master=d["master"],
+                            do_update=f, **kw)
+            runs[flag] = d
+        torch.cuda.synchronize()
+        for k in ("p", "m1", "m2", "master"):
+            if c[k] is None:
+                continue
+            check(torch.equal(runs[False][k], c[k]),
+                  f"fused_adam flag 0 ({name}) changed {k}")
+            check(torch.equal(runs[True][k], runs[None][k]),
+                  f"fused_adam flag 1 and null flag differ in {k} ({name})")
+            check(not torch.equal(runs[True][k], c[k]),
+                  f"fused_adam flag 1 ({name}) left {k} unchanged")
+        out[name] = "flag 0 unchanged, flag 1 == null"
+        del c, runs
+    # the optimizer's gate: the beta powers' advance too
+    n = ADAM_LEAVES["linear1.weight"]
+    w = torch.nn.Parameter(torch.randn(n, generator=gen, device="cuda"))
+    twin = torch.nn.Parameter(w.detach().clone())
+    g = torch.randn(n, generator=gen, device="cuda")
+    opt = AdamW(learning_rate=1e-4, parameters=[w])
+    ref = AdamW(learning_rate=1e-4, parameters=[twin])
+    opt.apply_gradients([(w, g)])
+    snap = {k: v.clone() for k, v in opt.state[w].items()}
+    w0 = w.detach().clone()
+    opt.apply_gradients([(w, g)], do_update=torch.tensor(False,
+                                                         device="cuda"))
+    torch.cuda.synchronize()
+    check(torch.equal(w.detach(), w0) and all(
+        torch.equal(v, snap[k]) for k, v in opt.state[w].items()),
+        "a skipped AdamW step changed the weight, a moment or a beta power")
+    opt.apply_gradients([(w, g)], do_update=torch.tensor(True,
+                                                         device="cuda"))
+    for _ in range(2):
+        ref.apply_gradients([(twin, g)])
+    torch.cuda.synchronize()
+    check(torch.equal(w.detach(), twin.detach()) and all(
+        torch.equal(v, ref.state[twin][k]) for k, v in opt.state[w].items()),
+        "apply, skip, apply differs from apply, apply")
+    out["adamw_apply_skip_apply"] = "bit-equal to apply, apply"
+    return out
+
+
 def phase_adam_kernel():
     """Fused Adam against its plain version over ADAM_LEAVES in every dtype
     the path takes (p and g bf16 or fp32; moments fp32 or bf16; a master
@@ -1307,6 +1511,18 @@ def phase_adam_kernel():
         maximize=False)])
     del lib
     torch.cuda.empty_cache()
+    flag = check_adam_flag(torch, gen)
+    c = _adam_leaf(torch, gen, n, bf, f32, False)
+    on = torch.tensor(True, device="cuda")
+    flag["ms_with_flag_true"], _ = time_cuda([partial(
+        fused_adam_cuda, c["p"], c["g"], c["m1"], c["m2"],
+        *adam_scalars(torch), 0.1, do_update=on, decoupled=True,
+        **ADAM_HP)])
+    flag["ms_null_flag"] = readings["train"]["ms"]
+    del c
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel_checks", "name": "fused_adam_do_update",
+          **flag})
     # the main path's reading is the recipe's (bf16 moments); the train
     # phase's fp32 moments beside it
     result = dict(
@@ -1314,7 +1530,7 @@ def phase_adam_kernel():
         tol="0: bit for bit against the plain version on the card, every "
             "dtype, master and decay case",
         **readings["recipe"], library_ms=lib_ms,
-        at_train_dtypes=readings["train"],
+        at_train_dtypes=readings["train"], do_update_flag=flag,
         note="library_ms: torch._fused_adamw_ on the same leaf with bf16 p, "
              "g and moments (14 bytes an element, as the recipe's dtypes)")
     emit({"phase": "kernel", "name": "fused_adam", **result})
@@ -2039,6 +2255,361 @@ def phase_model_train(phase="model_train"):
         del cpu, card, wc, wp
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------- phase 4b: AMP through a plan
+# The strategy step (parallel.parallelize with a DistributedStrategy) at
+# gpt3-1.3b's widths cut to 2 layers, fp32 master weights, on the card
+# (kernels) against the same code on a CPU twin (plain versions), B=2,
+# AdamW lr TRAIN_PARITY_LR, wd 0.01, clip 1.0:
+#   a. AMP bf16 with whole-loss recompute and gradient merge k = 2 (avg),
+#      B=2, S=128, one ScanTrainStep chunk of 4 micro-steps;
+#   b. AMP fp16 with dynamic loss scaling, B=1, S=32, 4 single steps: the
+#      first is forced to overflow by an init_loss_scaling of 2^40 (fp16
+#      overflows on both sides, whatever the rounding), after which the
+#      scale drops by 2^-25 to 32768 and grows every 2 finite steps. The
+#      batch is small because the CPU twin runs fp16 slowly on the card's
+#      machine: 5 such steps at B=2, S=128 took 900 s there, against 20 s
+#      for case a's 4 bf16 steps (on the host of an NVIDIA H100 80GB HBM3); the
+#      scaler's decisions do not depend on the batch.
+# The loss scale, its good and bad counters and the gradient-merge count
+# after every call must be EXACTLY equal on both sides (so the same steps
+# were skipped and banked). Losses: the card's bf16/fp16 GEMMs (cuBLAS)
+# and the CPU's round each product's output once after fp32 sums in
+# other orders, so the activations part by about one low-precision ulp
+# (bf16 2^-8, fp16 2^-11 of themselves) and a loss of ~11 by about 1e-3
+# (bf16) / 1e-4 (fp16): the limits are 2e-2 and 4e-3.
+# Weights: every element within 2 x lr x steps (Adam's step is ~lr, and
+# a gradient near 0 may flip its sign on one side), and at most
+# AMP_PARITY_SHARE of them more than lr / 2 apart: a wrong cast, scale,
+# merge or skip moves most elements.
+AMP_PARITY_CASES = {
+    "a_bf16_recompute_merge_k2": dict(
+        fields={"amp": True, "recompute": True, "gradient_merge": True,
+                "gradient_merge_configs": {"k_steps": 2}},
+        batch=(2, 128), scan=4, calls=1, loss_tol=2e-2),
+    "b_fp16_dynamic_scaling_overflow": dict(
+        fields={"amp": True, "amp_configs": {
+            "dtype": "float16", "init_loss_scaling": 2.0 ** 40,
+            "decr_every_n_nan_or_inf": 1, "decr_ratio": 2.0 ** -25,
+            "incr_every_n_steps": 2}},
+        batch=(1, 32), scan=1, calls=4, loss_tol=4e-3),
+}
+AMP_PARITY_SHARE = 1e-2
+
+
+def amp_strategy(fields, scan):
+    """A DistributedStrategy with `fields` (dicts merge into *_configs)
+    and scan_steps `scan`."""
+    from paddle_tpu_torch.distributed.strategy import DistributedStrategy
+    s = DistributedStrategy()
+    for k, v in fields.items():
+        setattr(s, k, v)
+    s.scan_steps = scan
+    return s
+
+
+def _extras_scalars(step):
+    return {k: v.item() for k, v in step._extras.items() if k != "accum"}
+
+
+def phase_model_amp():
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.bridge import export_state
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import _kernels
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import parallelize, stack_batches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    preset = "gpt3-1.3b"
+    lr = TRAIN_PARITY_LR
+    for case, c in AMP_PARITY_CASES.items():
+        rng = np.random.RandomState(SEED + 12)
+        B, S = c["batch"]
+        ids = rng.randint(0, preset_config(preset).vocab_size,
+                          (B, S)).astype(np.int32)
+        labels = np.roll(ids, -1, axis=1)
+        labels[:, -1] = -100
+        cpu, card = _twins(preset, SEED + 12)
+        runs = {}
+        for dev, model in (("cuda", card), ("cpu", cpu)):
+            model.train()
+            opt = AdamW(learning_rate=lr, weight_decay=0.01,
+                        parameters=model.parameters(),
+                        grad_clip=ClipGradByGlobalNorm(1.0))
+            step = parallelize(model, opt,
+                               strategy=amp_strategy(c["fields"], c["scan"]),
+                               device=dev)
+            batch = (stack_batches([(ids, labels)] * c["scan"])
+                     if c["scan"] > 1 else (ids, labels))
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses, extras = [], []
+            for _ in range(c["calls"]):
+                losses += np.atleast_1d(step(*batch).cpu().numpy()).tolist()
+                extras.append(_extras_scalars(step))
+            runs[dev] = dict(losses=losses, extras=extras,
+                             launches=_kernels.launch_counts(),
+                             seconds=time.perf_counter() - t0)
+        steps = len(runs["cuda"]["losses"])
+        loss_diff = max(abs(a - b) for a, b in zip(runs["cuda"]["losses"],
+                                                   runs["cpu"]["losses"]))
+        wc, wp = export_state(card), export_state(cpu)
+        worst, far, total = 0.0, 0, 0
+        for k in wc:
+            d = np.abs(wc[k] - wp[k])
+            worst = max(worst, float(d.max()))
+            far += int((d > lr / 2).sum())
+            total += d.size
+        launched = runs["cuda"]["launches"]
+        fp16 = c["fields"].get("amp_configs", {}).get("dtype") == "float16"
+        emit({"phase": "model_amp", "case": case,
+              "config": f"{preset} widths, 2 layers, fp32 master weights, "
+                        f"B={B}, S={S}, AdamW lr {lr}",
+              "strategy": c["fields"], "steps": steps,
+              "loss_card": runs["cuda"]["losses"],
+              "loss_cpu": runs["cpu"]["losses"],
+              "extras_card": runs["cuda"]["extras"],
+              "extras_cpu": runs["cpu"]["extras"],
+              "loss_max_abs_diff": loss_diff, "loss_tol": c["loss_tol"],
+              "param_max_abs_diff": worst, "param_tol": 2 * lr * steps,
+              "param_share_past_lr_over_2": far / total,
+              "param_share_tol": AMP_PARITY_SHARE,
+              "cpu_twin_s": runs["cpu"]["seconds"],
+              "kernel_launches": launched})
+        check(runs["cuda"]["extras"] == runs["cpu"]["extras"],
+              f"model_amp {case}: loss scale, counters or merge count "
+              f"differ: card {runs['cuda']['extras']}, CPU "
+              f"{runs['cpu']['extras']}")
+        check(all(math.isfinite(x) for x in runs["cuda"]["losses"]),
+              f"model_amp {case}: non-finite loss on the card")
+        check(loss_diff <= c["loss_tol"],
+              f"model_amp {case}: card vs CPU losses differ by {loss_diff}")
+        check(worst <= 2 * lr * steps and far / total <= AMP_PARITY_SHARE,
+              f"model_amp {case}: weights differ by {worst} (max), share "
+              f"past lr/2 {far / total}")
+        tc = "_fp16" if fp16 else ""
+        check(all(launched[k + tc] > 0 for k in ("flash_fwd", "flash_bwd_dq",
+                                                 "flash_bwd_dkv"))
+              and launched["fused_adam"] > 0
+              and launched["layernorm_fwd"] > 0,
+              f"model_amp {case}: kernels not launched: {launched}")
+        if fp16:
+            check(runs["cuda"]["extras"][0]["loss_scale"] == 2.0 ** 15
+                  and runs["cuda"]["extras"][-1]["loss_scale"] == 2.0 ** 16,
+                  f"model_amp {case}: scale trajectory "
+                  f"{runs['cuda']['extras']}")
+        del cpu, card, wc, wp, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ------------------------------------------ phases 12-13: AMP train cells
+# Full gpt3-1.3b in fp32 master weights through parallelize(): AMP O1
+# (bf16, or fp16 with dynamic loss scaling at the default
+# init_loss_scaling 32768), whole-loss recompute, gradient merge k = 2
+# (avg), AdamW lr 1e-4, wd 0.01, fp32 moments, global-norm clip 1.0,
+# B x S = 4 x 1024, scan_steps 4: a warm-up chunk, then timed chunks, one
+# batch repeated. A micro-step launches exactly AMP_KERNELS_PER_MICRO_STEP
+# (the flash kernels in the AMP dtype, the LayerNorms in fp32 on the fp32
+# residual stream, fused Adam on applying steps only).
+AMP_TRAIN_CELLS = {
+    "train_amp": dict(dtype="bfloat16", warmup_chunks=1, timed_chunks=2),
+    "train_amp_fp16": dict(dtype="float16", warmup_chunks=1,
+                           timed_chunks=1),
+}
+AMP_SCAN_STEPS = 4
+AMP_MERGE_K = 2
+# whole-loss recompute reruns the whole forward in the backward: each
+# layer's flash forward and two LayerNorm forwards, and the final
+# LayerNorm, twice a micro-step
+AMP_KERNELS_PER_MICRO_STEP = {"flash_fwd": 48, "flash_bwd_dq": 24,
+                              "flash_bwd_dkv": 24, "layernorm_fwd": 98,
+                              "layernorm_bwd": 49}
+AMP_ADAM_PER_APPLY = 293
+
+
+def amp_train_workload(cell):
+    """(model, opt, step, ids, labels) of an AMP train cell: gpt3-1.3b in
+    fp32 with random weights from SEED, its AdamW, the parallelize()d
+    step, one batch from SEED. Shared by the phase below and anything
+    that profiles the cell."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import parallelize
+    c = AMP_TRAIN_CELLS[cell]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    model = GPTForCausalLM.from_preset("gpt3-1.3b", device="cuda",
+                                       dtype="float32", generator=gen)
+    model.train()
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters(), moment_dtype="float32",
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    s = amp_strategy({"amp": True, "amp_configs": {"dtype": c["dtype"]},
+                      "recompute": True, "gradient_merge": True,
+                      "gradient_merge_configs": {"k_steps": AMP_MERGE_K,
+                                                 "avg": True}},
+                     AMP_SCAN_STEPS)
+    step = parallelize(model, opt, strategy=s)
+    rng = np.random.RandomState(SEED + 4)
+    vocab = model.config.vocab_size
+    ids = rng.randint(0, vocab, (TRAIN_B, TRAIN_S)).astype(np.int32)
+    labels = rng.randint(0, vocab, (TRAIN_B, TRAIN_S)).astype(np.int32)
+    return model, opt, step, ids, labels
+
+
+def amp_timed_chunks(step, ids, labels, chunks):
+    """Run `chunks` chunks of `step` over (ids, labels) repeated, with a
+    CUDA event, the launch counts and (with a loss scale) device copies of
+    the scale and its counters after every micro-step. Returns (losses,
+    wall s, per-micro-step device ms, per-micro-step launches, per-step
+    (scale, good, bad) on the host)."""
+    import torch
+    from paddle_tpu_torch.ops import _kernels
+    from paddle_tpu_torch.parallel import stack_batches
+    chunk = stack_batches([(ids, labels)] * step.scan_steps)
+    inner = step._train_step
+    events, launches, marks = [], [], []
+    prev = [_kernels.launch_counts()]
+
+    def marked(*a):
+        loss = inner(*a)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        now = _kernels.launch_counts()
+        launches.append({k: now[k] - prev[0][k] for k in now})
+        prev[0] = now
+        if "loss_scale" in step._extras:
+            marks.append(tuple(step._extras[k].clone() for k in
+                               ("loss_scale", "good_steps", "bad_steps")))
+        return loss
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    step._train_step = marked
+    try:
+        t0 = time.perf_counter()
+        start.record()
+        losses = [step(*chunk) for _ in range(chunks)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del step._train_step
+    ms = [a.elapsed_time(b) for a, b in zip([start] + events[:-1], events)]
+    scale = [tuple(float(t) for t in m) for m in marks]
+    return (torch.cat(losses).cpu().tolist(), wall, ms, launches, scale)
+
+
+def phase_train_amp(device_name, cell="train_amp"):
+    """An AMP train cell (module note above): tokens/s, micro-step ms,
+    MFU, peak memory, falling losses, the launches of every micro-step,
+    the dtypes the LayerNorms and the attention saw, and with fp16 the
+    steps the loss scaler skipped and its final scale. Returns the launch
+    counts of the timed chunks."""
+    import torch
+    from paddle_tpu_torch.obs.flops import peak_flops, train_flops_per_step
+    from paddle_tpu_torch.ops import _kernels
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = AMP_TRAIN_CELLS[cell]
+    model, opt, step, ids, labels = amp_train_workload(cell)
+    n_params = sum(p.numel() for p in model.parameters())
+    # the dtypes a warm-up micro-step feeds the LayerNorms and the
+    # attention (the qkv projection's output), read by hooks
+    seen = {"layernorm_in": set(), "attention_in": set()}
+    hooks = []
+    for name, mod in model.named_modules():
+        if type(mod).__name__ == "LayerNorm":
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, a: seen["layernorm_in"].add(str(a[0].dtype))))
+        if name.endswith("qkv_proj"):
+            hooks.append(mod.register_forward_hook(
+                lambda m, a, o: seen["attention_in"].add(str(o.dtype))))
+    warm = amp_timed_chunks(step, ids, labels, c["warmup_chunks"])
+    for h in hooks:
+        h.remove()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    losses, wall, step_ms, per_step, scale = amp_timed_chunks(
+        step, ids, labels, c["timed_chunks"])
+    launches = _kernels.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    micro = len(step_ms)
+    first = AMP_SCAN_STEPS * c["warmup_chunks"] + 1
+    applying = [(first + i) % AMP_MERGE_K == 0 for i in range(micro)]
+    fp16 = c["dtype"] == "float16"
+    tc = "_fp16" if fp16 else ""
+    other = "" if fp16 else "_fp16"
+    want = []
+    for apply in applying:
+        w = dict.fromkeys(launches, 0)
+        for k, v in AMP_KERNELS_PER_MICRO_STEP.items():
+            w[k + tc if k.startswith("flash") else k] = v
+        w["fused_adam"] = AMP_ADAM_PER_APPLY if apply else 0
+        want.append(w)
+    all_losses = warm[0] + losses
+    step_s = wall / micro
+    tokens = TRAIN_B * TRAIN_S * micro
+    # a micro-step was skipped when its census found a non-finite
+    # gradient: its bad counter rose, or reached the limit and shrank the
+    # scale (which resets the counter)
+    skipped, last = [], 32768.0
+    for i, (sc, _good, bad) in enumerate(warm[4] + scale):
+        if bad > 0 or sc < last:
+            skipped.append(i + 1)
+        last = sc
+    result = {
+        "phase": cell, "model": "gpt3-1.3b",
+        "dtype": f"fp32 master weights, AMP O1 {c['dtype']}",
+        "batch": TRAIN_B, "seq": TRAIN_S, "n_params": n_params,
+        "strategy": (f"amp {c['dtype']}"
+                     + (" dynamic loss scaling (init 32768)" if fp16 else "")
+                     + f", recompute (whole loss), gradient_merge k = "
+                       f"{AMP_MERGE_K} avg, scan_steps {AMP_SCAN_STEPS}"),
+        "optimizer": "AdamW lr 1e-4 wd 0.01 fp32 moments, global-norm "
+                     "clip 1.0",
+        "warmup_micro_steps": len(warm[2]), "warmup_s": warm[1],
+        "timed_micro_steps": micro, "wall_s": wall,
+        "tokens_per_s": tokens / wall, "micro_step_ms_mean": step_s * 1e3,
+        "micro_step_ms_median": statistics.median(step_ms),
+        "micro_step_ms": step_ms,
+        "mfu": train_flops_per_step(n_params, TRAIN_B * TRAIN_S) / step_s
+        / peak_flops(device_name),
+        "peak_mem_gib": peak_gib, "losses": all_losses,
+        "loss_first": all_losses[0], "loss_last": all_losses[-1],
+        "dtypes_seen": {k: sorted(v) for k, v in seen.items()},
+        "kernel_launches": launches,
+        "launches_per_micro_step": per_step,
+        "applying_micro_steps": applying}
+    if fp16:
+        result.update(skipped_micro_steps=skipped,
+                      loss_scale_final=(warm[4] + scale)[-1][0],
+                      loss_scale_trajectory=[m[0] for m in warm[4] + scale])
+    emit(result)
+    check(all(math.isfinite(x) for x in all_losses),
+          f"{cell}: non-finite loss")
+    check(all_losses[-1] < all_losses[0],
+          f"{cell}: loss did not fall: {all_losses[0]} -> {all_losses[-1]}")
+    check(per_step == want, f"{cell}: launches a micro-step {per_step}, "
+                            f"want {want}")
+    check(seen["layernorm_in"] == {"torch.float32"}
+          and seen["attention_in"] == {f"torch.{c['dtype']}"},
+          f"{cell}: dtypes seen {seen}")
+    check(not any(launches[k + other] for k in ("flash_fwd", "flash_bwd_dq",
+                                                "flash_bwd_dkv")),
+          f"{cell}: launched flash kernels of the other dtype: {launches}")
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------- phase 5
@@ -3348,6 +3919,13 @@ KERNEL_META = {
        for k, line in (("flash_fwd", 174), ("flash_bwd_dq", 246),
                        ("flash_bwd_dkv", 300))
        for v in ("mask", "dropout")},
+    # the fp16 instantiations of kernels 3-5 (AMP in float16)
+    **{f"{k}_fp16": dict(
+        source="paddle_tpu_torch/csrc/flash_attention_tc.cu",
+        replaces=f"paddle_tpu/ops/attention.py:{line}",
+        phase="train_amp_fp16")
+       for k, line in (("flash_fwd", 174), ("flash_bwd_dq", 246),
+                       ("flash_bwd_dkv", 300))},
 }
 
 
@@ -3380,12 +3958,14 @@ def main():
     timed("build", phase_build)
     kern = timed("kernels", phase_kernels)
     kern.update(timed("train_kernels", phase_train_kernels))
+    kern.update(timed("fp16_kernels", phase_fp16_kernels))
     kern.update(timed("adam_kernel", phase_adam_kernel))
     variants, variant_launches = timed("attention_variants",
                                        phase_attention_variants)
     kern.update(variants)
     timed("model", phase_model)
     timed("model_train", phase_model_train)
+    timed("model_amp", phase_model_amp)
     serve = {}
     by_phase = {"attention_variants": variant_launches,
                 "serve": timed("serve", phase_serve, record=serve)}
@@ -3403,6 +3983,8 @@ def main():
         by_phase[cell] = timed(cell, phase_serve, cell)
     by_phase["llama_train"], _ = timed("llama_train", phase_train, name,
                                        "llama_train")
+    for cell in AMP_TRAIN_CELLS:
+        by_phase[cell] = timed(cell, phase_train_amp, name, cell)
     emit({"phase": "phase_seconds", **seconds})
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3416,7 +3998,8 @@ def main():
         for x in ("tflops", "share_of_bound", "without_variant_ms",
                   "causal_case_b", "entry_key_padding_b11s",
                   "entry_per_head_bf16",    # the flash kernels and variants
-                  "at_llama_shape", "at_llama_shapes", "shared_pages"):
+                  "at_llama_shape", "at_llama_shapes", "shared_pages",
+                  "do_update_flag"):
             if x in kern[k]:
                 line[x] = kern[k][x]
         if k + "_train" in kern:   # a served kernel the train step runs too

@@ -11,7 +11,12 @@ so tests can compare parameters after training steps.
 a JAX optimizer's `init_state`/`apply_gradients_fn` state (moment1,
 moment2, beta1_pow, beta2_pow, master_weight), keyed by the same names,
 into the port optimizer's `state`, so both sides can start from the same
-non-zero moments.
+non-zero moments; any optimizer's slots cross, since each is keyed by the
+names `_init_slots_mp` gives it (SGD none, Momentum and LarsMomentum
+`velocity`, Lamb's moments and beta powers).
+`load_jax_step_extras(step, extras)` carries a JAX train step's extras
+(the loss scale and its good/bad counters, the gradient-merge accumulator
+and its count) into a port step built from the same plan.
 """
 from __future__ import annotations
 
@@ -77,3 +82,32 @@ def load_jax_optimizer_state(optimizer, model: torch.nn.Module,
                 t.copy_(torch.from_numpy(arr))
             optimizer.state[p] = slots
     return optimizer
+
+
+_SCALAR_EXTRAS = {"loss_scale": torch.float32, "good_steps": torch.int32,
+                  "bad_steps": torch.int32, "accum_n": torch.int32}
+
+
+def load_jax_step_extras(step, extras: Mapping[str, object]):
+    """Set the port train step's extras from a JAX step's `_extras` (numpy
+    or arrays; `accum` a {name: array} dict). The port step must have been
+    built from the same plan: each key must already be there. Returns the
+    step."""
+    mine = step._extras
+    missing = sorted(set(extras) - set(mine))
+    if missing:
+        raise KeyError(f"the port step has no extras {missing}: build it "
+                       "from the same plan")
+    with torch.no_grad():
+        for k, v in extras.items():
+            if k == "accum":
+                for name, arr in v.items():
+                    t = mine["accum"][name]
+                    t.copy_(torch.from_numpy(np.array(arr, np.float32)).to(
+                        device=t.device, dtype=t.dtype))
+            else:
+                mine[k] = torch.tensor(np.asarray(v).item(),
+                                       dtype=_SCALAR_EXTRAS[k],
+                                       device=step.device)
+    return step
+

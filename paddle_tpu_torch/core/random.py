@@ -70,3 +70,20 @@ def generator(device) -> torch.Generator:
         gen.manual_seed(next_seed())
         _RNG.generators[dev] = gen
     return gen
+
+
+def rng_snapshot():
+    """This thread's state: (seed, counter, {device: generator state})."""
+    return (_RNG.seed, _RNG.counter,
+            {d: g.get_state() for d, g in _RNG.generators.items()})
+
+
+def rng_restore(snapshot):
+    """Set the state to `snapshot` (from rng_snapshot()): the seeds and
+    draws that follow repeat those that followed the snapshot."""
+    _RNG.seed, _RNG.counter, states = snapshot
+    for d, st in states.items():
+        gen = _RNG.generators.get(d)
+        if gen is None:
+            gen = _RNG.generators[d] = torch.Generator(device=d)
+        gen.set_state(st)

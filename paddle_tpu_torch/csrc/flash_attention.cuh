@@ -1,6 +1,6 @@
 // Declarations shared by flash_attention.cu (the C entry points and the
-// fp32 kernels) and flash_attention_tc.cu (the bf16 tensor-core kernels):
-// the mask and dropout variants' arguments and the bf16 launchers.
+// fp32 kernels) and flash_attention_tc.cu (the bf16 and fp16 tensor-core
+// kernels): the mask and dropout variants' arguments and the launchers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -42,3 +42,18 @@ int flash_bwd_dkv_bf16_tc(const void* q, const void* k, const void* v,
                           void* dk, void* dv, int BH, int Sq, int Sk, int D,
                           float scale, int causal, AttnMask mask,
                           DropoutParams drop, bool dropout, cudaStream_t s);
+
+// fp16 launchers (flash_attention_tc.cu): the same tensor-core kernels
+// over __half, with neither a mask nor dropout. Each returns
+// cudaGetLastError().
+int flash_fwd_fp16_tc(const void* q, const void* k, const void* v, void* out,
+                      void* lse, int BH, int Sq, int Sk, int D, float scale,
+                      int causal, cudaStream_t s);
+int flash_bwd_dq_fp16_tc(const void* q, const void* k, const void* v,
+                         const void* g, const void* lse, const void* delta,
+                         void* dq, int BH, int Sq, int Sk, int D, float scale,
+                         int causal, cudaStream_t s);
+int flash_bwd_dkv_fp16_tc(const void* q, const void* k, const void* v,
+                          const void* g, const void* lse, const void* delta,
+                          void* dk, void* dv, int BH, int Sq, int Sk, int D,
+                          float scale, int causal, cudaStream_t s);

@@ -1,8 +1,11 @@
-// Flash attention forward, dq and dk/dv in bf16 on Hopper's tensor cores
-// (sm_90a), built by ops/_kernels.py into the port's kernel library and
-// reached through pdtt_flash_fwd / pdtt_flash_bwd_dq / pdtt_flash_bwd_dkv
-// (flash_attention.cu) when dtype == 1. The fp32 path stays
-// flash_attention.cu's scalar kernels.
+// Flash attention forward, dq and dk/dv in bf16 and fp16 on Hopper's tensor
+// cores (sm_90a), built by ops/_kernels.py into the port's kernel library
+// and reached through pdtt_flash_fwd / pdtt_flash_bwd_dq /
+// pdtt_flash_bwd_dkv (flash_attention.cu) when dtype == 1 (bf16) or 2
+// (fp16, for AMP in float16; no mask or dropout variant). The kernels are
+// templates over the element type T: only the rounding of P, dS and the
+// outputs to T (pack2), wgmma's operand type and TMA's data type depend on
+// it. The fp32 path stays flash_attention.cu's scalar kernels.
 //
 // Replaces: paddle_tpu/ops/attention.py::_fwd_kernel (flash_fwd_kernel_tc),
 // ::_bwd_dq_kernel (flash_bwd_dq_kernel_tc) and ::_bwd_dkv_kernel
@@ -14,9 +17,9 @@
 //   (Sk - Sq) and masks the rest to -1e30; p = 0 exactly where the masked
 //   score is <= -5e29; l floored at 1e-30, so a row with no visible key
 //   outputs 0 and lse = -1e30. Forward: p (against the running max) is
-//   rounded to bf16 before PV. dk/dv: p = exp(s - lse) rounded to bf16 for
-//   dv = p^T g, ds = p (dp - delta) scale rounded to bf16 for dk = ds^T q;
-//   dq: the same ds rounded to bf16 for dq = ds k; every sum in fp32. Any
+//   rounded to T before PV. dk/dv: p = exp(s - lse) rounded to T for
+//   dv = p^T g, ds = p (dp - delta) scale rounded to T for dk = ds^T q;
+//   dq: the same ds rounded to T for dq = ds k; every sum in fp32. Any
 //   Sq, Sk >= 1 (rows and keys past the end are zero-filled and never
 //   stored); D a multiple of 16 up to 128, run at a
 //   padded head dim of 64 or 128 (the padded columns are zero and add exact
@@ -110,9 +113,11 @@
 // <cuda.h> for CUtensorMap's types only: the encoder is fetched at run time
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "flash_attention.cuh"
 
@@ -159,9 +164,19 @@ __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// two fp32 values rounded to nearest even into a bf16 pair (lo first)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+// two fp32 values rounded to nearest even into a pair of T (lo first).
+// This, wgmma's operand type and TMA's data type are all that an element
+// type (bf16, or fp16 for AMP in float16) changes in these kernels.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<bf16>(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
@@ -456,105 +471,124 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 
 // d (+)= A (shared memory, K-major) * B (shared memory, K-major),
 // m64n64k16; d is overwritten where scale_d == 0
+#define PDTT_WGMMA_SS_N64(TY)                                     \
+  asm volatile(                                                   \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{"                                                         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                          \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                    \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                  \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "                 \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"                             \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),           \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),           \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),         \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),       \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),       \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])        \
+      : "l"(da), "l"(db), "r"(scale_d))
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (std::is_same<T, __half>::value)
+    PDTT_WGMMA_SS_N64("f16");
+  else
+    PDTT_WGMMA_SS_N64("bf16");
 }
 
 // d += A (registers) * B (shared memory, MN-major), m64n64k16
+#define PDTT_WGMMA_RS_N64(TY)                                        \
+  asm volatile(                                                      \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                   \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "    \
+      "{"                                                            \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                             \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                       \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                     \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "                    \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),              \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),              \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),            \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),          \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),          \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),          \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),          \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])           \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                              const uint32_t (&a)[4],
                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (std::is_same<T, __half>::value)
+    PDTT_WGMMA_RS_N64("f16");
+  else
+    PDTT_WGMMA_RS_N64("bf16");
 }
 
 // d += A (registers) * B (shared memory, MN-major), m64n128k16
+#define PDTT_WGMMA_RS_N128(TY)                                       \
+  asm volatile(                                                      \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                   \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "   \
+      "{"                                                            \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                             \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                       \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                     \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                     \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                     \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                     \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                     \
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "                    \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),              \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),              \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),            \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),          \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),          \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),          \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),          \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),          \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),          \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),          \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),          \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),          \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),          \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),          \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),          \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])           \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                              const uint32_t (&a)[4],
                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (std::is_same<T, __half>::value)
+    PDTT_WGMMA_RS_N128("f16");
+  else
+    PDTT_WGMMA_RS_N128("bf16");
 }
 
 // d += A (registers) * B (shared memory, MN-major), m64n{kD}k16
-template <int kD>
+template <typename T, int kD>
 __device__ __forceinline__ void wgmma_rs(float (&d)[kD / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
   if constexpr (kD == 128)
-    wgmma_rs_n128(d, a, db);
+    wgmma_rs_n128<T>(d, a, db);
   else
-    wgmma_rs_n64(d, a, db);
+    wgmma_rs_n64<T>(d, a, db);
 }
 
 // The A operand (m64k16, this warp's 16 rows) from two adjacent n8 groups
 // of a wgmma accumulator (elements 4 j .. 4 j + 7), as acc_to_a
+template <typename T>
 __device__ __forceinline__ void frag_to_a(uint32_t (&a)[4], const float* c) {
-  a[0] = pack_bf16(c[0], c[1]);
-  a[1] = pack_bf16(c[2], c[3]);
-  a[2] = pack_bf16(c[4], c[5]);
-  a[3] = pack_bf16(c[6], c[7]);
+  a[0] = pack2<T>(c[0], c[1]);
+  a[1] = pack2<T>(c[2], c[3]);
+  a[2] = pack2<T>(c[4], c[5]);
+  a[3] = pack2<T>(c[6], c[7]);
 }
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
@@ -569,14 +603,14 @@ __device__ __forceinline__ int tile_chunk(int r, int c) {
 }
 
 // The warp's 16 x kD accumulator (rows g and g + 8 of each n8 group,
-// divided by div0 and div1) rounded to bf16 into its own rows rb..rb+15 of
+// divided by div0 and div1) rounded to T into its own rows rb..rb+15 of
 // a kRows-row tile (the warp's own: nothing else reads them any more),
 // then copied out to rows row0.. of dst (those below n_rows, columns below
 // D) with 16-byte stores.
-template <int kD, int kRows>
+template <int kD, int kRows, typename T>
 __device__ __forceinline__ void store_rows(uint8_t* tile_bytes, int rb,
                                            const float (&acc)[kD / 2],
-                                           float div0, float div1, bf16* dst,
+                                           float div0, float div1, T* dst,
                                            int row0, int n_rows, int D,
                                            int lane) {
   constexpr int kChunks = kD / 8;
@@ -585,9 +619,9 @@ __device__ __forceinline__ void store_rows(uint8_t* tile_bytes, int rb,
 #pragma unroll
   for (int j = 0; j < kChunks; ++j) {
     reinterpret_cast<uint32_t*>(tile + tile_chunk<kRows>(rb + g, j))[t4] =
-        pack_bf16(acc[4 * j] / div0, acc[4 * j + 1] / div0);
+        pack2<T>(acc[4 * j] / div0, acc[4 * j + 1] / div0);
     reinterpret_cast<uint32_t*>(tile + tile_chunk<kRows>(rb + g + 8, j))[t4] =
-        pack_bf16(acc[4 * j + 2] / div1, acc[4 * j + 3] / div1);
+        pack2<T>(acc[4 * j + 2] / div1, acc[4 * j + 3] / div1);
   }
   __syncwarp();
 #pragma unroll
@@ -658,12 +692,12 @@ __device__ __forceinline__ void online_softmax(
   }
 }
 
-template <int kD, bool kMask, bool kDrop>
+template <typename T, int kD, bool kMask, bool kDrop>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
-                        bf16* __restrict__ out, float* __restrict__ lse,
+                        T* __restrict__ out, float* __restrict__ lse,
                         int Sq, int Sk, int D, float scale, int causal,
                         AttnMask mask, DropoutParams drop) {
   constexpr int kQBytes = kFwdBQ * kD * 2;
@@ -747,7 +781,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     const uint8_t* ks = k_s + (kt & 1) * kKBytes;
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_ss_n64(s, kmajor_desc<kFwdBQ>(q_s, wg_row, kk),
+      wgmma_ss_n64<T>(s, kmajor_desc<kFwdBQ>(q_s, wg_row, kk),
                    kmajor_desc<kFwdBK>(ks, 0, kk), kk > 0);
     wgmma_commit();
   };
@@ -756,7 +790,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     const uint8_t* vs = v_s + (kt & 1) * kKBytes;
 #pragma unroll
     for (int kk = 0; kk < kFwdBK / 16; ++kk)
-      wgmma_rs<kD>(o, a[kk], mnmajor_desc<kFwdBK>(vs, kk));
+      wgmma_rs<T, kD>(o, a[kk], mnmajor_desc<kFwdBK>(vs, kk));
     wgmma_commit();
   };
   auto softmax = [&](int kt) {
@@ -778,7 +812,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     if (wg_leader) mbar_arrive(&k_free[0]);
     softmax(0);
 #pragma unroll
-    for (int kk = 0; kk < kFwdBK / 16; ++kk) frag_to_a(a[kk], s + 8 * kk);
+    for (int kk = 0; kk < kFwdBK / 16; ++kk) frag_to_a<T>(a[kk], s + 8 * kk);
   }
   // Tile kt's S is issued together with tile kt-1's P V, so the softmax of
   // tile kt runs while P V is on the tensor cores.
@@ -801,7 +835,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     for (int i = 0; i < kD / 2; ++i) o[i] *= al[(i >> 1) & 1];
     // P rounded to bf16 in registers as the next P V's A operand
 #pragma unroll
-    for (int kk = 0; kk < kFwdBK / 16; ++kk) frag_to_a(a[kk], s + 8 * kk);
+    for (int kk = 0; kk < kFwdBK / 16; ++kk) frag_to_a<T>(a[kk], s + 8 * kk);
   }
   if (n_kt > 0) {
     mbar_wait(&v_full[(n_kt - 1) & 1], ((n_kt - 1) >> 1) & 1);
@@ -826,7 +860,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 }
 
 // ------------------------------------------------------------------ dk/dv
-template <int kD, bool kMask, bool kDrop>
+template <typename T, int kD, bool kMask, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel_tc(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
@@ -834,7 +868,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                             const __grid_constant__ CUtensorMap tg,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
-                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            T* __restrict__ dk, T* __restrict__ dv,
                             int Sq, int Sk, int D, float scale, int causal,
                             AttnMask mask, DropoutParams drop) {
   constexpr int kKVBytes = kBwdBK * kD * 2;
@@ -921,12 +955,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_ss_n64(p, kmajor_desc<kBwdBK>(k_s, wg_row, kk),
+      wgmma_ss_n64<T>(p, kmajor_desc<kBwdBK>(k_s, wg_row, kk),
                    kmajor_desc<kBwdBQ>(qs, 0, kk), kk > 0);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_ss_n64(dp, kmajor_desc<kBwdBK>(v_s, wg_row, kk),
+      wgmma_ss_n64<T>(dp, kmajor_desc<kBwdBK>(v_s, wg_row, kk),
                    kmajor_desc<kBwdBQ>(gs, 0, kk), kk > 0);
     wgmma_commit();
     // dropout's keep bits, drawn while S^T and dP^T are on the tensor cores
@@ -967,16 +1001,16 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int e = 0; e < 8; ++e)
           pd[e] = keep_or_zero(p[8 * kk + e], keep, 8 * kk + e,
                                drop.rescale);
-        frag_to_a(a[kk], pd);
+        frag_to_a<T>(a[kk], pd);
       } else {
-        frag_to_a(a[kk], p + 8 * kk);
+        frag_to_a<T>(a[kk], p + 8 * kk);
       }
     }
     fence_regs(dv_acc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBwdBQ / 16; ++kk)
-      wgmma_rs<kD>(dv_acc, a[kk], mnmajor_desc<kBwdBQ>(gs, kk));
+      wgmma_rs<T, kD>(dv_acc, a[kk], mnmajor_desc<kBwdBQ>(gs, kk));
     wgmma_commit();
     wgmma_wait<1>();  // dP^T landed; dV may still run
     fence_regs(dp);
@@ -993,12 +1027,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(dv_acc);
     // dK += dS^T Q, dS^T rounded to bf16 in registers
 #pragma unroll
-    for (int kk = 0; kk < kBwdBQ / 16; ++kk) frag_to_a(a[kk], dp + 8 * kk);
+    for (int kk = 0; kk < kBwdBQ / 16; ++kk) frag_to_a<T>(a[kk], dp + 8 * kk);
     fence_regs(dk_acc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBwdBQ / 16; ++kk)
-      wgmma_rs<kD>(dk_acc, a[kk], mnmajor_desc<kBwdBQ>(qs, kk));
+      wgmma_rs<T, kD>(dk_acc, a[kk], mnmajor_desc<kBwdBQ>(qs, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dk_acc);
@@ -1025,7 +1059,7 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-template <int kD, bool kMask, bool kDrop>
+template <typename T, int kD, bool kMask, bool kDrop>
 __global__ void __launch_bounds__(kDqThreads, 1)
     flash_bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -1033,7 +1067,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
                            const __grid_constant__ CUtensorMap tg,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
-                           bf16* __restrict__ dq, int Sq, int Sk, int D,
+                           T* __restrict__ dq, int Sq, int Sk, int D,
                            float scale, int causal, AttnMask mask,
                            DropoutParams drop) {
   constexpr int kQBytes = kFwdBQ * kD * 2;
@@ -1140,12 +1174,12 @@ __global__ void __launch_bounds__(kDqThreads, 1)
       const uint8_t* vs = v_s + (kt & 1) * kKBytes;
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk)
-        wgmma_ss_n64(s, kmajor_desc<kFwdBQ>(q_s, wg_row, kk),
+        wgmma_ss_n64<T>(s, kmajor_desc<kFwdBQ>(q_s, wg_row, kk),
                      kmajor_desc<kFwdBK>(ks, 0, kk), kk > 0);
       wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk)
-        wgmma_ss_n64(dp, kmajor_desc<kFwdBQ>(g_s, wg_row, kk),
+        wgmma_ss_n64<T>(dp, kmajor_desc<kFwdBQ>(g_s, wg_row, kk),
                      kmajor_desc<kFwdBK>(vs, 0, kk), kk > 0);
       wgmma_commit();
     };
@@ -1154,7 +1188,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
       const uint8_t* ks = k_s + (kt & 1) * kKBytes;
 #pragma unroll
       for (int kk = 0; kk < kFwdBK / 16; ++kk)
-        wgmma_rs<kD>(acc, a[kk], mnmajor_desc<kFwdBK>(ks, kk));
+        wgmma_rs<T, kD>(acc, a[kk], mnmajor_desc<kFwdBK>(ks, kk));
       wgmma_commit();
     };
     // s -> p = exp(s scale - lse), an exact 0 where masked; this thread
@@ -1213,7 +1247,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
       if (wg_leader) mbar_arrive(&v_free[0]);
       dsoft();
 #pragma unroll
-      for (int kk = 0; kk < kFwdBK / 16; ++kk) frag_to_a(a[kk], dp + 8 * kk);
+      for (int kk = 0; kk < kFwdBK / 16; ++kk) frag_to_a<T>(a[kk], dp + 8 * kk);
     }
     // Tile kt's S and dP are issued together with tile kt-1's dS K, so the
     // probabilities and dS of tile kt are computed while dS K runs.
@@ -1238,7 +1272,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
       if (wg_leader) mbar_arrive(&k_free[(kt - 1) & 1]);
       // dS rounded to bf16 in registers as the next dS K's A operand
 #pragma unroll
-      for (int kk = 0; kk < kFwdBK / 16; ++kk) frag_to_a(a[kk], dp + 8 * kk);
+      for (int kk = 0; kk < kFwdBK / 16; ++kk) frag_to_a<T>(a[kk], dp + 8 * kk);
     }
     if (n_kt > 0) {
       fence_regs(acc);
@@ -1280,9 +1314,17 @@ EncodeTiledFn load_encoder() {
   return reinterpret_cast<EncodeTiledFn>(fn);
 }
 
-// The TMA map of a [BH, S, D] bf16 tensor read in boxes of 64 columns x
-// `rows` rows of one batch*head, 128-byte swizzled; reads past S or D fill
-// zeros.
+// TMA's data type of an element type
+template <typename T>
+constexpr CUtensorMapDataType tma_type() {
+  return std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// The TMA map of a [BH, S, D] tensor of T (2 bytes) read in boxes of 64
+// columns x `rows` rows of one batch*head, 128-byte swizzled; reads past S
+// or D fill zeros.
+template <typename T>
 int make_map(CUtensorMap* map, const void* ptr, int BH, int S, int D,
              int rows) {
   static const EncodeTiledFn encode = load_encoder();
@@ -1295,14 +1337,14 @@ int make_map(CUtensorMap* map, const void* ptr, int BH, int S, int D,
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      map, tma_type<T>(), 3, const_cast<void*>(ptr), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int kD, bool kMask, bool kDrop>
+template <int kD, bool kMask, bool kDrop, typename T = bf16>
 int fwd_tc(const void* q, const void* k, const void* v, void* out, void* lse,
            int BH, int Sq, int Sk, int D, float scale, int causal,
            AttnMask mask, DropoutParams drop, cudaStream_t s) {
@@ -1310,22 +1352,22 @@ int fwd_tc(const void* q, const void* k, const void* v, void* out, void* lse,
   const int n_qt = (Sq + kFwdBQ - 1) / kFwdBQ;
   if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
-  int rc = make_map(&tq, q, BH, Sq, D, kFwdBQ);
-  if (!rc) rc = make_map(&tk, k, BH, Sk, D, kFwdBK);
-  if (!rc) rc = make_map(&tv, v, BH, Sk, D, kFwdBK);
+  int rc = make_map<T>(&tq, q, BH, Sq, D, kFwdBQ);
+  if (!rc) rc = make_map<T>(&tk, k, BH, Sk, D, kFwdBK);
+  if (!rc) rc = make_map<T>(&tv, v, BH, Sk, D, kFwdBK);
   if (!rc)
     rc = static_cast<int>(cudaFuncSetAttribute(
-        flash_fwd_kernel_tc<kD, kMask, kDrop>,
+        flash_fwd_kernel_tc<T, kD, kMask, kDrop>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
   if (rc) return rc;
-  flash_fwd_kernel_tc<kD, kMask, kDrop>
+  flash_fwd_kernel_tc<T, kD, kMask, kDrop>
       <<<dim3(BH, n_qt), kFwdThreads, smem, s>>>(
-          tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(lse), Sq,
+          tq, tk, tv, static_cast<T*>(out), static_cast<float*>(lse), Sq,
           Sk, D, scale, causal, mask, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kD, bool kMask, bool kDrop>
+template <int kD, bool kMask, bool kDrop, typename T = bf16>
 int bwd_dkv_tc(const void* q, const void* k, const void* v, const void* g,
                const void* lse, const void* delta, void* dk, void* dv,
                int BH, int Sq, int Sk, int D, float scale, int causal,
@@ -1337,24 +1379,24 @@ int bwd_dkv_tc(const void* q, const void* k, const void* v, const void* g,
   const int n_kt = (Sk + kBwdBK - 1) / kBwdBK;
   if (n_kt > 65535) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv, tg;
-  int rc = make_map(&tq, q, BH, Sq, D, kBwdBQ);
-  if (!rc) rc = make_map(&tg, g, BH, Sq, D, kBwdBQ);
-  if (!rc) rc = make_map(&tk, k, BH, Sk, D, kBwdBK);
-  if (!rc) rc = make_map(&tv, v, BH, Sk, D, kBwdBK);
+  int rc = make_map<T>(&tq, q, BH, Sq, D, kBwdBQ);
+  if (!rc) rc = make_map<T>(&tg, g, BH, Sq, D, kBwdBQ);
+  if (!rc) rc = make_map<T>(&tk, k, BH, Sk, D, kBwdBK);
+  if (!rc) rc = make_map<T>(&tv, v, BH, Sk, D, kBwdBK);
   if (!rc)
     rc = static_cast<int>(cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel_tc<kD, kMask, kDrop>,
+        flash_bwd_dkv_kernel_tc<T, kD, kMask, kDrop>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
   if (rc) return rc;
-  flash_bwd_dkv_kernel_tc<kD, kMask, kDrop>
+  flash_bwd_dkv_kernel_tc<T, kD, kMask, kDrop>
       <<<dim3(BH, n_kt), kThreads, smem, s>>>(
           tq, tk, tv, tg, static_cast<const float*>(lse),
-          static_cast<const float*>(delta), static_cast<bf16*>(dk),
-          static_cast<bf16*>(dv), Sq, Sk, D, scale, causal, mask, drop);
+          static_cast<const float*>(delta), static_cast<T*>(dk),
+          static_cast<T*>(dv), Sq, Sk, D, scale, causal, mask, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kD, bool kMask, bool kDrop>
+template <int kD, bool kMask, bool kDrop, typename T = bf16>
 int bwd_dq_tc(const void* q, const void* k, const void* v, const void* g,
               const void* lse, const void* delta, void* dq, int BH, int Sq,
               int Sk, int D, float scale, int causal, AttnMask mask,
@@ -1363,19 +1405,19 @@ int bwd_dq_tc(const void* q, const void* k, const void* v, const void* g,
   const int n_qt = (Sq + kFwdBQ - 1) / kFwdBQ;
   if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv, tg;
-  int rc = make_map(&tq, q, BH, Sq, D, kFwdBQ);
-  if (!rc) rc = make_map(&tg, g, BH, Sq, D, kFwdBQ);
-  if (!rc) rc = make_map(&tk, k, BH, Sk, D, kFwdBK);
-  if (!rc) rc = make_map(&tv, v, BH, Sk, D, kFwdBK);
+  int rc = make_map<T>(&tq, q, BH, Sq, D, kFwdBQ);
+  if (!rc) rc = make_map<T>(&tg, g, BH, Sq, D, kFwdBQ);
+  if (!rc) rc = make_map<T>(&tk, k, BH, Sk, D, kFwdBK);
+  if (!rc) rc = make_map<T>(&tv, v, BH, Sk, D, kFwdBK);
   if (!rc)
     rc = static_cast<int>(cudaFuncSetAttribute(
-        flash_bwd_dq_kernel_tc<kD, kMask, kDrop>,
+        flash_bwd_dq_kernel_tc<T, kD, kMask, kDrop>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
   if (rc) return rc;
-  flash_bwd_dq_kernel_tc<kD, kMask, kDrop>
+  flash_bwd_dq_kernel_tc<T, kD, kMask, kDrop>
       <<<dim3(BH, n_qt), kDqThreads, smem, s>>>(
           tq, tk, tv, tg, static_cast<const float*>(lse),
-          static_cast<const float*>(delta), static_cast<bf16*>(dq), Sq, Sk,
+          static_cast<const float*>(delta), static_cast<T*>(dq), Sq, Sk,
           D, scale, causal, mask, drop);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1392,7 +1434,8 @@ int bwd_dq_tc(const void* q, const void* k, const void* v, const void* g,
 
 // bf16 launchers for flash_attention.cu's entry points (declared in
 // flash_attention.cuh); pointers must be 16-byte aligned (the wrapper
-// checks). Each returns cudaGetLastError().
+// checks). Each returns cudaGetLastError(). The fp16 launchers below take
+// no mask and no dropout.
 int flash_fwd_bf16_tc(const void* q, const void* k, const void* v, void* out,
                       void* lse, int BH, int Sq, int Sk, int D, float scale,
                       int causal, AttnMask mask, DropoutParams drop,
@@ -1417,4 +1460,48 @@ int flash_bwd_dq_bf16_tc(const void* q, const void* k, const void* v,
                          bool dropout, cudaStream_t s) {
   PDTT_TC_DISPATCH(bwd_dq_tc, q, k, v, g, lse, delta, dq, BH, Sq, Sk, D,
                    scale, causal, mask, drop, s);
+}
+
+// fp16 launchers (AMP with dtype float16): the same kernels over __half,
+// without the mask and dropout variants. Each returns cudaGetLastError().
+int flash_fwd_fp16_tc(const void* q, const void* k, const void* v, void* out,
+                      void* lse, int BH, int Sq, int Sk, int D, float scale,
+                      int causal, cudaStream_t s) {
+  const AttnMask mask{nullptr, 1};
+  const DropoutParams drop{};
+  if (D <= 64)
+    return fwd_tc<64, false, false, __half>(q, k, v, out, lse, BH, Sq, Sk, D,
+                                            scale, causal, mask, drop, s);
+  return fwd_tc<128, false, false, __half>(q, k, v, out, lse, BH, Sq, Sk, D,
+                                           scale, causal, mask, drop, s);
+}
+
+int flash_bwd_dkv_fp16_tc(const void* q, const void* k, const void* v,
+                          const void* g, const void* lse, const void* delta,
+                          void* dk, void* dv, int BH, int Sq, int Sk, int D,
+                          float scale, int causal, cudaStream_t s) {
+  const AttnMask mask{nullptr, 1};
+  const DropoutParams drop{};
+  if (D <= 64)
+    return bwd_dkv_tc<64, false, false, __half>(q, k, v, g, lse, delta, dk,
+                                                dv, BH, Sq, Sk, D, scale,
+                                                causal, mask, drop, s);
+  return bwd_dkv_tc<128, false, false, __half>(q, k, v, g, lse, delta, dk, dv,
+                                               BH, Sq, Sk, D, scale, causal,
+                                               mask, drop, s);
+}
+
+int flash_bwd_dq_fp16_tc(const void* q, const void* k, const void* v,
+                         const void* g, const void* lse, const void* delta,
+                         void* dq, int BH, int Sq, int Sk, int D, float scale,
+                         int causal, cudaStream_t s) {
+  const AttnMask mask{nullptr, 1};
+  const DropoutParams drop{};
+  if (D <= 64)
+    return bwd_dq_tc<64, false, false, __half>(q, k, v, g, lse, delta, dq, BH,
+                                               Sq, Sk, D, scale, causal, mask,
+                                               drop, s);
+  return bwd_dq_tc<128, false, false, __half>(q, k, v, g, lse, delta, dq, BH,
+                                              Sq, Sk, D, scale, causal, mask,
+                                              drop, s);
 }

@@ -26,6 +26,12 @@
 // stages them on the device, and the update stays replayable by a CUDA
 // graph. The beta powers are advanced by the caller before the launch, not
 // here: a block that wrote them back would race with blocks still reading.
+// An optional device flag (do_update, one byte) is read the same way: where
+// it is 0 every thread returns at once and p, m1, m2 and the master stay
+// bit for bit as they were. That is the train step's skipped update (an
+// fp16 overflow, or a gradient-merge step that banks), decided on the
+// device with no host sync; the caller gates the beta powers' advance by
+// the same flag. A null flag updates unconditionally, as before.
 //
 // Same result as the plain version (ops/fused_adam.py::adam_math): the
 // arithmetic runs in fp32 in _adam_math's exact order, every operation an
@@ -123,8 +129,10 @@ __global__ void __launch_bounds__(kThreads)
                       float* __restrict__ master,
                       const float* __restrict__ lr_ptr,
                       const float* __restrict__ b1p_ptr,
-                      const float* __restrict__ b2p_ptr, long long n,
+                      const float* __restrict__ b2p_ptr,
+                      const uint8_t* __restrict__ do_update, long long n,
                       long long n_vec, AdamConsts c) {
+  if (do_update != nullptr && *do_update == 0) return;
   const float lr = *lr_ptr;
   const float omb1p = __fsub_rn(1.f, *b1p_ptr);
   const float omb2p = __fsub_rn(1.f, *b2p_ptr);
@@ -177,6 +185,7 @@ struct AdamBuffers {
   const float* lr;
   const float* b1p;
   const float* b2p;
+  const uint8_t* do_update;
   long long n;
 };
 
@@ -196,7 +205,7 @@ int launch(const AdamBuffers& b, const AdamConsts& c, cudaStream_t s) {
       <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
           static_cast<P*>(b.p), static_cast<const G*>(b.g),
           static_cast<M*>(b.m1), static_cast<M*>(b.m2), b.master, b.lr,
-          b.b1p, b.b2p, b.n, n_vec, c);
+          b.b1p, b.b2p, b.do_update, b.n, n_vec, c);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -234,12 +243,14 @@ int dispatch_g(int g_dtype, int m_dtype, const AdamBuffers& b,
 // elements each, contiguous; dtype codes 0 = float32, 1 = bfloat16 for p, g and the two
 // moments; lr, b1p, b2p: one fp32 each in device memory (b1p = beta1^t
 // already advanced for this step). omb1 = 1 - b1 and omb2 = 1 - b2 are
-// rounded to fp32 by the caller. Updates p, m1, m2 and the master in
-// place. Returns cudaGetLastError() after the launch (0 on success); the
+// rounded to fp32 by the caller. do_update: one byte in device memory (a
+// torch.bool) or null; 0 leaves everything untouched. Updates p, m1, m2
+// and the master in place. Returns cudaGetLastError() after the launch (0 on success); the
 // caller raises on anything else.
 extern "C" int pdtt_fused_adam(void* p, const void* g, void* m1, void* m2,
                                void* master, const void* lr, const void* b1p,
-                               const void* b2p, long long n, float b1,
+                               const void* b2p, const void* do_update,
+                               long long n, float b1,
                                float omb1, float b2, float omb2, float eps,
                                float wd, int decoupled, int p_dtype,
                                int g_dtype, int m_dtype, void* stream) {
@@ -247,7 +258,8 @@ extern "C" int pdtt_fused_adam(void* p, const void* g, void* m1, void* m2,
   const AdamBuffers b{p, g, m1, m2, static_cast<float*>(master),
                       static_cast<const float*>(lr),
                       static_cast<const float*>(b1p),
-                      static_cast<const float*>(b2p), n};
+                      static_cast<const float*>(b2p),
+                      static_cast<const uint8_t*>(do_update), n};
   const AdamConsts c{b1, omb1, b2, omb2, eps, wd, decoupled};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p_dtype == 0) return dispatch_g<float>(g_dtype, m_dtype, b, c, s);

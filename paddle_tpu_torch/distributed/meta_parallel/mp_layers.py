@@ -17,12 +17,12 @@ from ...nn.layer.layers import Layer, create_parameter
 
 class VocabParallelEmbedding(Layer):
     def __init__(self, num_embeddings, embedding_dim, device=None,
-                 dtype=None):
+                 dtype=None, weight_attr=None):
         super().__init__()
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
         self.weight = create_parameter([num_embeddings, embedding_dim],
-                                       device, dtype)
+                                       device, dtype, weight_attr)
 
     def reset_parameters(self, generator=None):
         xavier_normal_(self.weight, generator)
@@ -44,9 +44,11 @@ class ColumnParallelLinear(_ParallelLinear):
     """W [in, out] split on the output dim; whole at degree 1."""
 
     def __init__(self, in_features, out_features, has_bias=None,
-                 gather_output=True, device=None, dtype=None):
+                 gather_output=True, device=None, dtype=None,
+                 weight_attr=None):
         super().__init__(in_features, out_features,
-                         has_bias is None or has_bias, device, dtype)
+                         has_bias is None or has_bias, device, dtype,
+                         weight_attr=weight_attr)
         self.gather_output = gather_output
 
 
@@ -54,8 +56,10 @@ class RowParallelLinear(_ParallelLinear):
     """W [in, out] split on the input dim; whole at degree 1."""
 
     def __init__(self, in_features, out_features, has_bias=True,
-                 input_is_parallel=False, device=None, dtype=None):
-        super().__init__(in_features, out_features, has_bias, device, dtype)
+                 input_is_parallel=False, device=None, dtype=None,
+                 weight_attr=None):
+        super().__init__(in_features, out_features, has_bias, device, dtype,
+                         weight_attr=weight_attr)
         self.input_is_parallel = input_is_parallel
 
 

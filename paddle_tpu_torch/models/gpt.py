@@ -5,7 +5,8 @@ The dense model has two paths: the cached decode — `init_cache`,
 `forward_with_cache` and `generate` — which serving runs, and the
 no-cache `forward(input_ids, labels=None)` of training, through flash
 attention and, with labels, the chunked lm-head + cross-entropy (the JAX
-package's FLAGS_fused_lm_ce default). MoE blocks and LoRA adapters wait
+package's FLAGS_fused_lm_ce default; FLAGS_fused_lm_ce=0 takes the
+logits and `ParallelCrossEntropy`). MoE blocks and LoRA adapters wait
 for their own slices.
 
 Parameter names match the JAX package's `functional_state()` keys, and
@@ -25,6 +26,7 @@ from ..core.device import resolve_device
 from ..core.dtype import convert_dtype
 from ..distributed.fleet.utils.recompute import recompute
 from ..distributed.meta_parallel.mp_layers import (ColumnParallelLinear,
+                                                   ParallelCrossEntropy,
                                                    RowParallelLinear,
                                                    VocabParallelEmbedding)
 from ..nn import Dropout, Embedding, LayerNorm
@@ -225,6 +227,7 @@ class GPTForCausalLM(Layer):
                                             has_bias=False,
                                             gather_output=False,
                                             device=device, dtype=dtype)
+        self.loss_fn = ParallelCrossEntropy()
         if generator is None:
             generator = torch.Generator(device=device)
             generator.manual_seed(0)
@@ -241,14 +244,29 @@ class GPTForCausalLM(Layer):
 
     def forward(self, input_ids, labels=None):
         """No-cache forward. With `labels` [B, S]: the mean over all B*S
-        tokens of the chunked lm-head cross-entropy (ignore_index -100
-        tokens count as 0), an fp32 scalar. Without: logits [B, S, V]."""
+        tokens of the cross-entropy (ignore_index -100 tokens count as 0),
+        an fp32 scalar: the chunked lm-head + CE by default, or, with the
+        environment's FLAGS_fused_lm_ce set to anything but 1, the logits
+        through the lm head (an autocast op under AMP) and
+        `ParallelCrossEntropy`, as in the JAX package (gpt.py:314-325).
+        Without labels: logits [B, S, V]."""
         hidden, _ = self.gpt(input_ids)
-        if labels is not None:
+        if labels is not None and self._can_fuse_lm_ce():
             hs = hidden.reshape(-1, hidden.shape[-1])
             return fused_linear_cross_entropy(
                 hs, self.lm_head.weight, labels.reshape(-1)).mean()
-        return self.lm_head(hidden)
+        logits = self.lm_head(hidden)
+        if labels is not None:
+            return self.loss_fn(logits, labels).mean()
+        return logits
+
+    @staticmethod
+    def _can_fuse_lm_ce():
+        """FLAGS_fused_lm_ce (default 1) read at every call, as the JAX
+        model reads it; the port has no vocab-sharded or sequence-sharded
+        trace to rule it out."""
+        import os
+        return os.environ.get("FLAGS_fused_lm_ce", "1") == "1"
 
     def init_cache(self, batch_size: int, max_len: int, dtype=None):
         cfg = self.config

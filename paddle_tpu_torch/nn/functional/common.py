@@ -1,4 +1,8 @@
-"""Dropout (counterpart of paddle_tpu/nn/functional/common.py:31-61).
+"""`linear` and dropout (counterpart of paddle_tpu/nn/functional/common.py:17-61).
+
+`linear` is one of the autocast op boundaries (`core/amp.py`): under
+`auto_cast` its fp32 inputs run in the autocast dtype, as the JAX
+function's `autocast_inputs("linear", ...)` casts them.
 
 Not a Pallas kernel in the JAX package, so plain PyTorch here. The keep
 draws come from the device's generator in `core.random` (the JAX package
@@ -8,7 +12,17 @@ from __future__ import annotations
 
 import torch
 
+from ...core.amp import autocast_inputs
 from ...core.random import generator
+
+
+def linear(x, weight, bias=None, name=None):
+    """x @ weight + bias with Paddle's [in_features, out_features] weight."""
+    if bias is None:
+        x, weight = autocast_inputs("linear", x, weight)
+        return x @ weight
+    x, weight, bias = autocast_inputs("linear", x, weight, bias)
+    return x @ weight + bias
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",

@@ -1,7 +1,9 @@
 """Common layers (counterpart of paddle_tpu/nn/layer/common.py).
 
 `Linear` keeps Paddle's `[in_features, out_features]` weight and computes
-`y = x @ W + b`, so the JAX package's arrays load without a transpose.
+`y = x @ W + b` (`nn.functional.linear`, an autocast op), so the JAX
+package's arrays load without a transpose. `weight_attr` / `bias_attr`
+take a `ParamAttr` (False: no bias).
 """
 from __future__ import annotations
 
@@ -29,14 +31,14 @@ class Linear(Layer):
     """y = x @ W + b, W: [in_features, out_features]."""
 
     def __init__(self, in_features, out_features, bias=True, device=None,
-                 dtype=None):
+                 dtype=None, weight_attr=None, bias_attr=None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
         self.weight = create_parameter([in_features, out_features], device,
-                                       dtype)
-        self.bias = (create_parameter([out_features], device, dtype)
-                     if bias else None)
+                                       dtype, weight_attr)
+        self.bias = (create_parameter([out_features], device, dtype,
+                                      bias_attr) if bias else None)
 
     def reset_parameters(self, generator=None):
         _xavier_uniform_(self.weight, generator)
@@ -44,8 +46,7 @@ class Linear(Layer):
             self.bias.zero_()
 
     def forward(self, x):
-        y = x @ self.weight
-        return y if self.bias is None else y + self.bias
+        return F.linear(x, self.weight, self.bias)
 
     def extra_repr(self):
         return f"in={self.in_features}, out={self.out_features}"
@@ -53,10 +54,10 @@ class Linear(Layer):
 
 class Embedding(Layer):
     def __init__(self, num_embeddings, embedding_dim, device=None,
-                 dtype=None):
+                 dtype=None, weight_attr=None):
         super().__init__()
         self.weight = create_parameter([num_embeddings, embedding_dim],
-                                       device, dtype)
+                                       device, dtype, weight_attr)
 
     def reset_parameters(self, generator=None):
         self.weight.normal_(0.0, 1.0, generator=generator)

@@ -40,10 +40,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 FLASH_VARIANTS = tuple(f"{k}{v}" for k in ("flash_fwd", "flash_bwd_dq",
                                             "flash_bwd_dkv")
                        for v in ("_mask", "_dropout"))
+# the fp16 instantiations (AMP in float16) count apart from the bf16 ones
+FLASH_FP16 = ("flash_fwd_fp16", "flash_bwd_dq_fp16", "flash_bwd_dkv_fp16")
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "layernorm_fwd": 0, "layernorm_bwd": 0,
             "paged_attention": 0, "fused_adam": 0,
-            **dict.fromkeys(FLASH_VARIANTS, 0)}
+            **dict.fromkeys(FLASH_VARIANTS, 0),
+            **dict.fromkeys(FLASH_FP16, 0)}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -88,9 +91,10 @@ _SIGNATURES = {
     # n_blocks, block_len, pages_per_row, scale, dtype, stream
     "pdtt_paged_attention": (_P, _P, _P, _P, _P, _P, _P) + (_c.c_int,) * 9
                             + (_c.c_float, _c.c_int, _P),
-    # p, g, m1, m2, master, lr, b1p, b2p, n, b1, 1-b1, b2, 1-b2, eps, wd,
-    # decoupled, p dtype, g dtype, moment dtype, stream
-    "pdtt_fused_adam": (_P,) * 8 + (_c.c_longlong,) + (_c.c_float,) * 6
+    # p, g, m1, m2, master, lr, b1p, b2p, do_update (bool or null), n, b1,
+    # 1-b1, b2, 1-b2, eps, wd, decoupled, p dtype, g dtype, moment dtype,
+    # stream
+    "pdtt_fused_adam": (_P,) * 9 + (_c.c_longlong,) + (_c.c_float,) * 6
                        + (_c.c_int,) * 4 + (_P,),
 }
 
@@ -252,14 +256,19 @@ def ptxas_kernel_stats(report: str) -> dict:
     return stats
 
 
-def dtype_code(dtype) -> int:
+def dtype_code(dtype, half=False) -> int:
+    """The C entry points' dtype code: 0 float32, 1 bfloat16 and, where
+    the caller's kernel takes it (`half`: the flash kernels), 2 float16.
+    Raises TypeError on anything else."""
     import torch
     if dtype == torch.float32:
         return 0
     if dtype == torch.bfloat16:
         return 1
-    raise TypeError(f"the port's CUDA kernels take float32 or bfloat16, "
-                    f"got {dtype}")
+    if half and dtype == torch.float16:
+        return 2
+    raise TypeError(f"the port's CUDA kernels take float32 or bfloat16"
+                    f"{' or float16' if half else ''}, got {dtype}")
 
 
 def current_stream_handle(device) -> int:

@@ -3,7 +3,9 @@
 Two parts. `flash_attention` is the no-cache attention of training: the
 TPU kernels `_fwd_kernel`, `_bwd_dq_kernel` and `_bwd_dkv_kernel` become
 the hand-written CUDA kernels in `csrc/flash_attention.cu` (the bf16
-forward, dq and dk/dv run on the tensor cores, `csrc/flash_attention_tc.cu`),
+and fp16 forward, dq and dk/dv run on the tensor cores,
+`csrc/flash_attention_tc.cu`; fp16, which AMP in float16 gives them, has
+no mask or dropout variant),
 tied together by `FlashAttentionFn` (the JAX package's custom_vjp).
 Their plain PyTorch versions run the same arithmetic on whole score matrices
 (`_attention_reference`'s op sequence, plus lse and the JAX backward
@@ -298,28 +300,38 @@ def _check_qkv(q, k, v, what):
         raise ValueError("flash attention kernels take contiguous tensors")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
-    if q.dtype == torch.bfloat16:
+    if q.dtype in _TC_DTYPES:
         _check_aligned((q, k, v))
     return B, H, Sq, k.shape[2], D
 
 
+# the 16-bit types the tensor-core kernels take (fp32 runs the scalar ones)
+_TC_DTYPES = (torch.bfloat16, torch.float16)
+
+
 def _check_aligned(tensors):
-    """The bf16 tensor-core kernels read their inputs by TMA, which takes
-    16-byte aligned addresses."""
+    """The bf16 and fp16 tensor-core kernels read their inputs by TMA,
+    which takes 16-byte aligned addresses."""
     if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("bf16 flash attention kernels take tensors whose "
-                         "data starts on a 16-byte boundary")
+        raise ValueError("bf16 and fp16 flash attention kernels take tensors "
+                         "whose data starts on a 16-byte boundary")
 
 
 def _variant(q, Sk, mask, dropout_p, seed):
     """(fp32 mask rows or None, the C entry points' trailing variant
     arguments: mask pointer (0: none), row divisor, seed, dropout_p, and
-    the launch counter's suffix). The caller holds the rows until the
+    the launch counter's suffix: "_mask", "_dropout", "_fp16" for the fp16
+    instantiation, which takes neither, or ""). The caller holds the rows until the
     launch. A mask and dropout together are refused: flash_attention
     sends them to the plain reference, by the JAX package's rule."""
     if not 0.0 <= dropout_p < 1.0:
         raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
+    if q.dtype == torch.float16 and (mask is not None or dropout_p > 0.0):
+        raise TypeError("the fp16 flash kernels take neither an additive "
+                        "mask nor dropout (ROADMAP §2): use bf16 or fp32")
     B, H, Sq, _ = q.shape
+    if q.dtype == torch.float16:
+        return None, (0, 1, 0, 0.0), "_fp16"
     if mask is None:
         if dropout_p > 0.0:
             return None, (0, 1, int(seed) & ((1 << 64) - 1),
@@ -346,7 +358,7 @@ def flash_fwd_cuda(q, k, v, causal, scale, mask=None, dropout_p=0.0,
     `seed` (dropout_keep_mask's contract)."""
     B, H, Sq, Sk, D = _check_qkv(q, k, v, "flash_fwd_cuda")
     rows, extra, suffix = _variant(q, Sk, mask, dropout_p, seed)
-    code = _kernels.dtype_code(q.dtype)
+    code = _kernels.dtype_code(q.dtype, half=True)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), device=q.device, dtype=torch.float32)
     lib = _kernels.load_library()
@@ -365,7 +377,7 @@ def _check_grad_side(q, g, lse, delta):
     if g.shape != q.shape or g.dtype != q.dtype or not g.is_contiguous():
         raise ValueError(f"g must be a contiguous {tuple(q.shape)} "
                          f"{q.dtype} tensor, got {tuple(g.shape)} {g.dtype}")
-    if g.dtype == torch.bfloat16:
+    if g.dtype in _TC_DTYPES:
         _check_aligned((g,))
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.shape != (B, H, Sq) or t.dtype != torch.float32
@@ -381,7 +393,7 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal, scale, mask=None,
     B, H, Sq, Sk, D = _check_qkv(q, k, v, "flash_bwd_dq_cuda")
     _check_grad_side(q, g, lse, delta)
     rows, extra, suffix = _variant(q, Sk, mask, dropout_p, seed)
-    code = _kernels.dtype_code(q.dtype)
+    code = _kernels.dtype_code(q.dtype, half=True)
     dq = torch.empty_like(q)
     lib = _kernels.load_library()
     rc = lib.pdtt_flash_bwd_dq(
@@ -401,7 +413,7 @@ def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal, scale, mask=None,
     B, H, Sq, Sk, D = _check_qkv(q, k, v, "flash_bwd_dkv_cuda")
     _check_grad_side(q, g, lse, delta)
     rows, extra, suffix = _variant(q, Sk, mask, dropout_p, seed)
-    code = _kernels.dtype_code(q.dtype)
+    code = _kernels.dtype_code(q.dtype, half=True)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _kernels.load_library()
@@ -510,7 +522,8 @@ def flash_attention(q, k, v, causal: bool = True, scale=None, mask=None,
     ([B|1, 1|H, Sq, Sk] or [B, Sq, Sk]) too.
 
     CUDA tensors go through the forward, dq and dk/dv kernels (D a
-    multiple of 16 up to 128, fp32 or bf16, any sequence lengths), with
+    multiple of 16 up to 128, fp32, bf16 or fp16, any sequence lengths;
+    fp16 without a mask or dropout), with
     the mask or in-kernel dropout (keyed by `dropout_seed`, see
     dropout_keep_mask) as variants of those kernels; CPU tensors through
     their plain versions. A mask and dropout together take the plain

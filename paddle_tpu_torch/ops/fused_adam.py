@@ -7,7 +7,11 @@ back in place. The moments keep their storage dtype (fp32 or bf16; a bf16
 moment is read, widened, and the fp32 result rounded once), and an
 optional fp32 master weight (`multi_precision`) is updated and the bf16
 parameter written from it. lr, beta1^t and beta2^t are 0-d fp32 tensors
-that the kernel reads from device memory.
+that the kernel reads from device memory, and so is the optional
+`do_update` flag (a 0-d bool tensor): where it is False nothing is
+written, which is the JAX train step's `_tree_where(do_update, new, old)`
+(paddle_tpu/parallel/api.py:590) decided on the device, with no host
+sync. A None flag updates unconditionally.
 
 `fused_adam` launches the kernel for CUDA tensors and runs `adam_math`, the
 plain version, for CPU tensors; nothing else decides. The JAX package's
@@ -41,29 +45,32 @@ def adam_math(p32, g, m1, m2, lr, b1p, b2p, wd, *, b1, b2, eps, decoupled):
 
 
 def fused_adam_plain(p, g, m1, m2, lr, b1p, b2p, wd, *, beta1, beta2,
-                     epsilon, decoupled, master=None):
+                     epsilon, decoupled, master=None, do_update=None):
     """`adam_math` applied in place, as the kernel applies it: the moments
     and the master are read widened to fp32 and the results written back
-    rounded to each tensor's dtype. Returns (p, m1, m2)."""
+    rounded to each tensor's dtype; where `do_update` (a 0-d bool tensor)
+    is False each tensor keeps its old value. Returns (p, m1, m2)."""
     src = p if master is None else master
     new_p, m1n, m2n = adam_math(src.float(), g, m1.float(), m2.float(), lr,
                                 b1p, b2p, wd, b1=beta1, b2=beta2,
                                 eps=epsilon, decoupled=decoupled)
-    if master is not None:
-        master.copy_(new_p)
-    p.copy_(new_p)
-    m1.copy_(m1n)
-    m2.copy_(m2n)
+    for dst, new in ((master, new_p), (p, new_p), (m1, m1n), (m2, m2n)):
+        if dst is None:
+            continue
+        if do_update is not None:
+            new = torch.where(do_update, new.to(dst.dtype), dst)
+        dst.copy_(new)
     return p, m1, m2
 
 
 def fused_adam_cuda(p, g, m1, m2, lr, b1p, b2p, wd, *, beta1, beta2,
-                    epsilon, decoupled, master=None):
+                    epsilon, decoupled, master=None, do_update=None):
     """Launch the kernel: p, g, m1, m2 (and master) contiguous CUDA tensors
     of one shape; p and g float32 or bfloat16, m1 and m2 one of the two;
     master float32 beside a bfloat16 p; lr, b1p, b2p 0-d float32 tensors on
-    the same device; wd a Python float. Updates in place; returns
-    (p, m1, m2)."""
+    the same device; wd a Python float; do_update None or a one-element
+    bool tensor on that device (False: the kernel writes nothing). Updates
+    in place; returns (p, m1, m2)."""
     tensors = [p, g, m1, m2] + ([] if master is None else [master])
     scalars = (lr, b1p, b2p)
     if not all(torch.is_tensor(s) for s in scalars):
@@ -79,6 +86,11 @@ def fused_adam_cuda(p, g, m1, m2, lr, b1p, b2p, wd, *, beta1, beta2,
     if any(s.dtype != torch.float32 or s.numel() != 1 for s in scalars):
         raise TypeError("lr, beta1_pow and beta2_pow must be one-element "
                         "float32 tensors")
+    if do_update is not None and (
+            not torch.is_tensor(do_update) or do_update.dtype != torch.bool
+            or do_update.numel() != 1 or do_update.device != p.device):
+        raise TypeError("do_update must be a one-element bool tensor on "
+                        "p's device")
     if m1.dtype != m2.dtype:
         raise TypeError(f"m1 and m2 must share one dtype, got {m1.dtype}/"
                         f"{m2.dtype}")
@@ -96,7 +108,9 @@ def fused_adam_cuda(p, g, m1, m2, lr, b1p, b2p, wd, *, beta1, beta2,
     rc = lib.pdtt_fused_adam(
         p.data_ptr(), g.data_ptr(), m1.data_ptr(), m2.data_ptr(),
         None if master is None else master.data_ptr(), lr.data_ptr(),
-        b1p.data_ptr(), b2p.data_ptr(), n, beta1, 1.0 - beta1, beta2,
+        b1p.data_ptr(), b2p.data_ptr(),
+        None if do_update is None else do_update.data_ptr(), n, beta1,
+        1.0 - beta1, beta2,
         1.0 - beta2, epsilon, float(wd), int(bool(decoupled)), *codes,
         _kernels.current_stream_handle(p.device))
     _kernels.check_launch(rc, "fused_adam")
@@ -108,11 +122,13 @@ def fused_adam_cuda(p, g, m1, m2, lr, b1p, b2p, wd, *, beta1, beta2,
 
 
 def fused_adam(p, g, m1, m2, lr, b1p, b2p, wd, *, beta1, beta2, epsilon,
-               decoupled, master=None):
+               decoupled, master=None, do_update=None):
     """Single-pass Adam update of p, m1 and m2 in place (the JAX function's
     arguments; its results are this call's tensors, rounded to their
     dtypes). `master`: the fp32 master weight of a bf16 p, updated too.
+    `do_update`: None, or a 0-d bool tensor that gates the whole update.
     The kernel for CUDA tensors, the plain version for CPU tensors."""
     fn = fused_adam_cuda if p.is_cuda else fused_adam_plain
     return fn(p, g, m1, m2, lr, b1p, b2p, wd, beta1=beta1, beta2=beta2,
-              epsilon=epsilon, decoupled=decoupled, master=master)
+              epsilon=epsilon, decoupled=decoupled, master=master,
+              do_update=do_update)

@@ -1,2 +1,3 @@
 from . import lr  # noqa: F401
-from .optimizer import Adam, AdamW, Optimizer  # noqa: F401
+from .optimizer import (SGD, Adam, AdamW, Lamb, LarsMomentum,  # noqa: F401
+                        Momentum, Optimizer)

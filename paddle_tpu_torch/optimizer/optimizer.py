@@ -16,6 +16,12 @@ PLACE under `torch.no_grad()`: the fused-Adam kernel (CUDA tensors) or
 its plain version (CPU tensors) writes the parameter, its moments and its
 master weight where they lie, so the model's own tensors always hold the
 current weights and `state[param]` keeps pointing at the live moments.
+`apply_gradients(..., do_update=flag)` gates a whole update by a 0-d bool
+tensor on the device (the JAX step's `_tree_where(do_update, new, old)`):
+where it is False every parameter and slot keeps its bits, with no host
+sync. SGD, Momentum, LarsMomentum and Lamb (the strategy's LARS and LAMB
+swaps) are plain PyTorch, as the JAX package has no kernel for them: each
+`_rule` is the JAX `_rule` in its op order.
 """
 from __future__ import annotations
 
@@ -28,6 +34,20 @@ from ..nn.clip import ClipGradBase
 from ..ops.fused_adam import fused_adam
 from ..regularizer import L1Decay, L2Decay, WeightDecayRegularizer
 from .lr import LRScheduler
+
+
+def _commit(dst, new, do_update=None):
+    """dst := new in place, or where(do_update, new, dst) with a 0-d
+    bool tensor: a skipped update leaves dst's bits as they were."""
+    if do_update is not None:
+        new = torch.where(do_update, new.to(dst.dtype), dst)
+    dst.copy_(new)
+
+
+def _norm(x):
+    """The L2 norm of a whole fp32 tensor (the JAX `_dist_norm` on one
+    device, with no stacked layer dims)."""
+    return x.square().sum().sqrt()
 
 
 class Optimizer:
@@ -66,9 +86,24 @@ class Optimizer:
     def _init_slots(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {}
 
-    def _update(self, p, g, slots, lr, wd):
+    def _update(self, p, g, slots, lr, wd, do_update=None):
         """Update p and its slots in place from gradient g; lr is a 0-d
-        fp32 tensor on p's device, wd a float."""
+        fp32 tensor on p's device, wd a float, do_update None or a 0-d bool
+        tensor (False: nothing changes). The default runs `_rule`, the JAX
+        optimizer's functional rule, on the master weight where there is
+        one (`multi_precision`), and commits its results."""
+        master = slots.get("master_weight")
+        rule_slots = {k: v for k, v in slots.items() if k != "master_weight"}
+        new_p, new_slots = self._rule(g, p if master is None else master,
+                                      rule_slots, lr, wd)
+        for k, v in new_slots.items():
+            _commit(slots[k], v, do_update)
+        if master is not None:
+            _commit(master, new_p, do_update)
+        _commit(p, new_p.to(p.dtype), do_update)
+
+    def _rule(self, g, p, slots, lr, wd):
+        """(new p in p's dtype, {slot: new value}) without side effects."""
         raise NotImplementedError
 
     def _init_slots_mp(self, p):
@@ -100,11 +135,15 @@ class Optimizer:
 
     # ---- the step ----
     @torch.no_grad()
-    def apply_gradients(self, params_grads, lr=None, names=None):
+    def apply_gradients(self, params_grads, lr=None, names=None,
+                        do_update=None):
         """Clip, then update each (param, grad) pair in place; a None grad
         leaves its param alone. `lr`: a float or a 0-d fp32 tensor,
         default get_lr(). `names`: each pair's structured parameter name,
-        which a decay filter or lr_ratio needs."""
+        which a decay filter or lr_ratio needs. `do_update`: None or a 0-d
+        bool tensor on the parameters' device; where it is False no
+        parameter or slot changes (the clip still runs, as in the JAX
+        step, whose update is computed and then discarded)."""
         params_grads = list(params_grads)
         if names is not None and len(names) != len(params_grads):
             raise ValueError(f"{len(names)} names for {len(params_grads)} "
@@ -131,7 +170,8 @@ class Optimizer:
             if slots is None:
                 slots = self.state[p] = self._init_slots_mp(p)
             self._update(p, self._reg_grad(g, p), slots,
-                         self._leaf_lr(name, lr_t), self._leaf_wd(name, wd))
+                         self._leaf_lr(name, lr_t), self._leaf_wd(name, wd),
+                         do_update)
 
     def step(self):
         """One update of every parameter that has a gradient."""
@@ -208,16 +248,21 @@ class Adam(Optimizer):
     def _decoupled(self):
         return False
 
-    def _update(self, p, g, slots, lr, wd):
+    def _update(self, p, g, slots, lr, wd, do_update=None):
         # beta^t advanced by one tiny op each before the launch: the kernel
-        # reads them, and a block writing them back would race the others
-        slots["beta1_pow"].mul_(self._beta1)
-        slots["beta2_pow"].mul_(self._beta2)
+        # reads them, and a block writing them back would race the others;
+        # a skipped update (do_update False) keeps them, on the device
+        for key, beta in (("beta1_pow", self._beta1),
+                          ("beta2_pow", self._beta2)):
+            if do_update is None:
+                slots[key].mul_(beta)
+            else:
+                _commit(slots[key], slots[key] * beta, do_update)
         fused_adam(p, g, slots["moment1"], slots["moment2"], lr,
                    slots["beta1_pow"], slots["beta2_pow"], wd,
                    beta1=self._beta1, beta2=self._beta2,
                    epsilon=self._epsilon, decoupled=self._decoupled(),
-                   master=slots.get("master_weight"))
+                   master=slots.get("master_weight"), do_update=do_update)
 
 
 class AdamW(Adam):
@@ -258,3 +303,126 @@ class AdamW(Adam):
             return lr
         self._need_name(name, "lr_ratio")
         return lr * float(self._lr_ratio(types.SimpleNamespace(name=name)))
+
+
+class SGD(Optimizer):
+    def _rule(self, g, p, slots, lr, wd):
+        g = g.float()
+        p32 = p.float()
+        if wd:
+            g = g + wd * p32
+        return (p32 - lr * g).to(p.dtype), slots
+
+
+class Momentum(Optimizer):
+    """v = momentum * v + g; p -= lr * v, or with Nesterov
+    p -= lr * (g + momentum * v). The velocity is fp32."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, rescale_grad=1.0, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+        self._rescale_grad = float(rescale_grad)
+
+    def _init_slots(self, p):
+        return {"velocity": torch.zeros(p.shape, dtype=torch.float32,
+                                        device=p.device)}
+
+    def _rule(self, g, p, slots, lr, wd):
+        g = g.float()
+        if self._rescale_grad != 1.0:
+            g = g * self._rescale_grad
+        p32 = p.float()
+        if wd:
+            g = g + wd * p32
+        v = self._momentum * slots["velocity"] + g
+        update = g + self._momentum * v if self._nesterov else v
+        return (p32 - lr * update).to(p.dtype), {"velocity": v}
+
+
+class LarsMomentum(Optimizer):
+    """LARS: each leaf's lr scaled by lars_coeff * |p| / (|g| + wd |p| +
+    epsilon) where both norms are positive. `exclude_from_weight_decay`
+    is taken and, as on the JAX package's compiled path, not read."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, parameters=None, grad_clip=None,
+                 exclude_from_weight_decay=None, epsilon=0, name=None):
+        super().__init__(learning_rate, parameters, lars_weight_decay,
+                         grad_clip, name)
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._epsilon = epsilon
+
+    def _init_slots(self, p):
+        return {"velocity": torch.zeros(p.shape, dtype=torch.float32,
+                                        device=p.device)}
+
+    def _rule(self, g, p, slots, lr, wd):
+        g = g.float()
+        p32 = p.float()
+        p_norm, g_norm = _norm(p32), _norm(g)
+        local_lr = torch.where(
+            (p_norm > 0) & (g_norm > 0),
+            self._lars_coeff * p_norm / (g_norm + wd * p_norm
+                                         + self._epsilon), 1.0)
+        v = self._momentum * slots["velocity"] + lr * local_lr * (
+            g + wd * p32)
+        return (p32 - v).to(p.dtype), {"velocity": v}
+
+
+class Lamb(Optimizer):
+    """LAMB: Adam's moments, the update r = m1^ / (sqrt(m2^) + eps) + wd p
+    scaled by the trust ratio |p| / |r| where both are positive.
+    `exclude_from_weight_decay_fn(proxy with .name)` drops a leaf's decay,
+    called with the leaf's structured name as the JAX compiled path calls
+    it."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-06, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, lamb_weight_decay,
+                         grad_clip, name)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _init_slots(self, p):
+        z = dict(dtype=torch.float32, device=p.device)
+        return {"moment1": torch.zeros(p.shape, **z),
+                "moment2": torch.zeros(p.shape, **z),
+                "beta1_pow": torch.ones((), **z),
+                "beta2_pow": torch.ones((), **z)}
+
+    def _leaf_wd(self, name, wd):
+        if self._exclude_fn is None:
+            return wd
+        if name is None:
+            raise ValueError(
+                "Lamb's exclude_from_weight_decay_fn needs each parameter's "
+                "name: update through ShardedTrainStep/ScanTrainStep or pass "
+                "apply_gradients(..., names=)")
+        return 0.0 if self._exclude_fn(types.SimpleNamespace(name=name)) \
+            else wd
+
+    def _rule(self, g, p, slots, lr, wd):
+        g = g.float()
+        p32 = p.float()
+        b1, b2 = self._beta1, self._beta2
+        b1p = slots["beta1_pow"] * b1
+        b2p = slots["beta2_pow"] * b2
+        m1 = b1 * slots["moment1"] + (1 - b1) * g
+        m2 = b2 * slots["moment2"] + (1 - b2) * g * g
+        m1h = m1 / (1 - b1p)
+        m2h = m2 / (1 - b2p)
+        r = m1h / (m2h.sqrt() + self._epsilon) + wd * p32
+        w_norm, r_norm = _norm(p32), _norm(r)
+        trust = torch.where(w_norm > 0, torch.where(r_norm > 0,
+                                                    w_norm / r_norm, 1.0),
+                            1.0)
+        new_p = (p32 - lr * trust * r).to(p.dtype)
+        return new_p, {"moment1": m1, "moment2": m2, "beta1_pow": b1p,
+                       "beta2_pow": b2p}

@@ -1,2 +1,3 @@
 from .api import (ScanTrainStep, ShardedTrainStep,  # noqa: F401
-                  make_compute_loss, stack_batches)
+                  apply_selective_remat, make_compute_loss, parallelize,
+                  stack_batches)

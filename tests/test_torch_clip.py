@@ -127,3 +127,120 @@ def test_parameter_attribute_is_honoured():
     (_, op), (_, oq) = ClipGradByGlobalNorm(1.0)([(p, gp), (q, gq)])
     assert oq is gq
     np.testing.assert_allclose(op.numpy(), 0.5, rtol=1e-6)
+
+
+# ---- clip_grad_norm_ (paddle_tpu/nn/clip.py:79): the norm and the
+# clipped gradients, in place, against the JAX function on the same
+# gradients. fp32 atol = rtol = 1e-6 (the per-parameter sums are added in
+# another order); bf16 gradients within one bf16 ulp (each is scaled in
+# fp32 by a factor one fp32 ulp apart at most, and rounded once).
+def _clip_norm_both(dtype, max_norm, norm_type, poison=None, **kw):
+    import paddle_tpu as paddle
+    from paddle_tpu.nn.clip import clip_grad_norm_ as jax_clip
+    from paddle_tpu_torch.nn.clip import clip_grad_norm_
+    rng = np.random.RandomState(5)
+    shapes = [(6, 5), (5,), (3, 3)]
+    grads = [rng.standard_normal(s).astype(np.float32) * 2 for s in shapes]
+    if poison is not None:
+        grads[1][2] = poison
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jps, tps = [], []
+    for g in grads:
+        jp = paddle.create_parameter(list(g.shape), "float32")
+        jp.grad = paddle.to_tensor(jnp.asarray(g, jdt))
+        jps.append(jp)
+        tp = torch.nn.Parameter(torch.zeros(g.shape, dtype=dtype))
+        tp.grad = torch.from_numpy(g).to(dtype)
+        tps.append(tp)
+    tps.append(torch.nn.Parameter(torch.zeros(2)))     # no gradient
+    jtotal = jax_clip(jps, max_norm, norm_type, **kw)
+    ttotal = clip_grad_norm_(tps, max_norm, norm_type, **kw)
+    return jps, tps, jtotal, ttotal
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("max_norm,norm_type", [(1.0, 2.0), (100.0, 2.0),
+                                                (0.5, 1.0),
+                                                (1.0, float("inf"))])
+def test_clip_grad_norm_matches_jax(dtype, max_norm, norm_type):
+    jps, tps, jtotal, ttotal = _clip_norm_both(dtype, max_norm, norm_type)
+    assert ttotal.dtype == torch.float32 and ttotal.ndim == 0
+    np.testing.assert_allclose(float(ttotal), float(np.asarray(jtotal.data)),
+                               atol=1e-6, rtol=1e-6)
+    for jp, tp in zip(jps, tps):
+        assert tp.grad.dtype == dtype
+        got = tp.grad.float().numpy()
+        want = np.asarray(jp.grad.data, np.float32)
+        if dtype == torch.bfloat16:
+            from _torch_port import ulp_bf16
+            assert (np.abs(got - want) <= ulp_bf16(want) + 1e-7).all()
+        else:
+            np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+    assert tps[-1].grad is None
+
+
+@pytest.mark.parametrize("poison", [np.inf, np.nan])
+def test_clip_grad_norm_error_if_nonfinite(poison):
+    with pytest.raises(RuntimeError, match="non-finite"):
+        _clip_norm_both(torch.float32, 1.0, 2.0, poison,
+                        error_if_nonfinite=True)
+    # by default both scale by the non-finite norm alike
+    jps, tps, jtotal, ttotal = _clip_norm_both(torch.float32, 1.0, 2.0,
+                                               poison)
+    assert not np.isfinite(float(ttotal))
+    for jp, tp in zip(jps, tps):
+        np.testing.assert_array_equal(np.isnan(tp.grad.numpy()),
+                                      np.isnan(np.asarray(jp.grad.data)))
+
+
+def test_clip_grad_norm_without_gradients_returns_zero():
+    from paddle_tpu_torch.nn.clip import clip_grad_norm_
+    assert float(clip_grad_norm_([torch.nn.Parameter(torch.ones(3))],
+                                 1.0)) == 0.0
+
+
+def test_param_attr_need_clip_is_honoured():
+    """ParamAttr(need_clip=False) on a layer's weight keeps it out of the
+    global norm and leaves its gradient untouched, as the JAX layer does
+    with the same attr."""
+    import paddle_tpu as paddle
+    from paddle_tpu.nn import ClipGradByGlobalNorm as JaxClip
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn.layer.layers import ParamAttr
+    jl = paddle.nn.Linear(4, 3, weight_attr=paddle.ParamAttr(
+        need_clip=False))
+    tl = Linear(4, 3, device="cpu", weight_attr=ParamAttr(need_clip=False),
+                bias_attr=ParamAttr(learning_rate=0.5))
+    assert tl.weight.need_clip is False and tl.bias.need_clip is True
+    assert tl.bias.optimize_attr == {"learning_rate": 0.5}
+    rng = np.random.RandomState(9)
+    gw = rng.standard_normal((4, 3)).astype(np.float32) * 5
+    gb = rng.standard_normal((3,)).astype(np.float32) * 5
+    want = JaxClip(0.5)([(jl.weight, paddle.to_tensor(gw)),
+                         (jl.bias, paddle.to_tensor(gb))])
+    got = ClipGradByGlobalNorm(0.5)([(tl.weight, torch.from_numpy(gw)),
+                                     (tl.bias, torch.from_numpy(gb))])
+    np.testing.assert_array_equal(got[0][1].numpy(), gw)
+    for (_, g), (_, w) in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w.data), atol=1e-6,
+                                   rtol=1e-6)
+
+
+def test_param_attr_forms_and_trainable():
+    from paddle_tpu_torch.nn import LayerNorm, Linear
+    from paddle_tpu_torch.nn.layer.layers import ParamAttr
+    lin = Linear(4, 3, device="cpu", weight_attr=ParamAttr(trainable=False),
+                 bias_attr=False)
+    assert lin.bias is None and not lin.weight.requires_grad
+    ln = LayerNorm(4, device="cpu", weight_attr="w", bias_attr=False)
+    assert ln.bias is None and ln.weight.need_clip
+    x = torch.randn(2, 4)
+    with torch.no_grad():
+        ln.reset_parameters()
+    torch.testing.assert_close(ln(x), torch.nn.functional.layer_norm(
+        x, (4,), torch.ones(4), None, 1e-5), atol=1e-6, rtol=1e-6)
+    with pytest.raises(NotImplementedError, match="initializer"):
+        ParamAttr(initializer=object())
+    with pytest.raises(TypeError):
+        Linear(4, 3, device="cpu", weight_attr=3.0)

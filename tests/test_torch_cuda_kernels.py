@@ -393,6 +393,105 @@ def test_cuda_flash_backward_is_bitwise_deterministic():
         assert torch.equal(a, b)
 
 
+# fp16 (AMP in float16): the same tensor-core kernels over __half, each
+# against its plain version under chip_smoke.py's FP16_TRAIN_* rule (the
+# bf16 rule at fp16's ulp), two runs bit-equal, launched under their own
+# counters and never through the bf16 or scalar instantiations
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal", [
+    (4, 16, 1024, 1024, 128, True),     # gpt3-1.3b's train step
+    (1, 2, 1, 1, 16, True),
+    (1, 3, 63, 63, 32, True),
+    (2, 2, 65, 65, 64, False),
+    (1, 2, 333, 333, 128, True),
+    (1, 2, 77, 77, 96, True),
+    (1, 2, 100, 300, 64, True),         # Sq < Sk
+    (1, 2, 300, 100, 32, True),         # Sq > Sk: empty rows
+    (4, 40, 128, 128, 128, True),       # B*H = 160
+])
+def test_cuda_flash_fp16_matches_plain(B, H, Sq, Sk, D, causal):
+    require_cuda()
+    import numpy as np
+    from paddle_tpu_torch.ops import launch_counts
+    from paddle_tpu_torch.ops.attention import (flash_attention,
+                                                flash_attention_delta,
+                                                flash_bwd_dkv_cuda,
+                                                flash_bwd_dq_cuda,
+                                                flash_bwd_plain,
+                                                flash_fwd_cuda,
+                                                flash_fwd_plain)
+    rng = np.random.RandomState(33)
+    h = torch.float16
+    q, g = _t(rng, (B, H, Sq, D), h), _t(rng, (B, H, Sq, D), h)
+    k, v = _t(rng, (B, H, Sk, D), h), _t(rng, (B, H, Sk, D), h)
+    scale = D ** -0.5
+    before = launch_counts()
+    runs = []
+    for _ in range(2):
+        out, lse = flash_fwd_cuda(q, k, v, causal, scale)
+        delta = flash_attention_delta(g, out)
+        runs.append((out, lse,
+                     flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal, scale),
+                     *flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal,
+                                         scale)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    out, lse, dq, dk, dv = runs[0]
+    assert out.dtype == dq.dtype == dk.dtype == dv.dtype == h
+    delta = flash_attention_delta(g, out)
+    ref_out, ref_lse = flash_fwd_plain(q, k, v, causal, scale)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+    f32 = [t.float() for t in (q, k, v, g)]
+    _assert_bf16_train(out, ref_out,
+                       flash_fwd_plain(*f32[:3], causal, scale)[0])
+    ref = flash_bwd_plain(q, k, v, g, lse, delta, causal, scale)
+    ref32 = flash_bwd_plain(*f32, lse, delta, causal, scale)
+    for got, want, want32 in zip((dq, dk, dv), ref, ref32):
+        _assert_bf16_train(got, want, want32)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    o2 = flash_attention(qr, kr, vr, causal=causal)
+    o2.backward(g)
+    torch.cuda.synchronize()
+    assert torch.equal(o2.detach(), out) and torch.equal(qr.grad, dq)
+    after = launch_counts()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert after[name + "_fp16"] == before[name + "_fp16"] + 3, name
+        assert after[name] == before[name], name
+
+
+@pytest.mark.cuda
+def test_cuda_flash_fp16_routes_and_refuses_variants():
+    require_cuda()
+    from paddle_tpu_torch.ops import launch_counts
+    from paddle_tpu_torch.ops.attention import (flash_attention,
+                                                flash_attention_delta,
+                                                flash_bwd_dq_cuda,
+                                                flash_fwd_cuda)
+    q = torch.randn((1, 2, 64, 64), device="cuda").half()
+    before = launch_counts()
+    out, lse = flash_fwd_cuda(q, q, q, True, 1.0)
+    flash_bwd_dq_cuda(q, q, q, q, lse, flash_attention_delta(q, out), True,
+                      1.0)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    # the fp16 instantiations' counters, never the bf16/fp32 ones (their
+    # tensor-core machine code: test_cuda_flash_bf16_kernels_run_on_
+    # tensor_cores)
+    assert after["flash_fwd_fp16"] == before["flash_fwd_fp16"] + 1
+    assert after["flash_bwd_dq_fp16"] == before["flash_bwd_dq_fp16"] + 1
+    assert after["flash_fwd"] == before["flash_fwd"]
+    assert after["flash_bwd_dq"] == before["flash_bwd_dq"]
+    with pytest.raises(TypeError, match="fp16"):
+        flash_fwd_cuda(q, q, q, True, 1.0,
+                       torch.zeros((1, 1, 64, 64), device="cuda"))
+    with pytest.raises(TypeError, match="fp16"):
+        flash_attention(q, q, q, dropout_p=0.1)
+    flat = torch.zeros(q.numel() + 1, device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_fwd_cuda(flat[1:].view(q.shape), q, q, True, 1.0)
+
+
 # fp32 dw and db at 70001 rows and 1000 columns are held by the test
 # after this one: any two fp32 orders of those sums part by more than the
 # 1e-4 that covers sums of up to 4096 products (the plain version itself
@@ -707,7 +806,7 @@ def test_cuda_flash_bf16_never_reaches_another_route():
     with pytest.raises(ValueError, match="contiguous"):
         flash_fwd_cuda(q.transpose(2, 3), q, q, True, 1.0)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        flash_fwd_cuda(q.half(), q.half(), q.half(), True, 1.0)
+        flash_fwd_cuda(q.double(), q.double(), q.double(), True, 1.0)
     flat = torch.zeros(q.numel() + 1, device="cuda", dtype=bf)
     off = flat[1:].view(q.shape)          # contiguous, 2 bytes off 16
     with pytest.raises(ValueError, match="16-byte"):
@@ -729,6 +828,62 @@ def test_cuda_flash_bf16_never_reaches_another_route():
                                                     True, 1.0))
     assert any("flash_bwd_dq_kernel_tc" in n for n in names), names
     assert not any("flash_bwd_dq_kernel<" in n for n in names), names
+
+
+# One strategy step under AMP (parallelize with amp, a 2-layer model of
+# gpt3-1.3b's widths in fp32 master weights): the attention runs the flash
+# kernels of the AMP dtype (bf16, or the fp16 instantiations) on inputs of
+# that dtype, the LayerNorm kernels run on the fp32 residual stream and
+# the update is fused Adam with the device flag, as the launch counts and
+# the dtypes seen by hooks show; with fp16 a first step forced to
+# overflow skips the update on the device: the weights stay bit for bit.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_cuda_amp_plan_step_routes_to_kernels(dtype):
+    require_cuda()
+    import numpy as np
+    from paddle_tpu_torch.distributed.strategy import DistributedStrategy
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import parallelize
+    m = GPTForCausalLM.from_preset("gpt3-1.3b", num_hidden_layers=2)
+    m.train()
+    s = DistributedStrategy()
+    s.amp = True
+    s.amp_configs = {"dtype": dtype, "init_loss_scaling": 2.0 ** 40,
+                     "decr_every_n_nan_or_inf": 1}
+    step = parallelize(m, AdamW(learning_rate=1e-4,
+                                parameters=m.parameters()), strategy=s)
+    ids = np.random.RandomState(3).randint(0, 50304, (2, 128)).astype(
+        np.int32)
+    w0 = m.lm_head.weight.detach().clone()
+    seen = set()
+    hooks = [m.gpt.layers[0].self_attn.qkv_proj.register_forward_hook(
+        lambda mod, a, o: seen.add(("attention", o.dtype))),
+        m.gpt.layers[0].norm1.register_forward_pre_hook(
+        lambda mod, a: seen.add(("layernorm", a[0].dtype)))]
+    reset_launch_counts()
+    step(ids, ids)
+    torch.cuda.synchronize()
+    n = launch_counts()
+    for h in hooks:
+        h.remove()
+    half = dtype == "float16"
+    assert seen == {("attention", torch.float16 if half else torch.bfloat16),
+                    ("layernorm", torch.float32)}, seen
+    sfx, other = ("_fp16", "") if half else ("", "_fp16")
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert n[k + sfx] == 2 and n[k + other] == 0, (k, n)
+    assert n["layernorm_fwd"] == 5 and n["layernorm_bwd"] == 5
+    assert n["fused_adam"] == 29
+    if half:
+        # 2^40 overflows fp16: the update was skipped on the device
+        assert torch.equal(m.lm_head.weight.detach(), w0)
+        assert step.loss_scale == float(np.float32(2.0 ** 40)
+                                        * np.float32(0.8))
+    else:
+        assert not torch.equal(m.lm_head.weight.detach(), w0)
 
 
 # The route rule of pdtt_paged_attention, seen from the kernels a call
@@ -787,10 +942,10 @@ def test_cuda_paged_attention_is_bitwise_deterministic(H, Hkv):
     assert torch.equal(*runs)
 
 
-# The machine code of the bf16 flash forward, dq and dk/dv kernels holds
-# warpgroup products (wgmma's HGMMA), that of the bf16 paged attention warp
-# products (mma.sync's HMMA), as chip_smoke.TENSOR_CORE_KERNELS states
-# (cuobjdump -sass).
+# The machine code of the bf16 flash forward, dq and dk/dv kernels (and
+# of their fp16 instantiations) holds warpgroup products (wgmma's HGMMA),
+# that of the bf16 paged attention warp products (mma.sync's HMMA), as
+# chip_smoke.TENSOR_CORE_KERNELS states (cuobjdump -sass).
 @pytest.mark.cuda
 def test_cuda_flash_bf16_kernels_run_on_tensor_cores():
     require_cuda()
@@ -800,6 +955,8 @@ def test_cuda_flash_bf16_kernels_run_on_tensor_cores():
     for name, opcodes in TENSOR_CORE_KERNELS.items():
         assert tensor_core_instructions(counts, name, opcodes), \
             f"no {opcodes} instruction in {name}"
+        if name.startswith("flash"):
+            assert any(name in k and "__half" in k for k in counts), name
 
 
 def _adam_case(rng, n, pdtype, mdtype, master, offset=0):
@@ -875,6 +1032,83 @@ def test_cuda_fused_adam_matches_plain_bitwise(pdtype, mdtype, master,
         assert launch_counts()["fused_adam"] == before + 3
         for k in ("p", "m1", "m2"):
             assert torch.equal(again[k], twice[k]), (n, k)
+
+
+# The do_update flag: False leaves p, m1, m2 and the master bit for bit as
+# they were; True and a null flag give the same bits, those of the plain
+# version with the same flag; the optimizer gates the beta powers' advance
+# by the same flag with a device-side where.
+@pytest.mark.cuda
+@pytest.mark.parametrize("pdtype,mdtype,master", [
+    (torch.float32, torch.float32, False),
+    (torch.bfloat16, torch.bfloat16, True),
+])
+def test_cuda_fused_adam_do_update_flag(pdtype, mdtype, master):
+    require_cuda()
+    import numpy as np
+    from paddle_tpu_torch.ops import launch_counts
+    from paddle_tpu_torch.ops.fused_adam import (fused_adam_cuda,
+                                                 fused_adam_plain)
+    rng = np.random.RandomState(42)
+    kw = dict(beta1=0.9, beta2=0.95, epsilon=1e-8, decoupled=True)
+    keys = ("p", "m1", "m2", "master")
+    for n, offset in ((7, 0), (2049, 1), (1 << 20, 0)):
+        c = _adam_case(rng, n, pdtype, mdtype, master, offset)
+        runs = {}
+        for flag in (None, True, False):
+            d = {k: None if v is None else v.clone() for k, v in c.items()}
+            ref = {k: None if v is None else v.clone() for k, v in c.items()}
+            f = None if flag is None else torch.tensor(flag, device="cuda")
+            before = launch_counts()["fused_adam"]
+            fused_adam_cuda(d["p"], d["g"], d["m1"], d["m2"],
+                            *_adam_scalars(), 0.1, master=d["master"],
+                            do_update=f, **kw)
+            fused_adam_plain(ref["p"], ref["g"], ref["m1"], ref["m2"],
+                             *_adam_scalars(), 0.1, master=ref["master"],
+                             do_update=f, **kw)
+            torch.cuda.synchronize()
+            assert launch_counts()["fused_adam"] == before + 1
+            for k in keys:
+                if d[k] is not None:
+                    assert torch.equal(d[k], ref[k]), (n, flag, k)
+            runs[flag] = d
+        for k in keys:
+            if c[k] is None:
+                continue
+            assert torch.equal(runs[False][k], c[k]), (n, k)
+            assert torch.equal(runs[True][k], runs[None][k]), (n, k)
+            assert not torch.equal(runs[True][k], c[k]) or k == "g", (n, k)
+
+
+# apply, skip, apply through AdamW gives the bits of apply, apply: the
+# skipped step leaves the weight, both moments and both beta powers as
+# they were.
+@pytest.mark.cuda
+def test_cuda_adam_skipped_step_keeps_beta_powers():
+    require_cuda()
+    from paddle_tpu_torch.optimizer import AdamW
+    w = torch.nn.Parameter(torch.randn(300, device="cuda"))
+    twin = torch.nn.Parameter(w.detach().clone())
+    opt = AdamW(learning_rate=1e-3, parameters=[w])
+    ref = AdamW(learning_rate=1e-3, parameters=[twin])
+    g = torch.randn(300, device="cuda")
+    opt.apply_gradients([(w, g)])
+    state = {k: v.clone() for k, v in opt.state[w].items()}
+    w0 = w.detach().clone()
+    opt.apply_gradients([(w, g)], do_update=torch.tensor(False,
+                                                         device="cuda"))
+    torch.cuda.synchronize()
+    assert torch.equal(w.detach(), w0)
+    for k, v in opt.state[w].items():
+        assert torch.equal(v, state[k]), k
+    opt.apply_gradients([(w, g)], do_update=torch.tensor(True,
+                                                         device="cuda"))
+    for _ in range(2):
+        ref.apply_gradients([(twin, g)])
+    torch.cuda.synchronize()
+    assert torch.equal(w.detach(), twin.detach())
+    for k, v in opt.state[w].items():
+        assert torch.equal(v, ref.state[twin][k]), k
 
 
 @pytest.mark.cuda

@@ -104,3 +104,64 @@ def test_bf16_model_runs_in_bf16(models):
     logits, _ = m.forward_with_cache(torch.tensor([[1, 2, 3]]), caches, 0)
     assert logits.dtype == torch.bfloat16
     assert torch.isfinite(logits.float()).all()
+
+
+# FLAGS_fused_lm_ce=0: the logits through the lm head and
+# ParallelCrossEntropy instead of the chunked lm-head + CE, in both
+# packages (each reads the flag at every forward). fp32: the loss within
+# rtol 1e-5 and every gradient within rtol 1e-4 (each element within 1e-4
+# of itself plus 1e-5 of its leaf's largest: the same fp32 sums in another
+# order, as tests/test_torch_llama.py holds its gradients), and the
+# unfused loss equals the fused one to 1e-5 in the port. Under AMP bf16
+# (the lm head in bf16, the CE in fp32): the loss within rtol 4e-3 and
+# each leaf's gradient within 2% of its norm (bf16's 2^-8 rounding, taken
+# at other places in the two packages).
+@pytest.mark.parametrize("amp", [None, "bfloat16"])
+def test_unfused_lm_ce_loss_and_grads_match_jax(models, monkeypatch, amp):
+    import contextlib
+    import paddle_tpu as paddle
+    from paddle_tpu.amp import auto_cast as jax_cast
+    from paddle_tpu_torch.amp import auto_cast
+    jm, tm = models
+    tm.train()
+    rng = np.random.RandomState(3)
+    ids = rng.randint(0, 512, (2, 24)).astype(np.int32)
+    labels = np.roll(ids, -1, axis=1)
+    labels[:, -1] = -100
+    jctx = jax_cast(True, dtype=amp) if amp else contextlib.nullcontext()
+    tctx = auto_cast(True, dtype=amp) if amp else contextlib.nullcontext()
+    fused = tm(torch.from_numpy(ids), torch.from_numpy(labels))
+    monkeypatch.setenv("FLAGS_fused_lm_ce", "0")
+    with jctx:
+        jloss = jm(paddle.to_tensor(ids), paddle.to_tensor(labels))
+    jloss.backward()
+    jgrads = {k: np.asarray(p.grad.data, np.float32)
+              for k, p in jm.named_parameters()}
+    for p in jm.parameters():
+        p.clear_gradient()
+    tm.zero_grad(set_to_none=True)
+    with tctx:
+        loss = tm(torch.from_numpy(ids), torch.from_numpy(labels))
+    assert loss.dtype == torch.float32 and loss.ndim == 0
+    # bf16 logits: the two packages round the lm head's output at other
+    # places, so the loss and gradients get bf16's rounding (2^-8)
+    rtol = 1e-5 if amp is None else 4e-3
+    np.testing.assert_allclose(float(loss.detach()),
+                               float(np.asarray(jloss.data)), rtol=rtol)
+    if amp is None:
+        np.testing.assert_allclose(float(loss.detach()), float(fused),
+                                   rtol=1e-5)
+    loss.backward()
+    for k, p in tm.named_parameters():
+        want = jgrads[k]
+        if amp is None:
+            np.testing.assert_allclose(
+                p.grad.numpy(), want, rtol=1e-4,
+                atol=1e-5 * float(np.abs(want).max()), err_msg=k)
+        else:
+            # per leaf, as a whole: bf16 rounding moves single elements
+            # by up to half of themselves where sums cancel
+            err = np.linalg.norm(p.grad.numpy() - want)
+            assert err <= 2e-2 * np.linalg.norm(want) + 1e-6, (k, err)
+    tm.zero_grad(set_to_none=True)
+    tm.eval()

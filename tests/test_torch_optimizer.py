@@ -319,3 +319,167 @@ def test_state_dict_round_trip_carries_the_scheduler():
         b.step()
     assert torch.equal(p, p2)
     assert torch.equal(opt.state[p]["moment2"], opt2.state[p2]["moment2"])
+
+
+# ---- SGD, Momentum, LarsMomentum and Lamb (the strategy's LARS and LAMB
+# swaps): plain PyTorch on both sides of the comparison, each `_rule` the
+# JAX one in its op order. fp32: atol = rtol = 1e-6, except where a norm
+# enters (LARS's local lr, Lamb's trust ratio), whose fp32 sums run in
+# another order: 1e-5 (one such sum moves its leaf's step by ~1e-7 of
+# itself; an error in the formula moves it by its own size). bf16
+# parameters with an fp32 master: one bf16 ulp.
+def _run_named(jax_opt, port_opt, dtype, steps=4, lr=1e-2, gates=None):
+    """Both optimizers `steps` times over SHAPES' named leaves, the port's
+    through apply_gradients(names=); `gates[i]` False skips step i on the
+    port (do_update) and on the JAX side (its _tree_where)."""
+    p0 = _params(0)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jparams = {k: jnp.asarray(v, jdt) for k, v in p0.items()}
+    jstate = jax_opt.init_state(jparams)
+    apply = jax_opt.apply_gradients_fn()
+    names = sorted(p0)
+    tparams = {k: torch.from_numpy(p0[k]).to(dtype) for k in names}
+    for i in range(steps):
+        g = _grads(10 + i)
+        ok = True if gates is None else gates[i]
+        cand = apply(jparams, {k: jnp.asarray(v, jdt) for k, v in g.items()},
+                     jstate, jnp.float32(lr), jnp.int32(i + 1))
+        if ok:
+            jparams, jstate = cand
+        flag = None if gates is None else torch.tensor(ok)
+        port_opt.apply_gradients(
+            [(tparams[k], torch.from_numpy(g[k]).to(dtype)) for k in names],
+            lr, names=names, do_update=flag)
+    return jparams, jstate, tparams
+
+
+def _plain_optimizers(kind, tp):
+    from paddle_tpu import optimizer as jopt
+    from paddle_tpu_torch import optimizer as topt
+    exclude = (lambda p: "norm" in p.name)
+    return {
+        "sgd": (jopt.SGD(learning_rate=1e-2, weight_decay=0.01),
+                topt.SGD(learning_rate=1e-2, parameters=tp,
+                         weight_decay=0.01)),
+        "momentum": (jopt.Momentum(learning_rate=1e-2, momentum=0.9,
+                                   weight_decay=0.01),
+                     topt.Momentum(learning_rate=1e-2, momentum=0.9,
+                                   parameters=tp, weight_decay=0.01)),
+        "nesterov": (jopt.Momentum(learning_rate=1e-2, momentum=0.9,
+                                   use_nesterov=True, rescale_grad=0.5),
+                     topt.Momentum(learning_rate=1e-2, momentum=0.9,
+                                   parameters=tp, use_nesterov=True,
+                                   rescale_grad=0.5)),
+        "momentum_mp": (jopt.Momentum(learning_rate=1e-2, momentum=0.9,
+                                      multi_precision=True),
+                        topt.Momentum(learning_rate=1e-2, momentum=0.9,
+                                      parameters=tp, multi_precision=True)),
+        "lars": (jopt.LarsMomentum(learning_rate=1e-2, momentum=0.9,
+                                   lars_coeff=0.001,
+                                   lars_weight_decay=0.0005, epsilon=1e-8),
+                 topt.LarsMomentum(learning_rate=1e-2, momentum=0.9,
+                                   lars_coeff=0.001, parameters=tp,
+                                   lars_weight_decay=0.0005, epsilon=1e-8)),
+        "lamb": (jopt.Lamb(learning_rate=1e-2, lamb_weight_decay=0.01,
+                           exclude_from_weight_decay_fn=exclude),
+                 topt.Lamb(learning_rate=1e-2, lamb_weight_decay=0.01,
+                           parameters=tp,
+                           exclude_from_weight_decay_fn=exclude)),
+    }[kind]
+
+
+@pytest.mark.parametrize("kind,dtype", [
+    ("sgd", torch.float32), ("momentum", torch.float32),
+    ("nesterov", torch.float32), ("lars", torch.float32),
+    ("lamb", torch.float32), ("momentum_mp", torch.bfloat16),
+    ("sgd", torch.bfloat16),
+])
+def test_plain_optimizers_match_apply_gradients_fn(kind, dtype):
+    tp = [torch.zeros(1)]
+    jo, to = _plain_optimizers(kind, tp)
+    jparams, jstate, tparams = _run_named(jo, to, dtype)
+    tol = 1e-5 if kind in ("lars", "lamb") else 1e-6
+    for k, p in tparams.items():
+        got = p.float().numpy()
+        want = np.asarray(jparams[k], np.float32)
+        if dtype == torch.bfloat16:
+            _ulp_close(got, want)
+        else:
+            np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+        for slot, v in to.state[p].items():
+            np.testing.assert_allclose(v.float().numpy(),
+                                       np.asarray(jstate[k][slot],
+                                                  np.float32),
+                                       atol=tol, rtol=tol)
+    assert set(to.state[tparams["a.weight"]]) == set(jstate["a.weight"])
+
+
+@pytest.mark.parametrize("kind", ["adamw", "momentum", "lamb", "sgd"])
+def test_skipped_update_keeps_every_bit(kind):
+    """A do_update of False leaves every parameter and slot (beta powers
+    too) bit for bit as it was, on the plain versions (the fused-Adam
+    kernel's flag is held by tests/test_torch_cuda_kernels.py): apply,
+    skip, apply equals the JAX optimizer's apply, apply with the skipped
+    step's candidate discarded."""
+    from paddle_tpu import optimizer as jopt
+    from paddle_tpu_torch import optimizer as topt
+    tp = [torch.zeros(1)]
+    if kind == "adamw":
+        jo = jopt.AdamW(learning_rate=1e-2, weight_decay=0.01)
+        to = topt.AdamW(learning_rate=1e-2, parameters=tp, weight_decay=0.01)
+    else:
+        jo, to = _plain_optimizers(kind, tp)
+    gates = [True, False, True, False]
+    jparams, jstate, tparams = _run_named(jo, to, torch.float32, gates=gates)
+    tol = 1e-5 if kind == "lamb" else 1e-6
+    for k, p in tparams.items():
+        np.testing.assert_allclose(p.numpy(), np.asarray(jparams[k]),
+                                   atol=tol, rtol=tol)
+        for slot, v in to.state[p].items():
+            np.testing.assert_allclose(v.numpy(),
+                                       np.asarray(jstate[k][slot]),
+                                       atol=tol, rtol=tol)
+    # the skip itself, bit for bit
+    p = tparams["a.weight"]
+    before = p.clone(), {s: v.clone() for s, v in to.state[p].items()}
+    to.apply_gradients([(p, torch.ones_like(p))], 1e-2, names=["a.weight"],
+                       do_update=torch.tensor(False))
+    assert torch.equal(p, before[0])
+    for s, v in to.state[p].items():
+        assert torch.equal(v, before[1][s]), s
+
+
+@pytest.mark.parametrize("kind", ["nesterov", "lars", "lamb"])
+def test_bridged_velocity_and_lamb_moments_continue_like_jax(kind):
+    """The JAX optimizer steps twice alone; its parameters and slots (the
+    velocity, Lamb's moments and beta powers) cross with
+    `bridge.load_jax_optimizer_state`; both then step three more times and
+    agree as test_plain_optimizers_match_apply_gradients_fn holds them."""
+    from paddle_tpu_torch.bridge import load_jax_optimizer_state
+    jo, _ = _plain_optimizers(kind, [torch.zeros(1)])
+    apply = jo.apply_gradients_fn()
+    jparams = {k: jnp.asarray(v) for k, v in _params(0).items()}
+    jstate = jo.init_state(jparams)
+    names = sorted(jparams)
+    for i in range(5):
+        g = _grads(40 + i)
+        if i == 2:
+            tparams = {k: torch.from_numpy(np.array(jparams[k]))
+                       for k in names}
+            _, to = _plain_optimizers(kind, list(tparams.values()))
+            load_jax_optimizer_state(to, _Named(tparams), {
+                k: {s: np.asarray(v) for s, v in jstate[k].items()}
+                for k in names})
+        jparams, jstate = apply(jparams, {k: jnp.asarray(v)
+                                          for k, v in g.items()},
+                                jstate, jnp.float32(1e-2), jnp.int32(i + 1))
+        if i >= 2:
+            to.apply_gradients([(tparams[k], torch.from_numpy(g[k]))
+                                for k in names], 1e-2, names=names)
+    tol = 1e-5 if kind in ("lars", "lamb") else 1e-6
+    for k, t in tparams.items():
+        np.testing.assert_allclose(t.numpy(), np.asarray(jparams[k]),
+                                   atol=tol, rtol=tol)
+        for s, v in to.state[t].items():
+            np.testing.assert_allclose(v.numpy(), np.asarray(jstate[k][s]),
+                                       atol=tol, rtol=tol)

@@ -17,8 +17,8 @@ the other elements at most 1e-4 may be more than 1e-5 apart (4 of
 them. A one-step
 `ShardedTrainStep` case holds the same, and so does llama2-tiny (with
 and without grouped-query attention and recompute), which has no biases. The port's step also refuses what
-it does not carry: a mesh of several devices, strategy plans, and
-running without a GPU unless asked for the CPU.
+it does not carry: a mesh of several devices, a plan that is not a
+`CompiledStrategy`, and running without a GPU unless asked for the CPU.
 """
 import numpy as np
 import pytest
@@ -129,9 +129,9 @@ def test_step_refuses_what_it_does_not_carry(monkeypatch):
     from paddle_tpu_torch.parallel import ScanTrainStep, ShardedTrainStep
     tm = GPTForCausalLM.from_preset("gpt2-tiny", device="cpu")
     opt = AdamW(learning_rate=1e-3, parameters=tm.parameters())
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
         ShardedTrainStep(tm, opt, mesh=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="CompiledStrategy"):
         ShardedTrainStep(tm, opt, device="cpu", plan=object())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(NoCUDADeviceError):

@@ -2,14 +2,17 @@
 """Where the time of the PyTorch port's train step goes, on one GPU.
 
     python3 tools/profile_torch_training.py [--steps K] [--trace DIR]
-        [--cells train,train_recipe,llama_train]
+        [--cells train,train_recipe,llama_train,train_amp,train_amp_fp16]
 
 Trains `chip_smoke.py`'s train cells, one after the other — by default
 `train` (AdamW, fp32 moments) and `train_recipe` (recompute, bf16
-moments, LR schedule, clip, decay filter); `llama_train` on request: the
-same model, optimizer and batch, built by `chip_smoke.train_workload()`
-and driven through `ScanTrainStep` as the smoke's train phases drive
-them — for a warm-up chunk of 3 steps, a
+moments, LR schedule, clip, decay filter); `llama_train`, `train_amp` and
+`train_amp_fp16` on request: the same model, optimizer and batch, built
+by `chip_smoke.train_workload()` (the strategy cells by
+`chip_smoke.amp_train_workload()`, whose step comes from `parallelize()`
+and whose chunk of scan_steps micro-steps replaces K) and driven through
+`ScanTrainStep` as the smoke's train phases drive them — for a warm-up
+chunk of 3 steps, a
 plain chunk of K steps (wall time and the host's time per step), and a
 chunk of K steps under `torch.profiler`. It prints JSON lines: the card
 (name and power limit from nvidia-smi), then for each cell the step's
@@ -92,9 +95,16 @@ def profile_cell(cell, K, trace):
     from paddle_tpu_torch.optimizer.optimizer import Optimizer
     from paddle_tpu_torch.parallel import ScanTrainStep
 
-    model, opt, ids, labels, _ = chip_smoke.train_workload(cell)
-    warm = ScanTrainStep(model, opt, scan_steps=chip_smoke.TRAIN_WARMUP_STEPS)
-    step = ScanTrainStep(model, opt, scan_steps=K)
+    if cell in chip_smoke.AMP_TRAIN_CELLS:
+        # the strategy cells: their parallelize()d ScanTrainStep, whose
+        # chunk (scan_steps micro-steps) sets K
+        model, opt, step, ids, labels = chip_smoke.amp_train_workload(cell)
+        warm, K = step, step.scan_steps
+    else:
+        model, opt, ids, labels, _ = chip_smoke.train_workload(cell)
+        warm = ScanTrainStep(model, opt,
+                             scan_steps=chip_smoke.TRAIN_WARMUP_STEPS)
+        step = ScanTrainStep(model, opt, scan_steps=K)
 
     chip_smoke.timed_chunk(warm, ids, labels)
     # the host's time per step is chip_smoke.timed_chunk's: each step's
@@ -181,7 +191,8 @@ def main(argv):
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--trace", default=None)
     ap.add_argument("--cells", default="train,train_recipe",
-                    help="comma-separated cells of chip_smoke.TRAIN_CELLS")
+                    help="comma-separated cells of chip_smoke.TRAIN_CELLS "
+                         "or AMP_TRAIN_CELLS")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
