@@ -14,7 +14,8 @@ and a stream handoff at the same width, trains it in fp32 master weights
 through a DistributedStrategy (AMP bf16 and fp16 with dynamic loss
 scaling, recompute, gradient merge), then does the same for the Llama-2 family: serves `llama2-7b` whole and
 `llama2-70b`'s widths cut in depth, and trains `llama2-7b` whole with the
-Llama 2 recipe (random weights from a seed). It prints one JSON line per
+Llama 2 recipe, and last trains `ernie-moe-base` whole (random weights
+from a seed). It prints one JSON line per
 phase, then each phase's wall seconds, the `{"kernels": [...]}` line,
 the card's name and power limit as `nvidia-smi` reports them, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before the
@@ -43,7 +44,9 @@ Phases:
                 word embedding), with fp32, GQA, block_len 12..64, non-causal,
                 Sq != Sk, ragged, D=16..64 and B*H > 132 edge cases, the
                 bf16 paged attention and flash forward, dq and dk/dv run
-                twice and held bit-equal, timed on the device (median of
+                twice and held bit-equal, the flash kernels also at
+                ernie-moe-base's [8,12,1024,64] (`at_moe_shape`), timed
+                on the device (median of
                 21 CUDA-event samples of back-to-back calls held behind a
                 spin kernel) beside one PyTorch library call for the same
                 function and the least time the card could take (flash
@@ -74,6 +77,15 @@ Phases:
                 and twice 3 steps through ScanTrainStep, with AdamW and
                 with the train recipe's optimizer and recompute (first-step
                 gradient norms, losses, weights)
+  4c. moe_model — ernie-moe-base widths cut to 2 layers (dense, MoE),
+                fp32, 2 x 256 tokens, on the card against a CPU twin: the
+                logits, the aux loss and every (token, rank)'s expert,
+                slot and kept flag (a differing choice passes only between
+                gates within MOE_MARGIN_TOL), then 3 AdamW steps held as
+                in phase 4
+  4d. optimizers — Adamax, Adagrad, RMSProp, Adadelta, DecayedAdagrad,
+                Ftrl, Dpsgd, ProximalAdagrad and ProximalGD, 3 steps on
+                the card against the CPU over 1 M-element leaves
   4b. model_amp — the same widths in fp32 master weights through
                 parallelize(model, opt, strategy=s) on the card against
                 the CPU: AMP bf16 with recompute and gradient merge k = 2,
@@ -157,6 +169,13 @@ Phases:
  13. train_amp_fp16 — the same in fp16 with dynamic loss scaling (init
                 32768), fewer timed steps: the fp16 flash kernels
                 launched, the skipped micro-steps and the final scale
+ 14. moe_train — full ernie-moe-base (12 layers, 6 of them MoE with 8
+                experts, top-2, capacity factor 1.25), bf16, B=8, S=1024,
+                AdamW (lr 1e-4, wd 0.01, fp32 moments), as bench.py trains
+                BASELINE config 5: phase 6's readings with the MFU counted
+                on active parameters, each MoE layer's share of dropped
+                (token, rank) pairs, and exactly MOE_KERNELS_PER_STEP
+                launches a step
 """
 from __future__ import annotations
 
@@ -860,6 +879,7 @@ FP16_TRAIN_FACTOR = 2.0
 FP16_TRAIN_ATOL = 2.0 ** -15
 TRAIN_B, TRAIN_S = 4, 1024          # bench.py's gpt3-1.3b batch
 LLAMA_FLASH_SHAPE = (1, 32, 4096, 128)   # llama2-7b's B, H, S, head_dim
+MOE_FLASH_SHAPE = (8, 12, 1024, 64)      # ernie-moe-base's train step
 
 
 def bf16_vs_fp32_plain(torch, got, plain_bf16, plain_fp32):
@@ -1183,8 +1203,45 @@ def phase_train_kernels():
             tflops=n_ops / lt[name] / 1e9, share_of_bound=bound / lt[name],
             shape=dict(B=lB, H=lH, Sq=lS, Sk=lS, D=lD, causal=True,
                        dtype="bfloat16"))
-        emit({"phase": "kernel", "name": name, **results[name]})
     del llama, lq, lk, lv, lg, lo, llse, ldl
+    # at ernie-moe-base's train shape (head dim 64), checked against the
+    # plain versions and timed beside F.scaled_dot_product_attention
+    mgen = torch.Generator(device="cuda")
+    mgen.manual_seed(SEED + 12)
+    mB, mH, mS, mD = MOE_FLASH_SHAPE
+    moe = _flash_inputs(torch, mgen, mB, mH, mS, mS, mD, bf)
+    mread = check_flash(torch, *moe, True, "bf16 [8,12,1024,64] causal")
+    mq, mk, mv, mg = moe
+    mscale = 1.0 / math.sqrt(mD)
+    mo, mlse = flash_fwd_cuda(mq, mk, mv, True, mscale)
+    mdl = flash_attention_delta(mg, mo)
+    mt = {"flash_fwd": time_cuda([partial(flash_fwd_cuda, mq, mk, mv, True,
+                                          mscale)])[0],
+          "flash_bwd_dq": time_cuda([partial(
+              flash_bwd_dq_cuda, mq, mk, mv, mg, mlse, mdl, True,
+              mscale)])[0],
+          "flash_bwd_dkv": time_cuda([partial(
+              flash_bwd_dkv_cuda, mq, mk, mv, mg, mlse, mdl, True,
+              mscale)])[0]}
+    mlib_fwd = time_cuda([partial(F.scaled_dot_product_attention, mq, mk,
+                                  mv, is_causal=True)])[0]
+    mlib_bwd = time_cuda([_sdpa_bwd_call(torch, F, mq, mk, mv, mg)])[0]
+    mbo = flash_bytes_ops(mB, mH, mS, mS, mD, True, 2)
+    merr = {"flash_fwd": mread["out"]["err"],
+            "flash_bwd_dq": mread["dq"]["err"],
+            "flash_bwd_dkv": max(mread["dk"]["err"], mread["dv"]["err"])}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        n_bytes, n_ops = mbo[name]
+        bound, by = bound_ms(n_bytes, n_ops, "bfloat16")
+        results[name]["at_moe_shape"] = dict(
+            ms=mt[name], max_abs_err=merr[name], library_ms=(
+                mlib_fwd if name == "flash_fwd" else mlib_bwd),
+            bound_ms=bound, bound_by=by, tflops=n_ops / mt[name] / 1e9,
+            share_of_bound=bound / mt[name],
+            shape=dict(B=mB, H=mH, Sq=mS, Sk=mS, D=mD, causal=True,
+                       dtype="bfloat16"))
+        emit({"phase": "kernel", "name": name, **results[name]})
+    del moe, mq, mk, mv, mg, mo, mlse, mdl
 
     _, mu, rstd = layer_norm_fwd_cuda(xb, wb, bb, 1e-5)
     ln_in = [(xb, dyb), (xb.clone(), dyb.clone())]
@@ -2168,12 +2225,16 @@ def launches_per_step(n_layers, leaves, recompute, layer_norms=True):
 # the train parity phases: the preset whose widths they run, cut to 2
 # layers, and their optimizers (AdamW, and for GPT the train recipe's)
 MODEL_TRAIN_PHASES = {"model_train": ("gpt3-1.3b", (False, True)),
-                      "llama_model_train": ("llama2-7b", (False,))}
+                      "llama_model_train": ("llama2-7b", (False,)),
+                      "moe_model": ("ernie-moe-base", (False,))}
+# their batch, B x S (moe_model: T = 512 tokens, 160 slots an expert)
+MODEL_TRAIN_BATCH = {"moe_model": (2, 256)}
 
 
 def phase_model_train(phase="model_train"):
     """The MODEL_TRAIN_PHASES preset's widths cut to 2 layers (a depth
-    cut), fp32, B=2, S=128: 3 steps through ScanTrainStep on the card
+    cut), fp32, B=2, S=128 (MODEL_TRAIN_BATCH where it says otherwise):
+    3 steps through ScanTrainStep on the card
     (kernels) and on a CPU twin with the same weights (plain versions),
     with AdamW and (GPT) once more with the train recipe (its optimizer at
     TRAIN_PARITY_LR's scale, and recompute): the first step's gradient
@@ -2188,7 +2249,7 @@ def phase_model_train(phase="model_train"):
     torch.backends.cudnn.allow_tf32 = False
     preset, recipes = MODEL_TRAIN_PHASES[phase]
     rng = np.random.RandomState(SEED + 3)
-    B, S, K = 2, 128, 3
+    (B, S), K = MODEL_TRAIN_BATCH.get(phase, (2, 128)), 3
     ids = rng.randint(0, preset_config(preset).vocab_size, (B, S)).astype(
         np.int32)
     labels = np.roll(ids, -1, axis=1)
@@ -2226,7 +2287,7 @@ def phase_model_train(phase="model_train"):
         what = ("train recipe (schedule, clip, decay filter, bf16 moments, "
                 "recompute)" if recipe else "AdamW")
         emit({"phase": phase, "config": f"{preset} widths, 2 layers, "
-              f"fp32, B=2, S=128, 3 steps, {what}",
+              f"fp32, B={B}, S={S}, 3 steps, {what}",
               "loss_card": loss_card.tolist(), "loss_cpu": loss_cpu.tolist(),
               "lr_vector": lr_card.tolist(), "loss_max_abs_diff": loss_diff,
               "loss_tol": TRAIN_PARITY_LOSS_TOL,
@@ -2255,6 +2316,211 @@ def phase_model_train(phase="model_train"):
         del cpu, card, wc, wp
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------ phase 4c: MoE at one GPU
+# ernie-moe-base's widths cut to 2 layers (layer 0 dense, layer 1 MoE with
+# 8 experts, top-2, capacity factor 1.25), fp32, B x S = 2 x 256 (T = 512
+# tokens, 160 slots an expert), on the card against a CPU twin with the
+# same weights. Limits:
+# - logits within MOE_LOGITS_TOL, phase 4's limit and reason;
+# - the summed aux loss (~1: E · sum_e f_e · p_e) within MOE_AUX_TOL: two
+#   fp32 means over 512 tokens summed in another order move it by ~1e-7;
+#   one token routed elsewhere moves it by ~1/512 of a gate;
+# - the routing: every (token, rank)'s expert, slot and kept flag equal
+#   to the CPU's. The router's fp32 logits (768-term sums in another
+#   order) may differ by ~1e-7, so a choice between two gates closer than
+#   that can flip: a pair whose expert differs is printed with its gate
+#   margin on the CPU (its gate minus the next one below it), and passes
+#   only if that margin is under MOE_MARGIN_TOL (its slot and those after
+#   it in the two experts may then differ too);
+# - three AdamW steps as phase 4 holds them (moe_model in
+#   MODEL_TRAIN_PHASES).
+MOE_PRESET = "ernie-moe-base"
+MOE_LOGITS_TOL = 1e-3
+MOE_AUX_TOL = 1e-5
+MOE_MARGIN_TOL = 1e-6
+
+
+def route_mismatches(torch, card_route, cpu_route):
+    """(pairs whose expert differs as [(token, rank, margin)], slots
+    equal, kept flags equal) of two MoELayer.routing records; the margin
+    is read on the CPU's gates."""
+    e_card, s_card, k_card, _ = (t.cpu() for t in card_route)
+    e_cpu, s_cpu, k_cpu, gates = (t.cpu() for t in cpu_route)
+    ranked = gates.sort(-1, descending=True).values
+    diff = [(t, r, float(ranked[t, r] - ranked[t, r + 1]))
+            for t, r in (e_card != e_cpu).nonzero().tolist()]
+    return diff, bool(torch.equal(s_card, s_cpu)), \
+        bool(torch.equal(k_card, k_cpu))
+
+
+def phase_moe_model():
+    """The forward checks of phase 4c, then its train parity
+    (phase_model_train("moe_model"))."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import _kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu, card = _twins(MOE_PRESET, SEED + 11)
+    layers = [bool(layer.use_moe) for layer in card.gpt.layers]
+    check(layers == [False, True], f"moe_model layers {layers}: want a "
+                                   "dense layer, then an MoE layer")
+    from paddle_tpu_torch.nn.layer.moe import capacity_of
+    cfg = preset_config(MOE_PRESET)
+    B, S = MODEL_TRAIN_BATCH["moe_model"]
+    ids = np.random.RandomState(SEED + 11).randint(0, cfg.vocab_size,
+                                                   (B, S))
+    _kernels.reset_launch_counts()
+    with torch.no_grad():
+        h, aux_card = card.gpt(torch.from_numpy(ids).cuda())
+        lg_card = card.lm_head(h).float().cpu()
+        launched = _kernels.launch_counts()
+        h, aux_cpu = cpu.gpt(torch.from_numpy(ids))
+        lg_cpu = cpu.lm_head(h)
+    check(bool(torch.isfinite(lg_card).all()), "non-finite MoE logits on "
+                                               "the card")
+    worst = float((lg_card - lg_cpu).abs().max())
+    aux_diff = abs(float(aux_card) - float(aux_cpu))
+    moe_card, moe_cpu = card.gpt.layers[1].moe, cpu.gpt.layers[1].moe
+    diff, slots_equal, kept_equal = route_mismatches(
+        torch, moe_card.routing, moe_cpu.routing)
+    kept = moe_cpu.routing[2]
+    want = {k: 0 for k in launched}
+    want.update(flash_fwd=2, layernorm_fwd=5)
+    emit({"phase": "moe_model", "config": f"{MOE_PRESET} widths, 2 layers "
+          f"(dense, MoE), fp32, B={B}, S={S}, forward",
+          "tokens": B * S, "capacity": capacity_of(
+              B * S, cfg.moe_top_k, cfg.moe_num_experts,
+              cfg.moe_capacity_factor),
+          "logits_max_abs_diff": worst, "logits_tol": MOE_LOGITS_TOL,
+          "aux_card": float(aux_card), "aux_cpu": float(aux_cpu),
+          "aux_abs_diff": aux_diff, "aux_tol": MOE_AUX_TOL,
+          "pairs": int(kept.numel()), "dropped_pairs": int((~kept).sum()),
+          "expert_mismatches": diff, "margin_tol": MOE_MARGIN_TOL,
+          "slots_equal": slots_equal, "kept_equal": kept_equal,
+          "kernel_launches": launched})
+    check(launched == want, f"MoE forward launched {launched}, want {want}")
+    check(worst <= MOE_LOGITS_TOL,
+          f"card vs CPU MoE logits differ by {worst}")
+    check(aux_diff <= MOE_AUX_TOL,
+          f"card vs CPU aux loss differs by {aux_diff}")
+    check(all(m < MOE_MARGIN_TOL for _, _, m in diff),
+          f"routing differs where the gates are apart: {diff}")
+    check(diff or (slots_equal and kept_equal),
+          "the experts agree but the slots or kept flags differ")
+    del cpu, card, h, lg_card, lg_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_model_train("moe_model")
+
+
+# ------------------------------------------- phase 4d: the optimizers
+# Adamax, Adagrad, RMSProp (centered, with momentum), Adadelta,
+# DecayedAdagrad, Ftrl, Dpsgd, ProximalAdagrad and ProximalGD: plain
+# PyTorch, three steps on the card against the same steps on the CPU from
+# the same start, over random fp32 leaves of 1.5 M and 1 M elements.
+# Each step is a sequence of elementwise fp32 operations, each correctly
+# rounded on both sides, so most elements come out bit-equal. Every
+# element of a parameter must lie within OPT_RTOL of itself plus
+# OPT_MOVE_SHARE of the largest distance the CPU's leaf moved in the 3
+# steps (a wrong formula or operand moves elements by about that whole
+# distance; a rehearsal of this phase with both sides on one CPU once saw
+# 4% of an Adagrad leaf part by up to 1.3e-4 of its movement, cause
+# unknown), and every element of a slot within OPT_RTOL of itself plus
+# OPT_MOVE_SHARE of the slot's largest magnitude; int32 slots equal.
+# Dpsgd also sums its gradient's squares (another order: ~1e-7 of the
+# norm) and draws one normal a leaf a step, whose erf_inv takes torch's
+# log1p, which may differ by an ulp between the two: the draw may move by
+# DPSGD_NOISE_ULPS ulps of itself, so its parameters get lr · sigma /
+# batch_size · that, a step, more.
+OPT_LEAVES = {"w": (1024, 1536), "v": (1048583,)}
+OPT_STEPS = 3
+OPT_RTOL = 1e-6
+OPT_MOVE_SHARE = 1e-3
+DPSGD_NOISE_ULPS = 4
+OPT_CASES = {
+    "Adamax": dict(learning_rate=1e-3, weight_decay=0.01),
+    "Adagrad": dict(learning_rate=1e-2, weight_decay=0.01,
+                    initial_accumulator_value=0.1),
+    "RMSProp": dict(learning_rate=1e-3, momentum=0.9, centered=True,
+                    weight_decay=0.01),
+    "Adadelta": dict(learning_rate=1.0, weight_decay=0.01),
+    "DecayedAdagrad": dict(learning_rate=1e-2, weight_decay=0.01),
+    "Ftrl": dict(learning_rate=1e-2, l1=1e-3, l2=1e-3),
+    "Dpsgd": dict(learning_rate=1e-2, clip=10.0, batch_size=16.0, sigma=1.0,
+                  seed=SEED + 14),
+    "ProximalAdagrad": dict(learning_rate=1e-2, l1=1e-3, l2=1e-3),
+    "ProximalGD": dict(learning_rate=1e-2, l1=1e-3, l2=1e-3),
+}
+
+
+def _opt_steps(torch, cls, kw, p0, grads, device):
+    """OPT_STEPS named steps of optimizer `cls` over copies of p0 on
+    `device`; returns (params, optimizer)."""
+    from paddle_tpu_torch import optimizer as topt
+    params = {k: v.to(device).clone() for k, v in p0.items()}
+    names = list(params)
+    opt = getattr(topt, cls)(parameters=list(params.values()), **kw)
+    for g in grads:
+        opt.apply_gradients([(params[k], g[k].to(device)) for k in names],
+                            names=names)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return params, opt
+
+
+def phase_optimizers():
+    import torch
+    gen = torch.Generator().manual_seed(SEED + 13)
+    p0 = {k: torch.randn(s, generator=gen) for k, s in OPT_LEAVES.items()}
+    grads = [{k: torch.randn(s, generator=gen)
+              for k, s in OPT_LEAVES.items()} for _ in range(OPT_STEPS)]
+    rows = {}
+    for cls, kw in OPT_CASES.items():
+        (pc, oc), (pg, og) = (_opt_steps(torch, cls, kw, p0, grads, d)
+                              for d in ("cpu", "cuda"))
+        noise = 0.0
+        if cls == "Dpsgd":
+            # the largest normal a step can draw here is below 8
+            noise = OPT_STEPS * kw["learning_rate"] * kw["sigma"] / \
+                kw["batch_size"] * DPSGD_NOISE_ULPS * 2.0 ** -20
+        worst, worst_share, equal, total, bad = 0.0, 0.0, 0, 0, []
+        pairs = [(f"param {k}", pg[k], pc[k],
+                  float((pc[k] - p0[k]).abs().max())) for k in pc]
+        pairs += [(f"{k}.{s}", og.state[pg[k]][s], oc.state[pc[k]][s],
+                   None) for k in pc for s in oc.state[pc[k]]]
+        for what, got, ref, moved in pairs:
+            got = got.cpu()
+            check(got.dtype == ref.dtype, f"{cls} {what}: {got.dtype} on "
+                                          f"the card, {ref.dtype} on the CPU")
+            if not ref.is_floating_point():
+                check(torch.equal(got, ref), f"{cls} {what}: {got} != {ref}")
+                continue
+            scale = moved if moved is not None else float(ref.abs().max())
+            d = (got - ref).abs()
+            worst = max(worst, float(d.max()))
+            worst_share = max(worst_share, float(d.max()) / max(scale,
+                                                                1e-30))
+            equal += int((d == 0).sum())
+            total += d.numel()
+            lim = OPT_RTOL * ref.abs() + OPT_MOVE_SHARE * scale + (
+                noise if moved is not None else 0.0)
+            if not bool((d <= lim).all()):
+                bad.append(what)
+        rows[cls] = dict(max_abs_diff=worst,
+                         max_diff_over_movement=worst_share,
+                         bit_equal_share=equal / total,
+                         dpsgd_noise_allowance=noise, slots=sorted(
+                             oc.state[pc["w"]]))
+        check(not bad, f"{cls}: card vs CPU past the limits in {bad}: "
+                       f"{rows[cls]}")
+    emit({"phase": "optimizers", "leaves": {k: list(s) for k, s in
+                                            OPT_LEAVES.items()},
+          "steps": OPT_STEPS, "rtol": OPT_RTOL,
+          "move_share": OPT_MOVE_SHARE, "optimizers": rows})
 
 
 # ------------------------------------------- phase 4b: AMP through a plan
@@ -3675,6 +3941,14 @@ RECIPE_KERNELS_PER_STEP = {"flash_fwd": 48, "flash_bwd_dq": 24,
 LLAMA_KERNELS_PER_STEP = {"flash_fwd": 64, "flash_bwd_dq": 32,
                           "flash_bwd_dkv": 32, "layernorm_fwd": 0,
                           "layernorm_bwd": 0, "fused_adam": 291}
+# launches_per_step(12, 155, False): ernie-moe-base has 12 layers and 155
+# parameters (12 a dense layer, 13 an MoE layer: the gate and the four
+# expert stacks in place of the MLP's four; 6 of each; the two
+# embeddings, the final LayerNorm's two and the untied lm_head); the MoE
+# itself (router, dispatch, experts, combine) is plain torch
+MOE_KERNELS_PER_STEP = {"flash_fwd": 12, "flash_bwd_dq": 12,
+                        "flash_bwd_dkv": 12, "layernorm_fwd": 25,
+                        "layernorm_bwd": 25, "fused_adam": 155}
 RECIPE_PEAK_LR = 2e-4
 # the published optimizers the recipe cells follow: GPT-3 1.3B (Brown et
 # al. 2020, Table 2.1 and Appendix B) and Llama 2 (Touvron et al. 2023,
@@ -3695,6 +3969,10 @@ TRAIN_CELLS = {
     "llama_train": dict(preset="llama2-7b", batch=(1, 4096),
                         recipe=LLAMA2_RECIPE,
                         launches=LLAMA_KERNELS_PER_STEP),
+    # BASELINE config 5 as bench.py trains it: 8 x 1024, the model in
+    # bf16, AdamW(lr 1e-4) with fp32 moments, no recompute
+    "moe_train": dict(preset="ernie-moe-base", batch=(8, 1024), recipe=None,
+                      launches=MOE_KERNELS_PER_STEP),
 }
 
 
@@ -3798,6 +4076,20 @@ def timed_chunk(step, ids, labels):
     return losses.cpu(), wall, ms, host_ms
 
 
+def moe_flops_args(model):
+    """train_flops_per_step's MoE keywords for `model` (none for a dense
+    one): its expert parameters, every MoELayer parameter but the gate,
+    counted from the modules as bench.py counts them."""
+    from paddle_tpu_torch.nn.layer.moe import MoELayer
+    layers = [m for m in model.modules() if isinstance(m, MoELayer)]
+    if not layers:
+        return {}
+    return dict(expert_params=sum(
+        p.numel() for m in layers for k, p in m.named_parameters()
+        if k != "gate_weight"), moe_top_k=layers[0].top_k,
+        moe_num_experts=layers[0].num_experts)
+
+
 def phase_train(device_name, cell="train", train_peak_gib=None):
     """A train cell of TRAIN_CELLS (phases 6, 7 and 11): a warm-up chunk
     of TRAIN_WARMUP_STEPS, then one of TRAIN_TIMED_STEPS with the launch
@@ -3806,6 +4098,7 @@ def phase_train(device_name, cell="train", train_peak_gib=None):
     counts of the timed chunk, peak memory in GiB)."""
     import numpy as np
     import torch
+    from paddle_tpu_torch.nn.layer.moe import capacity_of
     from paddle_tpu_torch.obs.flops import peak_flops, train_flops_per_step
     from paddle_tpu_torch.ops import _kernels
     from paddle_tpu_torch.parallel import ScanTrainStep
@@ -3820,6 +4113,7 @@ def phase_train(device_name, cell="train", train_peak_gib=None):
     B, S = c["batch"]
     model, opt, ids, labels, init_s = train_workload(cell)
     n_params = sum(p.numel() for p in model.parameters())
+    flops = train_flops_per_step(n_params, B * S, **moe_flops_args(model))
     warm = ScanTrainStep(model, opt, scan_steps=TRAIN_WARMUP_STEPS)
     warm_losses, warm_s, _, _ = timed_chunk(warm, ids, labels)
     lr_used = list(warm.lr_vector)
@@ -3853,14 +4147,23 @@ def phase_train(device_name, cell="train", train_peak_gib=None):
         "tokens_per_s": tokens / wall, "step_ms_mean": step_s * 1e3,
         "step_ms_median": statistics.median(step_ms),
         "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
-        "mfu": train_flops_per_step(n_params, B * S) / step_s
-        / peak_flops(device_name),
+        "mfu": flops / step_s / peak_flops(device_name),
+        "flops_per_step": flops,
         "peak_mem_gib": peak_gib,
         "loss_first": all_losses[0], "loss_last": all_losses[-1],
         "losses": all_losses, "lr_vector": [float(x) for x in lr_used],
         "kernel_launches": launches,
         "launches_per_step": per_step, "model_init_s": init_s,
         "dispatch_count": warm.dispatch_count + step.dispatch_count}
+    moe = [m for m in model.modules() if type(m).__name__ == "MoELayer"]
+    if moe:
+        # the last step's share of (token, rank) pairs each MoE layer
+        # dropped at its capacity
+        result["moe_dropped_share"] = [
+            float((~m.routing[2]).float().mean()) for m in moe]
+        result["moe_capacity"] = capacity_of(B * S, moe[0].top_k,
+                                             moe[0].num_experts,
+                                             moe[0].capacity_factor)
     emit(result)
     check(all(math.isfinite(x) for x in all_losses), "non-finite loss")
     check(all_losses[-1] < all_losses[0],
@@ -3966,6 +4269,8 @@ def main():
     timed("model", phase_model)
     timed("model_train", phase_model_train)
     timed("model_amp", phase_model_amp)
+    timed("moe_model", phase_moe_model)
+    timed("optimizers", phase_optimizers)
     serve = {}
     by_phase = {"attention_variants": variant_launches,
                 "serve": timed("serve", phase_serve, record=serve)}
@@ -3985,6 +4290,8 @@ def main():
                                        "llama_train")
     for cell in AMP_TRAIN_CELLS:
         by_phase[cell] = timed(cell, phase_train_amp, name, cell)
+    by_phase["moe_train"], _ = timed("moe_train", phase_train, name,
+                                     "moe_train")
     emit({"phase": "phase_seconds", **seconds})
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3998,7 +4305,8 @@ def main():
         for x in ("tflops", "share_of_bound", "without_variant_ms",
                   "causal_case_b", "entry_key_padding_b11s",
                   "entry_per_head_bf16",    # the flash kernels and variants
-                  "at_llama_shape", "at_llama_shapes", "shared_pages",
+                  "at_llama_shape", "at_llama_shapes", "at_moe_shape",
+                  "shared_pages",
                   "do_update_flag"):
             if x in kern[k]:
                 line[x] = kern[k][x]

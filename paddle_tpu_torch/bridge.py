@@ -13,7 +13,10 @@ moment2, beta1_pow, beta2_pow, master_weight), keyed by the same names,
 into the port optimizer's `state`, so both sides can start from the same
 non-zero moments; any optimizer's slots cross, since each is keyed by the
 names `_init_slots_mp` gives it (SGD none, Momentum and LarsMomentum
-`velocity`, Lamb's moments and beta powers).
+`velocity`, Lamb's moments and beta powers, Dpsgd's int32 `noise_salt`
+and `noise_step`), each in the dtype the port gives it. MoE's expert
+stacks (`w1 [E, H, F]`, `b1`, `w2`, `b2`) and the gate cross like any
+other parameter: same names, same layout.
 `load_jax_step_extras(step, extras)` carries a JAX train step's extras
 (the loss scale and its good/bad counters, the gradient-merge accumulator
 and its count) into a port step built from the same plan.
@@ -59,28 +62,36 @@ def load_jax_optimizer_state(optimizer, model: torch.nn.Module,
                              state: Mapping[str, Mapping[str, np.ndarray]]):
     """Set `optimizer.state[p]` for every named parameter of `model` from
     `state[name][slot]` (numpy, any float dtype). Each slot takes the dtype,
-    shape and device the optimizer itself would give it (`_init_slots_mp`).
-    Raises KeyError on a missing or extra name or slot and ValueError on a
-    shape mismatch."""
+    shape and device the optimizer itself would give it (`_init_slots_mp`;
+    Dpsgd's int32 slots stay int32). Raises KeyError on a missing or extra
+    name or slot and ValueError on a shape mismatch, naming every
+    offending key; nothing is set then."""
     named = dict(model.named_parameters())
     missing = sorted(set(named) - set(state))
     extra = sorted(set(state) - set(named))
     if missing or extra:
         raise KeyError(f"JAX optimizer state does not match the port model: "
                        f"missing {missing}, extra {extra}")
+    made = {k: optimizer._init_slots_mp(p) for k, p in named.items()}
+    bad_slots = [f"{k}: JAX slots {sorted(state[k])}, port slots "
+                 f"{sorted(slots)}" for k, slots in made.items()
+                 if set(slots) != set(state[k])]
+    if bad_slots:
+        raise KeyError("; ".join(bad_slots))
+    bad = [f"{k}.{s}: jax {tuple(np.shape(state[k][s]))} vs port "
+           f"{tuple(t.shape)}" for k, slots in made.items()
+           for s, t in slots.items()
+           if tuple(np.shape(state[k][s])) != tuple(t.shape)]
+    if bad:
+        raise ValueError("shape mismatch: " + "; ".join(bad))
     with torch.no_grad():
         for k, p in named.items():
-            slots = optimizer._init_slots_mp(p)
-            if set(slots) != set(state[k]):
-                raise KeyError(f"{k}: JAX slots {sorted(state[k])}, port "
-                               f"slots {sorted(slots)}")
-            for sname, t in slots.items():
-                arr = np.array(state[k][sname], dtype=np.float32)
-                if tuple(arr.shape) != tuple(t.shape):
-                    raise ValueError(f"{k}.{sname}: jax {arr.shape} vs port "
-                                     f"{tuple(t.shape)}")
+            for sname, t in made[k].items():
+                arr = np.array(state[k][sname],
+                               dtype=np.float32 if t.is_floating_point()
+                               else np.int64)      # an owned copy
                 t.copy_(torch.from_numpy(arr))
-            optimizer.state[p] = slots
+            optimizer.state[p] = made[k]
     return optimizer
 
 

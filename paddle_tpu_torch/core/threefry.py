@@ -2,19 +2,21 @@
 
 The port's counterpart of the part of `jax.random` the JAX package calls
 for sampling (`PRNGKey`, `fold_in`, `split`, `bits`, `uniform`, `gumbel`,
-`categorical`), so a seeded stream of the port can be held to the
-reference's token by token. It follows JAX's default
-`jax_threefry_partitionable = True` (jax/_src/prng.py): `split` is the
-fold-like variant and a draw of shape S hashes the flat index of every
-element, split into hi/lo 32-bit words (`iota_2x32_shape`), with the two
-output words xor-ed together.
+`categorical`) and for Dpsgd's noise (`normal`), so a seeded stream of
+the port can be held to the reference's token by token. It follows JAX's
+default `jax_threefry_partitionable = True` (jax/_src/prng.py): `split`
+is the fold-like variant and a draw of shape S hashes the flat index of
+every element, split into hi/lo 32-bit words (`iota_2x32_shape`), with
+the two output words xor-ed together.
 
 A key is a `[..., 2]` int64 tensor holding two uint32 words. The words
 live in int64 because torch has no uint32 addition on the CPU; sums are
 taken modulo 2^32 by masks and every right shift acts on non-negative
 values, so it is a logical shift and the integer work is exact on the
-CPU and on CUDA alike. The only inexact step is gumbel's
-`-log(-log(u))`, whose `log` may differ from XLA's by an ulp.
+CPU and on CUDA alike. The inexact steps are gumbel's `-log(-log(u))`,
+whose `log` may differ from XLA's by an ulp, and normal's inverse error
+function, which runs XLA's own polynomial (`_erf_inv`) but whose `log1p`
+is torch's: it may land up to 2 ulps from XLA's.
 Everything runs on the device of the key it is given.
 """
 from __future__ import annotations
@@ -129,6 +131,46 @@ def uniform(key, shape, minval=0.0, maxval=1.0) -> torch.Tensor:
     scale = np.float32(maxval) - lo          # rounded to fp32, as XLA does
     scaled = (floats.double() * float(scale) + float(lo)).float()
     return scaled.clamp_min(float(lo))
+
+
+# XLA's ErfInv32 (Giles' single-precision approximation): the Horner
+# coefficients for w < 5 and for w >= 5, highest power first
+_ERF_INV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                -4.39150654e-06, 0.00021858087, -0.00125372503,
+                -0.00417768164, 0.246640727, 1.50140941)
+_ERF_INV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                -0.00367342844, 0.00573950773, -0.0076224613,
+                0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's `erf_inv` of fp32 `x` in its op order: w = -log1p(-x·x),
+    a degree-8 polynomial in w - 2.5 (w < 5) or sqrt(w) - 3, times x;
+    ±1 maps to ±inf. XLA contracts each Horner step into a fused
+    multiply-add: here the product is exact in fp64 and the sum is
+    rounded once to fp32. (`torch.erfinv` is another approximation, up
+    to 64 ulps away.)"""
+    w = -torch.log1p(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+
+    def coeff(i):
+        return torch.where(lt, float(np.float32(_ERF_INV_LT5[i])),
+                           float(np.float32(_ERF_INV_GE5[i]))).double()
+
+    p = coeff(0)
+    for i in range(1, len(_ERF_INV_LT5)):
+        p = (coeff(i) + p * w).float().double()
+    out = p.float() * x
+    return torch.where(x.abs() == 1.0, x * math.inf, out)
+
+
+def normal(key, shape) -> torch.Tensor:
+    """`jax.random.normal` in float32: sqrt(2) · erf_inv(u) with u
+    uniform in [nextafter(-1, 0), 1)."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = uniform(key, shape, lo, 1.0)
+    return float(np.float32(math.sqrt(2.0))) * _erf_inv(u)
 
 
 def gumbel(key, shape) -> torch.Tensor:

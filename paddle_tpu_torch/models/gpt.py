@@ -1,13 +1,17 @@
 """GPT model family (counterpart of paddle_tpu/models/gpt.py): pre-LN GPT
 with learned positions and a tanh-GELU MLP.
 
-The dense model has two paths: the cached decode — `init_cache`,
+The model has two paths: the cached decode — `init_cache`,
 `forward_with_cache` and `generate` — which serving runs, and the
 no-cache `forward(input_ids, labels=None)` of training, through flash
 attention and, with labels, the chunked lm-head + cross-entropy (the JAX
 package's FLAGS_fused_lm_ce default; FLAGS_fused_lm_ce=0 takes the
-logits and `ParallelCrossEntropy`). MoE blocks and LoRA adapters wait
-for their own slices.
+logits and `ParallelCrossEntropy`). An MoE config (the `ernie-moe-*`
+presets) puts an `MoELayer` in place of the MLP of every
+`moe_every_n_layers`-th layer; its aux loss flows out of each block
+(through recompute too), and the loss adds their sum times
+`moe_aux_loss_weight`. As in the JAX package, the cached decode refuses
+an MoE model. LoRA adapters wait for their own slice.
 
 Parameter names match the JAX package's `functional_state()` keys, and
 `Linear` weights keep Paddle's `[in, out]` layout, so `bridge.load_jax_state`
@@ -31,6 +35,7 @@ from ..distributed.meta_parallel.mp_layers import (ColumnParallelLinear,
                                                    VocabParallelEmbedding)
 from ..nn import Dropout, Embedding, LayerNorm
 from ..nn.layer.layers import Layer, LayerList, init_parameters
+from ..nn.layer.moe import MoELayer
 from ..ops.attention import (decode_attention, flash_attention,
                              update_kv_cache)
 from ..ops.softmax_ce import fused_linear_cross_entropy
@@ -48,7 +53,7 @@ class GPTConfig:
     attention_dropout_prob: float = 0.0
     layer_norm_eps: float = 1e-5
     use_recompute: bool = False
-    # MoE (dense models have moe_num_experts = 0; MoE waits for its slice)
+    # MoE (ERNIE-MoE-style, BASELINE config 5): 0 = dense
     moe_num_experts: int = 0
     moe_top_k: int = 2
     moe_every_n_layers: int = 2
@@ -119,7 +124,8 @@ class GPTAttention(Layer):
 
 
 class GPTDecoderLayer(Layer):
-    def __init__(self, config: GPTConfig, device=None, dtype=None):
+    def __init__(self, config: GPTConfig, use_moe: bool = False,
+                 device=None, dtype=None):
         super().__init__()
         h = config.hidden_size
         self.norm1 = LayerNorm(h, epsilon=config.layer_norm_eps,
@@ -127,32 +133,52 @@ class GPTDecoderLayer(Layer):
         self.self_attn = GPTAttention(config, device=device, dtype=dtype)
         self.norm2 = LayerNorm(h, epsilon=config.layer_norm_eps,
                                device=device, dtype=dtype)
-        self.linear1 = ColumnParallelLinear(h, config.intermediate_size,
-                                            has_bias=True,
-                                            gather_output=False,
-                                            device=device, dtype=dtype)
-        self.linear2 = RowParallelLinear(config.intermediate_size, h,
-                                         has_bias=True,
-                                         input_is_parallel=True,
-                                         device=device, dtype=dtype)
+        self.use_moe = use_moe
+        if use_moe:
+            self.moe = MoELayer(h, config.intermediate_size,
+                                config.moe_num_experts, config.moe_top_k,
+                                config.moe_capacity_factor, device=device,
+                                dtype=dtype)
+        else:
+            self.linear1 = ColumnParallelLinear(h, config.intermediate_size,
+                                                has_bias=True,
+                                                gather_output=False,
+                                                device=device, dtype=dtype)
+            self.linear2 = RowParallelLinear(config.intermediate_size, h,
+                                             has_bias=True,
+                                             input_is_parallel=True,
+                                             device=device, dtype=dtype)
         self.dropout = Dropout(config.hidden_dropout_prob)
         self._use_recompute = config.use_recompute
 
     def _block(self, x):
-        """The training block: x + attn(LN(x)), then x + MLP(LN(x))."""
+        """The training block: x + attn(LN(x)), then x + MLP(LN(x)) or x +
+        MoE(LN(x)). Returns (x, aux): the MoE aux loss leaves through the
+        output, so it survives recompute; None for a dense layer."""
         x = x + self.dropout(self.self_attn(self.norm1(x)))
-        h = F.gelu(self.linear1(self.norm2(x)), approximate="tanh")
-        return x + self.dropout(self.linear2(h))
+        if self.use_moe:
+            h = self.moe(self.norm2(x))
+            aux = self.moe.aux_loss
+        else:
+            h = F.gelu(self.linear1(self.norm2(x)), approximate="tanh")
+            h = self.linear2(h)
+            aux = None
+        return x + self.dropout(h), aux
 
     def forward(self, x, cache=None, pos=None, paged=None):
-        """(x, new_cache) with a cache; (x, None) without (the JAX layer's
+        """(x, new_cache) with a cache; (x, aux) without (the JAX layer's
         (x, aux_loss), aux None for a dense layer). In training with
         `use_recompute`, the block's activations are recomputed in the
-        backward instead of kept."""
+        backward instead of kept. An MoE layer has no cached decode."""
         if cache is None:
             if self._use_recompute and self.training:
-                return recompute(self._block, x), None
-            return self._block(x), None
+                if self.use_moe:
+                    return recompute(self._block, x)
+                return recompute(lambda a: self._block(a)[0], x), None
+            return self._block(x)
+        if self.use_moe:
+            raise NotImplementedError(
+                "KV-cache decode is not wired through MoE layers yet")
         h, new_cache = self.self_attn(self.norm1(x), cache, pos, paged=paged)
         x = x + self.dropout(h)
         # jax.nn.gelu defaults to the tanh approximation
@@ -164,9 +190,6 @@ class GPTDecoderLayer(Layer):
 class GPTModel(Layer):
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
-        if config.moe_num_experts > 0:
-            raise NotImplementedError(
-                "MoE GPT waits for the multi-GPU slice (ROADMAP §1)")
         self.config = config
         self.word_embeddings = VocabParallelEmbedding(
             config.vocab_size, config.hidden_size, device=device,
@@ -176,25 +199,37 @@ class GPTModel(Layer):
             device=device, dtype=dtype)
         self.dropout = Dropout(config.hidden_dropout_prob)
         self.layers = LayerList([
-            GPTDecoderLayer(config, device=device, dtype=dtype)
-            for _ in range(config.num_hidden_layers)])
+            GPTDecoderLayer(config, use_moe=self._is_moe(i), device=device,
+                            dtype=dtype)
+            for i in range(config.num_hidden_layers)])
         self.final_norm = LayerNorm(config.hidden_size,
                                     epsilon=config.layer_norm_eps,
                                     device=device, dtype=dtype)
 
+    def _is_moe(self, i):
+        """Layer i is an MoE layer: every moe_every_n_layers-th, counting
+        from 1, of an MoE config."""
+        cfg = self.config
+        return (cfg.moe_num_experts > 0
+                and (i + 1) % cfg.moe_every_n_layers == 0)
+
     def forward(self, input_ids, caches=None, pos=None, paged=None):
         """With `caches`: (hidden, caches) with positions offset by `pos`
         (an int offsets the whole batch, a [B] tensor each row). Without:
-        (hidden, None), positions 0..S-1 (None: a dense model's aux loss)."""
+        (hidden, total aux loss), positions 0..S-1; the aux loss is the
+        sum over the MoE layers, None for a dense model."""
         S = input_ids.shape[1]
         dev = input_ids.device
         ar = torch.arange(S, device=dev)
         if caches is None:
             hidden = self.dropout(self.word_embeddings(input_ids)
                                   + self.position_embeddings(ar))
+            total_aux = None
             for layer in self.layers:
-                hidden, _ = layer(hidden)
-            return self.final_norm(hidden), None
+                hidden, aux = layer(hidden)
+                if aux is not None:
+                    total_aux = aux if total_aux is None else total_aux + aux
+            return self.final_norm(hidden), total_aux
         if torch.is_tensor(pos) and pos.ndim == 1:
             pos_ids = pos.to(device=dev, dtype=torch.long)[:, None] + ar
         else:
@@ -249,16 +284,20 @@ class GPTForCausalLM(Layer):
         environment's FLAGS_fused_lm_ce set to anything but 1, the logits
         through the lm head (an autocast op under AMP) and
         `ParallelCrossEntropy`, as in the JAX package (gpt.py:314-325).
-        Without labels: logits [B, S, V]."""
-        hidden, _ = self.gpt(input_ids)
-        if labels is not None and self._can_fuse_lm_ce():
+        Without labels: logits [B, S, V]. An MoE model's loss adds the
+        layers' aux loss times moe_aux_loss_weight on either path."""
+        hidden, total_aux = self.gpt(input_ids)
+        if labels is None:
+            return self.lm_head(hidden)
+        if self._can_fuse_lm_ce():
             hs = hidden.reshape(-1, hidden.shape[-1])
-            return fused_linear_cross_entropy(
+            loss = fused_linear_cross_entropy(
                 hs, self.lm_head.weight, labels.reshape(-1)).mean()
-        logits = self.lm_head(hidden)
-        if labels is not None:
-            return self.loss_fn(logits, labels).mean()
-        return logits
+        else:
+            loss = self.loss_fn(self.lm_head(hidden), labels).mean()
+        if total_aux is not None:
+            loss = loss + total_aux * self.config.moe_aux_loss_weight
+        return loss
 
     @staticmethod
     def _can_fuse_lm_ce():

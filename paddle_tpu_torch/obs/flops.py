@@ -1,9 +1,9 @@
 """Analytic FLOPs and the card's peak (counterpart of
 paddle_tpu/obs/flops.py).
 
-`train_flops_per_step` is the 6·N·D formula for one dense-transformer
-train step; `peak_flops` is the published dense bf16 rate of the card the
-port runs on. Stdlib only.
+`train_flops_per_step` is the 6·N·D formula for one transformer train
+step, counting an MoE model's active parameters; `peak_flops` is the
+published dense bf16 rate of the card the port runs on. Stdlib only.
 """
 from __future__ import annotations
 
@@ -22,6 +22,16 @@ def peak_flops(device_name: str) -> float:
     raise KeyError(f"no published peak for {device_name!r}")
 
 
-def train_flops_per_step(n_params: int, tokens_per_step: int) -> float:
-    """6·N·tokens: forward and backward FLOPs of one dense train step."""
-    return 6.0 * int(n_params) * tokens_per_step
+def train_flops_per_step(n_params: int, tokens_per_step: int,
+                         expert_params: int = 0, moe_top_k: int = 2,
+                         moe_num_experts: int = 0) -> float:
+    """6·N·tokens: forward and backward FLOPs of one train step. An MoE
+    model counts its ACTIVE parameters: a token runs top_k of the E
+    experts, so the expert weights (`expert_params`, all of them, the
+    gate excluded) count expert_params * top_k // E, rounded down as in
+    the JAX package. With moe_num_experts 0 this is 6·N·D."""
+    n_active = int(n_params)
+    if moe_num_experts:
+        n_active = (n_params - expert_params
+                    + expert_params * moe_top_k // moe_num_experts)
+    return 6.0 * n_active * tokens_per_step

@@ -192,6 +192,9 @@ class ShardedTrainStep:
         # the global-norm clip sums in
         self._names = [k for k, p in named if p.requires_grad]
         self._params = [p for _, p in named if p.requires_grad]
+        # the model's order, in which the JAX step's init_state makes the
+        # optimizer's slots (Dpsgd numbers its noise streams so)
+        self._slot_order = [p for p in model.parameters() if p.requires_grad]
 
         amp_cfg = plan.amp if plan is not None else None
         self._amp_cfg = amp_cfg
@@ -357,6 +360,9 @@ class ShardedTrainStep:
     def _update(self, grads, lr, do_update):
         """Clip and update, gated by `do_update` (None: always), with the
         optimizer state staged in from the host around it under offload."""
+        if self._slot_order:
+            self.optimizer.init_slots(self._slot_order)
+            self._slot_order = None
         if self._offload:
             self._stage_state(self.device)
         self.optimizer.apply_gradients(

@@ -1253,3 +1253,83 @@ def test_cuda_engine_and_generate_first_differing_op():
         port_kernel = (first["what"] == "attention core output"
                        or "norm" in first["op"])
         assert not port_kernel, (step, first)
+
+
+# MoE (ernie-moe-base widths): the layer on the card against the same
+# layer on the CPU, fp32 (TF32 off) — output and every gradient within
+# 1e-4 of the leaf's largest (sums of 768 or 3072 products in another
+# order), aux within 1e-5, and the routing equal where no two gates of a
+# choice lie within 1e-6 (chip_smoke.MOE_MARGIN_TOL); nothing in it
+# launches a port kernel. Then one bf16 train step of ernie-moe-base's
+# widths cut to 2 layers at 8 x 1024 routes attention to the flash
+# kernels at head dim 64 (2 forward, 2 dq, 2 dk/dv, the bf16 tensor-core
+# instantiations, no fp16 one), the LayerNorms to theirs (5 and 5) and
+# the update to fused Adam, one launch a leaf (30).
+@pytest.mark.cuda
+def test_cuda_moe_layer_matches_cpu():
+    require_cuda()
+    import numpy as np
+    from chip_smoke import MOE_MARGIN_TOL, route_mismatches
+    from paddle_tpu_torch.nn.layer.moe import MoELayer
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = MoELayer(768, 3072, 8, top_k=2, device="cpu")
+    with torch.no_grad():
+        cpu.reset_parameters(torch.Generator().manual_seed(5))
+    card = MoELayer(768, 3072, 8, top_k=2, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.standard_normal((2, 256, 768)).astype(
+        np.float32))
+    g = torch.from_numpy(rng.standard_normal((2, 256, 768)).astype(
+        np.float32))
+    xc = x.clone().requires_grad_()
+    xg = x.cuda().requires_grad_()
+    reset_launch_counts()
+    out_g = card(xg)
+    torch.autograd.backward([out_g, card.aux_loss], [g.cuda(),
+                                                     torch.tensor(0.5).cuda()])
+    torch.cuda.synchronize()
+    assert not any(launch_counts().values()), launch_counts()
+    out_c = cpu(xc)
+    torch.autograd.backward([out_c, cpu.aux_loss], [g, torch.tensor(0.5)])
+    diff, slots_equal, kept_equal = route_mismatches(torch, card.routing,
+                                                     cpu.routing)
+    assert all(m < MOE_MARGIN_TOL for _, _, m in diff), diff
+    if not diff:
+        assert slots_equal and kept_equal
+    assert abs(float(card.aux_loss.detach())
+               - float(cpu.aux_loss.detach())) <= 1e-5
+    pairs = [("out", out_g.detach(), out_c.detach()), ("x", xg.grad, xc.grad)]
+    pairs += [(k, p.grad, dict(cpu.named_parameters())[k].grad)
+              for k, p in card.named_parameters()]
+    for k, a, b in pairs:
+        scale = float(b.abs().max())
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * max(scale, 1.0), k
+
+
+@pytest.mark.cuda
+def test_cuda_moe_train_step_routes_to_kernels():
+    require_cuda()
+    import numpy as np
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ShardedTrainStep
+    m = GPTForCausalLM.from_preset("ernie-moe-base", num_hidden_layers=2,
+                                   dtype="bfloat16")
+    m.train()
+    step = ShardedTrainStep(m, AdamW(learning_rate=1e-4,
+                                     parameters=m.parameters()))
+    ids = np.random.RandomState(4).randint(0, 50304, (8, 1024)).astype(
+        np.int32)
+    reset_launch_counts()
+    loss = step(ids, ids)
+    torch.cuda.synchronize()
+    n = launch_counts()
+    assert torch.isfinite(loss)
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert n[k] == 2 and n[k + "_fp16"] == 0, (k, n)
+    assert n["layernorm_fwd"] == 5 and n["layernorm_bwd"] == 5
+    assert n["fused_adam"] == sum(1 for _ in m.parameters()) == 30
+    assert m.gpt.layers[1].moe.routing[0].shape == (8192, 2)

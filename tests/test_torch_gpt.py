@@ -73,10 +73,11 @@ def test_bridge_names_match_functional_state(models):
 
 
 def test_unported_paths_raise(models):
-    """The paths still unported raise; training-mode dropout and sampled
-    generate(), which this test once saw raise, now run
-    (tests/test_torch_dropout.py and tests/test_torch_sampling.py hold
-    them to the JAX package)."""
+    """The paths still unported raise; training-mode dropout, sampled
+    generate() and MoE models, which this test once saw raise, now run
+    (tests/test_torch_dropout.py, tests/test_torch_sampling.py and
+    tests/test_torch_moe.py hold them to the JAX package). An MoE model's
+    cached decode raises with the JAX package's words, as there."""
     from paddle_tpu_torch.models.generation import generate
     from paddle_tpu_torch.models.gpt import GPTForCausalLM
     _, tm = models
@@ -89,8 +90,14 @@ def test_unported_paths_raise(models):
     assert out.shape == (1, 34) and ((out >= 0) & (out < 512)).all()
     with pytest.raises(ValueError, match="max_position_embeddings"):
         tm.init_cache(1, 513)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        GPTForCausalLM.from_preset("ernie-moe-tiny", device="cpu")
+    moe = GPTForCausalLM.from_preset("ernie-moe-tiny", device="cpu")
+    assert [layer.use_moe for layer in moe.gpt.layers] == [False, True,
+                                                          False, True]
+    with pytest.raises(NotImplementedError,
+                       match="KV-cache decode is not wired through MoE "
+                             "layers yet"):
+        moe.forward_with_cache(torch.zeros((1, 2), dtype=torch.long),
+                               moe.init_cache(1, 8), 0)
 
 
 def test_bf16_model_runs_in_bf16(models):

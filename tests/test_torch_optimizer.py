@@ -339,6 +339,8 @@ def _run_named(jax_opt, port_opt, dtype, steps=4, lr=1e-2, gates=None):
     apply = jax_opt.apply_gradients_fn()
     names = sorted(p0)
     tparams = {k: torch.from_numpy(p0[k]).to(dtype) for k in names}
+    # slots made in the JAX state's order (Dpsgd numbers its streams so)
+    port_opt.init_slots([tparams[k] for k in p0])
     for i in range(steps):
         g = _grads(10 + i)
         ok = True if gates is None else gates[i]
@@ -483,3 +485,382 @@ def test_bridged_velocity_and_lamb_moments_continue_like_jax(kind):
         for s, v in to.state[t].items():
             np.testing.assert_allclose(v.numpy(), np.asarray(jstate[k][s]),
                                        atol=tol, rtol=tol)
+
+
+
+# ---- Adamax, Adagrad, RMSProp (plain, and centered with momentum),
+# Adadelta, DecayedAdagrad, Ftrl, Dpsgd, ProximalAdagrad and ProximalGD:
+# plain PyTorch, each `_rule` the JAX one in its op order with fp32
+# slots (Dpsgd's two int32). fp32 parameters: atol = rtol = 1e-6 (the
+# same fp32 ops; a square root, power or quotient may round one ulp
+# apart), except Dpsgd: 1e-5, since its per-leaf gradient norm is an fp32
+# sum in another order and its noise (threefry.normal) may be up to 3
+# ulps from JAX's. bf16 parameters: within one bf16 ulp (+ 1e-7) of the
+# JAX value (both round one fp32 value once), Dpsgd two.
+NEW_OPTIMIZERS = {
+    "adamax": ("Adamax", dict(learning_rate=1e-2, weight_decay=0.01)),
+    "adagrad": ("Adagrad", dict(learning_rate=1e-2, weight_decay=0.01,
+                                initial_accumulator_value=0.1)),
+    "rmsprop": ("RMSProp", dict(learning_rate=1e-2, weight_decay=0.01)),
+    "rmsprop_centered": ("RMSProp", dict(learning_rate=1e-2, momentum=0.9,
+                                         centered=True)),
+    "adadelta": ("Adadelta", dict(learning_rate=1.0, weight_decay=0.01)),
+    "decayed_adagrad": ("DecayedAdagrad", dict(learning_rate=1e-2,
+                                               weight_decay=0.01)),
+    "ftrl": ("Ftrl", dict(learning_rate=1e-2, l1=0.01, l2=0.01)),
+    "dpsgd": ("Dpsgd", dict(learning_rate=1e-2, clip=2.0, batch_size=4.0,
+                            sigma=0.5, seed=7)),
+    "proximal_adagrad": ("ProximalAdagrad", dict(learning_rate=1e-2,
+                                                 l1=0.01, l2=0.01)),
+    "proximal_gd": ("ProximalGD", dict(learning_rate=1e-2, l1=0.01,
+                                       l2=0.01)),
+}
+
+
+def _new_pair(kind, jparams=None, tparams=None):
+    """(JAX optimizer, port optimizer, lr) of a NEW_OPTIMIZERS kind, over
+    the given parameter lists (none: the compiled path's)."""
+    from paddle_tpu import optimizer as jopt
+    from paddle_tpu_torch import optimizer as topt
+    cls, kw = NEW_OPTIMIZERS[kind]
+    return (getattr(jopt, cls)(parameters=jparams, **kw),
+            getattr(topt, cls)(parameters=tparams or [torch.zeros(1)],
+                               **kw), kw["learning_rate"])
+
+
+def _new_tol(kind):
+    return 1e-5 if kind == "dpsgd" else 1e-6
+
+
+def _assert_new_close(kind, got, want, dtype):
+    if dtype == torch.bfloat16:
+        from _torch_port import ulp_bf16
+        big = np.maximum(np.abs(got), np.abs(want))
+        n = 2 if kind == "dpsgd" else 1
+        assert (np.abs(got - want) <= n * ulp_bf16(big) + 1e-7).all(), \
+            float(np.abs(got - want).max())
+    else:
+        tol = _new_tol(kind)
+        np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+
+
+def _assert_slots(kind, to, p, jslots):
+    slots = to.state[p]
+    assert set(slots) == set(jslots)
+    for s, v in slots.items():
+        w = np.asarray(jslots[s])
+        assert v.dtype == (torch.int32 if w.dtype == np.int32
+                           else torch.float32), (s, v.dtype)
+        tol = _new_tol(kind)
+        np.testing.assert_allclose(v.numpy(), w, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", sorted(NEW_OPTIMIZERS))
+def test_new_optimizers_match_apply_gradients_fn(kind, dtype):
+    """Three compiled-path steps (apply_gradients with names) against the
+    JAX apply_gradients_fn: parameters and every slot, dtypes kept."""
+    jo, to, lr = _new_pair(kind)
+    jparams, jstate, tparams = _run_named(jo, to, dtype, steps=3, lr=lr)
+    for k, p in tparams.items():
+        assert p.dtype == dtype
+        _assert_new_close(kind, p.float().numpy(),
+                          np.asarray(jparams[k], np.float32), dtype)
+        _assert_slots(kind, to, p, jstate[k])
+
+
+def _eager_params(dtype, attrs=None):
+    """({name: JAX Parameter}, {name: torch Parameter}) of _params(0) in
+    `dtype`, each given the attributes attrs[name]."""
+    from paddle_tpu.core.tensor import Parameter
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jp, tp = {}, {}
+    for k, v in _params(0).items():
+        jp[k] = Parameter(jnp.asarray(v, jdt), name=k)
+        tp[k] = torch.nn.Parameter(torch.from_numpy(v).to(dtype))
+        for a, val in (attrs or {}).get(k, {}).items():
+            setattr(jp[k], a, val)
+            setattr(tp[k], a, val)
+    return jp, tp
+
+
+def _eager_steps(jo, to, jp, tp, dtype, steps, seed=50):
+    """`steps` eager step()s of both, the same gradients each time."""
+    from paddle_tpu.core.tensor import Tensor
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    for i in range(steps):
+        g = _grads(seed + i)
+        for k in jp:
+            jp[k].grad = Tensor(jnp.asarray(g[k], jdt))
+            tp[k].grad = torch.from_numpy(g[k]).to(dtype)
+        jo.step()
+        to.step()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", sorted(NEW_OPTIMIZERS))
+def test_new_optimizers_eager_step_matches_jax(kind, dtype):
+    """Five eager step()s of both packages over the same parameters and
+    gradients, to the limits above."""
+    jp, tp = _eager_params(dtype)
+    names = sorted(jp)
+    jo, to, _ = _new_pair(kind, [jp[k] for k in names],
+                          [tp[k] for k in names])
+    _eager_steps(jo, to, jp, tp, dtype, 5)
+    for k in names:
+        _assert_new_close(kind, tp[k].detach().float().numpy(),
+                          np.asarray(jp[k].data.astype(jnp.float32)), dtype)
+
+
+@pytest.mark.parametrize("kind", sorted(NEW_OPTIMIZERS))
+def test_new_optimizers_skipped_step_keeps_every_bit(kind):
+    """A do_update of False leaves every parameter and slot bit for bit
+    (Dpsgd's noise step too); apply, skip, apply, skip equals the JAX
+    optimizer's two applied steps."""
+    jo, to, lr = _new_pair(kind)
+    jparams, jstate, tparams = _run_named(
+        jo, to, torch.float32, lr=lr, gates=[True, False, True, False])
+    for k, p in tparams.items():
+        _assert_new_close(kind, p.numpy(), np.asarray(jparams[k]),
+                          torch.float32)
+        _assert_slots(kind, to, p, jstate[k])
+    p = tparams["a.weight"]
+    before = p.clone(), {s: v.clone() for s, v in to.state[p].items()}
+    to.apply_gradients([(p, torch.ones_like(p))], lr, names=["a.weight"],
+                       do_update=torch.tensor(False))
+    assert torch.equal(p, before[0])
+    for s, v in to.state[p].items():
+        assert torch.equal(v, before[1][s]), s
+
+
+@pytest.mark.parametrize("kind", sorted(NEW_OPTIMIZERS))
+def test_new_optimizers_bridged_slots_continue_like_jax(kind):
+    """The JAX optimizer steps twice alone; its parameters and slots
+    (Dpsgd's int32 salt and step included) cross with
+    `bridge.load_jax_optimizer_state` unchanged; both then step three
+    more times and agree to the limits above."""
+    from paddle_tpu_torch.bridge import load_jax_optimizer_state
+    jo, _, lr = _new_pair(kind)
+    apply = jo.apply_gradients_fn()
+    jparams = {k: jnp.asarray(v) for k, v in _params(0).items()}
+    jstate = jo.init_state(jparams)
+    names = sorted(jparams)
+    for i in range(5):
+        g = _grads(60 + i)
+        if i == 2:
+            tparams = {k: torch.from_numpy(np.array(jparams[k]))
+                       for k in names}
+            _, to, _ = _new_pair(kind, tparams=list(tparams.values()))
+            load_jax_optimizer_state(to, _Named(tparams), {
+                k: {s: np.asarray(v) for s, v in jstate[k].items()}
+                for k in names})
+            _assert_slots(kind, to, tparams["a.weight"], jstate["a.weight"])
+        jparams, jstate = apply(jparams, {k: jnp.asarray(v)
+                                          for k, v in g.items()},
+                                jstate, jnp.float32(lr), jnp.int32(i + 1))
+        if i >= 2:
+            to.apply_gradients([(tparams[k], torch.from_numpy(g[k]))
+                                for k in names], lr, names=names)
+    for k, t in tparams.items():
+        _assert_new_close(kind, t.numpy(), np.asarray(jparams[k]),
+                          torch.float32)
+        _assert_slots(kind, to, t, jstate[k])
+
+
+def test_bridge_names_every_bad_slot():
+    from paddle_tpu_torch.bridge import load_jax_optimizer_state
+    from paddle_tpu_torch.optimizer import Adagrad
+    tparams = {k: torch.from_numpy(v) for k, v in _params(0).items()}
+    opt = Adagrad(learning_rate=0.1, parameters=list(tparams.values()))
+    good = {k: {"moment": np.zeros(v.shape, np.float32)}
+            for k, v in tparams.items()}
+    bad = dict(good, **{"a.bias": {"moment": np.zeros((4,), np.float32)},
+                        "norm.weight": {"moment": np.zeros((9,),
+                                                           np.float32)}})
+    with pytest.raises(ValueError) as err:
+        load_jax_optimizer_state(opt, _Named(tparams), bad)
+    assert "a.bias.moment" in str(err.value)
+    assert "norm.weight.moment" in str(err.value)
+    assert not opt.state                     # nothing was set
+    wrong = dict(good, **{"a.bias": {"velocity": np.zeros(5)},
+                          "b.weight": {}})
+    with pytest.raises(KeyError) as err:
+        load_jax_optimizer_state(opt, _Named(tparams), wrong)
+    assert "a.bias" in str(err.value) and "b.weight" in str(err.value)
+
+
+def test_dpsgd_noise_matches_jax_over_two_params_three_steps():
+    """Dpsgd with a zero gradient moves each leaf by -lr · noise /
+    batch_size, so the step shows the noise itself: two leaves (salts 1
+    and 2, in the order first seen) over three steps, each step's noise
+    within 4 ulps of JAX's (threefry.normal's limit, below), and the
+    leaves' noises all different."""
+    from paddle_tpu import optimizer as jopt
+    from paddle_tpu_torch import optimizer as topt
+    kw = dict(learning_rate=1.0, clip=1.0, batch_size=1.0, sigma=1.0,
+              seed=11)
+    jo, to = jopt.Dpsgd(**kw), topt.Dpsgd(parameters=[torch.zeros(1)], **kw)
+    shapes = {"p0": (3,), "p1": (2, 2)}
+    jparams = {k: jnp.zeros(s, jnp.float32) for k, s in shapes.items()}
+    jstate = jo.init_state(jparams)
+    apply = jo.apply_gradients_fn()
+    tparams = {k: torch.zeros(s) for k, s in shapes.items()}
+    seen = []
+    for step in range(3):
+        before = {k: np.asarray(v) for k, v in jparams.items()}
+        jparams, jstate = apply(jparams, {k: jnp.zeros(s) for k, s in
+                                          shapes.items()},
+                                jstate, jnp.float32(1.0), jnp.int32(step))
+        tbefore = {k: t.clone() for k, t in tparams.items()}
+        to.apply_gradients([(tparams[k], torch.zeros(s))
+                            for k, s in shapes.items()], 1.0,
+                           names=list(shapes))
+        for k in shapes:
+            want = float(np.asarray(jparams[k]).reshape(-1)[0]
+                         - before[k].reshape(-1)[0])
+            got = float((tparams[k] - tbefore[k]).reshape(-1)[0])
+            ulp = np.spacing(np.float32(abs(want)))
+            assert abs(got - want) <= 4 * ulp, (step, k, got, want)
+            assert int(to.state[tparams[k]]["noise_salt"]) == \
+                int(jstate[k]["noise_salt"])
+            seen.append(want)
+    assert len(set(seen)) == 6
+
+
+def test_threefry_normal_matches_jax_random_normal():
+    """threefry.normal against jax.random.normal over 4,096 keys x 64
+    draws: the uniform bits are JAX's exactly and erf_inv is XLA's
+    polynomial with its fused multiply-adds, but log1p is torch's, so a
+    draw may land up to 3 ulps from JAX's (1% of them did when this was
+    written): every draw within 4 ulps, at least 95% bit-equal."""
+    import jax
+    from paddle_tpu_torch.core import threefry
+    salts = np.arange(4096)
+    base = jax.random.PRNGKey(5)
+    want = np.asarray(jax.vmap(lambda s: jax.random.normal(
+        jax.random.fold_in(base, s), (64,)))(salts))
+    got = threefry.normal(threefry.fold_in(threefry.prng_key(5),
+                                           torch.from_numpy(salts)),
+                          (64,)).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    ulps = np.abs(got.view(np.int32).astype(np.int64)
+                  - want.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 4
+    assert (ulps == 0).mean() >= 0.95
+    assert float(threefry.normal(threefry.prng_key(3), ())) == \
+        pytest.approx(float(jax.random.normal(jax.random.PRNGKey(3), ())),
+                      abs=4e-7)
+
+
+# ---- the eager step reads each parameter's optimize_attr (a lr scale)
+# and no_weight_decay (no L2, decoupled or L1 decay), as the JAX eager
+# step does; the compiled path (apply_gradients, the train steps) reads
+# neither, as the JAX apply_gradients_fn does not. Limits as above.
+ATTRS = {"a.bias": {"optimize_attr": {"learning_rate": 0.5}},
+         "b.weight": {"no_weight_decay": True},
+         "norm.weight": {"optimize_attr": {"learning_rate": 2.0},
+                         "no_weight_decay": True}}
+
+
+def _attr_pair(case, jparams=None, tparams=None):
+    from paddle_tpu import optimizer as jopt
+    from paddle_tpu.regularizer import L1Decay as JL1
+    from paddle_tpu.regularizer import L2Decay as JL2
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.regularizer import L1Decay, L2Decay
+    tparams = tparams or [torch.zeros(1)]
+    if case == "sgd_l2":
+        return (jopt.SGD(0.1, jparams, weight_decay=JL2(0.05)),
+                topt.SGD(0.1, tparams, weight_decay=L2Decay(0.05)))
+    if case == "momentum_l1":
+        return (jopt.Momentum(0.1, 0.9, jparams, weight_decay=JL1(0.05)),
+                topt.Momentum(0.1, 0.9, tparams, weight_decay=L1Decay(0.05)))
+    if case == "adamw_decoupled":
+        return (jopt.AdamW(0.1, parameters=jparams, weight_decay=0.05),
+                topt.AdamW(0.1, parameters=tparams, weight_decay=0.05))
+    return (jopt.Adagrad(0.1, parameters=jparams, weight_decay=0.05),
+            topt.Adagrad(0.1, parameters=tparams, weight_decay=0.05))
+
+
+ATTR_CASES = ["sgd_l2", "momentum_l1", "adamw_decoupled", "adagrad_float"]
+
+
+@pytest.mark.parametrize("case", ATTR_CASES)
+def test_eager_step_honours_optimize_attr_and_no_weight_decay(case):
+    jp, tp = _eager_params(torch.float32, ATTRS)
+    names = sorted(jp)
+    jo, to = _attr_pair(case, [jp[k] for k in names],
+                        [tp[k] for k in names])
+    _eager_steps(jo, to, jp, tp, torch.float32, 3, seed=70)
+    for k in names:
+        np.testing.assert_allclose(tp[k].detach().numpy(),
+                                   np.asarray(jp[k].data), atol=1e-6,
+                                   rtol=1e-6, err_msg=k)
+    # the attributes moved the step: a plain twin differs on those leaves
+    jp2, tp2 = _eager_params(torch.float32)
+    jo2, to2 = _attr_pair(case, [jp2[k] for k in names],
+                          [tp2[k] for k in names])
+    _eager_steps(jo2, to2, jp2, tp2, torch.float32, 3, seed=70)
+    for k in names:
+        moved = not np.allclose(tp[k].detach().numpy(),
+                                tp2[k].detach().numpy(), atol=1e-7)
+        assert moved == (k in ATTRS), k
+
+
+def test_sgd_param_attr_learning_rate_halves_the_step():
+    """The reproduction of the fault: ParamAttr(learning_rate=0.5) on a
+    bias, SGD(0.1), a gradient of 1: the bias moves by -0.05."""
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.nn.layer.layers import ParamAttr
+    from paddle_tpu_torch.optimizer import SGD
+    lin = Linear(2, 3, bias_attr=ParamAttr(learning_rate=0.5))
+    with torch.no_grad():
+        lin.bias.zero_()
+        lin.weight.fill_(1.0)
+    opt = SGD(0.1, parameters=lin.parameters())
+    lin.bias.grad = torch.ones(3)
+    lin.weight.grad = torch.ones(2, 3)
+    w0 = lin.weight.detach().clone()
+    opt.step()
+    np.testing.assert_allclose(lin.bias.detach().numpy(), -0.05, rtol=1e-6)
+    np.testing.assert_allclose((lin.weight - w0).detach().numpy(), -0.1,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", ATTR_CASES)
+def test_compiled_path_ignores_optimize_attr_and_no_weight_decay(case):
+    """apply_gradients(names=) with the same attributed parameters: equal
+    to the JAX apply_gradients_fn, which reads neither attribute."""
+    jo, _ = _attr_pair(case)
+    _, tp = _eager_params(torch.float32, ATTRS)
+    names = sorted(tp)
+    _, to = _attr_pair(case, tparams=[tp[k] for k in names])
+    apply = jo.apply_gradients_fn()
+    jparams = {k: jnp.asarray(v) for k, v in _params(0).items()}
+    jstate = jo.init_state(jparams)
+    for i in range(3):
+        g = _grads(80 + i)
+        jparams, jstate = apply(jparams, {k: jnp.asarray(v)
+                                          for k, v in g.items()},
+                                jstate, jnp.float32(0.1), jnp.int32(i + 1))
+        to.apply_gradients([(tp[k], torch.from_numpy(g[k])) for k in names],
+                           0.1, names=names)
+    for k in names:
+        np.testing.assert_allclose(tp[k].detach().numpy(),
+                                   np.asarray(jparams[k]), atol=1e-6,
+                                   rtol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("cls", sorted({c for c, _ in
+                                        NEW_OPTIMIZERS.values()}))
+def test_new_optimizers_take_the_jax_constructors_arguments(cls):
+    """The same parameters in the same order, defaults included (Adagrad
+    takes `name` before `initial_accumulator_value`, as Paddle's does),
+    so positional calls bind alike."""
+    import inspect
+    from paddle_tpu import optimizer as jopt
+    from paddle_tpu_torch import optimizer as topt
+    want = inspect.signature(getattr(jopt, cls)).parameters
+    got = inspect.signature(getattr(topt, cls)).parameters
+    assert [(k, p.default) for k, p in got.items()] == \
+        [(k, p.default) for k, p in want.items()]

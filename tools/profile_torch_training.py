@@ -2,7 +2,8 @@
 """Where the time of the PyTorch port's train step goes, on one GPU.
 
     python3 tools/profile_torch_training.py [--steps K] [--trace DIR]
-        [--cells train,train_recipe,llama_train,train_amp,train_amp_fp16]
+        [--cells train,train_recipe,llama_train,train_amp,train_amp_fp16,
+                 moe_train]
 
 Trains `chip_smoke.py`'s train cells, one after the other — by default
 `train` (AdamW, fp32 moments) and `train_recipe` (recompute, bf16
@@ -25,8 +26,16 @@ powers), and the elementwise rest — and by kernel name. The lm-head + CE
 and the optimizer are told apart by profiler ranges put around
 `FusedLinearCrossEntropyFn` (GPT), `ParallelCrossEntropy` (Llama: the
 cross-entropy alone, its lm-head GEMM counts with the layers') and
-`Optimizer.apply_gradients` for the profiled chunk only. With `--trace` it writes a chrome trace of each
-cell there. Needs a GPU; exits 2 without one.
+`Optimizer.apply_gradients` for the profiled chunk only. An MoE cell
+(`moe_train`) also gets three MoE families: the router (gate product,
+softmax, top-k, cumulative slot counts), dispatch and combine (the
+buffer copy, the gather and the weighted sum) and the experts (the
+batched products, their biases and activation). Their forward kernels
+are those launched under profiler ranges around `nn/layer/moe.py`'s
+`_route`, `_dispatch`/`_combine` and `_experts`; their backward kernels
+those of the autograd nodes whose sequence numbers the forward ops under
+each range carry. With `--trace` it writes a chrome trace of each cell
+there. Needs a GPU; exits 2 without one.
 """
 from __future__ import annotations
 
@@ -40,6 +49,15 @@ import sys
 CE_RANGE = "lm_head_ce"
 OPT_RANGE = "optimizer"
 FUSED_ADAM = "fused Adam (port kernel)"
+# the MoE stages of nn/layer/moe.py, each in a range of its family
+MOE_RANGES = {"_route": "moe_route", "_dispatch": "moe_dispatch_combine",
+              "_combine": "moe_dispatch_combine", "_experts": "moe_experts"}
+MOE_FAMILIES = {
+    "moe_route": "MoE route (gate product, softmax, top-k, cumsum)",
+    "moe_dispatch_combine": "MoE dispatch and combine (copy, gather, "
+                            "weighted sum)",
+    "moe_experts": "MoE experts (batched products, biases, activation)"}
+BACKWARD_NODE = "autograd::engine::evaluate_function"
 
 
 def emit(obj):
@@ -81,6 +99,31 @@ def _kernels_under(evt):
     return out
 
 
+def _sequence_numbers(evt, into):
+    """Add the autograd sequence numbers of every op under `evt`."""
+    if evt.sequence_nr >= 0:
+        into.add(evt.sequence_nr)
+    for c in evt.cpu_children:
+        _sequence_numbers(c, into)
+
+
+def moe_kernels(events):
+    """{MoE range: [(kernel name, device us)]} of a profiled chunk: the
+    kernels launched under each range in the forward, and those of the
+    backward nodes of the ops launched there."""
+    out, seqs = {}, {}
+    for e in events:
+        if e.name in MOE_FAMILIES:
+            out.setdefault(e.name, []).extend(_kernels_under(e))
+            _sequence_numbers(e, seqs.setdefault(e.name, set()))
+    for e in events:
+        if e.name.startswith(BACKWARD_NODE):
+            for label, nrs in seqs.items():
+                if e.sequence_nr in nrs:
+                    out[label].extend(_kernels_under(e))
+    return out
+
+
 def profile_cell(cell, K, trace):
     """Warm up, time and profile one train cell of chip_smoke.py; emit
     its lines. Returns 1 when the profiler saw no device time."""
@@ -91,6 +134,7 @@ def profile_cell(cell, K, trace):
     import chip_smoke
     from paddle_tpu_torch.distributed.meta_parallel import \
         ParallelCrossEntropy
+    from paddle_tpu_torch.nn.layer import moe
     from paddle_tpu_torch.ops.softmax_ce import FusedLinearCrossEntropyFn
     from paddle_tpu_torch.optimizer.optimizer import Optimizer
     from paddle_tpu_torch.parallel import ScanTrainStep
@@ -121,6 +165,9 @@ def profile_cell(cell, K, trace):
         _ranged(saved[1], CE_RANGE))
     Optimizer.apply_gradients = _ranged(saved[2], OPT_RANGE)
     ParallelCrossEntropy.forward = _ranged(saved[3], CE_RANGE)
+    saved_moe = {f: getattr(moe, f) for f in MOE_RANGES}
+    for f, label in MOE_RANGES.items():
+        setattr(moe, f, _ranged(saved_moe[f], label))
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -130,16 +177,18 @@ def profile_cell(cell, K, trace):
         FusedLinearCrossEntropyFn.backward = staticmethod(saved[1])
         Optimizer.apply_gradients = saved[2]
         ParallelCrossEntropy.forward = saved[3]
+        for f, fn in saved_moe.items():
+            setattr(moe, f, fn)
     del model, opt, warm, step
     torch.cuda.empty_cache()
 
     by_name = {}     # kernel name -> device ms over the profiled chunk
     launches = 0
     for e in prof.key_averages():
-        # the two ranges also appear as device-side annotations spanning
+        # the ranges also appear as device-side annotations spanning
         # their kernels: not kernels, so not counted
         if (e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-                and e.key not in (CE_RANGE, OPT_RANGE)):
+                and e.key not in (CE_RANGE, OPT_RANGE, *MOE_FAMILIES)):
             by_name[e.key] = (by_name.get(e.key, 0.0)
                               + e.self_device_time_total / 1e3)
             launches += e.count
@@ -156,7 +205,8 @@ def profile_cell(cell, K, trace):
     ranged = {CE_RANGE: "lm-head + cross-entropy (GEMMs and elementwise)",
               OPT_RANGE: "optimizer without fused Adam (global-norm clip, "
                          "beta powers)"}
-    for e in prof.events():
+    events = prof.events()
+    for e in events:
         if e.name in ranged:
             for kname, us in _kernels_under(e):
                 if family(kname) == FUSED_ADAM:
@@ -164,6 +214,11 @@ def profile_cell(cell, K, trace):
                 fams[family(kname)] -= us / 1e3
                 fams[ranged[e.name]] = fams.get(ranged[e.name], 0.0) \
                     + us / 1e3
+    for label, kernels in moe_kernels(events).items():
+        for kname, us in kernels:
+            fams[family(kname)] -= us / 1e3
+            fams[MOE_FAMILIES[label]] = fams.get(MOE_FAMILIES[label], 0.0) \
+                + us / 1e3
     emit({"cell": cell, "phase": "run", "steps": K, "wall_ms": plain_ms,
           "step_ms": plain_ms / K,
           "host_ms_per_step_p50": statistics.median(host_ms),
