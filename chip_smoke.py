@@ -14,8 +14,9 @@ and a stream handoff at the same width, trains it in fp32 master weights
 through a DistributedStrategy (AMP bf16 and fp16 with dynamic loss
 scaling, recompute, gradient merge), then does the same for the Llama-2 family: serves `llama2-7b` whole and
 `llama2-70b`'s widths cut in depth, and trains `llama2-7b` whole with the
-Llama 2 recipe, and last trains `ernie-moe-base` whole (random weights
-from a seed). It prints one JSON line per
+Llama 2 recipe, then trains `ernie-moe-base` whole, and last trains
+`resnet50` as bench.py trains BASELINE config 1 (random weights from a
+seed). It prints one JSON line per
 phase, then each phase's wall seconds, the `{"kernels": [...]}` line,
 the card's name and power limit as `nvidia-smi` reports them, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before the
@@ -86,6 +87,14 @@ Phases:
   4d. optimizers — Adamax, Adagrad, RMSProp, Adadelta, DecayedAdagrad,
                 Ftrl, Dpsgd, ProximalAdagrad and ProximalGD, 3 steps on
                 the card against the CPU over 1 M-element leaves
+  4e. resnet_model — resnet50 (1000 classes), training mode, 8 x 3 x 64 x
+                64, TF32 off, on the card (cuDNN convolutions, BatchNorm
+                and pools, fused Adam) against a CPU twin: a float64 and
+                an fp32 forward and backward (logits, loss, every leaf's
+                gradient norm, the running statistics), then 3 AdamW
+                steps through ScanTrainStep, each from the CPU's state;
+                and the bf16 BatchNorm at [64, 64, 56, 56] against fp32
+                math on its bf16 inputs
   4b. model_amp — the same widths in fp32 master weights through
                 parallelize(model, opt, strategy=s) on the card against
                 the CPU: AMP bf16 with recompute and gradient merge k = 2,
@@ -176,6 +185,16 @@ Phases:
                 on active parameters, each MoE layer's share of dropped
                 (token, rank) pairs, and exactly MOE_KERNELS_PER_STEP
                 launches a step
+ 15. resnet_train — full resnet50 (1000 classes) as bench.py trains
+                BASELINE config 1: paddle_tpu_torch.flops at [1, 3, 224,
+                224] first (its exact MAC count printed), then the model
+                and 64 x 3 x 224 x 224 images in bf16, CrossEntropyLoss,
+                AdamW (lr 1e-4, wd 0.01, fp32 moments), one batch
+                repeated, 3 warm-up and 10 timed steps: images/s, step ms,
+                MFU = conv_train_flops_per_step / step time / 989 TFLOP/s,
+                peak memory, falling losses, every running statistic
+                finite and moved, and exactly RESNET50_LEAVES fused-Adam
+                launches a step (no other port kernel)
 """
 from __future__ import annotations
 
@@ -3919,6 +3938,423 @@ def phase_prefix_serve():
     return launches
 
 
+# --------------------------------------- phase 4e: ResNet-50 at one GPU
+# resnet50 (1000 classes) in training mode, TF32 off for matmuls and
+# cuDNN, 8 x 3 x 64 x 64 images (every BatchNorm reduces at least
+# 8 x 2 x 2 = 32 values a channel), on the card (cuDNN convolutions,
+# BatchNorm and pools; the fused-Adam kernel) against a CPU twin with the
+# same weights and buffers (the plain versions).
+#
+# fp32 resnet50 at random init amplifies rounding: its gradient norms
+# part by a median 3.4e-4 and up to 4.6e-3 of themselves between the card
+# and the CPU, and by 2.3e-4 and 2.6e-3 between two CPU runs that differ
+# only in their thread count, so in their sums' order
+# (tools/resnet_fp32_spread.py); three AdamW steps on one batch then part
+# chaotically (CPU against CPU, lr 1e-4: losses 0.078 apart, 69% of the
+# weights more than lr / 10). In float64 the card and the CPU agree to
+# 1e-12 on the logits and 3e-9 on every gradient norm: the card computes
+# the CPU's function. So:
+# - float64 forward and backward: logits within RESNET_FP64_LOGITS_TOL,
+#   every leaf's gradient norm within RESNET_FP64_GRAD_RTOL of itself,
+#   the running statistics the forward moved within RESNET_FP64_BUFFER_TOL
+#   of themselves (+ that, absolute): the only fp32 step is the
+#   cross-entropy, over logits 1e-12 apart;
+# - fp32 forward and backward: logits within RESNET_LOGITS_TOL and the
+#   loss within TRAIN_PARITY_LOSS_TOL (phase 4's limits and reasons), each
+#   gradient norm within RESNET_FP32_GRAD_RTOL (4x the worst card-vs-CPU
+#   spread above, 8x the CPU's own; a missing term or factor moves a norm
+#   by far more), the buffers within RESNET_BUFFER_TOL x (1 + |CPU|): each
+#   is a mean or a variance of conv outputs, the quantities the logits are
+#   made of, so it gets the logits' limit, relative to its size beyond 1
+#   (the variances reach O(100)); a wrong momentum moves a buffer by 10%
+#   of its step, an update missed or made twice by all of it;
+# - RESNET_STEPS fp32 AdamW steps through ScanTrainStep, each from a
+#   common state (the card takes the CPU's weights, buffers and moments
+#   before each step, so the chaos above cannot compound): each step's
+#   loss within TRAIN_PARITY_LOSS_TOL, every weight within 6 x lr (phase
+#   4's limit), at most RESNET_PARAM_SHARE of them past lr / 10, and its
+#   buffers within RESNET_BUFFER_TOL as above. Adam's first step moves
+#   every element by lr x sign(g), so an element whose gradient is within
+#   the fp32 spread above of 0 lands 2 x lr away: 0.47% of them between
+#   the card and the CPU, 0.21% between two CPU runs of other thread
+#   counts; RESNET_PARAM_SHARE is 4x the first, while a
+#   wrong gradient flips about half of the signs and a lost update moves
+#   every element by lr.
+# The bf16 BatchNorm of the train cell (bf16 input, weight, bias and
+# buffers, as model.to(bfloat16) leaves them) runs on the card at
+# layer1's shape in bench.py's batch against fp32 math on the same bf16
+# inputs: statistics in fp32 and one rounding of each output and buffer,
+# so every element within one bf16 ulp of the larger magnitude + 1e-6
+# (an fp32 difference near 0 survives the rounding).
+RESNET_MODEL_BATCH = (8, 64)          # images, side
+RESNET_STEPS = 3
+RESNET_FP64_LOGITS_TOL = 1e-9
+RESNET_FP64_GRAD_RTOL = 1e-6
+RESNET_FP64_BUFFER_TOL = 1e-9
+RESNET_LOGITS_TOL = 1e-3
+RESNET_FP32_GRAD_RTOL = 2e-2
+RESNET_PARAM_SHARE = 2e-2
+RESNET_BUFFER_TOL = 1e-3
+RESNET_BF16_BN_SHAPE = (64, 64, 56, 56)
+# resnet50's leaves: 53 conv weights, 53 BatchNorms' weight and bias, the
+# fc weight and bias; each one fused-Adam launch a step
+RESNET50_LEAVES = 161
+
+
+def resnet_twins(depth, seed, num_classes=1000):
+    """(CPU model, card model) of resnet{depth} in fp32 and training mode
+    with the same weights and buffers, drawn on the CPU from `seed`."""
+    import torch
+    from paddle_tpu_torch.vision import models
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    build = getattr(models, f"resnet{depth}")
+    cpu = build(num_classes=num_classes, device="cpu", generator=gen)
+    card = build(num_classes=num_classes, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def _buffer_diff(torch, card, cpu):
+    """max over every buffer of |card - cpu| / (1 + |cpu|)."""
+    return max(float(((a.detach().cpu().double() - b.double()).abs()
+                      / (1 + b.double().abs())).max())
+               for a, b in zip(card.buffers(), cpu.buffers()))
+
+
+def _forward_backward(torch, card, cpu, x, y):
+    """(max |logits diff|, |loss diff|, {leaf: relative gradient-norm
+    diff}, buffer diff) of one training forward and backward of both
+    models on (x, y); the gradients are dropped again."""
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    out = {}
+    for name, m, dev in (("card", card, "cuda"), ("cpu", cpu, "cpu")):
+        dtype = next(m.parameters()).dtype
+        logits = m(torch.from_numpy(x).to(dev, dtype))
+        loss = CrossEntropyLoss()(logits, torch.from_numpy(y).to(dev))
+        loss.backward()
+        out[name] = (logits.detach().cpu().double(), float(loss.detach()),
+                     {k: float(p.grad.double().norm())
+                      for k, p in m.named_parameters()})
+        for p in m.parameters():
+            p.grad = None
+    (lg_a, loss_a, g_a), (lg_b, loss_b, g_b) = out["card"], out["cpu"]
+    rel = {k: abs(g_a[k] - g_b[k]) / max(g_b[k], 1e-30) for k in g_b}
+    return (float((lg_a - lg_b).abs().max()), abs(loss_a - loss_b), rel,
+            _buffer_diff(torch, card, cpu))
+
+
+def _sync_from(torch, card, cpu, opt_card, opt_cpu):
+    """The card model and optimizer take the CPU's weights, buffers and
+    optimizer slots."""
+    with torch.no_grad():
+        for a, b in zip(list(card.parameters()) + list(card.buffers()),
+                        list(cpu.parameters()) + list(cpu.buffers())):
+            a.copy_(b)
+        for a, b in zip(card.parameters(), cpu.parameters()):
+            for k, t in opt_card.state[a].items():
+                t.copy_(opt_cpu.state[b][k])
+
+
+def resnet_card_vs_cpu(depth=50, batch=RESNET_MODEL_BATCH, steps=RESNET_STEPS,
+                       seed=SEED + 13, num_classes=1000):
+    """resnet{depth} on the card against its CPU twin under phase 4e's
+    limits: a float64 and an fp32 forward and backward, then `steps`
+    AdamW steps through ScanTrainStep, each from the CPU's state. Returns
+    the readings; checks nothing."""
+    import copy
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.bridge import export_state
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.ops import _kernels
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ScanTrainStep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, side = batch
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((B, 3, side, side)).astype(np.float32)
+    y = rng.randint(0, num_classes, (B,)).astype(np.int64)
+    cpu, card = resnet_twins(depth, seed, num_classes)
+    lg64, loss64, rel64, buf64 = _forward_backward(
+        torch, copy.deepcopy(card).double(), copy.deepcopy(cpu).double(),
+        x.astype(np.float64), y)
+    lg32, loss32, rel32, buf32 = _forward_backward(torch, card, cpu, x, y)
+    opts = [AdamW(learning_rate=TRAIN_PARITY_LR, weight_decay=0.01,
+                  parameters=m.parameters()) for m in (card, cpu)]
+    runs = [ScanTrainStep(m, o, scan_steps=1, loss_fn=CrossEntropyLoss(),
+                          device=d)
+            for m, o, d in ((card, opts[0], "cuda"), (cpu, opts[1], "cpu"))]
+    per_step = []
+    _kernels.reset_launch_counts()
+    for i in range(steps):
+        if i:
+            _sync_from(torch, card, cpu, *opts)
+        l_card = float(runs[0](x[None], y[None])[0])
+        l_cpu = float(runs[1](x[None], y[None])[0])
+        wc, wp = export_state(card), export_state(cpu)
+        worst, far, total = 0.0, 0, 0
+        for k in wc:
+            d = np.abs(wc[k] - wp[k])
+            worst = max(worst, float(d.max()))
+            far += int((d > TRAIN_PARITY_LR / 10).sum())
+            total += d.size
+        per_step.append({"loss_card": l_card, "loss_cpu": l_cpu,
+                         "loss_abs_diff": abs(l_card - l_cpu),
+                         "param_max_abs_diff": worst,
+                         "param_share_past_lr_over_10": far / total,
+                         "buffer_max_rel_diff": _buffer_diff(torch, card,
+                                                             cpu)})
+    torch.cuda.synchronize()
+    launched = _kernels.launch_counts()
+    worst64 = max(rel64, key=rel64.get)
+    worst32 = max(rel32, key=rel32.get)
+    readings = {
+        "config": f"resnet{depth} ({num_classes} classes), TF32 off, train "
+                  f"mode, {B} x 3 x {side} x {side}; {steps} AdamW steps "
+                  f"(lr {TRAIN_PARITY_LR}, wd 0.01) each from the CPU's "
+                  "state",
+        "fp64": {"logits_max_abs_diff": lg64, "loss_abs_diff": loss64,
+                 "grad_norm_max_rel_diff": rel64[worst64],
+                 "grad_norm_worst_leaf": worst64,
+                 "buffer_max_rel_diff": buf64,
+                 "tols": [RESNET_FP64_LOGITS_TOL, RESNET_FP64_GRAD_RTOL,
+                          RESNET_FP64_BUFFER_TOL]},
+        "fp32": {"logits_max_abs_diff": lg32, "loss_abs_diff": loss32,
+                 "grad_norm_max_rel_diff": rel32[worst32],
+                 "grad_norm_median_rel_diff": float(np.median(
+                     list(rel32.values()))),
+                 "grad_norm_worst_leaf": worst32,
+                 "buffer_max_rel_diff": buf32,
+                 "tols": [RESNET_LOGITS_TOL, TRAIN_PARITY_LOSS_TOL,
+                          RESNET_FP32_GRAD_RTOL, RESNET_BUFFER_TOL]},
+        "steps": per_step,
+        "step_tols": [TRAIN_PARITY_LOSS_TOL, 6 * TRAIN_PARITY_LR,
+                      RESNET_PARAM_SHARE, RESNET_BUFFER_TOL],
+        "grad_norm_leaves": len(rel32),
+        "leaves": sum(1 for _ in card.parameters()),
+        "kernel_launches": launched}
+    del cpu, card
+    return readings
+
+
+def check_resnet_readings(r, steps):
+    """Phase 4e's limits over resnet_card_vs_cpu's readings."""
+    want = {k: 0 for k in r["kernel_launches"]}
+    want["fused_adam"] = r["leaves"] * steps
+    check(r["kernel_launches"] == want,
+          f"ResNet steps launched {r['kernel_launches']}, want {want}")
+    f64, f32 = r["fp64"], r["fp32"]
+    check(f64["logits_max_abs_diff"] <= RESNET_FP64_LOGITS_TOL
+          and f64["grad_norm_max_rel_diff"] <= RESNET_FP64_GRAD_RTOL
+          and f64["buffer_max_rel_diff"] <= RESNET_FP64_BUFFER_TOL,
+          f"float64 card vs CPU ResNet: {f64}")
+    check(f32["logits_max_abs_diff"] <= RESNET_LOGITS_TOL
+          and f32["loss_abs_diff"] <= TRAIN_PARITY_LOSS_TOL
+          and f32["grad_norm_max_rel_diff"] <= RESNET_FP32_GRAD_RTOL
+          and f32["buffer_max_rel_diff"] <= RESNET_BUFFER_TOL,
+          f"fp32 card vs CPU ResNet: {f32}")
+    for i, st in enumerate(r["steps"]):
+        check(st["loss_abs_diff"] <= TRAIN_PARITY_LOSS_TOL
+              and st["param_max_abs_diff"] <= 6 * TRAIN_PARITY_LR
+              and st["param_share_past_lr_over_10"] <= RESNET_PARAM_SHARE
+              and st["buffer_max_rel_diff"] <= RESNET_BUFFER_TOL,
+              f"card vs CPU ResNet step {i}: {st}")
+
+
+def check_bf16_batch_norm(shape=RESNET_BF16_BN_SHAPE, momentum=0.9,
+                          eps=1e-5):
+    """The port's batch_norm on bf16 input, weight, bias and buffers on the
+    card, training then eval, against fp32 math on the same bf16 values.
+    Returns the readings; checks the one-ulp limit."""
+    import torch
+    from paddle_tpu_torch.nn import functional as F
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 14)
+    C = shape[1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(
+        torch.bfloat16)
+    w = (torch.rand(C, generator=gen, device="cuda") + 0.5).to(
+        torch.bfloat16)
+    b = torch.randn(C, generator=gen, device="cuda").to(torch.bfloat16)
+    rm = (torch.randn(C, generator=gen, device="cuda") * 0.1).to(
+        torch.bfloat16)
+    rv = (torch.rand(C, generator=gen, device="cuda") + 0.5).to(
+        torch.bfloat16)
+    h = x.float()
+    mu = h.mean((0, 2, 3))
+    var = h.var((0, 2, 3), unbiased=False)
+    n = h.numel() // C
+
+    def affine(m, v):
+        return ((h - m[None, :, None, None])
+                / torch.sqrt(v[None, :, None, None] + eps)
+                * w.float()[None, :, None, None]
+                + b.float()[None, :, None, None])
+
+    want = {"train_out": affine(mu, var).to(torch.bfloat16),
+            "train_mean": (momentum * rm.float() + (1 - momentum) * mu).to(
+                torch.bfloat16),
+            "train_var": (momentum * rv.float() + (1 - momentum) * var
+                          * (n / (n - 1))).to(torch.bfloat16)}
+    bm, bv = rm.clone(), rv.clone()
+    got = {"train_out": F.batch_norm(x, bm, bv, w, b, training=True,
+                                     momentum=momentum, epsilon=eps),
+           "train_mean": bm, "train_var": bv}
+    want["eval_out"] = affine(bm.float(), bv.float()).to(torch.bfloat16)
+    got["eval_out"] = F.batch_norm(x, bm, bv, w, b, training=False,
+                                   epsilon=eps)
+    readings = {"shape": list(shape)}
+    for k in want:
+        check(got[k].dtype == torch.bfloat16, f"bf16 batch_norm {k} came "
+                                              f"back in {got[k].dtype}")
+        a, r = got[k].float(), want[k].float()
+        # the distance in units of the limit, one ulp + 1e-6
+        units = (a - r).abs() / (
+            ulp_bf16(torch.maximum(a.abs(), r.abs())) + 1e-6)
+        readings[f"{k}_max_over_limit"] = float(units.max())
+        readings[f"{k}_share_off"] = float((a != r).float().mean())
+        check(float(units.max()) <= 1.0,
+              f"bf16 batch_norm {k} is {float(units.max())} times its limit "
+              "(one bf16 ulp + 1e-6) from fp32 math on its inputs")
+    return readings
+
+
+def phase_resnet_model():
+    """Phase 4e: resnet_card_vs_cpu(resnet50) under its limits, and the
+    bf16 BatchNorm check."""
+    import torch
+    t0 = time.perf_counter()
+    r = resnet_card_vs_cpu()
+    r["seconds"] = time.perf_counter() - t0
+    r["bf16_batch_norm"] = check_bf16_batch_norm()
+    emit({"phase": "resnet_model", **r})
+    check_resnet_readings(r, RESNET_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------- phase 15: resnet_train
+# BASELINE config 1 as bench.py trains it (bench.py:115, :137-165): full
+# resnet50 (1000 classes), 64 x 3 x 224 x 224 images, the model and the
+# images in bf16, CrossEntropyLoss, AdamW(1e-4, fp32 moments, its default
+# weight decay 0.01 on every leaf), no clip, one batch repeated through
+# ScanTrainStep: a chunk of TRAIN_WARMUP_STEPS, then one of
+# TRAIN_TIMED_STEPS timed. cudnn.benchmark stays off (torch's default), so
+# cuDNN picks its algorithms by heuristics, the same in every run.
+RESNET_TRAIN = dict(batch=64, side=224, classes=1000, lr=1e-4)
+
+
+def resnet_workload():
+    """BASELINE config 1 as bench.py builds it, shared with
+    tools/profile_torch_training.py: resnet50 in fp32 on the card with
+    weights from SEED, in training mode; `paddle_tpu_torch.flops` at
+    [1, 3, 224, 224] (in training mode it moves the running statistics,
+    as bench.py's count does); the model cast to bf16 with its buffers;
+    AdamW(1e-4, fp32 moments); 64 images (randn) and then their labels
+    (randint) from RandomState(SEED), the images cast to bf16 on the
+    card. Returns (model, opt, loss_fn, images, labels, macs, init_s)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.vision.models import resnet50
+
+    c = RESNET_TRAIN
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = resnet50(num_classes=c["classes"], device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    macs = paddle_tpu_torch.flops(model, input_size=[1, 3, c["side"],
+                                                     c["side"]])
+    model.to(torch.bfloat16)
+    opt = AdamW(learning_rate=c["lr"], parameters=model.parameters(),
+                moment_dtype="float32")
+    rng = np.random.RandomState(SEED)
+    x = rng.randn(c["batch"], 3, c["side"], c["side"]).astype(np.float32)
+    y = rng.randint(0, c["classes"], (c["batch"],))
+    images = torch.from_numpy(x).cuda().to(torch.bfloat16)
+    labels = torch.from_numpy(y.astype(np.int64)).cuda()
+    return model, opt, CrossEntropyLoss(), images, labels, macs, init_s
+
+
+def phase_resnet_train(device_name):
+    """Phase 15: resnet_workload() through ScanTrainStep, a warm-up chunk,
+    then a timed chunk with the launch counts zeroed just before and read
+    just after. Returns the timed chunk's launch counts."""
+    import torch
+    from paddle_tpu_torch.obs.flops import (conv_train_flops_per_step,
+                                            peak_flops)
+    from paddle_tpu_torch.ops import _kernels
+    from paddle_tpu_torch.parallel import ScanTrainStep
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = RESNET_TRAIN
+    model, opt, ce, images, labels, macs, init_s = resnet_workload()
+    check(all(b.dtype == torch.bfloat16 for b in model.buffers())
+          and all(p.dtype == torch.bfloat16 for p in model.parameters()),
+          "resnet_train's model is not all bf16")
+    bufs0 = [b.clone() for b in model.buffers()]
+    flops = conv_train_flops_per_step(macs, c["batch"])
+    warm = ScanTrainStep(model, opt, scan_steps=TRAIN_WARMUP_STEPS,
+                         loss_fn=ce)
+    warm_losses, warm_s, _, _ = timed_chunk(warm, images, labels)
+    step = ScanTrainStep(model, opt, scan_steps=TRAIN_TIMED_STEPS,
+                         loss_fn=ce)
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    losses, wall, step_ms, host_ms = timed_chunk(step, images, labels)
+    launches = _kernels.launch_counts()
+    all_losses = warm_losses.tolist() + losses.tolist()
+    step_s = wall / TRAIN_TIMED_STEPS
+    moved = [not torch.equal(a, b) for a, b in zip(model.buffers(), bufs0)]
+    finite = all(bool(torch.isfinite(b).all()) for b in model.buffers())
+    per_step = {k: v / TRAIN_TIMED_STEPS for k, v in launches.items()}
+    emit({"phase": "resnet_train", "model": "resnet50",
+          "dtype": "bfloat16", "batch": c["batch"],
+          "image": [3, c["side"], c["side"]], "classes": c["classes"],
+          "optimizer": "AdamW lr 1e-4 wd 0.01 fp32 moments, no clip",
+          "cudnn_benchmark": torch.backends.cudnn.benchmark,
+          "n_params": sum(p.numel() for p in model.parameters()),
+          "leaves": sum(1 for _ in model.parameters()),
+          "forward_macs_per_image": macs,
+          "warmup_steps": TRAIN_WARMUP_STEPS, "warmup_s": warm_s,
+          "timed_steps": TRAIN_TIMED_STEPS, "wall_s": wall,
+          "images_per_s": c["batch"] * TRAIN_TIMED_STEPS / wall,
+          "step_ms_mean": step_s * 1e3,
+          "step_ms_median": statistics.median(step_ms),
+          "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
+          "host_ms_per_step_median": statistics.median(host_ms),
+          "mfu": flops / step_s / peak_flops(device_name),
+          "flops_per_step": flops,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "loss_first": all_losses[0], "loss_last": all_losses[-1],
+          "losses": all_losses, "buffers": len(moved),
+          "buffers_moved": sum(moved), "buffers_finite": finite,
+          "kernel_launches": launches, "launches_per_step": per_step,
+          "model_init_s": init_s})
+    check(all(math.isfinite(v) for v in all_losses), "non-finite loss")
+    check(all_losses[-1] < all_losses[0],
+          f"loss did not fall: {all_losses[0]} -> {all_losses[-1]}")
+    want = {k: 0.0 for k in launches}
+    want["fused_adam"] = float(RESNET50_LEAVES)
+    check(per_step == want, f"launches per step {per_step}, want {want}")
+    check(finite and all(moved),
+          f"running statistics: finite {finite}, moved {sum(moved)} of "
+          f"{len(moved)}")
+    del model, opt, warm, step, images
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------- phase 6
 TRAIN_WARMUP_STEPS = 3
 TRAIN_TIMED_STEPS = 10
@@ -4046,7 +4482,9 @@ def timed_chunk(step, ids, labels):
     device-timeline ms, per-step host ms). The host ms of a step runs from
     its first launch to its last; nothing in a step waits for the device,
     but the host blocks once the launch queue is full, so while the device
-    is the bottleneck it reads the step time, not the host's own work."""
+    is the bottleneck it reads the step time, not the host's own work.
+    Tensors already on the card are repeated as [K, ...] views, with no
+    copy; numpy arrays are stacked."""
     import torch
     from paddle_tpu_torch.parallel import stack_batches
     K = step.scan_steps
@@ -4061,7 +4499,11 @@ def timed_chunk(step, ids, labels):
         events[len(host_ms)].record()
         return loss
 
-    chunk = stack_batches([(ids, labels)] * K)
+    if torch.is_tensor(ids):
+        chunk = tuple(a.unsqueeze(0).expand(K, *a.shape)
+                      for a in (ids, labels))
+    else:
+        chunk = stack_batches([(ids, labels)] * K)
     torch.cuda.synchronize()
     step._train_step = marked
     try:
@@ -4271,6 +4713,7 @@ def main():
     timed("model_amp", phase_model_amp)
     timed("moe_model", phase_moe_model)
     timed("optimizers", phase_optimizers)
+    timed("resnet_model", phase_resnet_model)
     serve = {}
     by_phase = {"attention_variants": variant_launches,
                 "serve": timed("serve", phase_serve, record=serve)}
@@ -4292,6 +4735,8 @@ def main():
         by_phase[cell] = timed(cell, phase_train_amp, name, cell)
     by_phase["moe_train"], _ = timed("moe_train", phase_train, name,
                                      "moe_train")
+    by_phase["resnet_train"] = timed("resnet_train", phase_resnet_train,
+                                     name)
     emit({"phase": "phase_seconds", **seconds})
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -5,8 +5,12 @@
 JAX — into the port model's parameters of the same names. The map is the
 identity: the port keeps the JAX package's parameter names and layouts
 (Paddle's `[in, out]` Linear weights included). Each array is cast to the
-parameter's dtype and device. `export_state(model)` goes the other way,
-so tests can compare parameters after training steps.
+parameter's dtype and device. `buffers=` (the JAX model's
+`functional_state()[1]`: BatchNorm's `_mean` and `_variance`) crosses
+into the port model's buffers of the same names the same way.
+`export_state(model)` and `export_buffers(model)` go the other way, so
+tests can compare parameters and running statistics after training
+steps.
 `load_jax_optimizer_state(optimizer, model, state)` carries the slots of
 a JAX optimizer's `init_state`/`apply_gradients_fn` state (moment1,
 moment2, beta1_pow, beta2_pow, master_weight), keyed by the same names,
@@ -23,33 +27,59 @@ and its count) into a port step built from the same plan.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 
-def load_jax_state(model: torch.nn.Module,
-                   params: Mapping[str, np.ndarray]) -> torch.nn.Module:
-    """Copy `params` into `model` in place and return it. Raises KeyError
-    on a missing or extra key and ValueError on a shape mismatch, naming
-    every offending key."""
-    named = dict(model.named_parameters())
-    missing = sorted(set(named) - set(params))
-    extra = sorted(set(params) - set(named))
+def _check(named, arrays, what):
+    """Raise KeyError on a key of `arrays` missing from `named` or extra
+    to it, and ValueError on a shape mismatch, naming every offending
+    key."""
+    missing = sorted(set(named) - set(arrays))
+    extra = sorted(set(arrays) - set(named))
     if missing or extra:
-        raise KeyError(f"JAX state does not match the port model: missing "
+        raise KeyError(f"JAX {what} does not match the port model: missing "
                        f"{missing}, extra {extra}")
-    bad = [f"{k}: jax {tuple(np.shape(params[k]))} vs port "
-           f"{tuple(p.shape)}" for k, p in named.items()
-           if tuple(np.shape(params[k])) != tuple(p.shape)]
+    bad = [f"{k}: jax {tuple(np.shape(arrays[k]))} vs port "
+           f"{tuple(t.shape)}" for k, t in named.items()
+           if tuple(np.shape(arrays[k])) != tuple(t.shape)]
     if bad:
         raise ValueError("shape mismatch: " + "; ".join(bad))
+
+
+def _copy_in(named, arrays):
+    """Copy each array into the tensor of its name, cast to that tensor's
+    dtype and device."""
     with torch.no_grad():
-        for k, p in named.items():
-            arr = np.array(params[k], dtype=np.float32)  # owned copy
-            p.copy_(torch.from_numpy(arr).to(device=p.device, dtype=p.dtype))
+        for k, t in named.items():
+            arr = np.array(arrays[k], dtype=np.float32)  # owned copy
+            t.copy_(torch.from_numpy(arr).to(device=t.device, dtype=t.dtype))
+
+
+def load_jax_state(model: torch.nn.Module,
+                   params: Mapping[str, np.ndarray],
+                   buffers: Optional[Mapping[str, np.ndarray]] = None
+                   ) -> torch.nn.Module:
+    """Copy `params` (and `buffers`, where given) into `model` in place
+    and return it. Raises KeyError on a missing or extra key and
+    ValueError on a shape mismatch, naming every offending key; nothing
+    is copied then."""
+    named = dict(model.named_parameters())
+    _check(named, params, "state")
+    named_b = dict(model.named_buffers())
+    if buffers is not None:
+        _check(named_b, buffers, "buffers")
+        _copy_in(named_b, buffers)
+    _copy_in(named, params)
     return model
+
+
+def export_buffers(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """{name: float32 numpy copy} of every buffer (bf16 widened)."""
+    return {k: b.detach().float().cpu().numpy().copy()
+            for k, b in model.named_buffers()}
 
 
 def export_state(model: torch.nn.Module) -> Dict[str, np.ndarray]:

@@ -78,3 +78,16 @@ class Dropout(Layer):
     def forward(self, x):
         return F.dropout(x, self.p, axis=self.axis, training=self.training,
                          mode=self.mode)
+
+
+class Flatten(Layer):
+    """`tensor.manipulation.flatten(x, start_axis, stop_axis)`."""
+
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        from ...tensor.manipulation import flatten
+        return flatten(x, self.start_axis, self.stop_axis)

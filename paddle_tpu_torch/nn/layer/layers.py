@@ -1,9 +1,11 @@
 """Layer base (counterpart of paddle_tpu/nn/layer/layers.py).
 
-Only what the models need: `Layer` is `torch.nn.Module` and `LayerList` is
-`torch.nn.ModuleList`, so `named_parameters()` yields the same dotted
-names as the JAX package's `functional_state()` keys
-(e.g. `gpt.layers.0.self_attn.qkv_proj.weight`). Parameters are created
+Only what the models need: `Layer` is `torch.nn.Module`, `LayerList` is
+`torch.nn.ModuleList` and `Sequential` a `torch.nn.Sequential` that also
+takes Paddle's `(name, layer)` tuples, so `named_parameters()` and
+`named_buffers()` yield the same dotted names, in the same order, as the
+JAX package's `functional_state()` keys (e.g.
+`gpt.layers.0.self_attn.qkv_proj.weight`, `layer1.0.downsample.1._mean`). Parameters are created
 empty on the caller's device and filled by `reset_parameters(generator)`
 from an explicit `torch.Generator`.
 """
@@ -13,6 +15,22 @@ import torch
 
 Layer = torch.nn.Module
 LayerList = torch.nn.ModuleList
+
+
+class Sequential(torch.nn.Sequential):
+    """Sublayers run in order, named "0", "1", ... or by `(name, layer)`
+    tuples (given one by one or as one list), as in the JAX package
+    (layers.py:400-420)."""
+
+    def __init__(self, *layers):
+        torch.nn.Module.__init__(self)
+        if (len(layers) == 1 and isinstance(layers[0], (list, tuple))
+                and layers[0] and isinstance(layers[0][0], tuple)):
+            layers = layers[0]
+        for i, layer in enumerate(layers):
+            name, layer = layer if isinstance(layer, tuple) else (str(i),
+                                                                  layer)
+            self.add_module(name, layer)
 
 
 class ParamAttr:

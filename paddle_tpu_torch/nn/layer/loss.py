@@ -1,0 +1,31 @@
+"""Loss layers (counterpart of paddle_tpu/nn/layer/loss.py:8-27)."""
+from __future__ import annotations
+
+from .. import functional as F
+from .layers import Layer
+
+
+class CrossEntropyLoss(Layer):
+    """`nn.functional.cross_entropy` with the layer's settings: logits
+    [B, C] (classes on `axis`) against int64 labels [B] give the fp32 mean
+    loss."""
+
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 soft_label=False, axis=-1, use_softmax=True, name=None,
+                 label_smoothing=0.0):
+        super().__init__()
+        self.weight = weight
+        self.ignore_index = ignore_index
+        self.reduction = reduction
+        self.soft_label = soft_label
+        self.axis = axis
+        self.use_softmax = use_softmax
+        self.label_smoothing = label_smoothing
+
+    def forward(self, input, label):
+        return F.cross_entropy(input, label, weight=self.weight,
+                               ignore_index=self.ignore_index,
+                               reduction=self.reduction,
+                               soft_label=self.soft_label, axis=self.axis,
+                               use_softmax=self.use_softmax,
+                               label_smoothing=self.label_smoothing)

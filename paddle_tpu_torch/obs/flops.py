@@ -2,7 +2,9 @@
 paddle_tpu/obs/flops.py).
 
 `train_flops_per_step` is the 6·N·D formula for one transformer train
-step, counting an MoE model's active parameters; `peak_flops` is the
+step, counting an MoE model's active parameters;
+`conv_train_flops_per_step` a conv net's step from its forward MACs
+(`paddle_tpu_torch.flops`); `peak_flops` is the
 published dense bf16 rate of the card the port runs on. Stdlib only.
 """
 from __future__ import annotations
@@ -35,3 +37,9 @@ def train_flops_per_step(n_params: int, tokens_per_step: int,
         n_active = (n_params - expert_params
                     + expert_params * moe_top_k // moe_num_experts)
     return 6.0 * n_active * tokens_per_step
+
+
+def conv_train_flops_per_step(fwd_mac_flops: float, batch: int) -> float:
+    """A conv net's train-step FLOPs from one sample's forward MACs:
+    2 FLOPs a MAC, and forward plus backward ~ 3x the forward."""
+    return 3.0 * (2.0 * float(fwd_mac_flops)) * batch

@@ -32,8 +32,19 @@ as the JAX step does on a one-device mesh:
 - the LARS and LAMB swaps (`plan.optimizer`).
 What needs several ranks (pipeline, LocalSGD, sequence parallelism over a
 `sep` axis, a mesh over more than one device) raises and names ROADMAP §1
-item 8; asp, qat, sync_batch_norm and the numerics observatory raise and
-name the item that ports their modules.
+item 8; asp, qat and the numerics observatory raise and name the item
+that ports their modules. `sync_batch_norm` converts the model's
+BatchNorms to SyncBatchNorm in `parallelize`, before the step is built,
+as the JAX parallelize does; at one device they are BatchNorm.
+
+A model with buffers (BatchNorm's running statistics) moves them in
+place in its forward, once a step, as the JAX step carries them; with
+gradient merge every micro-step's forward moves them, and an fp16 step
+whose update is skipped keeps what its forward did, both as in JAX.
+Whole-loss recompute reruns the forward in the backward without moving
+them again (`recompute.replaying()`); selective recompute of a sublayer
+that holds buffers is refused, because the JAX step cannot run it (the
+running statistics leak a tracer out of its `jax.checkpoint`).
 
 The optimizer gets each leaf's structured name beside its gradient (the
 keys of the JAX compiled path's params dict), so AdamW's decay filter and
@@ -63,8 +74,6 @@ _REFUSED = (("asp", "2:4 sparsity (incubate/asp) waits for ROADMAP §1 "
              "item 9"),
             ("qat", "quantization-aware training (quantization/) waits "
              "for ROADMAP §1 item 9"),
-            ("sync_batch_norm", "SyncBatchNorm waits for BatchNorm, "
-             "ROADMAP §1 item 6e"),
             ("numerics", "the numerics observatory (obs/numerics.py) waits "
              "for ROADMAP §1 item 7f"))
 
@@ -129,17 +138,27 @@ def apply_selective_remat(model, checkpoints) -> list:
     recompute, recompute_configs.checkpoints): a sublayer whose name is an
     entry, or lies under one, is wrapped; only the topmost match, so
     nothing is recomputed twice. Returns the wrapped names; empty means
-    nothing matched."""
-    wrapped = []
+    nothing matched. Raises, wrapping nothing, where a matched sublayer
+    holds buffers (module docstring)."""
+    matched = []
     for name, sub in model.named_modules():
         if not name or not any(name == c or name.startswith(c + ".")
                                for c in checkpoints):
             continue
-        if any(name.startswith(w + ".") for w in wrapped):
-            continue  # an ancestor is already wrapped
+        if any(name.startswith(w + ".") for w, _ in matched):
+            continue  # an ancestor is already matched
+        matched.append((name, sub))
+    held = [f"{n}.{b}" for n, sub in matched
+            for b, _ in sub.named_buffers()]
+    if held:
+        raise NotImplementedError(
+            f"selective recompute of sublayers holding buffers "
+            f"({held[:3]}...): the JAX step cannot trace it (the running "
+            "statistics leak out of its jax.checkpoint); recompute the "
+            "whole loss instead (no recompute_configs.checkpoints)")
+    for _, sub in matched:
         _wrap_forward_remat(sub)
-        wrapped.append(name)
-    return wrapped
+    return [n for n, _ in matched]
 
 
 def _wrap_forward_remat(layer):
@@ -179,9 +198,10 @@ class ShardedTrainStep:
             raise ValueError(f"zero_stage must be 0..3, got {zero_stage}")
         self.device = _resolve_mesh(mesh, device)
         named = sorted(model.named_parameters())
-        off = [k for k, p in named if p.device != self.device]
+        off = [k for k, t in named + list(model.named_buffers())
+               if t.device != self.device]
         if off:
-            raise ValueError(f"parameters {off[:3]} are not on "
+            raise ValueError(f"parameters or buffers {off[:3]} are not on "
                              f"{self.device}; build the model there")
         self.model = model
         self.optimizer = optimizer
@@ -492,6 +512,9 @@ def parallelize(model, optimizer=None, mesh=None, strategy=None,
     from ..distributed.fleet.strategy_compiler import StrategyCompiler
     plan = StrategyCompiler().compile(strategy, optimizer, mesh)
     _refuse(plan, strategy)
+    if plan.sync_batch_norm:
+        from ..nn.layer.norm import SyncBatchNorm
+        model = SyncBatchNorm.convert_sync_batchnorm(model)
     if plan.remat and plan.recompute_checkpoints:
         if not apply_selective_remat(model, plan.recompute_checkpoints):
             warnings.warn(

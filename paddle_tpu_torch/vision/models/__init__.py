@@ -1,0 +1,3 @@
+from .resnet import (BasicBlock, BottleneckBlock, ResNet,  # noqa: F401
+                     resnet18, resnet34, resnet50, resnet101, resnet152,
+                     wide_resnet50_2, wide_resnet101_2)

@@ -252,6 +252,28 @@ def train_models(preset="gpt2-tiny", **overrides):
     return jm, tm
 
 
+def resnet_twins(depth=18, **kw):
+    """A fresh JAX ResNet (seed 0) and the port's on the CPU with its
+    weights and buffers bridged in; both in training mode."""
+    import paddle_tpu as paddle
+    from paddle_tpu_torch.bridge import load_jax_state
+    from paddle_tpu_torch.vision import models
+    paddle.seed(0)
+    jm = getattr(paddle.vision.models, f"resnet{depth}")(**kw)
+    params, bufs = jm.functional_state()
+    tm = getattr(models, f"resnet{depth}")(device="cpu", **kw)
+    load_jax_state(tm, {k: np.asarray(v) for k, v in params.items()},
+                   {k: np.asarray(v) for k, v in bufs.items()})
+    return jm, tm
+
+
+def resnet_batches(seed, K=3, B=4, S=64, classes=10):
+    """[K, B, 3, S, S] fp32 images and [K, B] int64 labels."""
+    rng = np.random.RandomState(seed)
+    return (rng.standard_normal((K, B, 3, S, S)).astype(np.float32),
+            rng.randint(0, classes, (K, B)).astype(np.int64))
+
+
 def one_cpu_mesh():
     import jax
     from jax.sharding import Mesh

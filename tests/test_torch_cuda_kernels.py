@@ -30,7 +30,11 @@ instead of going anywhere else. The mask and dropout variants of the
 flash kernels are held the same way, and the keep-mask the kernels draw
 equals the plain twin's bit for bit. Fused Adam: bit for bit
 (tolerance 0) against its plain version on the card, in every dtype, with
-and without a master weight, at ragged, tiny and misaligned n.
+and without a master weight, at ragged, tiny and misaligned n. ResNet-18
+at 8 x 3 x 64 x 64 (cuDNN convolutions, BatchNorm and pools, fused Adam)
+against its CPU twin under the limits `chip_smoke.py` states for its
+resnet_model phase, and the bf16 BatchNorm within one bf16 ulp of fp32
+math on its inputs.
 """
 import pytest
 import torch
@@ -1333,3 +1337,41 @@ def test_cuda_moe_train_step_routes_to_kernels():
     assert n["layernorm_fwd"] == 5 and n["layernorm_bwd"] == 5
     assert n["fused_adam"] == sum(1 for _ in m.parameters()) == 30
     assert m.gpt.layers[1].moe.routing[0].shape == (8192, 2)
+
+
+@pytest.mark.cuda
+def test_cuda_resnet18_train_step_matches_cpu():
+    require_cuda()
+    # resnet18 (1000 classes) on the card against its CPU twin: a float64
+    # and an fp32 forward and backward, then one AdamW step, held to the
+    # resnet_model phase's limits; one fused-Adam launch a leaf
+    from chip_smoke import (RESNET_BUFFER_TOL, RESNET_FP32_GRAD_RTOL,
+                            RESNET_FP64_BUFFER_TOL, RESNET_FP64_GRAD_RTOL,
+                            RESNET_FP64_LOGITS_TOL, RESNET_LOGITS_TOL,
+                            RESNET_PARAM_SHARE, TRAIN_PARITY_LOSS_TOL,
+                            TRAIN_PARITY_LR, resnet_card_vs_cpu)
+    r = resnet_card_vs_cpu(depth=18, batch=(8, 64), steps=1)
+    assert r["leaves"] == 62
+    assert r["kernel_launches"]["fused_adam"] == 62
+    assert sum(r["kernel_launches"].values()) == 62
+    f64, f32, (st,) = r["fp64"], r["fp32"], r["steps"]
+    assert f64["logits_max_abs_diff"] <= RESNET_FP64_LOGITS_TOL, f64
+    assert f64["grad_norm_max_rel_diff"] <= RESNET_FP64_GRAD_RTOL, f64
+    assert f64["buffer_max_rel_diff"] <= RESNET_FP64_BUFFER_TOL, f64
+    assert f32["logits_max_abs_diff"] <= RESNET_LOGITS_TOL, f32
+    assert f32["loss_abs_diff"] <= TRAIN_PARITY_LOSS_TOL, f32
+    assert f32["grad_norm_max_rel_diff"] <= RESNET_FP32_GRAD_RTOL, f32
+    assert f32["buffer_max_rel_diff"] <= RESNET_BUFFER_TOL, f32
+    assert st["loss_abs_diff"] <= TRAIN_PARITY_LOSS_TOL, st
+    assert st["param_max_abs_diff"] <= 6 * TRAIN_PARITY_LR, st
+    assert st["param_share_past_lr_over_10"] <= RESNET_PARAM_SHARE, st
+    assert st["buffer_max_rel_diff"] <= RESNET_BUFFER_TOL, st
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_batch_norm_keeps_fp32_statistics():
+    require_cuda()
+    from chip_smoke import check_bf16_batch_norm
+    r = check_bf16_batch_norm(shape=(8, 64, 28, 28))
+    assert all(v <= 1.0 for k, v in r.items()
+               if k.endswith("_max_over_limit")), r

@@ -41,6 +41,10 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + sorted(
         (REPO / "tools").glob("profile_torch_*.py"))
     assert REPO / "tools" / "profile_torch_training.py" in files
+    for new in ("vision/__init__.py", "vision/models/resnet.py",
+                "hapi/dynamic_flops.py", "tensor/manipulation.py",
+                "nn/functional/conv.py", "nn/functional/pooling.py"):
+        assert PORT / new in files, new
     assert len(files) > 20
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imports(f)
@@ -58,6 +62,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from paddle_tpu_torch.models.llama import LlamaForCausalLM
     with pytest.raises(NoCUDADeviceError, match="device='cpu'"):
         LlamaForCausalLM.from_preset("llama2-tiny")
+    from paddle_tpu_torch.vision.models import resnet18
+    with pytest.raises(NoCUDADeviceError, match="device='cpu'"):
+        resnet18()
     with pytest.raises(NoCUDADeviceError):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")

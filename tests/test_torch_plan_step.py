@@ -246,7 +246,6 @@ def test_bridge_carries_step_extras():
     ({"hybrid_configs": {"mp_degree": 2}}, "ROADMAP §1 item 8"),
     ({"asp": True}, "ROADMAP §1 item 9"),
     ({"qat": True}, "ROADMAP §1 item 9"),
-    ({"sync_batch_norm": True}, "ROADMAP §1 item 6e"),
     ({"numerics": True}, "ROADMAP §1 item 7f"),
 ])
 def test_refused_fields_raise_naming_their_item(fields, match):

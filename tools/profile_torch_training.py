@@ -3,7 +3,7 @@
 
     python3 tools/profile_torch_training.py [--steps K] [--trace DIR]
         [--cells train,train_recipe,llama_train,train_amp,train_amp_fp16,
-                 moe_train]
+                 moe_train,resnet_train]
 
 Trains `chip_smoke.py`'s train cells, one after the other — by default
 `train` (AdamW, fp32 moments) and `train_recipe` (recompute, bf16
@@ -34,12 +34,19 @@ batched products, their biases and activation). Their forward kernels
 are those launched under profiler ranges around `nn/layer/moe.py`'s
 `_route`, `_dispatch`/`_combine` and `_experts`; their backward kernels
 those of the autograd nodes whose sequence numbers the forward ops under
-each range carry. With `--trace` it writes a chrome trace of each cell
-there. Needs a GPU; exits 2 without one.
+each range carry. The ResNet cell (`resnet_train`, built by
+`chip_smoke.resnet_workload()`: BASELINE config 1, resnet50 in bf16 at
+64 x 3 x 224 x 224 with CrossEntropyLoss and AdamW) gets three families
+the same way: the convolutions (cuDNN), BatchNorm and the pools, from
+ranges around `nn/functional/conv.py`'s `_conv_nd` and the functionals
+`batch_norm`, `max_pool2d` and `adaptive_avg_pool2d`. With `--trace` it
+writes a chrome trace of each cell there. Needs a GPU; exits 2 without
+one.
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import statistics
@@ -49,14 +56,27 @@ import sys
 CE_RANGE = "lm_head_ce"
 OPT_RANGE = "optimizer"
 FUSED_ADAM = "fused Adam (port kernel)"
-# the MoE stages of nn/layer/moe.py, each in a range of its family
-MOE_RANGES = {"_route": "moe_route", "_dispatch": "moe_dispatch_combine",
-              "_combine": "moe_dispatch_combine", "_experts": "moe_experts"}
-MOE_FAMILIES = {
+# the stages whose forward and backward kernels get a family of their
+# own: (module, function) -> the range each call runs in
+RANGES = {("paddle_tpu_torch.nn.layer.moe", "_route"): "moe_route",
+          ("paddle_tpu_torch.nn.layer.moe", "_dispatch"):
+              "moe_dispatch_combine",
+          ("paddle_tpu_torch.nn.layer.moe", "_combine"):
+              "moe_dispatch_combine",
+          ("paddle_tpu_torch.nn.layer.moe", "_experts"): "moe_experts",
+          ("paddle_tpu_torch.nn.functional.conv", "_conv_nd"): "conv",
+          ("paddle_tpu_torch.nn.functional", "batch_norm"): "batch_norm",
+          ("paddle_tpu_torch.nn.functional", "max_pool2d"): "pool",
+          ("paddle_tpu_torch.nn.functional", "adaptive_avg_pool2d"):
+              "pool"}
+RANGE_FAMILIES = {
     "moe_route": "MoE route (gate product, softmax, top-k, cumsum)",
     "moe_dispatch_combine": "MoE dispatch and combine (copy, gather, "
                             "weighted sum)",
-    "moe_experts": "MoE experts (batched products, biases, activation)"}
+    "moe_experts": "MoE experts (batched products, biases, activation)",
+    "conv": "convolutions, forward and backward (cuDNN)",
+    "batch_norm": "BatchNorm, forward and backward",
+    "pool": "max and adaptive average pools, forward and backward"}
 BACKWARD_NODE = "autograd::engine::evaluate_function"
 
 
@@ -100,20 +120,26 @@ def _kernels_under(evt):
 
 
 def _sequence_numbers(evt, into):
-    """Add the autograd sequence numbers of every op under `evt`."""
-    if evt.sequence_nr >= 0:
+    """Add the autograd sequence numbers of the ops under `evt` that
+    launched kernels. An op that launches none (a no-op `aten::to` after
+    the node its range made) carries the number of the NEXT node, made
+    outside the range, which would pull that node's backward in too."""
+    if evt.sequence_nr >= 0 and _kernels_under(evt):
         into.add(evt.sequence_nr)
     for c in evt.cpu_children:
         _sequence_numbers(c, into)
 
 
-def moe_kernels(events):
-    """{MoE range: [(kernel name, device us)]} of a profiled chunk: the
-    kernels launched under each range in the forward, and those of the
-    backward nodes of the ops launched there."""
+def ranged_kernels(events):
+    """{range: [(kernel name, device us)]} of a profiled chunk: the
+    kernels launched under each range of RANGE_FAMILIES in the forward,
+    and those of the backward nodes of the ops launched there."""
+    from torch.autograd import DeviceType
     out, seqs = {}, {}
     for e in events:
-        if e.name in MOE_FAMILIES:
+        # the host-side range only: the profiler also records a
+        # device-side annotation under the range's name
+        if e.name in RANGE_FAMILIES and e.device_type == DeviceType.CPU:
             out.setdefault(e.name, []).extend(_kernels_under(e))
             _sequence_numbers(e, seqs.setdefault(e.name, set()))
     for e in events:
@@ -134,7 +160,6 @@ def profile_cell(cell, K, trace):
     import chip_smoke
     from paddle_tpu_torch.distributed.meta_parallel import \
         ParallelCrossEntropy
-    from paddle_tpu_torch.nn.layer import moe
     from paddle_tpu_torch.ops.softmax_ce import FusedLinearCrossEntropyFn
     from paddle_tpu_torch.optimizer.optimizer import Optimizer
     from paddle_tpu_torch.parallel import ScanTrainStep
@@ -144,6 +169,12 @@ def profile_cell(cell, K, trace):
         # chunk (scan_steps micro-steps) sets K
         model, opt, step, ids, labels = chip_smoke.amp_train_workload(cell)
         warm, K = step, step.scan_steps
+    elif cell == "resnet_train":
+        model, opt, ce, ids, labels, _, _ = chip_smoke.resnet_workload()
+        warm = ScanTrainStep(model, opt,
+                             scan_steps=chip_smoke.TRAIN_WARMUP_STEPS,
+                             loss_fn=ce)
+        step = ScanTrainStep(model, opt, scan_steps=K, loss_fn=ce)
     else:
         model, opt, ids, labels, _ = chip_smoke.train_workload(cell)
         warm = ScanTrainStep(model, opt,
@@ -165,9 +196,11 @@ def profile_cell(cell, K, trace):
         _ranged(saved[1], CE_RANGE))
     Optimizer.apply_gradients = _ranged(saved[2], OPT_RANGE)
     ParallelCrossEntropy.forward = _ranged(saved[3], CE_RANGE)
-    saved_moe = {f: getattr(moe, f) for f in MOE_RANGES}
-    for f, label in MOE_RANGES.items():
-        setattr(moe, f, _ranged(saved_moe[f], label))
+    saved_ranged = {key: getattr(importlib.import_module(key[0]), key[1])
+                    for key in RANGES}
+    for (mod, f), label in RANGES.items():
+        setattr(importlib.import_module(mod), f,
+                _ranged(saved_ranged[(mod, f)], label))
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -177,8 +210,8 @@ def profile_cell(cell, K, trace):
         FusedLinearCrossEntropyFn.backward = staticmethod(saved[1])
         Optimizer.apply_gradients = saved[2]
         ParallelCrossEntropy.forward = saved[3]
-        for f, fn in saved_moe.items():
-            setattr(moe, f, fn)
+        for (mod, f), fn in saved_ranged.items():
+            setattr(importlib.import_module(mod), f, fn)
     del model, opt, warm, step
     torch.cuda.empty_cache()
 
@@ -188,7 +221,7 @@ def profile_cell(cell, K, trace):
         # the ranges also appear as device-side annotations spanning
         # their kernels: not kernels, so not counted
         if (e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-                and e.key not in (CE_RANGE, OPT_RANGE, *MOE_FAMILIES)):
+                and e.key not in (CE_RANGE, OPT_RANGE, *RANGE_FAMILIES)):
             by_name[e.key] = (by_name.get(e.key, 0.0)
                               + e.self_device_time_total / 1e3)
             launches += e.count
@@ -207,18 +240,22 @@ def profile_cell(cell, K, trace):
                          "beta powers)"}
     events = prof.events()
     for e in events:
-        if e.name in ranged:
+        if e.name in ranged and e.device_type == DeviceType.CPU:
             for kname, us in _kernels_under(e):
                 if family(kname) == FUSED_ADAM:
                     continue
                 fams[family(kname)] -= us / 1e3
                 fams[ranged[e.name]] = fams.get(ranged[e.name], 0.0) \
                     + us / 1e3
-    for label, kernels in moe_kernels(events).items():
+    for label, kernels in ranged_kernels(events).items():
         for kname, us in kernels:
             fams[family(kname)] -= us / 1e3
-            fams[MOE_FAMILIES[label]] = fams.get(MOE_FAMILIES[label], 0.0) \
-                + us / 1e3
+            fams[RANGE_FAMILIES[label]] = fams.get(RANGE_FAMILIES[label],
+                                                   0.0) + us / 1e3
+    if min(fams.values()) < -1e-3:
+        print(f"profile_torch_training: a family's device time is negative "
+              f"(a kernel counted in two families): {fams}", file=sys.stderr)
+        return 1
     emit({"cell": cell, "phase": "run", "steps": K, "wall_ms": plain_ms,
           "step_ms": plain_ms / K,
           "host_ms_per_step_p50": statistics.median(host_ms),
@@ -247,7 +284,7 @@ def main(argv):
     ap.add_argument("--trace", default=None)
     ap.add_argument("--cells", default="train,train_recipe",
                     help="comma-separated cells of chip_smoke.TRAIN_CELLS "
-                         "or AMP_TRAIN_CELLS")
+                         "or AMP_TRAIN_CELLS, or resnet_train")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
