@@ -16,7 +16,8 @@ scaling, recompute, gradient merge), then does the same for the Llama-2 family: 
 `llama2-70b`'s widths cut in depth, and trains `llama2-7b` whole with the
 Llama 2 recipe, then trains `ernie-moe-base` whole, and last trains
 `resnet50` as bench.py trains BASELINE config 1 (random weights from a
-seed). It prints one JSON line per
+seed), and fits `mobilenet_v2` through Paddle's high-level `Model.fit`
+over `io.DataLoader`. It prints one JSON line per
 phase, then each phase's wall seconds, the `{"kernels": [...]}` line,
 the card's name and power limit as `nvidia-smi` reports them, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before the
@@ -95,6 +96,16 @@ Phases:
                 steps through ScanTrainStep, each from the CPU's state;
                 and the bf16 BatchNorm at [64, 64, 56, 56] against fp32
                 math on its bf16 inputs
+  4f. vision_model — LeNet (8 x 1 x 28 x 28), vgg11(batch_norm=True)
+                (8 x 3 x 32 x 32) and mobilenet_v1/v2 (8 x 3 x 64 x 64),
+                1000 classes (LeNet 10), training mode, Dropout p 0, TF32
+                off, on the card against CPU twins: a float64 forward and
+                backward (logits, loss, every leaf's gradient norm, the
+                running statistics), then 3 Adam steps through
+                Model.train_batch each from the CPU's state; and a bf16
+                depthwise convolution at mobilenet_v2's widest shapes
+                ([64, 144, 56, 56], [64, 960, 7, 7]) within one bf16 ulp
+                of fp32 math on its inputs
   4b. model_amp — the same widths in fp32 master weights through
                 parallelize(model, opt, strategy=s) on the card against
                 the CPU: AMP bf16 with recompute and gradient merge k = 2,
@@ -195,6 +206,21 @@ Phases:
                 peak memory, falling losses, every running statistic
                 finite and moved, and exactly RESNET50_LEAVES fused-Adam
                 launches a step (no other port kernel)
+ 16. mobilenet_fit — full mobilenet_v2 (scale 1.0, 1000 classes), fp32,
+                TF32 off, through Model(net).prepare(Adam(1e-3),
+                CrossEntropyLoss(), Accuracy(topk=(1, 5))).fit over 512
+                seeded 224 x 224 x 3 uint8 images (ToTensor, Normalize),
+                batch 64, eval on 128 more, a ModelCheckpoint an epoch:
+                two fits of one epoch, num_workers 0 then 4. Images/s an
+                epoch (loading included), train_batch ms (CUDA events),
+                MFU = 6 x forward MACs x 64 / step / 67 TFLOP/s, the host
+                ms of the step's two syncs (metric, loss.item()), device
+                busy over wall (torch.profiler, 4 train_batch calls fed by
+                each loader), peak memory, the second epoch's mean loss
+                below the first's, evaluate's top-1/top-5, exactly
+                MOBILENET_V2_LEAVES fused-Adam launches a step (no other
+                port kernel), and the last checkpoint loaded into a fresh
+                model giving bit-equal eval logits and equal Adam slots
 """
 from __future__ import annotations
 
@@ -4016,10 +4042,12 @@ def resnet_twins(depth, seed, num_classes=1000):
 
 
 def _buffer_diff(torch, card, cpu):
-    """max over every buffer of |card - cpu| / (1 + |cpu|)."""
-    return max(float(((a.detach().cpu().double() - b.double()).abs()
-                      / (1 + b.double().abs())).max())
-               for a, b in zip(card.buffers(), cpu.buffers()))
+    """max over every buffer of |card - cpu| / (1 + |cpu|); 0 without
+    buffers."""
+    return max((float(((a.detach().cpu().double() - b.double()).abs()
+                       / (1 + b.double().abs())).max())
+                for a, b in zip(card.buffers(), cpu.buffers())),
+               default=0.0)
 
 
 def _forward_backward(torch, card, cpu, x, y):
@@ -4633,6 +4661,470 @@ def phase_train(device_name, cell="train", train_peak_gib=None):
     return launches, peak_gib
 
 
+# ------------------------------------------- phase 4f: vision_model
+# The rest of vision/models on the card against CPU twins with the same
+# weights, in training mode with every Dropout's p at 0 (the two devices
+# draw different masks), TF32 off: a float64 forward and backward (the
+# function: fp32 mobilenet at random init is ill-conditioned, see
+# tests/test_torch_vision_models.py, and resnet_model's reason), then
+# VISION_STEPS Adam steps through Model.train_batch, each from the CPU's
+# state, under resnet_model's step rule. A gradient-norm limit is relative
+# to the leaf's norm, with a floor of 1e-12 of the model's largest leaf
+# norm: the projection BatchNorms' biases of mobilenet_v2 have a gradient
+# that is zero in exact arithmetic (a later BatchNorm removes any shift),
+# so their norm is rounding noise in float64 too.
+VISION_MODELS = {"LeNet": ({}, (8, 1, 28, 28)),
+                 "vgg11": ({"batch_norm": True}, (8, 3, 32, 32)),
+                 "mobilenet_v1": ({}, (8, 3, 64, 64)),
+                 "mobilenet_v2": ({}, (8, 3, 64, 64))}
+VISION_STEPS = 3
+VISION_GRAD_FLOOR = 1e-12
+# the loss of the float64 run: the port's cross_entropy returns the fp32
+# mean loss (as the JAX one does), so a few fp32 ulps of a loss near 7
+VISION_FP64_LOSS_TOL = 1e-6
+# mobilenet_v2's widest depthwise convolutions in a 64-image batch at
+# 224 x 224: the 144-channel one at 56 x 56 and the 960-channel one at
+# 7 x 7 (3 x 3, stride 1, padding 1, groups = channels)
+DEPTHWISE_BF16_SHAPES = ((64, 144, 56, 56), (64, 960, 7, 7))
+
+
+def vision_twins(name, seed, **kw):
+    """(CPU model, card model) of vision model `name` (1000 classes by
+    default) in fp32, training mode, the same weights and buffers drawn
+    on the CPU from `seed`, every Dropout's p at 0."""
+    import torch
+    from paddle_tpu_torch.vision import models
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    cpu = getattr(models, name)(device="cpu", generator=gen, **kw)
+    card = getattr(models, name)(device="cuda", **kw)
+    card.load_state_dict(cpu.state_dict())
+    for m in list(cpu.modules()) + list(card.modules()):
+        if type(m).__name__ == "Dropout":
+            m.p = 0.0
+    return cpu, card
+
+
+def vision_card_vs_cpu(name, kw, shape, seed):
+    """Phase 4f's readings for one model; checks nothing."""
+    import copy
+
+    import numpy as np
+    import torch
+    import paddle_tpu_torch
+    from paddle_tpu_torch.bridge import export_state
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.ops import _kernels
+    from paddle_tpu_torch.optimizer import Adam
+
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal(shape).astype(np.float32)
+    classes = kw.get("num_classes", 10 if name == "LeNet" else 1000)
+    y = rng.randint(0, classes, (shape[0],)).astype(np.int64)
+    cpu, card = vision_twins(name, seed, **kw)
+    norms = {}
+    for tag, m in (("card", copy.deepcopy(card).double()),
+                   ("cpu", copy.deepcopy(cpu).double())):
+        dev = "cuda" if tag == "card" else "cpu"
+        logits = m(torch.from_numpy(x).to(dev, torch.float64))
+        loss = CrossEntropyLoss()(logits, torch.from_numpy(y).to(dev))
+        loss.backward()
+        norms[tag] = (logits.detach().cpu(), float(loss.detach()),
+                      {k: float(p.grad.norm()) for k, p in
+                       m.named_parameters()},
+                      [b.detach().cpu() for b in m.buffers()])
+    (lg_a, l_a, g_a, b_a), (lg_b, l_b, g_b, b_b) = norms["card"], \
+        norms["cpu"]
+    floor = VISION_GRAD_FLOOR * max(g_b.values())
+    over = {k: abs(g_a[k] - g_b[k]) / (RESNET_FP64_GRAD_RTOL * g_b[k]
+                                       + floor) for k in g_b}
+    worst = max(over, key=over.get)
+    fp64 = {"logits_max_abs_diff": float((lg_a - lg_b).abs().max()),
+            "loss_abs_diff": abs(l_a - l_b),
+            "grad_norm_worst_over_limit": over[worst],
+            "grad_norm_worst_leaf": worst,
+            "grad_norm_worst_rel_diff": abs(g_a[worst] - g_b[worst])
+            / max(g_b[worst], 1e-300),
+            "buffer_max_rel_diff": max(
+                [float(((a - b).abs() / (1 + b.abs())).max())
+                 for a, b in zip(b_a, b_b)] or [0.0])}
+    models, opts = {}, {}
+    for tag, m in (("card", card), ("cpu", cpu)):
+        opts[tag] = Adam(learning_rate=TRAIN_PARITY_LR,
+                         parameters=m.parameters())
+        models[tag] = paddle_tpu_torch.Model(m).prepare(
+            opts[tag], CrossEntropyLoss(), Accuracy())
+    per_step = []
+    _kernels.reset_launch_counts()
+    for i in range(VISION_STEPS):
+        if i:
+            _sync_from(torch, card, cpu, opts["card"], opts["cpu"])
+        out = {tag: models[tag].train_batch([torch.from_numpy(x)],
+                                            [torch.from_numpy(y)])
+               for tag in ("card", "cpu")}
+        wc, wp = export_state(card), export_state(cpu)
+        worst_w, far, total = 0.0, 0, 0
+        for k in wc:
+            d = np.abs(wc[k] - wp[k])
+            worst_w = max(worst_w, float(d.max()))
+            far += int((d > TRAIN_PARITY_LR / 10).sum())
+            total += d.size
+        l_card, l_cpu = out["card"][0][0], out["cpu"][0][0]
+        per_step.append({"loss_card": l_card, "loss_cpu": l_cpu,
+                         "loss_abs_diff": abs(l_card - l_cpu),
+                         "acc_card": float(out["card"][1][0]),
+                         "acc_cpu": float(out["cpu"][1][0]),
+                         "param_max_abs_diff": worst_w,
+                         "param_share_past_lr_over_10": far / total,
+                         "buffer_max_rel_diff": _buffer_diff(torch, card,
+                                                             cpu)})
+    torch.cuda.synchronize()
+    launched = _kernels.launch_counts()
+    readings = {"model": name, **{k: v for k, v in kw.items()},
+                "input": list(shape), "fp64": fp64, "steps": per_step,
+                "leaves": sum(1 for _ in card.parameters()),
+                "buffers": sum(1 for _ in card.buffers()),
+                "kernel_launches": launched}
+    del cpu, card, models, opts
+    return readings
+
+
+def check_depthwise_bf16(shape, seed):
+    """A bf16 depthwise 3 x 3 convolution (stride 1, padding 1) through
+    the port's conv2d on the card against fp32 math on the same bf16
+    inputs rounded once to bf16 (F.conv2d in fp32, TF32 off): every
+    element within one bf16 ulp of the larger magnitude + 1e-6 (two
+    roundings of fp32 sums that differ only in order). Returns the
+    readings; checks the limit."""
+    import torch
+    import torch.nn.functional as TF
+    from paddle_tpu_torch.nn import functional as F
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    C = shape[1]
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((C, 1, 3, 3), generator=gen, device="cuda")
+         / 3).to(torch.bfloat16)
+    got = F.conv2d(x, w, None, 1, 1, 1, C)
+    want = TF.conv2d(x.float(), w.float(), None, 1, 1, 1, C).to(
+        torch.bfloat16)
+    check(got.dtype == torch.bfloat16 and got.shape == want.shape,
+          f"bf16 depthwise conv gave {got.dtype} {tuple(got.shape)}")
+    a, r = got.float(), want.float()
+    units = (a - r).abs() / (ulp_bf16(torch.maximum(a.abs(), r.abs()))
+                             + 1e-6)
+    ms, _ = time_cuda([lambda: F.conv2d(x, w, None, 1, 1, 1, C)])
+    out = {"shape": list(shape), "max_over_limit": float(units.max()),
+           "share_off": float((a != r).float().mean()), "ms": ms}
+    check(out["max_over_limit"] <= 1.0,
+          f"bf16 depthwise conv {shape} is {out['max_over_limit']} times "
+          "its limit (one bf16 ulp + 1e-6) from fp32 math on its inputs")
+    return out
+
+
+def phase_vision_model():
+    """Phase 4f: vision_card_vs_cpu for each of VISION_MODELS under its
+    limits, then the bf16 depthwise convolutions."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    results = []
+    for i, (name, (kw, shape)) in enumerate(VISION_MODELS.items()):
+        r = vision_card_vs_cpu(name, kw, shape, SEED + 20 + i)
+        results.append(r)
+        gc.collect()
+        torch.cuda.empty_cache()
+    depthwise = [check_depthwise_bf16(s, SEED + 30 + i)
+                 for i, s in enumerate(DEPTHWISE_BF16_SHAPES)]
+    emit({"phase": "vision_model",
+          "config": f"train mode, Dropout p 0, TF32 off; float64 forward "
+                    f"and backward; {VISION_STEPS} Adam steps (lr "
+                    f"{TRAIN_PARITY_LR}) through Model.train_batch each "
+                    "from the CPU's state",
+          "tols": {"fp64": [RESNET_FP64_LOGITS_TOL, VISION_FP64_LOSS_TOL,
+                            RESNET_FP64_GRAD_RTOL, VISION_GRAD_FLOOR,
+                            RESNET_FP64_BUFFER_TOL],
+                   "steps": [TRAIN_PARITY_LOSS_TOL, 6 * TRAIN_PARITY_LR,
+                             RESNET_PARAM_SHARE, RESNET_BUFFER_TOL]},
+          "models": results, "depthwise_bf16": depthwise,
+          "seconds": time.perf_counter() - t0})
+    for r in results:
+        want = {k: 0 for k in r["kernel_launches"]}
+        want["fused_adam"] = r["leaves"] * VISION_STEPS
+        check(r["kernel_launches"] == want,
+              f"{r['model']} steps launched {r['kernel_launches']}, want "
+              f"{want}")
+        f64 = r["fp64"]
+        check(f64["logits_max_abs_diff"] <= RESNET_FP64_LOGITS_TOL
+              and f64["loss_abs_diff"] <= VISION_FP64_LOSS_TOL
+              and f64["grad_norm_worst_over_limit"] <= 1.0
+              and f64["buffer_max_rel_diff"] <= RESNET_FP64_BUFFER_TOL,
+              f"float64 card vs CPU {r['model']}: {f64}")
+        for i, st in enumerate(r["steps"]):
+            check(st["loss_abs_diff"] <= TRAIN_PARITY_LOSS_TOL
+                  and st["param_max_abs_diff"] <= 6 * TRAIN_PARITY_LR
+                  and st["param_share_past_lr_over_10"]
+                  <= RESNET_PARAM_SHARE
+                  and st["buffer_max_rel_diff"] <= RESNET_BUFFER_TOL,
+                  f"card vs CPU {r['model']} step {i}: {st}")
+
+
+# ------------------------------------------ phase 16: mobilenet_fit
+# Paddle's high-level path on the card: full mobilenet_v2 (scale 1.0,
+# 1000 classes) in fp32 (the JAX Model path's dtype; TF32 off, as the JAX
+# package computes fp32 at full precision), Model.prepare(Adam(1e-3),
+# CrossEntropyLoss(), Accuracy(topk=(1, 5))), fitted on 512 seeded
+# 224 x 224 x 3 uint8 images with labels in [0, 1000) through
+# Compose([ToTensor(), Normalize(ImageNet mean, std)]), batch 64, eval on
+# 128 more, a ModelCheckpoint each epoch: two fits of one epoch each, the
+# first loading in the main process (num_workers=0), the second with 4
+# worker processes. The counts are zeroed just before the first fit and
+# read just after the second.
+MOBILENET_FIT = dict(images=512, eval_images=128, side=224, classes=1000,
+                     batch=64, lr=1e-3, workers=(0, 4))
+MOBILENET_V2_LEAVES = 158        # fused-Adam launches a step
+MOBILENET_V2_MACS = 320_237_568  # paddle.flops at [1, 3, 224, 224]
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+BUSY_STEPS = 4                   # train_batch calls in a profiled window
+
+
+class SeededImages:
+    """`n` uint8 HWC images and int64 labels drawn from `seed`, each
+    image through `transform` (a map-style dataset)."""
+
+    def __init__(self, n, seed, side, classes, transform):
+        import numpy as np
+        rng = np.random.RandomState(seed)
+        self.images = rng.randint(0, 256, (n, side, side, 3), dtype=np.uint8)
+        self.labels = rng.randint(0, classes, (n,)).astype(np.int64)
+        self.transform = transform
+
+    def __getitem__(self, i):
+        return self.transform(self.images[i]), self.labels[i]
+
+    def __len__(self):
+        return len(self.images)
+
+
+def _busy_window(torch, model, dataset, workers):
+    """(device-busy ms, wall ms) of BUSY_STEPS train_batch calls fed by a
+    DataLoader with `workers` processes, under torch.profiler; the
+    workers are started, and one batch taken, before the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.io import DataLoader
+    c = MOBILENET_FIT
+    it = iter(DataLoader(dataset, batch_size=c["batch"], shuffle=True,
+                         num_workers=workers))
+    next(it)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(BUSY_STEPS):
+            x, y = next(it)
+            model.train_batch([x], [y])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    if workers:
+        it.close()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return busy, wall
+
+
+def phase_mobilenet_fit(device_name):
+    """Phase 16. Returns the fits' launch counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import paddle_tpu_torch
+    from paddle_tpu_torch.callbacks import Callback, ModelCheckpoint
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.ops import _kernels
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = MOBILENET_FIT
+    macs = paddle_tpu_torch.flops(mobilenet_v2(device="cpu"),
+                                  input_size=[1, 3, c["side"], c["side"]])
+    check(macs == MOBILENET_V2_MACS, f"mobilenet_v2 counts {macs} MACs, "
+                                     f"want {MOBILENET_V2_MACS}")
+    flops_per_step = 6 * macs * c["batch"]
+    tf = T.Compose([T.ToTensor(), T.Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+    t0 = time.perf_counter()
+    train = SeededImages(c["images"], SEED + 40, c["side"], c["classes"], tf)
+    evals = SeededImages(c["eval_images"], SEED + 41, c["side"],
+                         c["classes"], tf)
+    data_s = time.perf_counter() - t0
+    paddle_tpu_torch.seed(SEED + 42)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 43)
+    net = mobilenet_v2(num_classes=c["classes"], device="cuda",
+                       generator=gen)
+    model = paddle_tpu_torch.Model(net).prepare(
+        Adam(learning_rate=c["lr"], parameters=net.parameters()),
+        CrossEntropyLoss(), Accuracy(topk=(1, 5)))
+    check(all(p.dtype == torch.float32 and p.is_cuda
+              for p in net.parameters()), "mobilenet_fit's model is not "
+                                          "fp32 on the card")
+
+    class Clock(Callback):
+        """Epoch wall (loading included), each train_batch's device time
+        between two CUDA events, the losses and the eval logs."""
+
+        def __init__(self):
+            super().__init__()
+            self.epoch_s, self.pairs, self.losses, self.evals = [], [], [], []
+
+        def on_epoch_begin(self, epoch, logs=None):
+            torch.cuda.synchronize()
+            self._t0 = time.perf_counter()
+            self.losses.append([])
+
+        def on_train_batch_begin(self, step, logs=None):
+            a = torch.cuda.Event(enable_timing=True)
+            a.record()
+            self.pairs.append([a])
+
+        def on_train_batch_end(self, step, logs=None):
+            b = torch.cuda.Event(enable_timing=True)
+            b.record()
+            self.pairs[-1].append(b)
+            self.losses[-1].append(logs["loss"])
+
+        def on_epoch_end(self, epoch, logs=None):
+            torch.cuda.synchronize()
+            self.epoch_s.append(time.perf_counter() - self._t0)
+
+        def on_eval_end(self, logs=None):
+            self.evals.append({"loss": float(logs["loss"]),
+                               "acc": [float(a) for a in logs["acc"]]})
+
+    save_dir = tempfile.mkdtemp(prefix="mobilenet_fit_")
+    clock = Clock()
+    epochs, syncs = [], []
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    try:
+        for workers in c["workers"]:
+            n_pairs = len(clock.pairs)
+            for k in model.host_sync_s:
+                model.host_sync_s[k] = 0.0
+            t0 = time.perf_counter()
+            model.fit(train, eval_data=evals, batch_size=c["batch"],
+                      epochs=1, verbose=0, num_workers=workers,
+                      callbacks=[clock, ModelCheckpoint(save_dir=save_dir)])
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            step_ms = [a.elapsed_time(b) for a, b in clock.pairs[n_pairs:]]
+            steps = len(step_ms)
+            epochs.append({
+                "num_workers": workers, "steps": steps,
+                "epoch_s": clock.epoch_s[-1],
+                "images_per_s": c["images"] / clock.epoch_s[-1],
+                "fit_s_with_eval_and_checkpoint": fit_s,
+                "train_batch_ms_mean": statistics.mean(step_ms),
+                "train_batch_ms_median": statistics.median(step_ms),
+                "train_batch_ms_min": min(step_ms),
+                "train_batch_ms_max": max(step_ms),
+                "mfu_fp32": flops_per_step / (statistics.mean(step_ms) / 1e3)
+                / PEAK_OPS["float32"],
+                "loss_mean": statistics.mean(clock.losses[-1]),
+                "eval": clock.evals[-1]})
+            syncs.append({k: v / steps * 1e3
+                          for k, v in model.host_sync_s.items()})
+        torch.cuda.synchronize()
+        launches = _kernels.launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        # the last checkpoint into a fresh model: eval-mode logits on one
+        # batch bit-equal to the fitted model's (the same cuDNN
+        # algorithms: benchmark mode is off, so cuDNN picks them by
+        # heuristics from the shapes alone, and the forward is
+        # deterministic)
+        gen2 = torch.Generator(device="cuda")
+        gen2.manual_seed(SEED + 44)
+        net2 = mobilenet_v2(num_classes=c["classes"], device="cuda",
+                            generator=gen2)
+        model2 = paddle_tpu_torch.Model(net2).prepare(
+            Adam(learning_rate=c["lr"], parameters=net2.parameters()),
+            CrossEntropyLoss())
+        ckpt = sorted(os.listdir(save_dir))
+        model2.load(os.path.join(save_dir, "0"))
+        x = torch.from_numpy(np.stack([evals[i][0] for i in
+                                       range(c["batch"])])).cuda()
+        net.eval()
+        net2.eval()
+        with torch.no_grad():
+            bit_equal = torch.equal(net(x), net2(x))
+        slots_equal = all(
+            torch.equal(model._optimizer.state[p][k],
+                        model2._optimizer.state[q][k])
+            for p, q in zip(net.parameters(), net2.parameters())
+            for k in model._optimizer.state[p])
+        del model2, net2
+        busy = {}
+        for workers in c["workers"]:
+            b, w = _busy_window(torch, model, train, workers)
+            busy[f"num_workers_{workers}"] = {
+                "device_busy_ms": b, "wall_ms": w, "busy_share": b / w,
+                "steps": BUSY_STEPS}
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    per_step = {k: v / sum(e["steps"] for e in epochs)
+                for k, v in launches.items()}
+    emit({"phase": "mobilenet_fit", "model": "mobilenet_v2",
+          "scale": 1.0, "classes": c["classes"], "dtype": "float32",
+          "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                   "cudnn": torch.backends.cudnn.allow_tf32},
+          "mfu_peak": "67 TFLOP/s fp32 (TF32 off)",
+          "images": c["images"], "eval_images": c["eval_images"],
+          "batch": c["batch"], "image": [3, c["side"], c["side"]],
+          "optimizer": f"Adam lr {c['lr']}",
+          "fits": "two fits of one epoch: num_workers 0, then 4",
+          "n_params": sum(p.numel() for p in net.parameters()),
+          "leaves": sum(1 for _ in net.parameters()),
+          "forward_macs_per_image": macs, "flops_per_step": flops_per_step,
+          "data_s": data_s, "epochs": epochs,
+          "host_sync_ms_per_step": syncs, "busy": busy,
+          "peak_mem_gib": peak_gib, "checkpoint_files": ckpt,
+          "reload_logits_bit_equal": bit_equal,
+          "reload_optimizer_slots_equal": slots_equal,
+          "kernel_launches": launches, "launches_per_step": per_step})
+    losses = [v for e in epochs for v in [e["loss_mean"]]]
+    check(all(math.isfinite(v) for e in clock.losses for v in e),
+          "non-finite loss")
+    check(losses[1] < losses[0], f"the second epoch's mean loss "
+                                 f"{losses[1]} is not below the first's "
+                                 f"{losses[0]}")
+    for e in epochs:
+        acc = e["eval"]["acc"]
+        check(len(acc) == 2 and 0 <= acc[0] <= acc[1] <= 1,
+              f"evaluate's top-1/top-5 {acc}")
+    want = {k: 0.0 for k in launches}
+    want["fused_adam"] = float(MOBILENET_V2_LEAVES)
+    check(per_step == want, f"launches per step {per_step}, want {want}")
+    check(ckpt == ["0.pdopt", "0.pdparams"], f"checkpoint files {ckpt}")
+    check(bit_equal and slots_equal,
+          f"reloaded checkpoint: logits bit-equal {bit_equal}, optimizer "
+          f"slots equal {slots_equal}")
+    del model, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 KERNEL_META = {
     "paged_attention": dict(
         source="paddle_tpu_torch/csrc/paged_attention_tc.cu",
@@ -4714,6 +5206,7 @@ def main():
     timed("moe_model", phase_moe_model)
     timed("optimizers", phase_optimizers)
     timed("resnet_model", phase_resnet_model)
+    timed("vision_model", phase_vision_model)
     serve = {}
     by_phase = {"attention_variants": variant_launches,
                 "serve": timed("serve", phase_serve, record=serve)}
@@ -4737,6 +5230,8 @@ def main():
                                      "moe_train")
     by_phase["resnet_train"] = timed("resnet_train", phase_resnet_train,
                                      name)
+    by_phase["mobilenet_fit"] = timed("mobilenet_fit", phase_mobilenet_fit,
+                                      name)
     emit({"phase": "phase_seconds", **seconds})
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

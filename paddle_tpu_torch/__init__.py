@@ -6,8 +6,8 @@ of `paddle_tpu`. Its entry points (`models.gpt.GPTForCausalLM`,
 `models.llama.LlamaForCausalLM`, `vision.models.resnet50` and its
 family, `models.generation.generate`,
 `serving.llm.LLMEngine`, `parallel.ScanTrainStep` / `ShardedTrainStep`
-with `optimizer.AdamW`) run on CUDA unless the caller asks for the CPU
-with `device="cpu"`.
+with `optimizer.AdamW`, `Model` over `io.DataLoader`, `load`) run on CUDA
+unless the caller asks for the CPU with `device="cpu"`.
 
 Every TPU kernel on a ported path is a hand-written Hopper kernel under
 `csrc/`, built at first use (see `ops/_kernels.py`); each keeps a plain
@@ -16,6 +16,9 @@ PyTorch version beside it that the CPU takes.
 __version__ = "0.1.0"
 
 from .core.random import seed  # noqa: E402,F401
+from .framework_io import load, save  # noqa: E402,F401
+from . import callbacks, io, metric, vision  # noqa: E402,F401
+from .hapi import Model, summary  # noqa: E402,F401
 
 
 def flops(net, input_size=None, inputs=None, custom_ops=None,

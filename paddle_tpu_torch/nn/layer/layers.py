@@ -1,6 +1,7 @@
 """Layer base (counterpart of paddle_tpu/nn/layer/layers.py).
 
-Only what the models need: `Layer` is `torch.nn.Module`, `LayerList` is
+Only what the models need: `Layer` is a `torch.nn.Module` with Paddle's
+`set_state_dict` (aliases `set_dict`, `load_dict`), `LayerList` a
 `torch.nn.ModuleList` and `Sequential` a `torch.nn.Sequential` that also
 takes Paddle's `(name, layer)` tuples, so `named_parameters()` and
 `named_buffers()` yield the same dotted names, in the same order, as the
@@ -11,13 +12,67 @@ from an explicit `torch.Generator`.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
+
+import numpy as np
 import torch
 
-Layer = torch.nn.Module
-LayerList = torch.nn.ModuleList
+
+def paddle_state_dict(module: torch.nn.Module) -> "OrderedDict":
+    """The JAX `Layer.state_dict()` of `module`: every parameter
+    (`named_parameters()` order), then every persistent buffer, sublayer
+    by sublayer (layers.py:206-217). The values are the live tensors."""
+    out = OrderedDict(module.named_parameters())
+    for prefix, sub in module.named_modules():
+        for name, b in sub._buffers.items():
+            if b is None or name in sub._non_persistent_buffers_set:
+                continue
+            out[f"{prefix}.{name}" if prefix else name] = b
+    return out
 
 
-class Sequential(torch.nn.Sequential):
+@torch.no_grad()
+def set_state_dict(module: torch.nn.Module, state_dict):
+    """Copy each entry of `state_dict` whose key names a parameter or
+    buffer of `module` into it, cast to that tensor's dtype and moved to
+    its device; skip the other keys. Returns (missing, unexpected): the
+    module's keys the dict lacks, the dict's keys the module lacks, in
+    the JAX `set_state_dict`'s order (layers.py:220-232). A value of
+    another shape raises ValueError, as the JAX `set_value` does."""
+    own = paddle_state_dict(module)
+    missing, unexpected = [], []
+    for k, v in state_dict.items():
+        if k not in own:
+            unexpected.append(k)
+            continue
+        t = own[k]
+        src = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+        if tuple(src.shape) != tuple(t.shape):
+            raise ValueError(f"set_state_dict: {k} has shape "
+                             f"{tuple(src.shape)}, the layer's is "
+                             f"{tuple(t.shape)}")
+        t.copy_(src.to(device=t.device, dtype=t.dtype))
+    for k in own:
+        if k not in state_dict:
+            missing.append(k)
+    return missing, unexpected
+
+
+class Layer(torch.nn.Module):
+    """`torch.nn.Module` with Paddle's state-dict loading."""
+
+    def set_state_dict(self, state_dict, use_structured_name=True):
+        return set_state_dict(self, state_dict)
+
+    set_dict = set_state_dict
+    load_dict = set_state_dict
+
+
+class LayerList(torch.nn.ModuleList, Layer):
+    pass
+
+
+class Sequential(torch.nn.Sequential, Layer):
     """Sublayers run in order, named "0", "1", ... or by `(name, layer)`
     tuples (given one by one or as one list), as in the JAX package
     (layers.py:400-420)."""
@@ -40,7 +95,9 @@ class ParamAttr:
     `ClipGradByGlobalNorm`), `optimize_attr = {"learning_rate": lr}` and
     `regularizer` as attributes, and `trainable=False` makes it a parameter
     without a gradient (the train steps leave it out). `name` is kept on
-    the attr only: the port names parameters by their module path.
+    the attr, and on the parameter as `attr_name`, which keys its
+    optimizer slots in `Optimizer.state_dict()` as the JAX `p.name`
+    does; the port names parameters by their module path.
     `initializer` must be None: the port's layers draw their weights from
     an explicit generator (`init_parameters`)."""
 
@@ -84,6 +141,7 @@ def create_parameter(shape, device=None, dtype=None, attr=None):
     p.need_clip = attr.need_clip
     p.optimize_attr = {"learning_rate": attr.learning_rate}
     p.regularizer = attr.regularizer
+    p.attr_name = attr.name
     return p
 
 

@@ -226,26 +226,32 @@ class Optimizer:
     clear_gradients = clear_grad
 
     # ---- checkpointing ----
+    def _slot_key(self, i, p):
+        """A parameter's slot prefix: its `ParamAttr` name, else its index
+        in `parameters` (the JAX `p.name or i`, optimizer.py:286-296)."""
+        return getattr(p, "attr_name", None) or i
+
     def state_dict(self):
-        """{"_step_count": n, "<i>__<slot>": tensor, "LR_Scheduler": {...}}
-        with i the parameter's index in `parameters`, as the JAX package
-        keys unnamed params; the scheduler's entry only with one."""
+        """{"_step_count": n, "<key>__<slot>": tensor, "LR_Scheduler":
+        {...}} with key the parameter's ParamAttr name, else its index in
+        `parameters`, as the JAX package keys them; the scheduler's entry
+        only with one."""
         out = {"_step_count": self._step_count}
         for i, p in enumerate(self._parameter_list):
             for sname, t in self.state.get(p, {}).items():
-                out[f"{i}__{sname}"] = t
+                out[f"{self._slot_key(i, p)}__{sname}"] = t
         if self._lr_scheduler is not None:
             out["LR_Scheduler"] = self._lr_scheduler.state_dict()
         return out
 
     def set_state_dict(self, state):
-        """Load what state_dict() wrote: slots are copied onto each
-        parameter's device, keeping their dtypes."""
+        """Load what state_dict() wrote (here or in the JAX package): slots
+        are copied onto each parameter's device, keeping their dtypes."""
         self._step_count = int(state.get("_step_count", 0))
         if "LR_Scheduler" in state and self._lr_scheduler is not None:
             self._lr_scheduler.set_state_dict(state["LR_Scheduler"])
         for i, p in enumerate(self._parameter_list):
-            prefix = f"{i}__"
+            prefix = f"{self._slot_key(i, p)}__"
             slots = {k[len(prefix):]: torch.as_tensor(v).to(p.device).clone()
                      for k, v in state.items()
                      if isinstance(k, str) and k.startswith(prefix)}

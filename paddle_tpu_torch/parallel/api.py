@@ -452,6 +452,25 @@ class ScanTrainStep(ShardedTrainStep):
         self.dispatch_count = 0
         self.lr_vector = None     # the last chunk's [K] lrs, numpy fp32
 
+    def device_put_chunk(self, stacked):
+        """Start the copy of one stacked chunk (`[K, ...]` host arrays or
+        tensors) to the step's device and return the device tensors (the
+        JAX `device_put_chunk`, api.py:868): each array is staged in
+        pinned memory and copied non-blocking, so `io.ChunkPrefetcher`,
+        which calls this as its `put_fn` from its thread, overlaps the
+        next chunk's copy with this chunk's compute. On the CPU the
+        arrays are wrapped, not copied."""
+        out = []
+        for a in stacked:
+            t = a if torch.is_tensor(a) else torch.from_numpy(
+                np.ascontiguousarray(a))
+            if self.device.type == "cuda":
+                if t.device.type == "cpu" and not t.is_pinned():
+                    t = t.pin_memory()
+                t = t.to(self.device, non_blocking=True)
+            out.append(t)
+        return tuple(out)
+
     def _lr_vector(self, K):
         """Length-K per-step LR schedule: constant with a float lr; an
         LRScheduler is advanced once per step (its current value first)."""

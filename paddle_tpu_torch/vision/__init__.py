@@ -1,3 +1,3 @@
-"""paddle.vision (counterpart of paddle_tpu/vision/): the ResNet family so
-far; LeNet, VGG and MobileNet wait (ROADMAP §1 item 6f)."""
-from . import models  # noqa: F401
+"""paddle.vision (counterpart of paddle_tpu/vision/): the models (LeNet,
+VGG, MobileNet V1/V2, ResNet), the numpy transforms and the datasets."""
+from . import datasets, models, transforms  # noqa: F401

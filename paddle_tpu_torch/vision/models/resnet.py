@@ -16,12 +16,10 @@ from typing import Optional
 
 import torch
 
-from ...core.device import resolve_device
-from ...core.dtype import convert_dtype
 from ...nn import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Layer, Linear,
                    MaxPool2D, ReLU, Sequential)
-from ...nn.layer.layers import init_parameters
 from ...tensor.manipulation import flatten
+from ._build import draw_weights, layer_kw
 
 
 class BasicBlock(Layer):
@@ -95,9 +93,7 @@ class ResNet(Layer):
         layer_cfg = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
                      101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
         layers = layer_cfg[depth]
-        device = resolve_device(device)
-        self._kw = dict(device=device, dtype=convert_dtype(dtype)
-                        or torch.float32)
+        self._kw = layer_kw(device, dtype)
         self.groups = groups
         self.base_width = width
         self.num_classes = num_classes
@@ -119,10 +115,7 @@ class ResNet(Layer):
             self.avgpool = AdaptiveAvgPool2D((1, 1))
         if num_classes > 0:
             self.fc = Linear(512 * block.expansion, num_classes, **self._kw)
-        if generator is None:
-            generator = torch.Generator(device=device)
-            generator.manual_seed(0)
-        init_parameters(self, generator)
+        draw_weights(self, self._kw["device"], generator)
 
     def _make_layer(self, block, planes, blocks, stride=1, dilate=False):
         norm_layer = self._norm_layer

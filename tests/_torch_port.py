@@ -399,3 +399,62 @@ def assert_engines_equal(je, te, jh, th):
         assert te.prefix_cache.snapshot() == je.prefix_cache.snapshot()
         assert te.prefix_cache.spilled_pages == je.prefix_cache.spilled_pages
     assert te.pool.check_balance() and je.pool.check_balance()
+
+
+def jax_abstract(build):
+    """The JAX layer `build()` makes, built under `jax.eval_shape`: its
+    layers, names and shapes, with no initializer run (so none compiles).
+    Load real arrays (`set_state_dict`) before calling it."""
+    import jax
+    box = []
+
+    def run():
+        box.append(build())
+        return 0
+
+    jax.eval_shape(run)
+    return box[0]
+
+
+def jax_abstract_model(name, **kw):
+    """`paddle.vision.models.<name>(**kw)` of the JAX package, built by
+    `jax_abstract`."""
+    import paddle_tpu as paddle
+    return jax_abstract(lambda: getattr(paddle.vision.models, name)(**kw))
+
+
+def jax_twin_of(tm, build):
+    """The JAX layer `build()` makes (abstractly), holding port model
+    tm's parameters and buffers."""
+    from paddle_tpu_torch.bridge import export_buffers, export_state
+    jm = jax_abstract(build)
+    missing, unexpected = jm.set_state_dict({**export_state(tm),
+                                             **export_buffers(tm)})
+    assert missing == [] and unexpected == [], (missing, unexpected)
+    return jm
+
+
+def vision_twins(name, **kw):
+    """(JAX model, port model on the CPU) of vision model `name` with the
+    port's weights and buffers (drawn from seed 0) loaded into the JAX
+    one through its own `set_state_dict`, both in training mode with
+    every Dropout's p set to 0 (the two draw different masks)."""
+    import paddle_tpu as paddle
+    from paddle_tpu_torch.vision import models
+    tm = getattr(models, name)(device="cpu", **kw)
+    jm = jax_twin_of(tm, lambda: getattr(paddle.vision.models, name)(**kw))
+    for m in list(jm.sublayers(include_self=True)) + list(tm.modules()):
+        if type(m).__name__ == "Dropout":
+            m.p = 0.0
+    return jm, tm
+
+
+def jax_train_forward(jm, x):
+    """(logits, new buffers) of one training-mode forward of JAX model jm
+    on x, traced once under jax.jit (each eager op would compile on its
+    own), as numpy."""
+    import jax
+    params, bufs = jm.functional_state()
+    out, new = jax.jit(lambda p, b, a: jm.functional_call_with_state(
+        p, b, a))(params, bufs, x)
+    return np.asarray(out), {k: np.asarray(v) for k, v in new.items()}
