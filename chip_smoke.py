@@ -16,8 +16,10 @@ scaling, recompute, gradient merge), then does the same for the Llama-2 family: 
 `llama2-70b`'s widths cut in depth, and trains `llama2-7b` whole with the
 Llama 2 recipe, then trains `ernie-moe-base` whole, and last trains
 `resnet50` as bench.py trains BASELINE config 1 (random weights from a
-seed), and fits `mobilenet_v2` through Paddle's high-level `Model.fit`
-over `io.DataLoader`. It prints one JSON line per
+seed), fits `mobilenet_v2` through Paddle's high-level `Model.fit`
+over `io.DataLoader`, and trains full `gpt3-125m` under the resilient
+runtime (checkpoint tiers, fault injection, a killed and a resumed
+child process). It prints one JSON line per
 phase, then each phase's wall seconds, the `{"kernels": [...]}` line,
 the card's name and power limit as `nvidia-smi` reports them, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before the
@@ -221,6 +223,23 @@ Phases:
                 MOBILENET_V2_LEAVES fused-Adam launches a step (no other
                 port kernel), and the last checkpoint loaded into a fresh
                 model giving bit-equal eval logits and equal Adam slots
+ 17. resilient_train — full gpt3-125m (12 layers, 768 wide), bf16, 8 x
+                1024, AdamW 1e-4 fp32 moments, ScanTrainStep(scan_steps=2),
+                16 seeded batches, under ResilientTrainer(goodput=True):
+                a baseline (only the end-of-run save: step ms), a sync
+                CheckpointManager at save_interval 8 (save ms), an
+                AsyncCheckpointManager at save_interval 2, max_to_keep 2
+                with raise@5 (a retry) and nan_loss@9 (a rollback served
+                from the ring), and a child process killed by SIGKILL in
+                the writer (kill@6:persist) then resumed by a second one
+                after the scrubber: losses and final parameters and
+                moments bit-equal to the sync run's, restores keeping
+                every tensor's storage, exactly RESILIENT_KERNELS_PER_STEP
+                launches a step; snapshot blocking ms and GB/s, persist
+                ms, lag and drops, ring rollback against disk restore ms,
+                goodput, live MFU and phase shares of each run, the
+                resumed child's time from resume to its first step, each
+                line with the card's name and power limit
 """
 from __future__ import annotations
 
@@ -5125,6 +5144,486 @@ def phase_mobilenet_fit(device_name):
     return launches
 
 
+# -------------------------------------------- phase 17: resilient_train
+# The resilient training runtime (ResilientTrainer with the goodput ledger,
+# CheckpointManager, AsyncCheckpointManager, fault injection) over full
+# gpt3-125m (GPT-3 Small: Brown et al. 2020, Table 2.1), bf16, 8 x 1024
+# tokens a step, AdamW lr 1e-4 wd 0.01 with fp32 moments, through
+# ScanTrainStep(scan_steps=2): 16 steps a run over 16 seeded batches (one
+# a step, so a replayed step takes its own batch again).
+#   1. baseline  only the end-of-run save: the step time;
+#   2. sync      CheckpointManager at save_interval 8;
+#   3. async     AsyncCheckpointManager at save_interval 2, max_to_keep 2,
+#                with raise@5 (a retry) and nan_loss@9 (mid-chunk: rolled
+#                back to the ring's snapshot of step 8);
+#   4. resume    a child process runs 3's configuration with
+#                kill@6:persist and dies by SIGKILL in the writer; a
+#                second child resumes from the same directory (the
+#                scrubber first) and runs to step 16.
+# Runs 3 and 4 must give run 2's losses and final parameters and moments
+# bit for bit (the flash and LayerNorm kernels are atomic-free, with a
+# fixed order of summation), and the rollback must write into the live
+# parameter and slot storage. The killed child runs RESILIENT_KILL_STEPS
+# steps: with the writer slower than a chunk (the expected backpressure),
+# snapshot 6 survives the drop-oldest queue only while at most one newer
+# snapshot is queued behind it, which a run that ends at step 8 ensures.
+RESILIENT = dict(preset="gpt3-125m", batch=(8, 1024), steps=16,
+                 scan_steps=2, lr=1e-4)
+RESILIENT_SYNC_INTERVAL = 8
+RESILIENT_ASYNC_INTERVAL = 2
+RESILIENT_KEEP = 2
+RESILIENT_FAULTS = "raise@5;nan_loss@9"
+RESILIENT_KILL = "kill@6:persist"
+RESILIENT_KILL_STEPS = 8
+RESILIENT_CHILD_TIMEOUT = 300
+# a step's launches: 12 layers, no recompute, 149 parameters (12 a layer,
+# the two embeddings, the final LayerNorm's two and the untied lm_head)
+RESILIENT_KERNELS_PER_STEP = launches_per_step(12, 149, False)
+
+
+def resilient_model():
+    """The cell's model (bf16, random weights from SEED, training mode),
+    its optimizer, and a ScanTrainStep that records every chunk: its first
+    step (`start`, set by the batch fn), its losses and its wall ms, and
+    calls `on_chunk(start, losses)` when set."""
+    import torch
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ScanTrainStep
+
+    class RecordingStep(ScanTrainStep):
+        start = None
+        on_chunk = None
+
+        def __call__(self, *args):
+            t0 = time.perf_counter()
+            losses = super().__call__(*args)
+            torch.cuda.synchronize()   # the trainer reads them next anyway
+            t1 = time.perf_counter()
+            self.chunks.append((self.start, losses.tolist(),
+                                (t1 - t0) * 1e3, t1))
+            if self.on_chunk is not None:
+                self.on_chunk(self.start, losses.tolist())
+            return losses
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    model = GPTForCausalLM.from_preset(RESILIENT["preset"], device="cuda",
+                                       dtype="bfloat16", generator=gen)
+    model.train()
+    opt = AdamW(learning_rate=RESILIENT["lr"], weight_decay=0.01,
+                parameters=model.parameters(), moment_dtype="float32")
+    step = RecordingStep(model, opt, scan_steps=RESILIENT["scan_steps"])
+    step.chunks = []
+    return model, opt, step
+
+
+def resilient_batches(vocab):
+    """[steps, B, S] int32 token ids and labels on the card, from SEED."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(SEED + 5)
+    shape = (RESILIENT["steps"],) + RESILIENT["batch"]
+    return tuple(torch.from_numpy(rng.randint(0, vocab, shape)
+                                  .astype(np.int32)).cuda() for _ in "il")
+
+
+def state_digest(state):
+    """{keystr: [dtype, shape, crc32 of the bytes]} of every tensor of a
+    state tree, the other leaves as they are: equal digests, equal bits."""
+    import zlib
+    import torch
+    from paddle_tpu_torch.checkpoint import _keystr, _leaves_with_path
+    out = {}
+    for path, leaf in _leaves_with_path(state):
+        if torch.is_tensor(leaf):
+            b = leaf.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+            leaf = [str(leaf.dtype), list(leaf.shape), zlib.crc32(b)]
+        out[_keystr(path)] = leaf
+    return out
+
+
+def first_difference(a, b):
+    """The first key whose leaves differ between two digests, or None."""
+    for k in sorted(set(a) | set(b)):
+        if a.get(k) != b.get(k):
+            return k
+    return None
+
+
+def check_disk_room(directory, model):
+    """Fail unless `directory`'s disk holds RESILIENT_KEEP + 1 step files:
+    4 bytes an element of every parameter (bf16 is written as fp32
+    values) and of every slot the optimizer will hold (two fp32 moments a
+    parameter)."""
+    import shutil
+    n = sum(p.numel() for p in model.parameters())
+    per_file = 4 * n + 2 * 4 * n
+    free = shutil.disk_usage(directory).free
+    need = (RESILIENT_KEEP + 1) * per_file
+    check(free >= need,
+          f"resilient_train: {directory} has {free / 2**30:.2f} GiB free; "
+          f"{RESILIENT_KEEP + 1} checkpoints of {RESILIENT['preset']} "
+          f"need {need / 2**30:.2f} GiB")
+    return per_file
+
+
+def resilient_run(workdir, tier, spec=None, num_steps=None, on_chunk=None,
+                  time_disk_restore=False):
+    """One run of the cell under ResilientTrainer(goodput=True) writing
+    into `workdir`: `tier` None (only the end-of-run save), "sync"
+    (CheckpointManager at RESILIENT_SYNC_INTERVAL) or "async"
+    (AsyncCheckpointManager at RESILIENT_ASYNC_INTERVAL); `spec` a
+    FaultPlan spec for the trainer (None: the process-global plan, which
+    PDTPU_FAULTS sets, as the writer's kill points read it). With
+    `time_disk_restore`, an async run then times a resume's restore of
+    its newest certified step into the live state. Returns a dict of
+    readings; the model is freed before it returns."""
+    import torch
+    from paddle_tpu_torch.checkpoint import (AsyncCheckpointManager,
+                                             CheckpointManager,
+                                             _leaves_with_path)
+    from paddle_tpu_torch.distributed.resilient import (ResilientConfig,
+                                                        ResilientTrainer)
+    from paddle_tpu_torch.obs.flight_recorder import flight_recorder
+    from paddle_tpu_torch.obs.flops import peak_flops, train_flops_per_step
+    from paddle_tpu_torch.utils.fault_injection import FaultPlan
+
+    num_steps = num_steps or RESILIENT["steps"]
+    model, opt, step = resilient_model()
+    step.on_chunk = on_chunk
+    ids, labels = resilient_batches(model.config.vocab_size)
+    K = step.scan_steps
+    os.makedirs(workdir, exist_ok=True)
+    file_bytes = check_disk_room(workdir, model)
+
+    def batch_fn(i):
+        step.start = i
+        return ids[i:i + K], labels[i:i + K]
+
+    def live_ptrs():
+        return [p.data_ptr() for p in model.parameters()] + [
+            t.data_ptr() for slots in opt.state.values()
+            for t in slots.values()]
+
+    def get_state():
+        return {"model": model.state_dict(), "opt": opt.state_dict(),
+                "step": step._step_count}
+
+    moved = []     # storage pointers a restore changed, one entry a call
+
+    def set_state(s):
+        before = live_ptrs()
+        missing, unexpected = model.set_state_dict(s["model"])
+        check(not missing and not unexpected,
+              f"restore: missing {missing[:3]}, unexpected {unexpected[:3]}")
+        opt.set_state_dict(s["opt"])
+        step._step_count = int(s["step"])
+        moved.append(sum(a != b for a, b in zip(before, live_ptrs())))
+
+    if tier == "async":
+        ckpt = AsyncCheckpointManager(workdir, max_to_keep=RESILIENT_KEEP)
+        interval = RESILIENT_ASYNC_INTERVAL
+    else:
+        ckpt = CheckpointManager(workdir, max_to_keep=RESILIENT_KEEP)
+        interval = RESILIENT_SYNC_INTERVAL if tier == "sync" else num_steps
+    trainer = ResilientTrainer(
+        step, ckpt, get_state=get_state, set_state=set_state,
+        config=ResilientConfig(save_interval=interval),
+        fault_plan=FaultPlan.from_spec(spec) if spec is not None else None,
+        goodput=True)
+    # live MFU: the ledger's productive steps over its wall, 6·N·D
+    trainer.ledger.set_flops(
+        train_flops_per_step(sum(p.numel() for p in model.parameters()),
+                             RESILIENT["batch"][0] * RESILIENT["batch"][1]),
+        peak_flops(torch.cuda.get_device_name(0)))
+    save_ms, rollback_ms = [], []
+    if tier != "async":
+        plain_save = ckpt.save
+
+        def timed_save(*a, **kw):
+            t0 = time.perf_counter()
+            plain_save(*a, **kw)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+        ckpt.save = timed_save
+    plain_restore = trainer._restore_latest
+
+    def timed_restore():
+        t0 = time.perf_counter()
+        out = plain_restore()
+        torch.cuda.synchronize()
+        rollback_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    trainer._restore_latest = timed_restore
+
+    flight_recorder().clear()
+    t_run = time.perf_counter()
+    summary = trainer.run(batch_fn, num_steps=num_steps)
+    run_s = time.perf_counter() - t_run
+    events = flight_recorder().snapshot()["events"]
+    losses = {}
+    for start, vec, _, _ in step.chunks:
+        for i, v in enumerate(vec):
+            losses.setdefault(start + i, []).append(v)
+    out = {"run_s": run_s, "losses": losses,
+           "steps_run": sum(len(c[1]) for c in step.chunks),
+           "chunk_ms": [c[2] for c in step.chunks],
+           "first_chunk_s": step.chunks[0][3] - t_run,
+           "save_ms": save_ms, "rollback_ms": rollback_ms,
+           "restore_moved_ptrs": moved, "file_bytes": file_bytes,
+           "events": [{k: v for k, v in e.items()
+                       if isinstance(v, (str, int, float, bool))}
+                      for e in summary["events"]],
+           "retries": summary["retries"], "rollbacks": summary["rollbacks"],
+           "goodput": summary["goodput"],
+           "snapshot_blocking_ms": [e["blocking_ms"] for e in events
+                                    if e["kind"] == "ckpt_snapshot"],
+           "persist_ms": [e["ms"] for e in events
+                          if e["kind"] == "ckpt_persist"],
+           "persist_lag_ms": [e["lag_ms"] for e in events
+                              if e["kind"] == "ckpt_persist"],
+           "quarantined": [e["step"] for e in summary["events"]
+                           if e["kind"] == "ckpt_quarantined"]}
+    out["digest"] = state_digest(get_state())
+    if tier == "async":
+        out["checkpoint"] = summary["checkpoint"]
+        out["snapshot_bytes"] = sum(
+            t.numel() * t.element_size()
+            for _, t in _leaves_with_path(ckpt.newest_snapshot().state)
+            if torch.is_tensor(t))
+    if time_disk_restore:
+        latest = ckpt.latest_step()
+        # a resume's restore: the certified file back into the live state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        set_state(ckpt.restore(latest))
+        torch.cuda.synchronize()
+        out["disk_restore_ms"] = (time.perf_counter() - t0) * 1e3
+        out["disk_restore_step"] = latest
+    if tier == "async":
+        ckpt.close()
+    del model, opt, step, trainer, ids, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def resilient_child(workdir, num_steps):
+    """The child processes of phase 17 (`chip_smoke.py --resilient-child
+    WORKDIR STEPS`): run 3's configuration over WORKDIR/ckpt with the
+    faults of PDTPU_FAULTS (the process-global plan), appending every
+    chunk's losses to WORKDIR/losses.jsonl (fsynced: a SIGKILL loses
+    none), then writing WORKDIR/report.json."""
+    path = os.path.join(workdir, "losses.jsonl")
+    with open(path, "a") as f:
+        def on_chunk(start, losses):
+            f.write(json.dumps({"start": start, "losses": losses}) + "\n")
+            f.flush()
+            os.fsync(f.fileno())
+        r = resilient_run(os.path.join(workdir, "ckpt"), "async",
+                          num_steps=num_steps, on_chunk=on_chunk)
+    resumed = [e["step"] for e in r["events"] if e["kind"] == "resumed"]
+    r.pop("losses")
+    r["resumed_from"] = resumed[0] if resumed else 0
+    with open(os.path.join(workdir, "report.json"), "w") as f:
+        json.dump(r, f)
+    return 0
+
+
+def _child_losses(workdir):
+    """{step: [every recording]} from a child's losses.jsonl."""
+    losses = {}
+    with open(os.path.join(workdir, "losses.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            for i, v in enumerate(rec["losses"]):
+                losses.setdefault(rec["start"] + i, []).append(v)
+    return losses
+
+
+def _spawn_child(workdir, num_steps, faults):
+    env = dict(os.environ)
+    env.pop("PDTPU_FAULTS", None)
+    if faults:
+        env["PDTPU_FAULTS"] = faults
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--resilient-child",
+         workdir, str(num_steps)], env=env, capture_output=True, text=True,
+        timeout=RESILIENT_CHILD_TIMEOUT)
+    return proc, time.perf_counter() - t0
+
+
+def _ms_stats(xs):
+    return {"n": len(xs), "p50": statistics.median(xs) if xs else None,
+            "max": max(xs) if xs else None}
+
+
+def phase_resilient_train(device_name, smi_line):
+    """Phase 17 (see RESILIENT). Returns the launch counts of runs 1-3,
+    the phase's main path in this process."""
+    import shutil
+    import signal
+    import tempfile
+    import torch
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.ops import _kernels
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the checkpoints go beside the kernel build, on the checkout's disk
+    # (build/ is not committed); check_disk_room fails a run without room
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="resilient_train_", dir=build)
+    try:
+        _kernels.reset_launch_counts()
+        base = resilient_run(os.path.join(root, "baseline"), None)
+        shutil.rmtree(os.path.join(root, "baseline"))
+        sync = resilient_run(os.path.join(root, "sync"), "sync")
+        shutil.rmtree(os.path.join(root, "sync"))
+        asy = resilient_run(os.path.join(root, "async"), "async",
+                            RESILIENT_FAULTS, time_disk_restore=True)
+        launches = _kernels.launch_counts()
+        shutil.rmtree(os.path.join(root, "async"))
+
+        work = os.path.join(root, "resume")
+        os.makedirs(work)
+        killed, killed_s = _spawn_child(work, RESILIENT_KILL_STEPS,
+                                        RESILIENT_KILL)
+        check(killed.returncode == -signal.SIGKILL,
+              f"the {RESILIENT_KILL} child exited {killed.returncode}, not "
+              f"by SIGKILL: {killed.stderr[-3000:]}")
+        on_disk = CheckpointManager(os.path.join(work, "ckpt"),
+                                    device="cpu").all_steps()
+        killed_losses = _child_losses(work)
+        resumed, resumed_s = _spawn_child(work, RESILIENT["steps"], None)
+        check(resumed.returncode == 0,
+              f"the resumed child exited {resumed.returncode}: "
+              f"{resumed.stderr[-3000:]}")
+        with open(os.path.join(work, "report.json")) as f:
+            rep = json.load(f)
+        stitched = _child_losses(work)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    steps = RESILIENT["steps"]
+    want = sync["losses"]
+    per_step = {k: launches[k] / (base["steps_run"] + sync["steps_run"]
+                                  + asy["steps_run"])
+                for k in RESILIENT_KERNELS_PER_STEP}
+    warm = base["chunk_ms"][1:]
+    step_ms = statistics.median(warm) / RESILIENT["scan_steps"]
+    n_steps = RESILIENT["scan_steps"]
+
+    def shares(g):
+        return {k: v / g["wall_seconds"] for k, v in
+                g["phase_seconds"].items()} if g["wall_seconds"] else {}
+
+    common = {"phase": "resilient_train", "card": smi_line,
+              "model": RESILIENT["preset"], "dtype": "bfloat16",
+              "batch": list(RESILIENT["batch"]), "scan_steps": n_steps}
+    emit({**common, "part": "baseline", "steps": steps,
+          "step_ms": step_ms, "chunk_ms": base["chunk_ms"],
+          "end_save_ms": base["save_ms"], "run_s": base["run_s"],
+          "goodput": base["goodput"]["goodput"],
+          "live_mfu": base["goodput"]["mfu"],
+          "phase_shares": shares(base["goodput"]),
+          "tokens_per_s": (RESILIENT["batch"][0] * RESILIENT["batch"][1]
+                           / step_ms * 1e3),
+          "losses_equal_sync": base["losses"] == want})
+    emit({**common, "part": "sync", "save_interval": RESILIENT_SYNC_INTERVAL,
+          "save_ms": sync["save_ms"], "file_bytes": sync["file_bytes"],
+          "run_s": sync["run_s"], "goodput": sync["goodput"]["goodput"],
+          "live_mfu": sync["goodput"]["mfu"],
+          "phase_shares": shares(sync["goodput"]),
+          "checkpoint_blocking_s":
+              sync["goodput"]["checkpoint_blocking_seconds"]})
+    blocking = asy["snapshot_blocking_ms"]
+    emit({**common, "part": "async", "faults": RESILIENT_FAULTS,
+          "save_interval": RESILIENT_ASYNC_INTERVAL,
+          "max_to_keep": RESILIENT_KEEP,
+          "snapshot_blocking_ms": _ms_stats(blocking),
+          "snapshot_bytes": asy["snapshot_bytes"],
+          "snapshot_gb_per_s": (asy["snapshot_bytes"] / 1e9
+                                / (statistics.median(blocking) / 1e3)),
+          "persist_ms": _ms_stats(asy["persist_ms"]),
+          "persist_lag_ms": _ms_stats(asy["persist_lag_ms"]),
+          "dropped": asy["checkpoint"]["dropped"],
+          "snapshots": asy["checkpoint"]["snapshots"],
+          "persisted": asy["checkpoint"]["persisted"],
+          "ring_rollback_ms": asy["rollback_ms"],
+          "disk_restore_ms": asy["disk_restore_ms"],
+          "disk_restore_step": asy["disk_restore_step"],
+          "restore_moved_ptrs": asy["restore_moved_ptrs"],
+          "events": [(e["kind"], e["step"]) for e in asy["events"]],
+          "retries": asy["retries"], "rollbacks": asy["rollbacks"],
+          "run_s": asy["run_s"], "goodput": asy["goodput"]["goodput"],
+          "live_mfu": asy["goodput"]["mfu"],
+          "phase_shares": shares(asy["goodput"]),
+          "checkpoint_blocking_s":
+              asy["goodput"]["checkpoint_blocking_seconds"],
+          "checkpoint_async_s": asy["goodput"]["checkpoint_async_seconds"],
+          "steps_run": asy["steps_run"]})
+    emit({**common, "part": "resume", "kill": RESILIENT_KILL,
+          "killed_rc": killed.returncode, "killed_child_s": killed_s,
+          "certified_after_kill": on_disk,
+          "resumed_from": rep["resumed_from"],
+          "quarantined": rep["quarantined"],
+          # the child's process outside its run: interpreter, imports,
+          # CUDA context, the kernel library's load, model build, exit
+          "child_outside_run_s": resumed_s - rep["run_s"],
+          "resume_to_first_step_s": rep["first_chunk_s"],
+          "resumed_child_s": resumed_s, "run_s": rep["run_s"],
+          "goodput": rep["goodput"]["goodput"],
+          "live_mfu": rep["goodput"]["mfu"],
+          "phase_shares": shares(rep["goodput"]),
+          "dropped": rep["checkpoint"]["dropped"],
+          "launches_per_step": per_step})
+
+    check(set(want) == set(range(steps))
+          and all(len(v) == 1 for v in want.values()),
+          f"the sync run recorded steps {sorted(want)}")
+    check(all(math.isfinite(v[0]) for v in want.values()),
+          f"non-finite loss in the sync run: {want}")
+    check(per_step == {k: float(v)
+                       for k, v in RESILIENT_KERNELS_PER_STEP.items()},
+          f"launches per step {per_step}, want {RESILIENT_KERNELS_PER_STEP}")
+    check(asy["steps_run"] == steps + n_steps,
+          f"the async run ran {asy['steps_run']} steps, want {steps} and "
+          f"one replayed chunk")
+
+    def bit_equal(got, what):
+        """Every recording of every step in `got` is the sync run's."""
+        bad = {s: (xs, want.get(s)) for s, xs in got.items()
+               if s not in want or any(x != want[s][0] for x in xs)}
+        check(not bad, f"{what}: losses differ from the sync run's: {bad}")
+
+    bit_equal(asy["losses"], "async run")
+    check(set(asy["losses"]) == set(range(steps)),
+          f"async run recorded steps {sorted(asy['losses'])}")
+    kinds = [(e["kind"], e["step"]) for e in asy["events"]]
+    check(kinds == [("step_error", 4), ("retry", 4), ("bad_loss", 9),
+                    ("rollback", 8)],
+          f"async run events {kinds}")
+    rb = [e for e in asy["events"] if e["kind"] == "rollback"]
+    check(rb[0]["source"] == "ring", f"rollback served from {rb[0]}")
+    check(asy["restore_moved_ptrs"] and not any(asy["restore_moved_ptrs"]),
+          f"a restore moved {asy['restore_moved_ptrs']} tensors' storage")
+    diff = first_difference(asy["digest"], sync["digest"])
+    check(diff is None, f"async run's final state differs at {diff}")
+    bit_equal(killed_losses, "killed child")
+    check(rep["resumed_from"] < 6 and rep["resumed_from"] in on_disk,
+          f"resumed from {rep['resumed_from']}, certified {on_disk}")
+    bit_equal(stitched, "killed and resumed children")
+    check(set(stitched) == set(range(steps)),
+          f"children recorded steps {sorted(stitched)}")
+    diff = first_difference(rep["digest"], sync["digest"])
+    check(diff is None, f"resumed child's final state differs at {diff}")
+    return launches
+
+
 KERNEL_META = {
     "paged_attention": dict(
         source="paddle_tpu_torch/csrc/paged_attention_tc.cu",
@@ -5183,6 +5682,8 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, repo)
+    if sys.argv[1:2] == ["--resilient-child"]:
+        return resilient_child(sys.argv[2], int(sys.argv[3]))
     seconds = {}
 
     def timed(phase, fn, *args, **kwargs):
@@ -5232,6 +5733,9 @@ def main():
                                      name)
     by_phase["mobilenet_fit"] = timed("mobilenet_fit", phase_mobilenet_fit,
                                       name)
+    by_phase["resilient_train"] = timed("resilient_train",
+                                        phase_resilient_train, name,
+                                        smi_line)
     emit({"phase": "phase_seconds", **seconds})
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

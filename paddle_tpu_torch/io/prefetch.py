@@ -107,6 +107,11 @@ class ChunkPrefetcher:
         self.put_fn = put_fn
         self.dropped_steps = 0
         self.chunks_produced = 0
+        # goodput ledger (obs.goodput) — consumer-side blocking waits book
+        # to "data_wait" (prefetcher starvation). Producer-thread work is
+        # deliberately NOT booked: overlapping it with device compute is
+        # the prefetcher's whole point. None = one predicate per __next__.
+        self.ledger = None
         self._q: _queue.Queue = _queue.Queue(maxsize=self.depth)
         self._stop = threading.Event()
         self._closed = False
@@ -175,7 +180,8 @@ class ChunkPrefetcher:
         return self
 
     def _take(self):
-        """Blocking dequeue of the next staged item."""
+        """Blocking dequeue of the next staged item (the consumer-side
+        starvation wait the goodput ledger books as data_wait)."""
         while True:
             try:
                 return self._q.get(timeout=0.1)
@@ -188,7 +194,11 @@ class ChunkPrefetcher:
             raise StopIteration
         if self._thread is None:
             iter(self)
-        item = self._take()
+        if self.ledger is not None:
+            with self.ledger.measure("data_wait"):
+                item = self._take()
+        else:
+            item = self._take()
         if isinstance(item, _Done):
             raise StopIteration
         if isinstance(item, _Err):

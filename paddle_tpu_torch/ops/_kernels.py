@@ -16,6 +16,11 @@ Every wrapper that launches a kernel adds one to `LAUNCHES[name]` right
 after the launch succeeds, and nowhere else; `reset_launch_counts()` and
 `launch_counts()` let a run show that its main path went through the
 kernels.
+
+The build is the port's only compile: `add_build_listener(fn)` has
+`fn(seconds)` called after each build this process runs (the goodput
+ledger's recompile sentinel books it as `compile`); loading a library
+already built is no compile.
 """
 from __future__ import annotations
 
@@ -50,6 +55,7 @@ LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
 
 _LIB = None
 _LOCK = threading.Lock()
+_BUILD_LISTENERS = []   # fn(seconds) after each build (obs.goodput)
 build_seconds = None   # wall time of the last build in this process (None:
 #                        the library was already built)
 ptxas_report = ""      # nvcc/ptxas output of the last build: registers,
@@ -106,6 +112,20 @@ def reset_launch_counts():
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+def add_build_listener(fn):
+    """Call `fn(seconds)` after every build of the library in this
+    process; idempotent."""
+    with _LOCK:
+        if fn not in _BUILD_LISTENERS:
+            _BUILD_LISTENERS.append(fn)
+
+
+def remove_build_listener(fn):
+    with _LOCK:
+        if fn in _BUILD_LISTENERS:
+            _BUILD_LISTENERS.remove(fn)
 
 
 def _build_dir() -> Path:
@@ -187,7 +207,8 @@ def load_library():
             return _LIB
         out = _build_dir() / (
             f"libpdtt_kernels_{_source_key(NVCC_FLAGS)}.so")
-        if not out.exists():
+        built = not out.exists()
+        if built:
             _build(out, NVCC_FLAGS)
         lib = ctypes.CDLL(str(out))
         for fn, argtypes in _SIGNATURES.items():
@@ -196,6 +217,9 @@ def load_library():
             f.restype = ctypes.c_int
         _LIB = lib
         library_path = out
+        listeners = list(_BUILD_LISTENERS) if built else []
+    for fn in listeners:
+        fn(build_seconds)
     return _LIB
 
 

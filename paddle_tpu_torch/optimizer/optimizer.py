@@ -244,19 +244,34 @@ class Optimizer:
             out["LR_Scheduler"] = self._lr_scheduler.state_dict()
         return out
 
+    @torch.no_grad()
     def set_state_dict(self, state):
         """Load what state_dict() wrote (here or in the JAX package): slots
-        are copied onto each parameter's device, keeping their dtypes."""
+        are copied onto each parameter's device, keeping their dtypes. A
+        slot that exists with the same shape and dtype is written in
+        place, so its storage stays the one the train step updates (a
+        rollback keeps every slot's `data_ptr`)."""
         self._step_count = int(state.get("_step_count", 0))
         if "LR_Scheduler" in state and self._lr_scheduler is not None:
             self._lr_scheduler.set_state_dict(state["LR_Scheduler"])
         for i, p in enumerate(self._parameter_list):
             prefix = f"{self._slot_key(i, p)}__"
-            slots = {k[len(prefix):]: torch.as_tensor(v).to(p.device).clone()
+            slots = {k[len(prefix):]: torch.as_tensor(v)
                      for k, v in state.items()
                      if isinstance(k, str) and k.startswith(prefix)}
-            if slots:
-                self.state[p] = slots
+            if not slots:
+                continue
+            live = self.state.get(p, {})
+            new = {}
+            for name, v in slots.items():
+                cur = live.get(name)
+                if cur is not None and cur.shape == v.shape and \
+                        cur.dtype == v.dtype:
+                    cur.copy_(v)
+                    new[name] = cur
+                else:
+                    new[name] = v.to(p.device).clone()
+            self.state[p] = new
 
     set_dict = set_state_dict
 

@@ -451,6 +451,9 @@ class ScanTrainStep(ShardedTrainStep):
             raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
         self.dispatch_count = 0
         self.lr_vector = None     # the last chunk's [K] lrs, numpy fp32
+        # goodput ledger (obs.goodput) — caller-thread H2D staging books
+        # to the "h2d" phase; None keeps the hook at one predicate
+        self.ledger = None
 
     def device_put_chunk(self, stacked):
         """Start the copy of one stacked chunk (`[K, ...]` host arrays or
@@ -485,7 +488,11 @@ class ScanTrainStep(ShardedTrainStep):
 
     def __call__(self, *args):
         K = self.scan_steps
-        arrays = [self._stage(a) for a in args]
+        if self.ledger is not None:
+            with self.ledger.measure("h2d"):
+                arrays = [self._stage(a) for a in args]
+        else:
+            arrays = [self._stage(a) for a in args]
         for a in arrays:
             if a.ndim < 1 or a.shape[0] != K:
                 raise ValueError(

@@ -12,6 +12,17 @@ import pytest
 _TINY_JAX = {}
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the test: tiny CPU steps gain nothing from
+    more, and the parallel test workers would oversubscribe the cores."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def require_cuda():
     import torch
     if not torch.cuda.is_available():
