@@ -12,7 +12,9 @@ through the continuous-batching `LLMEngine` and trains 13 steps through
 serves a shared system prompt through the prefix cache, its host tier
 and a stream handoff at the same width, trains it in fp32 master weights
 through a DistributedStrategy (AMP bf16 and fp16 with dynamic loss
-scaling, recompute, gradient merge), then does the same for the Llama-2 family: serves `llama2-7b` whole and
+scaling, recompute, gradient merge) and in Paddle's pure-fp16 recipe
+(amp.decorate O2, fp32 master weights), serves it cast to fp16, then
+does the same for the Llama-2 family: serves `llama2-7b` whole and
 `llama2-70b`'s widths cut in depth, and trains `llama2-7b` whole with the
 Llama 2 recipe, then trains `ernie-moe-base` whole, and last trains
 `resnet50` as bench.py trains BASELINE config 1 (random weights from a
@@ -31,11 +33,13 @@ Phases:
                 register and spill report (no instantiation of a
                 tensor-core kernel or of a LayerNorm kernel may spill),
                 the tensor-core instructions (wgmma's HGMMA, mma.sync's
-                HMMA) of every instantiation of the bf16 flash forward, dq
-                and dk/dv (plain, mask and dropout) and the bf16 paged
-                attention counted in their machine code (cuobjdump -sass),
-                and 16-byte loads and stores (LDG.E.128, STG.E.128) in
-                every bf16 LayerNorm instantiation of the 16-byte path
+                HMMA) of every instantiation of the bf16 and fp16 flash
+                forward, dq and dk/dv (plain, mask and dropout) and the
+                bf16 and fp16 paged attention counted in their machine
+                code (cuobjdump -sass), the fp16 instantiations among them
+                counted (TENSOR_CORE_FP16), and 16-byte loads and stores
+                (LDG.E.128, STG.E.128) in every bf16 and fp16 LayerNorm
+                instantiation of the 16-byte path
   3. kernels  — each kernel against its plain version at its path's
                 shapes (serving: paged attention and the LayerNorm
                 forward; training: flash attention forward, dq and dk/dv
@@ -57,12 +61,21 @@ Phases:
                 and paged attention: with their achieved TFLOP/s and share
                 of that bound); the prefix cache's layout, 8 rows reading one
                 row's 32 pages, bit-equal to the rows reading private copies
-                and timed beside them; the fp16 flash forward, dq and dk/dv
-                (AMP in float16) at [4,16,1024,128] causal and edge shapes
-                under the FP16_TRAIN_* rule, run twice bit-equal, timed
-                beside fp16 F.scaled_dot_product_attention; fused Adam's
-                do_update flag (0: p, m1, m2, master and, through AdamW,
-                the beta powers bit-unchanged; 1 and null: the same bits)
+                and timed beside them; the fp16 kernels (fp16_kernels):
+                the flash forward, dq and dk/dv at [4,16,1024,128] causal
+                and edge shapes, the LayerNorm forward and backward at
+                512x2048 and 4096x2048 (and edge widths) under the
+                FP16_TRAIN_* rule, fused Adam bit for bit in every dtype
+                combination with fp16 in it and at the word embedding with
+                fp16 p and g, an fp32 master and fp32 moments, paged
+                attention at the serve shape on both routes (block_len 8
+                and 12) and at the GQA shape under the FP16_PA_* rule,
+                each run twice bit-equal and timed beside its bound, its
+                plain version and fp16 SDPA / F.layer_norm (no PyTorch
+                call computes the fp16 Adam update with a master); fused
+                Adam's do_update flag (0: p, m1, m2, master and, through
+                AdamW, the beta powers bit-unchanged; 1 and null: the same
+                bits; fp32, bf16 and fp16 masters)
   3d. attention_variants — the additive-mask and dropout variants of the
                 flash forward, dq and dk/dv at gpt3-1.3b's attention width
                 ([4,16,1024,128] bf16; fp32 at [2,4,256,64]): key padding
@@ -74,7 +87,10 @@ Phases:
                 the launch counts zeroed just before and read just after,
                 mask plus dropout taking the plain reference (the JAX
                 package's rule) with its mask gradient; timed beside the
-                kernels without the variant and F.scaled_dot_product_attention
+                kernels without the variant and F.scaled_dot_product_attention;
+                and the same in fp16 at cases a, b and e (the variants'
+                fp16 instantiations: checks, two runs, the entry point's
+                launches, timings)
   4. model    — gpt3-1.3b widths cut to 2 layers, fp32, on the card
                 (kernels) against a CPU twin with the same weights (plain
                 versions): the engine's unified steps (logits and tokens),
@@ -111,9 +127,13 @@ Phases:
   4b. model_amp — the same widths in fp32 master weights through
                 parallelize(model, opt, strategy=s) on the card against
                 the CPU: AMP bf16 with recompute and gradient merge k = 2,
-                and AMP fp16 with dynamic loss scaling and a first step
-                forced to overflow; loss scale, counters and merge count
-                exactly equal, losses and weights within stated limits
+                AMP fp16 with dynamic loss scaling and a first step forced
+                to overflow, and pure fp16 (amp.decorate O2,
+                multi_precision) with that scaler, recompute and merge;
+                loss scale, counters and merge count exactly equal, losses
+                and weights (O2: the fp32 masters, and the fp16 parameters
+                within an ulp more) within stated limits, O2 launching
+                only fp16 instantiations
   5. serve    — full gpt3-1.3b, bf16, LLMEngine(num_slots=8, block_len=8,
                 n_blocks=64, prefill_chunk=64, prefix cache off, as in the
                 runs before it was ported) on a MonotonicClock via
@@ -121,6 +141,11 @@ Phases:
                 each; kernel launch counts are zeroed just before and read
                 just after; 4 streams and their first-step logits are
                 compared with generate()
+  5e. serve_fp16 — the same cell with the model built in fp32 and cast by
+                model.to(dtype=torch.float16): the fp16 LayerNorm and paged
+                attention (tensor-core route, as the profiler names it)
+                launched exactly (2 L + 1) and L times a step and no bf16
+                one, phase 5's readings and its comparison with generate()
   5b. sampling — the sampling slice's arithmetic on the card against the
                 port's CPU path at gpt3-1.3b's vocabulary: threefry lane
                 keys, fold_in, split and random bits over [8, 50304] and
@@ -191,6 +216,13 @@ Phases:
  13. train_amp_fp16 — the same in fp16 with dynamic loss scaling (init
                 32768), fewer timed steps: the fp16 flash kernels
                 launched, the skipped micro-steps and the final scale
+ 13b. train_fp16_o2 — the same cell in Paddle's pure-fp16 recipe:
+                amp.decorate(level="O2", dtype="float16"), AdamW(
+                multi_precision=True), the same strategy in fp16: exactly
+                the fp16 instantiations a micro-step (LayerNorm 98/49,
+                flash 48/24/24, fused Adam 293 on applying micro-steps),
+                none in fp32 or bf16; tokens/s, micro-step ms, MFU, peak
+                memory, finite losses, skipped micro-steps, final scale
  14. moe_train — full ernie-moe-base (12 layers, 6 of them MoE with 8
                 experts, top-2, capacity factor 1.25), bf16, B=8, S=1024,
                 AdamW (lr 1e-4, wd 0.01, fp32 moments), as bench.py trains
@@ -338,6 +370,14 @@ def ulp_bf16(x):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
+def ulp_fp16(x):
+    """One fp16 unit in the last place at |x| (11 significant bits; the
+    subnormal spacing, 2^-24, below 2^-14)."""
+    import torch
+    a = x.float().abs().clamp_min(2.0 ** -14)
+    return torch.exp2(torch.floor(torch.log2(a)) - 10)
+
+
 # ---------------------------------------------------------------- phase 1
 def phase_device():
     import torch
@@ -364,6 +404,10 @@ TENSOR_CORE_KERNELS = {"flash_fwd_kernel_tc": ("HGMMA",),
                        "flash_bwd_dq_kernel_tc": ("HGMMA",),
                        "flash_bwd_dkv_kernel_tc": ("HGMMA",),
                        "paged_attention_kernel_tc": ("HMMA", "HGMMA")}
+# the fp16 instantiations of each (pure-fp16 training and fp16 serving)
+TENSOR_CORE_FP16 = {"flash_fwd_kernel_tc": 6, "flash_bwd_dq_kernel_tc": 6,
+                    "flash_bwd_dkv_kernel_tc": 6,
+                    "paged_attention_kernel_tc": 16}
 
 
 def tensor_core_instructions(sass, name, opcodes):
@@ -388,6 +432,13 @@ def phase_build():
         found = tensor_core_instructions(sass, name, opcodes)
         check(found, f"{name}: no {' or '.join(opcodes)} instruction in its "
                      f"machine code ({sass})")
+        # the fp16 instantiations are among them: every flash kernel's
+        # head dim 64/128 x plain, mask, dropout, the paged kernel's head
+        # dim 64/128 x block_len 8..64
+        fp16 = [k for k in found if MANGLED_16BIT["float16"] in k]
+        check(len(fp16) == TENSOR_CORE_FP16[name],
+              f"{name}: {len(fp16)} fp16 instantiations on the tensor "
+              f"cores, want {TENSOR_CORE_FP16[name]}: {sorted(found)}")
         tensor_core[name] = list(found.values())
         if not _kernels.ptxas_report:
             continue     # loaded from an earlier build: no report to read
@@ -421,32 +472,39 @@ def phase_build():
 WIDE_OPCODES = ("LDG.E.128", "STG.E.128")
 
 
+# the 16-bit types' names as they follow the kernel's in a mangled symbol
+MANGLED_16BIT = {"bfloat16": "13__nv_bfloat16", "float16": "6__half"}
+
+
 def layernorm_build_checks(_kernels, stats):
-    """Every bf16 LayerNorm instantiation on the 16-byte path (the forward's
-    and the backward's first pass, `kWide` true: `Lb1E` right after the
-    type in the mangled name; one a table entry of ops/layernorm.py)
-    holds LDG.E.128 and STG.E.128 in its machine code, and no LayerNorm
-    kernel spills."""
+    """Every bf16 and fp16 LayerNorm instantiation on the 16-byte path (the
+    forward's and the backward's first pass, `kWide` true: `Lb1E` right
+    after the type in the mangled name; one a table entry of
+    ops/layernorm.py) holds LDG.E.128 and STG.E.128 in its machine code,
+    and no LayerNorm kernel spills."""
     import torch
     from paddle_tpu_torch.ops import layernorm as ln
     sass = _kernels.sass_instruction_counts(WIDE_OPCODES)
-    wide_re = re.compile(r"layernorm_(fwd|bwd)_kernelI13__nv_bfloat16Lb1E")
-    wide = {k: c for k, c in sass.items() if wide_re.search(k)}
-    want = (len(ln.FWD_BUCKETS[torch.bfloat16])
-            + len(ln.BWD_BUCKETS[torch.bfloat16]))
-    check(len(wide) == want and all(all(c[op] for op in WIDE_OPCODES)
-                                    for c in wide.values()),
-          f"bf16 LayerNorm kernels on the 16-byte path: {len(wide)} of "
-          f"{want} found with {' and '.join(WIDE_OPCODES)}: {wide}; every "
-          f"LayerNorm function's counts: "
-          f"{ {k: c for k, c in sass.items() if 'layernorm' in k} }")
+    wide = {}
+    for dname, mangled in MANGLED_16BIT.items():
+        dtype = getattr(torch, dname)
+        wide_re = re.compile(rf"layernorm_(fwd|bwd)_kernelI{mangled}Lb1E")
+        found = {k: c for k, c in sass.items() if wide_re.search(k)}
+        want = len(ln.FWD_BUCKETS[dtype]) + len(ln.BWD_BUCKETS[dtype])
+        check(len(found) == want and all(all(c[op] for op in WIDE_OPCODES)
+                                         for c in found.values()),
+              f"{dname} LayerNorm kernels on the 16-byte path: {len(found)} "
+              f"of {want} found with {' and '.join(WIDE_OPCODES)}: {found}; "
+              f"every LayerNorm function's counts: "
+              f"{ {k: c for k, c in sass.items() if 'layernorm' in k} }")
+        wide.update(found)
     mine = {k: v for k, v in stats.items() if "layernorm" in k}
     if _kernels.ptxas_report:
         check(mine, "no LayerNorm kernel in ptxas's report")
         spills = {k: v for k, v in mine.items()
                   if v["spill_stores"] or v["spill_loads"]}
         check(not spills, f"LayerNorm kernels spill registers: {spills}")
-    return {"wide_bf16": {k: dict(c, registers=mine.get(k, {}).get(
+    return {"wide_16bit": {k: dict(c, registers=mine.get(k, {}).get(
                 "registers")) for k, c in wide.items()},
             "registers": {k: v["registers"] for k, v in mine.items()},
             "spills": 0 if _kernels.ptxas_report else None}
@@ -584,11 +642,45 @@ def _sdpa_inputs(torch, c):
 BF16_PA_ULPS = 2
 BF16_PA_ATOL = 1e-3
 BF16_PA_SHARE = 1e-3
+# fp16 paged attention (fp16 serving): the bf16 rule scaled by the ulp,
+# 2^-11 against 2^-8. One ulp of the output is 2^-3 of bf16's, and the
+# ulp count stays. How often the two sides' fp32 values (of p, and of the
+# output) straddle a rounding boundary is their fp32 difference over the
+# spacing of the rounded values, 2^3 times bf16's for the same
+# difference: the share grows by 2^3. A p that lands on the other side of
+# an fp16 boundary moves its output by 2^-11 p |v| / l, and with 2^3 as
+# many flips the rare large ones come 2^3 times as often too: the atol is
+# the move of one flip where p |v| / l reaches 1, 2^-11 (bf16's 1e-3
+# scaled by 2^-3, 1.25e-4, was measured too small: the CUDA test's GQA
+# prefill at served lengths put an element 1.5e-4 past two ulps, and the
+# plain fp16 version is itself 1.2e-4 past two ulps from fp32 arithmetic
+# on the same inputs there). A side that skipped the p rounding would
+# move most outputs by a fraction of an ulp of p (half an output ulp,
+# typically), far past the share: fp16_paged_kernels reads that control
+# (the plain version in fp32, its output rounded once) at each of its
+# shapes and fails unless the control breaks the rule (PERF.md row 2h has
+# its readings).
+FP16_PA_ULPS = BF16_PA_ULPS
+FP16_PA_ATOL = 2.0 ** -11
+FP16_PA_SHARE = BF16_PA_SHARE * 2.0 ** 3
+
+
+def half_readings(torch, out, ref, ulp_of, n_ulps):
+    """The readings the *_PA_* rules hold: the largest difference, its
+    largest excess over one and over `n_ulps` ulps of the output, and the
+    share of elements more than one ulp apart."""
+    err = (out.float() - ref.float()).abs()
+    ulp = ulp_of(torch.maximum(out.float().abs(), ref.float().abs()))
+    return dict(max_abs_err=float(err.max()),
+                max_excess_over_1ulp=float((err - ulp).max()),
+                max_excess_over_2ulp=float((err - n_ulps * ulp).max()),
+                share_over_1ulp=float((err > ulp).float().mean()))
 
 
 def check_paged(torch, c, label, tol=None):
     """Kernel against plain version on the case `c`. bf16 takes the limits
-    above; fp32 takes atol = rtol = `tol`. Returns (readings, args)."""
+    above, fp16 the FP16_PA_* ones; fp32 takes atol = rtol = `tol`.
+    Returns (readings, args)."""
     from paddle_tpu_torch.ops.paged_attention import (paged_attention_cuda,
                                                       paged_attention_plain)
     scale = 1.0 / math.sqrt(c["q"].shape[-1])
@@ -601,21 +693,21 @@ def check_paged(torch, c, label, tol=None):
           f"paged attention {label}: non-finite output")
     err = (out.float() - ref.float()).abs()
     worst = float(err.max())
-    if c["q"].dtype == torch.bfloat16:
-        ulp = ulp_bf16(torch.maximum(out.float().abs(), ref.float().abs()))
-        readings = dict(
-            max_abs_err=worst,
-            max_excess_over_1ulp=float((err - ulp).max()),
-            max_excess_over_2ulp=float((err - 2 * ulp).max()),
-            share_over_1ulp=float((err > ulp).float().mean()))
-        check(readings["max_excess_over_2ulp"] <= BF16_PA_ATOL,
+    if c["q"].dtype in (torch.bfloat16, torch.float16):
+        half = c["q"].dtype == torch.float16
+        ulp_of, n_ulps, atol, share, name = (
+            (ulp_fp16, FP16_PA_ULPS, FP16_PA_ATOL, FP16_PA_SHARE, "fp16")
+            if half else
+            (ulp_bf16, BF16_PA_ULPS, BF16_PA_ATOL, BF16_PA_SHARE, "bf16"))
+        readings = half_readings(torch, out, ref, ulp_of, n_ulps)
+        check(readings["max_excess_over_2ulp"] <= atol,
               f"paged attention {label}: an element is "
-              f"{readings['max_excess_over_2ulp']} past {BF16_PA_ULPS} bf16 "
-              f"ulps, limit {BF16_PA_ATOL}")
-        check(readings["share_over_1ulp"] <= BF16_PA_SHARE,
+              f"{readings['max_excess_over_2ulp']} past {n_ulps} {name} "
+              f"ulps, limit {atol}")
+        check(readings["share_over_1ulp"] <= share,
               f"paged attention {label}: {readings['share_over_1ulp']} of "
-              f"the elements are more than one bf16 ulp apart, limit "
-              f"{BF16_PA_SHARE}")
+              f"the elements are more than one {name} ulp apart, limit "
+              f"{share}")
     else:
         readings = dict(max_abs_err=worst)
         check(bool((err <= tol + tol * ref.float().abs()).all()),
@@ -1339,19 +1431,33 @@ def phase_train_kernels():
     return results
 
 
-# ------------------------------------ phase 3b': the fp16 flash kernels
-# The fp16 instantiations of the tensor-core forward, dq and dk/dv (AMP in
-# float16) at the train step's shape, [4, 16, 1024, 128] causal, against
-# their plain versions under the FP16_TRAIN_* rule, plus edge shapes; two
-# runs bit-equal; timed beside F.scaled_dot_product_attention in fp16
-# (forward, and its backward for the pair) and their bounds.
+# ------------------------------------ phase 3b': the fp16 kernels
+# Every fp16 instantiation (AMP in float16, pure-fp16 O2 training, fp16
+# serving) against its plain version on the card, each run twice
+# bit-equal and timed (median of 21 CUDA-event samples) beside its bound,
+# its plain version and, where one PyTorch call computes the same
+# function, that call:
+#   - the tensor-core forward, dq and dk/dv at the train step's shape,
+#     [4, 16, 1024, 128] causal, under the FP16_TRAIN_* rule, plus edge
+#     shapes, beside F.scaled_dot_product_attention in fp16 (forward, and
+#     its backward for the pair);
+#   - the LayerNorm forward and backward at the served step's 512 x 2048
+#     and the train step's 4096 x 2048, under the FP16_TRAIN_* rule (the
+#     fp32 plain version on the same fp16 inputs the yardstick; mean and
+#     rstd within 1e-5), beside fp16 F.layer_norm and its backward;
+#   - fused Adam bit for bit in every dtype combination with fp16 in it,
+#     and at the word embedding (103.0 M elements) with pure-fp16
+#     training's dtypes: fp16 p and g, an fp32 master, fp32 moments;
+#   - paged attention at phase 3's serve shape on both routes (block_len 8
+#     on the tensor cores, 12 on the scalar kernel) and at its GQA shape,
+#     under the FP16_PA_* rule, beside fp16 SDPA over the gathered pages.
 FP16_FLASH_EDGES = {"fp16_ragged_d64": (2, 4, 333, 333, 64, True),
                     "fp16_sq_gt_sk_noncausal": (1, 4, 190, 70, 128, False),
                     "fp16_sq_lt_sk_d32": (1, 3, 100, 300, 32, True),
                     "fp16_bh160": (4, 40, 128, 128, 128, True)}
 
 
-def phase_fp16_kernels():
+def fp16_flash_kernels():
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.attention import (flash_attention_delta,
@@ -1442,6 +1548,313 @@ def phase_fp16_kernels():
     return results
 
 
+FP16_LN_SHAPES = ((8 * 64, 2048), (TRAIN_B * TRAIN_S, 2048))  # serve, train
+
+
+def _equal_runs(torch, fn, n=2):
+    """`fn()` run n times (a tuple of tensors each): whether all runs are
+    bit-equal."""
+    runs = [fn() for _ in range(n)]
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for r in runs[1:]
+               for a, b in zip(runs[0], r))
+
+
+def fp16_layernorm_kernels():
+    """The fp16 LayerNorm forward and backward at FP16_LN_SHAPES: checked,
+    twice bit-equal, timed. Returns {"layernorm_fwd_fp16": reading,
+    "layernorm_bwd_fp16": reading}, the readings at the served shape
+    (forward) and the train shape (backward), the other shape beside."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.layernorm import (layer_norm_bwd_cuda,
+                                                layer_norm_bwd_plain,
+                                                layer_norm_fwd_cuda,
+                                                layer_norm_fwd_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 13)
+    h = torch.float16
+    tol = (f"fp16: max error from the fp32 plain version on the same fp16 "
+           f"inputs <= {FP16_TRAIN_FACTOR} x the fp16 plain version's + "
+           f"{FP16_TRAIN_ATOL}; mean and rstd within 1e-5")
+    by_shape = {}
+    for R, N in FP16_LN_SHAPES:
+        x = (torch.randn(R, N, generator=gen, device="cuda") * 3 + 0.5).to(h)
+        w, b, dy = (torch.randn(*s_, generator=gen, device="cuda").to(h)
+                    for s_ in ((N,), (N,), (R, N)))
+        label = f"fp16 {R}x{N}"
+        y, mu, rstd = layer_norm_fwd_cuda(x, w, b, 1e-5)
+        y_ref, mu_ref, rstd_ref = layer_norm_fwd_plain(x, w, b, 1e-5)
+        y32, _, _ = layer_norm_fwd_plain(x.float(), w.float(), b.float(),
+                                         1e-5)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y.float()).all()),
+              f"layernorm {label}: non-finite output")
+        fwd = _check_bf16(torch, y, y_ref, y32, f"layernorm {label} y")
+        fwd["stat_err"] = max(float((mu - mu_ref).abs().max()), float(
+            ((rstd - rstd_ref) / rstd_ref).abs().max()))
+        check(fwd["stat_err"] <= 1e-5, f"layernorm {label}: mean/rstd "
+                                       f"differ by {fwd['stat_err']}")
+        bwd = check_layernorm_bwd(torch, x, w, b, dy, label)
+        equal = (_equal_runs(torch, partial(layer_norm_fwd_cuda, x, w, b,
+                                            1e-5))
+                 and _equal_runs(torch, partial(layer_norm_bwd_cuda, x, w,
+                                                mu, rstd, dy)))
+        check(equal, f"layernorm {label}: two runs differ")
+        # the step reads the residual sum the op before it just wrote: the
+        # forward's input stays warm; the backward's x and dy (the train
+        # shape's 34 MB) cycle over two copies, as a layer's would
+        ins = [(x, dy), (x.clone(), dy.clone())]
+        t = {"fwd": time_cuda([partial(layer_norm_fwd_cuda, x, w, b,
+                                       1e-5)]),
+             "bwd": time_cuda([partial(layer_norm_bwd_cuda, x_, w, mu, rstd,
+                                       dy_) for x_, dy_ in ins])}
+        plain = {"fwd": time_cuda([partial(layer_norm_fwd_plain, x, w, b,
+                                           1e-5)])[0],
+                 "bwd": time_cuda([partial(layer_norm_bwd_plain, x, w, mu,
+                                           rstd, dy)])[0]}
+        lib = {"fwd": time_cuda([partial(F.layer_norm, x, (N,), w, b,
+                                         1e-5)])[0],
+               "bwd": time_cuda([_ln_bwd_call(torch, F, x_, w, b, dy_)
+                                 for x_, dy_ in ins])[0]}
+        el = 2
+        bo = {"fwd": (2 * R * N * el + 2 * N * el + 2 * R * 4, 8 * R * N),
+              "bwd": (3 * R * N * el + N * el + 2 * R * 4 + 2 * N * el,
+                      13 * R * N)}
+        errs = {"fwd": fwd["err"],
+                "bwd": max(v["err"] for v in bwd.values())}
+        cold = {}
+        if R * N * 2 > 8 * 2**20:
+            # a train step's forward input may also come from HBM: the
+            # input cycled over L2_COPIES copies, kernel and library alike
+            xs = [x] + [x.clone() for _ in range(L2_COPIES - 1)]
+            cold["cold_ms"] = time_cuda([partial(
+                layer_norm_fwd_cuda, x_, w, b, 1e-5) for x_ in xs])[0]
+            cold["cold_library_ms"] = time_cuda([partial(
+                F.layer_norm, x_, (N,), w, b, 1e-5) for x_ in xs])[0]
+            del xs
+        for k in ("fwd", "bwd"):
+            bound, by = bound_ms(*bo[k], "float16")
+            if k == "fwd" and cold:
+                cold["cold_share_of_bound"] = bound / cold["cold_ms"]
+            by_shape[(k, R)] = dict(
+                **(cold if k == "fwd" else {}),
+                max_abs_err=errs[k], tol=tol, ms=t[k][0], call_ms=t[k][1],
+                plain_ms=plain[k], library_ms=lib[k], bound_ms=bound,
+                bound_by=by, bytes=bo[k][0], ops=bo[k][1],
+                share_of_bound=bound / t[k][0], bitwise_runs=2,
+                checks=fwd if k == "fwd" else bwd,
+                shape=dict(R=R, N=N, dtype="float16"),
+                note=None if k == "fwd" else
+                "library_ms: the backward of F.layer_norm (dx, dw, db)")
+        del x, w, b, dy, y, mu, rstd, y_ref, y32, ins
+    # widths that are not whole 16-byte packs (the scalar-access path) and
+    # the widest row
+    edges = {}
+    for R, N in ((5, 1000), (3, 8192)):
+        x, w, b, dy = (torch.randn(*s_, generator=gen, device="cuda").to(h)
+                       for s_ in ((R, N), (N,), (N,), (R, N)))
+        y, _, _ = layer_norm_fwd_cuda(x, w, b, 1e-5)
+        y_ref, _, _ = layer_norm_fwd_plain(x, w, b, 1e-5)
+        y32, _, _ = layer_norm_fwd_plain(x.float(), w.float(), b.float(),
+                                         1e-5)
+        edges[f"{R}x{N}"] = dict(
+            y=_check_bf16(torch, y, y_ref, y32, f"layernorm fp16 {R}x{N} y"),
+            bwd=check_layernorm_bwd(torch, x, w, b, dy, f"fp16 {R}x{N}"))
+        del x, w, b, dy, y, y_ref, y32
+    emit({"phase": "kernel_checks", "name": "layernorm_fp16_edges",
+          "cases": edges, "tol": tol})
+    (r_serve, _), (r_train, _) = FP16_LN_SHAPES
+    results = {
+        "layernorm_fwd_fp16": dict(by_shape[("fwd", r_serve)],
+                                   at_train_shape=by_shape[("fwd",
+                                                            r_train)]),
+        "layernorm_bwd_fp16": dict(by_shape[("bwd", r_train)],
+                                   at_serve_shape=by_shape[("bwd",
+                                                            r_serve)])}
+    for name, reading in results.items():
+        emit({"phase": "kernel", "name": name, **reading})
+    torch.cuda.empty_cache()
+    return results
+
+
+# fused Adam's dtype combinations with fp16 in them (p, g, moments, an fp32
+# master): pure-fp16 training's first (fp16 p and g, fp32 master and
+# moments), then the rest the JAX kernel takes
+FP16_ADAM_DTYPES = {
+    "fp16_master_fp32_m": ("float16", "float16", "float32", True),
+    "fp16_master_fp16_m": ("float16", "float16", "float16", True),
+    "fp16": ("float16", "float16", "float16", False),
+    "fp16_p_fp32_m": ("float16", "float16", "float32", False),
+    "fp32_p_fp16_g_fp16_m": ("float32", "float16", "float16", False),
+    "bf16_master_fp16_m": ("bfloat16", "bfloat16", "float16", True),
+    "fp16_p_bf16_g_m": ("float16", "bfloat16", "bfloat16", False),
+}
+FP16_ADAM_LEAVES = ("n2049", "n1000", "linear1.weight")
+
+
+def fp16_adam_kernel():
+    """Fused Adam with fp16 operands bit for bit against its plain version
+    (FP16_ADAM_DTYPES over FP16_ADAM_LEAVES, decoupled or not), then at
+    the word embedding with pure-fp16 training's dtypes: checked, twice
+    bit-equal, timed beside its plain version. No PyTorch call computes
+    this update: torch._fused_adamw_ takes one dtype for p, g and both
+    moments and keeps no master weight."""
+    import torch
+    from paddle_tpu_torch.ops.fused_adam import (fused_adam_cuda,
+                                                 fused_adam_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 14)
+    cases = {}
+    for leaf in FP16_ADAM_LEAVES:
+        n = ADAM_LEAVES[leaf]
+        for dname, (pd, gd, md, master) in FP16_ADAM_DTYPES.items():
+            for decoupled in (False, True):
+                label = f"{leaf} {dname} decoupled={decoupled}"
+                c = _adam_leaf(torch, gen, n, getattr(torch, pd),
+                               getattr(torch, md), master,
+                               getattr(torch, gd))
+                cases[label] = check_adam(torch, c, decoupled, label)
+                del c
+    n = ADAM_LEAVES["word_embeddings.weight"]
+    h, f32 = torch.float16, torch.float32
+    c = _adam_leaf(torch, gen, n, h, f32, True)
+    first = {k: None if v is None else v.clone() for k, v in c.items()}
+    label = "word_embeddings.weight fp16_master_fp32_m decoupled=True"
+    cases[label] = check_adam(torch, c, True, label)
+    kw = dict(ADAM_HP, decoupled=True)
+    sc = adam_scalars(torch)
+
+    def update():
+        d = {k: None if v is None else v.clone() for k, v in first.items()}
+        fused_adam_cuda(d["p"], d["g"], d["m1"], d["m2"], *sc, 0.1,
+                        master=d["master"], **kw)
+        return tuple(d[k] for k in ("p", "m1", "m2", "master"))
+    check(_equal_runs(torch, update), "fused_adam fp16: two runs differ")
+    del first
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel_checks", "name": "fused_adam_fp16",
+          "cases": cases, "bitwise_runs": 2})
+    args = (c["p"], c["g"], c["m1"], c["m2"], *sc, 0.1)
+    # a leaf of 3.1 GB is far past the 50 MB L2: every call cold
+    ms, call_ms = time_cuda([partial(fused_adam_cuda, *args,
+                                     master=c["master"], **kw)])
+    plain_ms, _ = time_cuda([partial(fused_adam_plain, *args,
+                                     master=c["master"], **kw)], per_rep=2)
+    n_bytes, n_ops = adam_bytes_ops(n, 2, 4, True)
+    bound, by = bound_ms(n_bytes, n_ops, "float32")
+    del c, args
+    torch.cuda.empty_cache()
+    result = dict(
+        max_abs_err=max(cases.values()),
+        tol="0: bit for bit against the plain version on the card, every "
+            "fp16 dtype, master and decay case",
+        ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=None,
+        bound_ms=bound, bound_by=by, bytes=n_bytes, ops=n_ops,
+        share_of_bound=bound / ms, bitwise_runs=2,
+        shape=dict(n=n, p="float16", g="float16", moments="float32",
+                   master="float32"),
+        note="library_ms null: torch._fused_adamw_ takes one dtype for p, "
+             "g and both moments and keeps no master weight, so no "
+             "PyTorch call computes this update")
+    emit({"phase": "kernel", "name": "fused_adam_fp16", **result})
+    return {"fused_adam_fp16": result}
+
+
+def fp16_paged_kernels():
+    """fp16 paged attention at phase 3's serve shape (gpt3-1.3b heads, 8
+    slots, 64-wide rows, lengths up to 512) on the tensor cores (block_len
+    8) and on the scalar kernel (block_len 12), and at its GQA shape (16
+    query heads over 4): checked, twice bit-equal, timed with the slabs
+    cycled past L2 as a served step's layers find them. Returns
+    {"paged_attention_fp16": reading}."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.paged_attention import (TENSOR_CORES,
+                                                      paged_attention_cuda,
+                                                      paged_attention_plain,
+                                                      paged_route)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 15)
+    h = torch.float16
+    lens = [512, 37, 200, 1, 448, 64, 300, 129]
+    common = dict(dtype=h, D=128, lens=lens, decode_rows=(1, 3, 6))
+    shapes = {"serve_bl8": dict(H=16, Hkv=16),
+              "serve_bl12_scalar": dict(H=16, Hkv=16, block_len=12,
+                                        n_blocks=43),
+              "gqa_bl8": dict(H=16, Hkv=4)}
+    readings = {}
+    for label, kw in shapes.items():
+        c = _paged_case(torch, gen, **common, **kw)
+        bl = c["block_len"]
+        check_r, args = check_paged(torch, c, f"fp16 {label}")
+        # the control: the plain version in fp32 (p not rounded to fp16),
+        # its output rounded once, held to the same rule against the fp16
+        # plain version. It must fail the rule, or the rule cannot tell a
+        # kernel that skipped the p rounding.
+        control = half_readings(
+            torch, paged_attention_plain(*(t.float() for t in args[:3]),
+                                         *args[3:]).half(),
+            paged_attention_plain(*args), ulp_fp16, FP16_PA_ULPS)
+        check(control["max_excess_over_2ulp"] > FP16_PA_ATOL
+              or control["share_over_1ulp"] > FP16_PA_SHARE,
+              f"paged attention fp16 {label}: the no-rounding control "
+              f"{control} passes the FP16_PA_* rule")
+        check(_equal_runs(torch, lambda: (paged_attention_cuda(*args),)),
+              f"paged attention fp16 {label}: two runs differ")
+        slabs = [args[1:3]] + [(args[1].clone(), args[2].clone())
+                               for _ in range(L2_COPIES - 1)]
+        ms, call_ms = time_cuda([
+            partial(paged_attention_cuda, args[0], k, v, *args[3:])
+            for k, v in slabs])
+        plain_ms, _ = time_cuda([partial(paged_attention_plain, *args)],
+                                per_rep=1, warmup=1)
+        q, ks, vs, mask = _sdpa_inputs(torch, c)
+        lib_kv = [(ks, vs)] + [(ks.clone(), vs.clone())
+                               for _ in range(L2_COPIES - 1)]
+        lib_ms, _ = time_cuda([
+            partial(F.scaled_dot_product_attention, q, k, v, attn_mask=mask,
+                    scale=args[-1]) for k, v in lib_kv])
+        n_bytes, n_ops = _paged_bytes_ops(c)
+        bound, by = bound_ms(n_bytes, n_ops, "float16")
+        readings[label] = dict(
+            route=paged_route(h, bl, 128), max_abs_err=check_r[
+                "max_abs_err"], checks=check_r, no_rounding_control=control,
+            tol=f"fp16: each element within {FP16_PA_ULPS} fp16 ulps + "
+                f"{FP16_PA_ATOL}, at most {FP16_PA_SHARE} of them past one "
+                f"ulp (the bf16 rule scaled by the ulp: share x 2^3; atol "
+                f"one p flip at p|v|/l = 1)",
+            ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=bound, bound_by=by, bytes=n_bytes, ops=n_ops,
+            tflops=n_ops / ms / 1e9, share_of_bound=bound / ms,
+            bitwise_runs=2,
+            shape=dict(B=8, H=kw["H"], Hkv=kw["Hkv"], Tq=64, D=128,
+                       block_len=bl, pages_per_row=c["pages_per_row"],
+                       seq_lens=lens, dtype="float16"),
+            note="ms and library_ms with the slabs cycled over "
+                 f"{L2_COPIES} copies (past L2)")
+        del c, args, slabs, q, ks, vs, mask, lib_kv, control
+    check(readings["serve_bl8"]["route"] == TENSOR_CORES
+          and readings["gqa_bl8"]["route"] == TENSOR_CORES
+          and readings["serve_bl12_scalar"]["route"] != TENSOR_CORES,
+          "fp16 paged routes: "
+          + str({k: r["route"] for k, r in readings.items()}))
+    result = dict(readings["serve_bl8"],
+                  scalar_route=readings["serve_bl12_scalar"],
+                  at_gqa_shape=readings["gqa_bl8"])
+    emit({"phase": "kernel", "name": "paged_attention_fp16", **result})
+    torch.cuda.empty_cache()
+    return {"paged_attention_fp16": result}
+
+
+def phase_fp16_kernels():
+    """Phase 3b' (the note above): {kernel name: reading}."""
+    results = fp16_flash_kernels()
+    results.update(fp16_layernorm_kernels())
+    results.update(fp16_adam_kernel())
+    results.update(fp16_paged_kernels())
+    return results
+
 # ------------------------------------------------ phase 3c: the optimizer
 # Fused Adam against its plain version on the card: bit for bit (tolerance
 # 0). Both run _adam_math's operations in one order, each rounded once (the
@@ -1458,12 +1871,14 @@ ADAM_OPS = 16     # fp32 operations an element (_adam_math, either decay)
 ADAM_HP = dict(beta1=0.9, beta2=0.95, epsilon=1e-8)
 
 
-def _adam_leaf(torch, gen, n, pdtype, mdtype, master):
-    """p, g, m1, m2 and the optional fp32 master of one flat leaf."""
+def _adam_leaf(torch, gen, n, pdtype, mdtype, master, gdtype=None):
+    """p, g (of p's dtype unless `gdtype`), m1, m2 and the optional fp32
+    master of one flat leaf."""
     def r():
         return torch.randn(n, generator=gen, device="cuda")
     p32 = r()
-    return dict(p=p32.to(pdtype), g=r().to(pdtype), m1=(r() * 0.1).to(mdtype),
+    return dict(p=p32.to(pdtype), g=r().to(gdtype or pdtype),
+                m1=(r() * 0.1).to(mdtype),
                 m2=(r().abs() * 0.01).to(mdtype),
                 master=p32 if master else None)
 
@@ -1477,9 +1892,11 @@ def adam_scalars(torch, lr=1e-4, step=5):
 
 
 def adam_bytes_ops(n, p_el, m_el, master):
-    """Bytes fused Adam must move over a leaf of n elements (p, m1, m2 and
-    the master read and written, g read) and its operations."""
-    per = 2 * p_el + p_el + 4 * m_el + (8 if master else 0)
+    """Bytes fused Adam must move over a leaf of n elements and its
+    operations: g read; m1, m2 and p read and written, except that with a
+    master the kernel reads the fp32 master in p's place and writes both."""
+    per = p_el + (0 if master else p_el) + p_el + 4 * m_el + (
+        8 if master else 0)
     return n * per, n * ADAM_OPS
 
 
@@ -1521,7 +1938,9 @@ def check_adam_flag(torch, gen):
     kw = dict(ADAM_HP, decoupled=True)
     out = {}
     for name, (pd, md, master) in {"fp32": (f32, f32, False),
-                                   "bf16_master": (bf, bf, True)}.items():
+                                   "bf16_master": (bf, bf, True),
+                                   "fp16_master": (torch.float16, f32,
+                                                   True)}.items():
         c = _adam_leaf(torch, gen, ADAM_LEAVES["linear1.weight"], pd, md,
                        master)
         runs = {}
@@ -1673,6 +2092,8 @@ VARIANT_CASES = {  # mask, causal, dropout p; "plain": the reference's rule
     "a": ("padding", False, 0.0), "b": ("padding", True, 0.0),
     "c": ("normal_bf16_per_head", False, 0.0), "d": ("normal_3d", False, 0.0),
     "e": (None, True, VARIANT_P), "f": ("padding", True, VARIANT_P)}
+# the cases the fp16 instantiations of the variants run (pure-fp16 training)
+VARIANT_FP16_CASES = "abe"
 # case f's dmask: the plain reference run in bf16 rounds p, dp and out to
 # bf16 once each on the way; four bf16 ulps at the largest |dmask| (2^-6
 # of it) bound what that rounding can move an element
@@ -1780,6 +2201,125 @@ def _sdpa_fwd_bwd_call(torch, sdpa, copy, causal, mask):
     return run
 
 
+def time_variants(torch, copies, masks, cases, prefix):
+    """Phase 3d's timing at [4,16,1024,128] in the dtype of `copies` (two
+    copies of q, k, v, g, cycled so a call finds its 67 MB of inputs out of
+    L2): cases a (mask), b (mask, causal) and e (dropout, causal) of
+    `cases` (keys prefix + letter), each beside the kernel without the
+    variant, its plain version and one library call. Returns {kernel
+    name: reading}, the names suffixed "_fp16" for fp16."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import _kernels
+    from paddle_tpu_torch.ops.attention import (dropout_keep_mask,
+                                                flash_attention_delta,
+                                                flash_bwd_dkv_cuda,
+                                                flash_bwd_dq_cuda,
+                                                flash_bwd_plain,
+                                                flash_fwd_cuda,
+                                                flash_fwd_plain)
+    q, k, v, g = copies[0]
+    B, H, S, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    half = q.dtype == torch.float16
+    dname = str(q.dtype)[6:]
+    short, factor, atol = (("fp16", FP16_TRAIN_FACTOR, FP16_TRAIN_ATOL)
+                           if half else
+                           ("bf16", BF16_TRAIN_FACTOR, BF16_TRAIN_ATOL))
+    results = {}
+    for c in "abe":
+        _, causal, p = VARIANT_CASES[c]
+        mask = masks[c]
+        fwd_outs = [flash_fwd_cuda(cq, ck, cv, causal, scale, mask, p,
+                                   VARIANT_SEED) for cq, ck, cv, _ in copies]
+        deltas = [flash_attention_delta(cg, o) for (_, _, _, cg), (o, _)
+                  in zip(copies, fwd_outs)]
+        t = {"flash_fwd": time_cuda([
+            partial(flash_fwd_cuda, cq, ck, cv, causal, scale, mask, p,
+                    VARIANT_SEED) for cq, ck, cv, _ in copies])}
+        t["flash_bwd_dq"] = time_cuda([
+            partial(flash_bwd_dq_cuda, cq, ck, cv, cg, lse, dl, causal, scale,
+                    mask, p, VARIANT_SEED)
+            for (cq, ck, cv, cg), (_, lse), dl in zip(copies, fwd_outs,
+                                                      deltas)])
+        t["flash_bwd_dkv"] = time_cuda([
+            partial(flash_bwd_dkv_cuda, cq, ck, cv, cg, lse, dl, causal,
+                    scale, mask, p, VARIANT_SEED)
+            for (cq, ck, cv, cg), (_, lse), dl in zip(copies, fwd_outs,
+                                                      deltas)])
+        # the same kernels without the variant
+        base = {"flash_fwd": time_cuda([
+            partial(flash_fwd_cuda, cq, ck, cv, causal, scale)
+            for cq, ck, cv, _ in copies])[0]}
+        base["flash_bwd_dq"] = time_cuda([
+            partial(flash_bwd_dq_cuda, cq, ck, cv, cg, lse, dl, causal,
+                    scale) for (cq, ck, cv, cg), (_, lse), dl
+            in zip(copies, fwd_outs, deltas)])[0]
+        base["flash_bwd_dkv"] = time_cuda([
+            partial(flash_bwd_dkv_cuda, cq, ck, cv, cg, lse, dl, causal,
+                    scale) for (cq, ck, cv, cg), (_, lse), dl
+            in zip(copies, fwd_outs, deltas)])[0]
+        keep_c = (dropout_keep_mask(VARIANT_SEED, B, H, S, S, p, "cuda")
+                  if p else None)
+        lse0, dl0 = fwd_outs[0][1], deltas[0]
+        plain_fwd, _ = time_cuda([partial(flash_fwd_plain, q, k, v, causal,
+                                          scale, mask, keep_c, p)],
+                                 per_rep=2)
+        plain_bwd, _ = time_cuda([partial(flash_bwd_plain, q, k, v, g, lse0,
+                                          dl0, causal, scale, mask, keep_c,
+                                          p)], per_rep=2)
+        if p:
+            kw = dict(dropout_p=p, is_causal=True)
+        else:
+            lib_mask = mask if not causal else torch.where(
+                torch.ones(S, S, dtype=torch.bool, device="cuda").tril(),
+                mask, float("-inf"))
+            kw = dict(attn_mask=lib_mask.to(q.dtype))
+        lib_fwd, _ = time_cuda([partial(F.scaled_dot_product_attention, cq,
+                                        ck, cv, **kw)
+                                for cq, ck, cv, _ in copies])
+        lib_bwd, _ = time_cuda([_sdpa_masked_bwd_call(torch, F, *cp, **kw)
+                                for cp in copies])
+        rows = 0 if p else mask.shape[0]
+        bo = variant_bytes_ops(B, H, S, D, causal, 2, rows)
+        suffix = ("_dropout" if p else "_mask") + (
+            _kernels.FP16_SUFFIX if half else "")
+        plain = {"flash_fwd": plain_fwd, "flash_bwd_dq": plain_bwd,
+                 "flash_bwd_dkv": plain_bwd}
+        read = cases[prefix + c]
+        err = {"flash_fwd": read["out"]["err"],
+               "flash_bwd_dq": read["dq"]["err"],
+               "flash_bwd_dkv": max(read["dk"]["err"], read["dv"]["err"])}
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            n_bytes, n_ops = bo[name]
+            bound, by = bound_ms(n_bytes, n_ops, dname)
+            reading = dict(
+                case=c, max_abs_err=err[name],
+                tol=(f"{short}: max error from the fp32 plain version "
+                     f"<= {factor} x the {short} plain version's + {atol}; "
+                     f"fp32 cases atol=rtol=1e-5 (out, lse), 1e-4 (dq, dk, "
+                     f"dv); keep-mask bit for bit"),
+                ms=t[name][0], call_ms=t[name][1], plain_ms=plain[name],
+                library_ms=lib_fwd if name == "flash_fwd" else lib_bwd,
+                without_variant_ms=base[name], bound_ms=bound, bound_by=by,
+                bytes=n_bytes, ops=n_ops, tflops=n_ops / t[name][0] / 1e9,
+                share_of_bound=bound / t[name][0],
+                shape=dict(B=B, H=H, Sq=S, Sk=S, D=D, causal=causal,
+                           dtype=dname,
+                           mask=None if p else list(mask.shape),
+                           dropout_p=p),
+                note=(None if name == "flash_fwd" else
+                      "plain_ms and library_ms compute dq, dk and dv "
+                      "together; library_ms: F.scaled_dot_product_"
+                      "attention's backward with " + ", ".join(kw)))
+            emit({"phase": "kernel", "name": name + suffix, **reading})
+            if c == "b":
+                results[name + suffix]["causal_case_b"] = reading
+            else:
+                results[name + suffix] = reading
+        del fwd_outs, deltas, keep_c
+    return results
+
+
 def phase_attention_variants():
     """Phase 3d. Returns ({kernel name: reading}, launch counts of the
     entry-point run)."""
@@ -1871,6 +2411,22 @@ def phase_attention_variants():
     cases["a"]["dmask"] = _check_bf16(torch, dm, dm_plain, dm32,
                                       "flash variant a dmask")
     del dm, dm_plain, dm32, ro, rl, ro32, rl32
+    # the fp16 instantiations of the variants (pure-fp16 training) at cases
+    # a, b and e, under the FP16_TRAIN_* rule, run twice bit-equal
+    gen16 = torch.Generator(device="cuda")
+    gen16.manual_seed(SEED + 16)
+    t16 = _flash_inputs(torch, gen16, B, H, S, S, D, torch.float16)
+    outs16 = {}
+    for c in VARIANT_FP16_CASES:
+        _, causal, p = VARIANT_CASES[c]
+        cases[f"fp16_{c}"], outs16[c] = check_variant(
+            torch, *t16, causal, masks[c], p, VARIANT_SEED,
+            f"{c} fp16 [4,16,1024,128]")
+        _, again = check_variant(torch, *t16, causal, masks[c], p,
+                                 VARIANT_SEED, f"{c} fp16 again")
+        check(all(torch.equal(a_, b_) for a_, b_ in zip(outs16[c], again)),
+              f"flash variant {c} fp16: two runs differ")
+        del again
     emit({"phase": "kernel_checks", "name": "flash_attention_variants",
           "keep_mask": keep_reading, "cases": cases,
           "bitwise_runs": 2, "cases_by_letter": {
@@ -1901,7 +2457,42 @@ def phase_attention_variants():
                         dmask=m.grad if c == "f" else None,
                         launched={n_: after[n_] - before[n_]
                                   for n_ in after if after[n_] > before[n_]})
+    # fp16 through the same entry point: the variants' fp16 instantiations
+    bshd16 = [t.transpose(1, 2) for t in t16[:3]]
+    ptt.seed(SEED + 1)
+    seed16_e = next_seed()      # case e's: a and b draw none
+    ptt.seed(SEED + 1)
+    entry16 = {}
+    for c in VARIANT_FP16_CASES:
+        _, causal, p = VARIANT_CASES[c]
+        leaves = [t.detach().requires_grad_() for t in bshd16]
+        before = _kernels.launch_counts()
+        o = scaled_dot_product_attention(*leaves, attn_mask=masks[c],
+                                         dropout_p=p, is_causal=causal,
+                                         training=True)
+        o.backward(t16[3].transpose(1, 2))
+        torch.cuda.synchronize()
+        after = _kernels.launch_counts()
+        entry16[c] = dict(out=o.detach(), grads=[t.grad for t in leaves],
+                          launched={n_: after[n_] - before[n_] for n_ in
+                                    after if after[n_] > before[n_]})
     launches = _kernels.launch_counts()
+    for c in VARIANT_FP16_CASES:
+        kind = "_dropout_fp16" if VARIANT_CASES[c][2] else "_mask_fp16"
+        check(entry16[c]["launched"] == {
+            k_ + kind: 1 for k_ in ("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv")},
+            f"fp16 case {c} launched {entry16[c]['launched']}")
+        ref = (outs16[c] if VARIANT_CASES[c][2] == 0.0 else check_variant(
+            torch, *t16, True, None, VARIANT_P, seed16_e,
+            "e fp16 at the entry point's seed")[1])
+        o, dq_, dk_, dv_ = (entry16[c]["out"], *entry16[c]["grads"])
+        check(torch.equal(o.transpose(1, 2), ref[0])
+              and torch.equal(dq_.transpose(1, 2), ref[2])
+              and torch.equal(dk_.transpose(1, 2), ref[3])
+              and torch.equal(dv_.transpose(1, 2), ref[4]),
+              f"fp16 case {c}: the entry point differs from its kernels")
+    del entry16, bshd16
     for c in "abcd":
         check(entry[c]["launched"] == dict.fromkeys(
             ("flash_fwd_mask", "flash_bwd_dq_mask", "flash_bwd_dkv_mask"), 1),
@@ -1962,97 +2553,10 @@ def phase_attention_variants():
     # and e (dropout, causal), each beside the kernel without the variant
     # and one library call; inputs cycled over two copies (67 MB each)
     copies = [(q, k, v, g), tuple(t.clone() for t in (q, k, v, g))]
-    results = {}
-    for c in "abe":
-        _, causal, p = VARIANT_CASES[c]
-        mask = masks[c]
-        fwd_outs = [flash_fwd_cuda(cq, ck, cv, causal, scale, mask, p,
-                                   VARIANT_SEED) for cq, ck, cv, _ in copies]
-        deltas = [flash_attention_delta(cg, o) for (_, _, _, cg), (o, _)
-                  in zip(copies, fwd_outs)]
-        t = {"flash_fwd": time_cuda([
-            partial(flash_fwd_cuda, cq, ck, cv, causal, scale, mask, p,
-                    VARIANT_SEED) for cq, ck, cv, _ in copies])}
-        t["flash_bwd_dq"] = time_cuda([
-            partial(flash_bwd_dq_cuda, cq, ck, cv, cg, lse, dl, causal, scale,
-                    mask, p, VARIANT_SEED)
-            for (cq, ck, cv, cg), (_, lse), dl in zip(copies, fwd_outs,
-                                                      deltas)])
-        t["flash_bwd_dkv"] = time_cuda([
-            partial(flash_bwd_dkv_cuda, cq, ck, cv, cg, lse, dl, causal,
-                    scale, mask, p, VARIANT_SEED)
-            for (cq, ck, cv, cg), (_, lse), dl in zip(copies, fwd_outs,
-                                                      deltas)])
-        # the same kernels without the variant
-        base = {"flash_fwd": time_cuda([
-            partial(flash_fwd_cuda, cq, ck, cv, causal, scale)
-            for cq, ck, cv, _ in copies])[0]}
-        base["flash_bwd_dq"] = time_cuda([
-            partial(flash_bwd_dq_cuda, cq, ck, cv, cg, lse, dl, causal,
-                    scale) for (cq, ck, cv, cg), (_, lse), dl
-            in zip(copies, fwd_outs, deltas)])[0]
-        base["flash_bwd_dkv"] = time_cuda([
-            partial(flash_bwd_dkv_cuda, cq, ck, cv, cg, lse, dl, causal,
-                    scale) for (cq, ck, cv, cg), (_, lse), dl
-            in zip(copies, fwd_outs, deltas)])[0]
-        keep_c = (dropout_keep_mask(VARIANT_SEED, B, H, S, S, p, "cuda")
-                  if p else None)
-        lse0, dl0 = fwd_outs[0][1], deltas[0]
-        plain_fwd, _ = time_cuda([partial(flash_fwd_plain, q, k, v, causal,
-                                          scale, mask, keep_c, p)],
-                                 per_rep=2)
-        plain_bwd, _ = time_cuda([partial(flash_bwd_plain, q, k, v, g, lse0,
-                                          dl0, causal, scale, mask, keep_c,
-                                          p)], per_rep=2)
-        if p:
-            kw = dict(dropout_p=p, is_causal=True)
-        else:
-            lib_mask = mask if not causal else torch.where(
-                torch.ones(S, S, dtype=torch.bool, device="cuda").tril(),
-                mask, float("-inf"))
-            kw = dict(attn_mask=lib_mask.to(q.dtype))
-        lib_fwd, _ = time_cuda([partial(F.scaled_dot_product_attention, cq,
-                                        ck, cv, **kw)
-                                for cq, ck, cv, _ in copies])
-        lib_bwd, _ = time_cuda([_sdpa_masked_bwd_call(torch, F, *cp, **kw)
-                                for cp in copies])
-        rows = 0 if p else mask.shape[0]
-        bo = variant_bytes_ops(B, H, S, D, causal, 2, rows)
-        suffix = "_dropout" if p else "_mask"
-        plain = {"flash_fwd": plain_fwd, "flash_bwd_dq": plain_bwd,
-                 "flash_bwd_dkv": plain_bwd}
-        read = cases[c]
-        err = {"flash_fwd": read["out"]["err"],
-               "flash_bwd_dq": read["dq"]["err"],
-               "flash_bwd_dkv": max(read["dk"]["err"], read["dv"]["err"])}
-        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-            n_bytes, n_ops = bo[name]
-            bound, by = bound_ms(n_bytes, n_ops, "bfloat16")
-            reading = dict(
-                case=c, max_abs_err=err[name],
-                tol=(f"bf16: max error from the fp32 plain version <= "
-                     f"{BF16_TRAIN_FACTOR} x the bf16 plain version's + "
-                     f"{BF16_TRAIN_ATOL}; fp32 cases atol=rtol=1e-5 (out, "
-                     f"lse), 1e-4 (dq, dk, dv); keep-mask bit for bit"),
-                ms=t[name][0], call_ms=t[name][1], plain_ms=plain[name],
-                library_ms=lib_fwd if name == "flash_fwd" else lib_bwd,
-                without_variant_ms=base[name], bound_ms=bound, bound_by=by,
-                bytes=n_bytes, ops=n_ops, tflops=n_ops / t[name][0] / 1e9,
-                share_of_bound=bound / t[name][0],
-                shape=dict(B=B, H=H, Sq=S, Sk=S, D=D, causal=causal,
-                           dtype="bfloat16",
-                           mask=None if p else list(mask.shape),
-                           dropout_p=p),
-                note=(None if name == "flash_fwd" else
-                      "plain_ms and library_ms compute dq, dk and dv "
-                      "together; library_ms: F.scaled_dot_product_"
-                      "attention's backward with " + ", ".join(kw)))
-            emit({"phase": "kernel", "name": name + suffix, **reading})
-            if c == "b":
-                results[name + suffix]["causal_case_b"] = reading
-            else:
-                results[name + suffix] = reading
-        del fwd_outs, deltas, keep_c
+    results = time_variants(torch, copies, masks, cases, "")
+    copies16 = [t16, tuple(t.clone() for t in t16)]
+    results.update(time_variants(torch, copies16, masks, cases, "fp16_"))
+    del copies16, t16, outs16
     # the entry point converts a mask to the kernels' fp32 rows once a
     # forward (FlashAttentionFn): forward + backward with the README's
     # key padding [B, 1, 1, Sk] and case c's bf16 per-head mask, each
@@ -2122,12 +2626,16 @@ def preset_config(preset):
             else GPT_PRESETS)[preset]
 
 
-def served_kernels(preset):
+def served_kernels(preset, dtype="bfloat16"):
     """(kernels a served step of the preset's family must launch, kernels
     it must not): GPT's LayerNorms run the port's LayerNorm kernel,
-    Llama's RMSNorms are plain torch, as in the JAX package."""
+    Llama's RMSNorms are plain torch, as in the JAX package. A model in
+    fp16 launches the fp16 instantiations and none of the others."""
     if preset.startswith("llama"):
         return ("paged_attention",), ("layernorm_fwd", "layernorm_bwd")
+    if dtype == "float16":
+        return (tuple(k + "_fp16" for k in SERVE_KERNELS),
+                SERVE_KERNELS + ("layernorm_bwd",))
     return SERVE_KERNELS, ()
 
 
@@ -2594,25 +3102,41 @@ def phase_optimizers():
 # AdamW lr TRAIN_PARITY_LR, wd 0.01, clip 1.0:
 #   a. AMP bf16 with whole-loss recompute and gradient merge k = 2 (avg),
 #      B=2, S=128, one ScanTrainStep chunk of 4 micro-steps;
-#   b. AMP fp16 with dynamic loss scaling, B=1, S=32, 4 single steps: the
+#   b. AMP fp16 with dynamic loss scaling, B=1, S=32, 3 single steps: the
 #      first is forced to overflow by an init_loss_scaling of 2^40 (fp16
 #      overflows on both sides, whatever the rounding), after which the
-#      scale drops by 2^-25 to 32768 and grows every 2 finite steps. The
-#      batch is small because the CPU twin runs fp16 slowly on the card's
-#      machine: 5 such steps at B=2, S=128 took 900 s there, against 20 s
-#      for case a's 4 bf16 steps (on the host of an NVIDIA H100 80GB HBM3); the
-#      scaler's decisions do not depend on the batch.
+#      scale drops by 2^-25 to 32768; the next two are finite, and after
+#      the second of them (incr_every_n_steps = 2) it grows to 65536.
+#      The batch is small because the CPU twin runs fp16 slowly on the
+#      card's machine: 5 such steps at B=2, S=128 took 900 s there,
+#      against 20 s for case a's 4 bf16 steps (on the host of an NVIDIA
+#      H100 80GB HBM3); the scaler's decisions do not depend on the
+#      batch. 4 steps at B=1, S=32 took 131 s and 3 took 86 s, most of it
+#      the CPU's elementwise work over the 310 M parameters.
+#   c. pure fp16 (O2): both twins through amp.decorate(level="O2",
+#      dtype="float16") (every parameter fp16) and AdamW(multi_precision=
+#      True) (fp32 master weights), case b's scaler and batch but growing
+#      after every finite step, whole-loss recompute and gradient merge
+#      k = 2 (avg), 2 single steps: the overflow (banked as nothing) and
+#      an applying step, after which the scale grows to 65536. The
+#      launches: the fp16 instantiations of LayerNorm, flash and fused
+#      Adam, and none of the fp32 or bf16 LayerNorm and Adam.
 # The loss scale, its good and bad counters and the gradient-merge count
 # after every call must be EXACTLY equal on both sides (so the same steps
 # were skipped and banked). Losses: the card's bf16/fp16 GEMMs (cuBLAS)
 # and the CPU's round each product's output once after fp32 sums in
 # other orders, so the activations part by about one low-precision ulp
 # (bf16 2^-8, fp16 2^-11 of themselves) and a loss of ~11 by about 1e-3
-# (bf16) / 1e-4 (fp16): the limits are 2e-2 and 4e-3.
+# (bf16) / 1e-4 (fp16): the limits are 2e-2 and 4e-3. O2 also rounds the
+# residual stream, the LayerNorm outputs and every other activation to
+# fp16 on both sides, at other points: some ten times the roundings of
+# O1, so 1e-2.
 # Weights: every element within 2 x lr x steps (Adam's step is ~lr, and
 # a gradient near 0 may flip its sign on one side), and at most
 # AMP_PARITY_SHARE of them more than lr / 2 apart: a wrong cast, scale,
-# merge or skip moves most elements.
+# merge or skip moves most elements. Under O2 that rule holds the fp32
+# master weights; each fp16 parameter, one rounding of its master, may
+# be one fp16 ulp further.
 AMP_PARITY_CASES = {
     "a_bf16_recompute_merge_k2": dict(
         fields={"amp": True, "recompute": True, "gradient_merge": True,
@@ -2623,7 +3147,16 @@ AMP_PARITY_CASES = {
             "dtype": "float16", "init_loss_scaling": 2.0 ** 40,
             "decr_every_n_nan_or_inf": 1, "decr_ratio": 2.0 ** -25,
             "incr_every_n_steps": 2}},
-        batch=(1, 32), scan=1, calls=4, loss_tol=4e-3),
+        batch=(1, 32), scan=1, calls=3, loss_tol=4e-3,
+        scales=(2.0 ** 15, 2.0 ** 15, 2.0 ** 16)),
+    "c_fp16_o2_recompute_merge_k2_overflow": dict(
+        fields={"amp": True, "amp_configs": {
+            "dtype": "float16", "init_loss_scaling": 2.0 ** 40,
+            "decr_every_n_nan_or_inf": 1, "decr_ratio": 2.0 ** -25,
+            "incr_every_n_steps": 1}, "recompute": True,
+            "gradient_merge": True, "gradient_merge_configs": {"k_steps": 2}},
+        batch=(1, 32), scan=1, calls=2, loss_tol=1e-2, level="O2",
+        scales=(2.0 ** 15, 2.0 ** 16)),
 }
 AMP_PARITY_SHARE = 1e-2
 
@@ -2643,9 +3176,17 @@ def _extras_scalars(step):
     return {k: v.item() for k, v in step._extras.items() if k != "accum"}
 
 
+def _master_state(model, opt):
+    """{name: fp32 numpy copy} of the master weights `opt` keeps for
+    `model`'s parameters (multi_precision)."""
+    return {k: opt.state[p]["master_weight"].cpu().numpy()
+            for k, p in model.named_parameters()}
+
+
 def phase_model_amp():
     import numpy as np
     import torch
+    from paddle_tpu_torch.amp import decorate
     from paddle_tpu_torch.bridge import export_state
     from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
     from paddle_tpu_torch.ops import _kernels
@@ -2663,12 +3204,16 @@ def phase_model_amp():
         labels = np.roll(ids, -1, axis=1)
         labels[:, -1] = -100
         cpu, card = _twins(preset, SEED + 12)
-        runs = {}
+        o2 = c.get("level") == "O2"
+        runs, opts = {}, {}
         for dev, model in (("cuda", card), ("cpu", cpu)):
+            if o2:
+                decorate(model, level="O2", dtype="float16")
             model.train()
-            opt = AdamW(learning_rate=lr, weight_decay=0.01,
-                        parameters=model.parameters(),
-                        grad_clip=ClipGradByGlobalNorm(1.0))
+            opt = opts[dev] = AdamW(learning_rate=lr, weight_decay=0.01,
+                                    parameters=model.parameters(),
+                                    multi_precision=o2,
+                                    grad_clip=ClipGradByGlobalNorm(1.0))
             step = parallelize(model, opt,
                                strategy=amp_strategy(c["fields"], c["scan"]),
                                device=dev)
@@ -2687,6 +3232,15 @@ def phase_model_amp():
         loss_diff = max(abs(a - b) for a, b in zip(runs["cuda"]["losses"],
                                                    runs["cpu"]["losses"]))
         wc, wp = export_state(card), export_state(cpu)
+        half_worst = None
+        if o2:
+            # the rule holds the masters; each fp16 parameter may be one
+            # fp16 ulp past it
+            half_worst = max(float((np.abs(wc[k] - wp[k]) - ulp_fp16(
+                torch.from_numpy(np.maximum(np.abs(wc[k]), np.abs(wp[k]))))
+                .numpy()).max()) for k in wc)
+            wc, wp = (_master_state(card, opts["cuda"]),
+                      _master_state(cpu, opts["cpu"]))
         worst, far, total = 0.0, 0, 0
         for k in wc:
             d = np.abs(wc[k] - wp[k])
@@ -2696,8 +3250,10 @@ def phase_model_amp():
         launched = runs["cuda"]["launches"]
         fp16 = c["fields"].get("amp_configs", {}).get("dtype") == "float16"
         emit({"phase": "model_amp", "case": case,
-              "config": f"{preset} widths, 2 layers, fp32 master weights, "
-                        f"B={B}, S={S}, AdamW lr {lr}",
+              "config": f"{preset} widths, 2 layers, "
+                        + ("fp16 parameters (O2), " if o2 else "")
+                        + f"fp32 master weights, B={B}, S={S}, AdamW lr "
+                          f"{lr}",
               "strategy": c["fields"], "steps": steps,
               "loss_card": runs["cuda"]["losses"],
               "loss_cpu": runs["cpu"]["losses"],
@@ -2707,6 +3263,7 @@ def phase_model_amp():
               "param_max_abs_diff": worst, "param_tol": 2 * lr * steps,
               "param_share_past_lr_over_2": far / total,
               "param_share_tol": AMP_PARITY_SHARE,
+              "fp16_param_max_diff_past_1ulp": half_worst,
               "cpu_twin_s": runs["cpu"]["seconds"],
               "kernel_launches": launched})
         check(runs["cuda"]["extras"] == runs["cpu"]["extras"],
@@ -2720,18 +3277,27 @@ def phase_model_amp():
         check(worst <= 2 * lr * steps and far / total <= AMP_PARITY_SHARE,
               f"model_amp {case}: weights differ by {worst} (max), share "
               f"past lr/2 {far / total}")
+        check(half_worst is None or half_worst <= 2 * lr * steps,
+              f"model_amp {case}: an fp16 weight is {half_worst} past one "
+              f"fp16 ulp from the CPU's")
         tc = "_fp16" if fp16 else ""
+        o2_tc = tc if o2 else ""       # O1 keeps LayerNorm and Adam fp32
         check(all(launched[k + tc] > 0 for k in ("flash_fwd", "flash_bwd_dq",
                                                  "flash_bwd_dkv"))
-              and launched["fused_adam"] > 0
-              and launched["layernorm_fwd"] > 0,
+              and all(launched[k + o2_tc] > 0 for k in (
+                  "fused_adam", "layernorm_fwd", "layernorm_bwd")),
               f"model_amp {case}: kernels not launched: {launched}")
+        if o2:
+            check(not any(launched[k] for k in ("fused_adam", "layernorm_fwd",
+                                                "layernorm_bwd")),
+                  f"model_amp {case}: fp32 LayerNorm or Adam launched under "
+                  f"O2: {launched}")
         if fp16:
-            check(runs["cuda"]["extras"][0]["loss_scale"] == 2.0 ** 15
-                  and runs["cuda"]["extras"][-1]["loss_scale"] == 2.0 ** 16,
+            check(tuple(e["loss_scale"] for e in runs["cuda"]["extras"])
+                  == c["scales"],
                   f"model_amp {case}: scale trajectory "
-                  f"{runs['cuda']['extras']}")
-        del cpu, card, wc, wp, runs
+                  f"{runs['cuda']['extras']}, want {c['scales']}")
+        del cpu, card, wc, wp, runs, opts
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2745,10 +3311,18 @@ def phase_model_amp():
 # batch repeated. A micro-step launches exactly AMP_KERNELS_PER_MICRO_STEP
 # (the flash kernels in the AMP dtype, the LayerNorms in fp32 on the fp32
 # residual stream, fused Adam on applying steps only).
+# train_fp16_o2 is Paddle's pure-fp16 recipe on the same cell: the model
+# through amp.decorate(level="O2", dtype="float16") (every parameter
+# fp16), AdamW(multi_precision=True) (fp32 master weights), the same
+# strategy in fp16: every kernel in its fp16 instantiation (the
+# LayerNorms see the fp16 residual stream, fused Adam updates fp16
+# parameters from their masters), none in fp32 or bf16.
 AMP_TRAIN_CELLS = {
     "train_amp": dict(dtype="bfloat16", warmup_chunks=1, timed_chunks=2),
     "train_amp_fp16": dict(dtype="float16", warmup_chunks=1,
                            timed_chunks=1),
+    "train_fp16_o2": dict(dtype="float16", level="O2", warmup_chunks=1,
+                          timed_chunks=1),
 }
 AMP_SCAN_STEPS = 4
 AMP_MERGE_K = 2
@@ -2763,11 +3337,13 @@ AMP_ADAM_PER_APPLY = 293
 
 def amp_train_workload(cell):
     """(model, opt, step, ids, labels) of an AMP train cell: gpt3-1.3b in
-    fp32 with random weights from SEED, its AdamW, the parallelize()d
-    step, one batch from SEED. Shared by the phase below and anything
-    that profiles the cell."""
+    fp32 with random weights from SEED (cast to fp16 by amp.decorate at
+    level O2), its AdamW (fp32 master weights under O2), the
+    parallelize()d step, one batch from SEED. Shared by the phase below
+    and anything that profiles the cell."""
     import numpy as np
     import torch
+    from paddle_tpu_torch.amp import decorate
     from paddle_tpu_torch.models.gpt import GPTForCausalLM
     from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
@@ -2777,10 +3353,13 @@ def amp_train_workload(cell):
     gen.manual_seed(SEED)
     model = GPTForCausalLM.from_preset("gpt3-1.3b", device="cuda",
                                        dtype="float32", generator=gen)
+    o2 = c.get("level") == "O2"
+    if o2:
+        decorate(model, level="O2", dtype=c["dtype"])
     model.train()
     opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
-                parameters=model.parameters(), moment_dtype="float32",
-                grad_clip=ClipGradByGlobalNorm(1.0))
+                parameters=model.parameters(), multi_precision=o2,
+                moment_dtype="float32", grad_clip=ClipGradByGlobalNorm(1.0))
     s = amp_strategy({"amp": True, "amp_configs": {"dtype": c["dtype"]},
                       "recompute": True, "gradient_merge": True,
                       "gradient_merge_configs": {"k_steps": AMP_MERGE_K,
@@ -2876,14 +3455,17 @@ def phase_train_amp(device_name, cell="train_amp"):
     first = AMP_SCAN_STEPS * c["warmup_chunks"] + 1
     applying = [(first + i) % AMP_MERGE_K == 0 for i in range(micro)]
     fp16 = c["dtype"] == "float16"
+    o2 = c.get("level") == "O2"
     tc = "_fp16" if fp16 else ""
     other = "" if fp16 else "_fp16"
+    # O1 runs the LayerNorms and Adam in fp32, O2 every kernel in fp16
     want = []
     for apply in applying:
         w = dict.fromkeys(launches, 0)
         for k, v in AMP_KERNELS_PER_MICRO_STEP.items():
-            w[k + tc if k.startswith("flash") else k] = v
-        w["fused_adam"] = AMP_ADAM_PER_APPLY if apply else 0
+            w[k + tc if k.startswith("flash") or o2 else k] = v
+        w["fused_adam" + (tc if o2 else "")] = (AMP_ADAM_PER_APPLY if apply
+                                                else 0)
         want.append(w)
     all_losses = warm[0] + losses
     step_s = wall / micro
@@ -2898,14 +3480,16 @@ def phase_train_amp(device_name, cell="train_amp"):
         last = sc
     result = {
         "phase": cell, "model": "gpt3-1.3b",
-        "dtype": f"fp32 master weights, AMP O1 {c['dtype']}",
+        "dtype": ("fp16 parameters (amp.decorate O2), fp32 master "
+                  "weights, AMP float16" if o2 else
+                  f"fp32 master weights, AMP O1 {c['dtype']}"),
         "batch": TRAIN_B, "seq": TRAIN_S, "n_params": n_params,
         "strategy": (f"amp {c['dtype']}"
                      + (" dynamic loss scaling (init 32768)" if fp16 else "")
                      + f", recompute (whole loss), gradient_merge k = "
                        f"{AMP_MERGE_K} avg, scan_steps {AMP_SCAN_STEPS}"),
         "optimizer": "AdamW lr 1e-4 wd 0.01 fp32 moments, global-norm "
-                     "clip 1.0",
+                     "clip 1.0" + (", multi_precision" if o2 else ""),
         "warmup_micro_steps": len(warm[2]), "warmup_s": warm[1],
         "timed_micro_steps": micro, "wall_s": wall,
         "tokens_per_s": tokens / wall, "micro_step_ms_mean": step_s * 1e3,
@@ -2930,7 +3514,8 @@ def phase_train_amp(device_name, cell="train_amp"):
           f"{cell}: loss did not fall: {all_losses[0]} -> {all_losses[-1]}")
     check(per_step == want, f"{cell}: launches a micro-step {per_step}, "
                             f"want {want}")
-    check(seen["layernorm_in"] == {"torch.float32"}
+    check(seen["layernorm_in"] == {"torch.float16" if o2 else
+                                   "torch.float32"}
           and seen["attention_in"] == {f"torch.{c['dtype']}"},
           f"{cell}: dtypes seen {seen}")
     check(not any(launches[k + other] for k in ("flash_fwd", "flash_bwd_dq",
@@ -2958,6 +3543,10 @@ SERVE_CELLS = {
                             num_hidden_layers=4),
     # the serve cell's model and prompts under a mixed burst (sample_burst)
     "sample_serve": dict(preset="gpt3-1.3b", requests=16),
+    # the serve cell's model cast to fp16 (model.to(dtype=torch.float16)):
+    # the fp16 LayerNorm and paged-attention kernels, the latter on the
+    # tensor cores at block_len 8
+    "serve_fp16": dict(preset="gpt3-1.3b", requests=16, dtype="float16"),
 }
 SERVE_BUSY_STEPS = 8     # the burst's steps replayed to read device busy
 # the serve cells' engine: the prefix cache is off, so that the burst's
@@ -2969,18 +3558,23 @@ SERVE_ENGINE = dict(num_slots=8, block_len=8, n_blocks=64, prefill_chunk=64,
 
 
 def serve_model(cell="serve"):
-    """(model, model_init_s): a serve cell's model in bf16 on the card,
-    random weights from SEED."""
+    """(model, model_init_s): a serve cell's model on the card, random
+    weights from SEED: in bf16, or built in fp32 and cast with
+    model.to(dtype=torch.float16) for an fp16 cell."""
     import torch
     over = dict(SERVE_CELLS[cell])
     preset = over.pop("preset")
     over.pop("requests")
+    dtype = over.pop("dtype", "bfloat16")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     t0 = time.perf_counter()
-    model = model_class(preset).from_preset(preset, device="cuda",
-                                            dtype="bfloat16", generator=gen,
-                                            **over)
+    model = model_class(preset).from_preset(
+        preset, device="cuda",
+        dtype="float32" if dtype == "float16" else dtype, generator=gen,
+        **over)
+    if dtype == "float16":
+        model.to(dtype=torch.float16)
     torch.cuda.synchronize()
     return model, time.perf_counter() - t0
 
@@ -3026,12 +3620,13 @@ def serve_burst(engine, prompts, logprobs=False):
             engine.decode_iterations - dec0)
 
 
-def step_busy(step_logits, recorded):
+def step_busy(step_logits, recorded, names=None):
     """(device-busy ms, wall ms) of one unified step: SERVE_BUSY_STEPS of
     the burst's recorded step inputs, spread over it, replayed through the
     engine's `step_logits` after the burst. Wall: host clock around the
     replay to its synchronize. Busy: the kernels' device time under
-    torch.profiler, None when it recorded none."""
+    torch.profiler, None when it recorded none. `names`, a set, receives
+    the names of the device kernels the profiler recorded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3050,6 +3645,9 @@ def step_busy(step_logits, recorded):
         torch.cuda.synchronize()
     busy_us = sum(e.self_device_time_total for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA)
+    if names is not None:
+        names.update(e.key for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA)
     return (busy_us / 1e3 / n if busy_us > 0 else None), wall_ms
 
 
@@ -3064,6 +3662,7 @@ def phase_serve(cell="serve", record=None):
     import torch
     from paddle_tpu_torch.models.generation import generate
     from paddle_tpu_torch.ops import _kernels
+    from paddle_tpu_torch.ops.paged_attention import TENSOR_CORES, paged_route
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3101,13 +3700,30 @@ def phase_serve(cell="serve", record=None):
         handles, outs, wall, steps, decode_iters = serve_burst(
             engine, prompts, logprobs=True)
         launches = _kernels.launch_counts()
+        routes = _kernels.route_counts()
     finally:
         engine.stop(drain=True, timeout=60)
-    must, must_not = served_kernels(preset)
+    dtype = SERVE_CELLS[cell].get("dtype", "bfloat16")
+    must, must_not = served_kernels(preset, dtype)
     check(all(launches[k] > 0 for k in must)
           and not any(launches[k] for k in must_not),
           f"the served path launched {launches}: want each of {must}, none "
           f"of {must_not}")
+    if dtype == "float16":
+        # every unified step runs every layer once: its two LayerNorms and
+        # its paged attention, and the final LayerNorm
+        layers = model.config.num_hidden_layers
+        want = {"layernorm_fwd_fp16": (2 * layers + 1) * steps,
+                "paged_attention_fp16": layers * steps}
+        check({k: launches[k] for k in want} == want,
+              f"{cell}: launched {launches} in {steps} steps, want {want}")
+    # the route each paged launch took, by the library's own rule: all on
+    # the tensor cores at the engine's block_len
+    paged = _kernels.fp16_name("paged_attention", getattr(torch, dtype))
+    want_routes = dict.fromkeys(routes, 0)
+    want_routes[f"{paged}:{TENSOR_CORES}"] = launches[paged]
+    check(routes == want_routes,
+          f"{cell}: paged launches by route {routes}, want {want_routes}")
     for o, h in zip(outs, handles):
         check(o.shape == (SERVE_NEW_TOKENS,),
               f"stream of shape {o.shape}, want ({SERVE_NEW_TOKENS},)")
@@ -3154,14 +3770,20 @@ def phase_serve(cell="serve", record=None):
         del caches, lg
     worst_logits = max(c["first_logits_max_abs_diff"] for c in compare)
     stats = engine.metrics.snapshot()
-    busy_ms, replay_ms = step_busy(step_logits, recorded)
+    kernel_names = set()
+    busy_ms, replay_ms = step_busy(step_logits, recorded, kernel_names)
     step_ms = wall * 1e3 / steps
+    paged_seen = sorted(k for k in kernel_names if "paged_attention" in k)
     result = {
         "phase": cell, "model": preset, "overrides": {
             k: v for k, v in SERVE_CELLS[cell].items()
             if k not in ("preset", "requests")},
         "n_params": sum(p.numel() for p in model.parameters()),
-        "dtype": "bfloat16",
+        "dtype": dtype, "paged_route": paged_route(
+            getattr(torch, dtype), SERVE_ENGINE["block_len"],
+            model.config.hidden_size // model.config.num_attention_heads),
+        "paged_kernels_profiled": paged_seen, "paged_launches_by_route":
+            routes,
         "requests": len(prompts), "prompt_lens": [int(n) for n in plens],
         "max_new_tokens": SERVE_NEW_TOKENS, "generated_tokens": gen_tokens,
         "wall_s": wall, "generated_tok_s": gen_tokens / wall,
@@ -3184,6 +3806,16 @@ def phase_serve(cell="serve", record=None):
     check(worst_logits <= logits_tol,
           f"engine vs generate() first-step logits differ by {worst_logits} "
           f"> {logits_tol}")
+    if dtype == "float16":
+        # beside the launches by route above: the route rule (paged_route
+        # mirrors the C one) and, where the profiler kept its kernel
+        # records, the kernel it names
+        check(result["paged_route"] == TENSOR_CORES,
+              f"{cell}: fp16 paged attention routed to "
+              f"{result['paged_route']}")
+        check(not paged_seen or all("paged_attention_kernel_tc" in k
+                                    and "__half" in k for k in paged_seen),
+              f"{cell}: the profiled step ran {paged_seen}")
     del model, engine, handles, recorded
     gc.collect()
     torch.cuda.empty_cache()
@@ -5662,6 +6294,29 @@ KERNEL_META = {
         phase="train_amp_fp16")
        for k, line in (("flash_fwd", 174), ("flash_bwd_dq", 246),
                        ("flash_bwd_dkv", 300))},
+    # their mask and dropout variants in fp16
+    **{f"{k}_{v}_fp16": dict(
+        source="paddle_tpu_torch/csrc/flash_attention_tc.cu",
+        replaces=f"paddle_tpu/ops/attention.py:{line}",
+        phase="attention_variants")
+       for k, line in (("flash_fwd", 174), ("flash_bwd_dq", 246),
+                       ("flash_bwd_dkv", 300))
+       for v in ("mask", "dropout")},
+    # the fp16 instantiations of kernels 1, 6, 7 and 2 (pure-fp16 training,
+    # fp16 serving)
+    "layernorm_fwd_fp16": dict(
+        source="paddle_tpu_torch/csrc/layernorm.cu",
+        replaces="paddle_tpu/ops/layernorm.py:35", phase="serve_fp16"),
+    "layernorm_bwd_fp16": dict(
+        source="paddle_tpu_torch/csrc/layernorm.cu",
+        replaces="paddle_tpu/ops/layernorm.py:48", phase="train_fp16_o2"),
+    "fused_adam_fp16": dict(
+        source="paddle_tpu_torch/csrc/fused_adam.cu",
+        replaces="paddle_tpu/ops/fused_adam.py:47", phase="train_fp16_o2"),
+    "paged_attention_fp16": dict(
+        source="paddle_tpu_torch/csrc/paged_attention_tc.cu",
+        replaces="paddle_tpu/ops/paged_attention.py:136",
+        phase="serve_fp16"),
 }
 
 
@@ -5711,6 +6366,7 @@ def main():
     serve = {}
     by_phase = {"attention_variants": variant_launches,
                 "serve": timed("serve", phase_serve, record=serve)}
+    by_phase["serve_fp16"] = timed("serve_fp16", phase_serve, "serve_fp16")
     timed("sampling", phase_sampling)
     by_phase["sample_serve"] = timed("sample_serve", phase_sample_serve,
                                      serve)
@@ -5751,7 +6407,10 @@ def main():
                   "entry_per_head_bf16",    # the flash kernels and variants
                   "at_llama_shape", "at_llama_shapes", "at_moe_shape",
                   "shared_pages",
-                  "do_update_flag"):
+                  "do_update_flag",
+                  # the fp16 LayerNorm and paged-attention readings
+                  "at_train_shape", "at_serve_shape", "scalar_route",
+                  "at_gqa_shape"):
             if x in kern[k]:
                 line[x] = kern[k][x]
         if k + "_train" in kern:   # a served kernel the train step runs too

@@ -21,6 +21,9 @@ names `_init_slots_mp` gives it (SGD none, Momentum and LarsMomentum
 and `noise_step`), each in the dtype the port gives it. MoE's expert
 stacks (`w1 [E, H, F]`, `b1`, `w2`, `b2`) and the gate cross like any
 other parameter: same names, same layout.
+`export_optimizer_state(optimizer, model)` goes the other way: the port
+optimizer's slots (master weights of fp16 or bf16 parameters among them)
+as numpy, keyed by name and slot.
 `load_jax_step_extras(step, extras)` carries a JAX train step's extras
 (the loss scale and its good/bad counters, the gradient-merge accumulator
 and its count) into a port step built from the same plan.
@@ -123,6 +126,22 @@ def load_jax_optimizer_state(optimizer, model: torch.nn.Module,
                 t.copy_(torch.from_numpy(arr))
             optimizer.state[p] = made[k]
     return optimizer
+
+
+def export_optimizer_state(optimizer, model: torch.nn.Module
+                           ) -> Dict[str, Dict[str, np.ndarray]]:
+    """{name: {slot: numpy copy}} of `optimizer.state` for every named
+    parameter of `model` that has slots, keyed as the JAX optimizer state
+    is (the inverse of load_jax_optimizer_state): floating slots widened
+    to float32 (a bf16 or fp16 moment exactly), integer slots as int64."""
+    out = {}
+    for k, p in model.named_parameters():
+        for sname, t in optimizer.state.get(p, {}).items():
+            t = t.detach().cpu()
+            out.setdefault(k, {})[sname] = (
+                t.float().numpy().copy() if t.is_floating_point()
+                else t.numpy().astype(np.int64))
+    return out
 
 
 _SCALAR_EXTRAS = {"loss_scale": torch.float32, "good_steps": torch.int32,

@@ -9,7 +9,7 @@
 // a dk/dv pass (q innermost) that needs no atomics.
 //
 // Contract (attention.py:174-354), kept exactly:
-//   q [BH, Sq, D], k and v [BH, Sk, D] in one dtype (fp32 or bf16),
+//   q [BH, Sq, D], k and v [BH, Sk, D] in one dtype (fp32, bf16 or fp16),
 //   D a multiple of 16 up to 128; out [BH, Sq, D] in that dtype, lse
 //   [BH, Sq] fp32 (the TPU's [bh, 1, Sq] lane layout is dropped).
 //   s = (q . k) in fp32, then * scale, rounded before anything else uses it;
@@ -45,8 +45,8 @@
 // operations a byte or more, near the H100's bf16 ridge point, so the
 // least time is set by the tensor cores' 989 TFLOP/s.
 //
-// Routes: bf16 (dtype 1) and fp16 (dtype 2, no mask or dropout) forward,
-// dq and dk/dv run on the tensor cores, in
+// Routes: bf16 (dtype 1) and fp16 (dtype 2) forward, dq and dk/dv, with
+// their mask and dropout variants, run on the tensor cores, in
 // flash_attention_tc.cu (wgmma fed by TMA through mbarrier rings, P, dS
 // and dS^T kept in registers; see its note). The fp32 path of all three
 // kernels is the scalar design below, kept true fp32: no TF32, since the
@@ -648,10 +648,9 @@ int variant(const void* mask_ptr, int mask_div, unsigned long long seed,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (neither a mask nor
-// dropout: AMP in float16 runs them without). mask_rows: fp32 [rows, Sq, Sk] or
-// null; batch*head bh reads row bh / mask_div. dropout_p > 0: in-kernel
-// dropout keyed by seed (philox.cuh). A mask and dropout are not taken
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. mask_rows: fp32
+// [rows, Sq, Sk] or null; batch*head bh reads row bh / mask_div.
+// dropout_p > 0: in-kernel dropout keyed by seed (philox.cuh). A mask and dropout are not taken
 // together. Each returns cudaGetLastError() after its launch (0 on
 // success); the caller raises on anything else.
 extern "C" int pdtt_flash_fwd(const void* q, const void* k, const void* v,
@@ -673,9 +672,9 @@ extern "C" int pdtt_flash_fwd(const void* q, const void* k, const void* v,
   if (dtype == 1)
     return flash_fwd_bf16_tc(q, k, v, out, lse, BH, Sq, Sk, D, scale, causal,
                              mask, drop, dropout, s);
-  if (dtype == 2 && !mask.ptr && !dropout)
+  if (dtype == 2)
     return flash_fwd_fp16_tc(q, k, v, out, lse, BH, Sq, Sk, D, scale, causal,
-                             s);
+                             mask, drop, dropout, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -699,9 +698,9 @@ extern "C" int pdtt_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 1)
     return flash_bwd_dq_bf16_tc(q, k, v, g, lse, delta, dq, BH, Sq, Sk, D,
                                 scale, causal, mask, drop, dropout, s);
-  if (dtype == 2 && !mask.ptr && !dropout)
+  if (dtype == 2)
     return flash_bwd_dq_fp16_tc(q, k, v, g, lse, delta, dq, BH, Sq, Sk, D,
-                                scale, causal, s);
+                                scale, causal, mask, drop, dropout, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -726,9 +725,9 @@ extern "C" int pdtt_flash_bwd_dkv(const void* q, const void* k,
   if (dtype == 1)
     return flash_bwd_dkv_bf16_tc(q, k, v, g, lse, delta, dk, dv, BH, Sq, Sk,
                                  D, scale, causal, mask, drop, dropout, s);
-  if (dtype == 2 && !mask.ptr && !dropout)
+  if (dtype == 2)
     return flash_bwd_dkv_fp16_tc(q, k, v, g, lse, delta, dk, dv, BH, Sq, Sk,
-                                 D, scale, causal, s);
+                                 D, scale, causal, mask, drop, dropout, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

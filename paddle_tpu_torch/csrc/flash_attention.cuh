@@ -17,7 +17,9 @@ struct AttnMask {
 
 // Returns fn<first, kMask, kDrop>(...) for the variant the caller's `mask`
 // (AttnMask) and `dropout` (bool) select: mask.ptr, dropout_p > 0 (never
-// both) or neither. Both routes' entry points dispatch through it.
+// both) or neither. The fp32 entry points dispatch through it;
+// flash_attention_tc.cu's launchers take the same rule over the element
+// type (PDTT_TC_VARIANT).
 #define PDTT_VARIANT_RETURN(fn, first, ...)                     \
   do {                                                          \
     if (mask.ptr) return fn<first, true, false>(__VA_ARGS__);   \
@@ -44,16 +46,19 @@ int flash_bwd_dkv_bf16_tc(const void* q, const void* k, const void* v,
                           DropoutParams drop, bool dropout, cudaStream_t s);
 
 // fp16 launchers (flash_attention_tc.cu): the same tensor-core kernels
-// over __half, with neither a mask nor dropout. Each returns
+// over __half, their variants chosen as the bf16 ones'. Each returns
 // cudaGetLastError().
 int flash_fwd_fp16_tc(const void* q, const void* k, const void* v, void* out,
                       void* lse, int BH, int Sq, int Sk, int D, float scale,
-                      int causal, cudaStream_t s);
+                      int causal, AttnMask mask, DropoutParams drop,
+                      bool dropout, cudaStream_t s);
 int flash_bwd_dq_fp16_tc(const void* q, const void* k, const void* v,
                          const void* g, const void* lse, const void* delta,
                          void* dq, int BH, int Sq, int Sk, int D, float scale,
-                         int causal, cudaStream_t s);
+                         int causal, AttnMask mask, DropoutParams drop,
+                         bool dropout, cudaStream_t s);
 int flash_bwd_dkv_fp16_tc(const void* q, const void* k, const void* v,
                           const void* g, const void* lse, const void* delta,
                           void* dk, void* dv, int BH, int Sq, int Sk, int D,
-                          float scale, int causal, cudaStream_t s);
+                          float scale, int causal, AttnMask mask,
+                          DropoutParams drop, bool dropout, cudaStream_t s);

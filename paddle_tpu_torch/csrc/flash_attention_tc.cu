@@ -2,10 +2,11 @@
 // cores (sm_90a), built by ops/_kernels.py into the port's kernel library
 // and reached through pdtt_flash_fwd / pdtt_flash_bwd_dq /
 // pdtt_flash_bwd_dkv (flash_attention.cu) when dtype == 1 (bf16) or 2
-// (fp16, for AMP in float16; no mask or dropout variant). The kernels are
-// templates over the element type T: only the rounding of P, dS and the
-// outputs to T (pack2), wgmma's operand type and TMA's data type depend on
-// it. The fp32 path stays flash_attention.cu's scalar kernels.
+// (fp16, for AMP or pure training in float16), each with its mask and
+// dropout variants. The kernels are templates over the element type T:
+// only the rounding of P, dS and the outputs to T (pack2), wgmma's operand
+// type and TMA's data type depend on it. The fp32 path stays
+// flash_attention.cu's scalar kernels.
 //
 // Replaces: paddle_tpu/ops/attention.py::_fwd_kernel (flash_fwd_kernel_tc),
 // ::_bwd_dq_kernel (flash_bwd_dq_kernel_tc) and ::_bwd_dkv_kernel
@@ -1424,24 +1425,30 @@ int bwd_dq_tc(const void* q, const void* k, const void* v, const void* g,
 
 }  // namespace
 
-// The variant's instantiation: the mask, dropout or neither (the one the
-// train step runs), at a padded head dim of 64 or 128.
-#define PDTT_TC_DISPATCH(fn, ...)                                   \
-  do {                                                              \
-    if (D <= 64) PDTT_VARIANT_RETURN(fn, 64, __VA_ARGS__);          \
-    PDTT_VARIANT_RETURN(fn, 128, __VA_ARGS__);                      \
+// The variant's instantiation over the element type T: the mask, dropout
+// or neither (the one the train step runs), at a padded head dim of 64 or
+// 128.
+#define PDTT_TC_VARIANT(fn, kD, T, ...)                                \
+  do {                                                                \
+    if (mask.ptr) return fn<kD, true, false, T>(__VA_ARGS__);         \
+    if (dropout) return fn<kD, false, true, T>(__VA_ARGS__);          \
+    return fn<kD, false, false, T>(__VA_ARGS__);                      \
+  } while (0)
+#define PDTT_TC_DISPATCH(fn, T, ...)                                  \
+  do {                                                                \
+    if (D <= 64) PDTT_TC_VARIANT(fn, 64, T, __VA_ARGS__);             \
+    PDTT_TC_VARIANT(fn, 128, T, __VA_ARGS__);                         \
   } while (0)
 
-// bf16 launchers for flash_attention.cu's entry points (declared in
-// flash_attention.cuh); pointers must be 16-byte aligned (the wrapper
-// checks). Each returns cudaGetLastError(). The fp16 launchers below take
-// no mask and no dropout.
+// bf16 and fp16 launchers for flash_attention.cu's entry points (declared
+// in flash_attention.cuh); pointers must be 16-byte aligned (the wrapper
+// checks). Each returns cudaGetLastError().
 int flash_fwd_bf16_tc(const void* q, const void* k, const void* v, void* out,
                       void* lse, int BH, int Sq, int Sk, int D, float scale,
                       int causal, AttnMask mask, DropoutParams drop,
                       bool dropout, cudaStream_t s) {
-  PDTT_TC_DISPATCH(fwd_tc, q, k, v, out, lse, BH, Sq, Sk, D, scale, causal,
-                   mask, drop, s);
+  PDTT_TC_DISPATCH(fwd_tc, bf16, q, k, v, out, lse, BH, Sq, Sk, D, scale,
+                   causal, mask, drop, s);
 }
 
 int flash_bwd_dkv_bf16_tc(const void* q, const void* k, const void* v,
@@ -1449,8 +1456,8 @@ int flash_bwd_dkv_bf16_tc(const void* q, const void* k, const void* v,
                           void* dk, void* dv, int BH, int Sq, int Sk, int D,
                           float scale, int causal, AttnMask mask,
                           DropoutParams drop, bool dropout, cudaStream_t s) {
-  PDTT_TC_DISPATCH(bwd_dkv_tc, q, k, v, g, lse, delta, dk, dv, BH, Sq, Sk, D,
-                   scale, causal, mask, drop, s);
+  PDTT_TC_DISPATCH(bwd_dkv_tc, bf16, q, k, v, g, lse, delta, dk, dv, BH, Sq,
+                   Sk, D, scale, causal, mask, drop, s);
 }
 
 int flash_bwd_dq_bf16_tc(const void* q, const void* k, const void* v,
@@ -1458,50 +1465,34 @@ int flash_bwd_dq_bf16_tc(const void* q, const void* k, const void* v,
                          void* dq, int BH, int Sq, int Sk, int D, float scale,
                          int causal, AttnMask mask, DropoutParams drop,
                          bool dropout, cudaStream_t s) {
-  PDTT_TC_DISPATCH(bwd_dq_tc, q, k, v, g, lse, delta, dq, BH, Sq, Sk, D,
-                   scale, causal, mask, drop, s);
+  PDTT_TC_DISPATCH(bwd_dq_tc, bf16, q, k, v, g, lse, delta, dq, BH, Sq, Sk,
+                   D, scale, causal, mask, drop, s);
 }
 
-// fp16 launchers (AMP with dtype float16): the same kernels over __half,
-// without the mask and dropout variants. Each returns cudaGetLastError().
+// fp16 (AMP or pure training in float16): the same kernels over __half,
+// with the mask and dropout variants too.
 int flash_fwd_fp16_tc(const void* q, const void* k, const void* v, void* out,
                       void* lse, int BH, int Sq, int Sk, int D, float scale,
-                      int causal, cudaStream_t s) {
-  const AttnMask mask{nullptr, 1};
-  const DropoutParams drop{};
-  if (D <= 64)
-    return fwd_tc<64, false, false, __half>(q, k, v, out, lse, BH, Sq, Sk, D,
-                                            scale, causal, mask, drop, s);
-  return fwd_tc<128, false, false, __half>(q, k, v, out, lse, BH, Sq, Sk, D,
-                                           scale, causal, mask, drop, s);
+                      int causal, AttnMask mask, DropoutParams drop,
+                      bool dropout, cudaStream_t s) {
+  PDTT_TC_DISPATCH(fwd_tc, __half, q, k, v, out, lse, BH, Sq, Sk, D, scale,
+                   causal, mask, drop, s);
 }
 
 int flash_bwd_dkv_fp16_tc(const void* q, const void* k, const void* v,
                           const void* g, const void* lse, const void* delta,
                           void* dk, void* dv, int BH, int Sq, int Sk, int D,
-                          float scale, int causal, cudaStream_t s) {
-  const AttnMask mask{nullptr, 1};
-  const DropoutParams drop{};
-  if (D <= 64)
-    return bwd_dkv_tc<64, false, false, __half>(q, k, v, g, lse, delta, dk,
-                                                dv, BH, Sq, Sk, D, scale,
-                                                causal, mask, drop, s);
-  return bwd_dkv_tc<128, false, false, __half>(q, k, v, g, lse, delta, dk, dv,
-                                               BH, Sq, Sk, D, scale, causal,
-                                               mask, drop, s);
+                          float scale, int causal, AttnMask mask,
+                          DropoutParams drop, bool dropout, cudaStream_t s) {
+  PDTT_TC_DISPATCH(bwd_dkv_tc, __half, q, k, v, g, lse, delta, dk, dv, BH,
+                   Sq, Sk, D, scale, causal, mask, drop, s);
 }
 
 int flash_bwd_dq_fp16_tc(const void* q, const void* k, const void* v,
                          const void* g, const void* lse, const void* delta,
                          void* dq, int BH, int Sq, int Sk, int D, float scale,
-                         int causal, cudaStream_t s) {
-  const AttnMask mask{nullptr, 1};
-  const DropoutParams drop{};
-  if (D <= 64)
-    return bwd_dq_tc<64, false, false, __half>(q, k, v, g, lse, delta, dq, BH,
-                                               Sq, Sk, D, scale, causal, mask,
-                                               drop, s);
-  return bwd_dq_tc<128, false, false, __half>(q, k, v, g, lse, delta, dq, BH,
-                                              Sq, Sk, D, scale, causal, mask,
-                                              drop, s);
+                         int causal, AttnMask mask, DropoutParams drop,
+                         bool dropout, cudaStream_t s) {
+  PDTT_TC_DISPATCH(bwd_dq_tc, __half, q, k, v, g, lse, delta, dq, BH, Sq,
+                   Sk, D, scale, causal, mask, drop, s);
 }

@@ -10,16 +10,22 @@
 // TPU layout rules and are not carried over: this kernel takes any n.
 //
 // What bounds it on this card: bytes. Per element it reads p, g, m1 and m2
-// and writes p, m1 and m2 (and, with a master weight, reads and writes the
-// fp32 master too) and does about 15 fp32 operations, far below the
-// ~295 operations per byte where the card's arithmetic would become the
-// limit. With bf16 p and g the least time is 22 bytes an element (fp32
-// moments) or 14 (bf16 moments) over 3.35 TB/s.
+// and writes p, m1 and m2 (with a master weight it reads the fp32 master
+// in p's place and writes both) and does about 15 fp32 operations, far
+// below the ~295 operations per byte where the card's arithmetic would
+// become the limit. With bf16 (or fp16) p and g the least time is 22 bytes
+// an element (fp32 moments) or 14 (16-bit moments) over 3.35 TB/s;
+// pure-fp16 training (fp16 p and g, fp32 master and moments) moves 28.
+//
+// Types: p, g and the two moments each fp32, bf16 or fp16 (the JAX kernel
+// takes any float dtype and computes in fp32), every combination
+// instantiated; an fp32 master weight beside a bf16 or fp16 p
+// (multi_precision).
 //
 // Design: one flat pass, a grid-stride loop. Each thread takes 8
 // consecutive elements at a time with 16-byte loads and stores (one word of
-// bf16, two of fp32) when every pointer is 16-byte aligned, and the rest
-// (the ragged tail, or everything when a pointer is not aligned) one
+// bf16 or fp16, two of fp32) when every pointer is 16-byte aligned, and the
+// rest (the ragged tail, or everything when a pointer is not aligned) one
 // element at a time. Each element is read and written by one thread only,
 // so p, m1, m2 and the master are updated in place. lr, beta1^t and beta2^t
 // are read from device memory (the TPU kernel's SMEM scalars): the caller
@@ -38,9 +44,11 @@
 // explicitly rounded intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn,
 // __fsqrt_rn), so the compiler contracts nothing into an FMA. PyTorch's
 // elementwise kernels round every operation alike, so fp32 outputs equal
-// the plain version on the card bit for bit; bf16 outputs (p, or moments
-// kept in bf16) are one round-to-nearest-even of the same fp32 value.
+// the plain version on the card bit for bit; bf16 and fp16 outputs (p, or
+// moments kept in 16 bits) are one round-to-nearest-even of the same fp32
+// value.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,6 +64,7 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
 template <>
@@ -65,6 +74,10 @@ __device__ __forceinline__ float from_float<float>(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, like .to(bf16)
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);  // round to nearest even, like .to(fp16)
 }
 
 // kVec consecutive elements as 16-byte words (src 16-byte aligned).
@@ -209,12 +222,12 @@ int launch(const AdamBuffers& b, const AdamConsts& c, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// A master weight only beside a bf16 parameter (multi_precision).
+// A master weight only beside a 16-bit parameter (multi_precision).
 template <typename P, typename G, typename M>
 int dispatch_master(const AdamBuffers& b, const AdamConsts& c,
                     cudaStream_t s) {
   if (b.master == nullptr) return launch<P, G, M, false>(b, c, s);
-  if constexpr (std::is_same<P, __nv_bfloat16>::value) {
+  if constexpr (!std::is_same<P, float>::value) {
     return launch<P, G, M, true>(b, c, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -226,6 +239,7 @@ int dispatch_m(int m_dtype, const AdamBuffers& b, const AdamConsts& c,
                cudaStream_t s) {
   if (m_dtype == 0) return dispatch_master<P, G, float>(b, c, s);
   if (m_dtype == 1) return dispatch_master<P, G, __nv_bfloat16>(b, c, s);
+  if (m_dtype == 2) return dispatch_master<P, G, __half>(b, c, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -234,19 +248,21 @@ int dispatch_g(int g_dtype, int m_dtype, const AdamBuffers& b,
                const AdamConsts& c, cudaStream_t s) {
   if (g_dtype == 0) return dispatch_m<P, float>(m_dtype, b, c, s);
   if (g_dtype == 1) return dispatch_m<P, __nv_bfloat16>(m_dtype, b, c, s);
+  if (g_dtype == 2) return dispatch_m<P, __half>(m_dtype, b, c, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// p, g, m1, m2 (and the optional fp32 master of a bf16 p, or null) of n
-// elements each, contiguous; dtype codes 0 = float32, 1 = bfloat16 for p, g and the two
-// moments; lr, b1p, b2p: one fp32 each in device memory (b1p = beta1^t
-// already advanced for this step). omb1 = 1 - b1 and omb2 = 1 - b2 are
-// rounded to fp32 by the caller. do_update: one byte in device memory (a
-// torch.bool) or null; 0 leaves everything untouched. Updates p, m1, m2
-// and the master in place. Returns cudaGetLastError() after the launch (0 on success); the
-// caller raises on anything else.
+// p, g, m1, m2 (and the optional fp32 master of a bf16 or fp16 p, or null)
+// of n elements each, contiguous; dtype codes 0 = float32, 1 = bfloat16,
+// 2 = float16 for p, g and the two moments; lr, b1p, b2p: one fp32 each
+// in device memory (b1p = beta1^t already advanced for this step).
+// omb1 = 1 - b1 and omb2 = 1 - b2 are rounded to fp32 by the caller.
+// do_update: one byte in device memory (a torch.bool) or null; 0 leaves
+// everything untouched. Updates p, m1, m2 and the master in place.
+// Returns cudaGetLastError() after the launch (0 on success); the caller
+// raises on anything else.
 extern "C" int pdtt_fused_adam(void* p, const void* g, void* m1, void* m2,
                                void* master, const void* lr, const void* b1p,
                                const void* b2p, const void* do_update,
@@ -265,5 +281,6 @@ extern "C" int pdtt_fused_adam(void* p, const void* g, void* m1, void* m2,
   if (p_dtype == 0) return dispatch_g<float>(g_dtype, m_dtype, b, c, s);
   if (p_dtype == 1)
     return dispatch_g<__nv_bfloat16>(g_dtype, m_dtype, b, c, s);
+  if (p_dtype == 2) return dispatch_g<__half>(g_dtype, m_dtype, b, c, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

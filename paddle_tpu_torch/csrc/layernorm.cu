@@ -21,7 +21,7 @@
 // nothing per element that the row does not need.
 //
 // Layout of a row, both kernels: N values are P = ceil(N / kPack) packs of
-// 16 bytes (kPack = 8 bf16 or 4 fp32). A row belongs to kTpr consecutive
+// 16 bytes (kPack = 8 bf16 or fp16, 4 fp32). A row belongs to kTpr consecutive
 // threads (a power of two); thread t owns packs t, t + kTpr, ... (kPer of
 // them, the last ones masked past N), so neighbouring threads touch
 // neighbouring 16 bytes. kTpr and kPer come from N and the dtype alone,
@@ -69,6 +69,7 @@
 // at the training shape, R = 4096, N = 2048, G = 256, against 50.4 MB of
 // x, dy and dx).
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -89,6 +90,11 @@
 #define PDTT_LN_BWD_BF16(X)                                                 \
   X(32, 1, 4, 3) X(64, 1, 4, 3) X(128, 1, 4, 3) X(256, 1, 2, 3)           \
   X(256, 2, 1, 4) X(256, 4, 1, 3)
+// fp16 (pure-fp16 O2 training, fp16 serving) has bf16's pack of 8 values in
+// 16 bytes and the same arithmetic (fp32 from the pack, one rounding to
+// fp16 at the store), so it takes bf16's entries
+#define PDTT_LN_FWD_FP16(X) PDTT_LN_FWD_BF16(X)
+#define PDTT_LN_BWD_FP16(X) PDTT_LN_BWD_BF16(X)
 
 namespace {
 
@@ -141,6 +147,9 @@ __device__ __forceinline__ unsigned raw_bits(float v) {
 __device__ __forceinline__ unsigned raw_bits(__nv_bfloat16 v) {
   return __bfloat16_as_ushort(v);
 }
+__device__ __forceinline__ unsigned raw_bits(__half v) {
+  return __half_as_ushort(v);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_bits(unsigned bits);
@@ -153,12 +162,18 @@ __device__ __forceinline__ __nv_bfloat16 from_bits<__nv_bfloat16>(
     unsigned bits) {
   return __ushort_as_bfloat16(static_cast<unsigned short>(bits));
 }
+template <>
+__device__ __forceinline__ __half from_bits<__half>(unsigned bits) {
+  return __ushort_as_half(static_cast<unsigned short>(bits));
+}
 
-// value j of a pack in fp32 (a bf16 widens exactly)
+// value j of a pack in fp32 (a bf16 or an fp16 widens exactly)
 template <typename T>
 __device__ __forceinline__ float elem(const uint4& u, int j) {
   if constexpr (std::is_same<T, float>::value) {
     return __uint_as_float(get_bits<T>(u, j));
+  } else if constexpr (std::is_same<T, __half>::value) {
+    return __half2float(from_bits<__half>(get_bits<T>(u, j)));
   } else {
     return __uint_as_float(get_bits<T>(u, j) << 16);
   }
@@ -169,6 +184,8 @@ template <typename T>
 __device__ __forceinline__ T cast_to(float v) {
   if constexpr (std::is_same<T, float>::value) {
     return v;
+  } else if constexpr (std::is_same<T, __half>::value) {
+    return __float2half_rn(v);
   } else {
     return __float2bfloat16(v);
   }
@@ -383,6 +400,8 @@ int fwd_dispatch(const void* x, const void* w, const void* b, void* y,
                                           eps, s);
   if constexpr (std::is_same<T, float>::value) {
     PDTT_LN_FWD_FP32(PDTT_X)
+  } else if constexpr (std::is_same<T, __half>::value) {
+    PDTT_LN_FWD_FP16(PDTT_X)
   } else {
     PDTT_LN_FWD_BF16(PDTT_X)
   }
@@ -662,6 +681,8 @@ int bwd_dispatch(const void* x, const void* w, const void* mu,
         x, w, mu, rstd, dy, dx, dw, db, part, R, N, rows_per_cta, s);
   if constexpr (std::is_same<T, float>::value) {
     PDTT_LN_BWD_FP32(PDTT_X)
+  } else if constexpr (std::is_same<T, __half>::value) {
+    PDTT_LN_BWD_FP16(PDTT_X)
   } else {
     PDTT_LN_BWD_BF16(PDTT_X)
   }
@@ -675,31 +696,47 @@ bool aligned16(const void* p) {
 
 int pack_of(int dtype) { return dtype == 0 ? 4 : 8; }
 
+template <typename T>
+int fwd_width(bool wide, const void* x, const void* w, const void* b, void* y,
+              void* mu, void* rstd, long long R, int N, float eps,
+              cudaStream_t s) {
+  return wide ? fwd_dispatch<T, true>(x, w, b, y, mu, rstd, R, N, eps, s)
+              : fwd_dispatch<T, false>(x, w, b, y, mu, rstd, R, N, eps, s);
+}
+
+template <typename T>
+int bwd_width(bool wide, const void* x, const void* w, const void* mu,
+              const void* rstd, const void* dy, void* dx, void* dw, void* db,
+              void* part, long long R, int N, int rows_per_cta,
+              cudaStream_t s) {
+  return wide ? bwd_dispatch<T, true>(x, w, mu, rstd, dy, dx, dw, db, part, R,
+                                      N, rows_per_cta, s)
+              : bwd_dispatch<T, false>(x, w, mu, rstd, dy, dx, dw, db, part,
+                                       R, N, rows_per_cta, s);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 on success); the caller raises on anything else.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns cudaGetLastError()
+// after the launch (0 on success); the caller raises on anything else.
 extern "C" int pdtt_layernorm_fwd(const void* x, const void* w, const void* b,
                                   void* y, void* mu, void* rstd, long long R,
                                   int N, float eps, int dtype, void* stream) {
-  if (R < 1 || N < 1 || N > kMaxN || (dtype != 0 && dtype != 1))
+  if (R < 1 || N < 1 || N > kMaxN || dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool wide = N % pack_of(dtype) == 0 && aligned16(x) &&
                     aligned16(w) && aligned16(b) && aligned16(y);
   if (dtype == 0)
-    return wide ? fwd_dispatch<float, true>(x, w, b, y, mu, rstd, R, N, eps, s)
-                : fwd_dispatch<float, false>(x, w, b, y, mu, rstd, R, N, eps,
-                                             s);
-  return wide ? fwd_dispatch<__nv_bfloat16, true>(x, w, b, y, mu, rstd, R, N,
-                                                  eps, s)
-              : fwd_dispatch<__nv_bfloat16, false>(x, w, b, y, mu, rstd, R, N,
-                                                   eps, s);
+    return fwd_width<float>(wide, x, w, b, y, mu, rstd, R, N, eps, s);
+  if (dtype == 1)
+    return fwd_width<__nv_bfloat16>(wide, x, w, b, y, mu, rstd, R, N, eps, s);
+  return fwd_width<__half>(wide, x, w, b, y, mu, rstd, R, N, eps, s);
 }
 
 // x, dy, dx [R, N] and w, dw, db [N] of one dtype (0 = float32,
-// 1 = bfloat16); mu, rstd [R] fp32; part: fp32 scratch of 2 * G * N with
-// G = ceil(R / rows_per_cta). Returns cudaGetLastError() after the two
+// 1 = bfloat16, 2 = float16); mu, rstd [R] fp32; part: fp32 scratch of
+// 2 * G * N with G = ceil(R / rows_per_cta). Returns cudaGetLastError() after the two
 // launches (0 on success); the caller raises on anything else.
 extern "C" int pdtt_layernorm_bwd(const void* x, const void* w,
                                   const void* mu, const void* rstd,
@@ -707,22 +744,19 @@ extern "C" int pdtt_layernorm_bwd(const void* x, const void* w,
                                   void* db, void* part, long long R, int N,
                                   int rows_per_cta, int dtype, void* stream) {
   if (R < 1 || N < 1 || N > kMaxN || rows_per_cta < 1 ||
-      (R + rows_per_cta - 1) / rows_per_cta > 0x7fffffffLL ||
-      (dtype != 0 && dtype != 1))
+      (R + rows_per_cta - 1) / rows_per_cta > 0x7fffffffLL || dtype < 0 ||
+      dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool wide = N % pack_of(dtype) == 0 && aligned16(x) &&
                     aligned16(w) && aligned16(dy) && aligned16(dx) &&
                     aligned16(part);
   if (dtype == 0)
-    return wide ? bwd_dispatch<float, true>(x, w, mu, rstd, dy, dx, dw, db,
-                                            part, R, N, rows_per_cta, s)
-                : bwd_dispatch<float, false>(x, w, mu, rstd, dy, dx, dw, db,
-                                             part, R, N, rows_per_cta, s);
-  return wide ? bwd_dispatch<__nv_bfloat16, true>(x, w, mu, rstd, dy, dx, dw,
-                                                  db, part, R, N,
-                                                  rows_per_cta, s)
-              : bwd_dispatch<__nv_bfloat16, false>(x, w, mu, rstd, dy, dx, dw,
-                                                   db, part, R, N,
-                                                   rows_per_cta, s);
+    return bwd_width<float>(wide, x, w, mu, rstd, dy, dx, dw, db, part, R, N,
+                            rows_per_cta, s);
+  if (dtype == 1)
+    return bwd_width<__nv_bfloat16>(wide, x, w, mu, rstd, dy, dx, dw, db,
+                                    part, R, N, rows_per_cta, s);
+  return bwd_width<__half>(wide, x, w, mu, rstd, dy, dx, dw, db, part, R, N,
+                           rows_per_cta, s);
 }

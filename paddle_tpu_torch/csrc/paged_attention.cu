@@ -20,7 +20,8 @@
 //   s = (q . k) * scale, masked to -1e30; m_new = max(m, rowmax(s));
 //   p = 0 exactly where s <= -5e29, else exp(s - m_new);
 //   alpha = exp(m - m_new); l = l * alpha + rowsum(p);
-//   acc = acc * alpha + bf16/fp32-rounded(p) @ v;   finally acc / max(l, 1e-30).
+//   acc = acc * alpha + p @ v with p rounded to the cache dtype;
+//   finally acc / max(l, 1e-30).
 // A fully masked block is an exact no-op (alpha = 1, p = 0), which is what
 // makes chunked prefill bit-identical to whole-prompt prefill; there is
 // deliberately no split-KV reduction, which would regroup the sums.
@@ -32,11 +33,13 @@
 // out once; at head_dim 128 and one q-tile the arithmetic is ~2 operations
 // per byte of K/V per query row, far under the H100's ridge point.
 //
-// Routes: bf16 at a block_len that is a multiple of 8 (the engine's 8 and
-// DEFAULT_KV_BLOCK among them) and D 64 or 128 runs on the tensor cores, in
-// paged_attention_tc.cu (mma.sync fed by cp.async page gathers; see its
-// note). fp32, kept true fp32 (the model phase holds fp32 served steps to a
-// CPU twin), and bf16 at other block lengths run the scalar kernel below.
+// Routes: bf16 and fp16 at a block_len that is a multiple of 8 (the
+// engine's 8 and DEFAULT_KV_BLOCK among them) and D 64 or 128 run on the
+// tensor cores, in paged_attention_tc.cu (mma.sync fed by cp.async page
+// gathers; see its note). fp32, kept true fp32 (the model phase holds fp32
+// served steps to a CPU twin), and bf16 and fp16 at other block lengths run
+// the scalar kernel below (a template over the element type: fp32 math on
+// widened values, p and the output rounded to T).
 //
 // Scalar design (a simple, correct first kernel; no tensor cores, TMA or
 // pipelining): one CTA of 128 threads per (q-tile of 16 query rows, head, batch
@@ -51,6 +54,7 @@
 // Shared arrays are padded by one float per row so the strided dot
 // products hit distinct banks.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -66,6 +70,7 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
 template <>
@@ -75,6 +80,10 @@ __device__ __forceinline__ float from_float<float>(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);
 }
 // p.astype(v.dtype): the probabilities are rounded to the cache dtype
 // before the PV product, as in the JAX kernel.
@@ -238,24 +247,32 @@ int launch(const void* q, const void* k, const void* v, const int* table,
 
 }  // namespace
 
-// bf16 on the tensor cores (paged_attention_tc.cu).
-int paged_attention_bf16_tc(const void* q, const void* k, const void* v,
-                            const int* table, const int* seq_lens,
-                            const int* q_pos, void* out, int B, int H,
-                            int Tq, int D, int Hkv, int L_slab, int n_blocks,
-                            int block_len, int pages_per_row, float scale,
-                            cudaStream_t s);
+// bf16 (dtype 1) and fp16 (dtype 2) on the tensor cores
+// (paged_attention_tc.cu).
+int paged_attention_tc(const void* q, const void* k, const void* v,
+                       const int* table, const int* seq_lens,
+                       const int* q_pos, void* out, int B, int H, int Tq,
+                       int D, int Hkv, int L_slab, int n_blocks,
+                       int block_len, int pages_per_row, float scale,
+                       int dtype, cudaStream_t s);
 
 // The route rule, in this one place (ops/paged_attention.py::paged_route
-// mirrors it): bf16 at a block_len that is a multiple of 8 and a head dim
-// of 64 or 128 runs on the tensor cores; everything else on the scalar
-// kernel above.
+// mirrors it): bf16 and fp16 at a block_len that is a multiple of 8 and a
+// head dim of 64 or 128 run on the tensor cores; everything else on the
+// scalar kernel above.
 static bool tensor_core_route(int dtype, int block_len, int D) {
-  return dtype == 1 && block_len % 8 == 0 && (D == 64 || D == 128);
+  return (dtype == 1 || dtype == 2) && block_len % 8 == 0 &&
+         (D == 64 || D == 128);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 on success); the caller raises on anything else.
+// The route pdtt_paged_attention takes for these arguments, for the
+// caller's launch counts: 1 on the tensor cores, 0 on the scalar kernel.
+extern "C" int pdtt_paged_attention_route(int dtype, int block_len, int D) {
+  return tensor_core_route(dtype, block_len, D) ? 1 : 0;
+}
+
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns cudaGetLastError()
+// after the launch (0 on success); the caller raises on anything else.
 extern "C" int pdtt_paged_attention(const void* q, const void* k,
                                     const void* v, const void* table,
                                     const void* seq_lens, const void* q_pos,
@@ -272,9 +289,9 @@ extern "C" int pdtt_paged_attention(const void* q, const void* k,
   const int* sl = static_cast<const int*>(seq_lens);
   const int* qp = static_cast<const int*>(q_pos);
   if (tensor_core_route(dtype, block_len, D))
-    return paged_attention_bf16_tc(q, k, v, tb, sl, qp, out, B, H, Tq, D,
-                                   Hkv, L_slab, n_blocks, block_len,
-                                   pages_per_row, scale, s);
+    return paged_attention_tc(q, k, v, tb, sl, qp, out, B, H, Tq, D, Hkv,
+                              L_slab, n_blocks, block_len, pages_per_row,
+                              scale, dtype, s);
   if (dtype == 0)
     return launch<float>(q, k, v, tb, sl, qp, out, B, H, Tq, D, Hkv, L_slab,
                          n_blocks, block_len, pages_per_row, scale, s);
@@ -282,5 +299,8 @@ extern "C" int pdtt_paged_attention(const void* q, const void* k,
     return launch<__nv_bfloat16>(q, k, v, tb, sl, qp, out, B, H, Tq, D, Hkv,
                                  L_slab, n_blocks, block_len, pages_per_row,
                                  scale, s);
+  if (dtype == 2)
+    return launch<__half>(q, k, v, tb, sl, qp, out, B, H, Tq, D, Hkv, L_slab,
+                          n_blocks, block_len, pages_per_row, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

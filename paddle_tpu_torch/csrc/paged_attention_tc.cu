@@ -1,8 +1,12 @@
-// Ragged paged attention in bf16 on Hopper's tensor cores (sm_90a), built
-// by ops/_kernels.py into the port's kernel library and reached through
-// pdtt_paged_attention (paged_attention.cu) for bf16 at a block_len that is
-// a multiple of 8 and a head dim of 64 or 128. fp32, and bf16 at other
-// block lengths, stay paged_attention.cu's scalar kernel.
+// Ragged paged attention in bf16 and fp16 on Hopper's tensor cores
+// (sm_90a), built by ops/_kernels.py into the port's kernel library and
+// reached through pdtt_paged_attention (paged_attention.cu) for bf16 or
+// fp16 at a block_len that is a multiple of 8 and a head dim of 64 or 128.
+// fp32, and 16-bit types at other block lengths, stay paged_attention.cu's
+// scalar kernel. The kernel is a template over the element type T: only
+// the mma.sync operand type (.bf16 or .f16) and the rounding of P and the
+// output to T (pack<T>) depend on it; ldmatrix moves 16-bit values of
+// either type alike.
 //
 // Replaces: paddle_tpu/ops/paged_attention.py::_paged_kernel, as
 // paged_attention.cu's scalar kernel does, under its contract
@@ -10,7 +14,7 @@
 // blocks are walked in table order with the per-block online-softmax
 // update (s = (q . k) * scale masked to -1e30; m_new = max(m, rowmax(s));
 // p = 0 exactly where s <= -5e29, else exp(s - m_new); alpha =
-// exp(m - m_new); l = l alpha + rowsum(p); acc = acc alpha + bf16(p) v),
+// exp(m - m_new); l = l alpha + rowsum(p); acc = acc alpha + T(p) v),
 // then out = acc / max(l, 1e-30). No split-KV. A block fully masked for a
 // row leaves that row's (m, l, acc) bit-unchanged (alpha = 1, p = 0), and
 // every row is computed alone, so chunked prefill equals whole-prompt
@@ -31,7 +35,7 @@
 //     registers for the whole walk. Per 8 keys, S is one m16n8k16 tile per
 //     16 columns of D (HMMA, fp32 sums); the row max, alpha and row sum are
 //     reduced across the quad of lanes that shares a row; P is packed to
-//     bf16 straight from the S fragment as the A operand of an m16n8k8
+//     T straight from the S fragment as the A operand of an m16n8k8
 //     product per 8 keys and 8 columns, and acc alpha is that product's C
 //     input: P never touches shared memory and no key is padded.
 //   - K and V pages are gathered by 16-byte cp.async into a four-stage
@@ -51,9 +55,11 @@
 //     past it are fully masked for every row of the CTA, so skipping them
 //     is exact.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -101,28 +107,52 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
       : "r"(addr));
 }
 
-// d += a b, m16n8k16, bf16 in, fp32 sums
+// d += a b, m16n8k16, T (bf16 or fp16) in, fp32 sums
+#define PDTT_MMA_K16(TY)                                                    \
+  asm volatile(                                                             \
+      "mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 "            \
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"   \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                      \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
+template <typename T>
 __device__ __forceinline__ void mma_k16(float (&d)[4], const uint32_t (&a)[4],
                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (std::is_same<T, __half>::value) {
+    PDTT_MMA_K16("f16");
+  } else {
+    PDTT_MMA_K16("bf16");
+  }
 }
-// d += a b, m16n8k8, bf16 in, fp32 sums
+#undef PDTT_MMA_K16
+// d += a b, m16n8k8, T in, fp32 sums
+#define PDTT_MMA_K8(TY)                                                     \
+  asm volatile(                                                             \
+      "mma.sync.aligned.m16n8k8.row.col.f32." TY "." TY ".f32 "             \
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"               \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                      \
+      : "r"(a0), "r"(a1), "r"(b0))
+template <typename T>
 __device__ __forceinline__ void mma_k8(float (&d)[4], uint32_t a0,
                                        uint32_t a1, uint32_t b0) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(b0));
+  if constexpr (std::is_same<T, __half>::value) {
+    PDTT_MMA_K8("f16");
+  } else {
+    PDTT_MMA_K8("bf16");
+  }
 }
+#undef PDTT_MMA_K8
 
-// two fp32 values rounded to nearest even into a bf16 pair (lo first)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+// two fp32 values rounded to nearest even into a T pair (lo first)
+template <typename T>
+__device__ __forceinline__ uint32_t pack(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack<bf16>(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
@@ -161,15 +191,15 @@ __device__ __forceinline__ uint32_t div_of(uint32_t n, const FastDiv& f) {
 }
 
 // kNT = block_len / 8
-template <int kD, int kNT>
+template <typename T, int kD, int kNT>
 __global__ void __launch_bounds__(kThreads, 1)
-    paged_attention_kernel_tc(const bf16* __restrict__ q,
-                              const bf16* __restrict__ k,
-                              const bf16* __restrict__ v,
+    paged_attention_kernel_tc(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v,
                               const int* __restrict__ table,
                               const int* __restrict__ seq_lens,
                               const int* __restrict__ q_pos,
-                              bf16* __restrict__ out, int H, int Tq, int Hkv,
+                              T* __restrict__ out, int H, int Tq, int Hkv,
                               int L_slab, int n_blocks, FastDiv ppr,
                               float scale) {
   constexpr int kBL = 8 * kNT;              // block_len
@@ -231,7 +261,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const bool warp_live = wr0 < rows;
   int rpos[2];
   bool rvalid[2];
-  const bf16* qrow[2];
+  const T* qrow[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = wr0 + g + 8 * h;
@@ -281,8 +311,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int kk = 0; kk < kD / 32; ++kk) {
           uint32_t kb[4];
           ldsm_x4(kb, ks + chunk_at<kD>(key, 4 * kk + (lane >> 3)));
-          mma_k16(s[bi][jj], qa[2 * kk], kb[0], kb[1]);
-          mma_k16(s[bi][jj], qa[2 * kk + 1], kb[2], kb[3]);
+          mma_k16<T>(s[bi][jj], qa[2 * kk], kb[0], kb[1]);
+          mma_k16<T>(s[bi][jj], qa[2 * kk + 1], kb[2], kb[3]);
         }
       }
 
@@ -360,15 +390,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       // operand packed from its S fragment, V through ldmatrix.trans
 #pragma unroll
       for (int jj = 0; jj < kNT; ++jj) {
-        const uint32_t a0 = pack_bf16(s[bi][jj][0], s[bi][jj][1]);
-        const uint32_t a1 = pack_bf16(s[bi][jj][2], s[bi][jj][3]);
+        const uint32_t a0 = pack<T>(s[bi][jj][0], s[bi][jj][1]);
+        const uint32_t a1 = pack<T>(s[bi][jj][2], s[bi][jj][3]);
         const int key = bi * kBL + 8 * jj + (lane & 7);
 #pragma unroll
         for (int n4 = 0; n4 < kD / 32; ++n4) {
           uint32_t vb[4];
           ldsm_x4_t(vb, vs + chunk_at<kD>(key, 4 * n4 + (lane >> 3)));
 #pragma unroll
-          for (int i = 0; i < 4; ++i) mma_k8(acc[4 * n4 + i], a0, a1, vb[i]);
+          for (int i = 0; i < 4; ++i)
+            mma_k8<T>(acc[4 * n4 + i], a0, a1, vb[i]);
         }
       }
     }
@@ -380,15 +411,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int h = 0; h < 2; ++h) {
     if (!rvalid[h]) continue;
     const float den = fmaxf(l[h], 1e-30f);
-    bf16* orow = out + (qrow[h] - q);
+    T* orow = out + (qrow[h] - q);
 #pragma unroll
     for (int n = 0; n < kD / 8; ++n)
       *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * t4) =
-          pack_bf16(acc[n][2 * h] / den, acc[n][2 * h + 1] / den);
+          pack<T>(acc[n][2 * h] / den, acc[n][2 * h + 1] / den);
   }
 }
 
-template <int kD, int kNT>
+template <typename T, int kD, int kNT>
 int launch_tc(const void* q, const void* k, const void* v, const int* table,
               const int* seq_lens, const int* q_pos, void* out, int B, int H,
               int Tq, int Hkv, int L_slab, int n_blocks, int pages_per_row,
@@ -398,19 +429,19 @@ int launch_tc(const void* q, const void* k, const void* v, const int* table,
                          kRows;
   if (n_rt > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const int rc = static_cast<int>(cudaFuncSetAttribute(
-      paged_attention_kernel_tc<kD, kNT>,
+      paged_attention_kernel_tc<T, kD, kNT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   if (rc) return rc;
-  paged_attention_kernel_tc<kD, kNT>
+  paged_attention_kernel_tc<T, kD, kNT>
       <<<dim3(static_cast<unsigned>(n_rt), Hkv, B), kThreads, smem, s>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), table, seq_lens, q_pos,
-          static_cast<bf16*>(out), H, Tq, Hkv, L_slab, n_blocks,
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), table, seq_lens, q_pos,
+          static_cast<T*>(out), H, Tq, Hkv, L_slab, n_blocks,
           fast_div_params(static_cast<uint32_t>(pages_per_row)), scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kD>
+template <typename T, int kD>
 int launch_tc_d(const void* q, const void* k, const void* v,
                 const int* table, const int* seq_lens, const int* q_pos,
                 void* out, int B, int H, int Tq, int Hkv, int L_slab,
@@ -418,9 +449,9 @@ int launch_tc_d(const void* q, const void* k, const void* v,
                 cudaStream_t s) {
 #define PDTT_PAGED_TC(NT)                                                  \
   case NT:                                                                 \
-    return launch_tc<kD, NT>(q, k, v, table, seq_lens, q_pos, out, B, H,   \
-                             Tq, Hkv, L_slab, n_blocks, pages_per_row,     \
-                             scale, s);
+    return launch_tc<T, kD, NT>(q, k, v, table, seq_lens, q_pos, out, B,  \
+                                H, Tq, Hkv, L_slab, n_blocks,             \
+                                pages_per_row, scale, s);
   switch (block_len / 8) {
     PDTT_PAGED_TC(1)
     PDTT_PAGED_TC(2)
@@ -436,17 +467,12 @@ int launch_tc_d(const void* q, const void* k, const void* v,
 #undef PDTT_PAGED_TC
 }
 
-}  // namespace
-
-// The bf16 launcher for paged_attention.cu's entry point: block_len a
-// multiple of 8 up to 64, D 64 or 128, every pointer 16-byte aligned (the
-// wrapper checks). Returns cudaGetLastError() after the launch.
-int paged_attention_bf16_tc(const void* q, const void* k, const void* v,
-                            const int* table, const int* seq_lens,
-                            const int* q_pos, void* out, int B, int H,
-                            int Tq, int D, int Hkv, int L_slab, int n_blocks,
-                            int block_len, int pages_per_row, float scale,
-                            cudaStream_t s) {
+template <typename T>
+int launch_tc_t(const void* q, const void* k, const void* v,
+                const int* table, const int* seq_lens, const int* q_pos,
+                void* out, int B, int H, int Tq, int D, int Hkv, int L_slab,
+                int n_blocks, int block_len, int pages_per_row, float scale,
+                cudaStream_t s) {
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
       16)
@@ -454,12 +480,35 @@ int paged_attention_bf16_tc(const void* q, const void* k, const void* v,
   if (block_len % 8 || block_len > 64)
     return static_cast<int>(cudaErrorInvalidValue);
   if (D == 128)
-    return launch_tc_d<128>(q, k, v, table, seq_lens, q_pos, out, B, H, Tq,
-                            Hkv, L_slab, n_blocks, block_len, pages_per_row,
-                            scale, s);
+    return launch_tc_d<T, 128>(q, k, v, table, seq_lens, q_pos, out, B, H,
+                               Tq, Hkv, L_slab, n_blocks, block_len,
+                               pages_per_row, scale, s);
   if (D == 64)
-    return launch_tc_d<64>(q, k, v, table, seq_lens, q_pos, out, B, H, Tq,
-                           Hkv, L_slab, n_blocks, block_len, pages_per_row,
-                           scale, s);
+    return launch_tc_d<T, 64>(q, k, v, table, seq_lens, q_pos, out, B, H, Tq,
+                              Hkv, L_slab, n_blocks, block_len,
+                              pages_per_row, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// The launcher for paged_attention.cu's entry point: dtype 1 (bf16) or 2
+// (fp16), block_len a multiple of 8 up to 64, D 64 or 128, every pointer
+// 16-byte aligned (the wrapper checks). Returns cudaGetLastError() after
+// the launch.
+int paged_attention_tc(const void* q, const void* k, const void* v,
+                       const int* table, const int* seq_lens,
+                       const int* q_pos, void* out, int B, int H, int Tq,
+                       int D, int Hkv, int L_slab, int n_blocks,
+                       int block_len, int pages_per_row, float scale,
+                       int dtype, cudaStream_t s) {
+  if (dtype == 1)
+    return launch_tc_t<bf16>(q, k, v, table, seq_lens, q_pos, out, B, H, Tq,
+                             D, Hkv, L_slab, n_blocks, block_len,
+                             pages_per_row, scale, s);
+  if (dtype == 2)
+    return launch_tc_t<__half>(q, k, v, table, seq_lens, q_pos, out, B, H,
+                               Tq, D, Hkv, L_slab, n_blocks, block_len,
+                               pages_per_row, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -45,13 +45,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 FLASH_VARIANTS = tuple(f"{k}{v}" for k in ("flash_fwd", "flash_bwd_dq",
                                             "flash_bwd_dkv")
                        for v in ("_mask", "_dropout"))
-# the fp16 instantiations (AMP in float16) count apart from the bf16 ones
+# the fp16 instantiations (AMP in float16, pure-fp16 O2 training, fp16
+# serving) count apart from the fp32 and bf16 ones: a kernel's name plus
+# FP16_SUFFIX (`fp16_name`)
+FP16_SUFFIX = "_fp16"
 FLASH_FP16 = ("flash_fwd_fp16", "flash_bwd_dq_fp16", "flash_bwd_dkv_fp16")
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "layernorm_fwd": 0, "layernorm_bwd": 0,
-            "paged_attention": 0, "fused_adam": 0,
+FLASH_VARIANTS_FP16 = tuple(k + FP16_SUFFIX for k in FLASH_VARIANTS)
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "layernorm_fwd",
+           "layernorm_bwd", "paged_attention", "fused_adam")
+FP16 = (FLASH_FP16 + FLASH_VARIANTS_FP16
+        + tuple(k + FP16_SUFFIX for k in KERNELS[3:]))
+LAUNCHES = {**dict.fromkeys(KERNELS, 0),
             **dict.fromkeys(FLASH_VARIANTS, 0),
-            **dict.fromkeys(FLASH_FP16, 0)}
+            **dict.fromkeys(FP16, 0)}
+# paged-attention launches by the route the library took (its own rule,
+# asked at each launch): "<counter>:<route>", e.g.
+# "paged_attention_fp16:tensor_cores"
+ROUTE_LAUNCHES = {f"{k}:{r}": 0
+                  for k in ("paged_attention", "paged_attention_fp16")
+                  for r in ("tensor_cores", "scalar")}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -97,6 +109,9 @@ _SIGNATURES = {
     # n_blocks, block_len, pages_per_row, scale, dtype, stream
     "pdtt_paged_attention": (_P, _P, _P, _P, _P, _P, _P) + (_c.c_int,) * 9
                             + (_c.c_float, _c.c_int, _P),
+    # dtype, block_len, D: 1 where pdtt_paged_attention takes the
+    # tensor-core kernel, else 0
+    "pdtt_paged_attention_route": (_c.c_int,) * 3,
     # p, g, m1, m2, master, lr, b1p, b2p, do_update (bool or null), n, b1,
     # 1-b1, b2, 1-b2, eps, wd, decoupled, p dtype, g dtype, moment dtype,
     # stream
@@ -106,12 +121,17 @@ _SIGNATURES = {
 
 
 def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+def route_counts() -> dict:
+    return dict(ROUTE_LAUNCHES)
 
 
 def add_build_listener(fn):
@@ -280,19 +300,24 @@ def ptxas_kernel_stats(report: str) -> dict:
     return stats
 
 
-def dtype_code(dtype, half=False) -> int:
-    """The C entry points' dtype code: 0 float32, 1 bfloat16 and, where
-    the caller's kernel takes it (`half`: the flash kernels), 2 float16.
-    Raises TypeError on anything else."""
+def dtype_code(dtype) -> int:
+    """The C entry points' dtype code: 0 float32, 1 bfloat16, 2 float16
+    (every kernel takes all three, as the JAX kernels take any float
+    dtype). Raises TypeError on anything else."""
     import torch
-    if dtype == torch.float32:
-        return 0
-    if dtype == torch.bfloat16:
-        return 1
-    if half and dtype == torch.float16:
-        return 2
-    raise TypeError(f"the port's CUDA kernels take float32 or bfloat16"
-                    f"{' or float16' if half else ''}, got {dtype}")
+    codes = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+    if dtype not in codes:
+        raise TypeError(f"the port's CUDA kernels take float32, bfloat16 or "
+                        f"float16, got {dtype}")
+    return codes[dtype]
+
+
+def fp16_name(name, *dtypes) -> str:
+    """The launch counter of kernel `name` for operands of `dtypes`: its
+    fp16 instantiation's (name + FP16_SUFFIX) where any operand is
+    float16, else `name`."""
+    import torch
+    return name + FP16_SUFFIX if torch.float16 in dtypes else name
 
 
 def current_stream_handle(device) -> int:

@@ -3,10 +3,9 @@
 Two parts. `flash_attention` is the no-cache attention of training: the
 TPU kernels `_fwd_kernel`, `_bwd_dq_kernel` and `_bwd_dkv_kernel` become
 the hand-written CUDA kernels in `csrc/flash_attention.cu` (the bf16
-and fp16 forward, dq and dk/dv run on the tensor cores,
-`csrc/flash_attention_tc.cu`; fp16, which AMP in float16 gives them, has
-no mask or dropout variant),
-tied together by `FlashAttentionFn` (the JAX package's custom_vjp).
+and fp16 forward, dq and dk/dv, each with its mask and dropout variants,
+run on the tensor cores, `csrc/flash_attention_tc.cu`), tied together by
+`FlashAttentionFn` (the JAX package's custom_vjp).
 Their plain PyTorch versions run the same arithmetic on whole score matrices
 (`_attention_reference`'s op sequence, plus lse and the JAX backward
 kernels' formulas); a CPU tensor takes them and a CUDA tensor launches
@@ -320,18 +319,14 @@ def _check_aligned(tensors):
 def _variant(q, Sk, mask, dropout_p, seed):
     """(fp32 mask rows or None, the C entry points' trailing variant
     arguments: mask pointer (0: none), row divisor, seed, dropout_p, and
-    the launch counter's suffix: "_mask", "_dropout", "_fp16" for the fp16
-    instantiation, which takes neither, or ""). The caller holds the rows until the
-    launch. A mask and dropout together are refused: flash_attention
-    sends them to the plain reference, by the JAX package's rule."""
+    the launch counter's suffix: "_mask", "_dropout" or ""; an fp16
+    instantiation's counter adds "_fp16", `_kernels.fp16_name`). The
+    caller holds the rows until the launch. A mask and dropout together
+    are refused: flash_attention sends them to the plain reference, by
+    the JAX package's rule."""
     if not 0.0 <= dropout_p < 1.0:
         raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
-    if q.dtype == torch.float16 and (mask is not None or dropout_p > 0.0):
-        raise TypeError("the fp16 flash kernels take neither an additive "
-                        "mask nor dropout (ROADMAP §2): use bf16 or fp32")
     B, H, Sq, _ = q.shape
-    if q.dtype == torch.float16:
-        return None, (0, 1, 0, 0.0), "_fp16"
     if mask is None:
         if dropout_p > 0.0:
             return None, (0, 1, int(seed) & ((1 << 64) - 1),
@@ -358,7 +353,7 @@ def flash_fwd_cuda(q, k, v, causal, scale, mask=None, dropout_p=0.0,
     `seed` (dropout_keep_mask's contract)."""
     B, H, Sq, Sk, D = _check_qkv(q, k, v, "flash_fwd_cuda")
     rows, extra, suffix = _variant(q, Sk, mask, dropout_p, seed)
-    code = _kernels.dtype_code(q.dtype, half=True)
+    code = _kernels.dtype_code(q.dtype)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), device=q.device, dtype=torch.float32)
     lib = _kernels.load_library()
@@ -367,8 +362,9 @@ def flash_fwd_cuda(q, k, v, causal, scale, mask=None, dropout_p=0.0,
         lse.data_ptr(), B * H, Sq, Sk, D, float(scale), int(bool(causal)),
         *extra, code,
         _kernels.current_stream_handle(q.device))
-    _kernels.check_launch(rc, "flash_fwd" + suffix)
-    _kernels.LAUNCHES["flash_fwd" + suffix] += 1
+    name = _kernels.fp16_name("flash_fwd" + suffix, q.dtype)
+    _kernels.check_launch(rc, name)
+    _kernels.LAUNCHES[name] += 1
     return out, lse
 
 
@@ -393,7 +389,7 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal, scale, mask=None,
     B, H, Sq, Sk, D = _check_qkv(q, k, v, "flash_bwd_dq_cuda")
     _check_grad_side(q, g, lse, delta)
     rows, extra, suffix = _variant(q, Sk, mask, dropout_p, seed)
-    code = _kernels.dtype_code(q.dtype, half=True)
+    code = _kernels.dtype_code(q.dtype)
     dq = torch.empty_like(q)
     lib = _kernels.load_library()
     rc = lib.pdtt_flash_bwd_dq(
@@ -402,8 +398,9 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal, scale, mask=None,
         float(scale), int(bool(causal)),
         *extra, code,
         _kernels.current_stream_handle(q.device))
-    _kernels.check_launch(rc, "flash_bwd_dq" + suffix)
-    _kernels.LAUNCHES["flash_bwd_dq" + suffix] += 1
+    name = _kernels.fp16_name("flash_bwd_dq" + suffix, q.dtype)
+    _kernels.check_launch(rc, name)
+    _kernels.LAUNCHES[name] += 1
     return dq
 
 
@@ -413,7 +410,7 @@ def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal, scale, mask=None,
     B, H, Sq, Sk, D = _check_qkv(q, k, v, "flash_bwd_dkv_cuda")
     _check_grad_side(q, g, lse, delta)
     rows, extra, suffix = _variant(q, Sk, mask, dropout_p, seed)
-    code = _kernels.dtype_code(q.dtype, half=True)
+    code = _kernels.dtype_code(q.dtype)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _kernels.load_library()
@@ -423,8 +420,9 @@ def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal, scale, mask=None,
         B * H, Sq, Sk, D, float(scale), int(bool(causal)),
         *extra, code,
         _kernels.current_stream_handle(q.device))
-    _kernels.check_launch(rc, "flash_bwd_dkv" + suffix)
-    _kernels.LAUNCHES["flash_bwd_dkv" + suffix] += 1
+    name = _kernels.fp16_name("flash_bwd_dkv" + suffix, q.dtype)
+    _kernels.check_launch(rc, name)
+    _kernels.LAUNCHES[name] += 1
     return dk, dv
 
 
@@ -522,9 +520,8 @@ def flash_attention(q, k, v, causal: bool = True, scale=None, mask=None,
     ([B|1, 1|H, Sq, Sk] or [B, Sq, Sk]) too.
 
     CUDA tensors go through the forward, dq and dk/dv kernels (D a
-    multiple of 16 up to 128, fp32, bf16 or fp16, any sequence lengths;
-    fp16 without a mask or dropout), with
-    the mask or in-kernel dropout (keyed by `dropout_seed`, see
+    multiple of 16 up to 128, fp32, bf16 or fp16, any sequence lengths),
+    with the mask or in-kernel dropout (keyed by `dropout_seed`, see
     dropout_keep_mask) as variants of those kernels; CPU tensors through
     their plain versions. A mask and dropout together take the plain
     reference on either device, by the JAX package's rule (its in-kernel

@@ -3,10 +3,12 @@
 The TPU kernel `_adam_kernel` becomes the hand-written CUDA kernel in
 `csrc/fused_adam.cu`: one flat pass over a parameter that reads p, g, m1
 and m2, does `_adam_math`'s arithmetic in fp32 and writes p, m1 and m2
-back in place. The moments keep their storage dtype (fp32 or bf16; a bf16
-moment is read, widened, and the fp32 result rounded once), and an
-optional fp32 master weight (`multi_precision`) is updated and the bf16
-parameter written from it. lr, beta1^t and beta2^t are 0-d fp32 tensors
+back in place. p, g and the moments each keep their storage dtype (fp32,
+bf16 or fp16, as the JAX kernel takes any float dtype; a 16-bit value is
+read, widened, and the fp32 result rounded once), and an optional fp32
+master weight (`multi_precision`) is updated and the bf16 or fp16
+parameter written from it. A launch with any fp16 operand counts as
+fused_adam_fp16. lr, beta1^t and beta2^t are 0-d fp32 tensors
 that the kernel reads from device memory, and so is the optional
 `do_update` flag (a 0-d bool tensor): where it is False nothing is
 written, which is the JAX train step's `_tree_where(do_update, new, old)`
@@ -66,11 +68,12 @@ def fused_adam_plain(p, g, m1, m2, lr, b1p, b2p, wd, *, beta1, beta2,
 def fused_adam_cuda(p, g, m1, m2, lr, b1p, b2p, wd, *, beta1, beta2,
                     epsilon, decoupled, master=None, do_update=None):
     """Launch the kernel: p, g, m1, m2 (and master) contiguous CUDA tensors
-    of one shape; p and g float32 or bfloat16, m1 and m2 one of the two;
-    master float32 beside a bfloat16 p; lr, b1p, b2p 0-d float32 tensors on
-    the same device; wd a Python float; do_update None or a one-element
-    bool tensor on that device (False: the kernel writes nothing). Updates
-    in place; returns (p, m1, m2)."""
+    of one shape; p, g and the moments each float32, bfloat16 or float16
+    (m1 and m2 one dtype); master float32 beside a bfloat16 or float16 p;
+    lr, b1p, b2p 0-d float32 tensors on the same device; wd a Python
+    float; do_update None or a one-element bool tensor on that device
+    (False: the kernel writes nothing). Updates in place; returns (p, m1,
+    m2)."""
     tensors = [p, g, m1, m2] + ([] if master is None else [master])
     scalars = (lr, b1p, b2p)
     if not all(torch.is_tensor(s) for s in scalars):
@@ -96,9 +99,10 @@ def fused_adam_cuda(p, g, m1, m2, lr, b1p, b2p, wd, *, beta1, beta2,
                         f"{m2.dtype}")
     codes = [_kernels.dtype_code(t.dtype) for t in (p, g, m1)]
     if master is not None and (master.dtype != torch.float32
-                               or p.dtype != torch.bfloat16):
-        raise TypeError("a master weight is float32 beside a bfloat16 "
-                        f"parameter, got {master.dtype} beside {p.dtype}")
+                               or p.dtype == torch.float32):
+        raise TypeError("a master weight is float32 beside a bfloat16 or "
+                        f"float16 parameter, got {master.dtype} beside "
+                        f"{p.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_adam kernel takes contiguous tensors")
     n = p.numel()
@@ -113,8 +117,9 @@ def fused_adam_cuda(p, g, m1, m2, lr, b1p, b2p, wd, *, beta1, beta2,
         1.0 - beta1, beta2,
         1.0 - beta2, epsilon, float(wd), int(bool(decoupled)), *codes,
         _kernels.current_stream_handle(p.device))
-    _kernels.check_launch(rc, "fused_adam")
-    _kernels.LAUNCHES["fused_adam"] += 1
+    name = _kernels.fp16_name("fused_adam", p.dtype, g.dtype, m1.dtype)
+    _kernels.check_launch(rc, name)
+    _kernels.LAUNCHES[name] += 1
     # written through raw pointers: tell autograd these tensors changed
     for t in tensors:
         increment_version(t)
@@ -125,7 +130,8 @@ def fused_adam(p, g, m1, m2, lr, b1p, b2p, wd, *, beta1, beta2, epsilon,
                decoupled, master=None, do_update=None):
     """Single-pass Adam update of p, m1 and m2 in place (the JAX function's
     arguments; its results are this call's tensors, rounded to their
-    dtypes). `master`: the fp32 master weight of a bf16 p, updated too.
+    dtypes). `master`: the fp32 master weight of a bf16 or fp16 p,
+    updated too.
     `do_update`: None, or a 0-d bool tensor that gates the whole update.
     The kernel for CUDA tensors, the plain version for CPU tensors."""
     fn = fused_adam_cuda if p.is_cuda else fused_adam_plain

@@ -50,6 +50,9 @@ BWD_BUCKETS = {
     torch.bfloat16: ((32, 1, 4, 3), (64, 1, 4, 3), (128, 1, 4, 3),
                      (256, 1, 2, 3), (256, 2, 1, 4), (256, 4, 1, 3)),
 }
+# fp16 packs 8 values in 16 bytes, as bf16 does: the same entries
+FWD_BUCKETS[torch.float16] = FWD_BUCKETS[torch.bfloat16]
+BWD_BUCKETS[torch.float16] = BWD_BUCKETS[torch.bfloat16]
 _FWD_CTA_THREADS = 128      # a forward CTA, unless one row takes more
 
 
@@ -65,8 +68,8 @@ class LnConfig(NamedTuple):
 def pack_of(dtype) -> int:
     """Values of `dtype` in 16 bytes."""
     if dtype not in FWD_BUCKETS:
-        raise TypeError(f"the LayerNorm kernels take float32 or bfloat16, "
-                        f"got {dtype}")
+        raise TypeError(f"the LayerNorm kernels take float32, bfloat16 or "
+                        f"float16, got {dtype}")
     return 16 // torch.empty((), dtype=dtype).element_size()
 
 
@@ -114,7 +117,8 @@ def layer_norm_fwd_plain(x2d, w, b, eps):
 
 def layer_norm_fwd_cuda(x2d, w, b, eps):
     """Launch the CUDA kernel: x2d [R, N] contiguous, w/b [N] of x's dtype
-    (float32 or bfloat16), N <= 8192. Returns (y, mu [R,1], rstd [R,1])."""
+    (float32, bfloat16 or float16), N <= 8192. Returns (y, mu [R,1],
+    rstd [R,1]). The fp16 instantiation counts as layernorm_fwd_fp16."""
     if not (x2d.is_cuda and w.is_cuda and b.is_cuda):
         raise ValueError("layer_norm_fwd_cuda takes CUDA tensors")
     if x2d.ndim != 2:
@@ -143,8 +147,9 @@ def layer_norm_fwd_cuda(x2d, w, b, eps):
         x2d.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
         mu.data_ptr(), rstd.data_ptr(), R, N, float(eps), code,
         _kernels.current_stream_handle(x2d.device))
-    _kernels.check_launch(rc, "layernorm_fwd")
-    _kernels.LAUNCHES["layernorm_fwd"] += 1
+    name = _kernels.fp16_name("layernorm_fwd", x2d.dtype)
+    _kernels.check_launch(rc, name)
+    _kernels.LAUNCHES[name] += 1
     return y, mu, rstd
 
 
@@ -185,8 +190,9 @@ def layer_norm_bwd_plain(x2d, w, mu, rstd, dy2d):
 
 def layer_norm_bwd_cuda(x2d, w, mu, rstd, dy2d):
     """Launch the backward kernel: x2d, dy2d [R, N] contiguous of w's dtype
-    (float32 or bfloat16), mu/rstd [R, 1] fp32 from the forward, N <= 8192.
-    Returns (dx, dw, db)."""
+    (float32, bfloat16 or float16), mu/rstd [R, 1] fp32 from the forward,
+    N <= 8192. Returns (dx, dw, db). The fp16 instantiation counts as
+    layernorm_bwd_fp16."""
     tensors = (x2d, w, mu, rstd, dy2d)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("layer_norm_bwd_cuda takes CUDA tensors")
@@ -225,8 +231,9 @@ def layer_norm_bwd_cuda(x2d, w, mu, rstd, dy2d):
         dy2d.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
         part.data_ptr(), R, N, rows, code,
         _kernels.current_stream_handle(x2d.device))
-    _kernels.check_launch(rc, "layernorm_bwd")
-    _kernels.LAUNCHES["layernorm_bwd"] += 1
+    name = _kernels.fp16_name("layernorm_bwd", x2d.dtype)
+    _kernels.check_launch(rc, name)
+    _kernels.LAUNCHES[name] += 1
     return dx, dw, db
 
 

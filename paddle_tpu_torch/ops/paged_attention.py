@@ -26,10 +26,10 @@ alpha rescale per logical block, a final divide by max(l, 1e-30)):
 - `paged_attention_plain` — the JAX `_scan_impl` as a Python loop over
   logical blocks; the CPU path and the reference the kernel is held to;
 - `paged_attention_cuda` — the hand-written kernels that replace the TPU
-  `_paged_kernel`: bf16 at a block_len that is a multiple of 8 runs on
-  the tensor cores (`csrc/paged_attention_tc.cu`), everything else on the
-  scalar kernel (`csrc/paged_attention.cu`); `paged_route` names the one
-  a call takes.
+  `_paged_kernel`: bf16 and fp16 at a block_len that is a multiple of 8
+  run on the tensor cores (`csrc/paged_attention_tc.cu`), everything else
+  on the scalar kernel (`csrc/paged_attention.cu`); `paged_route` names
+  the one a call takes. An fp16 launch counts as paged_attention_fp16.
 
 Neither materialises the JAX wrapper's `_as_pages` transpose: both
 address page g at slab row g // pages_per_row, column
@@ -58,10 +58,11 @@ TENSOR_CORES, SCALAR = "tensor_cores", "scalar"
 
 def paged_route(dtype, block_len: int, head_dim: int) -> str:
     """The kernel a CUDA call takes: the rule that `pdtt_paged_attention`
-    (csrc/paged_attention.cu) applies, mirrored. bf16 at a block_len that
-    is a multiple of 8 and a head dim of 64 or 128 runs on the tensor
-    cores; fp32 and bf16 at other block lengths on the scalar kernel."""
-    if (dtype == torch.bfloat16 and block_len % 8 == 0
+    (csrc/paged_attention.cu) applies, mirrored. bf16 and fp16 at a
+    block_len that is a multiple of 8 and a head dim of 64 or 128 run on
+    the tensor cores; fp32, and bf16 and fp16 at other block lengths, on
+    the scalar kernel."""
+    if (dtype in (torch.bfloat16, torch.float16) and block_len % 8 == 0
             and head_dim in HEAD_DIMS):
         return TENSOR_CORES
     return SCALAR
@@ -117,8 +118,9 @@ def paged_attention_plain(q, k_cache, v_cache, block_table, seq_lens, q_pos,
 def paged_attention_cuda(q, k_cache, v_cache, block_table, seq_lens, q_pos,
                          block_len: int, pages_per_row: int, scale: float):
     """Launch the CUDA kernel `paged_route` names. q [B,H,Tq,D] and the
-    slabs [N,Hkv,L,D] share one dtype (float32 or bfloat16), D in (64,
-    128), Hkv | H; block_table [B, nb], seq_lens and q_pos [B] are int32;
+    slabs [N,Hkv,L,D] share one dtype (float32, bfloat16 or float16), D in
+    (64, 128), Hkv | H; block_table [B, nb], seq_lens and q_pos [B] are
+    int32;
     everything contiguous on one GPU, and on the tensor-core route q and
     the slabs start on 16 bytes. Returns a new [B,H,Tq,D] tensor."""
     tensors = (q, k_cache, v_cache, block_table, seq_lens, q_pos)
@@ -159,21 +161,31 @@ def paged_attention_cuda(q, k_cache, v_cache, block_table, seq_lens, q_pos,
     if B == 0 or Tq == 0 or block_table.shape[1] == 0:
         raise ValueError("paged-attention kernel needs B, Tq and the block "
                          "table width >= 1")
-    if paged_route(q.dtype, block_len, D) == TENSOR_CORES and any(
-            t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
-        raise ValueError("the bf16 paged-attention kernel takes q and caches "
-                         "whose data starts on a 16-byte boundary")
     code = _kernels.dtype_code(q.dtype)
-    out = torch.empty_like(q)
     lib = _kernels.load_library()
+    # the library's own rule names the kernel it launches; its mirror here
+    # must agree
+    route = (TENSOR_CORES if lib.pdtt_paged_attention_route(
+        code, int(block_len), D) else SCALAR)
+    if route != paged_route(q.dtype, block_len, D):
+        raise RuntimeError(f"pdtt_paged_attention takes the {route} route "
+                           f"where paged_route names another")
+    if route == TENSOR_CORES and any(
+            t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError("the tensor-core paged-attention kernel takes q "
+                         "and caches whose data starts on a 16-byte "
+                         "boundary")
+    out = torch.empty_like(q)
     rc = lib.pdtt_paged_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_table.data_ptr(), seq_lens.data_ptr(), q_pos.data_ptr(),
         out.data_ptr(), B, H, Tq, D, Hkv, L, block_table.shape[1],
         int(block_len), int(pages_per_row), float(scale), code,
         _kernels.current_stream_handle(q.device))
-    _kernels.check_launch(rc, "paged_attention")
-    _kernels.LAUNCHES["paged_attention"] += 1
+    name = _kernels.fp16_name("paged_attention", q.dtype)
+    _kernels.check_launch(rc, name)
+    _kernels.LAUNCHES[name] += 1
+    _kernels.ROUTE_LAUNCHES[f"{name}:{route}"] += 1
     return out
 
 

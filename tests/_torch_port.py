@@ -240,6 +240,13 @@ def ulp_bf16(a):
     return np.exp2(np.floor(np.log2(a)) - 7)
 
 
+def ulp_fp16(a):
+    """One fp16 unit in the last place at |a| (11 significant bits; the
+    subnormal spacing, 2^-24, below 2^-14)."""
+    a = np.maximum(np.abs(a.astype(np.float32)), np.float32(2.0 ** -14))
+    return np.exp2(np.floor(np.log2(a)) - 10)
+
+
 def train_batches(seed, K=3, B=2, S=64, vocab=512):
     """[K, B, S] token ids and next-token labels with ignored (-100)
     tokens: each row's last label and the first 7 of row 0."""
@@ -335,6 +342,25 @@ def assert_bf16_attention_close(out, ref):
     share = float((err > ulp).mean())
     assert share <= BF16_PA_SHARE, \
         f"{share} of the elements are more than one bf16 ulp apart"
+
+
+def assert_fp16_attention_close(out, ref):
+    """fp16 paged attention against its plain version, to the limits that
+    chip_smoke.py states beside its FP16_PA_* constants (the bf16 rule
+    scaled by the ulp): every element within FP16_PA_ULPS fp16 ulps of
+    the larger magnitude + FP16_PA_ATOL, and at most FP16_PA_SHARE of them
+    past one ulp."""
+    from chip_smoke import FP16_PA_ATOL, FP16_PA_SHARE, FP16_PA_ULPS
+    out = np.asarray(out, np.float32)
+    ref = np.asarray(ref, np.float32)
+    err = np.abs(out - ref)
+    ulp = ulp_fp16(np.maximum(np.abs(out), np.abs(ref)))
+    excess = float((err - FP16_PA_ULPS * ulp).max())
+    assert excess <= FP16_PA_ATOL, \
+        f"an element is {excess} past {FP16_PA_ULPS} fp16 ulps"
+    share = float((err > ulp).mean())
+    assert share <= FP16_PA_SHARE, \
+        f"{share} of the elements are more than one fp16 ulp apart"
 
 
 # ---- engines with the prefix cache (tests/test_torch_prefix_cache.py,

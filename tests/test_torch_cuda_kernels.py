@@ -30,7 +30,12 @@ instead of going anywhere else. The mask and dropout variants of the
 flash kernels are held the same way, and the keep-mask the kernels draw
 equals the plain twin's bit for bit. Fused Adam: bit for bit
 (tolerance 0) against its plain version on the card, in every dtype, with
-and without a master weight, at ragged, tiny and misaligned n. ResNet-18
+and without a master weight, at ragged, tiny and misaligned n. The fp16
+instantiations (AMP in float16, pure-fp16 O2 training, fp16 serving) of
+the flash kernels and their variants, LayerNorm and fused Adam follow the
+fp16 forms of those rules (chip_smoke.py's FP16_TRAIN_* rule; bit for
+bit), fp16 paged attention its FP16_PA_* limits; each counts under its
+own `_fp16` launch counter. ResNet-18
 at 8 x 3 x 64 x 64 (cuDNN convolutions, BatchNorm and pools, fused Adam)
 against its CPU twin under the limits `chip_smoke.py` states for its
 resnet_model phase, and the bf16 BatchNorm within one bf16 ulp of fp32
@@ -39,8 +44,9 @@ math on its inputs.
 import pytest
 import torch
 
-from _torch_port import assert_bf16_attention_close, layernorm_inputs, \
-    paged_inputs, require_cuda, ulp_bf16
+from _torch_port import assert_bf16_attention_close, \
+    assert_fp16_attention_close, layernorm_inputs, paged_inputs, \
+    require_cuda, ulp_bf16
 
 
 # the served kind of lengths (tens to hundreds of keys a row), in slabs of
@@ -98,6 +104,40 @@ def test_cuda_paged_attention_matches_plain(dtype, H, Hkv, D, bl, Tq, more):
     else:
         assert_bf16_attention_close(out.float().cpu().numpy(),
                                     ref.float().cpu().numpy())
+
+
+# fp16 (fp16 serving): the same routes as bf16, held to chip_smoke.py's
+# FP16_PA_* rule (the bf16 one scaled by the ulp), two runs bit-equal,
+# counted as paged_attention_fp16 and never as paged_attention
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,D,bl,Tq,more", [
+    (16, 16, 128, 8, 64, {}),
+    (16, 4, 128, 8, 90, _SERVED),
+    (8, 2, 64, 16, 64, {}),
+    (8, 1, 128, 64, 1, {}),
+    (4, 2, 128, 12, 64, {}),             # the scalar route
+    (64, 8, 128, 8, 64, _LLAMA70_PREFILL),
+])
+def test_cuda_paged_attention_fp16_matches_plain(H, Hkv, D, bl, Tq, more):
+    require_cuda()
+    from paddle_tpu_torch.ops import launch_counts
+    from paddle_tpu_torch.ops.paged_attention import (paged_attention_cuda,
+                                                      paged_attention_plain)
+    c = paged_inputs(24, H=H, Hkv=Hkv, D=D, bl=bl, Tq=Tq, **more)
+    t = lambda a: torch.from_numpy(a).to("cuda", torch.float16)  # noqa
+    i = lambda a: torch.from_numpy(a).to("cuda")                 # noqa
+    args = (t(c["q"]), t(c["k"]), t(c["v"]), i(c["table"]), i(c["lens"]),
+            i(c["q_pos"]), c["bl"], c["ppr"], D ** -0.5)
+    before = launch_counts()
+    runs = [paged_attention_cuda(*args) for _ in range(2)]
+    ref = paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after["paged_attention_fp16"] == before["paged_attention_fp16"] + 2
+    assert after["paged_attention"] == before["paged_attention"]
+    assert runs[0].dtype == torch.float16 and torch.equal(*runs)
+    assert_fp16_attention_close(runs[0].float().cpu().numpy(),
+                                ref.float().cpu().numpy())
 
 
 # Rows that see only a handful of keys (Tq = 90 rows past lengths of 17, 9
@@ -464,6 +504,10 @@ def test_cuda_flash_fp16_matches_plain(B, H, Sq, Sk, D, causal):
         assert after[name] == before[name], name
 
 
+# (The name predates the fp16 variants: an fp16 mask and fp16 dropout now
+# run the variants' fp16 instantiations on the tensor cores, under their
+# own counters; a mask with dropout takes the plain reference, as in
+# bf16; a misaligned input still raises.)
 @pytest.mark.cuda
 def test_cuda_flash_fp16_routes_and_refuses_variants():
     require_cuda()
@@ -486,11 +530,26 @@ def test_cuda_flash_fp16_routes_and_refuses_variants():
     assert after["flash_bwd_dq_fp16"] == before["flash_bwd_dq_fp16"] + 1
     assert after["flash_fwd"] == before["flash_fwd"]
     assert after["flash_bwd_dq"] == before["flash_bwd_dq"]
-    with pytest.raises(TypeError, match="fp16"):
-        flash_fwd_cuda(q, q, q, True, 1.0,
-                       torch.zeros((1, 1, 64, 64), device="cuda"))
-    with pytest.raises(TypeError, match="fp16"):
-        flash_attention(q, q, q, dropout_p=0.1)
+    # (fp16 has no scalar kernel: code 2 reaches only the tensor-core
+    # launchers, whose __half instantiations' machine code holds HGMMA,
+    # test_cuda_flash_bf16_kernels_run_on_tensor_cores)
+    mask = torch.zeros((1, 1, 64, 64), device="cuda")
+    for m, p, suffix in ((mask, 0.0, "_mask_fp16"),
+                         (None, 0.1, "_dropout_fp16")):
+        before = launch_counts()
+        qr = q.clone().requires_grad_()
+        out = flash_attention(qr, q, q, mask=m, dropout_p=p)
+        out.backward(q)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.float16 and torch.isfinite(out).all()
+        after = launch_counts()
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert after[name + suffix] == before[name + suffix] + 1, name
+            assert after[name + "_fp16"] == before[name + "_fp16"], name
+    # a mask with dropout: the plain reference, no kernel
+    before = launch_counts()
+    flash_attention(q, q, q, mask=mask, dropout_p=0.1)
+    assert launch_counts() == before
     flat = torch.zeros(q.numel() + 1, device="cuda", dtype=torch.float16)
     with pytest.raises(ValueError, match="16-byte"):
         flash_fwd_cuda(flat[1:].view(q.shape), q, q, True, 1.0)
@@ -556,6 +615,66 @@ def test_cuda_layernorm_backward_matches_plain(dtype, R, N, offset):
         aligned = layer_norm_bwd_cuda(x.clone(), w.clone(), mu, rstd,
                                       dy.clone())
         for a, o in zip(aligned, got):
+            assert torch.equal(a, o)
+
+
+# fp16 (pure-fp16 training, fp16 serving): the forward and backward under
+# chip_smoke.py's FP16_TRAIN_* rule (the fp32 plain version on the same
+# fp16 inputs the yardstick), mean and rstd within 1e-5, two runs
+# bit-equal, scalar width (a view at an odd offset) bit-equal to 16-byte
+# width, counted as layernorm_fwd_fp16 / layernorm_bwd_fp16 and never as
+# the fp32 or bf16 instantiations
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,N,offset", [
+    (512, 2048, 0), (4096, 2048, 0), (5, 1000, 0), (3, 8192, 0),
+    (7, 768, 0), (512, 2048, 1), (7, 1000, 1)])
+def test_cuda_layernorm_fp16_matches_plain(R, N, offset):
+    require_cuda()
+    import numpy as np
+    from paddle_tpu_torch.ops import launch_counts
+    from paddle_tpu_torch.ops.layernorm import (aligned16, bwd_config,
+                                                fwd_config,
+                                                layer_norm_bwd_cuda,
+                                                layer_norm_bwd_plain,
+                                                layer_norm_fwd_cuda,
+                                                layer_norm_fwd_plain)
+    h = torch.float16
+    x, w, b = (_ln_to_cuda(a, h, offset)
+               for a in layernorm_inputs(7, (R, N), N))
+    dy = _ln_to_cuda(np.random.RandomState(8).standard_normal((R, N))
+                     .astype(np.float32), h, offset)
+    if offset:
+        assert fwd_config(N, h, aligned16(x, w, b)).width == 1
+        assert bwd_config(N, h, aligned16(x, w, dy)).width == 1
+    before = launch_counts()
+    fwd = [layer_norm_fwd_cuda(x, w, b, 1e-5) for _ in range(2)]
+    y, mu, rstd = fwd[0]
+    bwd = [layer_norm_bwd_cuda(x, w, mu, rstd, dy) for _ in range(2)]
+    torch.cuda.synchronize()
+    after = launch_counts()
+    for name in ("layernorm_fwd", "layernorm_bwd"):
+        assert after[name + "_fp16"] == before[name + "_fp16"] + 2, name
+        assert after[name] == before[name], name
+    for a, b_ in zip(fwd[0] + bwd[0], fwd[1] + bwd[1]):
+        assert torch.equal(a, b_)
+    ry, rmu, rrstd = layer_norm_fwd_plain(x, w, b, 1e-5)
+    torch.testing.assert_close(mu, rmu, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, atol=1e-5, rtol=1e-5)
+    assert y.dtype == h
+    _assert_bf16_train(y, ry, layer_norm_fwd_plain(x.float(), w.float(),
+                                                   b.float(), 1e-5)[0])
+    ref = layer_norm_bwd_plain(x, w, mu, rstd, dy)
+    ref32 = layer_norm_bwd_plain(x.float(), w.float(), mu, rstd, dy.float())
+    for a, r, r32 in zip(bwd[0], ref, ref32):
+        assert a.dtype == h
+        _assert_bf16_train(a, r, r32)
+    if offset:
+        # both access widths visit the values in one order: the same bits
+        clean = [t.contiguous().clone() for t in (x, w, b, dy)]
+        for a, o in zip(layer_norm_fwd_cuda(*clean[:3], 1e-5), fwd[0]):
+            assert torch.equal(a, o)
+        for a, o in zip(layer_norm_bwd_cuda(clean[0], clean[1], mu, rstd,
+                                            clean[3]), bwd[0]):
             assert torch.equal(a, o)
 
 
@@ -645,6 +764,12 @@ VARIANT_CASES = [  # dtype, B, H, Sq, Sk, D, causal, variant
     (torch.bfloat16, 2, 4, 256, 256, 128, True, "dropout"),
     (torch.bfloat16, 1, 2, 100, 300, 64, False, "dropout"),
     (torch.bfloat16, 1, 2, 300, 100, 32, True, "dropout"),  # empty rows
+    # the fp16 instantiations (pure-fp16 training), under the fp16 rule
+    (torch.float16, 2, 3, 100, 130, 64, False, "mask_b1"),
+    (torch.float16, 2, 4, 256, 256, 128, True, "mask_bh_inf"),
+    (torch.float16, 1, 2, 77, 77, 96, True, "mask_3d"),
+    (torch.float16, 2, 4, 256, 256, 128, True, "dropout"),
+    (torch.float16, 1, 2, 300, 100, 32, True, "dropout"),   # empty rows
 ]
 
 
@@ -720,7 +845,8 @@ def test_cuda_flash_variants_match_plain(dtype, B, H, Sq, Sk, D, causal,
     assert torch.equal(o2.detach(), out)
     assert torch.equal(qr.grad, dq) and torch.equal(kr.grad, dk) \
         and torch.equal(vr.grad, dv)
-    suffix = "_dropout" if p else "_mask"
+    suffix = ("_dropout" if p else "_mask") + (
+        "_fp16" if dtype == torch.float16 else "")
     after = launch_counts()
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         assert after[name + suffix] == before[name + suffix] + 2, name
@@ -809,7 +935,7 @@ def test_cuda_flash_bf16_never_reaches_another_route():
     before = launch_counts()
     with pytest.raises(ValueError, match="contiguous"):
         flash_fwd_cuda(q.transpose(2, 3), q, q, True, 1.0)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
         flash_fwd_cuda(q.double(), q.double(), q.double(), True, 1.0)
     flat = torch.zeros(q.numel() + 1, device="cuda", dtype=bf)
     off = flat[1:].view(q.shape)          # contiguous, 2 bytes off 16
@@ -890,6 +1016,58 @@ def test_cuda_amp_plan_step_routes_to_kernels(dtype):
         assert not torch.equal(m.lm_head.weight.detach(), w0)
 
 
+# Pure fp16 (O2: amp.decorate casts every parameter to fp16,
+# AdamW(multi_precision=True) keeps fp32 masters) through the same step:
+# every kernel runs its fp16 instantiation, on fp16 inputs (the
+# LayerNorms see the fp16 residual stream), none the fp32 or bf16 one;
+# each fp16 parameter is its updated master rounded once.
+@pytest.mark.cuda
+def test_cuda_o2_plan_step_routes_to_fp16_kernels():
+    require_cuda()
+    import numpy as np
+    from paddle_tpu_torch.amp import decorate
+    from paddle_tpu_torch.distributed.strategy import DistributedStrategy
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import parallelize
+    m = GPTForCausalLM.from_preset("gpt3-1.3b", num_hidden_layers=2)
+    decorate(m, level="O2", dtype="float16")
+    m.train()
+    s = DistributedStrategy()
+    s.amp = True
+    s.amp_configs = {"dtype": "float16"}
+    opt = AdamW(learning_rate=1e-4, parameters=m.parameters(),
+                multi_precision=True)
+    step = parallelize(m, opt, strategy=s)
+    ids = np.random.RandomState(3).randint(0, 50304, (2, 128)).astype(
+        np.int32)
+    w0 = m.lm_head.weight.detach().clone()
+    seen = set()
+    hooks = [m.gpt.layers[0].self_attn.qkv_proj.register_forward_hook(
+        lambda mod, a, o: seen.add(("attention", o.dtype))),
+        m.gpt.layers[0].norm1.register_forward_pre_hook(
+        lambda mod, a: seen.add(("layernorm", a[0].dtype)))]
+    reset_launch_counts()
+    step(ids, ids)
+    torch.cuda.synchronize()
+    n = launch_counts()
+    for h in hooks:
+        h.remove()
+    assert seen == {("attention", torch.float16),
+                    ("layernorm", torch.float16)}, seen
+    want = {"flash_fwd_fp16": 2, "flash_bwd_dq_fp16": 2,
+            "flash_bwd_dkv_fp16": 2, "layernorm_fwd_fp16": 5,
+            "layernorm_bwd_fp16": 5, "fused_adam_fp16": 29}
+    assert {k: v for k, v in n.items() if v} == want, n
+    assert step.loss_scale == 32768.0
+    assert not torch.equal(m.lm_head.weight.detach(), w0)
+    for p in m.parameters():
+        master = opt.state[p]["master_weight"]
+        assert p.dtype == torch.float16 and master.dtype == torch.float32
+        assert torch.equal(p.detach(), master.half())
+
+
 # The route rule of pdtt_paged_attention, seen from the kernels a call
 # launches: bf16 at block_len 8 (the engine's) or any multiple of 8 runs
 # the tensor-core kernel and never the scalar one; fp32 and bf16 at other
@@ -898,10 +1076,12 @@ def test_cuda_amp_plan_step_routes_to_kernels(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,bl", [
     (torch.bfloat16, 8), (torch.bfloat16, 16), (torch.bfloat16, 40),
-    (torch.bfloat16, 12), (torch.float32, 8)])
+    (torch.bfloat16, 12), (torch.float32, 8),
+    # fp16 (fp16 serving) takes the same routes as bf16
+    (torch.float16, 8), (torch.float16, 40), (torch.float16, 12)])
 def test_cuda_paged_bf16_never_reaches_another_route(dtype, bl):
     require_cuda()
-    from paddle_tpu_torch.ops import launch_counts
+    from paddle_tpu_torch.ops import _kernels, launch_counts
     from paddle_tpu_torch.ops.paged_attention import (TENSOR_CORES,
                                                       paged_attention_cuda,
                                                       paged_route)
@@ -911,6 +1091,12 @@ def test_cuda_paged_bf16_never_reaches_another_route(dtype, bl):
     args = [t(c["q"]), t(c["k"]), t(c["v"]), i(c["table"]), i(c["lens"]),
             i(c["q_pos"]), bl, c["ppr"], 128 ** -0.5]
     names = _kernel_names(lambda: paged_attention_cuda(*args))
+    # the launch counted under the route the library took
+    routes = _kernels.route_counts()
+    paged_attention_cuda(*args)
+    name = _kernels.fp16_name("paged_attention", dtype)
+    routes[f"{name}:{paged_route(dtype, bl, 128)}"] += 1
+    assert _kernels.route_counts() == routes
     tc = any("paged_attention_kernel_tc" in n for n in names)
     scalar = any("paged_attention_kernel<" in n for n in names)
     assert (tc, scalar) == ((True, False)
@@ -918,14 +1104,14 @@ def test_cuda_paged_bf16_never_reaches_another_route(dtype, bl):
                             else (False, True)), names
     if paged_route(dtype, bl, 128) != TENSOR_CORES:
         return
-    before = launch_counts()["paged_attention"]
+    before = launch_counts()
     for j in range(3):
         flat = torch.zeros(args[j].numel() + 1, device="cuda", dtype=dtype)
         bad = list(args)
         bad[j] = flat[1:].view(args[j].shape)   # 2 bytes off 16
         with pytest.raises(ValueError, match="16-byte"):
             paged_attention_cuda(*bad)
-    assert launch_counts()["paged_attention"] == before
+    assert launch_counts() == before
 
 
 # bf16 paged attention sums every row in one fixed order: two runs are
@@ -999,6 +1185,14 @@ def _adam_scalars():
     (torch.bfloat16, torch.bfloat16, False),
     (torch.bfloat16, torch.float32, True),
     (torch.bfloat16, torch.bfloat16, True),
+    # fp16 (pure-fp16 training: fp16 p and g, an fp32 master and fp32
+    # moments first), counted as fused_adam_fp16
+    (torch.float16, torch.float32, True),
+    (torch.float16, torch.float16, True),
+    (torch.float16, torch.float16, False),
+    (torch.float16, torch.float32, False),
+    (torch.float32, torch.float16, False),
+    (torch.bfloat16, torch.float16, True),
 ])
 def test_cuda_fused_adam_matches_plain_bitwise(pdtype, mdtype, master,
                                                decoupled):
@@ -1010,17 +1204,19 @@ def test_cuda_fused_adam_matches_plain_bitwise(pdtype, mdtype, master,
                                                  fused_adam_plain)
     rng = np.random.RandomState(41)
     kw = dict(beta1=0.9, beta2=0.95, epsilon=1e-8, decoupled=decoupled)
+    counter = ("fused_adam_fp16" if torch.float16 in (pdtype, mdtype)
+               else "fused_adam")
     for n, offset in ((1, 0), (7, 0), (300, 0), (2049, 0), (2049, 1),
                       (1 << 20, 0)):
         c = _adam_case(rng, n, pdtype, mdtype, master, offset)
         ref = {k: None if v is None else v.clone() for k, v in c.items()}
-        before = launch_counts()["fused_adam"]
+        before = launch_counts()[counter]
         fused_adam_cuda(c["p"], c["g"], c["m1"], c["m2"], *_adam_scalars(),
                         0.1, master=c["master"], **kw)
         fused_adam_plain(ref["p"], ref["g"], ref["m1"], ref["m2"],
                          *_adam_scalars(), 0.1, master=ref["master"], **kw)
         torch.cuda.synchronize()
-        assert launch_counts()["fused_adam"] == before + 1
+        assert launch_counts()[counter] == before + 1
         for k in ("p", "m1", "m2", "master"):
             if c[k] is not None:
                 assert c[k].dtype == ref[k].dtype
@@ -1033,7 +1229,7 @@ def test_cuda_fused_adam_matches_plain_bitwise(pdtype, mdtype, master,
             fused_adam(d["p"], d["g"], d["m1"], d["m2"], *_adam_scalars(),
                        0.1, master=d["master"], **kw)
         torch.cuda.synchronize()
-        assert launch_counts()["fused_adam"] == before + 3
+        assert launch_counts()[counter] == before + 3
         for k in ("p", "m1", "m2"):
             assert torch.equal(again[k], twice[k]), (n, k)
 
@@ -1046,6 +1242,7 @@ def test_cuda_fused_adam_matches_plain_bitwise(pdtype, mdtype, master,
 @pytest.mark.parametrize("pdtype,mdtype,master", [
     (torch.float32, torch.float32, False),
     (torch.bfloat16, torch.bfloat16, True),
+    (torch.float16, torch.float32, True),
 ])
 def test_cuda_fused_adam_do_update_flag(pdtype, mdtype, master):
     require_cuda()
@@ -1056,6 +1253,8 @@ def test_cuda_fused_adam_do_update_flag(pdtype, mdtype, master):
     rng = np.random.RandomState(42)
     kw = dict(beta1=0.9, beta2=0.95, epsilon=1e-8, decoupled=True)
     keys = ("p", "m1", "m2", "master")
+    counter = ("fused_adam_fp16" if torch.float16 in (pdtype, mdtype)
+               else "fused_adam")
     for n, offset in ((7, 0), (2049, 1), (1 << 20, 0)):
         c = _adam_case(rng, n, pdtype, mdtype, master, offset)
         runs = {}
@@ -1063,7 +1262,7 @@ def test_cuda_fused_adam_do_update_flag(pdtype, mdtype, master):
             d = {k: None if v is None else v.clone() for k, v in c.items()}
             ref = {k: None if v is None else v.clone() for k, v in c.items()}
             f = None if flag is None else torch.tensor(flag, device="cuda")
-            before = launch_counts()["fused_adam"]
+            before = launch_counts()[counter]
             fused_adam_cuda(d["p"], d["g"], d["m1"], d["m2"],
                             *_adam_scalars(), 0.1, master=d["master"],
                             do_update=f, **kw)
@@ -1071,7 +1270,7 @@ def test_cuda_fused_adam_do_update_flag(pdtype, mdtype, master):
                              *_adam_scalars(), 0.1, master=ref["master"],
                              do_update=f, **kw)
             torch.cuda.synchronize()
-            assert launch_counts()["fused_adam"] == before + 1
+            assert launch_counts()[counter] == before + 1
             for k in keys:
                 if d[k] is not None:
                     assert torch.equal(d[k], ref[k]), (n, flag, k)
@@ -1123,7 +1322,9 @@ def test_cuda_fused_adam_refuses_bad_inputs():
     s = _adam_scalars()
     z = torch.zeros(64, device="cuda")
     with pytest.raises(TypeError):
-        fused_adam_cuda(z.half(), z.half(), z, z, *s, 0.0, **kw)
+        fused_adam_cuda(z.double(), z.double(), z, z, *s, 0.0, **kw)
+    with pytest.raises(TypeError, match="master"):
+        fused_adam_cuda(z, z, z, z, *s, 0.0, master=z, **kw)
     with pytest.raises(ValueError, match="contiguous"):
         w = torch.zeros((8, 16), device="cuda").t()
         fused_adam_cuda(w, w, w, w, *s, 0.0, **kw)

@@ -262,3 +262,76 @@ def test_causal_mask_matches_jax():
         np.testing.assert_array_equal(
             causal_mask(rows, cols, qo, ko).numpy(),
             np.asarray(jax_mask(rows, cols, qo, ko)))
+
+
+def test_fp16_mask_plain_version_tracks_the_pallas_kernel():
+    """fp16 q, k, v and an fp16 mask (pure-fp16 training, whose masked
+    and dropout variants have fp16 CUDA instantiations): the Pallas
+    kernels in interpret mode against the port's plain version, out and
+    the gradients of q, k and v. Both sides round p to fp16 before PV and
+    each output once from fp32 sums in another order: atol 2^-9 for out
+    and 2^-8 for the gradients, one fp16 ulp at their largest values here
+    (|out| < 4, |grad| < 8) and two below half of that."""
+    import jax
+    from paddle_tpu.ops.attention import _flash_attention
+    from paddle_tpu_torch.ops.attention import flash_attention
+    q, k, v, g = _inputs(12, 1, 2, 64, 64, 32)
+    mask = _mask("b1", "normal", 1, 2, 64, 64, 13)
+    jq, jk, jv, jm, jg = (jnp.asarray(a, jnp.float16)
+                          for a in (q, k, v, mask, g))
+
+    def fn(q_, k_, v_):
+        return _flash_attention(q_, k_, v_, jm, jnp.int32(0), True,
+                                1.0 / np.sqrt(32), 64, 64, 0.0)
+
+    out_ref, vjp = jax.vjp(fn, jq, jk, jv)
+    want = [out_ref] + list(vjp(jg))
+    leaves = [torch.from_numpy(np.array(a.astype(jnp.float32)))
+              .to(torch.float16).requires_grad_() for a in (jq, jk, jv)]
+    tm, tg = (torch.from_numpy(np.array(a.astype(jnp.float32)))
+              .to(torch.float16) for a in (jm, jg))
+    out = flash_attention(*leaves, causal=True, mask=tm)
+    out.backward(tg)
+    assert out.dtype == torch.float16
+    for got, ref, atol in zip([out.detach()] + [t.grad for t in leaves],
+                              want, (2.0 ** -9,) + (2.0 ** -8,) * 3):
+        assert got.dtype == torch.float16
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(ref.astype(jnp.float32)),
+                                   atol=atol, rtol=0)
+
+
+def test_fp16_dropout_plain_version_tracks_the_jax_reference():
+    """fp16 dropout, fed JAX's own keep-mask (bernoulli(PRNGKey(s), 1 - p),
+    as tests/test_torch_dropout.py feeds it in fp32): the port's plain
+    forward and backward against the JAX reference and its jax.grad in
+    fp16. Both round the dropped, rescaled p to fp16 before PV and each
+    output once: atol 2^-9 for out and 2^-8 for the gradients, one fp16
+    ulp at their largest values here (|out| < 4, |grad| < 8)."""
+    import jax
+    from paddle_tpu.ops.attention import _attention_reference as jax_ref
+    from paddle_tpu_torch.ops.attention import (flash_attention_delta,
+                                                flash_bwd_plain,
+                                                flash_fwd_plain)
+    q, k, v, g = _inputs(14, 2, 2, 24, 24, 16)
+    p, scale = 0.25, 0.25
+    key = jax.random.PRNGKey(11)
+    keep = torch.from_numpy(np.asarray(
+        jax.random.bernoulli(key, 1.0 - p, (2, 2, 24, 24))))
+    jq, jk, jv, jg = (jnp.asarray(a, jnp.float16) for a in (q, k, v, g))
+    out_ref, vjp = jax.vjp(lambda q_, k_, v_: jax_ref(
+        q_, k_, v_, True, scale, dropout_p=p, dropout_key=key), jq, jk, jv)
+    want = [out_ref] + list(vjp(jg))
+    tq, tk, tv, tg = (torch.from_numpy(np.array(a.astype(jnp.float32)))
+                      .to(torch.float16) for a in (jq, jk, jv, jg))
+    out, lse = flash_fwd_plain(tq, tk, tv, True, scale, keep=keep,
+                               dropout_p=p)
+    grads = flash_bwd_plain(tq, tk, tv, tg, lse,
+                            flash_attention_delta(tg, out), True, scale,
+                            keep=keep, dropout_p=p)
+    for got, ref, atol in zip((out,) + tuple(grads), want,
+                              (2.0 ** -9,) + (2.0 ** -8,) * 3):
+        assert got.dtype == torch.float16
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(ref.astype(jnp.float32)),
+                                   atol=atol, rtol=0)

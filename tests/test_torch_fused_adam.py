@@ -19,7 +19,7 @@ import torch
 
 import jax.numpy as jnp
 
-from _torch_port import ulp_bf16
+from _torch_port import ulp_bf16, ulp_fp16
 
 LR, B1, B2, EPS, WD = 1e-3, 0.9, 0.999, 1e-8, 0.01
 B1P, B2P = 0.9 ** 3, 0.999 ** 3
@@ -100,5 +100,73 @@ def test_fused_adam_master_weight_matches_jax(decoupled):
                decoupled=decoupled, master=master)
     _close(master, new_master, False)
     _close(tp, new_master.astype(jnp.bfloat16), True)
+    _close(tm1, want_m1, False)
+    _close(tm2, want_m2, False)
+
+
+def _close_fp16(got, want):
+    """fp16 outputs within one fp16 ulp (+ 1e-7) of the JAX value: both
+    round one fp32 value once."""
+    got = got.float().numpy()
+    want = np.asarray(want.astype(jnp.float32))
+    big = np.maximum(np.abs(got), np.abs(want))
+    assert (np.abs(got - want) <= ulp_fp16(big) + 1e-7).all(), \
+        float(np.abs(got - want).max())
+
+
+_DT = {torch.float32: jnp.float32, torch.float16: jnp.float16}
+
+
+@pytest.mark.parametrize("decoupled", [False, True])
+@pytest.mark.parametrize("pdtype,moments", [
+    (torch.float16, torch.float16), (torch.float16, torch.float32),
+    (torch.float32, torch.float16)])
+def test_fp16_fused_adam_matches_jax_pallas(pdtype, moments, decoupled):
+    """fp16 p and g, fp16 moments, or both (the JAX kernel takes any float
+    dtype and computes in fp32), the Pallas kernel in interpret mode with
+    its XLA tail (n = 2049); fp32 outputs at 1e-6, fp16 ones within one
+    fp16 ulp."""
+    from paddle_tpu.ops.fused_adam import fused_adam as jax_fused_adam
+    from paddle_tpu_torch.ops.fused_adam import fused_adam
+    p, g, m1, m2 = _inputs(2049, seed=6)
+    jp, jg = (jnp.asarray(a, _DT[pdtype]) for a in (p, g))
+    jm1, jm2 = (jnp.asarray(a, _DT[moments]) for a in (m1, m2))
+    want_p, want_m1, want_m2 = jax_fused_adam(
+        jp, jg, jm1.astype(jnp.float32), jm2.astype(jnp.float32), LR, B1P,
+        B2P, WD, beta1=B1, beta2=B2, epsilon=EPS, decoupled=decoupled,
+        force_pallas=True)
+    tp, tg = (torch.from_numpy(a).to(pdtype) for a in (p, g))
+    tm1, tm2 = (torch.from_numpy(a).to(moments) for a in (m1, m2))
+    fused_adam(tp, tg, tm1, tm2, *_scalars(), WD, beta1=B1, beta2=B2,
+               epsilon=EPS, decoupled=decoupled)
+    assert tp.dtype == pdtype and tm1.dtype == tm2.dtype == moments
+    for got, want, dt in ((tp, want_p, pdtype), (tm1, want_m1, moments),
+                          (tm2, want_m2, moments)):
+        if dt == torch.float16:
+            _close_fp16(got, want.astype(jnp.float16))
+        else:
+            _close(got, want, False)
+
+
+@pytest.mark.parametrize("decoupled", [False, True])
+def test_fp16_fused_adam_master_weight_matches_jax(decoupled):
+    """multi_precision beside an fp16 parameter (pure-fp16 training): the
+    fp32 master updated by fused_adam, the fp16 parameter written from it
+    (one rounding), fp32 moments."""
+    from paddle_tpu.ops.fused_adam import fused_adam as jax_fused_adam
+    from paddle_tpu_torch.ops.fused_adam import fused_adam
+    p, g, m1, m2 = _inputs(2049, seed=7)
+    new_master, want_m1, want_m2 = jax_fused_adam(
+        jnp.asarray(p), jnp.asarray(g, jnp.float16), jnp.asarray(m1),
+        jnp.asarray(m2), LR, B1P, B2P, WD, beta1=B1, beta2=B2, epsilon=EPS,
+        decoupled=decoupled, force_pallas=True)
+    master = torch.from_numpy(p.copy())
+    tp = master.to(torch.float16)
+    tm1, tm2 = torch.from_numpy(m1), torch.from_numpy(m2)
+    fused_adam(tp, torch.from_numpy(g).to(torch.float16), tm1, tm2,
+               *_scalars(), WD, beta1=B1, beta2=B2, epsilon=EPS,
+               decoupled=decoupled, master=master)
+    _close(master, new_master, False)
+    _close_fp16(tp, new_master.astype(jnp.float16))
     _close(tm1, want_m1, False)
     _close(tm2, want_m2, False)

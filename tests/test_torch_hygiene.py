@@ -183,12 +183,16 @@ def test_kernel_tests_are_marked_cuda_and_skip_inside():
 def test_launch_count_reset():
     from paddle_tpu_torch.ops import _kernels
     saved = _kernels.launch_counts()
+    saved_routes = _kernels.route_counts()
     try:
         _kernels.LAUNCHES["paged_attention"] += 3
+        _kernels.ROUTE_LAUNCHES["paged_attention:tensor_cores"] += 3
         _kernels.reset_launch_counts()
         assert set(_kernels.launch_counts().values()) == {0}
+        assert set(_kernels.route_counts().values()) == {0}
     finally:
         _kernels.LAUNCHES.update(saved)
+        _kernels.ROUTE_LAUNCHES.update(saved_routes)
 
 
 def test_sass_opcode_count():

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from _torch_port import layernorm_inputs as _data
 from _torch_port import ulp_bf16 as _ulp_bf16
+from _torch_port import ulp_fp16
 
 
 def test_fp32_matches_pallas_interpret_and_functional():
@@ -148,3 +149,42 @@ def test_backward_bf16_grads_in_parameter_dtype():
         g = g.float().numpy()
         big = np.maximum(np.abs(g), np.abs(ref))
         assert (np.abs(g - ref) <= _ulp_bf16(big) + 1e-5).all()
+
+
+def _fp16(a):
+    """A jnp fp16 array as a torch fp16 tensor (exact)."""
+    return torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        torch.float16)
+
+
+def test_fp16_forward_and_backward_within_one_ulp_of_the_pallas_kernels():
+    """fp16 inputs (pure-fp16 training, fp16 serving): the Pallas forward
+    and backward kernels in interpret mode against the port's plain
+    versions. Both compute in fp32 and round each output once, so every
+    element is within one fp16 ulp of the larger magnitude, plus what the
+    unrounded fp32 values may differ by where an output is near 0 (sums
+    in another order: 1e-6 for y and dx, 1e-5 for dw and db, summed over
+    the rows)."""
+    import jax
+    from paddle_tpu.ops.layernorm import fused_layer_norm as jax_fused
+    from paddle_tpu_torch.nn.functional import layer_norm
+    from paddle_tpu_torch.ops.layernorm import (layer_norm_bwd_plain,
+                                                layer_norm_fwd_plain)
+    x, w, b = _data(11, (16, 384), 384)
+    dy = np.random.RandomState(12).standard_normal((16, 384)).astype(
+        np.float32)
+    xh, wh, bh, dyh = (jnp.asarray(a, jnp.float16) for a in (x, w, b, dy))
+    y_ref, vjp = jax.vjp(lambda x_, w_, b_: jax_fused(
+        x_, w_, b_, 1e-5, force_pallas=True), xh, wh, bh)
+    assert y_ref.dtype == jnp.float16
+    want = [np.asarray(y_ref.astype(jnp.float32))] + [
+        np.asarray(g.astype(jnp.float32)) for g in vjp(dyh)]
+    xt, wt, bt, dyt = (_fp16(a) for a in (xh, wh, bh, dyh))
+    y = layer_norm(xt, 384, wt, bt)
+    _, mu, rstd = layer_norm_fwd_plain(xt, wt, bt, 1e-5)
+    got = (y,) + layer_norm_bwd_plain(xt, wt, mu, rstd, dyt)
+    for g, ref, atol in zip(got, want, (1e-6, 1e-6, 1e-5, 1e-5)):
+        assert g.dtype == torch.float16
+        g = g.float().numpy()
+        big = np.maximum(np.abs(g), np.abs(ref))
+        assert (np.abs(g - ref) <= ulp_fp16(big) + atol).all()

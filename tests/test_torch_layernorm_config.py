@@ -2,7 +2,7 @@
 
 `ops/layernorm.py` mirrors the instantiation tables of
 `csrc/layernorm.cu` (`fwd_config`, `bwd_config`). Here: the mirror
-equals the tables in the source, every width 1..8192 of both dtypes maps
+equals the tables in the source, every width 1..8192 of each dtype maps
 to an instantiation the source has, the choice depends on the width, the
 dtype and the alignment only (never on the number of rows, which keeps a
 row's result independent of the rows around it), and a ragged or
@@ -21,14 +21,19 @@ from paddle_tpu_torch.ops import layernorm as ln
 
 SOURCE = (Path(ln.__file__).resolve().parent.parent / "csrc"
           / "layernorm.cu").read_text()
-DTYPES = (torch.float32, torch.bfloat16)
-_NAMES = {torch.float32: "FP32", torch.bfloat16: "BF16"}
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_NAMES = {torch.float32: "FP32", torch.bfloat16: "BF16",
+          torch.float16: "FP16"}
 
 
 def _table(name):
-    """The X(...) entries of `#define name(X)` in layernorm.cu."""
+    """The X(...) entries of `#define name(X)` in layernorm.cu, following
+    a table defined as another (`#define name(X) OTHER(X)`)."""
     m = re.search(rf"#define {name}\(X\)((?:[^\n]*\\\n)*[^\n]*)", SOURCE)
     assert m, name
+    alias = re.fullmatch(r"\s*(PDTT_LN_\w+)\(X\)\s*", m.group(1))
+    if alias:
+        return _table(alias.group(1))
     return tuple(tuple(int(v) for v in e.split(","))
                  for e in re.findall(r"X\(([\d,\s]+)\)", m.group(1)))
 
@@ -47,7 +52,8 @@ def test_every_width_maps_to_an_instantiation(dtype, which):
     table = (ln.FWD_BUCKETS if which == "fwd" else ln.BWD_BUCKETS)[dtype]
     config = ln.fwd_config if which == "fwd" else ln.bwd_config
     pack = ln.pack_of(dtype)
-    assert pack == {torch.float32: 4, torch.bfloat16: 8}[dtype]
+    assert pack == {torch.float32: 4, torch.bfloat16: 8,
+                    torch.float16: 8}[dtype]
     covers = [e[0] * e[1] for e in table]
     assert covers == sorted(covers) and covers[-1] * pack == ln.MAX_N
     for N in range(1, ln.MAX_N + 1):
@@ -106,5 +112,7 @@ def test_bad_widths_and_dtypes_raise():
         ln.fwd_config(8193, torch.float32, True)
     with pytest.raises(ValueError, match="1 <= N"):
         ln.bwd_config(0, torch.bfloat16, True)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        ln.fwd_config(64, torch.float16, True)
+    # the kernels take float32, bfloat16 and float16 (the JAX kernels any
+    # float dtype the port's models run); float64 has no instantiation
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        ln.fwd_config(64, torch.float64, True)

@@ -66,6 +66,17 @@ def test_bf16_plain_matches_jax_scan():
                                atol=2 ** -6, rtol=0)
 
 
+def test_fp16_plain_matches_jax_pallas_interpret_and_scan():
+    """fp16 caches (fp16 serving): the Pallas kernel in interpret mode and
+    the XLA scan both round p to fp16 before PV and the output once, as
+    the port does; one fp16 ulp at |out| < 4 is 2^-9."""
+    c = _inputs(4)
+    got = _port(c, torch.float16)
+    for impl in ("pallas_interpret", "scan"):
+        np.testing.assert_allclose(got, _jax(c, impl, jnp.float16),
+                                   atol=2 ** -9, rtol=0)
+
+
 def test_decode_attention_scalar_and_vector_pos():
     from paddle_tpu.ops.attention import decode_attention as jax_decode
     from paddle_tpu_torch.ops.attention import decode_attention

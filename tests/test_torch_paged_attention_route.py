@@ -90,7 +90,10 @@ def test_horizon_cut_changes_rows_past_the_tile():
     (torch.bfloat16, 8, 32, "scalar"),
     (torch.float32, 8, 128, "scalar"),
     (torch.float32, 16, 64, "scalar"),
-    (torch.float16, 8, 128, "scalar"),
+    (torch.float16, 8, 128, "tensor_cores"),
+    (torch.float16, 64, 64, "tensor_cores"),
+    (torch.float16, 12, 128, "scalar"),
+    (torch.float16, 8, 32, "scalar"),
 ])
 def test_paged_route_rule(dtype, block_len, head_dim, route):
     from paddle_tpu_torch.ops.paged_attention import paged_route
