@@ -2592,9 +2592,9 @@ def _record_steps(engine, prompts, max_new):
     steps = []
     orig = engine._step_logits
 
-    def recording(toks, pos, adv):
-        lg = orig(toks, pos, adv)
-        steps.append(((toks.copy(), pos.copy(), adv.copy()),
+    def recording(a):
+        lg = orig(a)
+        steps.append(((a.toks.copy(), a.pos.copy(), a.adv.copy()),
                       lg.float().cpu()))
         return lg
 
@@ -2639,14 +2639,14 @@ def served_kernels(preset, dtype="bfloat16"):
     return SERVE_KERNELS, ()
 
 
-def _twins(preset, seed, **overrides):
-    """(CPU model, card model) of `preset` cut to 2 layers, fp32, with the
-    same weights drawn on the CPU from `seed`."""
+def _twins(preset, seed, layers=2, **overrides):
+    """(CPU model, card model) of `preset` cut to `layers` layers, fp32,
+    with the same weights drawn on the CPU from `seed`."""
     import torch
     gen = torch.Generator(device="cpu")
     gen.manual_seed(seed)
     cls = model_class(preset)
-    over = dict(num_hidden_layers=2, **overrides)
+    over = dict(num_hidden_layers=layers, **overrides)
     cpu = cls.from_preset(preset, device="cpu", dtype="float32",
                           generator=gen, **over)
     card = cls.from_preset(preset, device="cuda", dtype="float32", **over)
@@ -2700,7 +2700,7 @@ def phase_model(phase="model"):
     worst = 0.0
     real_cols = equal_cols = 0
     for (toks, pos, adv), lg_card in steps:
-        lg_cpu = twin._step_logits(toks, pos, adv).float()
+        lg_cpu = twin._step_logits(twin._step_args(toks, pos, adv)).float()
         check(bool(torch.isfinite(lg_card).all()),
               "non-finite logits on the card")
         worst = max(worst, float((lg_card - lg_cpu).abs().max()))
@@ -2801,11 +2801,15 @@ MODEL_TRAIN_PHASES = {"model_train": ("gpt3-1.3b", (False, True)),
                       "moe_model": ("ernie-moe-base", (False,))}
 # their batch, B x S (moe_model: T = 512 tokens, 160 slots an expert)
 MODEL_TRAIN_BATCH = {"moe_model": (2, 256)}
+# their depth where it is not 2 layers: llama2-7b's widths at 1 layer (its
+# CPU twin's 3 steps over ~0.5 G parameters are most of the phase)
+MODEL_TRAIN_LAYERS = {"llama_model_train": 1}
 
 
 def phase_model_train(phase="model_train"):
     """The MODEL_TRAIN_PHASES preset's widths cut to 2 layers (a depth
-    cut), fp32, B=2, S=128 (MODEL_TRAIN_BATCH where it says otherwise):
+    cut; MODEL_TRAIN_LAYERS where it says otherwise), fp32, B=2, S=128
+    (MODEL_TRAIN_BATCH where it says otherwise):
     3 steps through ScanTrainStep on the card
     (kernels) and on a CPU twin with the same weights (plain versions),
     with AdamW and (GPT) once more with the train recipe (its optimizer at
@@ -2822,13 +2826,15 @@ def phase_model_train(phase="model_train"):
     preset, recipes = MODEL_TRAIN_PHASES[phase]
     rng = np.random.RandomState(SEED + 3)
     (B, S), K = MODEL_TRAIN_BATCH.get(phase, (2, 128)), 3
+    layers = MODEL_TRAIN_LAYERS.get(phase, 2)
     ids = rng.randint(0, preset_config(preset).vocab_size, (B, S)).astype(
         np.int32)
     labels = np.roll(ids, -1, axis=1)
     labels[:, -1] = -100                    # ignored tokens on the path
     chunk = stack_batches([(ids, labels)] * K)
     for recipe in recipes:
-        cpu, card = _twins(preset, SEED + 3, use_recompute=recipe)
+        cpu, card = _twins(preset, SEED + 3, layers=layers,
+                           use_recompute=recipe)
         cpu.train()
         card.train()
         g_card = _grad_norms(card, "cuda", ids, labels)
@@ -2846,7 +2852,7 @@ def phase_model_train(phase="model_train"):
         leaves = sum(p.requires_grad for p in card.parameters())
         want = dict.fromkeys(launched, 0)      # paged attention: none
         want.update({k: v * K for k, v in launches_per_step(
-            2, leaves, recipe,
+            layers, leaves, recipe,
             layer_norms=not preset.startswith("llama")).items()})
         loss_diff = float((loss_card - loss_cpu).abs().max())
         wc, wp = export_state(card), export_state(cpu)
@@ -2858,8 +2864,9 @@ def phase_model_train(phase="model_train"):
             total += d.size
         what = ("train recipe (schedule, clip, decay filter, bf16 moments, "
                 "recompute)" if recipe else "AdamW")
-        emit({"phase": phase, "config": f"{preset} widths, 2 layers, "
-              f"fp32, B={B}, S={S}, 3 steps, {what}",
+        emit({"phase": phase, "config": f"{preset} widths, {layers} "
+              f"layer{'s' if layers > 1 else ''}, fp32, B={B}, S={S}, "
+              f"3 steps, {what}",
               "loss_card": loss_card.tolist(), "loss_cpu": loss_cpu.tolist(),
               "lr_vector": lr_card.tolist(), "loss_max_abs_diff": loss_diff,
               "loss_tol": TRAIN_PARITY_LOSS_TOL,
@@ -3147,7 +3154,7 @@ AMP_PARITY_CASES = {
             "dtype": "float16", "init_loss_scaling": 2.0 ** 40,
             "decr_every_n_nan_or_inf": 1, "decr_ratio": 2.0 ** -25,
             "incr_every_n_steps": 2}},
-        batch=(1, 32), scan=1, calls=3, loss_tol=4e-3,
+        batch=(1, 16), layers=1, scan=1, calls=3, loss_tol=4e-3,
         scales=(2.0 ** 15, 2.0 ** 15, 2.0 ** 16)),
     "c_fp16_o2_recompute_merge_k2_overflow": dict(
         fields={"amp": True, "amp_configs": {
@@ -3155,9 +3162,11 @@ AMP_PARITY_CASES = {
             "decr_every_n_nan_or_inf": 1, "decr_ratio": 2.0 ** -25,
             "incr_every_n_steps": 1}, "recompute": True,
             "gradient_merge": True, "gradient_merge_configs": {"k_steps": 2}},
-        batch=(1, 32), scan=1, calls=2, loss_tol=1e-2, level="O2",
-        scales=(2.0 ** 15, 2.0 ** 16)),
+        batch=(1, 16), layers=1, scan=1, calls=2, loss_tol=1e-2,
+        level="O2", scales=(2.0 ** 15, 2.0 ** 16)),
 }
+# the fp16 cases run 1 layer over 16 tokens: their CPU twins' fp16 GEMMs
+# run slowly on the CPU and take most of the phase
 AMP_PARITY_SHARE = 1e-2
 
 
@@ -3203,7 +3212,8 @@ def phase_model_amp():
                           (B, S)).astype(np.int32)
         labels = np.roll(ids, -1, axis=1)
         labels[:, -1] = -100
-        cpu, card = _twins(preset, SEED + 12)
+        layers = c.get("layers", 2)
+        cpu, card = _twins(preset, SEED + 12, layers=layers)
         o2 = c.get("level") == "O2"
         runs, opts = {}, {}
         for dev, model in (("cuda", card), ("cpu", cpu)):
@@ -3250,7 +3260,8 @@ def phase_model_amp():
         launched = runs["cuda"]["launches"]
         fp16 = c["fields"].get("amp_configs", {}).get("dtype") == "float16"
         emit({"phase": "model_amp", "case": case,
-              "config": f"{preset} widths, 2 layers, "
+              "config": f"{preset} widths, {layers} layer"
+                        + ("s, " if layers > 1 else ", ")
                         + ("fp16 parameters (O2), " if o2 else "")
                         + f"fp32 master weights, B={B}, S={S}, AdamW lr "
                           f"{lr}",
@@ -3592,11 +3603,16 @@ def serve_workload(cell="serve"):
     n_req = SERVE_CELLS[cell]["requests"]
     model, init_s = serve_model(cell)
     engine = LLMEngine(model, LLMEngineConfig(**SERVE_ENGINE))
-    vocab = model.config.vocab_size
-    rng = np.random.RandomState(SEED + 1)
-    prompts = [rng.randint(0, vocab, (int(n),)).astype(np.int32)
-               for n in rng.randint(32, 401, size=16)]
+    prompts = serve_prompts(model.config.vocab_size)
     return model, engine, prompts[:n_req], init_s
+
+
+def serve_prompts(vocab):
+    """The serve cells' 16 prompts of 32..400 tokens, from SEED + 1."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 1)
+    return [rng.randint(0, vocab, (int(n),)).astype(np.int32)
+            for n in rng.randint(32, 401, size=16)]
 
 
 def serve_warm_up(engine, prompts):
@@ -3681,9 +3697,10 @@ def phase_serve(cell="serve", record=None):
     recorded = []
     step_logits = engine._step_logits
 
-    def capturing_step_logits(toks, pos, adv):
-        lg = step_logits(toks, pos, adv)
-        recorded.append((toks.copy(), pos.copy(), adv.copy()))
+    def capturing_step_logits(a):
+        lg = step_logits(a)
+        adv = a.adv
+        recorded.append((a.toks.copy(), a.pos.copy(), adv.copy()))
         for slot, req in engine._active.items():
             i = watch.get(req.prompt.tobytes())
             if i is not None and req.chunk_off < len(req.prompt) \
@@ -3771,7 +3788,9 @@ def phase_serve(cell="serve", record=None):
     worst_logits = max(c["first_logits_max_abs_diff"] for c in compare)
     stats = engine.metrics.snapshot()
     kernel_names = set()
-    busy_ms, replay_ms = step_busy(step_logits, recorded, kernel_names)
+    busy_ms, replay_ms = step_busy(
+        lambda *a: step_logits(engine._step_args(*a)), recorded,
+        kernel_names)
     step_ms = wall * 1e3 / steps
     paged_seen = sorted(k for k in kernel_names if "paged_attention" in k)
     result = {
@@ -3817,6 +3836,511 @@ def phase_serve(cell="serve", record=None):
                                     and "__half" in k for k in paged_seen),
               f"{cell}: the profiled step ran {paged_seen}")
     del model, engine, handles, recorded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------- phase 5a
+# serve_supervised: the serve cell's model, engine and 16 prompts under
+# supervision (SERVE_ENGINE with dispatch_retries 2, breaker_threshold 3).
+# Run A: one FaultPlan of four clauses (a decode-scoped poison on request
+# 5, a prefill-scoped poison on request 10, a raise on a mid-run decode
+# step, an injected hang): the 14 survivors' streams must equal serve's;
+# the plan's log, the supervisor's snapshot, the failures and every
+# outcome must equal those of SCHED_TWIN, a CPU engine of the same
+# configuration and prompt lengths on a SimClock (scheduling depends on
+# no token value while no request names an EOS). Fault-free bursts
+# without and with the watchdog, in turns, give the step times runs A and
+# B are read against and the watchdog's cost. Run B: the watchdog
+# armed at SUPERVISED_TIMEOUT_S and one attempt really abandoned: a
+# forward pre-hook on layer 12 of 24 holds the first attempt after
+# SUPERVISED_HOLD_STEP committed steps, with layers 0-11 enqueued; the
+# watchdog fires, the retry commits, the engine runs 4 more steps, then
+# the hook lets go and the attempt must stop at the write fence; the
+# streams must still equal serve's. Run C: a burst under a token budget
+# and brownout, its admissions, sheds, rejects and caps equal to
+# SCHED_TWIN's, each completed stream the prefix of serve's.
+SUPERVISED_ENGINE = dict(SERVE_ENGINE, dispatch_retries=2,
+                         breaker_threshold=3)
+SUPERVISED_SPEC = ("poison_request@5:decode;poison_request@10:prefill;"
+                   "dispatch_raise@24;dispatch_hang@40:30.0")
+SUPERVISED_TIMEOUT_S = 0.5   # some 20x a decode step (PERF.md, serve)
+SUPERVISED_HOLD_STEP = 20
+SUPERVISED_HOLD_LAYER = 12
+SUPERVISED_WAIT_S = 120.0
+OVERLOAD = dict(max_inflight_tokens=2000, brownout_queue_depth=6,
+                brownout_max_new_tokens=8, retry_after_s=0.5)
+OVERLOAD_SLOS = ("interactive", "batch", "best_effort")
+# the scheduling twin: a 1-layer GPT of 32 wide over a 64-token vocab (the
+# prompts are taken mod 64) with room for the serve cell's 576-token slabs
+SCHED_TWIN = dict(vocab_size=64, hidden_size=32, num_hidden_layers=1,
+                  num_attention_heads=2, intermediate_size=64,
+                  max_position_embeddings=1024)
+
+
+def sched_twin(config, spec, prompts, slos=None):
+    """(engine, handles or rejects, plan) of the CPU scheduling twin: the
+    engine `config` on a SimClock with FaultPlan `spec`, every prompt
+    submitted (mod 64, in order, with `slos`) and the engine drained."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.serving.clock import SimClock
+    from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
+    from paddle_tpu_torch.utils.fault_injection import FaultPlan
+    model = GPTForCausalLM.from_preset("gpt2-tiny", device="cpu",
+                                       **SCHED_TWIN)
+    plan = FaultPlan.from_spec(spec)
+    eng = LLMEngine(model, LLMEngineConfig(**config), clock=SimClock(),
+                    fault_plan=plan)
+    out = submit_outcomes(eng, [p % 64 for p in prompts], slos)
+    while eng.has_work():
+        eng.pump()
+    eng.stop()
+    return eng, out, plan
+
+
+def submit_outcomes(engine, prompts, slos=None):
+    """Submit every prompt (with its class of `slos`), keeping each handle
+    or ("rejected", reason, retry_after_s)."""
+    from paddle_tpu_torch.serving import RejectedError
+    out = []
+    for i, p in enumerate(prompts):
+        try:
+            out.append(engine.submit(
+                p, slo=None if slos is None else slos[i % len(slos)]))
+        except RejectedError as e:
+            out.append(("rejected", e.reason, e.retry_after_s))
+    return out
+
+
+def outcome(h):
+    """What a handle or a reject ended as: ("completed", max_new_tokens,
+    tokens emitted) or (error, reason, retry_after_s, tokens emitted)."""
+    if isinstance(h, tuple):
+        return h
+    exc = h.future.exception(timeout=0)
+    if exc is None:
+        return ("completed", h.max_new_tokens, len(h.tokens_so_far()))
+    return (type(exc).__name__, getattr(exc, "reason", None),
+            getattr(exc, "retry_after_s", None), len(h.tokens_so_far()))
+
+
+SUPERVISED_KEYS = ("dispatch_failures", "quarantined", "completed",
+                   "failed", "shed", "rejected", "brownout_entries")
+
+
+def _supervised_burst(engine, handles, timeout=900):
+    """Start the engine over the queued handles, wait for every one; the
+    wall seconds from the start."""
+    t0 = time.perf_counter()
+    engine.start()
+    for h in handles:
+        if not isinstance(h, tuple):
+            try:
+                h.result(timeout=timeout)
+            except Exception:
+                pass
+    return time.perf_counter() - t0
+
+
+def step_thread_costs(model, prompts, steps=24):
+    """Host ms of one decode step's forward over 8 rows (`_step_logits`
+    on an engine's operands, to a synchronize): on the calling thread, on
+    a new thread each step (the watchdog's way), and on one other thread
+    that runs every step; in turns (caller, new, one, one, new, caller)."""
+    import threading
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
+    engine = LLMEngine(model, LLMEngineConfig(**SERVE_ENGINE))
+    n, c = SERVE_ENGINE["num_slots"], SERVE_ENGINE["prefill_chunk"]
+    toks = np.zeros((n, c), np.int32)
+    toks[:, 0] = [int(p[0]) for p in prompts[:n]]
+    args = engine._step_args(toks, np.full((n,), 200, np.int32),
+                             np.ones((n,), np.int32))
+
+    def step():
+        with torch.no_grad():
+            engine._step_logits(args)
+        torch.cuda.synchronize()
+
+    def on_caller():
+        for _ in range(steps):
+            step()
+
+    def on_new():
+        for _ in range(steps):
+            t = threading.Thread(target=step)
+            t.start()
+            t.join()
+
+    def on_one():
+        t = threading.Thread(target=on_caller)
+        t.start()
+        t.join()
+
+    on_caller()                                   # warm
+    out = {"caller": [], "new_each_step": [], "one_thread": []}
+    for key, fn in (("caller", on_caller), ("new_each_step", on_new),
+                    ("one_thread", on_one), ("one_thread", on_one),
+                    ("new_each_step", on_new), ("caller", on_caller)):
+        t0 = time.perf_counter()
+        fn()
+        out[key].append((time.perf_counter() - t0) * 1e3 / steps)
+    del engine, args
+    return {k: statistics.mean(v) for k, v in out.items()}
+
+
+def phase_serve_supervised(serve):
+    import threading
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import _kernels, attention
+    from paddle_tpu_torch.serving import EngineSupervisor
+    from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
+    from paddle_tpu_torch.serving.llm.llm_engine import _AttemptRevoked
+    from paddle_tpu_torch.utils.fault_injection import FaultPlan
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, init_s = serve_model("serve")
+    prompts = serve_prompts(model.config.vocab_size)
+    streams = serve["streams"]
+    warm = LLMEngine(model, LLMEngineConfig(**SERVE_ENGINE))
+    warm.start()
+    try:
+        serve_warm_up(warm, prompts)
+    finally:
+        warm.stop(drain=True, timeout=60)
+    del warm
+
+    # the cost of the watchdog: fault-free bursts of the serve cell's
+    # work without and with a deadline thread for each attempt, in turns
+    # (off, on, on, off), every stream equal to serve's
+    clean = {False: [], True: []}
+    for watchdog in (False, True, True, False):
+        cfg = dict(SUPERVISED_ENGINE, dispatch_timeout_s=(
+            SUPERVISED_TIMEOUT_S if watchdog else None))
+        engine_0 = LLMEngine(model, LLMEngineConfig(**cfg),
+                             fault_plan=FaultPlan.from_spec(""))
+        handles_0 = submit_outcomes(engine_0, prompts)
+        try:
+            wall_0 = _supervised_burst(engine_0, handles_0)
+        finally:
+            engine_0.stop(drain=True, timeout=60)
+        equal_0 = [bool(np.array_equal(h.result(0), streams[i]))
+                   for i, h in enumerate(handles_0)]
+        check(all(equal_0), f"serve_supervised fault-free burst (watchdog "
+                            f"{watchdog}): streams equal serve's: {equal_0}")
+        snap_0 = engine_0.metrics.snapshot()
+        check(engine_0.supervisor.snapshot()["watchdog_fires"] == 0,
+              "a fault-free burst fired the watchdog")
+        clean[watchdog].append(dict(
+            generated_tok_s=sum(len(h.tokens_so_far())
+                                for h in handles_0) / wall_0,
+            decode_step_p50_ms=snap_0["intertoken_p50_ms"]))
+        del engine_0
+    # the watchdog's own cost an attempt: a no-op dispatch through the
+    # supervisor, without and with its deadline thread; and one decode
+    # step's forward (8 rows) enqueued and synchronised on this thread, on
+    # a new thread each step, and on one other thread for every step
+    attempt_us = {}
+    for timeout in (None, SUPERVISED_TIMEOUT_S):
+        sup = EngineSupervisor(dispatch_timeout_s=timeout)
+        t0 = time.perf_counter()
+        for _ in range(200):
+            sup.run(lambda: None)
+        attempt_us[str(timeout)] = (time.perf_counter() - t0) / 200 * 1e6
+    step_host_ms = step_thread_costs(model, prompts)
+
+    # run A: injected faults, no watchdog thread
+    plan = FaultPlan.from_spec(SUPERVISED_SPEC)
+    engine = LLMEngine(model, LLMEngineConfig(**SUPERVISED_ENGINE),
+                       fault_plan=plan)
+    handles = submit_outcomes(engine, prompts)
+    _kernels.reset_launch_counts()
+    try:
+        wall_a = _supervised_burst(engine, handles)
+        launches = _kernels.launch_counts()
+    finally:
+        engine.stop(drain=True, timeout=60)
+    twin, twin_out, twin_plan = sched_twin(SUPERVISED_ENGINE,
+                                           SUPERVISED_SPEC, prompts)
+    got = [outcome(h) for h in handles]
+    check(got == [outcome(h) for h in twin_out],
+          f"serve_supervised: outcomes {got} differ from the CPU twin's "
+          f"{[outcome(h) for h in twin_out]}")
+    check(plan.log == twin_plan.log and len(plan.log) == 4,
+          f"serve_supervised: plan log {plan.log}, CPU {twin_plan.log}")
+    snap_a, twin_snap = engine.metrics.snapshot(), twin.metrics.snapshot()
+    check(engine.supervisor.snapshot() == twin.supervisor.snapshot(),
+          f"serve_supervised: supervisor {engine.supervisor.snapshot()}, "
+          f"CPU {twin.supervisor.snapshot()}")
+    keys_a = {k: snap_a[k] for k in SUPERVISED_KEYS}
+    check(keys_a == {k: twin_snap[k] for k in SUPERVISED_KEYS},
+          f"serve_supervised: metrics {keys_a} differ from the CPU twin's")
+    poisoned = {5: got[5], 10: got[10]}
+    check(poisoned[10][:2] == ("DispatchFailedError", "poisoned")
+          and poisoned[10][3] == 0
+          and poisoned[5][:2] == ("DispatchFailedError", "poisoned")
+          and poisoned[5][3] >= 1,
+          f"serve_supervised: poisoned requests ended {poisoned}")
+    survivors = [i for i in range(len(prompts)) if i not in poisoned]
+    equal_a = {i: bool(np.array_equal(handles[i].result(0), streams[i]))
+               for i in survivors}
+    check(len(survivors) == 14 and all(equal_a.values()),
+          f"serve_supervised: survivor streams equal serve's: {equal_a}")
+    check(engine.pool.check_balance() and engine.pool.active_slots() == 0,
+          "serve_supervised: pool ledger unbalanced after run A")
+    must, _ = served_kernels("gpt3-1.3b")
+    check(all(launches[k] > 0 for k in must),
+          f"serve_supervised: the path launched {launches}")
+    tokens_a = sum(len(handles[i].tokens_so_far()) for i in survivors)
+
+    # run B: the watchdog armed, one attempt really abandoned
+    engine_b = LLMEngine(model, LLMEngineConfig(
+        **SUPERVISED_ENGINE, dispatch_timeout_s=SUPERVISED_TIMEOUT_S),
+        fault_plan=FaultPlan.from_spec(""))
+    gate, held = threading.Event(), threading.Event()
+    box = {}
+
+    def hold(module, args):
+        if not held.is_set() and engine_b.steps >= SUPERVISED_HOLD_STEP:
+            box["fence"] = attention._KV_GUARD.guard
+            box["step"] = engine_b.steps
+            box["t"] = time.perf_counter()
+            held.set()
+            gate.wait(SUPERVISED_WAIT_S)
+
+    hook = model.gpt.layers[SUPERVISED_HOLD_LAYER].register_forward_pre_hook(
+        hold)
+    handles_b = submit_outcomes(engine_b, prompts)
+    try:
+        t0 = time.perf_counter()
+        engine_b.start()
+        check(held.wait(SUPERVISED_WAIT_S), "run B: no attempt was held")
+        while engine_b.steps < box["step"] + 4:
+            check(time.perf_counter() - t0 < SUPERVISED_WAIT_S,
+                  "run B: the engine did not run on past the held attempt")
+            time.sleep(0.002)
+        box["let_go_steps"] = engine_b.steps
+        box["held_s"] = time.perf_counter() - box["t"]
+        gate.set()
+        fence = box["fence"]
+        check(fence.stopped.wait(SUPERVISED_WAIT_S),
+              "run B: the abandoned attempt never reached its next write")
+        outs_b = [h.result(timeout=900) for h in handles_b]
+        wall_b = time.perf_counter() - t0
+    finally:
+        gate.set()
+        hook.remove()
+        engine_b.stop(drain=True, timeout=60)
+    sup_b = engine_b.supervisor.snapshot()
+    check(isinstance(fence.error, _AttemptRevoked)
+          and fence in engine_b.abandoned_attempts,
+          f"run B: the held attempt ended with {fence.error!r}")
+    check(sup_b["watchdog_fires"] >= 1 and not sup_b["circuit_open"],
+          f"run B: supervisor {sup_b}")
+    equal_b = [bool(np.array_equal(o, streams[i]))
+               for i, o in enumerate(outs_b)]
+    check(all(equal_b), f"run B: streams equal serve's: {equal_b}")
+    check(engine_b.pool.check_balance(), "run B: pool ledger unbalanced")
+    snap_b = engine_b.metrics.snapshot()
+
+    # run C: a token budget and brownout
+    over = dict(SERVE_ENGINE, **OVERLOAD)
+    engine_c = LLMEngine(model, LLMEngineConfig(**over),
+                         fault_plan=FaultPlan.from_spec(""))
+    handles_c = submit_outcomes(engine_c, prompts, OVERLOAD_SLOS)
+    try:
+        _supervised_burst(engine_c, handles_c)
+    finally:
+        engine_c.stop(drain=True, timeout=60)
+    twin_c, twin_c_out, _ = sched_twin(over, "", prompts, OVERLOAD_SLOS)
+    got_c = [outcome(h) for h in handles_c]
+    check(got_c == [outcome(h) for h in twin_c_out],
+          f"run C: outcomes {got_c} differ from the CPU twin's "
+          f"{[outcome(h) for h in twin_c_out]}")
+    snap_c = engine_c.metrics.snapshot()
+    twin_snap_c = twin_c.metrics.snapshot()
+    check(all(snap_c[k] == twin_snap_c[k] for k in SUPERVISED_KEYS)
+          and engine_c.metrics.reject_reasons
+          == twin_c.metrics.reject_reasons,
+          "run C: metrics differ from the CPU twin's")
+    kinds = {o[0] if o[0] != "RejectedError" else o[1] for o in got_c}
+    capped = [o for o in got_c if o[0] == "completed"
+              and o[1] == OVERLOAD["brownout_max_new_tokens"]]
+    check({"completed", "shed", "rejected"} <= kinds and capped
+          and all(o[2] == OVERLOAD["retry_after_s"] for o in got_c
+                  if o[0] != "completed"),
+          f"run C: want admissions, sheds, rejects and brownout caps, each "
+          f"reject with retry_after_s: {got_c}")
+    prefix_c = [bool(np.array_equal(h.result(0),
+                                    streams[i][:h.max_new_tokens]))
+                for i, h in enumerate(handles_c)
+                if outcome(h)[0] == "completed"]
+    check(all(prefix_c), f"run C: streams are serve's prefixes: {prefix_c}")
+
+    result = {
+        "phase": "serve_supervised", "model": "gpt3-1.3b", "dtype": "bfloat16",
+        "spec": SUPERVISED_SPEC, "plan_log": plan.log,
+        "outcomes": got, "supervisor": engine.supervisor.snapshot(),
+        "metrics": keys_a,
+        "dispatch_idx": engine._dispatch_idx, "steps": engine.steps,
+        "survivor_streams_equal_serve": sum(equal_a.values()),
+        "generated_tok_s": tokens_a / wall_a,
+        "decode_step_p50_ms": snap_a["intertoken_p50_ms"],
+        "serve_generated_tok_s": serve["generated_tok_s"],
+        "serve_decode_step_p50_ms": serve["decode_step_p50_ms"],
+        "fault_free_runs": {"no_watchdog": clean[False],
+                            "watchdog": clean[True],
+                            "order": "off, on, on, off"},
+        "decode_step_added_ms": (
+            statistics.mean(r["decode_step_p50_ms"] for r in clean[True])
+            - statistics.mean(r["decode_step_p50_ms"]
+                              for r in clean[False])),
+        "supervised_noop_attempt_us": attempt_us,
+        "decode_step_forward_ms_by_thread": step_host_ms,
+        "timeout_run": {
+            "dispatch_timeout_s": SUPERVISED_TIMEOUT_S,
+            "held_at_step": box["step"], "held_layer": SUPERVISED_HOLD_LAYER,
+            "held_s": box["held_s"], "let_go_at_step": box["let_go_steps"],
+            "fenced": type(fence.error).__name__,
+            "supervisor": sup_b, "streams_equal_serve": sum(equal_b),
+            "generated_tok_s": sum(len(o) for o in outs_b) / wall_b,
+            "decode_step_p50_ms": snap_b["intertoken_p50_ms"]},
+        "overload_run": {**OVERLOAD, "slos": OVERLOAD_SLOS,
+                         "outcomes": got_c,
+                         "metrics": {k: snap_c[k] for k in SUPERVISED_KEYS},
+                         "reject_reasons": engine_c.metrics.reject_reasons},
+        "kernel_launches": launches, "model_init_s": init_s}
+    emit(result)
+    del model, engine, engine_b, engine_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------- phase 5c
+# batch_serve: BatchingEngine(max_batch_size=8, max_wait_ms=2.0) over a
+# predict_fn that runs full gpt3-1.3b's forward without cache on the card
+# (bf16: the flash forward and LayerNorm kernels) and returns each row's
+# last-position logits as fp32 numpy. BATCH_REQUESTS single-row requests
+# of 128 tokens on a seeded Poisson trace through sim.replay (a SimClock,
+# so the batches are those the CPU port engine forms from the same trace),
+# dispatch_raise on the third dispatch. Each completed request's logits
+# are held to a forward of that row alone within BATCH_LOGITS_TOL: the
+# padded batch is another M for cuBLAS, so activations round in another
+# order; as in phase_serve, a logit (|logit| < 2 with these random
+# weights) moves by a few bf16 ulps of at most 2^-7, and 2^-4 allows
+# eight, while a wrong row, mask or position moves logits by their own
+# spread (~0.3). The argmax must agree except at a tie: the batch's
+# choice within BATCH_LOGITS_TOL of the top of the solo logits.
+BATCH_REQUESTS = 32
+BATCH_ROW = 128
+BATCH_RATE_HZ = 2000.0
+BATCH_SPEC = "dispatch_raise@2"
+BATCH_LOGITS_TOL = 2.0 ** -4
+
+
+def phase_batch_serve():
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.ops import _kernels
+    from paddle_tpu_torch.utils.fault_injection import FaultPlan
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, init_s = serve_model("serve")
+    model.eval()
+    vocab = model.config.vocab_size
+    rng = np.random.RandomState(SEED + 17)
+    rows = [rng.randint(0, vocab, (1, BATCH_ROW)).astype(np.int32)
+            for _ in range(BATCH_REQUESTS)]
+
+    def last_logits(ids):
+        with torch.no_grad():
+            hidden, _ = model.gpt(torch.from_numpy(ids).cuda())
+            return model.lm_head(hidden[:, -1]).float().cpu().numpy()
+
+    calls, twin_calls = [], []
+
+    def predict(args):
+        calls.append(args[0].shape[0])
+        return [last_logits(args[0])]
+
+    def stub(args):
+        twin_calls.append(args[0].shape[0])
+        return [np.zeros((args[0].shape[0], 1), np.float32)]
+
+    def replay(fn):
+        cfg = serving.EngineConfig(max_batch_size=8, max_wait_ms=2.0)
+        eng = serving.BatchingEngine(fn, cfg, clock=serving.SimClock(),
+                                     fault_plan=FaultPlan.from_spec(
+                                         BATCH_SPEC))
+        trace = serving.poisson_trace(BATCH_REQUESTS, BATCH_RATE_HZ,
+                                      make_inputs=lambda i: [rows[i]],
+                                      seed=SEED)
+        return eng, serving.replay(eng, trace)
+
+    last_logits(rows[0])                        # warm-up, uncounted
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng, report = replay(predict)
+    wall = time.perf_counter() - t0
+    launches = _kernels.launch_counts()
+    _, twin_report = replay(stub)
+    check(calls == twin_calls and report.dispatches == twin_report.dispatches,
+          f"batch_serve: dispatch sizes {calls}, CPU engine {twin_calls}")
+    check(report.outcomes == twin_report.outcomes,
+          "batch_serve: outcomes differ from the CPU engine's")
+    failed = [i for i, o in enumerate(report.outcomes) if o == "failed"]
+    check(failed and all(isinstance(report.errors[i],
+                                    serving.DispatchFailedError)
+                         for i in failed)
+          and report.completed == BATCH_REQUESTS - len(failed),
+          f"batch_serve: outcomes {report.outcomes}")
+    # each successful dispatch runs the 24 layers' flash forward and their
+    # 49 LayerNorms once; the failed one raised before predict_fn
+    ok_calls = len(calls)
+    layers = model.config.num_hidden_layers
+    want = {"flash_fwd": layers * ok_calls,
+            "layernorm_fwd": (2 * layers + 1) * ok_calls}
+    check({k: launches[k] for k in want} == want,
+          f"batch_serve: launched {launches} over {ok_calls} dispatches, "
+          f"want {want}")
+    worst, ties, mismatched = 0.0, [], []
+    for i, o in enumerate(report.outcomes):
+        if o != "completed":
+            continue
+        got = report.results[i][0][0]
+        solo = last_logits(rows[i])[0]
+        worst = max(worst, float(np.abs(got - solo).max()))
+        a, b = int(got.argmax()), int(solo.argmax())
+        if a != b:
+            gap = float(solo[b] - solo[a])
+            (ties if gap <= BATCH_LOGITS_TOL else mismatched).append(
+                (i, a, b, gap))
+    check(worst <= BATCH_LOGITS_TOL,
+          f"batch_serve: batched vs solo logits differ by {worst}")
+    check(not mismatched, f"batch_serve: argmax differs beyond a tie: "
+          f"{mismatched}")
+    snap = eng.metrics.snapshot()
+    emit({"phase": "batch_serve", "model": "gpt3-1.3b", "dtype": "bfloat16",
+          "requests": BATCH_REQUESTS, "row_tokens": BATCH_ROW,
+          "spec": BATCH_SPEC, "dispatch_rows": calls,
+          "dispatches": report.dispatches, "failed": failed,
+          "completed": report.completed, "wall_s": wall,
+          "requests_per_s": BATCH_REQUESTS / wall,
+          "logits_max_abs_diff_vs_solo": worst,
+          "logits_tol": BATCH_LOGITS_TOL, "argmax_ties": ties,
+          "metrics": {k: snap[k] for k in (
+              "dispatches", "batch_hist", "pad_overhead_rows",
+              "dispatch_failures", "completed", "failed", "p50_ms")},
+          "kernel_launches": launches, "model_init_s": init_s})
+    del model, eng
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -4088,7 +4612,7 @@ def selection_busy(engine, steps):
     llm_engine.select_rows = capture
     try:
         for a in _picks(steps):
-            engine._run_sampled_step(*a)
+            engine._run_sampled_step(engine._step_args(*a))
     finally:
         llm_engine.select_rows = select_rows
     _replay_wall_ms(torch, select_rows, picks)          # warm
@@ -4115,11 +4639,13 @@ def sampled_step_cost(torch, engine, steps):
     picks = _picks(steps)
 
     def greedy(toks, pos, adv, ctr, constrained):
-        engine._run_step(toks, pos, adv)
+        engine._run_step(engine._step_args(toks, pos, adv))
+
+    def sampled(*a):
+        engine._run_sampled_step(engine._step_args(*a))
 
     g = [_replay_wall_ms(torch, greedy, picks)]
-    s = [_replay_wall_ms(torch, engine._run_sampled_step, picks)
-         for _ in range(2)]
+    s = [_replay_wall_ms(torch, sampled, picks) for _ in range(2)]
     g.append(_replay_wall_ms(torch, greedy, picks))
     return statistics.mean(g), statistics.mean(s)
 
@@ -4173,8 +4699,9 @@ def phase_sample_serve(serve):
     step_logits = engine._step_logits
     run_sampled_step = engine._run_sampled_step
 
-    def capturing_step_logits(toks, pos, adv):
-        lg = step_logits(toks, pos, adv)
+    def capturing_step_logits(a):
+        lg = step_logits(a)
+        adv = a.adv
         for slot, req in engine._active.items():
             i = watch.get(req.prompt.tobytes())
             if i is not None and req.chunk_off < len(req.prompt) \
@@ -4182,10 +4709,10 @@ def phase_sample_serve(serve):
                 first_logits[i] = lg[slot, int(adv[slot]) - 1].float().cpu()
         return lg
 
-    def recording_sampled_step(toks, pos, adv, ctr, constrained):
-        sampled_steps.append((toks.copy(), pos.copy(), adv.copy(),
-                              ctr.copy(), constrained))
-        return run_sampled_step(toks, pos, adv, ctr, constrained)
+    def recording_sampled_step(a):
+        sampled_steps.append((a.toks.copy(), a.pos.copy(), a.adv.copy(),
+                              a.ctr.copy(), a.constrained))
+        return run_sampled_step(a)
 
     engine._step_logits = capturing_step_logits
     engine._run_sampled_step = recording_sampled_step
@@ -6371,6 +6898,9 @@ def main():
     by_phase["sample_serve"] = timed("sample_serve", phase_sample_serve,
                                      serve)
     by_phase["prefix_serve"] = timed("prefix_serve", phase_prefix_serve)
+    by_phase["serve_supervised"] = timed("serve_supervised",
+                                         phase_serve_supervised, serve)
+    by_phase["batch_serve"] = timed("batch_serve", phase_batch_serve)
     by_phase["train"], train_peak = timed("train", phase_train, name)
     by_phase["train_recipe"], _ = timed("train_recipe", phase_train, name,
                                         "train_recipe",

@@ -26,7 +26,9 @@ softmax.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -553,6 +555,24 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     return out.transpose(1, 2)
 
 
+# the KV write guard of the calling thread (kv_write_guard)
+_KV_GUARD = threading.local()
+
+
+@contextlib.contextmanager
+def kv_write_guard(guard):
+    """For the block's duration, every `update_kv_cache` call on this
+    thread enters `guard` (a context manager) around the enqueue of its
+    write. The serving engine passes each supervised step attempt's write
+    token, which refuses the writes of an attempt it has revoked."""
+    prev = getattr(_KV_GUARD, "guard", None)
+    _KV_GUARD.guard = guard
+    try:
+        yield
+    finally:
+        _KV_GUARD.guard = prev
+
+
 def update_kv_cache(k_cache, v_cache, k_new, v_new, pos):
     """Write k/v [B, Hkv, T, D] into static [B, Hkv, L, D] caches at `pos`,
     IN PLACE (the JAX package returns new slabs; here the slabs are
@@ -562,8 +582,17 @@ def update_kv_cache(k_cache, v_cache, k_new, v_new, pos):
     every row at one offset, a [B] tensor each row at its own. The start
     is clamped to [0, L - T] exactly as `lax.dynamic_update_slice` clamps
     it, so a write that would overrun the cache lands in the same columns
-    as on the JAX side.
+    as on the JAX side. Under `kv_write_guard` the write is enqueued
+    inside the guard.
     """
+    guard = getattr(_KV_GUARD, "guard", None)
+    if guard is None:
+        return _write_kv(k_cache, v_cache, k_new, v_new, pos)
+    with guard:
+        return _write_kv(k_cache, v_cache, k_new, v_new, pos)
+
+
+def _write_kv(k_cache, v_cache, k_new, v_new, pos):
     L = k_cache.shape[2]
     T = k_new.shape[2]
     if T > L:

@@ -5,8 +5,8 @@ but the port imports nothing of the JAX package).
 The scheduler's flush/deadline decisions are pure functions of "now", so
 swapping the time source makes the whole batching engine deterministic:
 `MonotonicClock` is production, `SimClock` is a manually-advanced clock a
-test or simulation harness drives through scripted arrival traces — no real
-sleeps, no wall-clock flake in tests.
+test or the simulation harness (serving/sim.py) drives through scripted
+arrival traces — no real sleeps, no wall-clock flake in tests.
 """
 from __future__ import annotations
 
@@ -48,6 +48,10 @@ class SimClock(Clock):
         if dt < 0:
             raise ValueError(f"SimClock cannot go backwards (dt={dt})")
         self._t += dt
+        return self._t
+
+    def advance_to(self, t: float) -> float:
+        self._t = max(self._t, float(t))
         return self._t
 
     def wait(self, cond, timeout):

@@ -45,24 +45,83 @@ another engine, whose `submit(prompt + emitted, kv_row=, lane=)`
 continues it with a one-token prefill.
 
 Admission control keeps the JAX engine's vocabulary: three SLO-class
-queues admitted in strict priority order and tenant-fair within a class,
-a bounded queue (a full queue sheds the newest request of a lower class
-before it rejects with `RejectedError(reason="queue_full")`), an
-optional per-tenant in-flight token quota (reason "tenant_quota"),
-absolute deadlines (queued requests are dropped, active rows evicted,
-both with `DeadlineExceededError`), and a graceful `stop(drain=True)`.
+queues admitted in strict priority order and tenant-fair within a class
+(`default_slo` for a request that names none), a bounded queue, an
+optional per-tenant in-flight token quota (reason "tenant_quota", checked
+first), an optional engine-wide token budget `max_inflight_tokens`: a
+full queue or an exhausted budget sheds the newest queued request of a
+lower class ("shed") before it rejects ("queue_full" / "token_budget"),
+every overload reject carrying `retry_after_s`; brownout (queue depth at
+`brownout_queue_depth` caps admitted `max_new_tokens` at
+`brownout_max_new_tokens` until the depth falls to half); absolute
+deadlines (queued requests are dropped, active rows evicted, both with
+`DeadlineExceededError`), and a graceful `stop(drain=True)`.
+
+Supervision, as in the JAX engine: every step attempt runs through an
+`EngineSupervisor` (serving/supervisor.py) and the fault plan's
+`dispatch_*` / `poison_request` clauses, keyed on `_dispatch_idx` (one
+per whole-step attempt, one per blame probe) and each request's
+`submit_idx`. A failed step is retried whole `dispatch_retries` times;
+then each active row is probed alone and the rows whose probe fails are
+quarantined (`DispatchFailedError`, reason "poisoned"); a failure no
+single row explains fails every active row (reason "engine") and charges
+the circuit breaker, which at `breaker_threshold` stops admission and
+flushes the queues with `RejectedError("circuit_open")`.
+
+The JAX step is functional: a failed or abandoned attempt never changes
+the slabs. Here each layer writes its KV stripe into the slabs in place
+(`ops/attention.py` `update_kv_cache`), so three hazards are handled:
+
+1. A raised attempt may have written some layers' stripes. Every write
+   of a step lands at its rows' own positions pos..pos+C-1 (a row's slab
+   row, never another's); the retry has the same toks, pos and committed
+   KV below pos (the pool's lengths and the streams are committed only
+   after a successful attempt), so it writes the same values over the
+   same positions before anything reads them.
+2. A blame probe runs the step with one real row. The JAX probe masks
+   the others to (toks=0, pos=0, adv=0), which here would write token
+   0's stripe over positions 0..C-1 of every survivor. The port masks
+   them as it masks a free slot, pos = capacity: their writes land in
+   the slab's pad region, which no block table addresses. The probed
+   row writes its own positions with the values the full step writes.
+3. An attempt the watchdog abandons keeps running on its deadline
+   thread, and may wake after the engine has retried, committed and
+   moved on, to write an old stripe over positions later steps filled.
+   Each attempt therefore carries a write token (`_WriteFence`), and
+   `update_kv_cache` enters the current thread's token around the
+   enqueue of every write: under the token's lock, which is held only
+   for that enqueue and never across a wait, it checks that the token
+   is live, else raises `_AttemptRevoked`. The engine revokes an
+   attempt's token (under the same lock) as soon as it stops waiting
+   for it, before any retry is built, so once `revoke()` returns no
+   write of that attempt can be issued. A write enqueued before the
+   revocation runs on the same CUDA stream as the retry's launches
+   (the attempt runs on the stream that was current on the engine
+   thread, which it carries to its deadline thread), so it executes
+   ahead of the retry's writes and writes the values the retry writes
+   again (hazard 1). On the CPU each write completes inside the lock.
+   A hang inside a CUDA wait holds no token lock, so it never blocks a
+   revocation. `tests/test_torch_llm_supervision.py` holds this with a
+   really abandoned attempt, and shows that without the check the
+   abandoned write corrupts committed KV.
+
+The attempt's operands (the device toks, pos and lengths, the block
+table, the sampling operands) are built on the engine thread before the
+attempt; the attempt touches only them, the model and the slabs, and
+carries its own `torch.no_grad` and CUDA stream (both are per thread).
 
 Under a `SimClock` the engine runs threadless and the harness calls
 `pump()`; under the default `MonotonicClock`, `start()` runs the same
 `pump()` on a scheduler thread.
 
 Not ported yet (each is a ROADMAP item): speculative decoding (and the
-draft pool's prefix cache), LoRA adapters, the serving economics ledger,
-the compile observatory, supervisor retries and blame probes, tracing,
-and rolling deploys with their cache flush.
+draft pool's prefix cache), LoRA adapters, the serving economics ledger
+and `LLMMetrics.render`, the compile observatory, request tracing
+(`trace=`, `trace_buffer`), and rolling deploys with their cache flush.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
@@ -70,14 +129,18 @@ import uuid
 from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ...obs.flight_recorder import flight_recorder
+from ...ops.attention import kv_write_guard
 from ..clock import Clock, MonotonicClock, SimClock
 from ..engine import DeadlineExceededError, RejectedError
 from ..metrics import SLO_CLASSES, LLMMetrics
+from ..supervisor import (DispatchFailedError,  # noqa: F401
+                          DispatchHungError, EngineSupervisor)
 from .host_kv import HostKVPool
 from .kv_pool import SlotPagedKVPool, SlotsExhaustedError
 from .prefix_cache import PrefixCache
@@ -85,8 +148,6 @@ from .sampling import (GREEDY, SamplingParams, SlotSamplingTable,
                        compile_grammar, select_rows)
 
 _log = logging.getLogger("paddle_tpu_torch.serving.llm")
-
-DEFAULT_SLO = "batch"   # SLO class of a request that names none
 
 
 @dataclass
@@ -102,6 +163,21 @@ class LLMEngineConfig:
     #                                the unified step's fixed row width
     drain_timeout_s: float = 60.0
     cache_dtype: Optional[object] = None  # pool slab dtype override
+    # ---- overload control ----
+    default_slo: str = "batch"     # SLO class when submit() names none
+    max_inflight_tokens: Optional[int] = None  # token-budget admission:
+    #                                  sum of (prompt + max_new_tokens) over
+    #                                  queued + active requests (None: off)
+    brownout_queue_depth: Optional[int] = None  # queued requests at/above
+    #                                  this enter brownout (None: off);
+    #                                  exits at half the threshold
+    brownout_max_new_tokens: int = 8  # admission-time cap while browned out
+    retry_after_s: float = 1.0     # backpressure hint on overload rejects
+    # ---- supervision ----
+    dispatch_timeout_s: Optional[float] = None  # hung-dispatch watchdog
+    dispatch_retries: int = 2      # whole-step retries before blame/fail
+    breaker_threshold: int = 3     # consecutive engine-level failures that
+    #                                open the circuit breaker
     max_grammars: int = 8          # distinct compiled grammars the fixed-
     #                                shape DFA bank holds; a request needing
     #                                one more is rejected ("grammar_capacity")
@@ -132,6 +208,20 @@ class LLMEngineConfig:
         if self.prefill_chunk < 1:
             raise ValueError(
                 f"prefill_chunk must be >= 1, got {self.prefill_chunk}")
+        if self.default_slo not in SLO_CLASSES:
+            raise ValueError(
+                f"default_slo must be one of {SLO_CLASSES}, got "
+                f"{self.default_slo!r}")
+        if self.brownout_max_new_tokens < 1:
+            raise ValueError(
+                f"brownout_max_new_tokens must be >= 1, got "
+                f"{self.brownout_max_new_tokens}")
+        if self.dispatch_retries < 0:
+            raise ValueError("retry counts must be >= 0")
+        if self.breaker_threshold < 1:
+            raise ValueError(
+                f"breaker_threshold must be >= 1, got "
+                f"{self.breaker_threshold}")
         if self.max_grammars < 1:
             raise ValueError(
                 f"max_grammars must be >= 1, got {self.max_grammars}")
@@ -192,16 +282,19 @@ class _GenRequest:
                  "deadline", "handle", "slot", "emitted", "last_tok", "slo",
                  "cost", "chunk_off", "tenant", "attached_pages", "rid",
                  "want_logprobs", "sampling", "sample_offset", "gid",
-                 "dfa_state0", "kv_row")
+                 "dfa_state0", "kv_row", "submit_idx")
 
     def __init__(self, prompt, max_new_tokens, eos_token_id, arrival,
-                 deadline, slo, want_logprobs=False, tenant="default"):
+                 deadline, slo, submit_idx=0, want_logprobs=False,
+                 tenant="default"):
         self.prompt = prompt              # np.int32 [S]
         self.max_new_tokens = max_new_tokens
         self.eos_token_id = eos_token_id
         self.arrival = arrival            # clock seconds
         self.deadline = deadline          # absolute clock seconds or None
         self.slo = slo
+        self.submit_idx = submit_idx      # lifetime admission index (fault
+        #                                   injection keys poison on this)
         self.cost = len(prompt) + max_new_tokens  # token-budget estimate
         self.handle = GenerationHandle(len(prompt), max_new_tokens, slo)
         self.slot: Optional[int] = None
@@ -225,14 +318,79 @@ class _GenRequest:
         self.dfa_state0: int = 0          # DFA state at admission
 
 
+class _AttemptRevoked(RuntimeError):
+    """A KV write of a step attempt the engine had already revoked (the
+    watchdog abandoned it): the attempt stops at its next write."""
+
+
+class _WriteFence:
+    """The KV write token of one supervised step attempt (the module
+    docstring gives the argument). `update_kv_cache` enters it around the
+    enqueue of each write: the lock is held for that enqueue alone, and
+    `check` refuses a revoked token. `revoke()` takes the same lock, so
+    once it returns no write of the attempt can be issued; a refusal is
+    kept in `error` and signalled on `stopped`."""
+
+    __slots__ = ("_lock", "revoked", "error", "stopped")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.revoked = False
+        self.error: Optional[BaseException] = None
+        self.stopped = threading.Event()
+
+    def check(self):
+        if self.revoked:
+            self.error = _AttemptRevoked(
+                "KV write refused: the engine revoked this step attempt "
+                "after its watchdog abandoned it")
+            flight_recorder().record("kv_write_fenced", engine="llm")
+            self.stopped.set()
+            raise self.error
+
+    def __enter__(self):
+        self._lock.acquire()
+        try:
+            self.check()
+        except BaseException:
+            self._lock.release()
+            raise
+        return self
+
+    def __exit__(self, *exc):
+        self._lock.release()
+        return False
+
+    def revoke(self):
+        with self._lock:
+            self.revoked = True
+
+
+class _StepArgs:
+    """The operands of one unified step (or blame probe), built on the
+    engine thread before the attempt: host rows (`toks`, `pos`, `adv`,
+    and for a sampled step `ctr` and `constrained`), their device copies,
+    the lengths, the block table and the slabs, and for a sampled step the
+    sampling operands; `stream` is the CUDA stream current on the engine
+    thread (None on the CPU), `mask_ms` the host time the sampling
+    operands took."""
+
+    __slots__ = ("toks", "pos", "adv", "toks_d", "pos_d", "seq_lens",
+                 "table", "slabs", "sampled", "ctr", "constrained", "keys",
+                 "params", "bank", "rows", "stream", "mask_ms")
+
+
 class LLMEngine:
     """The model must implement `init_cache` / `forward_with_cache` (e.g.
     `models.gpt.GPTForCausalLM`, `models.llama.LlamaForCausalLM`); it is
-    switched to eval mode."""
+    switched to eval mode. `fault_plan` (None: the env-driven
+    `global_plan()`) injects dispatch faults; `on_break` is called once
+    when the circuit breaker opens."""
 
     def __init__(self, model, config: Optional[LLMEngineConfig] = None,
                  clock: Optional[Clock] = None,
-                 metrics: Optional[LLMMetrics] = None):
+                 metrics: Optional[LLMMetrics] = None, fault_plan=None,
+                 on_break=None):
         self.model = model
         model.eval()
         self.config = config or LLMEngineConfig()
@@ -282,64 +440,161 @@ class LLMEngine:
         #                               host tier (prefill skipped)
         self.kv_import_tokens = 0    # prompt tokens imported from a
         #                              kv_row (prefill skipped)
+        self._brownout = False
+        self._submit_idx = 0         # lifetime admissions (poison keying)
+        self._dispatch_idx = 0       # lifetime dispatch attempts (fault
+        #                              clauses key on this index)
+        # the write tokens of attempts that ended hung (the watchdog
+        # abandoned them, or an injected hang), newest last
+        self.abandoned_attempts: deque = deque(maxlen=64)
+        if fault_plan is None:
+            from ...utils.fault_injection import global_plan
+            fault_plan = global_plan()
+        self._fault_plan = fault_plan
+        self.on_break = on_break
+        self.supervisor = EngineSupervisor(
+            dispatch_timeout_s=self.config.dispatch_timeout_s,
+            breaker_threshold=self.config.breaker_threshold,
+            on_trip=self._on_breaker_trip, name="llm")
 
     # ---- the unified step ----
-    @torch.no_grad()
-    def _step_logits(self, toks: np.ndarray, pos: np.ndarray,
-                     adv: np.ndarray) -> torch.Tensor:
-        """The model half of one mixed prefill/decode step over every slot.
+    def _step_args(self, toks: np.ndarray, pos: np.ndarray, adv: np.ndarray,
+                   ctr: Optional[np.ndarray] = None,
+                   constrained: bool = False) -> _StepArgs:
+        """The operands of one step over every slot, on the pool's device.
         `toks [N, C]` carries each slot's chunk, `pos [N]` its committed
         length (the write offset), `adv [N]` how many of the C columns are
-        real. KV stripes land in the pool's slabs in place; attention
-        masks every row to `col <= pos+t` and `col < pos+adv`. Returns the
-        logits [N, C, V] on the pool's device."""
+        real. With `ctr` (each row's stream index at its emission column)
+        the step samples: the lane keys, per-slot params, the emission
+        rows, and the grammar bank when a row is `constrained`. Call it on
+        the engine thread, under the engine lock when the engine runs: it
+        reads the pool's block table and the sampling table."""
         dev = self.pool.device
-        toks_d = torch.from_numpy(toks).to(dev)
-        pos_d = torch.from_numpy(pos).to(dev)
-        seq_lens = pos_d + torch.from_numpy(adv).to(dev)
-        paged = (self.pool.device_block_table(), seq_lens,
-                 self.pool.block_len, self.pool.n_blocks)
+        a = _StepArgs()
+        a.toks, a.pos, a.adv = toks, pos, adv
+        a.toks_d = torch.from_numpy(toks).to(dev)
+        a.pos_d = torch.from_numpy(pos).to(dev)
+        a.seq_lens = a.pos_d + torch.from_numpy(adv).to(dev)
+        a.table = self.pool.device_block_table()
+        a.slabs = self.pool.slabs
+        a.stream = (torch.cuda.current_stream(dev) if dev.type == "cuda"
+                    else None)
+        a.sampled = ctr is not None
+        a.ctr, a.constrained = ctr, constrained
+        a.keys = a.params = a.bank = a.rows = a.mask_ms = None
+        if a.sampled:
+            t0 = time.perf_counter()
+            tab = self.sampling_table
+            a.keys = tab.lane_keys(ctr)
+            a.params = tab.device_args()
+            a.bank = tab.device_bank() if constrained else None
+            N, C = toks.shape
+            a.rows = torch.from_numpy(
+                np.arange(N) * C + np.maximum(adv - 1, 0)).to(dev)
+            a.mask_ms = (time.perf_counter() - t0) * 1e3
+        return a
+
+    @torch.no_grad()
+    def _step_logits(self, a: _StepArgs) -> torch.Tensor:
+        """The model half of one mixed prefill/decode step: KV stripes
+        land in the slabs in place; attention masks every row to
+        `col <= pos+t` and `col < pos+adv`. Returns the logits [N, C, V]
+        on the pool's device."""
+        paged = (a.table, a.seq_lens, self.pool.block_len,
+                 self.pool.n_blocks)
         logits, _ = self.model.forward_with_cache(
-            toks_d, self.pool.slabs, pos_d, paged=paged)
+            a.toks_d, a.slabs, a.pos_d, paged=paged)
         return logits
 
     @torch.no_grad()
-    def _run_step(self, toks: np.ndarray, pos: np.ndarray, adv: np.ndarray):
+    def _run_step(self, a: _StepArgs):
         """`_step_logits` plus greedy selection: the per-position tokens
         and their fp32 log-probabilities, both [N, C] numpy."""
-        lf = self._step_logits(toks, pos, adv).float()
+        lf = self._step_logits(a).float()
         sel = torch.argmax(lf, dim=-1)
         lp = torch.log_softmax(lf, dim=-1).gather(-1, sel[..., None])[..., 0]
         return (sel.to(torch.int32).cpu().numpy(), lp.cpu().numpy())
 
     @torch.no_grad()
-    def _run_sampled_step(self, toks: np.ndarray, pos: np.ndarray,
-                          adv: np.ndarray, ctr: np.ndarray,
-                          constrained: bool):
+    def _run_sampled_step(self, a: _StepArgs):
         """`_step_logits` plus per-slot selection of each row's emission
         column adv-1 (`select_rows`): ([N] tokens, [N] fp32
         log-probabilities of the raw logits, [N] DFA states after the
-        tokens), numpy. Row n draws on its lane (seed, ctr[n]); the
-        grammar bank goes to the device only when a row is constrained."""
-        t0 = time.perf_counter()
-        tab = self.sampling_table
-        keys = tab.lane_keys(ctr)
-        temp, topk, topp, samp, dstate, gid = tab.device_args()
-        bank = tab.device_bank() if constrained else None
-        N, C = toks.shape
-        rows = torch.from_numpy(np.arange(N) * C + np.maximum(adv - 1, 0))
-        rows = rows.to(self.pool.device)
-        self.metrics.on_mask_overhead((time.perf_counter() - t0) * 1e3)
-        lg = self._step_logits(toks, pos, adv)
-        lf = lg.reshape(N * C, lg.shape[-1])[rows].float()
-        sel, new_state = select_rows(lf, keys, temp, topk, topp, samp,
-                                     dstate, gid, bank)
+        tokens), numpy. Row n draws on its lane (seed, ctr[n])."""
+        temp, topk, topp, samp, dstate, gid = a.params
+        lg = self._step_logits(a)
+        N = a.toks.shape[0]
+        lf = lg.reshape(N * a.toks.shape[1], lg.shape[-1])[a.rows].float()
+        sel, new_state = select_rows(lf, a.keys, temp, topk, topp, samp,
+                                     dstate, gid, a.bank)
         lp = torch.log_softmax(lf, dim=-1).gather(
             -1, sel[:, None].long())[:, 0]
         # one copy back: tokens, logprob bits, states
         out = torch.stack([sel, lp.view(torch.int32),
                            new_state.to(torch.int32)]).cpu().numpy()
         return out[0], out[1].view(np.float32), out[2]
+
+    def _attempt(self, a: _StepArgs):
+        """The callable of one supervised attempt over `a`: given its
+        write token, it runs the step with the token guarding every KV
+        write, under no_grad and on the engine thread's CUDA stream (both
+        per thread, and the attempt may run on a deadline thread).
+        Returns ([N] tokens, [N] logprobs, [N] DFA states or None) at each
+        row's emission column."""
+        def run(fence: _WriteFence):
+            stream = (torch.cuda.stream(a.stream) if a.stream is not None
+                      else contextlib.nullcontext())
+            with torch.no_grad(), stream, kv_write_guard(fence):
+                if a.sampled:
+                    return self._run_sampled_step(a)
+                nxt, lps = self._run_step(a)
+            rows = np.arange(len(a.adv))
+            col = np.maximum(a.adv - 1, 0)
+            return nxt[rows, col], lps[rows, col], None
+        return run
+
+    # ---- supervised dispatch ----
+    def _run_dispatch(self, kinds, fn):
+        """One supervised attempt of `fn(fence)`. Every attempt, retries
+        and blame probes included, consumes a dispatch index, which is
+        what the fault clauses key on. `kinds` is the ordered (kind,
+        submit indices) pairs riding it: prefill rows announce first,
+        then decode rows, both at the same index. The attempt's write
+        token is revoked as soon as the engine stops waiting for it; the
+        token of an attempt that ended hung is kept in
+        `abandoned_attempts`."""
+        idx = self._dispatch_idx
+        self._dispatch_idx += 1
+        plan = self._fault_plan
+        label = "+".join(k for k, _ in kinds) or "step"
+        fence = _WriteFence()
+
+        def guarded():
+            if plan is not None:
+                for kind, rids in kinds:
+                    plan.maybe_dispatch_fault(idx, kind=kind,
+                                              request_ids=rids)
+            return fn(fence)
+
+        try:
+            return self.supervisor.run(guarded, label=label)
+        except DispatchHungError:
+            self.abandoned_attempts.append(fence)
+            raise
+        finally:
+            fence.revoke()
+
+    def _kinds_of(self, prefill_slots, decode_slots) -> Tuple:
+        """(kind, request_ids) announcement order for fault injection:
+        prefill rows first, then decode rows, both at one dispatch idx."""
+        kinds = []
+        if prefill_slots:
+            kinds.append(("prefill", tuple(sorted(
+                self._active[s].submit_idx for s in prefill_slots))))
+        if decode_slots:
+            kinds.append(("decode", tuple(sorted(
+                self._active[s].submit_idx for s in decode_slots))))
+        return tuple(kinds)
 
     # ---- lifecycle ----
     def start(self) -> "LLMEngine":
@@ -371,6 +626,9 @@ class LLMEngine:
             if self._stopped:
                 return
             self._draining = True
+            flight_recorder().record(
+                "drain_begin", engine="llm", drain=bool(drain),
+                queued=self._queue_len_locked(), active=len(self._active))
             if not drain:
                 for q in self._queues.values():
                     while q:
@@ -398,7 +656,8 @@ class LLMEngine:
         else:
             # threadless (sim) mode: run the scheduler inline, with a
             # no-progress guard so a pump that can no longer advance
-            # anything falls through to the stranded-future cleanup
+            # anything (the breaker open mid-drain) falls through to the
+            # stranded-future cleanup
             prev = None
             while True:
                 with self._cond:
@@ -406,7 +665,7 @@ class LLMEngine:
                         break
                 self.pump()
                 state = (self._queue_len_locked(), len(self._active),
-                         self.steps)
+                         self._dispatch_idx)
                 if state == prev:
                     break
                 prev = state
@@ -432,6 +691,49 @@ class LLMEngine:
                 self.metrics.set_slots(0, self.pool.num_slots)
             self._stopped = True
             self._cond.notify_all()
+        flight_recorder().record("drain_end", engine="llm",
+                                 stranded=stranded)
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    @property
+    def broken(self) -> bool:
+        """Circuit breaker open: repeated engine-level dispatch failures;
+        admissions reject with "circuit_open"."""
+        return self.supervisor.open
+
+    def _on_breaker_trip(self):
+        """Repeated engine-level failures: admissions stop (submit ->
+        "circuit_open"), queued requests fail now (their dispatches would
+        only fail again), and `on_break` tells the front end, which
+        drains on its own thread."""
+        flushed = 0
+        with self._cond:
+            for q in self._queues.values():
+                while q:
+                    req = q.popleft()
+                    req.handle.future.set_exception(RejectedError(
+                        "engine circuit breaker open after repeated "
+                        "dispatch failures", reason="circuit_open"))
+                    self.metrics.on_reject("circuit_open")
+                    flushed += 1
+            self.metrics.set_queue_depth(0)
+            self._cond.notify_all()
+        flight_recorder().record("queue_flushed", engine="llm",
+                                 reason="circuit_open", n=flushed)
+        self.metrics.set_circuit_open(True)
+        if self.on_break is not None:
+            try:
+                self.on_break()
+            except Exception:
+                _log.exception("on_break callback failed")
+
+    def _record_reject(self, reason: str, rid: Optional[str] = None,
+                       tenant: Optional[str] = None):
+        flight_recorder().record("reject", engine="llm", reason=reason,
+                                 rid=rid, tenant=tenant)
 
     # ---- admission ----
     def _queue_len_locked(self) -> int:
@@ -469,26 +771,59 @@ class LLMEngine:
                 + sum(r.cost for r in self._active.values()
                       if r.tenant == tenant))
 
-    def _make_room_locked(self, slo: str) -> bool:
-        """While the queue is full, fail the NEWEST queued request of the
-        lowest class strictly below `slo` (reason "shed"). Returns True
-        when the request can be queued."""
+    def _inflight_tokens_locked(self) -> int:
+        """Estimated token cost of everything admitted: queued + active,
+        recomputed from the tables, so no failure path can leak budget."""
+        return (sum(r.cost for q in self._queues.values() for r in q)
+                + sum(r.cost for r in self._active.values()))
+
+    def _update_brownout_locked(self):
+        if self.config.brownout_queue_depth is None:
+            return
+        depth = self._queue_len_locked()
+        if not self._brownout and depth >= self.config.brownout_queue_depth:
+            self._brownout = True
+            self.metrics.set_brownout(True)
+            _log.warning(
+                "llm engine entering brownout at queue depth %d: capping "
+                "admitted max_new_tokens to %d", depth,
+                self.config.brownout_max_new_tokens)
+        elif self._brownout and depth <= self.config.brownout_queue_depth // 2:
+            self._brownout = False
+            self.metrics.set_brownout(False)
+            _log.info("llm engine exiting brownout at queue depth %d", depth)
+
+    def _make_room_locked(self, slo: str, cost: int) -> Optional[str]:
+        """Shed lowest first: while the queue or the token budget blocks
+        this admission, fail the NEWEST queued request of the lowest class
+        strictly below `slo` (reason "shed"). Returns None when the
+        request can be admitted, else the reject reason."""
         pri = SLO_CLASSES.index(slo)
-        while self._queue_len_locked() >= self.config.max_queue_depth:
+        while True:
+            depth_full = (self._queue_len_locked()
+                          >= self.config.max_queue_depth)
+            budget = self.config.max_inflight_tokens
+            over_budget = (budget is not None
+                           and self._inflight_tokens_locked() + cost > budget)
+            if not depth_full and not over_budget:
+                return None
             victim = None
             for cls in reversed(SLO_CLASSES):   # lowest class first
                 if SLO_CLASSES.index(cls) <= pri:
                     break
                 if self._queues[cls]:
-                    victim = self._queues[cls].pop()
+                    victim = self._queues[cls].pop()   # newest of its class
                     break
             if victim is None:
-                return False
+                return "queue_full" if depth_full else "token_budget"
             victim.handle.future.set_exception(RejectedError(
                 f"shed ({victim.slo}) to admit {slo} traffic under "
-                "overload", reason="shed"))
+                "overload", reason="shed",
+                retry_after_s=self.config.retry_after_s))
             self.metrics.on_reject("shed", tenant=victim.tenant)
-        return True
+            self.metrics.on_shed(victim.slo)
+            self._record_reject("shed", rid=victim.rid,
+                                tenant=victim.tenant)
 
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
                eos_token_id: Optional[int] = None,
@@ -521,10 +856,14 @@ class LLMEngine:
         entry) when its grammar and next index match.
 
         Raises RejectedError when the sequence can never fit a slot, the
-        tenant's quota is spent, the queue is full and nothing
-        lower-priority can be shed, the grammar bank is full, or the
-        engine is draining; ValueError on invalid sampling params, a
-        resumed tail the grammar forbids or a kv_row that does not fit."""
+        circuit breaker is open, the tenant's quota is spent, the queue is
+        full or the token budget spent and nothing lower-priority can be
+        shed, the grammar bank is full, or the engine is draining (an
+        overload reject carries `retry_after_s`). While the engine is in
+        brownout, `max_new_tokens` is capped at
+        `config.brownout_max_new_tokens`. Raises ValueError on invalid
+        sampling params, a resumed tail the grammar forbids or a kv_row
+        that does not fit."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must contain at least one token")
@@ -536,7 +875,7 @@ class LLMEngine:
                else int(max_new_tokens))
         if mnt < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {mnt}")
-        slo = DEFAULT_SLO if slo is None else slo
+        slo = self.config.default_slo if slo is None else slo
         if slo not in SLO_CLASSES:
             raise ValueError(
                 f"slo must be one of {SLO_CLASSES}, got {slo!r}")
@@ -551,7 +890,8 @@ class LLMEngine:
             sampling.validate()
             if sampling.grammar is not None:
                 gid, dstate0 = self._grammar_row(sampling, eos, prompt,
-                                                 sample_offset, lane)
+                                                 sample_offset, lane,
+                                                 rid=rid, tenant=tenant)
         if kv_row is not None:
             if int(kv_row.get("block_len", -1)) != self.pool.block_len:
                 raise ValueError(
@@ -566,6 +906,7 @@ class LLMEngine:
                     "that step emits the first token's logits)")
         if prompt.size + mnt > self.pool.capacity:
             self.metrics.on_reject("prompt_too_long")
+            self._record_reject("prompt_too_long", rid=rid, tenant=tenant)
             raise RejectedError(
                 f"prompt ({prompt.size}) + max_new_tokens ({mnt}) exceeds "
                 f"slot capacity ({self.pool.capacity} tokens)",
@@ -575,10 +916,20 @@ class LLMEngine:
         now = self.clock.now()
         deadline = None if deadline_ms is None else now + deadline_ms / 1e3
         with self._cond:
+            if self.supervisor.open:
+                self.metrics.on_reject("circuit_open")
+                self._record_reject("circuit_open", rid=rid, tenant=tenant)
+                raise RejectedError(
+                    "engine circuit breaker open after repeated dispatch "
+                    "failures; request rejected", reason="circuit_open")
             if self._draining or self._stopped:
                 self.metrics.on_reject("draining")
+                self._record_reject("draining", rid=rid, tenant=tenant)
                 raise RejectedError("engine is draining; request rejected",
                                     reason="draining")
+            self._update_brownout_locked()
+            if self._brownout and mnt > self.config.brownout_max_new_tokens:
+                mnt = self.config.brownout_max_new_tokens
             quota = self.config.tenant_max_inflight_tokens
             if quota is not None and (
                     self._tenant_inflight_locked(tenant)
@@ -586,16 +937,26 @@ class LLMEngine:
                 # checked BEFORE shedding: shedding OTHER tenants'
                 # requests cannot relieve this tenant's own quota
                 self.metrics.on_reject("tenant_quota", tenant=tenant)
+                self._record_reject("tenant_quota", rid=rid, tenant=tenant)
                 raise RejectedError(
                     f"tenant {tenant!r} in-flight token quota exhausted "
-                    f"({quota} tokens)", reason="tenant_quota")
-            if not self._make_room_locked(slo):
-                self.metrics.on_reject("queue_full")
+                    f"({quota} tokens)", reason="tenant_quota",
+                    retry_after_s=self.config.retry_after_s)
+            reason = self._make_room_locked(slo, prompt.size + mnt)
+            if reason is not None:
+                self.metrics.on_reject(reason)
+                self._record_reject(reason, rid=rid, tenant=tenant)
+                detail = (f"queue at capacity ({self.config.max_queue_depth} "
+                          "pending requests)" if reason == "queue_full" else
+                          f"token budget exhausted "
+                          f"({self.config.max_inflight_tokens} in-flight "
+                          "tokens)")
                 raise RejectedError(
-                    f"queue at capacity ({self.config.max_queue_depth} "
-                    f"pending requests); nothing below class {slo!r} to "
-                    "shed", reason="queue_full")
+                    f"{detail}; nothing below class {slo!r} to shed",
+                    reason=reason,
+                    retry_after_s=self.config.retry_after_s)
             req = _GenRequest(prompt, mnt, eos, now, deadline, slo,
+                              self._submit_idx,
                               want_logprobs=bool(logprobs), tenant=tenant)
             req.rid = rid
             req.handle.rid = rid
@@ -604,14 +965,18 @@ class LLMEngine:
             req.gid = gid
             req.dfa_state0 = dstate0
             req.kv_row = kv_row
+            self._submit_idx += 1
             self._queues[slo].append(req)
             self.metrics.on_submit(self._queue_len_locked(), slo=slo,
                                    tenant=tenant)
+            self.metrics.set_inflight_tokens(self._inflight_tokens_locked())
             self._cond.notify_all()
         return req.handle
 
     def _grammar_row(self, sampling: SamplingParams, eos, prompt,
-                     sample_offset: int, lane: Optional[dict]):
+                     sample_offset: int, lane: Optional[dict],
+                     rid: Optional[str] = None,
+                     tenant: Optional[str] = None):
         """(bank row, starting DFA state) of a constrained request: its
         grammar compiled and interned on first use (a full bank is a
         typed reject, "grammar_capacity"), and the state after the tail
@@ -627,6 +992,8 @@ class LLMEngine:
                 # bank capacity is an admission-control condition, not a
                 # caller bug: typed reject, not ValueError
                 self.metrics.on_reject("grammar_capacity")
+                self._record_reject("grammar_capacity", rid=rid,
+                                    tenant=tenant)
                 raise RejectedError(str(e), reason="grammar_capacity")
             self.metrics.set_grammars(tab.grammars_compiled)
         if not sample_offset:
@@ -775,6 +1142,7 @@ class LLMEngine:
         self._admit()
         n = self._step_once()
         with self._cond:
+            self.metrics.set_inflight_tokens(self._inflight_tokens_locked())
             per_tenant: Dict[str, int] = {}
             for r in [r for q in self._queues.values() for r in q] \
                     + list(self._active.values()):
@@ -821,7 +1189,10 @@ class LLMEngine:
         boundary. Its remaining prompt chunks ride the next unified
         steps."""
         with self._cond:
-            while self.pool.free_slots() > 0:
+            while True:
+                self._update_brownout_locked()
+                if self.supervisor.open or self.pool.free_slots() == 0:
+                    return
                 req = self._pop_next_locked()
                 if req is None:
                     return
@@ -852,6 +1223,9 @@ class LLMEngine:
                                             for k, v in layers])
                     req.chunk_off = klen
                     self.kv_import_tokens += klen
+                    flight_recorder().record(
+                        "kv_import", engine="llm", rid=req.rid,
+                        tokens=klen)
                 elif self.prefix_cache is not None:
                     # cap at plen-1: one prompt token always prefills
                     plan = self.prefix_cache.acquire(
@@ -885,6 +1259,9 @@ class LLMEngine:
                     if onboarded:
                         req.chunk_off = j * bl
                         self.host_onboard_tokens += onboarded * bl
+                        flight_recorder().record(
+                            "kv_onboard", engine="llm", rid=req.rid,
+                            blocks=onboarded, tokens=onboarded * bl)
                 self.sampling_table.bind(slot, req.sampling or GREEDY,
                                          gid=req.gid,
                                          dfa_state=req.dfa_state0)
@@ -928,31 +1305,68 @@ class LLMEngine:
         return toks, pos, adv, ctr, prefill_slots, decode_slots
 
     def _step_once(self) -> int:
-        """Run ONE unified step over every slot and commit its results.
-        Returns 1 when it carried at least one decode row, else 0. A step
-        that raises fails every active request with that error, frees
-        their slots and re-raises."""
-        with self._cond:
-            if not self._active:
-                return 0
-            toks, pos, adv, ctr, prefill_slots, decode_slots = \
-                self._build_rows_locked()
-            modes = self.sampling_table.mode_counts(self._active)
-        t0 = self.clock.now()
-        emit_col = np.maximum(adv - 1, 0)
-        new_dstate = None
-        try:
-            if modes["sampled"] or modes["constrained"]:
-                nxt, lps, new_dstate = self._run_sampled_step(
-                    toks, pos, adv, ctr, modes["constrained"] > 0)
+        """Run ONE unified step over every slot, supervised, and commit
+        its results. Returns 1 when the committed step carried at least
+        one decode row, else 0. A failed attempt is retried whole
+        `dispatch_retries` times; then `_blame_and_quarantine` probes each
+        row alone, and the survivors of a quarantine retry on a rebuilt
+        row set; a failure no row explains fails every active row and
+        charges the circuit breaker. A step in which no active request
+        samples or is constrained runs the greedy selection alone."""
+        while True:
+            with self._cond:
+                if not self._active:
+                    return 0
+                toks, pos, adv, ctr, prefill_slots, decode_slots = \
+                    self._build_rows_locked()
+                kinds = self._kinds_of(prefill_slots, decode_slots)
+                modes = self.sampling_table.mode_counts(self._active)
+                sampled = bool(modes["sampled"] or modes["constrained"])
+                constrained = modes["constrained"] > 0
+                args = self._step_args(toks, pos, adv,
+                                       ctr if sampled else None, constrained)
+            t0 = self.clock.now()
+            attempts = self.config.dispatch_retries + 1
+            last_err = None
+            out = None
+            for attempt in range(attempts):
+                try:
+                    out = self._run_dispatch(kinds, self._attempt(args))
+                except DispatchFailedError as e:
+                    last_err = e
+                    self.metrics.on_dispatch_failure(e.reason)
+                    flight_recorder().record(
+                        "dispatch_retry", engine="llm", attempt=attempt + 1,
+                        attempts=attempts, reason=e.reason,
+                        prefill_rows=len(prefill_slots),
+                        decode_rows=len(decode_slots))
+                    _log.warning(
+                        "unified step dispatch failed over %d prefill + %d "
+                        "decode row(s) (attempt %d/%d): %s",
+                        len(prefill_slots), len(decode_slots), attempt + 1,
+                        attempts, e)
+                    continue
+                if decode_slots:
+                    # the breaker tracks engine-level (decode) failures; a
+                    # prefill-only success must not launder a streak
+                    self.supervisor.record_success()
+                break
             else:
-                # greedy alone: today's selection, no sampling operand
-                nxt, lps = self._run_step(toks, pos, adv)
-                rows = np.arange(len(adv))
-                nxt, lps = nxt[rows, emit_col], lps[rows, emit_col]
-        except Exception as e:
-            self._fail_all_active(e)
-            raise
+                if self._blame_and_quarantine(args, constrained):
+                    continue    # survivors retry on a rebuilt row set
+                self._fail_all_active(attempts, last_err)
+                self.supervisor.record_failure()
+                return 0
+            return self._commit(args, out, prefill_slots, decode_slots, t0)
+
+    def _commit(self, args: _StepArgs, out, prefill_slots, decode_slots,
+                t0: float) -> int:
+        """Commit a successful step: lengths, streams, TTFT, retirements
+        and the step's metrics, booked once for the committed step."""
+        nxt, lps, new_dstate = out
+        adv, pos = args.adv, args.pos
+        if args.sampled:
+            self.metrics.on_mask_overhead(args.mask_ms)
         self.steps += 1
         now = self.clock.now()
         with self._cond:
@@ -1008,14 +1422,111 @@ class LLMEngine:
             return 1
         return 0
 
-    def _fail_all_active(self, err: Exception):
+    def _blame_and_quarantine(self, args: _StepArgs,
+                              constrained: bool) -> bool:
+        """Step retries exhausted: probe each active request alone, with
+        the step's own operands for its row and every other row masked as
+        a free slot is (toks 0, adv 0, pos = capacity: their writes land
+        in the slabs' pad region; the JAX probe's pos = 0 would overwrite
+        every survivor's positions 0..C-1), announced as that request's
+        kind ("prefill" for a row still in chunked prefill, else
+        "decode"); quarantine the rows whose probe fails. Probe results
+        are discarded, so survivors' streams and KV stay those of a
+        fault-free run. When every probe of a multi-row step fails, no
+        one request explains the failure: return False and let the
+        breaker own it. A single-row step whose probe fails is
+        quarantined."""
         with self._cond:
+            suspects = list(self._active.items())
+        blamed = []
+        for slot, req in suspects:
+            solo_toks, solo_pos, solo_adv = self._probe_rows(args, slot)
+            solo_ctr = None
+            if args.sampled:
+                solo_ctr = np.zeros_like(args.pos)
+                solo_ctr[slot] = req.sample_offset + len(req.emitted)
+            kind = ("prefill" if req.chunk_off < len(req.prompt)
+                    else "decode")
+            with self._cond:
+                # the real sampling operands: a fault that reproduces only
+                # under the row's grammar mask or sampled lane must still
+                # be attributable
+                pargs = self._step_args(solo_toks, solo_pos, solo_adv,
+                                        solo_ctr, constrained)
+            try:
+                self._run_dispatch(((kind, (req.submit_idx,)),),
+                                   self._attempt(pargs))
+            except DispatchFailedError as e:
+                blamed.append((slot, req, e))
+                flight_recorder().record(
+                    "solo_probe", engine="llm", rid=req.rid,
+                    submit_idx=req.submit_idx, stage=kind,
+                    outcome="failed")
+            else:
+                flight_recorder().record(
+                    "solo_probe", engine="llm", rid=req.rid,
+                    submit_idx=req.submit_idx, stage=kind, outcome="ok")
+        if not blamed or (len(blamed) == len(suspects) and len(suspects) > 1):
+            return False
+        with self._cond:
+            for slot, req, e in blamed:
+                if slot not in self._active:
+                    continue
+                req.handle.future.set_exception(DispatchFailedError(
+                    f"request {req.submit_idx} quarantined: its rows "
+                    f"reproduce the decode failure in isolation ({e})",
+                    reason="poisoned"))
+                self.metrics.on_fail()
+                self.metrics.on_quarantine()
+                flight_recorder().record(
+                    "quarantine", engine="llm", rid=req.rid,
+                    submit_idx=req.submit_idx, reason="poisoned",
+                    tokens_emitted=len(req.emitted))
+                self._free_slot_locked(slot)
+                del self._active[slot]
+            self.metrics.set_slots(self.pool.active_slots(),
+                                   self.pool.num_slots)
+            self.metrics.set_sample_slots(
+                self.sampling_table.mode_counts(self._active))
+        self.supervisor.absolve()
+        _log.warning("quarantined %d poisoned request(s); retrying the "
+                     "unified step with %d survivor(s)", len(blamed),
+                     len(suspects) - len(blamed))
+        return True
+
+    def _probe_rows(self, args: _StepArgs, slot: int):
+        """(toks, pos, adv) of the blame probe of `slot`: its row of the
+        step, every other row masked as a free slot is (toks 0, adv 0,
+        pos = capacity, so its stripe lands in the pad region)."""
+        toks = np.zeros_like(args.toks)
+        pos = np.full_like(args.pos, self.pool.capacity)
+        adv = np.zeros_like(args.adv)
+        toks[slot] = args.toks[slot]
+        pos[slot] = args.pos[slot]
+        adv[slot] = args.adv[slot]
+        return toks, pos, adv
+
+    def _fail_all_active(self, attempts: int, last_err):
+        """A step failure no single request explains: fail every active
+        request with a typed error (partial tokens stay readable) and free
+        their slots; the caller charges the circuit breaker."""
+        with self._cond:
+            n_failed = len(self._active)
             for slot, req in list(self._active.items()):
-                req.handle.future.set_exception(err)
+                req.handle.future.set_exception(DispatchFailedError(
+                    f"decode dispatch failed {attempts} consecutive times; "
+                    f"{len(req.emitted)} of {req.max_new_tokens} tokens "
+                    f"emitted ({last_err})", reason="engine"))
                 self.metrics.on_fail()
                 self._free_slot_locked(slot)
             self._active.clear()
-            self.metrics.set_slots(0, self.pool.num_slots)
+            self.metrics.set_slots(self.pool.active_slots(),
+                                   self.pool.num_slots)
+            self.metrics.set_sample_slots(
+                self.sampling_table.mode_counts(self._active))
+        flight_recorder().record(
+            "engine_failure", engine="llm", failed=n_failed,
+            attempts=attempts, error=str(last_err))
 
     def _evict_expired_locked(self, req: _GenRequest, slot: int,
                               now: float):
@@ -1076,7 +1587,7 @@ class LLMEngine:
         while True:
             with self._cond:
                 while True:
-                    if self._stopped:
+                    if self._stopped or self.supervisor.open:
                         return
                     if (self._draining and not self._queue_len_locked()
                             and not self._active):
@@ -1086,6 +1597,11 @@ class LLMEngine:
                     self.clock.wait(self._cond, None)
             try:
                 self.pump()
-            except Exception:
-                # the step already failed its requests; keep serving
+            except Exception as e:
+                # the black box records the unhandled pump exception
+                # before the scheduler carries on
+                fr = flight_recorder()
+                fr.record("pump_exception", engine="llm",
+                          error=f"{type(e).__name__}: {e}")
+                fr.try_dump(reason="pump_exception:llm")
                 _log.exception("llm scheduler pump failed; continuing")

@@ -1,13 +1,20 @@
-"""LLM serving metrics (counterpart of paddle_tpu/serving/metrics.py).
+"""Serving metrics (counterpart of paddle_tpu/serving/metrics.py):
+request counters, latency quantiles, the batch-size histogram and the
+queue-depth gauge, collected by the engines on every admission and
+dispatch, with the supervision counters (dispatch failures by kind, the
+circuit-breaker gauge).
 
-Only the `LLMMetrics` callbacks the ported engine calls: request outcomes,
-queue depth, slot occupancy, TTFT, decode steps and tokens, the sampling
-modes (slots and tokens per mode, compiled grammars, the host cost of a
-step's sampling operands), the prefix cache (lookups, hit tokens, cached
-blocks, evictions), per-tenant counters and in-flight tokens, the host
-KV tier's snapshot, and `snapshot()`, whose keys are the JAX class's.
-Prometheus exposition and the economics providers wait for the serving
-front-end slice.
+`ServingMetrics` is the `BatchingEngine`'s, with `render()` for a
+Prometheus `/metrics` endpoint and a `serving/dispatch` profiler instant
+per dispatch. `LLMMetrics` extends it for the LLM engine: TTFT and
+inter-token latency, decode steps and tokens, slot occupancy, the
+sampling modes, the prefix cache and tenants, the host KV tier, and the
+overload-control counters (shed, quarantined, brownout, in-flight
+tokens). Snapshot keys are the JAX classes'; `LLMMetrics.render` and the
+economics providers wait for the serving-observability slice.
+
+Totals are lifetime counters, so a drain snapshot reconciles against a
+replayed trace: submitted == completed + rejected + expired + failed.
 """
 from __future__ import annotations
 
@@ -15,7 +22,13 @@ import threading
 from collections import deque
 from typing import Dict, Optional
 
-# admission priority order: interactive before batch before best_effort
+from ..obs.prom import PromBuilder, parse_exposition  # noqa: F401
+
+# cumulative histogram upper bounds for dispatched batch rows
+BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
+
+# admission priority order: interactive before batch before best_effort;
+# load shedding walks the same list from the bottom up
 SLO_CLASSES = ("interactive", "batch", "best_effort")
 
 
@@ -27,28 +40,183 @@ def _quantile(sorted_vals, q: float) -> Optional[float]:
     return sorted_vals[idx]
 
 
-class LLMMetrics:
+class ServingMetrics:
+    # metric family prefix: LLMMetrics overrides it so two engines behind
+    # one server scrape without name collisions
+    _PREFIX = "pdtpu_serving"
+
     def __init__(self, window: int = 4096):
         self._lock = threading.Lock()
         self.window = int(window)
         self._latencies_ms: deque = deque(maxlen=self.window)
+        self.counters: Dict[str, int] = {
+            "submitted": 0, "completed": 0, "rejected": 0,
+            "expired": 0, "failed": 0, "dispatches": 0,
+        }
+        self.reject_reasons: Dict[str, int] = {}
+        self.batch_hist: Dict[int, int] = {}   # exact dispatched rows -> n
+        self.queue_depth = 0
+        self.dispatched_rows = 0
+        self.padded_rows = 0
+        # supervision: dispatch failures by kind ("raise" / "hang" /
+        # "poisoned" / "engine") and the circuit-breaker gauge
+        self.dispatch_failures: Dict[str, int] = {}
+        self.circuit_open = False
+
+    # ---- engine callbacks ----
+    def on_submit(self, queue_depth: int):
+        with self._lock:
+            self.counters["submitted"] += 1
+            self.queue_depth = queue_depth
+
+    def on_reject(self, reason: str):
+        with self._lock:
+            self.counters["rejected"] += 1
+            self.reject_reasons[reason] = \
+                self.reject_reasons.get(reason, 0) + 1
+
+    def on_expire(self, n: int = 1):
+        with self._lock:
+            self.counters["expired"] += n
+
+    def on_complete(self, latency_ms: float):
+        with self._lock:
+            self.counters["completed"] += 1
+            self._latencies_ms.append(float(latency_ms))
+
+    def on_fail(self, n: int = 1):
+        with self._lock:
+            self.counters["failed"] += n
+
+    def on_dispatch(self, rows: int, n_requests: int, padded_rows: int,
+                    dispatch_ms: float, queue_depth: int):
+        with self._lock:
+            self.counters["dispatches"] += 1
+            self.batch_hist[rows] = self.batch_hist.get(rows, 0) + 1
+            self.dispatched_rows += rows
+            self.padded_rows += padded_rows - rows
+            self.queue_depth = queue_depth
+        from ..profiler import record_instant
+        record_instant("serving/dispatch", {
+            "rows": rows, "requests": n_requests,
+            "padded_rows": padded_rows, "dispatch_ms": dispatch_ms,
+            "queue_depth": queue_depth,
+        })
+
+    def set_queue_depth(self, depth: int):
+        with self._lock:
+            self.queue_depth = depth
+
+    def on_dispatch_failure(self, kind: str):
+        with self._lock:
+            self.dispatch_failures[kind] = \
+                self.dispatch_failures.get(kind, 0) + 1
+
+    def set_circuit_open(self, open_: bool):
+        with self._lock:
+            self.circuit_open = bool(open_)
+
+    # ---- views ----
+    def quantile_ms(self, q: float) -> Optional[float]:
+        with self._lock:
+            lat = sorted(self._latencies_ms)
+        return _quantile(lat, q)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            counters = dict(self.counters)
+            hist = dict(self.batch_hist)
+            depth = self.queue_depth
+            rows, padded = self.dispatched_rows, self.padded_rows
+            dfail = dict(self.dispatch_failures)
+            circuit = self.circuit_open
+        mean_batch = rows / counters["dispatches"] if counters["dispatches"] \
+            else 0.0
+        return {
+            **counters,
+            "queue_depth": depth,
+            "batch_hist": hist,
+            "mean_batch_rows": mean_batch,
+            "pad_overhead_rows": padded,
+            "dispatch_failures": dfail,
+            "circuit_open": circuit,
+            "p50_ms": self.quantile_ms(0.50),
+            "p95_ms": self.quantile_ms(0.95),
+            "p99_ms": self.quantile_ms(0.99),
+        }
+
+    def render(self) -> str:
+        """Prometheus text exposition (served at /metrics)."""
+        b = PromBuilder()
+        self._render_into(b)
+        return b.render()
+
+    def _render_into(self, b: PromBuilder):
+        s = self.snapshot()
+        px = self._PREFIX
+        b.family(f"{px}_requests_total", "counter")
+        for outcome in ("submitted", "completed", "rejected", "expired",
+                        "failed"):
+            b.sample(f"{px}_requests_total", s[outcome],
+                     {"outcome": outcome})
+        b.family(f"{px}_dispatches_total", "counter")
+        b.sample(f"{px}_dispatches_total", s["dispatches"])
+        b.family(f"{px}_queue_depth", "gauge")
+        b.sample(f"{px}_queue_depth", s["queue_depth"])
+        b.family(f"{px}_latency_ms", "summary")
+        for q, key in ((0.5, "p50_ms"), (0.95, "p95_ms"), (0.99, "p99_ms")):
+            b.sample(f"{px}_latency_ms", s[key], {"quantile": q}, round_to=3)
+        b.family(f"{px}_batch_rows", "histogram")
+        hist = s["batch_hist"]
+        for le in BATCH_BUCKETS:
+            cum = sum(n for rows, n in hist.items() if rows <= le)
+            b.sample(f"{px}_batch_rows_bucket", cum, {"le": le})
+        b.sample(f"{px}_batch_rows_bucket", sum(hist.values()),
+                 {"le": "+Inf"})
+        b.sample(f"{px}_batch_rows_count", sum(hist.values()))
+        b.sample(f"{px}_batch_rows_sum",
+                 sum(r * n for r, n in hist.items()))
+        b.family(f"{px}_dispatch_failures_total", "counter")
+        for kind in sorted(s["dispatch_failures"]):
+            b.sample(f"{px}_dispatch_failures_total",
+                     s["dispatch_failures"][kind], {"kind": kind})
+        b.family(f"{px}_circuit_open", "gauge")
+        b.sample(f"{px}_circuit_open", int(s["circuit_open"]))
+        self._render_economics_into(b, s)
+
+    def _render_economics_into(self, b: PromBuilder, s: dict):
+        """The serving-economics families: none until the economics
+        ledger is ported (ROADMAP item 7f); no engine attaches one."""
+
+
+class LLMMetrics(ServingMetrics):
+    """ServingMetrics extended for the continuous-batching LLM engine.
+    The inherited batch-rows histogram counts the decode rows of each
+    committed step."""
+
+    _PREFIX = "pdtpu_llm"
+
+    def __init__(self, window: int = 4096):
+        super().__init__(window)
         self._ttft_ms: deque = deque(maxlen=self.window)
         self._intertoken_ms: deque = deque(maxlen=self.window)
         # (tokens, step_ms) pairs: tokens/sec over the recent window
         self._decode_window: deque = deque(maxlen=self.window)
-        self.counters: Dict[str, int] = {
-            "submitted": 0, "completed": 0, "rejected": 0, "expired": 0,
-            "failed": 0, "prefills": 0, "decode_steps": 0, "tokens_out": 0,
+        self.counters.update({
+            "prefills": 0, "decode_steps": 0, "tokens_out": 0,
+            "shed": 0, "quarantined": 0, "brownout_entries": 0,
             "sampled_tokens": 0, "constrained_tokens": 0,
             "prefix_hits": 0, "prefix_misses": 0, "prefix_hit_tokens": 0,
-            "prefix_lookup_tokens": 0}
-        self.reject_reasons: Dict[str, int] = {}
+            "prefix_lookup_tokens": 0})
         self.class_counters: Dict[str, Dict[str, int]] = {
-            c: {"submitted": 0, "completed": 0} for c in SLO_CLASSES}
-        self.batch_hist: Dict[int, int] = {}   # decode rows per step -> n
-        self.queue_depth = 0
+            c: {"submitted": 0, "completed": 0, "shed": 0}
+            for c in SLO_CLASSES}
         self.slots_active = 0
         self.slots_total = 0
+        # overload control: the brownout gauge and the estimated token
+        # cost of everything queued or active
+        self.brownout = False
+        self.inflight_tokens = 0
         # per-slot sampling modes: slot occupancy broken down by mode, the
         # grammars compiled, and the host-side cost of assembling a step's
         # sampling operands (lane keys, per-slot params, the bank)
@@ -65,6 +233,9 @@ class LLMMetrics:
         # tiered engine reports
         self.host_kv: Optional[Dict[str, int]] = None
 
+    def _class(self, slo) -> Optional[Dict[str, int]]:
+        return self.class_counters.get(slo) if slo else None
+
     def _tenant(self, tenant) -> Optional[Dict[str, int]]:
         if not tenant:
             return None
@@ -77,46 +248,56 @@ class LLMMetrics:
     # ---- engine callbacks ----
     def on_submit(self, queue_depth: int, slo: Optional[str] = None,
                   tenant: Optional[str] = None):
+        super().on_submit(queue_depth)
         with self._lock:
-            self.counters["submitted"] += 1
-            self.queue_depth = queue_depth
-            if slo in self.class_counters:
-                self.class_counters[slo]["submitted"] += 1
+            c = self._class(slo)
+            if c is not None:
+                c["submitted"] += 1
             t = self._tenant(tenant)
             if t is not None:
                 t["submitted"] += 1
 
     def on_reject(self, reason: str, tenant: Optional[str] = None):
+        super().on_reject(reason)
         with self._lock:
-            self.counters["rejected"] += 1
-            self.reject_reasons[reason] = \
-                self.reject_reasons.get(reason, 0) + 1
             t = self._tenant(tenant)
             if t is not None:
                 t["rejected"] += 1
 
-    def on_expire(self, n: int = 1):
-        with self._lock:
-            self.counters["expired"] += n
-
     def on_complete(self, latency_ms: float, slo: Optional[str] = None,
                     tenant: Optional[str] = None):
+        super().on_complete(latency_ms)
         with self._lock:
-            self.counters["completed"] += 1
-            self._latencies_ms.append(float(latency_ms))
-            if slo in self.class_counters:
-                self.class_counters[slo]["completed"] += 1
+            c = self._class(slo)
+            if c is not None:
+                c["completed"] += 1
             t = self._tenant(tenant)
             if t is not None:
                 t["completed"] += 1
 
-    def on_fail(self, n: int = 1):
+    def on_shed(self, slo: Optional[str] = None):
+        """A queued request was shed to make room for higher-priority
+        work; the engine also counts it rejected (reason "shed")."""
         with self._lock:
-            self.counters["failed"] += n
+            self.counters["shed"] += 1
+            c = self._class(slo)
+            if c is not None:
+                c["shed"] += 1
 
-    def set_queue_depth(self, depth: int):
+    def on_quarantine(self):
         with self._lock:
-            self.queue_depth = depth
+            self.counters["quarantined"] += 1
+
+    def set_brownout(self, active: bool):
+        with self._lock:
+            entered = active and not self.brownout
+            self.brownout = bool(active)
+            if entered:
+                self.counters["brownout_entries"] += 1
+
+    def set_inflight_tokens(self, tokens: int):
+        with self._lock:
+            self.inflight_tokens = int(tokens)
 
     def set_slots(self, active: int, total: int):
         with self._lock:
@@ -138,8 +319,15 @@ class LLMMetrics:
             self.counters["tokens_out"] += tokens
             self.batch_hist[active_rows] = \
                 self.batch_hist.get(active_rows, 0) + 1
+            self.dispatched_rows += int(active_rows)
+            self.counters["dispatches"] += 1
             self._intertoken_ms.append(float(step_ms))
             self._decode_window.append((tokens, float(step_ms)))
+        from ..profiler import record_instant
+        record_instant("serving/llm_decode", {
+            "active_rows": active_rows, "step_ms": step_ms,
+            "tokens": tokens,
+        })
 
     def on_sample_token(self, mode: str):
         """One emitted token from a non-greedy slot: `mode` is "sampled"
@@ -213,11 +401,6 @@ class LLMMetrics:
             vals = sorted(self._ttft_ms)
         return _quantile(vals, q)
 
-    def latency_quantile_ms(self, q: float) -> Optional[float]:
-        with self._lock:
-            vals = sorted(self._latencies_ms)
-        return _quantile(vals, q)
-
     def intertoken_quantile_ms(self, q: float) -> Optional[float]:
         with self._lock:
             vals = sorted(self._intertoken_ms)
@@ -239,15 +422,15 @@ class LLMMetrics:
         return sum(n for n, _ in pairs) / (total_ms / 1e3)
 
     def snapshot(self) -> dict:
+        s = super().snapshot()
         with self._lock:
-            s = dict(self.counters)
             s["reject_reasons"] = dict(self.reject_reasons)
             s["classes"] = {c: dict(v)
                             for c, v in self.class_counters.items()}
-            s["batch_hist"] = dict(self.batch_hist)
-            s["queue_depth"] = self.queue_depth
             s["slots_active"] = self.slots_active
             s["slots_total"] = self.slots_total
+            s["brownout"] = self.brownout
+            s["inflight_tokens"] = self.inflight_tokens
             s["sample_slots"] = dict(self.sample_slots)
             s["grammars_compiled"] = self.grammars_compiled
             s["cached_blocks"] = self.cached_blocks
@@ -265,9 +448,16 @@ class LLMMetrics:
         s["slot_occupancy"] = (s["slots_active"] / s["slots_total"]
                                if s["slots_total"] else 0.0)
         s["tokens_per_s"] = self.tokens_per_s()
+        s["shed_rate"] = (s["shed"] / s["submitted"] if s["submitted"]
+                          else 0.0)
         for q, key in ((0.5, "p50"), (0.95, "p95"), (0.99, "p99")):
             s[f"ttft_{key}_ms"] = self.ttft_quantile_ms(q)
             s[f"intertoken_{key}_ms"] = self.intertoken_quantile_ms(q)
-            s[f"{key}_ms"] = self.latency_quantile_ms(q)
             s[f"mask_overhead_{key}_ms"] = self.mask_overhead_quantile_ms(q)
         return s
+
+    def render(self) -> str:
+        raise NotImplementedError(
+            "LLMMetrics.render() (the pdtpu_llm exposition families) waits "
+            "for the serving-observability slice, ROADMAP item 7f; "
+            "snapshot() holds every value")

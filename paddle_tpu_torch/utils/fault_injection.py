@@ -98,9 +98,11 @@ Differences from the JAX package, none in what fires when:
 - a ``kill`` clause sends the process SIGKILL (a parent's `Popen` sees
   returncode -9, a shell 137) where the JAX package calls
   `os._exit(137)`: either way no atexit handler or `finally` runs;
-- nothing in the port calls the serving clauses (``dispatch_*``,
-  ``replica_*``, ``swap_stall``, ``deploy_bad_weights``,
-  ``poison_request``) yet; they parse and fire as in JAX.
+- the serving clauses ``dispatch_*`` and ``poison_request`` are called
+  by `serving.llm.LLMEngine` and `serving.BatchingEngine` through
+  `maybe_dispatch_fault`; ``replica_*``, ``swap_stall`` and
+  ``deploy_bad_weights`` have no caller until the serving front end is
+  ported (ROADMAP item 7e); they parse and fire as in JAX.
 """
 from __future__ import annotations
 

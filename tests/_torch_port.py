@@ -380,17 +380,37 @@ def record_evictions(pool):
     return pages
 
 
-def engine_pair(jm, tm, cfg, **over):
+def engine_pair(jm, tm, cfg, fault_plan=None, on_break=None,
+                jax_steps=None, **over):
     """(JAX engine, port engine) on SimClocks with the config `cfg` and
-    `over`, each pool recording its evicted pages in `engine.evicted`."""
+    `over`, each pool recording its evicted pages in `engine.evicted`.
+
+    `fault_plan`, a spec string, gives each engine a `FaultPlan` of its own
+    package (as `engine.plan`); `on_break` is a pair of callables, JAX's
+    first. `jax_steps`, a dict a test module keeps, shares the JAX
+    engines' unified-step executable among engines of one model and pool
+    geometry, so the module compiles it once a shape."""
     from paddle_tpu.serving.clock import SimClock as JaxSimClock
     from paddle_tpu.serving.llm import LLMEngine as JaxEngine
     from paddle_tpu.serving.llm import LLMEngineConfig as JaxConfig
+    from paddle_tpu.utils.fault_injection import FaultPlan as JaxPlan
     from paddle_tpu_torch.serving.clock import SimClock
     from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
+    from paddle_tpu_torch.utils.fault_injection import FaultPlan
     cfg = {**cfg, **over}
-    je = JaxEngine(jm, JaxConfig(**cfg), clock=JaxSimClock())
-    te = LLMEngine(tm, LLMEngineConfig(**cfg), clock=SimClock())
+    jplan = tplan = None
+    if fault_plan is not None:
+        jplan, tplan = JaxPlan.from_spec(fault_plan), \
+            FaultPlan.from_spec(fault_plan)
+    jb, tb = on_break or (None, None)
+    je = JaxEngine(jm, JaxConfig(**cfg), clock=JaxSimClock(),
+                   fault_plan=jplan, on_break=jb)
+    te = LLMEngine(tm, LLMEngineConfig(**cfg), clock=SimClock(),
+                   fault_plan=tplan, on_break=tb)
+    je.plan, te.plan = jplan, tplan
+    if jax_steps is not None:
+        key = (id(jm), je.pool.block_len, je.pool.n_blocks)
+        je._step_jit = jax_steps.setdefault(key, je._step())
     assert (te.prefix_cache is not None) == te.config.enable_prefix_cache
     je.evicted = record_evictions(je.pool)
     te.evicted = record_evictions(te.pool)
