@@ -21,7 +21,8 @@ Llama 2 recipe, then trains `ernie-moe-base` whole, and last trains
 seed), fits `mobilenet_v2` through Paddle's high-level `Model.fit`
 over `io.DataLoader`, and trains full `gpt3-125m` under the resilient
 runtime (checkpoint tiers, fault injection, a killed and a resumed
-child process). It prints one JSON line per
+child process) and under the numerics observatory. It prints one JSON
+line per
 phase, then each phase's wall seconds, the `{"kernels": [...]}` line,
 the card's name and power limit as `nvidia-smi` reports them, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before the
@@ -166,6 +167,19 @@ Phases:
                 over 8 replayed selections), the host time a step of its
                 operands, and 8 sampled steps replayed with greedy and
                 with sampled selection
+  5f. serve_observed — phase 5's cell with the serving observability
+                armed (economics=True: the serving ledger and the SLO burn
+                monitor; every request traced; two tenants, two SLO
+                classes, a TTFT target): streams equal phase 5's, the
+                ledger's phases tile its wall, per-owner device seconds
+                sum to the compute phases, its tokens and positions are
+                the engine's, decode MFU in (0, 1), the burn monitor's
+                outcomes and fired classes equal a CPU twin's, render()
+                parses with the twin's families, every timeline ordered;
+                the ledger's decode_compute a step beside the profiler's
+                busy ms; then batch_serve replays its trace once more with
+                EngineConfig(economics=True): the same dispatches and
+                logits, the ledger tiling its wall
   5d. prefix_serve — phase 5's model and engine with the prefix cache on
                 and a 1 GiB host KV tier, pumped on one thread: a 256-token
                 shared prefix (a donor, then 15 requests with suffixes of
@@ -272,6 +286,17 @@ Phases:
                 goodput, live MFU and phase shares of each run, the
                 resumed child's time from resume to its first step, each
                 line with the card's name and power limit
+ 18. train_numerics — phase 17's cell with the step built armed, under
+                ResilientTrainer(numerics=True, numerics_interval=2): 12
+                steps, a NaN written into 3,000,000 elements of the token
+                table after the chunk of steps 6-7 and that step's loss
+                read as NaN (nan_loss@6): the blame probe (flash and
+                LayerNorm kernels, no fused Adam) must count exactly those
+                elements, the train_nonfinite event name the leaf, the
+                trainer roll back and finish; the telemetry of step 4
+                against an fp64 recomputation; /debug/numerics; step ms
+                and peak memory armed and not, the probe's and a sample
+                read's ms
 """
 from __future__ import annotations
 
@@ -4221,6 +4246,279 @@ def phase_serve_supervised(serve):
     return launches
 
 
+# --------------------------------------------------------------- phase 5f
+# serve_observed: the serve cell again (its model, SERVE_ENGINE, the same
+# 16 prompts) with the serving observability armed: economics=True (the
+# ServingLedger and SLOBurnMonitor), every request traced, two tenants,
+# two SLO classes, and a TTFT target of OBSERVED_TTFT_MS for both
+# classes. The 16 requests are queued before the engine starts, so the 8
+# interactive ones take the 8 slots and reach their first token within 7
+# steps (a prompt of at most 400 tokens in chunks of 64), while the 8
+# batch ones wait for a slot to free, at least 32 steps. On the CPU twin
+# (SCHED_TWIN on a SimClock advanced OBSERVED_TICK_S before each pump) the
+# target is 20 steps; on the card any step between 12 and 57 ms gives the
+# same outcome for every request, so the burn monitor's outcomes (8 good,
+# 8 bad) and its fired classes must equal the twin's. Every stream must
+# equal serve's (arming changes no token); the ledger's phases must tile
+# its wall clock within 1%, the per-tenant and per-class device seconds
+# sum to prefill_compute + decode_compute within 1e-9 relative, its
+# decode tokens equal the tokens the decode steps emitted and its
+# positions what the engine dispatched; decode MFU lies in (0, 1);
+# render() parses line by line as exposition text with the twin's family
+# set; each timeline runs submitted < admitted <= first token <=
+# finished. The ledger's decode_compute a decode step is printed beside
+# the profiler's busy ms of a replayed step: the port launches op by op,
+# so the ledger's span holds the host's enqueue time too. Then the same
+# burst disarmed and armed, in turns (off, on, on, off), gives what
+# arming costs a decode step (host speed varies between phases, so the
+# comparison with serve's numbers alone would not).
+OBSERVED_TICK_S = 0.02
+OBSERVED_TTFT_MS = 400.0
+OBSERVED_ENGINE = dict(SERVE_ENGINE, economics=True, slo_burn_min_events=4,
+                       slo_ttft_target_ms={"interactive": OBSERVED_TTFT_MS,
+                                           "batch": OBSERVED_TTFT_MS})
+OBSERVED_SLOS = ("interactive", "batch")
+OBSERVED_TENANTS = ("tenant_a", "tenant_b")
+
+
+def observed_submit(engine, prompts, trace=True):
+    """Queue every prompt, classes and tenants alternating."""
+    return [engine.submit(p, slo=OBSERVED_SLOS[i % 2],
+                          tenant=OBSERVED_TENANTS[(i // 2) % 2], trace=trace)
+            for i, p in enumerate(prompts)]
+
+
+def observed_turns(model, prompts, streams):
+    """The observed burst disarmed (SERVE_ENGINE, untraced) and armed
+    (OBSERVED_ENGINE, traced), in turns: {armed: [(tok/s, decode step
+    p50 ms), ...]}, every stream checked against serve's."""
+    import numpy as np
+    from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
+    out = {False: [], True: []}
+    for armed in (False, True, True, False):
+        eng = LLMEngine(model, LLMEngineConfig(
+            **(OBSERVED_ENGINE if armed else SERVE_ENGINE)))
+        hs = observed_submit(eng, prompts, trace=armed)
+        try:
+            t0 = time.perf_counter()
+            eng.start()
+            outs = [h.result(timeout=900) for h in hs]
+            wall = time.perf_counter() - t0
+        finally:
+            eng.stop(drain=True, timeout=60)
+        check(all(np.array_equal(o, streams[i]) for i, o in enumerate(outs)),
+              f"serve_observed: a turn (armed {armed}) changed a stream")
+        out[armed].append((sum(len(o) for o in outs) / wall,
+                           eng.metrics.snapshot()["intertoken_p50_ms"]))
+        del eng
+    return out
+
+
+def burn_outcomes(engine):
+    """{class: [good, ...]} of the burn monitor's recorded outcomes, and
+    its fire records without their instants."""
+    snap = engine.burn.snapshot()
+    return ({c: [g for _, g in dq] for c, dq in engine.burn._events.items()},
+            {c: {k: v for k, v in rec.items() if k != "t"}
+             for c, rec in snap["fired"].items()})
+
+
+def exposition_families(text):
+    """The family names of an exposition text, checking every line is a
+    TYPE line or a sample line whose value parses."""
+    fams = []
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            parts = line.split(" ")
+            check(len(parts) == 4 and parts[3] in (
+                "counter", "gauge", "summary", "histogram"),
+                f"serve_observed: bad TYPE line {line!r}")
+            fams.append(parts[2])
+            continue
+        head, _, val = line.rpartition(" ")
+        try:
+            float(val)
+        except ValueError:
+            fail(f"serve_observed: bad sample value in {line!r}")
+        base = head.split("{")[0]
+        check(base and any(base.startswith(f) for f in fams),
+              f"serve_observed: sample of no declared family: {line!r}")
+    return fams
+
+
+def phase_serve_observed(serve, device_name):
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.obs.flops import decode_flops_per_token, peak_flops
+    from paddle_tpu_torch.ops import _kernels
+    from paddle_tpu_torch.serving.clock import SimClock
+    from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, init_s = serve_model("serve")
+    prompts = serve_prompts(model.config.vocab_size)
+    streams = serve["streams"]
+    warm = LLMEngine(model, LLMEngineConfig(**SERVE_ENGINE))
+    warm.start()
+    try:
+        serve_warm_up(warm, prompts)
+    finally:
+        warm.stop(drain=True, timeout=60)
+    del warm
+
+    engine = LLMEngine(model, LLMEngineConfig(**OBSERVED_ENGINE))
+    n_params = sum(p.numel() for p in model.parameters())
+    engine.ledger.set_decode_flops(decode_flops_per_token(n_params),
+                                   peak_flops(device_name))
+    recorded = []
+    step_logits = engine._step_logits
+
+    def recording_step_logits(a):
+        recorded.append((a.toks.copy(), a.pos.copy(), a.adv.copy()))
+        return step_logits(a)
+
+    engine._step_logits = recording_step_logits
+    handles = observed_submit(engine, prompts)
+    _kernels.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        engine.start()
+        outs = [h.result(timeout=900) for h in handles]
+        wall = time.perf_counter() - t0
+    finally:
+        engine.stop(drain=True, timeout=60)
+    launches = _kernels.launch_counts()
+    must, _ = served_kernels("gpt3-1.3b")
+    check(all(launches[k] > 0 for k in must),
+          f"serve_observed: the path launched {launches}")
+    equal = [bool(np.array_equal(o, streams[i])) for i, o in enumerate(outs)]
+    check(all(equal), f"serve_observed: streams equal serve's: {equal}")
+    check(engine.pool.check_balance(), "serve_observed: pool unbalanced")
+
+    led = engine.ledger.snapshot()
+    snap = engine.metrics.snapshot()
+    phases = led["phase_seconds"]
+    tiled = sum(phases.values())
+    check(abs(tiled - led["wall_seconds"]) <= 0.01 * led["wall_seconds"],
+          f"serve_observed: phases sum to {tiled}, wall "
+          f"{led['wall_seconds']}")
+    compute = phases["prefill_compute"] + phases["decode_compute"]
+    for owner in ("tenants", "classes"):
+        total = sum(v["device_seconds"] for v in led[owner].values())
+        check(abs(total - compute) <= 1e-9 * compute,
+              f"serve_observed: {owner} device seconds {total}, compute "
+              f"{compute}")
+    check(set(led["tenants"]) == set(OBSERVED_TENANTS)
+          and set(led["classes"]) == set(OBSERVED_SLOS),
+          f"serve_observed: owners {sorted(led['tenants'])}, "
+          f"{sorted(led['classes'])}")
+    emitted = sum(len(o) for o in outs)
+    check(led["decode_tokens"] == snap["tokens_out"]
+          == emitted - len(prompts),
+          f"serve_observed: ledger decode tokens {led['decode_tokens']}, "
+          f"decode steps emitted {snap['tokens_out']}, streams {emitted}")
+    n, c = SERVE_ENGINE["num_slots"], SERVE_ENGINE["prefill_chunk"]
+    check(led["total_positions"] == engine.steps * n * c
+          and led["useful_positions"] == engine.prefill_tokens
+          + led["decode_tokens"] and led["dispatches"] == engine.steps,
+          f"serve_observed: positions {led['useful_positions']}/"
+          f"{led['total_positions']} over {engine.steps} steps, prefilled "
+          f"{engine.prefill_tokens}")
+    mfu = led["decode_mfu"]
+    check(mfu is not None and 0.0 < mfu < 1.0,
+          f"serve_observed: decode MFU {mfu}")
+    for i, h in enumerate(handles):
+        tl = h.timeline()
+        mk = tl["marks_ms"]
+        check(tl["outcome"] == "completed" and mk["submitted"]
+              < mk["admitted"] <= mk["first_token"] <= mk["finished"],
+              f"serve_observed: request {i} timeline {tl['outcome']} {mk}")
+    check(len(engine.timelines) == len(prompts),
+          f"serve_observed: {len(engine.timelines)} stored timelines")
+
+    # the CPU twin: the same configuration, prompt lengths, classes and
+    # tenants on a SimClock, OBSERVED_TICK_S a step
+    twin_model = GPTForCausalLM.from_preset("gpt2-tiny", device="cpu",
+                                            **SCHED_TWIN)
+    twin = LLMEngine(twin_model, LLMEngineConfig(**OBSERVED_ENGINE),
+                     clock=SimClock())
+    twin_handles = observed_submit(twin, [p % 64 for p in prompts])
+    while twin.has_work():
+        twin.clock.advance(OBSERVED_TICK_S)
+        twin.pump()
+    got_burn, twin_burn = burn_outcomes(engine), burn_outcomes(twin)
+    check(got_burn == twin_burn,
+          f"serve_observed: burn outcomes {got_burn}, CPU twin {twin_burn}")
+    check(got_burn[0] == {"interactive": [True] * 8, "batch": [False] * 8}
+          and set(got_burn[1]) == {"batch"},
+          f"serve_observed: burn outcomes {got_burn}")
+    text = engine.metrics.render()
+    fams = exposition_families(text)
+    twin_fams = exposition_families(twin.metrics.render())
+    check(set(fams) == set(twin_fams) and len(fams) == len(set(fams)),
+          f"serve_observed: families {sorted(set(fams) ^ set(twin_fams))} "
+          "differ from the CPU twin's")
+    for fam in ("pdtpu_llm_phase_seconds_total", "pdtpu_llm_decode_mfu",
+                "pdtpu_llm_tenant_device_seconds_total",
+                "pdtpu_llm_slo_burn_rate", "pdtpu_llm_class_ttft_ms"):
+        check(fam in fams, f"serve_observed: no {fam} family")
+    twin_led = twin.ledger.snapshot()
+    check(all(twin_led[k] == led[k] for k in (
+        "useful_positions", "total_positions", "decode_tokens",
+        "prefill_tokens", "dispatches")),
+        "serve_observed: token economics differ from the CPU twin's")
+
+    busy_ms, replay_ms = step_busy(
+        lambda *a: step_logits(engine._step_args(*a)), recorded)
+    turns = observed_turns(model, prompts, streams)
+    steps = engine.steps
+    decode_steps = engine.decode_iterations
+    result = {
+        "phase": "serve_observed", "model": "gpt3-1.3b", "dtype": "bfloat16",
+        "slo_ttft_target_ms": OBSERVED_TTFT_MS,
+        "streams_equal_serve": sum(equal),
+        "generated_tok_s": emitted / wall,
+        "decode_step_p50_ms": snap["intertoken_p50_ms"],
+        "ttft_p50_ms_by_class": {
+            c: engine.metrics.ttft_quantile_ms(0.5, slo=c)
+            for c in OBSERVED_SLOS},
+        "serve_generated_tok_s": serve["generated_tok_s"],
+        "serve_decode_step_p50_ms": serve["decode_step_p50_ms"],
+        "steps": steps, "decode_steps": decode_steps,
+        "ledger": {k: led[k] for k in (
+            "wall_seconds", "phase_seconds", "host_fraction",
+            "token_efficiency", "useful_positions", "total_positions",
+            "prefill_tokens", "decode_tokens", "decode_mfu", "tenants",
+            "classes")},
+        "phase_ms_a_step": {k: v * 1e3 / steps for k, v in phases.items()},
+        "phase_shares": {k: v / led["wall_seconds"]
+                         for k, v in phases.items()},
+        "decode_compute_ms_a_decode_step":
+            phases["decode_compute"] * 1e3 / decode_steps,
+        "profiler_busy_ms_a_step": busy_ms,
+        "step_replay_wall_ms": replay_ms,
+        "busy_share_a_step": None if busy_ms is None
+        else busy_ms / (wall * 1e3 / steps),
+        "burn": {"outcomes": got_burn[0], "fired": got_burn[1]},
+        "families": len(fams),
+        "turns": {"order": "off, on, on, off", "tok_s_and_decode_p50_ms": {
+            "not_armed": turns[False], "armed": turns[True]},
+            "decode_step_added_ms": (
+                statistics.mean(p for _, p in turns[True])
+                - statistics.mean(p for _, p in turns[False])),
+            "tok_s_armed_over_not": (
+                statistics.mean(t for t, _ in turns[True])
+                / statistics.mean(t for t, _ in turns[False]))},
+        "kernel_launches": launches, "model_init_s": init_s}
+    emit(result)
+    del model, engine, recorded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # --------------------------------------------------------------- phase 5c
 # batch_serve: BatchingEngine(max_batch_size=8, max_wait_ms=2.0) over a
 # predict_fn that runs full gpt3-1.3b's forward without cache on the card
@@ -4274,8 +4572,9 @@ def phase_batch_serve():
         twin_calls.append(args[0].shape[0])
         return [np.zeros((args[0].shape[0], 1), np.float32)]
 
-    def replay(fn):
-        cfg = serving.EngineConfig(max_batch_size=8, max_wait_ms=2.0)
+    def replay(fn, economics=False):
+        cfg = serving.EngineConfig(max_batch_size=8, max_wait_ms=2.0,
+                                   economics=economics)
         eng = serving.BatchingEngine(fn, cfg, clock=serving.SimClock(),
                                      fault_plan=FaultPlan.from_spec(
                                          BATCH_SPEC))
@@ -4327,6 +4626,23 @@ def phase_batch_serve():
           f"batch_serve: batched vs solo logits differ by {worst}")
     check(not mismatched, f"batch_serve: argmax differs beyond a tie: "
           f"{mismatched}")
+    # the trace once more with the economics ledger armed: the same
+    # dispatches and logits, and the ledger's phases tiling its wall
+    plain_calls = list(calls)
+    calls.clear()
+    eng_e, report_e = replay(predict, economics=True)
+    check(calls == plain_calls and report_e.outcomes == report.outcomes,
+          f"batch_serve economics: dispatches {calls}, plain {plain_calls}")
+    same = [bool(np.array_equal(report_e.results[i][0], report.results[i][0]))
+            for i, o in enumerate(report.outcomes) if o == "completed"]
+    check(all(same), f"batch_serve economics: logits equal: {same}")
+    led = eng_e.ledger.snapshot()
+    check(abs(sum(led["phase_seconds"].values()) - led["wall_seconds"])
+          <= 0.01 * led["wall_seconds"]
+          and led["total_positions"] == sum(calls)
+          and led["useful_positions"] == report.completed
+          and led["dispatches"] == len(calls),
+          f"batch_serve economics: ledger {led}")
     snap = eng.metrics.snapshot()
     emit({"phase": "batch_serve", "model": "gpt3-1.3b", "dtype": "bfloat16",
           "requests": BATCH_REQUESTS, "row_tokens": BATCH_ROW,
@@ -4336,6 +4652,9 @@ def phase_batch_serve():
           "requests_per_s": BATCH_REQUESTS / wall,
           "logits_max_abs_diff_vs_solo": worst,
           "logits_tol": BATCH_LOGITS_TOL, "argmax_ties": ties,
+          "economics": {k: led[k] for k in (
+              "wall_seconds", "phase_seconds", "token_efficiency",
+              "useful_positions", "total_positions", "dispatches")},
           "metrics": {k: snap[k] for k in (
               "dispatches", "batch_hist", "pad_overhead_rows",
               "dispatch_failures", "completed", "failed", "p50_ms")},
@@ -6783,6 +7102,327 @@ def phase_resilient_train(device_name, smi_line):
     return launches
 
 
+# -------------------------------------------- phase 18: train_numerics
+# The numerics observatory over resilient_train's cell (full gpt3-125m,
+# bf16, 8 x 1024, AdamW 1e-4 fp32 moments, ScanTrainStep(scan_steps=2),
+# the step built armed: numerics=True) under ResilientTrainer(numerics=
+# True, numerics_interval=2, goodput=True) with a CheckpointManager at
+# save_interval 6, 12 steps. After the chunk of steps 6-7 has run, the
+# phase writes NaN into NUMERICS_K elements of NUMERICS_LEAF (the first
+# rows of the token table), and the nan_loss@6 fault has the trainer read
+# step 6's loss as NaN. The chunk must have run clean: had it run on the
+# corrupted table, its updates would have spread NaN into every leaf before
+# the trainer could look (in JAX too), and no census could name the
+# leaf. The blame probe then runs on step 6's batch (the flash forward and
+# backward and the LayerNorm kernels, no fused Adam): its census must
+# hold exactly NUMERICS_K non-finite elements of that leaf and no other
+# parameter; every gradient is non-finite once the loss is, so the
+# worst-count culprit is a gradient leaf (grads first, as in JAX), and
+# NUMERICS_K is large enough that the parameter ranks among the event's
+# four worst leaves, which the train_nonfinite event names in the JAX
+# bracket spelling. The trainer rolls back to step 6's certified file and
+# finishes. The telemetry the trainer sampled at step 4 must match an
+# fp64 recomputation from that step's gradients and its parameters before
+# and after the update within NUMERICS_RTOL (bf16 leaves summed in fp32);
+# /debug/numerics answers on a MetricsServer. Then chunks armed and not,
+# in turns (off, on, on, off): step ms and peak memory of each, the
+# probe's ms and the sample read's ms.
+NUMERICS = dict(steps=12, interval=2, save_interval=6, fault="nan_loss@6",
+                poison_after_step=8, telemetry_step=4, timed_chunks=3)
+NUMERICS_LEAF = "gpt.word_embeddings.weight"
+NUMERICS_K = 3_000_000        # rows 0..3905 and part of row 3906
+NUMERICS_RTOL = 1e-3
+# a blame probe's launches: a forward and backward of 12 layers, no Adam
+NUMERICS_PROBE_LAUNCHES = {**launches_per_step(12, 0, False)}
+
+
+def numerics_model():
+    """resilient_model's cell with the step built armed, recording each
+    chunk, capturing in fp64 the gradients and the parameters before and
+    after the update of global step `capture_at`, and corrupting
+    NUMERICS_LEAF once after the chunk that ends at `poison_after`."""
+    import torch
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ScanTrainStep
+
+    class NumericsStep(ScanTrainStep):
+        capture_at = None
+        captured = None
+        poison_after = None
+        poisoned = False
+        capturing = False
+
+        def __call__(self, *args):
+            t0 = time.perf_counter()
+            losses = super().__call__(*args)
+            torch.cuda.synchronize()
+            self.chunks.append((self._step_count - self.scan_steps,
+                                losses.tolist(),
+                                (time.perf_counter() - t0) * 1e3))
+            if self._step_count == self.poison_after and not self.poisoned:
+                self.poisoned = True
+                with torch.no_grad():
+                    dict(self.model.named_parameters())[
+                        NUMERICS_LEAF].view(-1)[:NUMERICS_K] = float("nan")
+            return losses
+
+        def _train_step(self, arrays, lr, step=None, telemetry=True):
+            self.capturing = step == self.capture_at and telemetry
+            return super()._train_step(arrays, lr, step, telemetry)
+
+        def _update(self, grads, lr, do_update):
+            if self.capturing:
+                g = [x.double() for x in grads]
+                old = [p.detach().double() for p in self._params]
+            super()._update(grads, lr, do_update)
+            if self.capturing:
+                new = [p.detach().double() for p in self._params]
+                self.captured = (g, old, new)
+                self.capturing = False
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    model = GPTForCausalLM.from_preset(RESILIENT["preset"], device="cuda",
+                                       dtype="bfloat16", generator=gen)
+    model.train()
+    opt = AdamW(learning_rate=RESILIENT["lr"], weight_decay=0.01,
+                parameters=model.parameters(), moment_dtype="float32")
+    step = NumericsStep(model, opt, scan_steps=RESILIENT["scan_steps"],
+                        numerics=True)
+    step.chunks = []
+    step.capture_at = NUMERICS["telemetry_step"]
+    step.poison_after = NUMERICS["poison_after_step"]
+    return model, opt, step
+
+
+def fp64_telemetry(names, captured):
+    """The telemetry keys' values in fp64 from captured (grads, old, new)
+    fp64 tensors in `names` order."""
+    import torch
+    from paddle_tpu_torch.obs.numerics import telemetry_groups
+    groups = telemetry_groups(names)
+    g, old, new = captured
+    at = {n: i for i, n in enumerate(names)}
+    out, tot = {}, {"g": 0.0, "p": 0.0, "w": 0.0, "d": 0.0}
+    for grp in sorted(groups):
+        idx = [at[n] for n in groups[grp]]
+        gs = sum(float(torch.sum(g[i] * g[i])) for i in idx)
+        ps = sum(float(torch.sum(new[i] * new[i])) for i in idx)
+        ws = sum(float(torch.sum(old[i] * old[i])) for i in idx)
+        ds = sum(float(torch.sum((new[i] - old[i]) ** 2)) for i in idx)
+        out[f"grad_norm/{grp}"] = math.sqrt(gs)
+        out[f"param_norm/{grp}"] = math.sqrt(ps)
+        out[f"update_ratio/{grp}"] = math.sqrt(ds) / max(math.sqrt(ws),
+                                                         1e-12)
+        for k, v in zip("gpwd", (gs, ps, ws, ds)):
+            tot[k] += v
+    out["grad_norm/_total"] = math.sqrt(tot["g"])
+    out["param_norm/_total"] = math.sqrt(tot["p"])
+    out["update_ratio/_total"] = math.sqrt(tot["d"]) / max(
+        math.sqrt(tot["w"]), 1e-12)
+    return out
+
+
+def phase_train_numerics(device_name, smi_line):
+    import shutil
+    import tempfile
+    import urllib.request
+    import torch
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.distributed.resilient import (ResilientConfig,
+                                                        ResilientTrainer)
+    from paddle_tpu_torch.obs.flight_recorder import (DUMP_DIR_ENV,
+                                                      flight_recorder)
+    from paddle_tpu_torch.obs.numerics import bracket_path, format_leaf
+    from paddle_tpu_torch.obs.prom import MetricsServer
+    from paddle_tpu_torch.ops import _kernels
+    from paddle_tpu_torch.utils.fault_injection import FaultPlan
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train_numerics_", dir=build)
+    model, opt, step = numerics_model()
+    ids, labels = resilient_batches(model.config.vocab_size)
+    K = step.scan_steps
+    n_steps = NUMERICS["steps"]
+    check_disk_room(root, model)
+    bad = NUMERICS["poison_after_step"] - K
+    check(bool((ids[bad] < NUMERICS_K // model.config.hidden_size).any()),
+          "train_numerics: step 6's batch reads no corrupted row")
+
+    def get_state():
+        return {"model": model.state_dict(), "opt": opt.state_dict(),
+                "step": step._step_count}
+
+    def set_state(s):
+        model.set_state_dict(s["model"])
+        opt.set_state_dict(s["opt"])
+        step._step_count = int(s["step"])
+
+    probes = []
+    plain_probe = step.nonfinite_blame
+
+    def counted_probe(*a):
+        torch.cuda.synchronize()
+        before = _kernels.launch_counts()
+        rep = plain_probe(*a)
+        torch.cuda.synchronize()
+        after = _kernels.launch_counts()
+        probes.append((rep, {k: after[k] - before[k] for k in after}))
+        return rep
+    step.nonfinite_blame = counted_probe
+
+    flight_recorder().clear()
+    trainer = ResilientTrainer(
+        step, CheckpointManager(root, max_to_keep=2),
+        get_state=get_state, set_state=set_state,
+        config=ResilientConfig(save_interval=NUMERICS["save_interval"]),
+        fault_plan=FaultPlan.from_spec(NUMERICS["fault"]), goodput=True,
+        numerics=True, numerics_interval=NUMERICS["interval"])
+    # the blame's black-box dump goes beside the checkpoints
+    dump_dir = os.environ.get(DUMP_DIR_ENV)
+    os.environ[DUMP_DIR_ENV] = root
+    _kernels.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        summary = trainer.run(
+            lambda i: (ids[i:i + K], labels[i:i + K]), num_steps=n_steps)
+        run_s = time.perf_counter() - t0
+        launches = _kernels.launch_counts()
+    finally:
+        if dump_dir is None:
+            os.environ.pop(DUMP_DIR_ENV, None)
+        else:
+            os.environ[DUMP_DIR_ENV] = dump_dir
+        shutil.rmtree(root, ignore_errors=True)
+    events = [(e["kind"], e["step"]) for e in summary["events"]]
+    check(summary["completed_steps"] == n_steps
+          and events == [("bad_loss", bad), ("rollback", bad)],
+          f"train_numerics: events {events}")
+    check(bool(torch.isfinite(dict(model.named_parameters())[
+        NUMERICS_LEAF]).all()), "train_numerics: the rollback left NaN")
+    steps_run = sum(len(c[1]) for c in step.chunks)
+    check(steps_run == n_steps + K,
+          f"train_numerics: ran {steps_run} steps, want {n_steps} and one "
+          "replayed chunk")
+    check(len(probes) == 1, f"train_numerics: {len(probes)} probes ran")
+    report, probe_launches = probes[0]
+    check(report["params"] == {NUMERICS_LEAF: NUMERICS_K}
+          and len(report["grads"]) > 1 and math.isnan(report["loss"]),
+          f"train_numerics: probe census params {report['params']}, "
+          f"{len(report['grads'])} grad leaves, loss {report['loss']}")
+    want_probe = {k: NUMERICS_PROBE_LAUNCHES.get(k, 0) for k in
+                  RESILIENT_KERNELS_PER_STEP}
+    got_probe = {k: probe_launches[k] for k in want_probe}
+    check(got_probe == want_probe,
+          f"train_numerics: the probe launched {got_probe}, want "
+          f"{want_probe}")
+    want_launches = {k: v * steps_run + want_probe[k]
+                     for k, v in RESILIENT_KERNELS_PER_STEP.items()}
+    check({k: launches[k] for k in want_launches} == want_launches,
+          f"train_numerics: launched {launches}, want {want_launches}")
+    nfe = [e for e in flight_recorder().snapshot()["events"]
+           if e["kind"] == "train_nonfinite"]
+    leaf_line = format_leaf(NUMERICS_LEAF, "param", NUMERICS_K,
+                            report["sizes"][NUMERICS_LEAF])
+    check(len(nfe) == 1 and nfe[0]["step"] == bad
+          and nfe[0]["param_leaves"] == 1
+          and nfe[0]["param_nonfinite"] == NUMERICS_K
+          and leaf_line in nfe[0]["leaves"].split("; ")
+          and leaf_line.startswith(bracket_path(NUMERICS_LEAF)),
+          f"train_numerics: train_nonfinite events {nfe}, want {leaf_line}")
+
+    # the sampled telemetry of step 4 against fp64 from its tensors
+    snap = trainer.numerics.snapshot()
+    sampled = {h["step"]: h for h in snap["history"]}
+    check(sorted(sampled) == list(range(2, n_steps + 1, 2)),
+          f"train_numerics: sampled steps {sorted(sampled)}")
+    check(step.captured is not None, "train_numerics: no step captured")
+    ref = fp64_telemetry(step._names, step.captured)
+    got = sampled[NUMERICS["telemetry_step"]]
+    worst = max(abs(got[k] - v) / abs(v) for k, v in ref.items() if v)
+    check(set(ref) <= set(got) and worst <= NUMERICS_RTOL,
+          f"train_numerics: telemetry off fp64 by {worst} (rtol "
+          f"{NUMERICS_RTOL}): {got} vs {ref}")
+    step.captured = None
+
+    server = MetricsServer([trainer.metrics.render]).start()
+    try:
+        url = f"http://127.0.0.1:{server.port}"
+        with urllib.request.urlopen(url + "/debug/numerics",
+                                    timeout=30) as r:
+            doc = json.loads(r.read())
+        with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+            text = r.read().decode()
+    finally:
+        server.stop()
+    check(doc.get("armed") is True and doc["nonfinite_events"] == 1
+          and doc["last_sample_step"] == n_steps,
+          f"train_numerics: /debug/numerics {doc}")
+    check("pdtpu_train_numerics_grad_norm{group=" in text
+          and "pdtpu_train_numerics_nonfinite_events_total 1" in text,
+          "train_numerics: /metrics lacks the numerics families")
+
+    # armed against not: chunks in turns, each with its peak memory
+    timing = {False: [], True: []}
+    peaks = {False: [], True: []}
+    chunk = 0
+    for armed in (False, True, True, False):
+        step.numerics_armed = armed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(NUMERICS["timed_chunks"]):
+            i = (chunk * K) % RESILIENT["steps"]
+            chunk += 1
+            t0 = time.perf_counter()
+            step(ids[i:i + K], labels[i:i + K])
+            ms.append((time.perf_counter() - t0) * 1e3 / K)
+        timing[armed].append(statistics.median(ms))
+        peaks[armed].append(torch.cuda.max_memory_allocated() / 2**30)
+    step.numerics_armed = True
+    torch.cuda.synchronize()
+    read_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        sample = step.numerics_host_sample()
+        read_ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(math.isfinite(v) for v in sample.values()),
+          f"train_numerics: a non-finite sample {sample}")
+    emit({"phase": "train_numerics", "card": smi_line,
+          "model": RESILIENT["preset"], "dtype": "bfloat16",
+          "batch": list(RESILIENT["batch"]), "scan_steps": K,
+          "steps": n_steps, "interval": NUMERICS["interval"],
+          "fault": NUMERICS["fault"], "leaf": NUMERICS_LEAF,
+          "k": NUMERICS_K, "events": events,
+          "culprit": nfe[0]["culprit"], "leaves": nfe[0]["leaves"],
+          "grad_leaves_nonfinite": len(report["grads"]),
+          "probe_ms": report["probe_seconds"] * 1e3,
+          "probe_launches": got_probe,
+          "telemetry_step": NUMERICS["telemetry_step"],
+          "telemetry_max_rel_err_vs_fp64": worst,
+          "telemetry_rtol": NUMERICS_RTOL,
+          "telemetry_groups": sorted({k.split("/")[1] for k in ref}),
+          "step_ms": {"not_armed": timing[False], "armed": timing[True],
+                      "order": "off, on, on, off"},
+          "armed_added_ms": (statistics.mean(timing[True])
+                             - statistics.mean(timing[False])),
+          "peak_mem_gib": {"not_armed": peaks[False], "armed": peaks[True]},
+          "sample_read_ms": statistics.median(read_ms),
+          "run_s": run_s, "goodput": summary["goodput"]["goodput"],
+          "rollback_waste_s":
+              summary["goodput"]["phase_seconds"]["rollback_waste"],
+          "kernel_launches": launches})
+    del model, opt, step, trainer, ids, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 KERNEL_META = {
     "paged_attention": dict(
         source="paddle_tpu_torch/csrc/paged_attention_tc.cu",
@@ -6900,6 +7540,8 @@ def main():
     by_phase["prefix_serve"] = timed("prefix_serve", phase_prefix_serve)
     by_phase["serve_supervised"] = timed("serve_supervised",
                                          phase_serve_supervised, serve)
+    by_phase["serve_observed"] = timed("serve_observed",
+                                       phase_serve_observed, serve, name)
     by_phase["batch_serve"] = timed("batch_serve", phase_batch_serve)
     by_phase["train"], train_peak = timed("train", phase_train, name)
     by_phase["train_recipe"], _ = timed("train_recipe", phase_train, name,
@@ -6922,6 +7564,8 @@ def main():
     by_phase["resilient_train"] = timed("resilient_train",
                                         phase_resilient_train, name,
                                         smi_line)
+    by_phase["train_numerics"] = timed("train_numerics",
+                                       phase_train_numerics, name, smi_line)
     emit({"phase": "phase_seconds", **seconds})
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

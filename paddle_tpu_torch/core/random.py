@@ -80,10 +80,15 @@ def rng_snapshot():
 
 def rng_restore(snapshot):
     """Set the state to `snapshot` (from rng_snapshot()): the seeds and
-    draws that follow repeat those that followed the snapshot."""
+    draws that follow repeat those that followed the snapshot. A
+    generator made after the snapshot is dropped, so its next use seeds
+    a new one from the restored counter, as it did then."""
     _RNG.seed, _RNG.counter, states = snapshot
+    gens = {}
     for d, st in states.items():
         gen = _RNG.generators.get(d)
         if gen is None:
-            gen = _RNG.generators[d] = torch.Generator(device=d)
+            gen = torch.Generator(device=d)
         gen.set_state(st)
+        gens[d] = gen
+    _RNG.generators = gens

@@ -36,9 +36,17 @@ Over a port train step, which updates its parameters and optimizer slots
 in place, `set_state` must copy the restored tensors INTO the live ones
 (`model.set_state_dict`, `optimizer.set_state_dict` do).
 
-`observatory=True` and `numerics=True` need the compile observatory and
-the numerics observatory, which the port does not have yet: they raise
-and name their ROADMAP items.
+- **Numerics observatory** — `numerics=True` (or a
+  `NumericsObservatory`) feeds every clean step's loss to the spike
+  sentinel and reads the train fn's in-step telemetry
+  (`numerics_host_sample`, on a step built armed) every
+  `numerics_interval` steps; on a non-finite loss it runs the train fn's
+  blame probe (`nonfinite_blame`) on the bad step's batch before the
+  rollback destroys the evidence, booking the probe as `rollback_waste`,
+  and the observatory emits the culprit-named `train_nonfinite` event.
+
+`observatory=True` needs the compile observatory, which the port does not
+have yet: it raises and names its ROADMAP item.
 
 Fault paths are exercised deterministically via
 paddle_tpu_torch.utils.fault_injection (PDTPU_FAULTS env spec).
@@ -162,13 +170,9 @@ def _loss_value(loss) -> Optional[float]:
     return None
 
 
-# what `observatory=` / `numerics=` need, and the items that port it
-_REFUSED = {
-    "observatory": "the compile observatory (obs/compile_observatory.py) "
-                   "waits for ROADMAP §1 item 9",
-    "numerics": "the numerics observatory (obs/numerics.py) waits for "
-                "ROADMAP §1 item 7f",
-}
+# what `observatory=` needs, and the item that ports it
+_REFUSED = ("the compile observatory (obs/compile_observatory.py) waits "
+            "for ROADMAP §1 item 9")
 
 
 class ResilientTrainer:
@@ -219,10 +223,8 @@ class ResilientTrainer:
                  set_cursor: Optional[
                      Callable[[Dict[str, Any]], None]] = None,
                  device=None):
-        for name, armed in (("observatory", observatory),
-                            ("numerics", numerics)):
-            if armed:
-                raise NotImplementedError(f"{name}=True: {_REFUSED[name]}")
+        if observatory:
+            raise NotImplementedError(f"observatory=True: {_REFUSED}")
         self.worker = DeviceWorker(train_fn, print_period=0)
         if isinstance(checkpoint, (AsyncCheckpointManager,
                                    CheckpointManager)):
@@ -268,11 +270,37 @@ class ResilientTrainer:
                 # writer-thread persist seconds feed the non-phase
                 # checkpoint_async counter (blocking stays the phase)
                 self.ckpt.ledger = self.ledger
+        # numerics=True arms the training numerics observatory: the
+        # loss-spike sentinel, sampled in-step telemetry and the
+        # culprit-named blame probe on bad_loss. Off = the same
+        # one-predicate contract as goodput. Pass a NumericsObservatory to
+        # share or configure one; the telemetry also needs the step BUILT
+        # armed (strategy.numerics or ShardedTrainStep(numerics=True)),
+        # the blame probe and the spike sentinel work either way.
+        self.numerics = None
+        if numerics:
+            from ..obs.numerics import NumericsObservatory
+            self.numerics = (numerics if isinstance(
+                numerics, NumericsObservatory)
+                else NumericsObservatory(interval=numerics_interval))
+            from ..flags import get_flags
+            if get_flags("FLAGS_check_nan_inf")["FLAGS_check_nan_inf"]:
+                import warnings
+                warnings.warn(
+                    "FLAGS_check_nan_inf (torch anomaly detection) and the "
+                    "numerics observatory are both armed: anomaly "
+                    "detection RAISES at the first backward op that makes "
+                    "a non-finite value, so the step never returns a loss "
+                    "and the observatory's culprit-named blame probe (and "
+                    "rollback) never runs. Prefer numerics=True alone in "
+                    "production; keep FLAGS_check_nan_inf for op-level "
+                    "debugging", stacklevel=2)
         # pdtpu_train_* exporter: throughput gauges read the worker's
         # tracker, counters are fed from _event / the checkpoint sites
         self.metrics = TrainingMetrics(tracker=self.worker.throughput,
                                        ledger=self.ledger, hbm=self.hbm,
                                        sentinel=self.sentinel,
+                                       numerics=self.numerics,
                                        ckpt=(self.ckpt if self._async_ckpt
                                              else None))
         env_port = os.environ.get("PDTPU_METRICS_PORT")
@@ -324,6 +352,45 @@ class ResilientTrainer:
     def _apply_cursor(self, cursor: Optional[Dict[str, Any]]):
         if self.set_cursor is not None and cursor is not None:
             self.set_cursor(cursor)
+
+    # ---- numerics observatory hooks (obs/numerics.py) ----
+    def _numerics_tick(self, step: int, n: int, losses):
+        """Clean-step feed: per-step losses into the spike sentinel, and
+        on the numerics interval a host read of the in-step telemetry.
+        Callers guard with `self.numerics is not None`."""
+        for i, v in enumerate(losses):
+            self.numerics.observe_loss(step + i, float(v))
+        if not self.numerics.should_sample(step + n, n):
+            return
+        fn = getattr(self.worker.train_fn, "numerics_host_sample", None)
+        sample = fn() if fn is not None else None
+        if sample:
+            self.numerics.observe_sample(step + n, sample)
+
+    def _numerics_blame(self, bad_step: int, batch, idx: Optional[int]):
+        """Culprit-named non-finite blame: the bad step's batch through the
+        train fn's blame probe (a grad and param leaf census, no update),
+        then the `train_nonfinite` flight event and dump, BEFORE the
+        rollback destroys the evidence. The probe's wall time is booked as
+        rollback_waste. `idx` selects the bad step's row of a stacked
+        chunk batch."""
+        probe = getattr(self.worker.train_fn, "nonfinite_blame", None)
+        if probe is None:
+            return  # a plain train fn has no loss closure to probe
+        args = batch if isinstance(batch, (tuple, list)) else (batch,)
+        if idx is not None:
+            args = tuple(a[idx] for a in args)
+        try:
+            if self.ledger is not None:
+                with self.ledger.measure("rollback_waste"):
+                    report = probe(bad_step + 1, *args)
+            else:
+                report = probe(bad_step + 1, *args)
+        except Exception as e:  # never let forensics mask the recovery
+            print(f"[resilient] non-finite blame probe failed at step "
+                  f"{bad_step}: {type(e).__name__}: {e}", file=sys.stderr)
+            return
+        self.numerics.observe_nonfinite(bad_step, report)
 
     # ---- preemption ----
     def _install_signal_handlers(self):
@@ -582,6 +649,11 @@ class ResilientTrainer:
                         self._event("bad_loss", bad_step,
                                     value=str(float(vec[bad[0]])),
                                     chunk_start=step)
+                        if self.numerics is not None:
+                            # blame BEFORE abort/rollback destroys the
+                            # evidence (params are about to be restored)
+                            self._numerics_blame(bad_step, batch,
+                                                 idx=int(bad[0]))
                         if self.config.nan_policy == "abort":
                             raise UnrecoverableError(
                                 f"non-finite loss {float(vec[bad[0]])} at "
@@ -595,6 +667,8 @@ class ResilientTrainer:
                     val = _loss_value(loss)
                     if val is not None and not math.isfinite(val):
                         self._event("bad_loss", step, value=str(val))
+                        if self.numerics is not None:
+                            self._numerics_blame(step, batch, idx=None)
                         if self.config.nan_policy == "abort":
                             raise UnrecoverableError(
                                 f"non-finite loss {val} at step {step} "
@@ -609,6 +683,12 @@ class ResilientTrainer:
                                         consecutive=esc["skips"])
                             step += 1  # skip the batch, don't checkpoint it
                         continue
+                if self.numerics is not None:
+                    # clean step(s): feed the spike sentinel and (on the
+                    # numerics_interval) sample the in-step telemetry
+                    self._numerics_tick(
+                        step, n, [float(v) for v in vec] if n > 1
+                        else ([] if val is None else [val]))
                 esc["skips"] = 0
                 last_loss = loss
                 step += n

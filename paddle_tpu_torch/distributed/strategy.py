@@ -216,9 +216,8 @@ class DistributedStrategy:
         # at the default.
         self.scan_steps = 1
         # parity-plus: arm the training numerics observatory
-        # (obs.numerics): per-group grad/param norms and update ratios.
-        # Off by default; the port's step refuses it until that module is
-        # ported.
+        # (obs.numerics): per-group grad/param norms and update ratios
+        # computed by the step (parallel/api.py). Off by default.
         self.numerics = False
         self.without_graph_optimization = False
         self.asp = False

@@ -4,8 +4,10 @@ paddle_tpu/obs/flops.py).
 `train_flops_per_step` is the 6·N·D formula for one transformer train
 step, counting an MoE model's active parameters;
 `conv_train_flops_per_step` a conv net's step from its forward MACs
-(`paddle_tpu_torch.flops`); `peak_flops` is the
-published dense bf16 rate of the card the port runs on. Stdlib only.
+(`paddle_tpu_torch.flops`); `decode_flops_per_token` and `decode_mfu`
+the 2·N decode formula and the effective decode utilization the serving
+economics ledger reports; `peak_flops` is the published dense bf16 rate
+of the card the port runs on. Stdlib only.
 """
 from __future__ import annotations
 
@@ -43,3 +45,19 @@ def conv_train_flops_per_step(fwd_mac_flops: float, batch: int) -> float:
     """A conv net's train-step FLOPs from one sample's forward MACs:
     2 FLOPs a MAC, and forward plus backward ~ 3x the forward."""
     return 3.0 * (2.0 * float(fwd_mac_flops)) * batch
+
+
+def decode_flops_per_token(n_params: int) -> float:
+    """2·N forward-only FLOPs a generated token (KV-cache decode)."""
+    return 2.0 * n_params
+
+
+def decode_mfu(flops_per_token: float, tokens: int, seconds: float,
+               peak_flops_total: float):
+    """Effective decode MFU: decode FLOP/s achieved over the peak. None
+    when an input is degenerate (no tokens, no seconds, no peak)."""
+    if not (flops_per_token and tokens and seconds and peak_flops_total):
+        return None
+    if seconds <= 0 or peak_flops_total <= 0:
+        return None
+    return flops_per_token * tokens / seconds / peak_flops_total

@@ -9,10 +9,11 @@ paddle_tpu/obs/prom.py):
   counters fed by `ResilientTrainer`, with the JAX package's family
   names;
 - `MetricsServer` — a tiny opt-in stdlib HTTP exporter (`metrics_port=`)
-  serving `/metrics`, `/debug/flightrecorder` and `/healthz`. The JAX
-  server's `/debug/compiles` and `/debug/numerics` read the compile and
-  numerics observatories, which the port does not have yet (ROADMAP §1
-  items 9 and 7f); they answer 404 here.
+  serving `/metrics`, `/debug/flightrecorder`, `/debug/numerics` (the
+  process-current numerics observatory's snapshot, or `{"armed":
+  false}`) and `/healthz`. The JAX server's `/debug/compiles` reads the
+  compile observatory, which the port does not have yet (ROADMAP §1 item
+  9); it answers 404 here.
 
 Stdlib only.
 """
@@ -174,7 +175,7 @@ class TrainingMetrics:
         self.ledger = ledger        # obs.goodput.GoodputLedger
         self.hbm = hbm              # obs.goodput.HBMTelemetry
         self.sentinel = sentinel    # obs.goodput.RecompileSentinel
-        self.numerics = numerics    # a numerics observatory (not ported)
+        self.numerics = numerics    # obs.numerics.NumericsObservatory
         self.ckpt = ckpt            # checkpoint.AsyncCheckpointManager
         self.counters: Dict[str, int] = {
             v: 0 for v in self._EVENT_COUNTERS.values()}
@@ -295,7 +296,8 @@ class MetricsServer:
     """Opt-in stdlib HTTP exporter for processes without a ServingServer
     (trainers): GET /metrics renders the given providers, GET
     /debug/flightrecorder snapshots the global flight recorder, GET
-    /healthz answers ok. Bind port 0 for an ephemeral port (tests)."""
+    /debug/numerics the current numerics observatory, GET /healthz
+    answers ok. Bind port 0 for an ephemeral port (tests)."""
 
     def __init__(self, render_fns: Sequence[Callable[[], str]],
                  host: str = "127.0.0.1", port: int = 0):
@@ -322,6 +324,10 @@ class MetricsServer:
                 elif self.path == "/debug/flightrecorder":
                     from .flight_recorder import flight_recorder
                     body = json.dumps(flight_recorder().snapshot()).encode()
+                    self._reply(200, body, "application/json")
+                elif self.path == "/debug/numerics":
+                    from .numerics import debug_snapshot
+                    body = json.dumps(debug_snapshot()).encode()
                     self._reply(200, body, "application/json")
                 elif self.path == "/healthz":
                     self._reply(200, b"ok\n", "text/plain")

@@ -10,9 +10,8 @@ tests get deterministic timelines and MonotonicClock timelines interleave
 with `RecordEvent` spans (both CLOCK_MONOTONIC) in the chrome export.
 
 The derived phase spans TILE the request's lifetime: their durations sum
-exactly to the recorded latency. `BatchingEngine` records these
-timelines; `LLMEngine`'s `trace=` waits for the serving-observability
-slice.
+exactly to the recorded latency. `BatchingEngine` and `LLMEngine`
+(`submit(trace=True)`) record these timelines.
 """
 from __future__ import annotations
 

@@ -32,10 +32,10 @@ as the JAX step does on a one-device mesh:
 - the LARS and LAMB swaps (`plan.optimizer`).
 What needs several ranks (pipeline, LocalSGD, sequence parallelism over a
 `sep` axis, a mesh over more than one device) raises and names ROADMAP §1
-item 8; asp, qat and the numerics observatory raise and name the item
-that ports their modules. `sync_batch_norm` converts the model's
-BatchNorms to SyncBatchNorm in `parallelize`, before the step is built,
-as the JAX parallelize does; at one device they are BatchNorm.
+item 8; asp and qat raise and name the item that ports their modules.
+`sync_batch_norm` converts the model's BatchNorms to SyncBatchNorm in
+`parallelize`, before the step is built, as the JAX parallelize does; at
+one device they are BatchNorm.
 
 A model with buffers (BatchNorm's running statistics) moves them in
 place in its forward, once a step, as the JAX step carries them; with
@@ -50,6 +50,24 @@ The optimizer gets each leaf's structured name beside its gradient (the
 keys of the JAX compiled path's params dict), so AdamW's decay filter and
 lr_ratio see `gpt.layers.0.norm1.weight` as they do there.
 
+Numerics (`numerics=True`, or a plan compiled from `strategy.numerics`)
+arms the in-step telemetry of obs/numerics.py: per-group gradient norms,
+parameter norms and update ratios l2(new - old) / l2(old), as 0-d fp32
+tensors in `_extras["numerics"]` under the JAX keys. The JAX step reads
+them from its functional old and new parameters; here the optimizer
+updates in place, so the armed step reads the gradients (unscaled,
+before the merge and the clip, zeroed on a skipped fp16 step, as JAX
+reads them) before they are dropped, and keeps a copy of the parameters
+it is about to update. A ScanTrainStep computes them on the last step of
+each chunk only, the one whose values the JAX chunk leaves in its
+carry. `numerics_host_sample()` reads them in one copy, and
+`nonfinite_blame(step, *batch)` counts the non-finite elements of every
+gradient and parameter on the given batch (the loss differentiated
+again with `torch.autograd.grad`, no update): the live gradients,
+optimizer state, model buffers and RNG state are as they were, and an
+armed step's probe replays the RNG state its `step` started from, so it
+sees that step's dropout masks.
+
 The model's parameters are updated in place (see optimizer/optimizer.py);
 `state_dict()` is the model's. The gradients are dropped after every
 step. The step runs on CUDA unless `device="cpu"` (or a one-device CPU
@@ -58,24 +76,25 @@ mesh) is given, and raises without a GPU otherwise.
 from __future__ import annotations
 
 import contextlib
+import time
 import warnings
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.random import rng_restore, rng_snapshot
 from ..distributed.fleet.utils.recompute import recompute
-from ..obs.numerics import all_finite
+from ..obs.numerics import (all_finite, group_index, in_step_telemetry,
+                            nonfinite_count, telemetry_groups, telemetry_keys)
 
 _MULTI_RANK = "needs several ranks (ROADMAP §1 item 8)"
 # plan fields whose modules another item ports
 _REFUSED = (("asp", "2:4 sparsity (incubate/asp) waits for ROADMAP §1 "
              "item 9"),
             ("qat", "quantization-aware training (quantization/) waits "
-             "for ROADMAP §1 item 9"),
-            ("numerics", "the numerics observatory (obs/numerics.py) waits "
-             "for ROADMAP §1 item 7f"))
+             "for ROADMAP §1 item 9"))
 
 
 def _resolve_mesh(mesh, device) -> torch.device:
@@ -184,16 +203,18 @@ class ShardedTrainStep:
         loss = step(input_ids, labels)              # 0-d fp32 on the device
 
     With `plan=` it executes the strategy's AMP, loss scaling, recompute,
-    gradient merge, offload and optimizer swap (module docstring).
+    gradient merge, offload and optimizer swap; `numerics=True` (or the
+    plan's) arms the in-step telemetry (module docstring).
     """
 
     def __init__(self, model, optimizer, mesh=None,
                  loss_fn: Optional[Callable] = None, zero_stage: int = 1,
-                 plan=None, device=None):
+                 plan=None, device=None, numerics: bool = False):
         if plan is not None:
             _refuse(plan)
             zero_stage = plan.zero_stage
             optimizer = plan.optimizer or optimizer
+            numerics = numerics or bool(getattr(plan, "numerics", False))
         if zero_stage not in (0, 1, 2, 3):
             raise ValueError(f"zero_stage must be 0..3, got {zero_stage}")
         self.device = _resolve_mesh(mesh, device)
@@ -267,6 +288,21 @@ class ShardedTrainStep:
                                                device=dev)
             extras["bad_steps"] = torch.zeros((), dtype=torch.int32,
                                               device=dev)
+        # the numerics observatory's in-step telemetry, under the JAX keys
+        self.numerics_armed = bool(numerics)
+        self._param_sizes = {k: p.numel() or 1
+                             for k, p in zip(self._names, self._params)}
+        self._step_rng: Dict[int, tuple] = {}  # armed: the RNG state each
+        #                                        step of the last call began
+        #                                        from, for the blame probe
+        if self.numerics_armed:
+            self._num_groups = telemetry_groups(self._names)
+            self._num_index = torch.tensor(
+                group_index(self._num_groups, self._names),
+                dtype=torch.int64, device=dev)
+            extras["numerics"] = {
+                k: torch.zeros((), dtype=torch.float32, device=dev)
+                for k in telemetry_keys(self._num_groups)}
         self._extras = extras
 
         if amp_cfg is not None:
@@ -331,12 +367,24 @@ class ShardedTrainStep:
                  for g in grads]
         return grads, finite
 
-    def _train_step(self, arrays, lr, step=None):
+    def _leaf_norms(self, tensors):
+        """Each tensor's l2 norm as a 0-d fp32 tensor (0 for None), in one
+        multi-tensor pass."""
+        have = [t for t in tensors if t is not None]
+        norms = iter(torch._foreach_norm(have, 2, dtype=torch.float32)
+                     if have else ())
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        return [next(norms) if t is not None else zero for t in tensors]
+
+    def _train_step(self, arrays, lr, step=None, telemetry=True):
         """One step on staged arrays with lr a 0-d fp32 tensor on the
         device and `step` the 1-based global step (gradient merge applies
-        where step % k == 0). Returns the detached (unscaled) loss."""
+        where step % k == 0). Returns the detached (unscaled) loss. An
+        armed step computes the telemetry when `telemetry` is set."""
         if step is None:
             step = self._step_count
+        if self.numerics_armed:
+            self._step_rng[step] = rng_snapshot()
         scale = self._extras.get("loss_scale")
         loss = self._compute_loss(*arrays)
         (loss if scale is None else loss * scale).backward()
@@ -344,6 +392,13 @@ class ShardedTrainStep:
         finite = None
         if self._use_scaler:
             grads, finite = self._scale_update(grads)
+        old = None
+        if self.numerics_armed and telemetry:
+            # the gradients the JAX telemetry reads (unscaled, before the
+            # merge and the clip) and a copy of the parameters before the
+            # update (a multi-tensor op, not a copy a leaf)
+            gn = self._leaf_norms(grads)
+            old = torch._foreach_mul([p.detach() for p in self._params], 1.0)
         do_apply = True
         if self._accum_k > 1:
             # bank every step (the accumulator in the parameter's dtype);
@@ -375,7 +430,26 @@ class ShardedTrainStep:
                     torch.zeros_like(self._extras["accum_n"])
                     if finite is None else
                     torch.where(finite, 0, self._extras["accum_n"]).int())
+        if old is not None:
+            self._extras["numerics"] = self._telemetry(gn, old)
         return loss.detach()
+
+    def _telemetry(self, gn, old):
+        """The telemetry dict from the gradients' leaf norms and the
+        parameters before the update (`old`, consumed: it becomes old -
+        new in place): the leaves' squares summed a group in one
+        index_add over the four families."""
+        new = [p.detach() for p in self._params]
+        fp32 = torch.float32
+        wn = torch._foreach_norm(old, 2, dtype=fp32)
+        pn = torch._foreach_norm(new, 2, dtype=fp32)
+        torch._foreach_sub_(old, new)
+        dn = torch._foreach_norm(old, 2, dtype=fp32)
+        sq = torch.stack([torch.stack(n) for n in (gn, pn, wn, dn)]).square()
+        sums = torch.zeros((4, len(self._num_groups)), dtype=fp32,
+                           device=self.device).index_add_(
+                               1, self._num_index, sq)
+        return in_step_telemetry(self._num_groups, *sums)
 
     def _update(self, grads, lr, do_update):
         """Clip and update, gated by `do_update` (None: always), with the
@@ -414,6 +488,7 @@ class ShardedTrainStep:
         self._step_count += 1
         lr = torch.tensor(self.optimizer.get_lr(), dtype=torch.float32,
                           device=self.device)
+        self._step_rng.clear()
         return self._train_step(arrays, lr, self._step_count)
 
     @property
@@ -421,6 +496,66 @@ class ShardedTrainStep:
         """The dynamic loss scale as a float (a host read), or None."""
         s = self._extras.get("loss_scale")
         return None if s is None else float(s)
+
+    # ---- numerics observatory hooks (obs/numerics.py) ----
+    def numerics_host_sample(self) -> Optional[Dict[str, float]]:
+        """Host view of the telemetry the armed step left in
+        `_extras["numerics"]`, with the AMP loss scale and its good and
+        bad counters when present: one copy of a few scalars. None when
+        the step was built without numerics."""
+        tele = self._extras.get("numerics")
+        if tele is None:
+            return None
+        keys = list(tele) + [k for k in ("loss_scale", "good_steps",
+                                         "bad_steps") if k in self._extras]
+        vals = torch.stack([tele[k] if k in tele else
+                            self._extras[k].float() for k in keys])
+        return dict(zip(keys, vals.cpu().tolist()))
+
+    def nonfinite_blame(self, step: int, *args) -> Dict:
+        """Per-leaf non-finite census on the current parameters and the
+        given one-step batch: the step's own loss (its autocast and
+        recompute) differentiated with `torch.autograd.grad`, no update.
+        Returns ``{"loss": float, "sizes": {name: numel}, "grads": {name:
+        count>0}, "params": {name: count>0}, "probe_seconds": float}``,
+        as the JAX probe does. It leaves the live gradients, the
+        optimizer state, the model's buffers (BatchNorm statistics) and
+        the RNG state as they were; the forward runs on the RNG state
+        that step `step` began from when the armed step kept it (the
+        steps of its last call), so dropout masks are that step's."""
+        t0 = time.perf_counter()
+        arrays = [self._stage(a) for a in args]
+        rng_now = rng_snapshot()
+        buffers = [(b, b.detach().clone()) for b in self.model.buffers()]
+        at = self._step_rng.get(int(step))
+        if at is not None:
+            rng_restore(at)
+        try:
+            loss = self._compute_loss(*arrays)
+            grads = torch.autograd.grad(loss, self._params,
+                                        allow_unused=True)
+            zero = torch.zeros((), dtype=torch.int32, device=self.device)
+            counts = torch.stack(
+                [nonfinite_count(g) if g is not None else zero
+                 for g in grads]
+                + [nonfinite_count(p.detach()) for p in self._params])
+            # one copy back; float64 holds every count exactly
+            host = torch.cat([loss.detach().double().reshape(1),
+                              counts.double()]).cpu().tolist()
+        finally:
+            rng_restore(rng_now)
+            with torch.no_grad():
+                for b, v in buffers:
+                    b.copy_(v)
+        n = len(self._names)
+        g, p = host[1:1 + n], host[1 + n:]
+        return {
+            "loss": host[0],
+            "sizes": dict(self._param_sizes),
+            "grads": {k: int(c) for k, c in zip(self._names, g) if c},
+            "params": {k: int(c) for k, c in zip(self._names, p) if c},
+            "probe_seconds": round(time.perf_counter() - t0, 6),
+        }
 
     def state_dict(self):
         return self.model.state_dict()
@@ -441,11 +576,12 @@ class ScanTrainStep(ShardedTrainStep):
 
     def __init__(self, model, optimizer, mesh=None, scan_steps: int = 8,
                  loss_fn: Optional[Callable] = None, zero_stage: int = 1,
-                 plan=None, device=None):
+                 plan=None, device=None, numerics: bool = False):
         if plan is not None and getattr(plan, "scan_steps", 1) > 1:
             scan_steps = plan.scan_steps
         super().__init__(model, optimizer, mesh, loss_fn=loss_fn,
-                         zero_stage=zero_stage, plan=plan, device=device)
+                         zero_stage=zero_stage, plan=plan, device=device,
+                         numerics=numerics)
         self.scan_steps = int(scan_steps)
         if self.scan_steps < 1:
             raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
@@ -504,9 +640,10 @@ class ScanTrainStep(ShardedTrainStep):
         first = self._step_count + 1
         self._step_count += K
         losses = torch.empty((K,), dtype=torch.float32, device=self.device)
+        self._step_rng.clear()
         for i in range(K):
             losses[i] = self._train_step([a[i] for a in arrays], lr_dev[i],
-                                         first + i)
+                                         first + i, i == K - 1)
         self.dispatch_count += 1
         return losses
 

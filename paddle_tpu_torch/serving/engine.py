@@ -18,12 +18,17 @@ single requests and batched dispatches of one predict callable.
   (watchdog, typed `DispatchFailedError`, circuit breaker with
   `on_break`) and the fault plan's `dispatch_*` clauses, keyed on the
   engine's dispatch index.
+- Economics (`EngineConfig(economics=True)`): each pump pass runs inside
+  the `ServingLedger`'s ``measure("host")`` frame, and each successful
+  dispatch's span is booked as `prefill_compute` (real rows useful, the
+  pow2 padding the waste `token_efficiency` shows). `predict_fn` returns
+  numpy, so the span already ends at the result on the host.
 
 `predict_fn` takes a list of numpy arrays (a shared leading batch dim) and
 returns a sequence of output arrays; a torch model on the card is wrapped
 by the caller (numpy in, numpy out). `from_predictor` waits for the
-port's `inference/` (ROADMAP item 9); the economics ledger and the
-compile observatory (`EngineConfig.economics` / `.observatory`) raise.
+port's `inference/` (ROADMAP item 9); the compile observatory
+(`EngineConfig.observatory`) raises.
 
 Every flush decision is a pure function of `clock.now()`. Under a
 `SimClock` the engine runs threadless and `serving/sim.py` drives
@@ -91,8 +96,7 @@ class EngineConfig:
     breaker_threshold: int = 3     # consecutive failed dispatches that open
     #                                the engine circuit breaker
     retry_after_s: float = 1.0     # backpressure hint on overload rejects
-    economics: bool = False        # the serving economics ledger: not
-    #                                ported yet (ROADMAP item 7f)
+    economics: bool = False        # arm the serving economics ledger
     observatory: bool = False      # the compile observatory: not ported
     #                                yet (ROADMAP item 9)
 
@@ -114,10 +118,6 @@ class EngineConfig:
             raise ValueError(
                 f"breaker_threshold must be >= 1, got "
                 f"{self.breaker_threshold}")
-        if self.economics:
-            raise NotImplementedError(
-                "EngineConfig(economics=True): the serving economics ledger "
-                "(obs/serving_ledger.py) is not ported yet, ROADMAP item 7f")
         if self.observatory:
             raise NotImplementedError(
                 "EngineConfig(observatory=True): the compile observatory "
@@ -209,6 +209,13 @@ class BatchingEngine:
         # finished-request timelines, bounded LRU (served by the HTTP
         # layer's /debug/requests endpoint)
         self.timelines = TimelineStore(256)
+        # serving economics: None unless armed, so every hook costs one
+        # predicate when disabled
+        self.ledger = None
+        if self.config.economics:
+            from ..obs.serving_ledger import ServingLedger
+            self.ledger = ServingLedger(clock=self.clock.now)
+        self.metrics.ledger = self.ledger
     # ---- lifecycle ----
     def start(self) -> "BatchingEngine":
         """Run the scheduler on a background thread (production mode). Not
@@ -432,7 +439,16 @@ class BatchingEngine:
         """One scheduler pass: drop expired requests, dispatch every batch
         that is due at clock.now(). Returns the number of dispatches. This
         is THE scheduler: the background thread and the sim harness both
-        call it."""
+        call it. With economics armed the pass runs inside the ledger's
+        ``measure("host")`` frame, out of which `_dispatch` books each
+        predict's span."""
+        led = self.ledger
+        if led is None:
+            return self._pump_inner()
+        with led.measure("host"):
+            return self._pump_inner()
+
+    def _pump_inner(self) -> int:
         dispatched = 0
         while True:
             batch = self._take_batch()
@@ -545,6 +561,7 @@ class BatchingEngine:
                         [a,
                          np.zeros((padded - total,) + a.shape[1:], a.dtype)],
                         axis=0) for a in args]
+            tc0 = self.clock.now() if self.ledger is not None else None
             outs = list(self._supervised_predict(args))
         except Exception as e:
             for r in batch:
@@ -552,6 +569,13 @@ class BatchingEngine:
                 r.future.set_exception(e)
             self.metrics.on_fail(len(batch))
             return
+        if self.ledger is not None:
+            # predict_fn returned host arrays, so the span ends at the
+            # result; real rows are "prefill" positions, the pow2 pad rows
+            # the waste token_efficiency shows; no row ownership here
+            self.ledger.book_dispatch(
+                self.clock.now() - tc0, prefill_positions=total,
+                decode_positions=0, total_positions=padded, owners=())
         # un-pad, then split batched outputs by request row counts
         trimmed = []
         for o in outs:

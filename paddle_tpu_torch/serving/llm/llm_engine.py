@@ -110,14 +110,32 @@ table, the sampling operands) are built on the engine thread before the
 attempt; the attempt touches only them, the model and the slabs, and
 carries its own `torch.no_grad` and CUDA stream (both are per thread).
 
+Observability, as in the JAX engine. `submit(trace=True)` keeps a
+request timeline (`obs/trace.py`) on the handle (`handle.trace`,
+`handle.timeline()`): submitted, admitted, the prefix lookup and KV
+uploads, each prefill chunk, the first token, each decode step, and the
+outcome; every terminal path concludes it once, into `timelines` (the
+last `trace_buffer`). `economics=True` arms a `ServingLedger` and an
+`SLOBurnMonitor` (`obs/serving_ledger.py`, attached to the metrics as
+`ledger` and `burn`): each pump pass runs inside the ledger's
+``measure("host")`` frame; each successful step's span, from before its
+first launch to the readback of its tokens, is booked to
+`prefill_compute` and `decode_compute` by advanced positions and
+apportioned to the rows' tenants and SLO classes; the sampling operands,
+the host tier's spills and uploads are booked as their own host phases;
+retried, probed and abandoned attempts are not booked. Each request's
+TTFT against `slo_ttft_target_ms`, and every shed, deadline expiry and
+engine failure, is an outcome for the burn monitor. Disarmed, each hook
+is one predicate. Because the port launches op by op, the booked span
+holds the host's enqueue time (serving_ledger.py says more).
+
 Under a `SimClock` the engine runs threadless and the harness calls
 `pump()`; under the default `MonotonicClock`, `start()` runs the same
 `pump()` on a scheduler thread.
 
 Not ported yet (each is a ROADMAP item): speculative decoding (and the
-draft pool's prefix cache), LoRA adapters, the serving economics ledger
-and `LLMMetrics.render`, the compile observatory, request tracing
-(`trace=`, `trace_buffer`), and rolling deploys with their cache flush.
+draft pool's prefix cache), LoRA adapters, the compile observatory, and
+rolling deploys with their cache flush.
 """
 from __future__ import annotations
 
@@ -135,6 +153,7 @@ import numpy as np
 import torch
 
 from ...obs.flight_recorder import flight_recorder
+from ...obs.trace import RequestTrace, TimelineStore
 from ...ops.attention import kv_write_guard
 from ..clock import Clock, MonotonicClock, SimClock
 from ..engine import DeadlineExceededError, RejectedError
@@ -195,6 +214,22 @@ class LLMEngineConfig:
     host_kv_bytes: int = 0         # host-RAM spill tier byte budget: > 0
     #                                keeps pages evicted under pressure in a
     #                                HostKVPool for onboarding at admission
+    # ---- observability ----
+    trace_buffer: int = 256        # finished request timelines kept in
+    #                                `timelines` (bounded LRU)
+    economics: bool = False        # arm the ServingLedger + SLOBurnMonitor;
+    #                                off = one predicate a hook, no clock
+    #                                reads
+    slo_burn_budget: float = 0.05       # error budget (bad-outcome share)
+    slo_burn_threshold: float = 14.4    # fire when burn >= this multiple
+    slo_burn_fast_window_s: float = 60.0
+    slo_burn_slow_window_s: float = 300.0
+    slo_burn_min_events: int = 10       # cold-start floor a window
+    slo_burn_capture_s: float = 0.0     # > 0: bounded profiler capture
+    slo_ttft_target_ms: Optional[Dict[str, float]] = None  # per-class TTFT
+    #                                targets feeding the burn monitor; a
+    #                                class absent from the dict counts every
+    #                                prefill as a good outcome
 
     def __post_init__(self):
         if self.num_slots < 1:
@@ -238,6 +273,37 @@ class LLMEngineConfig:
         if self.host_kv_bytes < 0:
             raise ValueError(
                 f"host_kv_bytes must be >= 0, got {self.host_kv_bytes}")
+        if self.trace_buffer < 1:
+            raise ValueError(
+                f"trace_buffer must be >= 1, got {self.trace_buffer}")
+        if not 0.0 < self.slo_burn_budget <= 1.0:
+            raise ValueError(
+                f"slo_burn_budget must be in (0, 1], got "
+                f"{self.slo_burn_budget}")
+        if self.slo_burn_threshold <= 0:
+            raise ValueError(
+                f"slo_burn_threshold must be > 0, got "
+                f"{self.slo_burn_threshold}")
+        if not (0.0 < self.slo_burn_fast_window_s
+                <= self.slo_burn_slow_window_s):
+            raise ValueError(
+                "slo_burn windows must satisfy 0 < fast <= slow, got "
+                f"fast={self.slo_burn_fast_window_s} "
+                f"slow={self.slo_burn_slow_window_s}")
+        if self.slo_burn_min_events < 1:
+            raise ValueError(
+                f"slo_burn_min_events must be >= 1, got "
+                f"{self.slo_burn_min_events}")
+        if self.slo_ttft_target_ms is not None:
+            for cls, target in self.slo_ttft_target_ms.items():
+                if cls not in SLO_CLASSES:
+                    raise ValueError(
+                        f"slo_ttft_target_ms keys must be SLO classes "
+                        f"{SLO_CLASSES}, got {cls!r}")
+                if target <= 0:
+                    raise ValueError(
+                        f"slo_ttft_target_ms[{cls!r}] must be > 0, got "
+                        f"{target}")
 
 
 class GenerationHandle:
@@ -255,6 +321,7 @@ class GenerationHandle:
         self.future: Future = Future()
         self.ttft_ms: Optional[float] = None
         self.rid: Optional[str] = None       # request id (always assigned)
+        self.trace: Optional[RequestTrace] = None   # submit(trace=True)
         self._lock = threading.Lock()
         self._tokens: List[int] = []
         self._logprobs: List[Optional[float]] = []
@@ -276,13 +343,18 @@ class GenerationHandle:
     def result(self, timeout: Optional[float] = None) -> np.ndarray:
         return self.future.result(timeout)
 
+    def timeline(self) -> Optional[dict]:
+        """The request's timeline when it was traced (complete once the
+        future has resolved), else None."""
+        return self.trace.to_dict() if self.trace is not None else None
+
 
 class _GenRequest:
     __slots__ = ("prompt", "max_new_tokens", "eos_token_id", "arrival",
                  "deadline", "handle", "slot", "emitted", "last_tok", "slo",
                  "cost", "chunk_off", "tenant", "attached_pages", "rid",
                  "want_logprobs", "sampling", "sample_offset", "gid",
-                 "dfa_state0", "kv_row", "submit_idx")
+                 "dfa_state0", "kv_row", "submit_idx", "trace")
 
     def __init__(self, prompt, max_new_tokens, eos_token_id, arrival,
                  deadline, slo, submit_idx=0, want_logprobs=False,
@@ -316,6 +388,7 @@ class _GenRequest:
         #                                   this admission emits
         self.gid: int = 0                 # grammar bank row (0: none)
         self.dfa_state0: int = 0          # DFA state at admission
+        self.trace: Optional[RequestTrace] = None   # None unless traced
 
 
 class _AttemptRevoked(RuntimeError):
@@ -373,11 +446,13 @@ class _StepArgs:
     the lengths, the block table and the slabs, and for a sampled step the
     sampling operands; `stream` is the CUDA stream current on the engine
     thread (None on the CPU), `mask_ms` the host time the sampling
-    operands took."""
+    operands took, and `mask_s` the same on the engine's clock (None
+    unless the ledger is armed)."""
 
     __slots__ = ("toks", "pos", "adv", "toks_d", "pos_d", "seq_lens",
                  "table", "slabs", "sampled", "ctr", "constrained", "keys",
-                 "params", "bank", "rows", "stream", "mask_ms")
+                 "params", "bank", "rows", "stream", "mask_ms",
+                 "mask_s")
 
 
 class LLMEngine:
@@ -447,6 +522,26 @@ class LLMEngine:
         # the write tokens of attempts that ended hung (the watchdog
         # abandoned them, or an injected hang), newest last
         self.abandoned_attempts: deque = deque(maxlen=64)
+        # finished request timelines (bounded LRU)
+        self.timelines = TimelineStore(self.config.trace_buffer)
+        # serving economics: both None unless armed, so every hook costs
+        # one predicate when disabled
+        self.ledger = None
+        self.burn = None
+        self._spill_booked = 0.0     # spill seconds already booked
+        if self.config.economics:
+            from ...obs.serving_ledger import ServingLedger, SLOBurnMonitor
+            self.ledger = ServingLedger(clock=self.clock.now)
+            self.burn = SLOBurnMonitor(
+                clock=self.clock.now,
+                budget=self.config.slo_burn_budget,
+                threshold=self.config.slo_burn_threshold,
+                fast_window_s=self.config.slo_burn_fast_window_s,
+                slow_window_s=self.config.slo_burn_slow_window_s,
+                min_events=self.config.slo_burn_min_events,
+                capture_s=self.config.slo_burn_capture_s)
+        self.metrics.ledger = self.ledger
+        self.metrics.burn = self.burn
         if fault_plan is None:
             from ...utils.fault_injection import global_plan
             fault_plan = global_plan()
@@ -481,9 +576,10 @@ class LLMEngine:
                     else None)
         a.sampled = ctr is not None
         a.ctr, a.constrained = ctr, constrained
-        a.keys = a.params = a.bank = a.rows = a.mask_ms = None
+        a.keys = a.params = a.bank = a.rows = a.mask_ms = a.mask_s = None
         if a.sampled:
             t0 = time.perf_counter()
+            tl0 = self.clock.now() if self.ledger is not None else None
             tab = self.sampling_table
             a.keys = tab.lane_keys(ctr)
             a.params = tab.device_args()
@@ -492,6 +588,8 @@ class LLMEngine:
             a.rows = torch.from_numpy(
                 np.arange(N) * C + np.maximum(adv - 1, 0)).to(dev)
             a.mask_ms = (time.perf_counter() - t0) * 1e3
+            if tl0 is not None:
+                a.mask_s = self.clock.now() - tl0
         return a
 
     @torch.no_grad()
@@ -632,11 +730,14 @@ class LLMEngine:
             if not drain:
                 for q in self._queues.values():
                     while q:
-                        q.popleft().handle.future.set_exception(
+                        req = q.popleft()
+                        self._conclude(req, "rejected:shutdown")
+                        req.handle.future.set_exception(
                             RejectedError("engine shut down before prefill",
                                           reason="shutdown"))
                         self.metrics.on_reject("shutdown")
                 for slot, req in list(self._active.items()):
+                    self._conclude(req, "rejected:shutdown")
                     req.handle.future.set_exception(RejectedError(
                         "engine shut down mid-decode", reason="shutdown"))
                     self.metrics.on_reject("shutdown")
@@ -673,12 +774,15 @@ class LLMEngine:
             stranded = 0
             for q in self._queues.values():
                 while q:
-                    q.popleft().handle.future.set_exception(RejectedError(
+                    req = q.popleft()
+                    self._conclude(req, "rejected:drain_timeout")
+                    req.handle.future.set_exception(RejectedError(
                         "engine drain timed out before prefill",
                         reason="drain_timeout"))
                     self.metrics.on_reject("drain_timeout")
                     stranded += 1
             for slot, req in list(self._active.items()):
+                self._conclude(req, "rejected:drain_timeout")
                 req.handle.future.set_exception(RejectedError(
                     "engine drain timed out mid-decode",
                     reason="drain_timeout"))
@@ -714,6 +818,7 @@ class LLMEngine:
             for q in self._queues.values():
                 while q:
                     req = q.popleft()
+                    self._conclude(req, "rejected:circuit_open")
                     req.handle.future.set_exception(RejectedError(
                         "engine circuit breaker open after repeated "
                         "dispatch failures", reason="circuit_open"))
@@ -734,6 +839,20 @@ class LLMEngine:
                        tenant: Optional[str] = None):
         flight_recorder().record("reject", engine="llm", reason=reason,
                                  rid=rid, tenant=tenant)
+
+    def _conclude(self, req: _GenRequest, outcome: str,
+                  now: Optional[float] = None):
+        """Finish a traced request's timeline on its terminal path
+        (completed, expired, quarantined, failed, shed, rejected, handed
+        off): close its phase spans, keep it in `timelines` and emit its
+        spans onto the chrome trace. Once a request: a second terminal
+        path leaves the first outcome. One predicate when untraced."""
+        tr = req.trace
+        if tr is None or tr.outcome is not None:
+            return
+        tr.finish(self.clock.now() if now is None else now, outcome)
+        self.timelines.put(tr.rid, tr.to_dict())
+        tr.emit_chrome()
 
     # ---- admission ----
     def _queue_len_locked(self) -> int:
@@ -816,12 +935,15 @@ class LLMEngine:
                     break
             if victim is None:
                 return "queue_full" if depth_full else "token_budget"
+            self._conclude(victim, "shed")
             victim.handle.future.set_exception(RejectedError(
                 f"shed ({victim.slo}) to admit {slo} traffic under "
                 "overload", reason="shed",
                 retry_after_s=self.config.retry_after_s))
             self.metrics.on_reject("shed", tenant=victim.tenant)
             self.metrics.on_shed(victim.slo)
+            if self.burn is not None:
+                self.burn.observe(victim.slo, False, outcome="shed")
             self._record_reject("shed", rid=victim.rid,
                                 tenant=victim.tenant)
 
@@ -835,7 +957,8 @@ class LLMEngine:
                lane: Optional[dict] = None,
                tenant: Optional[str] = None,
                rid: Optional[str] = None,
-               kv_row: Optional[dict] = None) -> GenerationHandle:
+               kv_row: Optional[dict] = None,
+               trace: bool = False) -> GenerationHandle:
         """Admit one prompt (1-D int token ids).
 
         `tenant` names the request's isolation domain
@@ -845,6 +968,8 @@ class LLMEngine:
         `export_stream`). `kv_row` (an `export_stream` payload's) carries
         the KV of the prompt's first `kv_row["length"]` tokens, which
         admission lands in the slot instead of prefilling them.
+        `trace=True` keeps the request's timeline on the handle and, once
+        it ends, in `timelines`.
 
         `sampling` carries the request's sampling contract; None is
         greedy. `sample_offset` is the stream index of the first token
@@ -965,6 +1090,12 @@ class LLMEngine:
             req.gid = gid
             req.dfa_state0 = dstate0
             req.kv_row = kv_row
+            if trace:
+                req.trace = RequestTrace(rid, now, slo=slo, tenant=tenant)
+                req.trace.event("submitted", now, prompt_len=int(prompt.size),
+                                max_new_tokens=mnt,
+                                submit_idx=self._submit_idx)
+                req.handle.trace = req.trace
             self._submit_idx += 1
             self._queues[slo].append(req)
             self.metrics.on_submit(self._queue_len_locked(), slo=slo,
@@ -985,6 +1116,7 @@ class LLMEngine:
         gkey = sampling.grammar_key()
         gid = tab.lookup(gkey)
         if gid is None:
+            tg0 = self.clock.now() if self.ledger is not None else None
             dfa = compile_grammar(sampling.grammar, tab.vocab_size, eos)
             try:
                 gid = tab.intern(gkey, dfa)
@@ -995,6 +1127,8 @@ class LLMEngine:
                 self._record_reject("grammar_capacity", rid=rid,
                                     tenant=tenant)
                 raise RejectedError(str(e), reason="grammar_capacity")
+            if tg0 is not None:
+                self.ledger.book("sample_mask", self.clock.now() - tg0)
             self.metrics.set_grammars(tab.grammars_compiled)
         if not sample_offset:
             return gid, 0
@@ -1120,6 +1254,7 @@ class LLMEngine:
                 },
                 "lane": self._lane(req, self.sampling_table.dfa_state[slot]),
             }
+            self._conclude(req, "handoff")
             self._free_slot_locked(slot)
             del self._active[slot]
             self.metrics.set_slots(self.pool.active_slots(),
@@ -1136,8 +1271,19 @@ class LLMEngine:
         """One scheduler pass: drop expired queued requests, admit queued
         requests into free slots (bookkeeping only), run ONE unified step
         and retire finished or expired rows. Returns 1 when the step
-        carried a decode row, else 0."""
+        carried a decode row, else 0. With economics armed the pass runs
+        inside the ledger's ``measure("host")`` frame, out of which
+        `_step_once` books the successful step's span."""
+        led = self.ledger
+        if led is None:
+            return self._pump_inner()
+        with led.measure("host"):
+            return self._pump_inner()
+
+    def _pump_inner(self) -> int:
         now = self.clock.now()
+        # time-weighted slot occupancy: the level held since the last pass
+        self.metrics.observe_occupancy(now)
         self._drop_expired_queued(now)
         self._admit()
         n = self._step_once()
@@ -1156,6 +1302,15 @@ class LLMEngine:
                  for t, s in self.prefix_cache.tenant_stats.items()})
         if self.host_kv is not None:
             self.metrics.set_host_kv(self.host_kv.snapshot())
+            if self.ledger is not None and self.prefix_cache is not None:
+                # spills happen inside pool.allocate's pressure hook
+                # (mid-_admit); the cache sums their time and the pump
+                # books the new part as kv_spill
+                spill = self.prefix_cache.spill_seconds
+                if spill > self._spill_booked:
+                    self.ledger.book("kv_spill", spill - self._spill_booked)
+                    self._spill_booked = spill
+        self.metrics.set_fragmentation(self.pool.fragmentation_ratio())
         return n
 
     def _drop_expired_queued(self, now: float):
@@ -1167,10 +1322,14 @@ class LLMEngine:
                 alive = deque()
                 for r in q:
                     if r.deadline is not None and now >= r.deadline:
+                        self._conclude(r, "expired:queued", now)
                         r.handle.future.set_exception(DeadlineExceededError(
                             f"deadline expired after "
                             f"{(now - r.arrival) * 1e3:.1f}ms in queue "
                             "(dropped before prefill)"))
+                        if self.burn is not None:
+                            self.burn.observe(r.slo, False,
+                                              outcome="expired_queued")
                         expired += 1
                     else:
                         alive.append(r)
@@ -1208,12 +1367,20 @@ class LLMEngine:
                 req.slot = slot
                 req.chunk_off = 0
                 req.attached_pages = []
+                if req.trace is not None:
+                    t_adm = self.clock.now()
+                    req.trace.mark("admitted", t_adm)
+                    req.trace.event(
+                        "admitted", t_adm, slot=slot,
+                        queue_wait_ms=(t_adm - req.arrival) * 1e3)
                 ns = self._kv_ns(req.tenant)
                 bl = self.pool.block_len
                 if req.kv_row is not None:
                     # land the exported row in the slot's own pages; the
                     # next chunk's set_length claims them as a cold
                     # prefill would
+                    t0 = self.clock.now() if self.ledger is not None \
+                        else None
                     klen = int(req.kv_row["length"])
                     layers = req.kv_row["layers"]
                     for j in range(0, klen, bl):
@@ -1223,9 +1390,14 @@ class LLMEngine:
                                             for k, v in layers])
                     req.chunk_off = klen
                     self.kv_import_tokens += klen
+                    if t0 is not None:
+                        self.ledger.book("kv_onboard", self.clock.now() - t0)
                     flight_recorder().record(
                         "kv_import", engine="llm", rid=req.rid,
                         tokens=klen)
+                    if req.trace is not None:
+                        req.trace.event("kv_import", self.clock.now(),
+                                        tokens=klen)
                 elif self.prefix_cache is not None:
                     # cap at plen-1: one prompt token always prefills
                     plan = self.prefix_cache.acquire(
@@ -1240,12 +1412,19 @@ class LLMEngine:
                     self.prefix_cache.release(plan)
                     self.metrics.on_prefix_lookup(
                         req.tenant, plan.attach_len, len(req.prompt))
+                    if req.trace is not None:
+                        req.trace.event(
+                            "prefix_lookup", self.clock.now(),
+                            attach_len=plan.attach_len,
+                            prompt_len=len(req.prompt))
                 # host-tier onboard: from a block-aligned coverage end,
                 # walk the spilled blocks into the slot's own pages (a COW
                 # tail ends the walk); the completed prefill re-indexes
                 # them in the device trie
                 if (self.host_kv is not None and req.kv_row is None
                         and req.chunk_off % bl == 0):
+                    t0 = self.clock.now() if self.ledger is not None \
+                        else None
                     j = req.chunk_off // bl
                     onboarded = 0
                     while (j + 1) * bl <= len(req.prompt) - 1:
@@ -1259,9 +1438,16 @@ class LLMEngine:
                     if onboarded:
                         req.chunk_off = j * bl
                         self.host_onboard_tokens += onboarded * bl
+                        if t0 is not None:
+                            self.ledger.book("kv_onboard",
+                                             self.clock.now() - t0)
                         flight_recorder().record(
                             "kv_onboard", engine="llm", rid=req.rid,
                             blocks=onboarded, tokens=onboarded * bl)
+                        if req.trace is not None:
+                            req.trace.event(
+                                "kv_onboard", self.clock.now(),
+                                blocks=onboarded, tokens=onboarded * bl)
                 self.sampling_table.bind(slot, req.sampling or GREEDY,
                                          gid=req.gid,
                                          dfa_state=req.dfa_state0)
@@ -1325,13 +1511,23 @@ class LLMEngine:
                 constrained = modes["constrained"] > 0
                 args = self._step_args(toks, pos, adv,
                                        ctr if sampled else None, constrained)
+            if args.mask_s is not None:
+                self.ledger.book("sample_mask", args.mask_s)
             t0 = self.clock.now()
             attempts = self.config.dispatch_retries + 1
             last_err = None
             out = None
+            tc0 = tc1 = None
             for attempt in range(attempts):
+                if self.ledger is not None:
+                    # re-armed an attempt: a failed attempt's time stays
+                    # in the host phase; only the successful one's span is
+                    # booked as compute
+                    tc0 = self.clock.now()
                 try:
                     out = self._run_dispatch(kinds, self._attempt(args))
+                    if tc0 is not None:
+                        tc1 = self.clock.now()
                 except DispatchFailedError as e:
                     last_err = e
                     self.metrics.on_dispatch_failure(e.reason)
@@ -1357,7 +1553,27 @@ class LLMEngine:
                 self._fail_all_active(attempts, last_err)
                 self.supervisor.record_failure()
                 return 0
+            if tc1 is not None:
+                self._book_dispatch(args, tc1 - tc0, prefill_slots,
+                                    decode_slots)
             return self._commit(args, out, prefill_slots, decode_slots, t0)
+
+    def _book_dispatch(self, args: _StepArgs, seconds: float,
+                       prefill_slots, decode_slots):
+        """Book one successful step's span into the ledger, split by
+        advanced positions (each prefill row's chunk, one token a decode
+        row) and apportioned to the rows' tenants and SLO classes."""
+        with self._cond:
+            owners = [(self._active[s].tenant, self._active[s].slo,
+                       int(args.adv[s]))
+                      for s in prefill_slots if s in self._active]
+            decoded = [(self._active[s].tenant, self._active[s].slo, 1)
+                       for s in decode_slots if s in self._active]
+        self.ledger.book_dispatch(
+            seconds,
+            prefill_positions=int(sum(args.adv[s] for s in prefill_slots)),
+            decode_positions=len(decoded),
+            total_positions=int(args.toks.size), owners=owners + decoded)
 
     def _commit(self, args: _StepArgs, out, prefill_slots, decode_slots,
                 t0: float) -> int:
@@ -1383,10 +1599,22 @@ class LLMEngine:
                 self.pool.set_length(slot, off + n)
                 req.chunk_off = off + n
                 self.prefill_tokens += n
+                if req.trace is not None:
+                    req.trace.event("prefill_chunk", now, off=off, n=n)
                 if req.chunk_off >= len(req.prompt):
                     # final chunk landed: first token emitted, TTFT ends
                     req.handle.ttft_ms = (now - req.arrival) * 1e3
+                    if req.trace is not None:
+                        # the instant of ttft_ms, so the two reconcile
+                        req.trace.mark("first_token", now)
                     self.metrics.on_prefill(req.handle.ttft_ms, slo=req.slo)
+                    if self.burn is not None:
+                        target = (self.config.slo_ttft_target_ms
+                                  or {}).get(req.slo)
+                        self.burn.observe(
+                            req.slo,
+                            target is None or req.handle.ttft_ms <= target,
+                            outcome="ttft")
                     if self.prefix_cache is not None:
                         # index the prefill while the slot is active, so
                         # requests queued behind it attach at once
@@ -1407,6 +1635,9 @@ class LLMEngine:
                 if req is None:
                     continue
                 self.pool.set_length(slot, int(pos[slot]) + 1)
+                if req.trace is not None:
+                    req.trace.event("decode_step", now, tok=int(nxt[slot]),
+                                    n_active=len(decode_slots))
                 self._emit(req, slot, nxt, lps, new_dstate)
                 if self._finish_if_done(req, now):
                     del self._active[slot]
@@ -1472,6 +1703,7 @@ class LLMEngine:
             for slot, req, e in blamed:
                 if slot not in self._active:
                     continue
+                self._conclude(req, "quarantined")
                 req.handle.future.set_exception(DispatchFailedError(
                     f"request {req.submit_idx} quarantined: its rows "
                     f"reproduce the decode failure in isolation ({e})",
@@ -1513,11 +1745,18 @@ class LLMEngine:
         with self._cond:
             n_failed = len(self._active)
             for slot, req in list(self._active.items()):
+                self._conclude(req, "failed:engine")
                 req.handle.future.set_exception(DispatchFailedError(
                     f"decode dispatch failed {attempts} consecutive times; "
                     f"{len(req.emitted)} of {req.max_new_tokens} tokens "
                     f"emitted ({last_err})", reason="engine"))
                 self.metrics.on_fail()
+                # observed before the caller charges the breaker, so a
+                # burn crossing lands in the flight ring ahead of the
+                # breaker_open event it predicts
+                if self.burn is not None:
+                    self.burn.observe(req.slo, False,
+                                      outcome="engine_failure")
                 self._free_slot_locked(slot)
             self._active.clear()
             self.metrics.set_slots(self.pool.active_slots(),
@@ -1534,10 +1773,13 @@ class LLMEngine:
         partial tokens stay readable on the handle."""
         stage = ("mid-prefill" if req.chunk_off < len(req.prompt)
                  else "mid-decode")
+        self._conclude(req, f"expired:{stage}", now)
         req.handle.future.set_exception(DeadlineExceededError(
             f"deadline expired after {len(req.emitted)} of "
             f"{req.max_new_tokens} tokens (evicted {stage})"))
         self.metrics.on_expire()
+        if self.burn is not None:
+            self.burn.observe(req.slo, False, outcome="deadline")
         self._free_slot_locked(slot)
         del self._active[slot]
 
@@ -1575,6 +1817,9 @@ class LLMEngine:
                         int(self.sampling_table.dfa_state[req.slot]))))
         if not done:
             return False
+        # the timeline is finished before the future resolves: a waiter
+        # woken by result() finds it complete
+        self._conclude(req, "completed", now)
         req.handle.future.set_result(np.asarray(req.emitted, np.int32))
         self.metrics.on_complete((now - req.arrival) * 1e3, slo=req.slo,
                                  tenant=req.tenant)

@@ -6,12 +6,19 @@ circuit-breaker gauge).
 
 `ServingMetrics` is the `BatchingEngine`'s, with `render()` for a
 Prometheus `/metrics` endpoint and a `serving/dispatch` profiler instant
-per dispatch. `LLMMetrics` extends it for the LLM engine: TTFT and
-inter-token latency, decode steps and tokens, slot occupancy, the
+per dispatch. `LLMMetrics` extends it for the LLM engine: TTFT (overall
+and per SLO class) and inter-token latency, decode steps and tokens,
+slot occupancy (instant and time-weighted), KV fragmentation, the
 sampling modes, the prefix cache and tenants, the host KV tier, and the
 overload-control counters (shed, quarantined, brownout, in-flight
-tokens). Snapshot keys are the JAX classes'; `LLMMetrics.render` and the
-economics providers wait for the serving-observability slice.
+tokens); its `render()` gives the JAX package's `pdtpu_llm_*` families.
+An engine built with `economics=True` attaches its `ServingLedger` and
+`SLOBurnMonitor` (`ledger`, `burn`), read at snapshot and render time
+only: phase seconds, token efficiency, decode MFU, per-tenant and
+per-class device seconds and the burn rates. The speculative-decoding
+and adapter counters stay 0 until the port's engine drafts and serves
+adapters (ROADMAP items 7c, 7b), as the JAX families read when unused.
+Snapshot keys are the JAX classes'.
 
 Totals are lifetime counters, so a drain snapshot reconciles against a
 replayed trace: submitted == completed + rejected + expired + failed.
@@ -62,6 +69,10 @@ class ServingMetrics:
         # "poisoned" / "engine") and the circuit-breaker gauge
         self.dispatch_failures: Dict[str, int] = {}
         self.circuit_open = False
+        # economics providers, attached by an engine built with
+        # economics=True and read only at snapshot/render time
+        self.ledger = None   # obs.serving_ledger.ServingLedger
+        self.burn = None     # obs.serving_ledger.SLOBurnMonitor
 
     # ---- engine callbacks ----
     def on_submit(self, queue_depth: int):
@@ -143,6 +154,10 @@ class ServingMetrics:
             "p50_ms": self.quantile_ms(0.50),
             "p95_ms": self.quantile_ms(0.95),
             "p99_ms": self.quantile_ms(0.99),
+            **({"economics": self.ledger.snapshot()}
+               if self.ledger is not None else {}),
+            **({"slo_burn": self.burn.snapshot()}
+               if self.burn is not None else {}),
         }
 
     def render(self) -> str:
@@ -185,8 +200,59 @@ class ServingMetrics:
         self._render_economics_into(b, s)
 
     def _render_economics_into(self, b: PromBuilder, s: dict):
-        """The serving-economics families: none until the economics
-        ledger is ported (ROADMAP item 7f); no engine attaches one."""
+        """Serving-economics families: phase tiling, token
+        efficiency, decode MFU, per-tenant/per-class device-seconds and
+        SLO burn rates — rendered only when the engine attached the
+        providers, under this metrics object's own prefix (pdtpu_serving
+        for the predictor engine, pdtpu_llm for the LLM engine)."""
+        px = self._PREFIX
+        if self.ledger is not None:
+            e = s["economics"]
+            b.family(f"{px}_phase_seconds_total", "counter")
+            for phase, secs in sorted(e["phase_seconds"].items()):
+                b.sample(f"{px}_phase_seconds_total", secs,
+                         labels={"phase": phase}, round_to=4)
+            b.family(f"{px}_wall_seconds", "gauge")
+            b.sample(f"{px}_wall_seconds", e["wall_seconds"], round_to=4)
+            b.family(f"{px}_token_efficiency", "gauge")
+            b.sample(f"{px}_token_efficiency", e["token_efficiency"],
+                     round_to=4)
+            b.family(f"{px}_host_fraction", "gauge")
+            b.sample(f"{px}_host_fraction", e["host_fraction"], round_to=4)
+            b.family(f"{px}_decode_mfu", "gauge")
+            b.sample(f"{px}_decode_mfu", e["decode_mfu"], round_to=6)
+            if e["tenants"]:
+                b.family(f"{px}_tenant_device_seconds_total", "counter")
+                for tenant in sorted(e["tenants"]):
+                    b.sample(f"{px}_tenant_device_seconds_total",
+                             e["tenants"][tenant]["device_seconds"],
+                             {"tenant": tenant}, round_to=6)
+                b.family(f"{px}_tenant_device_tokens_total", "counter")
+                for tenant in sorted(e["tenants"]):
+                    b.sample(f"{px}_tenant_device_tokens_total",
+                             e["tenants"][tenant]["tokens"],
+                             {"tenant": tenant})
+            if e["classes"]:
+                b.family(f"{px}_class_device_seconds_total", "counter")
+                for cls in sorted(e["classes"]):
+                    b.sample(f"{px}_class_device_seconds_total",
+                             e["classes"][cls]["device_seconds"],
+                             {"slo": cls}, round_to=6)
+                b.family(f"{px}_class_device_tokens_total", "counter")
+                for cls in sorted(e["classes"]):
+                    b.sample(f"{px}_class_device_tokens_total",
+                             e["classes"][cls]["tokens"], {"slo": cls})
+        if self.burn is not None:
+            burn = s["slo_burn"]
+            b.family(f"{px}_slo_burn_rate", "gauge")
+            b.family(f"{px}_slo_burn_fired", "gauge")
+            for cls in sorted(burn["classes"]):
+                v = burn["classes"][cls]
+                for window in ("fast", "slow"):
+                    b.sample(f"{px}_slo_burn_rate", v[f"burn_{window}"],
+                             {"slo": cls, "window": window}, round_to=3)
+                b.sample(f"{px}_slo_burn_fired", int(v["fired"]),
+                         {"slo": cls})
 
 
 class LLMMetrics(ServingMetrics):
@@ -207,10 +273,29 @@ class LLMMetrics(ServingMetrics):
             "shed": 0, "quarantined": 0, "brownout_entries": 0,
             "sampled_tokens": 0, "constrained_tokens": 0,
             "prefix_hits": 0, "prefix_misses": 0, "prefix_hit_tokens": 0,
-            "prefix_lookup_tokens": 0})
+            "prefix_lookup_tokens": 0,
+            # speculative decoding and adapters: 0 until the engine
+            # drafts (ROADMAP item 7c) and serves adapters (item 7b)
+            "spec_windows": 0, "spec_drafted": 0, "spec_accepted": 0,
+            "spec_draft_quarantines": 0, "adapter_swaps": 0,
+            "adapter_rollbacks": 0})
         self.class_counters: Dict[str, Dict[str, int]] = {
             c: {"submitted": 0, "completed": 0, "shed": 0}
             for c in SLO_CLASSES}
+        self._class_ttft: Dict[str, deque] = {
+            c: deque(maxlen=self.window) for c in SLO_CLASSES}
+        # KV-pool block fragmentation: the share of allocated block tokens
+        # holding no valid KV (SlotPagedKVPool.fragmentation_ratio)
+        self.fragmentation = 0.0
+        # time-weighted slot occupancy: the integral of occupancy over
+        # time at pump granularity, so the average weighs each level by
+        # how long it held
+        self._occ_integral = 0.0
+        self._occ_wall = 0.0
+        self._occ_last_t: Optional[float] = None
+        self._occ_prev = 0.0
+        # emitted tokens per adapter id ("base" for row-0 streams)
+        self.adapter_tokens: Dict[str, int] = {}
         self.slots_active = 0
         self.slots_total = 0
         # overload control: the brownout gauge and the estimated token
@@ -304,10 +389,30 @@ class LLMMetrics(ServingMetrics):
             self.slots_active = int(active)
             self.slots_total = int(total)
 
+    def observe_occupancy(self, now: float):
+        """Advance the occupancy integral to `now` (once a pump pass): the
+        occupancy the last observation left is credited for the elapsed
+        interval, then the current gauge becomes the new level."""
+        with self._lock:
+            if self._occ_last_t is not None:
+                dt = now - self._occ_last_t
+                if dt > 0:
+                    self._occ_integral += self._occ_prev * dt
+                    self._occ_wall += dt
+            self._occ_last_t = now
+            self._occ_prev = (self.slots_active / self.slots_total
+                              if self.slots_total else 0.0)
+
+    def set_fragmentation(self, ratio: float):
+        with self._lock:
+            self.fragmentation = float(ratio)
+
     def on_prefill(self, ttft_ms: float, slo: Optional[str] = None):
         with self._lock:
             self.counters["prefills"] += 1
             self._ttft_ms.append(float(ttft_ms))
+            if slo in self._class_ttft:
+                self._class_ttft[slo].append(float(ttft_ms))
 
     def on_decode_step(self, active_rows: int, step_ms: float,
                        tokens: Optional[int] = None):
@@ -396,9 +501,11 @@ class LLMMetrics(ServingMetrics):
             self.host_kv = dict(snap)
 
     # ---- views ----
-    def ttft_quantile_ms(self, q: float) -> Optional[float]:
+    def ttft_quantile_ms(self, q: float,
+                         slo: Optional[str] = None) -> Optional[float]:
+        """TTFT quantile over every request, or over class `slo`'s."""
         with self._lock:
-            vals = sorted(self._ttft_ms)
+            vals = sorted(self._class_ttft[slo] if slo else self._ttft_ms)
         return _quantile(vals, q)
 
     def intertoken_quantile_ms(self, q: float) -> Optional[float]:
@@ -438,6 +545,11 @@ class LLMMetrics(ServingMetrics):
             s["tenants"] = {t: dict(v) for t, v in self.tenants.items()}
             s["host_kv"] = (dict(self.host_kv)
                             if self.host_kv is not None else None)
+            s["kv_fragmentation"] = self.fragmentation
+            s["slot_occupancy_avg"] = (
+                self._occ_integral / self._occ_wall
+                if self._occ_wall > 0 else None)
+            s["adapter_tokens"] = dict(self.adapter_tokens)
         for t in s["tenants"].values():
             t["cache_hit_rate"] = (
                 t["prefix_hit_tokens"] / t["prefix_lookup_tokens"]
@@ -448,16 +560,145 @@ class LLMMetrics(ServingMetrics):
         s["slot_occupancy"] = (s["slots_active"] / s["slots_total"]
                                if s["slots_total"] else 0.0)
         s["tokens_per_s"] = self.tokens_per_s()
+        s["spec_accept_rate"] = (s["spec_accepted"] / s["spec_drafted"]
+                                 if s["spec_drafted"] else None)
         s["shed_rate"] = (s["shed"] / s["submitted"] if s["submitted"]
                           else 0.0)
         for q, key in ((0.5, "p50"), (0.95, "p95"), (0.99, "p99")):
             s[f"ttft_{key}_ms"] = self.ttft_quantile_ms(q)
             s[f"intertoken_{key}_ms"] = self.intertoken_quantile_ms(q)
             s[f"mask_overhead_{key}_ms"] = self.mask_overhead_quantile_ms(q)
+        for c in SLO_CLASSES:
+            s[f"ttft_p99_ms_{c}"] = self.ttft_quantile_ms(0.99, slo=c)
         return s
 
-    def render(self) -> str:
-        raise NotImplementedError(
-            "LLMMetrics.render() (the pdtpu_llm exposition families) waits "
-            "for the serving-observability slice, ROADMAP item 7f; "
-            "snapshot() holds every value")
+    def _render_into(self, b: PromBuilder):
+        super()._render_into(b)
+        s = self.snapshot()
+        px = self._PREFIX
+        for fam, prefix in ((f"{px}_ttft_ms", "ttft"),
+                            (f"{px}_intertoken_ms", "intertoken")):
+            b.family(fam, "summary")
+            for q, key in ((0.5, "p50"), (0.95, "p95"), (0.99, "p99")):
+                b.sample(fam, s[f"{prefix}_{key}_ms"], {"quantile": q},
+                         round_to=3)
+        b.family(f"{px}_tokens_per_s", "gauge")
+        b.sample(f"{px}_tokens_per_s", s["tokens_per_s"], round_to=3)
+        b.family(f"{px}_slots_active", "gauge")
+        b.sample(f"{px}_slots_active", s["slots_active"])
+        b.family(f"{px}_slots_total", "gauge")
+        b.sample(f"{px}_slots_total", s["slots_total"])
+        b.family(f"{px}_slot_occupancy", "gauge")
+        b.sample(f"{px}_slot_occupancy", s["slot_occupancy"], round_to=4)
+        b.family(f"{px}_slot_occupancy_avg", "gauge")
+        b.sample(f"{px}_slot_occupancy_avg", s["slot_occupancy_avg"],
+                 round_to=4)
+        b.family(f"{px}_tokens_total", "counter")
+        b.sample(f"{px}_tokens_total", s["tokens_out"])
+        b.family(f"{px}_decode_steps_total", "counter")
+        b.sample(f"{px}_decode_steps_total", s["decode_steps"])
+        b.family(f"{px}_prefills_total", "counter")
+        b.sample(f"{px}_prefills_total", s["prefills"])
+        # ---- speculative decoding families (0 until 7c) ----
+        b.family(f"{px}_spec_windows_total", "counter")
+        b.sample(f"{px}_spec_windows_total", s["spec_windows"])
+        b.family(f"{px}_spec_drafted_total", "counter")
+        b.sample(f"{px}_spec_drafted_total", s["spec_drafted"])
+        b.family(f"{px}_spec_accepted_total", "counter")
+        b.sample(f"{px}_spec_accepted_total", s["spec_accepted"])
+        b.family(f"{px}_spec_accept_rate", "gauge")
+        b.sample(f"{px}_spec_accept_rate", s["spec_accept_rate"],
+                 round_to=4)
+        b.family(f"{px}_spec_draft_quarantines_total", "counter")
+        b.sample(f"{px}_spec_draft_quarantines_total",
+                 s["spec_draft_quarantines"])
+        # ---- sampling + constrained decoding families ----
+        b.family(f"{px}_sample_slots", "gauge")
+        for mode in ("greedy", "sampled", "constrained"):
+            b.sample(f"{px}_sample_slots", s["sample_slots"].get(mode, 0),
+                     {"mode": mode})
+        b.family(f"{px}_sample_tokens_total", "counter")
+        for mode in ("sampled", "constrained"):
+            b.sample(f"{px}_sample_tokens_total", s[f"{mode}_tokens"],
+                     {"mode": mode})
+        b.family(f"{px}_sample_mask_overhead_ms", "summary")
+        b.sample(f"{px}_sample_mask_overhead_ms", s["mask_overhead_p99_ms"],
+                 {"quantile": "0.99"}, round_to=3)
+        b.family(f"{px}_sample_grammars_compiled", "gauge")
+        b.sample(f"{px}_sample_grammars_compiled", s["grammars_compiled"])
+        # ---- multi-LoRA serving families (none until 7b) ----
+        if s["adapter_tokens"]:
+            b.family(f"{px}_adapter_tokens_total", "counter")
+            for aid in sorted(s["adapter_tokens"]):
+                b.sample(f"{px}_adapter_tokens_total",
+                         s["adapter_tokens"][aid], {"adapter": aid})
+            b.family(f"{px}_adapter_swaps_total", "counter")
+            b.sample(f"{px}_adapter_swaps_total", s["adapter_swaps"])
+            b.family(f"{px}_adapter_rollbacks_total", "counter")
+            b.sample(f"{px}_adapter_rollbacks_total",
+                     s["adapter_rollbacks"])
+        # ---- tiered KV cache families ----
+        if s["host_kv"] is not None:
+            hk = s["host_kv"]
+            b.family(f"{px}_kv_host_pages_total", "gauge")
+            b.sample(f"{px}_kv_host_pages_total", hk["pages"])
+            b.family(f"{px}_kv_host_bytes_total", "gauge")
+            b.sample(f"{px}_kv_host_bytes_total", hk["bytes"])
+            b.family(f"{px}_kv_host_spills_total", "counter")
+            b.sample(f"{px}_kv_host_spills_total", hk["spills"])
+            b.family(f"{px}_kv_host_onboards_total", "counter")
+            b.sample(f"{px}_kv_host_onboards_total", hk["onboards"])
+            b.family(f"{px}_kv_host_evictions_total", "counter")
+            b.sample(f"{px}_kv_host_evictions_total", hk["evictions"])
+        # ---- overload control + supervision families ----
+        b.family(f"{px}_class_requests_total", "counter")
+        for c in SLO_CLASSES:
+            for outcome in ("submitted", "completed", "shed"):
+                b.sample(f"{px}_class_requests_total",
+                         s["classes"][c][outcome],
+                         {"slo": c, "outcome": outcome})
+        b.family(f"{px}_class_ttft_ms", "summary")
+        for c in SLO_CLASSES:
+            b.sample(f"{px}_class_ttft_ms", s[f"ttft_p99_ms_{c}"],
+                     {"slo": c, "quantile": "0.99"}, round_to=3)
+        b.family(f"{px}_shed_total", "counter")
+        b.sample(f"{px}_shed_total", s["shed"])
+        b.family(f"{px}_quarantined_total", "counter")
+        b.sample(f"{px}_quarantined_total", s["quarantined"])
+        b.family(f"{px}_brownout", "gauge")
+        b.sample(f"{px}_brownout", int(s["brownout"]))
+        b.family(f"{px}_brownout_entries_total", "counter")
+        b.sample(f"{px}_brownout_entries_total", s["brownout_entries"])
+        b.family(f"{px}_inflight_tokens", "gauge")
+        b.sample(f"{px}_inflight_tokens", s["inflight_tokens"])
+        b.family(f"{px}_kv_fragmentation", "gauge")
+        b.sample(f"{px}_kv_fragmentation", s["kv_fragmentation"], round_to=4)
+        # ---- prefix cache + multi-tenancy families ----
+        b.family(f"{px}_prefix_hits_total", "counter")
+        b.sample(f"{px}_prefix_hits_total", s["prefix_hits"])
+        b.family(f"{px}_prefix_misses_total", "counter")
+        b.sample(f"{px}_prefix_misses_total", s["prefix_misses"])
+        b.family(f"{px}_prefix_hit_tokens_total", "counter")
+        b.sample(f"{px}_prefix_hit_tokens_total", s["prefix_hit_tokens"])
+        b.family(f"{px}_prefix_hit_rate", "gauge")
+        b.sample(f"{px}_prefix_hit_rate", s["prefix_hit_rate"], round_to=4)
+        b.family(f"{px}_cached_blocks", "gauge")
+        b.sample(f"{px}_cached_blocks", s["cached_blocks"])
+        b.family(f"{px}_cache_evictions_total", "counter")
+        b.sample(f"{px}_cache_evictions_total", s["cache_evictions"])
+        if s["tenants"]:
+            b.family(f"{px}_tenant_requests_total", "counter")
+            for tenant in sorted(s["tenants"]):
+                tv = s["tenants"][tenant]
+                for outcome in ("submitted", "completed", "rejected"):
+                    b.sample(f"{px}_tenant_requests_total", tv[outcome],
+                             {"tenant": tenant, "outcome": outcome})
+            for fam, key, typ, rnd in (
+                    ("tenant_cache_hit_rate", "cache_hit_rate", "gauge", 4),
+                    ("tenant_cached_blocks", "cached_blocks", "gauge", None),
+                    ("tenant_inflight_tokens", "inflight_tokens", "gauge",
+                     None)):
+                b.family(f"{px}_{fam}", typ)
+                for tenant in sorted(s["tenants"]):
+                    b.sample(f"{px}_{fam}", s["tenants"][tenant][key],
+                             {"tenant": tenant}, round_to=rnd)

@@ -151,10 +151,11 @@ def test_breaker_opens_after_repeated_dispatch_failures(package):
 
 def test_port_refuses_what_waits_for_later_slices():
     from paddle_tpu_torch import serving
-    with pytest.raises(NotImplementedError, match="7f"):
-        serving.EngineConfig(economics=True)
     with pytest.raises(NotImplementedError, match="item 9"):
         serving.EngineConfig(observatory=True)
     assert not hasattr(serving.BatchingEngine, "from_predictor")
-    with pytest.raises(NotImplementedError, match="7f"):
-        serving.LLMMetrics().render()
+    # the serving-observability slice landed: economics arms, and the
+    # LLM exposition renders
+    assert serving.EngineConfig(economics=True).economics is True
+    flat = serving.parse_exposition(serving.LLMMetrics().render())
+    assert flat["pdtpu_llm_tokens_total"] == 0

@@ -32,10 +32,10 @@ import paddle_tpu.profiler as jprof
 import paddle_tpu_torch.obs.goodput as tgood
 import paddle_tpu_torch.obs.prom as tprom
 import paddle_tpu_torch.profiler as tprof
-from paddle_tpu_torch.obs import flight_recorder as tfr
 
-# paddle_tpu.obs exports a function of the module's name
+# both packages' obs export a function of the module's name
 jfr = importlib.import_module("paddle_tpu.obs.flight_recorder")
+tfr = importlib.import_module("paddle_tpu_torch.obs.flight_recorder")
 
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")

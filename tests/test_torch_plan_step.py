@@ -246,7 +246,7 @@ def test_bridge_carries_step_extras():
     ({"hybrid_configs": {"mp_degree": 2}}, "ROADMAP §1 item 8"),
     ({"asp": True}, "ROADMAP §1 item 9"),
     ({"qat": True}, "ROADMAP §1 item 9"),
-    ({"numerics": True}, "ROADMAP §1 item 7f"),
+    ({"hybrid_configs": {"pp_degree": 2}}, "ROADMAP §1 item 8"),
 ])
 def test_refused_fields_raise_naming_their_item(fields, match):
     from paddle_tpu_torch.distributed.strategy import DistributedStrategy

@@ -173,11 +173,18 @@ def test_fault_flag_installs_global_plan_and_cudnn_flag_sets_torch():
 
 
 def test_observatory_and_numerics_are_refused_by_name(tmp_path):
-    for kw, item in (("observatory", "item 9"), ("numerics", "item 7f")):
-        with pytest.raises(NotImplementedError, match=item):
-            tres.ResilientTrainer(lambda b: 0.0, str(tmp_path),
-                                  get_state=dict, set_state=print,
-                                  device="cpu", **{kw: True})
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tres.ResilientTrainer(lambda b: 0.0, str(tmp_path),
+                              get_state=dict, set_state=print,
+                              device="cpu", observatory=True)
+    # the numerics observatory is ported: numerics=True arms it
+    from paddle_tpu_torch.obs.numerics import NumericsObservatory
+    t = tres.ResilientTrainer(lambda b: 0.0, str(tmp_path),
+                              get_state=dict, set_state=print,
+                              device="cpu", numerics=True,
+                              numerics_interval=3)
+    assert isinstance(t.numerics, NumericsObservatory)
+    assert t.numerics.interval == 3 and t.metrics.numerics is t.numerics
 
 
 # ---- the recovery matrix over a toy step ----
