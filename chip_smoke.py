@@ -21,7 +21,9 @@ Llama 2 recipe, then trains `ernie-moe-base` whole, and last trains
 seed), fits `mobilenet_v2` through Paddle's high-level `Model.fit`
 over `io.DataLoader`, and trains full `gpt3-125m` under the resilient
 runtime (checkpoint tiers, fault injection, a killed and a resumed
-child process) and under the numerics observatory. It prints one JSON
+child process) and under the numerics observatory; between the train
+phases and Llama it fine-tunes LoRA adapters on full `gpt3-1.3b` and
+serves them, three at once, beside base streams. It prints one JSON
 line per
 phase, then each phase's wall seconds, the `{"kernels": [...]}` line,
 the card's name and power limit as `nvidia-smi` reports them, and last
@@ -95,6 +97,9 @@ Phases:
   4. model    — gpt3-1.3b widths cut to 2 layers, fp32, on the card
                 (kernels) against a CPU twin with the same weights (plain
                 versions): the engine's unified steps (logits and tokens),
+                the cached forward with adapters= (four rows on bank rows
+                0-3 of three synthetic LoRA adapters; row 0 bit-equal to
+                the unadapted forward),
                 and twice 3 steps through ScanTrainStep, with AdamW and
                 with the train recipe's optimizer and recompute (first-step
                 gradient norms, losses, weights)
@@ -125,11 +130,12 @@ Phases:
                 depthwise convolution at mobilenet_v2's widest shapes
                 ([64, 144, 56, 56], [64, 960, 7, 7]) within one bf16 ulp
                 of fp32 math on its inputs
-  4b. model_amp — the same widths in fp32 master weights through
-                parallelize(model, opt, strategy=s) on the card against
-                the CPU: AMP bf16 with recompute and gradient merge k = 2,
-                AMP fp16 with dynamic loss scaling and a first step forced
-                to overflow, and pure fp16 (amp.decorate O2,
+  4b. model_amp — the same widths cut to 1 layer in fp32 master weights
+                through parallelize(model, opt, strategy=s) on the card
+                against the CPU: AMP bf16 with recompute and gradient
+                merge k = 2, AMP fp16 with dynamic loss scaling and a
+                first step forced to overflow, and pure fp16 (amp.decorate
+                O2,
                 multi_precision) with that scaler, recompute and merge;
                 loss scale, counters and merge count exactly equal, losses
                 and weights (O2: the fp32 masters, and the fp16 parameters
@@ -271,7 +277,8 @@ Phases:
                 model giving bit-equal eval logits and equal Adam slots
  17. resilient_train — full gpt3-125m (12 layers, 768 wide), bf16, 8 x
                 1024, AdamW 1e-4 fp32 moments, ScanTrainStep(scan_steps=2),
-                16 seeded batches, under ResilientTrainer(goodput=True):
+                10 steps over 10 seeded batches, under
+                ResilientTrainer(goodput=True):
                 a baseline (only the end-of-run save: step ms), a sync
                 CheckpointManager at save_interval 8 (save ms), an
                 AsyncCheckpointManager at save_interval 2, max_to_keep 2
@@ -297,6 +304,36 @@ Phases:
                 against an fp64 recomputation; /debug/numerics; step ms
                 and peak memory armed and not, the probe's and a sample
                 read's ms
+ 19. lora_finetune — the train cell (full gpt3-1.3b, bf16, 4 x 1024, one
+                batch repeated) with inject_lora(LoRAConfig(rank 8, alpha
+                16)): 192 fp32 adapter leaves (6,291,456 parameters),
+                AdamW 1e-3 with clip 1.0 through ScanTrainStep, 2 warm-up
+                and 6 timed steps with the launch counts zeroed just
+                before and read just after (exactly LORA_KERNELS_PER_STEP),
+                then 2 with the numerics telemetry armed; falling losses,
+                every base parameter bit-equal after, the optimizer's
+                state only the adapter leaves; tokens/s, step ms, MFU (4
+                N_base + 6 N_lora FLOPs a token), peak memory beside
+                train's; the adapter tree published as a certified
+                AdapterWeightSet under build/
+ 20. lora_serve — serve's model and 16 prompts with
+                LLMEngine(max_adapters=3, lora_rank=8): 4 base streams and
+                4 on each of three synthetic adapters (sigma 0.02); bursts
+                unarmed, armed, armed, unarmed: the base streams equal
+                serve's, every adapter moves a token, the armed turns
+                equal; the bank's rows permuted: the same 16 streams; the
+                step's LoRA device ms, kernel launches and ATen ops beside
+                the unarmed step's (torch.profiler, 8 replayed steps), the
+                ops and the kernels by name (copies and fills apart)
+                unchanged across a hot swap and an unload; each adapter's
+                first stream decoded solo, recorded as equal to the
+                burst's or not with the first op that differs; the
+                fine-tuned adapter certified against the bank, registered
+                and decoded, a rank-16 one refused (typed); prefix
+                namespaces and the scoped flush of a hot swap, the canary,
+                and the ledger's adapter seconds summing to its tenants'
+                on a third engine; the adapter token counters partitioning
+                the emitted tokens
 """
 from __future__ import annotations
 
@@ -2735,14 +2772,51 @@ def phase_model(phase="model"):
             b = lg_cpu[r, :n].argmax(-1)
             real_cols += n
             equal_cols += int((a == b).sum())
+    ad_worst, ad_moved = lora_forward_diff(cpu, card, vocab)
     emit({"phase": phase, "config": f"{preset} widths, 2 layers, fp32",
           "steps": len(steps), "logits_max_abs_diff": worst, "tol": tol,
           "greedy_tokens_equal": equal_cols, "greedy_tokens": real_cols,
-          "kernel_launches": launched})
+          "kernel_launches": launched,
+          "adapted_logits_max_abs_diff": ad_worst,
+          "adapted_rows_moved_from_base": ad_moved})
     check(worst <= tol, f"card vs CPU logits differ by {worst} > {tol}")
+    check(ad_worst <= tol, f"adapted forward: card vs CPU logits differ by "
+          f"{ad_worst} > {tol}")
+    check(ad_moved[0] == 0.0 and min(ad_moved[1:]) > tol,
+          f"adapted forward: rows moved from base by {ad_moved}")
     del cpu, card, twin, steps
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def lora_forward_diff(cpu, card, vocab, rows=(0, 1, 2, 3), S=48):
+    """The cached forward with `adapters=` on both twins: banks of rank
+    LORA_RANK holding the same three synthetic adapters, a batch whose
+    rows ride bank rows `rows` (0: base) over S prompt tokens. Returns
+    (max |card - CPU| of the adapted logits, each row's max |adapted -
+    unadapted| on the card)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.serving.llm.lora import AdapterBank
+    ids = np.random.RandomState(SEED + 50).randint(
+        0, vocab, (len(rows), S)).astype(np.int32)
+    outs = []
+    for m in (cpu, card):
+        bank = AdapterBank(m, max_adapters=3, rank=LORA_RANK,
+                           num_slots=len(rows))
+        for i in (1, 2, 3):
+            bank.load(f"ad{i}", lora_tree(m, SEED + 50 + i))
+        x = torch.from_numpy(ids).to(m.device)
+        with torch.no_grad():
+            lg, _ = m.forward_with_cache(x, m.init_cache(len(rows), S), 0,
+                                         adapters=bank.args_for_rows(rows))
+        outs.append(lg.float().cpu())
+    with torch.no_grad():
+        base, _ = card.forward_with_cache(x, card.init_cache(len(rows), S), 0)
+    base = base.float().cpu()
+    moved = [float((outs[1][r] - base[r]).abs().max())
+             for r in range(len(rows))]
+    return float((outs[1] - outs[0]).abs().max()), moved
 
 
 def _train_steps(model, device, chunk, steps, recipe=False):
@@ -3129,11 +3203,12 @@ def phase_optimizers():
 
 # ------------------------------------------- phase 4b: AMP through a plan
 # The strategy step (parallel.parallelize with a DistributedStrategy) at
-# gpt3-1.3b's widths cut to 2 layers, fp32 master weights, on the card
+# gpt3-1.3b's widths cut to 1 layer, fp32 master weights, on the card
 # (kernels) against the same code on a CPU twin (plain versions), B=2,
 # AdamW lr TRAIN_PARITY_LR, wd 0.01, clip 1.0:
 #   a. AMP bf16 with whole-loss recompute and gradient merge k = 2 (avg),
-#      B=2, S=128, one ScanTrainStep chunk of 4 micro-steps;
+#      B=2, S=128, one ScanTrainStep chunk of 4 micro-steps (two applying
+#      steps) at 1 layer;
 #   b. AMP fp16 with dynamic loss scaling, B=1, S=32, 3 single steps: the
 #      first is forced to overflow by an init_loss_scaling of 2^40 (fp16
 #      overflows on both sides, whatever the rounding), after which the
@@ -3173,7 +3248,7 @@ AMP_PARITY_CASES = {
     "a_bf16_recompute_merge_k2": dict(
         fields={"amp": True, "recompute": True, "gradient_merge": True,
                 "gradient_merge_configs": {"k_steps": 2}},
-        batch=(2, 128), scan=4, calls=1, loss_tol=2e-2),
+        batch=(2, 128), layers=1, scan=4, calls=1, loss_tol=2e-2),
     "b_fp16_dynamic_scaling_overflow": dict(
         fields={"amp": True, "amp_configs": {
             "dtype": "float16", "init_loss_scaling": 2.0 ** 40,
@@ -3191,7 +3266,10 @@ AMP_PARITY_CASES = {
         level="O2", scales=(2.0 ** 15, 2.0 ** 16)),
 }
 # the fp16 cases run 1 layer over 16 tokens: their CPU twins' fp16 GEMMs
-# run slowly on the CPU and take most of the phase
+# run slowly on the CPU and take most of the phase. Case a runs 1 layer
+# (was 2) to make room for the LoRA phases (the CPU twins took 25.8 s,
+# 44.5 s and 46.5 s with case a at 2 layers, on the host of an NVIDIA
+# H100 80GB HBM3)
 AMP_PARITY_SHARE = 1e-2
 
 
@@ -3237,7 +3315,7 @@ def phase_model_amp():
                           (B, S)).astype(np.int32)
         labels = np.roll(ids, -1, axis=1)
         labels[:, -1] = -100
-        layers = c.get("layers", 2)
+        layers = c["layers"]
         cpu, card = _twins(preset, SEED + 12, layers=layers)
         o2 = c.get("level") == "O2"
         runs, opts = {}, {}
@@ -6057,12 +6135,14 @@ def moe_flops_args(model):
         moe_num_experts=layers[0].num_experts)
 
 
-def phase_train(device_name, cell="train", train_peak_gib=None):
+def phase_train(device_name, cell="train", train_peak_gib=None,
+                record=None):
     """A train cell of TRAIN_CELLS (phases 6, 7 and 11): a warm-up chunk
     of TRAIN_WARMUP_STEPS, then one of TRAIN_TIMED_STEPS with the launch
     counts zeroed just before and read just after. The train_recipe
-    cell's peak memory must stay below `train_peak_gib`. Returns (launch
-    counts of the timed chunk, peak memory in GiB)."""
+    cell's peak memory must stay below `train_peak_gib`. `record`, a
+    dict, receives the cell's tokens/s, step ms, MFU and peak memory.
+    Returns (launch counts of the timed chunk, peak memory in GiB)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.nn.layer.moe import capacity_of
@@ -6132,6 +6212,9 @@ def phase_train(device_name, cell="train", train_peak_gib=None):
                                              moe[0].num_experts,
                                              moe[0].capacity_factor)
     emit(result)
+    if record is not None:
+        record.update({k: result[k] for k in (
+            "tokens_per_s", "step_ms_median", "mfu", "peak_mem_gib")})
     check(all(math.isfinite(x) for x in all_losses), "non-finite loss")
     check(all_losses[-1] < all_losses[0],
           f"loss did not fall: {all_losses[0]} -> {all_losses[-1]}")
@@ -6627,17 +6710,18 @@ def phase_mobilenet_fit(device_name):
 # CheckpointManager, AsyncCheckpointManager, fault injection) over full
 # gpt3-125m (GPT-3 Small: Brown et al. 2020, Table 2.1), bf16, 8 x 1024
 # tokens a step, AdamW lr 1e-4 wd 0.01 with fp32 moments, through
-# ScanTrainStep(scan_steps=2): 16 steps a run over 16 seeded batches (one
-# a step, so a replayed step takes its own batch again).
+# ScanTrainStep(scan_steps=2): 10 steps a run over the first 10 of
+# RESILIENT_BATCHES seeded batches (one a step, so a replayed step takes
+# its own batch again).
 #   1. baseline  only the end-of-run save: the step time;
 #   2. sync      CheckpointManager at save_interval 8;
 #   3. async     AsyncCheckpointManager at save_interval 2, max_to_keep 2,
-#                with raise@5 (a retry) and nan_loss@9 (mid-chunk: rolled
-#                back to the ring's snapshot of step 8);
+#                with raise@5 (a retry) and nan_loss@9 (mid-chunk, the
+#                last: rolled back to the ring's snapshot of step 8);
 #   4. resume    a child process runs 3's configuration with
 #                kill@6:persist and dies by SIGKILL in the writer; a
 #                second child resumes from the same directory (the
-#                scrubber first) and runs to step 16.
+#                scrubber first) and runs to step 10.
 # Runs 3 and 4 must give run 2's losses and final parameters and moments
 # bit for bit (the flash and LayerNorm kernels are atomic-free, with a
 # fixed order of summation), and the rollback must write into the live
@@ -6645,8 +6729,11 @@ def phase_mobilenet_fit(device_name):
 # steps: with the writer slower than a chunk (the expected backpressure),
 # snapshot 6 survives the drop-oldest queue only while at most one newer
 # snapshot is queued behind it, which a run that ends at step 8 ensures.
-RESILIENT = dict(preset="gpt3-125m", batch=(8, 1024), steps=16,
+# (was 16: the faults, the kill and the rollback all fall before step
+# 10, so the steps cut held no check of their own, only checkpoint writes)
+RESILIENT = dict(preset="gpt3-125m", batch=(8, 1024), steps=10,
                  scan_steps=2, lr=1e-4)
+RESILIENT_BATCHES = 16     # drawn; train_numerics runs 12 steps over them
 RESILIENT_SYNC_INTERVAL = 8
 RESILIENT_ASYNC_INTERVAL = 2
 RESILIENT_KEEP = 2
@@ -6697,11 +6784,12 @@ def resilient_model():
 
 
 def resilient_batches(vocab):
-    """[steps, B, S] int32 token ids and labels on the card, from SEED."""
+    """[RESILIENT_BATCHES, B, S] int32 token ids and labels on the card,
+    from SEED."""
     import numpy as np
     import torch
     rng = np.random.RandomState(SEED + 5)
-    shape = (RESILIENT["steps"],) + RESILIENT["batch"]
+    shape = (RESILIENT_BATCHES,) + RESILIENT["batch"]
     return tuple(torch.from_numpy(rng.randint(0, vocab, shape)
                                   .astype(np.int32)).cuda() for _ in "il")
 
@@ -7377,7 +7465,7 @@ def phase_train_numerics(device_name, smi_line):
         torch.cuda.reset_peak_memory_stats()
         ms = []
         for _ in range(NUMERICS["timed_chunks"]):
-            i = (chunk * K) % RESILIENT["steps"]
+            i = (chunk * K) % RESILIENT_BATCHES
             chunk += 1
             t0 = time.perf_counter()
             step(ids[i:i + K], labels[i:i + K])
@@ -7418,6 +7506,727 @@ def phase_train_numerics(device_name, smi_line):
               summary["goodput"]["phase_seconds"]["rollback_waste"],
           "kernel_launches": launches})
     del model, opt, step, trainer, ids, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------ phases 19-20: multi-LoRA at one GPU
+# lora_finetune: full gpt3-1.3b in bf16 (the train cell's model, seed and
+# batch) with inject_lora(LoRAConfig(rank 8, alpha 16)) on GPT's four
+# sites: every base parameter frozen, LORA_LEAVES fp32 adapter leaves
+# (6,291,456 parameters) trained by AdamW (lr LORA_LR, wd 0.01, fp32
+# moments, global-norm clip 1.0) through ScanTrainStep over the train
+# cell's 4 x 1024 batch repeated: a warm-up chunk, a timed chunk with the
+# launch counts zeroed just before and read just after, then a chunk
+# with the numerics telemetry armed. Every base parameter must be
+# bit-equal after; the adapter tree is published as a certified
+# AdapterWeightSet for lora_serve. MFU counts 4 N_base + 6 N_lora FLOPs a
+# token: the frozen base runs its forward (2 N) and the backward to its
+# inputs (2 N) but no weight gradient; the adapters run all three.
+LORA_RANK = 8
+LORA_ALPHA = 16.0
+LORA_LR = 1e-3
+LORA_WARMUP_STEPS = 2
+LORA_TIMED_STEPS = 6
+LORA_NUMERICS_STEPS = 2
+LORA_LEAVES = 192          # 24 layers x 4 sites x (A, B)
+# launches a step: the train cell's flash and LayerNorm forwards and
+# backwards, but layer 0's first LayerNorm has no backward (its input,
+# the frozen embeddings, and its own weight and bias need no gradient, so
+# autograd never reaches it), and fused Adam once a LoRA leaf
+LORA_KERNELS_PER_STEP = {**launches_per_step(24, LORA_LEAVES, False),
+                         "layernorm_bwd": 48}
+# lora_serve: serve's model and 16 prompts behind LLMEngine(SERVE_ENGINE,
+# max_adapters=3, lora_rank=8, lora_alpha default (16)): request i rides
+# LORA_ROUTE[i % 4], so 4 base streams and 4 on each synthetic adapter.
+# The adapters' factors are N(0, LORA_SIGMA^2): at width 2048 a site's
+# delta is then ~ alpha/r * sigma^2 * sqrt(in * r) * sqrt(r) ~ 0.1 of
+# the base projection's output (xavier weights, LayerNorm'd inputs), so
+# every adapter moves greedy tokens while all logits stay finite
+# (tests/test_lora.py's 0.3 is for gpt2-tiny's width 128).
+LORA_SIGMA = 0.02
+LORA_ROUTE = (None, "ad1", "ad2", "ad3")
+LORA_SERVE_ENGINE = dict(SERVE_ENGINE, max_adapters=3, lora_rank=LORA_RANK)
+LORA_CHURN_NEW = 8         # new tokens a request of the churned burst
+# the churn's kernel check: profiled replays a side of the armed burst's
+# first steps (a replay of one state lost a record in 1 of ~12,000 in a
+# test run: an int add's, its ATen op counted every time)
+LORA_CHURN_REPLAYS = 2
+LORA_CHURN_REPLAY_STEPS = 2
+
+
+def lora_tree(model, seed, rank=LORA_RANK, sigma=LORA_SIGMA):
+    """A synthetic adapter for `model` in the bank's canonical layout
+    (`tuning.lora.synthetic_adapter_tree`, the CPU tests' draw too)."""
+    from paddle_tpu_torch.tuning import target_sites
+    from paddle_tpu_torch.tuning.lora import synthetic_adapter_tree
+    return synthetic_adapter_tree(target_sites(model)[0], seed, rank, sigma)
+
+
+def lora_dir():
+    """The adapter sets' directory, beside the kernel build on the
+    checkout's disk (build/ is not committed)."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "lora_adapters")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def phase_lora_finetune(device_name, train=None):
+    """Phase 19 (see the comment above LORA_RANK). `train`: the train
+    phase's readings, reported beside this one's. Returns (launch counts
+    of the timed chunk, the published AdapterWeightSet)."""
+    import torch
+    from paddle_tpu_torch.checkpoint import AdapterWeightSet
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.obs.flops import peak_flops
+    from paddle_tpu_torch.ops import _kernels
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ScanTrainStep
+    from paddle_tpu_torch.tuning import (LoRAConfig, adapter_signature,
+                                         adapter_state_dict, inject_lora,
+                                         lora_parameters)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, opt, ids, labels, init_s = train_workload("train")
+    del opt                 # the cell's full-model optimizer: not used
+    B, S = TRAIN_CELLS["train"]["batch"]
+    n_base = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 19)
+    inject_lora(model, LoRAConfig(rank=LORA_RANK, alpha=LORA_ALPHA),
+                generator=gen)
+    params = lora_parameters(model)
+    n_lora = sum(p.numel() for p in params)
+    trainable = [k for k, p in model.named_parameters() if p.requires_grad]
+    frozen = {k: p.detach().clone() for k, p in model.named_parameters()
+              if not p.requires_grad}
+    opt = AdamW(learning_rate=LORA_LR, weight_decay=0.01, parameters=params,
+                moment_dtype="float32", grad_clip=ClipGradByGlobalNorm(1.0))
+    warm = ScanTrainStep(model, opt, scan_steps=LORA_WARMUP_STEPS)
+    warm_losses, warm_s, _, _ = timed_chunk(warm, ids, labels)
+    step = ScanTrainStep(model, opt, scan_steps=LORA_TIMED_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    losses, wall, step_ms, _ = timed_chunk(step, ids, labels)
+    launches = _kernels.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    armed = ScanTrainStep(model, opt, scan_steps=LORA_NUMERICS_STEPS,
+                          numerics=True)
+    armed_losses, _, armed_ms, _ = timed_chunk(armed, ids, labels)
+    sample = armed.numerics_host_sample()
+    named = dict(model.named_parameters())
+    moved_base = [k for k, t in frozen.items() if not torch.equal(named[k], t)]
+    lora_ids = {id(p) for p in params}
+    state_leaves = [p for p in opt.state if id(p) in lora_ids]
+    per_step = {k: launches[k] / LORA_TIMED_STEPS
+                for k in LORA_KERNELS_PER_STEP}
+    all_losses = (warm_losses.tolist() + losses.tolist()
+                  + armed_losses.tolist())
+    step_s = wall / LORA_TIMED_STEPS
+    flops = (4 * n_base + 6 * n_lora) * B * S
+    tree = adapter_state_dict(model)
+    sig = adapter_signature(model, LORA_RANK)
+    t0 = time.perf_counter()
+    ws = AdapterWeightSet.publish(lora_dir(), "lora-ft-v1", tree, sig)
+    publish_s = time.perf_counter() - t0
+    result = {
+        "phase": "lora_finetune", "model": "gpt3-1.3b", "dtype": "bfloat16",
+        "batch": B, "seq": S, "lora": dict(rank=LORA_RANK, alpha=LORA_ALPHA,
+                                           sites=list(sig["targets"])),
+        "optimizer": f"AdamW lr {LORA_LR} wd 0.01 fp32 moments, global-norm "
+                     "clip 1.0, over the LoRA leaves",
+        "n_base_params": n_base, "n_lora_params": n_lora,
+        "trainable_leaves": len(trainable), "frozen_leaves": len(frozen),
+        "optimizer_state_leaves": len(opt.state),
+        "warmup_steps": LORA_WARMUP_STEPS, "warmup_s": warm_s,
+        "timed_steps": LORA_TIMED_STEPS, "wall_s": wall,
+        "tokens_per_s": B * S * LORA_TIMED_STEPS / wall,
+        "step_ms_mean": step_s * 1e3,
+        "step_ms_median": statistics.median(step_ms),
+        "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
+        "mfu": flops / step_s / peak_flops(device_name),
+        "mfu_formula": "(4 N_base + 6 N_lora) B S / step / peak",
+        "flops_per_step": flops, "peak_mem_gib": peak_gib,
+        "train": train, "losses": all_losses,
+        "numerics_step_ms": armed_ms, "numerics_sample": sample,
+        "kernel_launches": launches, "launches_per_step": per_step,
+        "base_leaves_moved": moved_base, "model_init_s": init_s,
+        "published": dict(version=ws.version, seconds=publish_s,
+                          bytes=os.path.getsize(ws.data_path))}
+    emit(result)
+    check(len(trainable) == LORA_LEAVES and n_lora == 6291456,
+          f"lora_finetune: {len(trainable)} trainable leaves of {n_lora} "
+          f"parameters, want {LORA_LEAVES} of 6291456")
+    check(all(math.isfinite(x) for x in all_losses), "non-finite loss")
+    check(all_losses[-1] < all_losses[0],
+          f"lora_finetune: loss did not fall: {all_losses}")
+    check(not moved_base, f"lora_finetune: base leaves moved: {moved_base}")
+    check(per_step == {k: float(v) for k, v in LORA_KERNELS_PER_STEP.items()},
+          f"lora_finetune: launches per step {per_step}, want "
+          f"{LORA_KERNELS_PER_STEP}")
+    check(len(opt.state) == LORA_LEAVES == len(state_leaves),
+          f"lora_finetune: optimizer state for {len(opt.state)} leaves, "
+          f"{len(state_leaves)} of them LoRA leaves")
+    check(sample is not None and all(math.isfinite(v)
+                                     for v in sample.values()),
+          f"lora_finetune: numerics telemetry {sample}")
+    check(train is None or peak_gib < train["peak_mem_gib"],
+          f"lora_finetune: peak {peak_gib} GiB is not below train's")
+    del model, opt, warm, step, armed, frozen, named, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, ws
+
+
+def op_counter():
+    """A TorchDispatchMode counting the ATen ops run under it (`.n`): a
+    step's host-side op count, which a churned adapter bank must not
+    change."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpCounter(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+    return OpCounter()
+
+
+def settle(engine, dec0=0, timeout_s=30.0):
+    """Wait until the started engine's metrics hold every decode step it
+    committed since `dec0` (its decode_iterations when they were made): a
+    stream's future resolves inside its last step's commit, a moment
+    before that step is booked."""
+    t0 = time.perf_counter()
+    while (engine.metrics.counters["decode_steps"]
+           < engine.decode_iterations - dec0):
+        check(time.perf_counter() - t0 < timeout_s,
+              "the engine's last decode step was never booked")
+        time.sleep(0.001)
+
+
+def lora_burst(engine, prompts, route, max_new=SERVE_NEW_TOKENS):
+    """Submit every prompt to the started, settled engine at once, request
+    i on adapter route[i % len(route)], with fresh metrics, and wait for
+    every stream and its booking. Returns (outs, wall_s, steps, metrics
+    snapshot)."""
+    from paddle_tpu_torch.serving.metrics import LLMMetrics
+    engine.metrics = LLMMetrics()
+    engine.metrics.set_slots(0, engine.pool.num_slots)
+    steps0, dec0 = engine.steps, engine.decode_iterations
+    t0 = time.perf_counter()
+    handles = [engine.submit(p, max_new_tokens=max_new,
+                             adapter=route[i % len(route)])
+               for i, p in enumerate(prompts)]
+    outs = [h.result(timeout=900) for h in handles]
+    wall = time.perf_counter() - t0
+    settle(engine, dec0)
+    return outs, wall, engine.steps - steps0, engine.metrics.snapshot()
+
+
+def is_copy(name):
+    """A profiler device event that is a copy or a fill, not a kernel."""
+    return name.startswith(("Memcpy", "Memset"))
+
+
+def step_kernels(engine, recorded, n_steps=SERVE_BUSY_STEPS):
+    """(device-busy ms, kernel launches, ATen ops, {device event name:
+    launches}) of one of `engine`'s unified steps: the first `n_steps`
+    recorded (toks, pos, adv) replayed under torch.profiler (busy and
+    launches None when it recorded no kernel; launches and the names'
+    counts a step, copies and fills included, see is_copy), and the first
+    one once more under op_counter()."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    picks = recorded[:n_steps]
+    for a in picks:                               # warm, outside the trace
+        engine._step_logits(engine._step_args(*a))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for a in picks:
+            engine._step_logits(engine._step_args(*a))
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in evs)
+    count = sum(e.count for e in evs)
+    with op_counter() as c:
+        engine._step_logits(engine._step_args(*picks[0]))
+    torch.cuda.synchronize()
+    n = len(picks)
+    return ((busy_us / 1e3 / n if busy_us > 0 else None),
+            (count / n if count else None), c.n,
+            {e.key: e.count / n for e in evs})
+
+
+def most_launches(maps):
+    """{kernel name: the most launches any of several step_kernels name
+    maps saw}, copies and fills left out: the profiler loses a kernel's
+    record now and then (ROADMAP §3 item 5), but never adds one."""
+    return {k: max(m.get(k, 0) for m in maps)
+            for k in set().union(*maps) if not is_copy(k)}
+
+
+def name_diff(a, b):
+    """{name: [count in a, count in b]} of the names whose counts differ
+    between two step_kernels name maps."""
+    return {k: [a.get(k, 0), b.get(k, 0)] for k in sorted(set(a) | set(b))
+            if a.get(k, 0) != b.get(k, 0)}
+
+
+class SlotOpRecorder:
+    """The rows of watched requests in every leaf module's output, and in
+    every LoRA delta's sum, step by step, on an engine the caller pumps.
+    `watch` maps id(handle) to a key; each step the engine runs, a key
+    whose request is in it gets a new list of (op name, its rows: the
+    slot's first adv columns)."""
+
+    def __init__(self, engine):
+        import paddle_tpu_torch.models.gpt as gpt
+        self.engine, self.watch, self.ops = engine, {}, {}
+        self._rows, self._last, self._gpt = {}, None, gpt
+        self._hooks = [m.register_forward_hook(self._hook(name))
+                       for name, m in engine.model.named_modules()
+                       if not list(m.children())]
+        self._add = gpt.add_lora_delta
+        gpt.add_lora_delta = self._lora
+        inner = engine._step_logits
+
+        def step(a):
+            self._rows = {}
+            for slot, req in engine._active.items():
+                key = self.watch.get(id(req.handle))
+                if key is not None and a.adv[slot] > 0:
+                    self._rows[key] = (slot, int(a.adv[slot]))
+                    self.ops.setdefault(key, []).append([])
+            return inner(a)
+        engine._step_logits = step
+
+    def _take(self, name, out):
+        import torch
+        if not torch.is_tensor(out) or out.ndim < 2:
+            return
+        N, C = self.engine.pool.num_slots, self.engine.config.prefill_chunk
+        if out.shape[0] != N:
+            return
+        for key, (slot, adv) in self._rows.items():
+            rows = out[slot, :adv] if out.ndim > 2 and out.shape[1] == C \
+                else out[slot]
+            self.ops[key][-1].append((name, rows.detach().clone()))
+
+    def _hook(self, name):
+        def record(_mod, _args, out):
+            self._last = name
+            self._take(name, out)
+        return record
+
+    def _lora(self, y, x, entry, idx, scale):
+        out = self._add(y, x, entry, idx, scale)
+        if entry is not None:
+            self._take(f"{self._last} + lora delta", out)
+        return out
+
+    def remove(self):
+        for h in self._hooks:
+            h.remove()
+        self._gpt.add_lora_delta = self._add
+        del self.engine._step_logits
+
+
+def first_differing_op(a, b):
+    """The first op, in execution order, whose rows differ between two
+    SlotOpRecorder records of one request (lists of steps), or None when
+    every op of every step is bit-equal."""
+    import torch
+    if len(a) != len(b):
+        return dict(op=None, what=f"{len(a)} steps against {len(b)}")
+    for k, (sa, sb) in enumerate(zip(a, b)):
+        names = ([n for n, _ in sa], [n for n, _ in sb])
+        if names[0] != names[1]:
+            return dict(step=k, op=None, what="the steps ran other ops")
+        for (name, x), (_, y) in zip(sa, sb):
+            if x.shape != y.shape or not torch.equal(x, y):
+                d = (None if x.shape != y.shape else
+                     float((x.float() - y.float()).abs().max()))
+                return dict(step=k, rows=int(x.shape[0]), op=name,
+                            shapes=[list(x.shape), list(y.shape)],
+                            max_abs_diff=d)
+    return None
+
+
+def _armed_engine(model, trees):
+    """A fresh armed lora_serve engine (not started) with `trees`
+    registered in order, so in the burst engine's rows."""
+    from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
+    eng = LLMEngine(model, LLMEngineConfig(**LORA_SERVE_ENGINE))
+    for aid, tree in trees.items():
+        eng.register_adapter(aid, tree)
+    return eng
+
+
+def _pumped_ops(model, trees, prompts, picks, solo):
+    """{adapter: SlotOpRecorder record} of the requests `picks` ({adapter:
+    request index}) on a fresh armed engine: each alone (`solo`) or inside
+    the whole burst, pumped to its end."""
+    eng = _armed_engine(model, trees)
+    rec = SlotOpRecorder(eng)
+    try:
+        batches = ([[i] for i in picks.values()] if solo
+                   else [list(range(len(prompts)))])
+        for batch in batches:
+            hs = {i: eng.submit(prompts[i], max_new_tokens=SERVE_NEW_TOKENS,
+                                adapter=LORA_ROUTE[i % 4]) for i in batch}
+            rec.watch = {id(hs[i]): aid for aid, i in picks.items()
+                         if i in hs}
+            while eng.has_work():
+                eng.pump()
+    finally:
+        rec.remove()
+    return rec.ops
+
+
+def solo_decodes(model, trees, prompts, burst_outs):
+    """Each adapter's first stream of the burst (request i on
+    LORA_ROUTE[i % 4]) decoded solo, one request at a time on a fresh
+    armed engine with the adapters in the burst engine's rows: {adapter:
+    reading}, whether it equals the started burst's stream (`burst_outs`)
+    and, where it does not, the first op whose rows differ between its
+    solo run and the burst pumped on another fresh armed engine (both
+    recorded by a SlotOpRecorder)."""
+    import numpy as np
+    import torch
+    first = {aid: min(i for i in range(len(prompts))
+                      if LORA_ROUTE[i % 4] == aid) for aid in trees}
+    eng = _armed_engine(model, trees)
+    out = {}
+    for aid, i in first.items():
+        h = eng.submit(prompts[i], max_new_tokens=SERVE_NEW_TOKENS,
+                       adapter=aid)
+        while eng.has_work():
+            eng.pump()
+        out[aid] = dict(request=i, solo_equal_burst=bool(
+            np.array_equal(h.result(0), burst_outs[i])),
+            first_differing_op=None)
+    del eng
+    differ = {aid: i for aid, i in first.items()
+              if not out[aid]["solo_equal_burst"]}
+    if differ:
+        solo = _pumped_ops(model, trees, prompts, differ, solo=True)
+        burst = _pumped_ops(model, trees, prompts, differ, solo=False)
+        for aid in differ:
+            out[aid]["first_differing_op"] = first_differing_op(
+                solo.get(aid, []), burst.get(aid, []))
+        del solo, burst
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_lora_serve(serve, finetuned=None):
+    """Phase 20 (see the comment above LORA_SIGMA): serve's model and
+    prompts unarmed and armed in turns (unarmed, armed, armed, unarmed);
+    the armed burst's base streams equal serve's, its adapter streams move
+    tokens, a bank with its rows permuted gives the same 16 streams bit
+    for bit; the LoRA ops' device ms and launches a step beside the
+    unarmed step's; a hot swap and an unload leave a step's ops and its
+    kernels by name unchanged; each adapter's first stream decoded solo
+    against the burst (solo_decodes); the fine-tuned adapter certified,
+    registered and decoded, a rank-16 one refused; the prefix namespaces,
+    the scoped flush, the canary and the ledger on a third engine. `serve`: the serve phase's
+    record; `finetuned`: lora_finetune's AdapterWeightSet. Returns the
+    launch counts of the first armed burst."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.checkpoint import (AdapterWeightSet,
+                                             UncertifiedWeightsError)
+    from paddle_tpu_torch.obs.flops import (decode_flops_per_token,
+                                            lora_decode_flops_per_token)
+    from paddle_tpu_torch.ops import _kernels
+    from paddle_tpu_torch.serving.llm import (AdapterError, LLMEngine,
+                                              LLMEngineConfig)
+    from paddle_tpu_torch.tuning import adapter_signature, target_sites
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    model, init_s = serve_model("serve")
+    prompts = serve_prompts(model.config.vocab_size)
+    trees = {f"ad{i}": lora_tree(model, SEED + 30 + i) for i in (1, 2, 3)}
+    plain = LLMEngine(model, LLMEngineConfig(**SERVE_ENGINE))
+    armed = LLMEngine(model, LLMEngineConfig(**LORA_SERVE_ENGINE))
+    for aid, tree in trees.items():
+        armed.register_adapter(aid, tree)
+    recorded = {}
+    for name, eng in (("plain", plain), ("armed", armed)):
+        inner = eng._step_logits
+        rec = recorded[name] = []
+
+        def recording(a, inner=inner, rec=rec):
+            rec.append((a.toks.copy(), a.pos.copy(), a.adv.copy()))
+            return inner(a)
+        eng._step_logits = recording
+        eng.start()
+        serve_warm_up(eng, prompts)
+        settle(eng)
+    parts = {"build_and_warm": time.perf_counter() - t_phase}
+    turns = []
+    try:
+        for name, eng in (("plain", plain), ("armed", armed),
+                          ("armed", armed), ("plain", plain)):
+            route = LORA_ROUTE if name == "armed" else (None,)
+            recorded[name].clear()
+            _kernels.reset_launch_counts()
+            outs, wall, steps, snap = lora_burst(eng, prompts, route)
+            turns.append(dict(engine=name, outs=outs, wall_s=wall,
+                              steps=steps, snap=snap,
+                              launches=_kernels.launch_counts(),
+                              recorded=list(recorded[name])))
+        for eng in (plain, armed):
+            del eng._step_logits
+        parts["turns"] = time.perf_counter() - t_phase - sum(parts.values())
+        # the step's cost: device ms, kernels and ops of the same recorded
+        # steps on each idle engine (armed: every slot back on row 0,
+        # which costs what any row does)
+        busy_plain, kern_plain, ops_plain, _ = step_kernels(
+            plain, turns[0]["recorded"])
+        busy_armed, kern_armed, ops_armed, _ = step_kernels(
+            armed, turns[1]["recorded"])
+        parts["profile"] = time.perf_counter() - t_phase - sum(parts.values())
+        # churn: a short burst with every step's ops counted under
+        # op_counter(), a hot swap and an unload, the same burst again;
+        # the device events of LORA_CHURN_REPLAYS profiled replays of
+        # the burst's first steps, by name, just before and just after
+        def replays():
+            return [step_kernels(armed, turns[1]["recorded"],
+                                 LORA_CHURN_REPLAY_STEPS)[3]
+                    for _ in range(LORA_CHURN_REPLAYS)]
+        names_before = replays()
+        counts = {}
+
+        def counted(a, inner=armed._step_logits):
+            with op_counter() as c:
+                out = inner(a)
+            counts[phase].append(c.n)
+            return out
+
+        armed._step_logits = counted
+        for phase in ("before_churn", "after_churn"):
+            counts[phase] = []
+            lora_burst(armed, prompts[:8], ("ad2", "ad1", None),
+                       LORA_CHURN_NEW)
+            if phase == "before_churn":
+                armed.register_adapter("ad1", lora_tree(model, SEED + 39))
+                armed.unregister_adapter("ad3")
+        del armed._step_logits
+        names_after = replays()
+        parts["churn"] = time.perf_counter() - t_phase - sum(parts.values())
+    finally:
+        plain.stop(drain=True, timeout=60)
+        armed.stop(drain=True, timeout=60)
+    a1 = turns[1]
+    launches = a1["launches"]
+    base_idx = [i for i in range(len(prompts))
+                if LORA_ROUTE[i % 4] is None]
+    base_equal = [bool(np.array_equal(a1["outs"][i], serve["streams"][i]))
+                  for i in base_idx]
+    moved = {aid: sum(int(not np.array_equal(a1["outs"][i],
+                                             serve["streams"][i]))
+                      for i in range(len(prompts))
+                      if LORA_ROUTE[i % 4] == aid)
+             for aid in trees}
+    turns_equal = all(np.array_equal(a, b) for a, b in
+                      zip(turns[1]["outs"], turns[2]["outs"]))
+    plain_equal = all(np.array_equal(a, serve["streams"][i]) for t in
+                      (turns[0], turns[3]) for i, a in enumerate(t["outs"]))
+    tokens = a1["snap"]["adapter_tokens"]
+    partition = (sum(tokens.values()), a1["snap"]["tokens_out"]
+                 + a1["snap"]["prefills"])
+    kernels_churn = [most_launches(m) for m in (names_before, names_after)]
+    churn_events = dict(
+        replayed_steps=LORA_CHURN_REPLAY_STEPS,
+        replays_a_side=LORA_CHURN_REPLAYS,
+        # the profiler's own drift: replays of one state, nothing between
+        within_before=name_diff(*names_before[:2]),
+        within_after=name_diff(*names_after[:2]),
+        before_vs_after=name_diff(*kernels_churn),
+        kernels_a_step=[sum(m.values()) for m in kernels_churn],
+        copies_a_step=[[sum(v for k, v in m.items() if is_copy(k))
+                        for m in side] for side in (names_before,
+                                                    names_after)])
+
+    # the bank's rows permuted: the same streams bit for bit; then the
+    # fine-tune's adapter certified against this bank, registered in the
+    # row ad3 leaves and one stream decoded through it, and a rank-16
+    # tree and its signature refused, typed
+    perm = LLMEngine(model, LLMEngineConfig(**LORA_SERVE_ENGINE))
+    for aid in ("ad3", "ad1", "ad2"):
+        perm.register_adapter(aid, trees[aid])
+    rows = {aid: perm.adapter_bank.row_of(aid) for aid in trees}
+    ft = {}
+    perm.start()
+    try:
+        serve_warm_up(perm, prompts)
+        settle(perm)
+        p_outs, p_wall, _, _ = lora_burst(perm, prompts, LORA_ROUTE)
+        if finetuned is not None:
+            sig = perm.adapter_bank.signature
+            manifest = finetuned.certify_for(sig)
+            tree = finetuned.load(device="cpu")
+            tree = {li: {s: {f: np.asarray(v, np.float32)
+                             for f, v in e.items()}
+                         for s, e in layer.items()}
+                    for li, layer in tree.items()}
+            perm.unregister_adapter("ad3")
+            perm.register_adapter("lora-ft", tree)
+            out = perm.submit(prompts[0], max_new_tokens=SERVE_NEW_TOKENS,
+                              adapter="lora-ft").result(300)
+            ft = dict(version=manifest["version"],
+                      format=manifest["format"], tokens=int(len(out)),
+                      tokens_equal_base=int(
+                          (out == serve["streams"][0]).sum()))
+            r16 = lora_tree(model, SEED + 40, rank=16)
+            try:
+                perm.register_adapter("r16", r16)
+                ft["rank16_register"] = "accepted"
+            except AdapterError as e:
+                ft["rank16_register"] = e.reason
+            ws16 = AdapterWeightSet.publish(lora_dir(), "rank16", r16,
+                                            adapter_signature(model, 16))
+            try:
+                ws16.certify_for(sig)
+                ft["rank16_certify"] = "accepted"
+            except UncertifiedWeightsError as e:
+                ft["rank16_certify"] = e.reason
+    finally:
+        perm.stop(drain=True, timeout=60)
+    perm_equal = all(np.array_equal(a, b) for a, b in zip(p_outs, a1["outs"]))
+    del perm
+    parts["permuted_and_finetuned"] = (time.perf_counter() - t_phase
+                                       - sum(parts.values()))
+    # each adapter's first stream decoded solo, against the burst
+    solo = solo_decodes(model, trees, prompts, a1["outs"])
+    parts["solo"] = time.perf_counter() - t_phase - sum(parts.values())
+
+    # namespaces, the scoped flush, the canary and the ledger: a third
+    # engine with the prefix cache and the economics ledger on
+    ns = LLMEngine(model, LLMEngineConfig(**dict(
+        LORA_SERVE_ENGINE, enable_prefix_cache=True, economics=True)))
+    for aid in ("ad1", "ad2"):
+        ns.register_adapter(aid, trees[aid])
+    shared = prompts[1][:64]                # 8 full blocks of 8
+    ns.start()
+    try:
+        for ad in (None, "ad1", "ad2"):
+            ns.submit(shared, max_new_tokens=4, adapter=ad).result(300)
+        probe0 = [ns.prefix_probe(shared, adapter=a)
+                  for a in (None, "ad1", "ad2", "other")]
+        ns.register_adapter("ad1", trees["ad3"])      # hot swap
+        probe1 = [ns.prefix_probe(shared, adapter=a)
+                  for a in (None, "ad1", "ad2", "other")]
+        led = ns.ledger.snapshot()
+    finally:
+        ns.stop(drain=True, timeout=60)
+    canary, finite = ns.canary_probe(prompts[2][:32], 4, adapter="ad2")
+    ad_s = sum(v["device_seconds"] for v in led["adapters"].values())
+    ten_s = sum(v["device_seconds"] for v in led["tenants"].values())
+    ad_tok = sum(v["tokens"] for v in led["adapters"].values())
+    ten_tok = sum(v["tokens"] for v in led["tenants"].values())
+    del ns
+    parts["namespaces"] = time.perf_counter() - t_phase - sum(parts.values())
+
+    sites, _ = target_sites(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    lora_flops = lora_decode_flops_per_token(
+        LORA_RANK, [io for layer in sites for io in layer.values()])
+    base_flops = decode_flops_per_token(n_params)
+    gen_tokens = sum(len(o) for o in a1["outs"])
+    readings = [dict(engine=t["engine"], wall_s=t["wall_s"],
+                     steps=t["steps"],
+                     generated_tok_s=sum(len(o) for o in t["outs"])
+                     / t["wall_s"],
+                     decode_step_p50_ms=t["snap"]["intertoken_p50_ms"],
+                     ttft_p50_ms=t["snap"]["ttft_p50_ms"])
+                for t in turns]
+    result = {
+        "phase": "lora_serve", "model": "gpt3-1.3b", "dtype": "bfloat16",
+        "engine": {k: v for k, v in LORA_SERVE_ENGINE.items()},
+        "lora_alpha": armed.adapter_bank.default_alpha,
+        "adapter_sigma": LORA_SIGMA, "route": list(map(str, LORA_ROUTE)),
+        "requests": len(prompts), "generated_tokens": gen_tokens,
+        "turns": readings,
+        "serve_reference": {k: serve[k] for k in (
+            "generated_tok_s", "ttft_p50_ms", "decode_step_p50_ms")},
+        "base_streams_equal_serve": base_equal,
+        "unarmed_streams_equal_serve": plain_equal,
+        "armed_turns_equal": turns_equal,
+        "adapter_streams_moved": moved,
+        "permuted_rows": rows, "permuted_streams_equal": perm_equal,
+        "permuted_wall_s": p_wall,
+        "adapter_tokens": tokens, "emitted_tokens": partition[1],
+        "step_device_busy_ms": {"unarmed": busy_plain, "armed": busy_armed},
+        "lora_device_ms_a_step": (None if None in (busy_plain, busy_armed)
+                                  else busy_armed - busy_plain),
+        "step_kernel_launches": {"unarmed": kern_plain, "armed": kern_armed},
+        "step_aten_ops": {"unarmed": ops_plain, "armed": ops_armed,
+                          "bursts": {k: sorted(set(v))
+                                     for k, v in counts.items()}},
+        "churn_device_events": churn_events,
+        "solo_decodes": solo,
+        "lora_decode_flops_per_token": lora_flops,
+        "decode_flops_per_token": base_flops,
+        "lora_flops_share": lora_flops / base_flops,
+        "finetuned": ft,
+        "prefix_probe_before_swap": probe0, "prefix_probe_after_swap":
+            probe1,
+        "canary": dict(tokens=canary.tolist(), finite=finite),
+        "ledger_adapter_seconds": ad_s, "ledger_tenant_seconds": ten_s,
+        "ledger_adapter_tokens": ad_tok, "ledger_tenant_tokens": ten_tok,
+        "kernel_launches": launches, "model_init_s": init_s,
+        "seconds": parts,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit(result)
+    check(all(base_equal), f"lora_serve: base streams differ from serve's: "
+          f"{base_equal}")
+    check(plain_equal, "lora_serve: an unarmed turn differs from serve")
+    check(turns_equal, "lora_serve: the two armed turns differ")
+    check(all(v > 0 for v in moved.values()),
+          f"lora_serve: an adapter changed no token: {moved}")
+    check(perm_equal, "lora_serve: permuted bank rows changed a stream")
+    check(partition[0] == partition[1] == gen_tokens
+          and set(tokens) == {"base", "ad1", "ad2", "ad3"},
+          f"lora_serve: adapter tokens {tokens} do not partition the "
+          f"{partition[1]} emitted")
+    churn_ops = set(counts["before_churn"]) | set(counts["after_churn"])
+    check(len(churn_ops) == 1,
+          f"lora_serve: a churned bank changed a step's ops: {counts}")
+    check(kernels_churn[0] and kernels_churn[0] == kernels_churn[1],
+          f"lora_serve: a churned bank changed a step's kernels: "
+          f"{churn_events}")
+    check(min(probe0[:3]) > 0 and probe0[3] == 0 and probe1[1] == 0
+          and probe1[0] == probe0[0] and probe1[2] == probe0[2]
+          and probe1[3] == 0,
+          f"lora_serve: prefix probes (base, ad1, ad2, unknown) {probe0} "
+          f"-> {probe1} across ad1's hot swap")
+    check(finetuned is None or (
+        ft["tokens"] == SERVE_NEW_TOKENS
+        and ft["rank16_register"] == "adapter_mismatch"
+        and ft["rank16_certify"] == "adapter_mismatch"),
+        f"lora_serve: the fine-tuned adapter's loop: {ft}")
+    check(finite and len(canary) == 4, "lora_serve: the canary failed")
+    check(ad_tok == ten_tok and abs(ad_s - ten_s) <= 1e-9 * max(ten_s, 1.0),
+          f"lora_serve: ledger adapters {ad_s} s / {ad_tok} tokens, "
+          f"tenants {ten_s} s / {ten_tok}")
+    must, _ = served_kernels("gpt3-1.3b")
+    check(all(launches[k] > 0 for k in must),
+          f"lora_serve: the armed burst launched {launches}")
+    del model, plain, armed, turns
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -7543,10 +8352,16 @@ def main():
     by_phase["serve_observed"] = timed("serve_observed",
                                        phase_serve_observed, serve, name)
     by_phase["batch_serve"] = timed("batch_serve", phase_batch_serve)
-    by_phase["train"], train_peak = timed("train", phase_train, name)
+    train = {}
+    by_phase["train"], train_peak = timed("train", phase_train, name,
+                                          record=train)
     by_phase["train_recipe"], _ = timed("train_recipe", phase_train, name,
                                         "train_recipe",
                                         train_peak_gib=train_peak)
+    by_phase["lora_finetune"], adapter_set = timed(
+        "lora_finetune", phase_lora_finetune, name, train)
+    by_phase["lora_serve"] = timed("lora_serve", phase_lora_serve, serve,
+                                   adapter_set)
     timed("llama_model", phase_model, "llama_model")
     timed("llama_model_train", phase_model_train, "llama_model_train")
     for cell in ("llama_serve", "llama_serve_gqa"):

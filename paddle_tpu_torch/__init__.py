@@ -20,7 +20,8 @@ __version__ = "0.1.0"
 from .core.random import seed  # noqa: E402,F401
 from .framework_io import load, save  # noqa: E402,F401
 from .flags import get_flags, set_flags  # noqa: E402,F401
-from . import callbacks, checkpoint, io, metric, profiler, vision  # noqa: E402,F401
+from . import (callbacks, checkpoint, io, metric, profiler,  # noqa: E402,F401
+               tuning, vision)
 from .hapi import Model, summary  # noqa: E402,F401
 
 

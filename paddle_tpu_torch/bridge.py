@@ -27,6 +27,16 @@ as numpy, keyed by name and slot.
 `load_jax_step_extras(step, extras)` carries a JAX train step's extras
 (the loss scale and its good/bad counters, the gradient-merge accumulator
 and its count) into a port step built from the same plan.
+
+A model with frozen parameters (a LoRA-injected one, `tuning.inject_lora`:
+every base weight frozen and re-homed under `<site>.base.`, the adapter
+leaves `<site>.lora_A` / `lora_B` trainable) crosses as the JAX
+`functional_state()` splits it: the trainable parameters in `params`,
+the frozen ones in `buffers` beside the real buffers. `load_jax_state`
+takes a frozen parameter from either tree, and `export_functional_state`
+gives the port model's two trees in that split. Adapter trees
+(`tuning.adapter_state_dict`) are host numpy in both packages and cross
+as they are.
 """
 from __future__ import annotations
 
@@ -70,13 +80,30 @@ def load_jax_state(model: torch.nn.Module,
     ValueError on a shape mismatch, naming every offending key; nothing
     is copied then."""
     named = dict(model.named_parameters())
+    # frozen parameters the params tree lacks ride the buffers tree, as
+    # the JAX functional_state() puts them there
+    frozen = {k: t for k, t in named.items()
+              if not t.requires_grad and k not in params}
+    named = {k: t for k, t in named.items() if k not in frozen}
     _check(named, params, "state")
     named_b = dict(model.named_buffers())
-    if buffers is not None:
-        _check(named_b, buffers, "buffers")
+    if buffers is not None or frozen:
+        named_b.update(frozen)
+        _check(named_b, buffers or {}, "buffers")
         _copy_in(named_b, buffers)
     _copy_in(named, params)
     return model
+
+
+def export_functional_state(model: torch.nn.Module):
+    """(params, buffers) as the JAX `functional_state()` splits them: the
+    parameters that require a gradient, then the frozen parameters and
+    the buffers, each {name: float32 numpy copy}."""
+    params, rest = {}, export_buffers(model)
+    for k, p in model.named_parameters():
+        arr = p.detach().float().cpu().numpy().copy()
+        (params if p.requires_grad else rest)[k] = arr
+    return params, rest
 
 
 def export_buffers(model: torch.nn.Module) -> Dict[str, np.ndarray]:

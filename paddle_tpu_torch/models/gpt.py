@@ -11,7 +11,12 @@ presets) puts an `MoELayer` in place of the MLP of every
 `moe_every_n_layers`-th layer; its aux loss flows out of each block
 (through recompute too), and the loss adds their sum times
 `moe_aux_loss_weight`. As in the JAX package, the cached decode refuses
-an MoE model. LoRA adapters wait for their own slice.
+an MoE model. The cached decode takes `adapters=` (per-layer LoRA banks,
+a bank row a batch row, the rows' scales: `serving/llm/lora.py`), whose
+gathered delta (`ops/lora.py`) lands on `qkv_proj` after its bias,
+`out_proj`, and `linear1` and `linear2` around the tanh GELU, as in the
+JAX model; `tuning.inject_lora` wraps the same four projections for
+training.
 
 Parameter names match the JAX package's `functional_state()` keys, and
 `Linear` weights keep Paddle's `[in, out]` layout, so `bridge.load_jax_state`
@@ -38,6 +43,7 @@ from ..nn.layer.layers import Layer, LayerList, init_parameters
 from ..nn.layer.moe import MoELayer
 from ..ops.attention import (decode_attention, flash_attention,
                              update_kv_cache)
+from ..ops.lora import add_lora_delta
 from ..ops.softmax_ce import fused_linear_cross_entropy
 
 
@@ -102,12 +108,19 @@ class GPTAttention(Layer):
                                           device=device, dtype=dtype)
         self.dropout_p = config.attention_dropout_prob
 
-    def forward(self, hidden, cache=None, pos=None, paged=None):
+    def forward(self, hidden, cache=None, pos=None, paged=None,
+                adapters=None):
         """Without `cache`: causal self-attention over the whole sequence
         through flash attention; returns out. With `cache`: writes this
         call's K/V into it in place at `pos` and attends over it; returns
-        (out, (k_cache, v_cache)). (GPT passes no dropout to attention.)"""
+        (out, (k_cache, v_cache)); `adapters` (this layer's
+        ({site: (A, B)}, idx, scale)) adds the gathered LoRA delta to the
+        qkv and out projections. (GPT passes no dropout to attention.)"""
         qkv = self.qkv_proj(hidden)
+        if cache is not None and adapters is not None:
+            amap, aidx, ascale = adapters
+            qkv = add_lora_delta(qkv, hidden, amap.get("qkv_proj"), aidx,
+                                 ascale)
         hd = self.head_dim
         B, T = qkv.shape[0], qkv.shape[1]
         n_local = qkv.shape[-1] // (3 * hd)
@@ -120,7 +133,11 @@ class GPTAttention(Layer):
         out = decode_attention(qh, kc, vc, pos, scale=1.0 / (hd ** 0.5),
                                paged=paged)
         ctx = out.transpose(1, 2).reshape(B, T, -1)
-        return self.out_proj(ctx), (kc, vc)
+        out = self.out_proj(ctx)
+        if adapters is not None:
+            out = add_lora_delta(out, ctx, amap.get("out_proj"), aidx,
+                                 ascale)
+        return out, (kc, vc)
 
 
 class GPTDecoderLayer(Layer):
@@ -165,11 +182,12 @@ class GPTDecoderLayer(Layer):
             aux = None
         return x + self.dropout(h), aux
 
-    def forward(self, x, cache=None, pos=None, paged=None):
+    def forward(self, x, cache=None, pos=None, paged=None, adapters=None):
         """(x, new_cache) with a cache; (x, aux) without (the JAX layer's
         (x, aux_loss), aux None for a dense layer). In training with
         `use_recompute`, the block's activations are recomputed in the
-        backward instead of kept. An MoE layer has no cached decode."""
+        backward instead of kept. An MoE layer has no cached decode.
+        `adapters`: this layer's LoRA operand on the cached path."""
         if cache is None:
             if self._use_recompute and self.training:
                 if self.use_moe:
@@ -179,11 +197,20 @@ class GPTDecoderLayer(Layer):
         if self.use_moe:
             raise NotImplementedError(
                 "KV-cache decode is not wired through MoE layers yet")
-        h, new_cache = self.self_attn(self.norm1(x), cache, pos, paged=paged)
+        h, new_cache = self.self_attn(self.norm1(x), cache, pos, paged=paged,
+                                      adapters=adapters)
         x = x + self.dropout(h)
+        h_in = self.norm2(x)
+        h = self.linear1(h_in)
+        if adapters is not None:
+            amap, aidx, ascale = adapters
+            h = add_lora_delta(h, h_in, amap.get("linear1"), aidx, ascale)
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(self.linear1(self.norm2(x)), approximate="tanh")
-        x = x + self.dropout(self.linear2(h))
+        h = F.gelu(h, approximate="tanh")
+        h2 = self.linear2(h)
+        if adapters is not None:
+            h2 = add_lora_delta(h2, h, amap.get("linear2"), aidx, ascale)
+        x = x + self.dropout(h2)
         return x, new_cache
 
 
@@ -213,11 +240,14 @@ class GPTModel(Layer):
         return (cfg.moe_num_experts > 0
                 and (i + 1) % cfg.moe_every_n_layers == 0)
 
-    def forward(self, input_ids, caches=None, pos=None, paged=None):
+    def forward(self, input_ids, caches=None, pos=None, paged=None,
+                adapters=None):
         """With `caches`: (hidden, caches) with positions offset by `pos`
-        (an int offsets the whole batch, a [B] tensor each row). Without:
-        (hidden, total aux loss), positions 0..S-1; the aux loss is the
-        sum over the MoE layers, None for a dense model."""
+        (an int offsets the whole batch, a [B] tensor each row), and
+        `adapters` = (per-layer banks, adapter_idx [B], scale [K]) the
+        per-row LoRA operand (ops/lora.py). Without: (hidden, total aux
+        loss), positions 0..S-1; the aux loss is the sum over the MoE
+        layers, None for a dense model."""
         S = input_ids.shape[1]
         dev = input_ids.device
         ar = torch.arange(S, device=dev)
@@ -238,8 +268,11 @@ class GPTModel(Layer):
             self.position_embeddings(pos_ids)
         hidden = self.dropout(hidden)
         new_caches = []
-        for layer, cache in zip(self.layers, caches):
-            hidden, nc = layer(hidden, cache, pos, paged=paged)
+        for i, (layer, cache) in enumerate(zip(self.layers, caches)):
+            layer_ad = None if adapters is None else (
+                adapters[0][i], adapters[1], adapters[2])
+            hidden, nc = layer(hidden, cache, pos, paged=paged,
+                               adapters=layer_ad)
             new_caches.append(nc)
         return self.final_norm(hidden), new_caches
 
@@ -322,11 +355,15 @@ class GPTForCausalLM(Layer):
                 for _ in range(cfg.num_hidden_layers)]
 
     @torch.no_grad()
-    def forward_with_cache(self, input_ids, caches, pos, paged=None):
+    def forward_with_cache(self, input_ids, caches, pos, paged=None,
+                           adapters=None):
         """(logits [B, S, V], caches). The caches are written in place and
         returned. `paged=(block_table, seq_lens, block_len, pages_per_row)`
-        routes attention through slot-pool pages (the serving step)."""
-        hidden, new_caches = self.gpt(input_ids, caches, pos, paged=paged)
+        routes attention through slot-pool pages (the serving step);
+        `adapters=(per_layer_banks, adapter_idx [B], scale [K])` adds each
+        row's gathered LoRA delta (`AdapterBank.device_args()`)."""
+        hidden, new_caches = self.gpt(input_ids, caches, pos, paged=paged,
+                                      adapters=adapters)
         return self.lm_head(hidden), new_caches
 
     def generate(self, input_ids, max_new_tokens=32, do_sample=False,

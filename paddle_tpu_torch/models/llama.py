@@ -11,8 +11,10 @@ kv head repeated for its group of query heads (`repeat_interleave`, as
 `jnp.repeat` does), and with labels the mean of `ParallelCrossEntropy`
 over the full logits, as the JAX model computes its loss. RMSNorm, RoPE
 and SwiGLU are plain torch, as they are plain jax.numpy there: this
-family launches no LayerNorm kernel. LoRA adapters and the pipeline
-protocol wait for their own slices and raise.
+family launches no LayerNorm kernel. The cached decode takes
+`adapters=` (the per-row LoRA operand, `ops/lora.py`) on all seven
+projections, as the JAX model does; the pipeline protocol waits for its
+slice and raises.
 
 Parameter names match the JAX package's `functional_state()` keys
 (`llama.layers.0.self_attn.q_proj.weight`, ...), and `Linear` weights keep
@@ -39,6 +41,7 @@ from ..nn.layer.layers import Layer, LayerList, create_parameter, \
     init_parameters
 from ..ops.attention import (decode_attention, flash_attention,
                              update_kv_cache)
+from ..ops.lora import add_lora_delta
 
 
 @dataclass
@@ -77,7 +80,6 @@ LLAMA_PRESETS = {
                               num_key_value_heads=8),
 }
 
-_LORA = "LoRA adapters wait for their slice (ROADMAP §1 item 7)"
 _PIPELINE = ("the pipeline-parallel protocol waits for the multi-GPU slice "
              "(ROADMAP §1 item 8)")
 
@@ -141,20 +143,29 @@ class LlamaAttention(Layer):
                                         input_is_parallel=True, **kw)
 
     def forward(self, hidden, rope, attn_mask=None, cache=None, pos=None,
-                paged=None):
+                paged=None, adapters=None):
         """`rope`: this call's (cos, sin) rows (`_RopeTables`). Without
         `cache`: causal self-attention over the whole sequence through
         flash attention; returns out. With `cache` (k, v [B, Hkv, L, D]):
         writes this call's rotated K/V into it in place at `pos` and
-        attends over it; returns (out, (k_cache, v_cache))."""
+        attends over it; returns (out, (k_cache, v_cache)); `adapters`
+        (this layer's ({site: (A, B)}, idx, scale)) adds the gathered LoRA
+        delta to q, k, v (before RoPE) and o."""
         if attn_mask is not None:
             raise NotImplementedError(
                 "padding masks are not wired into the fused attention yet; "
                 "pack sequences or pad-to-multiple instead")
         B, T = hidden.shape[0], hidden.shape[1]
         hd = self.head_dim
-        qh, kh, vh = (p(hidden).reshape(B, T, -1, hd).transpose(1, 2)
-                      for p in (self.q_proj, self.k_proj, self.v_proj))
+        q, k, v = self.q_proj(hidden), self.k_proj(hidden), \
+            self.v_proj(hidden)
+        if cache is not None and adapters is not None:
+            amap, aidx, ascale = adapters
+            q = add_lora_delta(q, hidden, amap.get("q_proj"), aidx, ascale)
+            k = add_lora_delta(k, hidden, amap.get("k_proj"), aidx, ascale)
+            v = add_lora_delta(v, hidden, amap.get("v_proj"), aidx, ascale)
+        qh, kh, vh = (t.reshape(B, T, -1, hd).transpose(1, 2)
+                      for t in (q, k, v))
         qh, kh = _apply_rope(qh, *rope), _apply_rope(kh, *rope)
         if cache is None:
             n_rep = self.num_heads // self.num_kv_heads
@@ -167,7 +178,10 @@ class LlamaAttention(Layer):
         out = decode_attention(qh, kc, vc, pos, scale=1.0 / (hd ** 0.5),
                                paged=paged)
         ctx = out.transpose(1, 2).reshape(B, T, -1)
-        return self.o_proj(ctx), (kc, vc)
+        out = self.o_proj(ctx)
+        if adapters is not None:
+            out = add_lora_delta(out, ctx, amap.get("o_proj"), aidx, ascale)
+        return out, (kc, vc)
 
 
 class LlamaMLP(Layer):
@@ -183,8 +197,16 @@ class LlamaMLP(Layer):
         self.down_proj = RowParallelLinear(i, h, input_is_parallel=True,
                                            **kw)
 
-    def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x, adapters=None):
+        gate, up = self.gate_proj(x), self.up_proj(x)
+        if adapters is None:
+            return self.down_proj(F.silu(gate) * up)
+        amap, aidx, ascale = adapters
+        gate = add_lora_delta(gate, x, amap.get("gate_proj"), aidx, ascale)
+        up = add_lora_delta(up, x, amap.get("up_proj"), aidx, ascale)
+        act = F.silu(gate) * up
+        return add_lora_delta(self.down_proj(act), act,
+                              amap.get("down_proj"), aidx, ascale)
 
 
 class LlamaDecoderLayer(Layer):
@@ -202,18 +224,22 @@ class LlamaDecoderLayer(Layer):
         x = x + self.self_attn(self.input_layernorm(x), (cos, sin))
         return x + self.mlp(self.post_attention_layernorm(x))
 
-    def forward(self, x, rope, cache=None, pos=None, paged=None):
+    def forward(self, x, rope, cache=None, pos=None, paged=None,
+                adapters=None):
         """x without a cache (activations recomputed in the backward in
         training with `use_recompute`); (x, new_cache) with one. `rope`:
-        the call's (cos, sin) rows."""
+        the call's (cos, sin) rows; `adapters`: this layer's LoRA operand
+        on the cached path."""
         if cache is None:
             if self._use_recompute and self.training:
                 return recompute(self._block, x, *rope)
             return self._block(x, *rope)
         h, new_cache = self.self_attn(self.input_layernorm(x), rope,
-                                      cache=cache, pos=pos, paged=paged)
+                                      cache=cache, pos=pos, paged=paged,
+                                      adapters=adapters)
         x = x + h
-        return x + self.mlp(self.post_attention_layernorm(x)), new_cache
+        return (x + self.mlp(self.post_attention_layernorm(x),
+                             adapters=adapters), new_cache)
 
 
 class _RopeTables:
@@ -267,10 +293,12 @@ class LlamaModel(Layer):
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device,
                             dtype)
 
-    def forward(self, input_ids, caches=None, pos=None, paged=None):
+    def forward(self, input_ids, caches=None, pos=None, paged=None,
+                adapters=None):
         """Without `caches`: the final hidden states. With them: (hidden,
         caches) with positions offset by `pos` (an int offsets the whole
-        batch, a [B] tensor each row)."""
+        batch, a [B] tensor each row), and `adapters` = (per-layer banks,
+        adapter_idx [B], scale [K]) the per-row LoRA operand."""
         hidden = self.embed_tokens(input_ids)
         T = input_ids.shape[1]
         L = T if caches is None else caches[0][0].shape[2]
@@ -280,8 +308,11 @@ class LlamaModel(Layer):
                 hidden = layer(hidden, rope)
             return self.norm(hidden)
         new_caches = []
-        for layer, cache in zip(self.layers, caches):
-            hidden, nc = layer(hidden, rope, cache, pos, paged=paged)
+        for i, (layer, cache) in enumerate(zip(self.layers, caches)):
+            layer_ad = None if adapters is None else (
+                adapters[0][i], adapters[1], adapters[2])
+            hidden, nc = layer(hidden, rope, cache, pos, paged=paged,
+                               adapters=layer_ad)
             new_caches.append(nc)
         return self.norm(hidden), new_caches
 
@@ -345,10 +376,11 @@ class LlamaForCausalLM(Layer):
                            adapters=None):
         """(logits [B, S, V], caches). The caches are written in place and
         returned. `paged=(block_table, seq_lens, block_len, pages_per_row)`
-        routes attention through slot-pool pages (the serving step)."""
-        if adapters is not None:
-            raise NotImplementedError(_LORA)
-        hidden, new_caches = self.llama(input_ids, caches, pos, paged=paged)
+        routes attention through slot-pool pages (the serving step);
+        `adapters=(per_layer_banks, adapter_idx [B], scale [K])` adds each
+        row's gathered LoRA delta (`AdapterBank.device_args()`)."""
+        hidden, new_caches = self.llama(input_ids, caches, pos, paged=paged,
+                                        adapters=adapters)
         return self.lm_head(hidden), new_caches
 
     def generate(self, input_ids, max_new_tokens=32, do_sample=False,

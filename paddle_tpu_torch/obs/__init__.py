@@ -24,7 +24,8 @@ both depend on this package, never the other way around.
 """
 from .flight_recorder import DUMP_DIR_ENV, FlightRecorder, flight_recorder
 from .flops import (conv_train_flops_per_step, decode_flops_per_token,
-                    decode_mfu, peak_flops, train_flops_per_step)
+                    decode_mfu, lora_decode_flops_per_token, peak_flops,
+                    train_flops_per_step)
 from .goodput import (PHASES, GoodputLedger, HBMTelemetry, PhaseLedger,
                       RecompileSentinel, oom_forensics)
 from .numerics import (NumericsObservatory, all_finite, bracket_path,
@@ -39,7 +40,7 @@ from .trace import (LLM_PHASES, SERVING_PHASES, RequestTrace, TimelineStore,
 __all__ = [
     "DUMP_DIR_ENV", "FlightRecorder", "flight_recorder",
     "conv_train_flops_per_step", "decode_flops_per_token", "decode_mfu",
-    "peak_flops", "train_flops_per_step",
+    "lora_decode_flops_per_token", "peak_flops", "train_flops_per_step",
     "PHASES", "GoodputLedger", "HBMTelemetry", "PhaseLedger",
     "RecompileSentinel", "oom_forensics",
     "NumericsObservatory", "all_finite", "bracket_path", "current_numerics",

@@ -6,7 +6,8 @@ step, counting an MoE model's active parameters;
 `conv_train_flops_per_step` a conv net's step from its forward MACs
 (`paddle_tpu_torch.flops`); `decode_flops_per_token` and `decode_mfu`
 the 2·N decode formula and the effective decode utilization the serving
-economics ledger reports; `peak_flops` is the published dense bf16 rate
+economics ledger reports; `lora_decode_flops_per_token` an adapted row's
+extra decode FLOPs; `peak_flops` is the published dense bf16 rate
 of the card the port runs on. Stdlib only.
 """
 from __future__ import annotations
@@ -50,6 +51,16 @@ def conv_train_flops_per_step(fwd_mac_flops: float, batch: int) -> float:
 def decode_flops_per_token(n_params: int) -> float:
     """2·N forward-only FLOPs a generated token (KV-cache decode)."""
     return 2.0 * n_params
+
+
+def lora_decode_flops_per_token(rank: int, target_dims) -> float:
+    """Extra forward FLOPs a token for one LoRA-adapted row: each adapted
+    site adds ``x[in] @ A.T[in, r]`` then ``z[r] @ B.T[r, out]``, 2·r·(in +
+    out) FLOPs under decode_flops_per_token's 2·MAC convention.
+    `target_dims` holds one (in_features, out_features) pair for EVERY
+    adapted site of EVERY layer (num_layers * len(targets) entries)."""
+    r = int(rank)
+    return float(sum(2.0 * r * (int(i) + int(o)) for i, o in target_dims))
 
 
 def decode_mfu(flops_per_token: float, tokens: int, seconds: float,

@@ -113,8 +113,8 @@ class ServingLedger(PhaseLedger):
         self._class_tokens: Dict[str, int] = {}
         self._class_draft_tokens: Dict[str, int] = {}
         # multi-LoRA serving: the same per-row shares re-bucketed by
-        # adapter id ("base" for row-0 streams); empty until the port's
-        # engine serves adapters (ROADMAP item 7b)
+        # adapter id ("base" for row-0 streams); empty unless the engine
+        # is armed with an adapter bank
         self._adapter_seconds: Dict[str, float] = {}
         self._adapter_tokens: Dict[str, int] = {}
 

@@ -1,6 +1,7 @@
 """Online serving runtime (counterpart of paddle_tpu/serving): the
 continuous micro-batching `BatchingEngine` over a predict callable, the
-continuous-batching `LLMEngine` (`serving.llm`), their supervision
+continuous-batching `LLMEngine` (`serving.llm`, with its multi-LoRA
+`AdapterBank`), their supervision
 (`EngineSupervisor`: hung-dispatch watchdog, typed `DispatchFailedError`,
 circuit breaker) and the deterministic simulation harness (`sim`).
 
@@ -21,6 +22,6 @@ from .supervisor import (DispatchFailedError, DispatchHungError,  # noqa: F401
 from .sim import (Arrival, ReplayReport, poisson_trace,  # noqa: F401
                   replay, uniform_trace)
 from . import llm  # noqa: F401
-from .llm import (GenerationHandle, LLMEngine,  # noqa: F401
-                  LLMEngineConfig, PrefixCache, SlotPagedKVPool,
-                  SlotsExhaustedError)
+from .llm import (AdapterBank, AdapterError,  # noqa: F401
+                  GenerationHandle, LLMEngine, LLMEngineConfig, PrefixCache,
+                  SlotPagedKVPool, SlotsExhaustedError)

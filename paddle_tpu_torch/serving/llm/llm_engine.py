@@ -129,13 +129,40 @@ engine failure, is an outcome for the burn monitor. Disarmed, each hook
 is one predicate. Because the port launches op by op, the booked span
 holds the host's enqueue time (serving_ledger.py says more).
 
+Multi-LoRA serving, as in the JAX engine: `max_adapters > 0` arms an
+`AdapterBank` (`lora.py`) of that many rows of rank `lora_rank` beside
+the all-zero row 0. `submit(adapter=)` names a loaded adapter (typed
+rejects "adapter_unavailable", "unknown_adapter"); admission binds the
+slot's bank row, and every step passes the bank's operand to the model,
+whose gathered delta adds each row's own adapter, so base and adapter
+streams share one step. `register_adapter` loads or hot-swaps a row (its
+rollback token is the prior row), `rollback_adapter` restores one,
+`unregister_adapter` refuses while a stream uses the adapter
+("adapter_in_use"). Prefix KV is namespaced by (tenant, adapter), and a
+swap flushes only that adapter's namespaces. `canary_probe(adapter=)`
+greedy-decodes a golden prompt through a row on the contiguous cache,
+checking that every logit is finite: the gate of a hot swap.
+
+A swap from another thread must not tear a step. The JAX bank rewrites
+rows functionally, so each jitted dispatch sees one bank; the port's
+step launches layer by layer, so a row written in place between two
+layers would give the step old rows below and new rows above. The bank
+therefore writes copy-on-write under its lock (it replaces each touched
+layer/site tensor and never writes one it has handed out), and the step
+takes the bank's operand once, when `_step_args` builds its operands on
+the engine thread: every layer of that attempt, an abandoned one
+included, reads the tensors of one bank version, and the step after the
+swap reads the new rows. `tests/test_torch_lora_engine.py` swaps from
+another thread between two layers and holds every row of that step to
+the all-old result.
+
 Under a `SimClock` the engine runs threadless and the harness calls
 `pump()`; under the default `MonotonicClock`, `start()` runs the same
 `pump()` on a scheduler thread.
 
 Not ported yet (each is a ROADMAP item): speculative decoding (and the
-draft pool's prefix cache), LoRA adapters, the compile observatory, and
-rolling deploys with their cache flush.
+draft pool's prefix cache), the compile observatory, and rolling deploys
+with their cache flush.
 """
 from __future__ import annotations
 
@@ -162,6 +189,7 @@ from ..supervisor import (DispatchFailedError,  # noqa: F401
                           DispatchHungError, EngineSupervisor)
 from .host_kv import HostKVPool
 from .kv_pool import SlotPagedKVPool, SlotsExhaustedError
+from .lora import AdapterBank, AdapterError
 from .prefix_cache import PrefixCache
 from .sampling import (GREEDY, SamplingParams, SlotSamplingTable,
                        compile_grammar, select_rows)
@@ -230,6 +258,20 @@ class LLMEngineConfig:
     #                                targets feeding the burn monitor; a
     #                                class absent from the dict counts every
     #                                prefill as a good outcome
+    # ---- multi-LoRA serving ----
+    max_adapters: int = 0          # > 0 arms the AdapterBank: that many
+    #                                hot-swappable LoRA rows ride every
+    #                                step through a per-slot adapter_idx
+    #                                lane (row 0 is the all-zero base
+    #                                pass-through, so adapter=None streams
+    #                                stay bit-equal); 0 = no bank, and the
+    #                                step is the pre-LoRA engine's
+    lora_rank: int = 8             # bank row rank, fixed at construction;
+    #                                loading an adapter of another rank is
+    #                                a typed refusal
+    lora_alpha: Optional[float] = None  # default scaling numerator for
+    #                                rows loaded without an explicit alpha
+    #                                (None = 2 * lora_rank)
 
     def __post_init__(self):
         if self.num_slots < 1:
@@ -294,6 +336,15 @@ class LLMEngineConfig:
             raise ValueError(
                 f"slo_burn_min_events must be >= 1, got "
                 f"{self.slo_burn_min_events}")
+        if self.max_adapters < 0:
+            raise ValueError(
+                f"max_adapters must be >= 0, got {self.max_adapters}")
+        if self.lora_rank < 1:
+            raise ValueError(
+                f"lora_rank must be >= 1, got {self.lora_rank}")
+        if self.lora_alpha is not None and self.lora_alpha <= 0:
+            raise ValueError(
+                f"lora_alpha must be > 0, got {self.lora_alpha}")
         if self.slo_ttft_target_ms is not None:
             for cls, target in self.slo_ttft_target_ms.items():
                 if cls not in SLO_CLASSES:
@@ -354,7 +405,7 @@ class _GenRequest:
                  "deadline", "handle", "slot", "emitted", "last_tok", "slo",
                  "cost", "chunk_off", "tenant", "attached_pages", "rid",
                  "want_logprobs", "sampling", "sample_offset", "gid",
-                 "dfa_state0", "kv_row", "submit_idx", "trace")
+                 "dfa_state0", "kv_row", "submit_idx", "trace", "adapter")
 
     def __init__(self, prompt, max_new_tokens, eos_token_id, arrival,
                  deadline, slo, submit_idx=0, want_logprobs=False,
@@ -389,6 +440,8 @@ class _GenRequest:
         self.gid: int = 0                 # grammar bank row (0: none)
         self.dfa_state0: int = 0          # DFA state at admission
         self.trace: Optional[RequestTrace] = None   # None unless traced
+        self.adapter: Optional[str] = None    # AdapterBank id the stream
+        #                                       decodes under (None: base)
 
 
 class _AttemptRevoked(RuntimeError):
@@ -444,15 +497,17 @@ class _StepArgs:
     engine thread before the attempt: host rows (`toks`, `pos`, `adv`,
     and for a sampled step `ctr` and `constrained`), their device copies,
     the lengths, the block table and the slabs, and for a sampled step the
-    sampling operands; `stream` is the CUDA stream current on the engine
-    thread (None on the CPU), `mask_ms` the host time the sampling
-    operands took, and `mask_s` the same on the engine's clock (None
-    unless the ledger is armed)."""
+    sampling operands; `adapters` the adapter bank's operand (None unless
+    armed), taken once here so every layer of the attempt reads one bank
+    version; `stream` is the CUDA stream current on the engine thread
+    (None on the CPU), `mask_ms` the host time the sampling operands
+    took, and `mask_s` the same on the engine's clock (None unless the
+    ledger is armed)."""
 
     __slots__ = ("toks", "pos", "adv", "toks_d", "pos_d", "seq_lens",
                  "table", "slabs", "sampled", "ctr", "constrained", "keys",
                  "params", "bank", "rows", "stream", "mask_ms",
-                 "mask_s")
+                 "mask_s", "adapters")
 
 
 class LLMEngine:
@@ -501,6 +556,15 @@ class LLMEngine:
             max_grammars=self.config.max_grammars,
             max_dfa_states=self.config.max_dfa_states,
             device=self.pool.device)
+        # the multi-LoRA bank: K stacked adapter trees and a per-slot row
+        # lane passed to every step; None unless armed, and then every
+        # step is the pre-LoRA engine's
+        self.adapter_bank: Optional[AdapterBank] = None
+        if self.config.max_adapters > 0:
+            self.adapter_bank = AdapterBank(
+                model, self.config.max_adapters, self.config.lora_rank,
+                self.config.num_slots,
+                default_alpha=self.config.lora_alpha)
         self._queues: Dict[str, deque] = {c: deque() for c in SLO_CLASSES}
         self._active: Dict[int, _GenRequest] = {}   # slot -> request
         self._cond = threading.Condition()
@@ -555,13 +619,16 @@ class LLMEngine:
     # ---- the unified step ----
     def _step_args(self, toks: np.ndarray, pos: np.ndarray, adv: np.ndarray,
                    ctr: Optional[np.ndarray] = None,
-                   constrained: bool = False) -> _StepArgs:
+                   constrained: bool = False,
+                   adapter_rows: Optional[np.ndarray] = None) -> _StepArgs:
         """The operands of one step over every slot, on the pool's device.
         `toks [N, C]` carries each slot's chunk, `pos [N]` its committed
         length (the write offset), `adv [N]` how many of the C columns are
         real. With `ctr` (each row's stream index at its emission column)
         the step samples: the lane keys, per-slot params, the emission
-        rows, and the grammar bank when a row is `constrained`. Call it on
+        rows, and the grammar bank when a row is `constrained`. An armed
+        engine adds the bank's operand: the slots' bound rows, or
+        `adapter_rows` (a bank row a batch row) for a probe. Call it on
         the engine thread, under the engine lock when the engine runs: it
         reads the pool's block table and the sampling table."""
         dev = self.pool.device
@@ -577,6 +644,11 @@ class LLMEngine:
         a.sampled = ctr is not None
         a.ctr, a.constrained = ctr, constrained
         a.keys = a.params = a.bank = a.rows = a.mask_ms = a.mask_s = None
+        a.adapters = None
+        if self.adapter_bank is not None:
+            a.adapters = (self.adapter_bank.device_args()
+                          if adapter_rows is None else
+                          self.adapter_bank.args_for_rows(adapter_rows))
         if a.sampled:
             t0 = time.perf_counter()
             tl0 = self.clock.now() if self.ledger is not None else None
@@ -601,7 +673,7 @@ class LLMEngine:
         paged = (a.table, a.seq_lens, self.pool.block_len,
                  self.pool.n_blocks)
         logits, _ = self.model.forward_with_cache(
-            a.toks_d, a.slabs, a.pos_d, paged=paged)
+            a.toks_d, a.slabs, a.pos_d, paged=paged, adapters=a.adapters)
         return logits
 
     @torch.no_grad()
@@ -684,7 +756,10 @@ class LLMEngine:
 
     def _kinds_of(self, prefill_slots, decode_slots) -> Tuple:
         """(kind, request_ids) announcement order for fault injection:
-        prefill rows first, then decode rows, both at one dispatch idx."""
+        prefill rows first, then decode rows, both at one dispatch idx.
+        Rows riding an adapter also announce kind "adapter" at the same
+        index, so a `poison_request@rid:adapter` clause scopes a fault to
+        one adapter's streams without touching their batch-mates."""
         kinds = []
         if prefill_slots:
             kinds.append(("prefill", tuple(sorted(
@@ -692,6 +767,11 @@ class LLMEngine:
         if decode_slots:
             kinds.append(("decode", tuple(sorted(
                 self._active[s].submit_idx for s in decode_slots))))
+        adapter_rows = [s for s in list(prefill_slots) + list(decode_slots)
+                        if self._active[s].adapter]
+        if adapter_rows:
+            kinds.append(("adapter", tuple(sorted(
+                self._active[s].submit_idx for s in adapter_rows))))
         return tuple(kinds)
 
     # ---- lifecycle ----
@@ -958,7 +1038,8 @@ class LLMEngine:
                tenant: Optional[str] = None,
                rid: Optional[str] = None,
                kv_row: Optional[dict] = None,
-               trace: bool = False) -> GenerationHandle:
+               trace: bool = False,
+               adapter: Optional[str] = None) -> GenerationHandle:
         """Admit one prompt (1-D int token ids).
 
         `tenant` names the request's isolation domain
@@ -969,7 +1050,12 @@ class LLMEngine:
         the KV of the prompt's first `kv_row["length"]` tokens, which
         admission lands in the slot instead of prefilling them.
         `trace=True` keeps the request's timeline on the handle and, once
-        it ends, in `timelines`.
+        it ends, in `timelines`. `adapter` names a loaded `AdapterBank`
+        row: the stream then decodes under that adapter's LoRA delta in
+        the same steps as its base and other-adapter batch-mates; None
+        rides row 0, bit-equal to the unarmed engine. Naming one on an
+        engine without a bank, or one not loaded, is a typed reject
+        ("adapter_unavailable" / "unknown_adapter").
 
         `sampling` carries the request's sampling contract; None is
         greedy. `sample_offset` is the stream index of the first token
@@ -1008,6 +1094,24 @@ class LLMEngine:
         if not isinstance(tenant, str) or not tenant:
             raise ValueError("tenant must be a non-empty string")
         rid = rid or uuid.uuid4().hex
+        if adapter is not None:
+            if self.adapter_bank is None:
+                self.metrics.on_reject("adapter_unavailable", tenant=tenant)
+                self._record_reject("adapter_unavailable", rid=rid,
+                                    tenant=tenant)
+                raise RejectedError(
+                    f"request names adapter {adapter!r} but the engine "
+                    "was built without an adapter bank "
+                    "(config.max_adapters=0)",
+                    reason="adapter_unavailable")
+            if self.adapter_bank.row_of(adapter) is None:
+                self.metrics.on_reject("unknown_adapter", tenant=tenant)
+                self._record_reject("unknown_adapter", rid=rid,
+                                    tenant=tenant)
+                raise RejectedError(
+                    f"adapter {adapter!r} is not loaded "
+                    f"(loaded: {self.adapter_bank.adapter_ids})",
+                    reason="unknown_adapter")
         eos = (self.config.eos_token_id if eos_token_id is None
                else eos_token_id)
         gid, dstate0 = 0, 0
@@ -1090,6 +1194,7 @@ class LLMEngine:
             req.gid = gid
             req.dfa_state0 = dstate0
             req.kv_row = kv_row
+            req.adapter = adapter
             if trace:
                 req.trace = RequestTrace(rid, now, slo=slo, tenant=tenant)
                 req.trace.event("submitted", now, prompt_len=int(prompt.size),
@@ -1162,18 +1267,22 @@ class LLMEngine:
                            sampling=sampling, tenant=tenant).result(timeout)
 
     @staticmethod
-    def _kv_ns(tenant: str) -> str:
-        """The prefix-cache and host-tier namespace of a stream. The JAX
-        engine composes (tenant, adapter); the port serves no adapters
-        yet, so its namespace is the tenant."""
-        return tenant
+    def _kv_ns(tenant: str, adapter: Optional[str] = None) -> str:
+        """The prefix-cache and host-tier namespace of a stream: KV
+        computed under an adapter's delta differs from base KV after the
+        first adapted layer, so each (tenant, adapter) pair gets its own
+        namespace (NUL cannot appear in a tenant id, so the composition
+        is injective)."""
+        return tenant if not adapter else f"{tenant}\x00adapter:{adapter}"
 
-    def prefix_probe(self, prompt, tenant: Optional[str] = None) -> int:
+    def prefix_probe(self, prompt, tenant: Optional[str] = None,
+                     adapter: Optional[str] = None) -> int:
         """Longest block-aligned cached prefix of `prompt`, in tokens, in
-        either tier (device trie or host pool); 0 with both off.
-        Read-only: no refcounts, ticks or stats move."""
+        either tier (device trie or host pool), in the namespace of
+        (tenant, adapter); 0 with both off. Read-only: no refcounts,
+        ticks or stats move."""
         tenant = self.config.default_tenant if tenant is None else tenant
-        ns = self._kv_ns(tenant)
+        ns = self._kv_ns(tenant, adapter)
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         host = (self.host_kv.probe(ns, prompt)
                 if self.host_kv is not None else 0)
@@ -1253,6 +1362,7 @@ class LLMEngine:
                     "layers": row["layers"],
                 },
                 "lane": self._lane(req, self.sampling_table.dfa_state[slot]),
+                "adapter": req.adapter,
             }
             self._conclude(req, "handoff")
             self._free_slot_locked(slot)
@@ -1261,6 +1371,122 @@ class LLMEngine:
                                    self.pool.num_slots)
             self._cond.notify_all()
         return payload
+
+    # ---- multi-LoRA adapter lifecycle ----
+    def _flush_adapter_kv(self, adapter_id: str):
+        """Drop ONE adapter's (tenant, adapter) KV namespaces from both
+        cache tiers: its cached KV was computed under the delta being
+        replaced. Base and other-adapter namespaces stay warm."""
+        suffix = f"\x00adapter:{adapter_id}"
+        with self._cond:
+            if self.prefix_cache is not None:
+                # clears the matching host-tier namespaces too
+                self.prefix_cache.clear(only=lambda ns: ns.endswith(suffix))
+            elif self.host_kv is not None:
+                self.host_kv.clear(only=lambda ns: ns.endswith(suffix))
+
+    def _require_bank(self) -> AdapterBank:
+        if self.adapter_bank is None:
+            raise AdapterError(
+                "engine built without an adapter bank "
+                "(config.max_adapters=0)", reason="adapter_unavailable")
+        return self.adapter_bank
+
+    def register_adapter(self, adapter_id: str, tree,
+                         alpha: Optional[float] = None):
+        """Load, or hot-swap when the id is resident, one adapter into a
+        bank row, with no drain: the row is written copy-on-write (the
+        module docstring says why), so a step already running keeps the
+        old rows and the next one reads the new. The tree is validated
+        against the base-model signature first (typed AdapterError on a
+        rank, target or shape mismatch). A swap flushes the adapter's KV
+        namespaces. Returns the PRIOR row snapshot (None for a fresh
+        load): the rollback token `rollback_adapter` restores."""
+        bank = self._require_bank()
+        prior = bank.snapshot_row(adapter_id)
+        row = bank.load(adapter_id, tree, alpha=alpha)
+        if prior is not None:
+            self._flush_adapter_kv(adapter_id)
+        flight_recorder().record(
+            "adapter_swap", engine="llm", adapter=str(adapter_id),
+            row=row, update=prior is not None,
+            bank_version=bank.version)
+        self.metrics.on_adapter_swap()
+        return prior
+
+    def rollback_adapter(self, adapter_id: str, snapshot):
+        """Restore a bank row to a `register_adapter` rollback token
+        (None = the adapter was fresh: unload it). In-flight streams on
+        the row continue on the restored values: no drop, no drain."""
+        bank = self._require_bank()
+        bank.restore(adapter_id, snapshot)
+        self._flush_adapter_kv(adapter_id)
+        flight_recorder().record(
+            "adapter_rollback", engine="llm", adapter=str(adapter_id),
+            restored=snapshot is not None, bank_version=bank.version)
+        self.metrics.on_adapter_rollback()
+
+    def unregister_adapter(self, adapter_id: str):
+        """Unload an adapter and zero its row. Typed refusal
+        ("adapter_in_use") while any queued or active stream still
+        decodes under it: unloading would flip those streams to a zero
+        delta mid-sequence."""
+        bank = self._require_bank()
+        with self._cond:
+            users = [r.rid for r in self._active.values()
+                     if r.adapter == adapter_id]
+            users += [r.rid for q in self._queues.values()
+                      for r in q if r.adapter == adapter_id]
+            if users:
+                raise AdapterError(
+                    f"adapter {adapter_id!r} still has {len(users)} "
+                    f"in-flight stream(s) ({users[:4]}...): drain or "
+                    "finish them first", reason="adapter_in_use")
+            bank.unload(adapter_id)
+        flight_recorder().record(
+            "adapter_unload", engine="llm", adapter=str(adapter_id),
+            bank_version=bank.version)
+
+    @torch.no_grad()
+    def canary_probe(self, prompt, max_new_tokens: int = 4,
+                     adapter: Optional[str] = None):
+        """Golden-prompt canary: greedy-decode `max_new_tokens` tokens
+        straight through the model on the contiguous cache (a cache of its
+        own, outside the scheduler and the pool), checking that every
+        logit is finite. `adapter` probes through that bank row's LoRA
+        delta, the gate a hot swap must clear (typed AdapterError when it
+        is not loaded or there is no bank). Returns (tokens np.int32
+        [max_new_tokens], logits_finite bool)."""
+        prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        if prompt.size == 0:
+            raise ValueError("canary prompt must be non-empty")
+        adapters = None
+        if adapter is not None:
+            bank = self._require_bank()
+            row = bank.row_of(adapter)
+            if row is None:
+                raise AdapterError(f"unknown adapter {adapter!r}",
+                                   reason="unknown_adapter")
+            adapters = bank.args_for_rows([row])
+        dev = self.pool.device
+        caches = self.model.init_cache(1, int(prompt.size)
+                                       + int(max_new_tokens))
+        logits, caches = self.model.forward_with_cache(
+            torch.from_numpy(prompt[None, :]).to(dev), caches, 0,
+            adapters=adapters)
+        finite = bool(torch.isfinite(logits).all())
+        last = int(torch.argmax(logits[0, -1].float()))
+        toks = [last]
+        pos = int(prompt.size)
+        for _ in range(int(max_new_tokens) - 1):
+            logits, caches = self.model.forward_with_cache(
+                torch.tensor([[last]], dtype=torch.int32, device=dev),
+                caches, pos, adapters=adapters)
+            finite = finite and bool(torch.isfinite(logits).all())
+            last = int(torch.argmax(logits[0, -1].float()))
+            toks.append(last)
+            pos += 1
+        return np.asarray(toks, dtype=np.int32), finite
 
     # ---- scheduling ----
     def has_work(self) -> bool:
@@ -1373,7 +1599,7 @@ class LLMEngine:
                     req.trace.event(
                         "admitted", t_adm, slot=slot,
                         queue_wait_ms=(t_adm - req.arrival) * 1e3)
-                ns = self._kv_ns(req.tenant)
+                ns = self._kv_ns(req.tenant, req.adapter)
                 bl = self.pool.block_len
                 if req.kv_row is not None:
                     # land the exported row in the slot's own pages; the
@@ -1451,6 +1677,23 @@ class LLMEngine:
                 self.sampling_table.bind(slot, req.sampling or GREEDY,
                                          gid=req.gid,
                                          dfa_state=req.dfa_state0)
+                # the slot's adapter_idx points at the request's bank row;
+                # an adapter unloaded since submit is a typed reject here,
+                # never a wrong-delta decode
+                if self.adapter_bank is not None:
+                    try:
+                        self.adapter_bank.bind_slot(slot, req.adapter)
+                    except AdapterError as e:
+                        self._conclude(req, "rejected:unknown_adapter")
+                        req.handle.future.set_exception(RejectedError(
+                            f"adapter {req.adapter!r} was unloaded before "
+                            f"admission ({e})", reason="unknown_adapter"))
+                        self.metrics.on_reject("unknown_adapter",
+                                               tenant=req.tenant)
+                        self._record_reject("unknown_adapter", rid=req.rid,
+                                            tenant=req.tenant)
+                        self._free_slot_locked(slot)
+                        continue
                 self._active[slot] = req
                 self.metrics.set_slots(self.pool.active_slots(),
                                        self.pool.num_slots)
@@ -1562,18 +1805,24 @@ class LLMEngine:
                        prefill_slots, decode_slots):
         """Book one successful step's span into the ledger, split by
         advanced positions (each prefill row's chunk, one token a decode
-        row) and apportioned to the rows' tenants and SLO classes."""
+        row) and apportioned to the rows' tenants and SLO classes; an
+        armed engine re-buckets the same shares by adapter id ("base"
+        for row 0), so per-adapter seconds sum to the tenants'."""
         with self._cond:
-            owners = [(self._active[s].tenant, self._active[s].slo,
-                       int(args.adv[s]))
-                      for s in prefill_slots if s in self._active]
-            decoded = [(self._active[s].tenant, self._active[s].slo, 1)
+            rows = [(self._active[s], int(args.adv[s]))
+                    for s in prefill_slots if s in self._active]
+            decoded = [(self._active[s], 1)
                        for s in decode_slots if s in self._active]
+        n_decoded = len(decoded)
+        rows += decoded
         self.ledger.book_dispatch(
             seconds,
             prefill_positions=int(sum(args.adv[s] for s in prefill_slots)),
-            decode_positions=len(decoded),
-            total_positions=int(args.toks.size), owners=owners + decoded)
+            decode_positions=n_decoded,
+            total_positions=int(args.toks.size),
+            owners=[(r.tenant, r.slo, n) for r, n in rows],
+            adapter_owners=([(r.adapter or "base", n) for r, n in rows]
+                            if self.adapter_bank is not None else None))
 
     def _commit(self, args: _StepArgs, out, prefill_slots, decode_slots,
                 t0: float) -> int:
@@ -1619,8 +1868,8 @@ class LLMEngine:
                         # index the prefill while the slot is active, so
                         # requests queued behind it attach at once
                         self.prefix_cache.insert(
-                            self._kv_ns(req.tenant), req.prompt, slot,
-                            req.attached_pages)
+                            self._kv_ns(req.tenant, req.adapter),
+                            req.prompt, slot, req.attached_pages)
                     self._emit(req, slot, nxt, lps, new_dstate)
                     if self._finish_if_done(req, now):
                         del self._active[slot]
@@ -1678,15 +1927,24 @@ class LLMEngine:
                 solo_ctr[slot] = req.sample_offset + len(req.emitted)
             kind = ("prefill" if req.chunk_off < len(req.prompt)
                     else "decode")
+            probe_kinds = [(kind, (req.submit_idx,))]
+            solo_rows = None
+            if self.adapter_bank is not None:
+                # the probed row keeps its real bank row, so an adapter-
+                # scoped fault reproduces in isolation; it announces the
+                # adapter kind the full step did
+                solo_rows = np.zeros(len(args.pos), np.int64)
+                solo_rows[slot] = self.adapter_bank.slot_row(slot)
+                if req.adapter:
+                    probe_kinds.append(("adapter", (req.submit_idx,)))
             with self._cond:
                 # the real sampling operands: a fault that reproduces only
                 # under the row's grammar mask or sampled lane must still
                 # be attributable
                 pargs = self._step_args(solo_toks, solo_pos, solo_adv,
-                                        solo_ctr, constrained)
+                                        solo_ctr, constrained, solo_rows)
             try:
-                self._run_dispatch(((kind, (req.submit_idx,)),),
-                                   self._attempt(pargs))
+                self._run_dispatch(tuple(probe_kinds), self._attempt(pargs))
             except DispatchFailedError as e:
                 blamed.append((slot, req, e))
                 flight_recorder().record(
@@ -1784,9 +2042,12 @@ class LLMEngine:
         del self._active[slot]
 
     def _free_slot_locked(self, slot: int):
-        """Free a slot's pool row and reset its sampling row to greedy."""
+        """Free a slot's pool row, reset its sampling row to greedy and
+        its adapter row to 0."""
         self.pool.free(slot)
         self.sampling_table.clear(slot)
+        if self.adapter_bank is not None:
+            self.adapter_bank.clear_slot(slot)
 
     def _emit(self, req: _GenRequest, slot: int, nxt: np.ndarray,
               lps: np.ndarray, new_dstate: Optional[np.ndarray]):
@@ -1803,6 +2064,8 @@ class LLMEngine:
             self.metrics.on_sample_token("constrained")
         elif req.sampling is not None and req.sampling.do_sample:
             self.metrics.on_sample_token("sampled")
+        if self.adapter_bank is not None:
+            self.metrics.on_adapter_token(req.adapter or "base")
 
     def _finish_if_done(self, req: _GenRequest, now: float) -> bool:
         """Retire a request whose last token ended it (EOS, max tokens,

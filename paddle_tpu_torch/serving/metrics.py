@@ -16,8 +16,10 @@ An engine built with `economics=True` attaches its `ServingLedger` and
 `SLOBurnMonitor` (`ledger`, `burn`), read at snapshot and render time
 only: phase seconds, token efficiency, decode MFU, per-tenant and
 per-class device seconds and the burn rates. The speculative-decoding
-and adapter counters stay 0 until the port's engine drafts and serves
-adapters (ROADMAP items 7c, 7b), as the JAX families read when unused.
+counters stay 0 until the port's engine drafts (ROADMAP item 7c), as
+the JAX families read when unused; an engine armed with an adapter bank
+counts each emitted token under its adapter id ("base" for row-0
+streams) and its swaps and rollbacks.
 Snapshot keys are the JAX classes'.
 
 Totals are lifetime counters, so a drain snapshot reconciles against a
@@ -274,8 +276,8 @@ class LLMMetrics(ServingMetrics):
             "sampled_tokens": 0, "constrained_tokens": 0,
             "prefix_hits": 0, "prefix_misses": 0, "prefix_hit_tokens": 0,
             "prefix_lookup_tokens": 0,
-            # speculative decoding and adapters: 0 until the engine
-            # drafts (ROADMAP item 7c) and serves adapters (item 7b)
+            # speculative decoding: 0 until the engine drafts (ROADMAP
+            # item 7c); adapters: counted by an armed engine
             "spec_windows": 0, "spec_drafted": 0, "spec_accepted": 0,
             "spec_draft_quarantines": 0, "adapter_swaps": 0,
             "adapter_rollbacks": 0})
@@ -383,6 +385,26 @@ class LLMMetrics(ServingMetrics):
     def set_inflight_tokens(self, tokens: int):
         with self._lock:
             self.inflight_tokens = int(tokens)
+
+    # ---- multi-LoRA serving ----
+    def on_adapter_token(self, adapter: str):
+        """One emitted token attributed to a LoRA adapter: `adapter` is
+        the bank id, or "base" for a row-0 (no-adapter) stream. The
+        per-adapter counters partition the emitted tokens exactly
+        (`tokens_out`, the decode steps' tokens, plus one a finished
+        prefill: `prefills`), the token analogue of the ledger's adapter
+        seconds partitioning the tenant device seconds."""
+        with self._lock:
+            self.adapter_tokens[adapter] = \
+                self.adapter_tokens.get(adapter, 0) + 1
+
+    def on_adapter_swap(self):
+        with self._lock:
+            self.counters["adapter_swaps"] += 1
+
+    def on_adapter_rollback(self):
+        with self._lock:
+            self.counters["adapter_rollbacks"] += 1
 
     def set_slots(self, active: int, total: int):
         with self._lock:

@@ -417,6 +417,35 @@ def engine_pair(jm, tm, cfg, fault_plan=None, on_break=None,
     return je, te
 
 
+def adapter_tree(model, seed, rank=4, sigma=0.3):
+    """A synthetic adapter in the bank's canonical layout, host numpy
+    float32, which both packages' banks and `load_adapter_state` take:
+    {layer: {site: {"A": sigma * randn(rank, in), "B": sigma * randn(out,
+    rank)}}}, drawn from numpy's RandomState(seed) in the JAX test's order
+    (tests/test_lora.py `_mk_tree`). B is nonzero, so the delta moves
+    tokens. `model` is a model of either package; the draw is the port's
+    `synthetic_adapter_tree`, which chip_smoke.py's adapters use too."""
+    from paddle_tpu_torch.tuning.lora import synthetic_adapter_tree
+    if type(model).__module__.startswith("paddle_tpu_torch."):
+        from paddle_tpu_torch.tuning import target_sites
+    else:
+        from paddle_tpu.tuning import target_sites
+    sites, _ = target_sites(model)
+    return synthetic_adapter_tree(sites, seed, rank, sigma)
+
+
+def armed_engine_pair(jm, tm, cfg, adapters=None, **over):
+    """`engine_pair` with both engines armed with an adapter bank
+    (`cfg` must carry `max_adapters`), then each {id: tree} of
+    `adapters` registered on both, in order."""
+    je, te = engine_pair(jm, tm, cfg, **over)
+    assert je.adapter_bank is not None and te.adapter_bank is not None
+    for aid, tree in (adapters or {}).items():
+        je.register_adapter(aid, tree)
+        te.register_adapter(aid, tree)
+    return je, te
+
+
 def drain(engine):
     while engine.has_work():
         engine.pump()

@@ -155,18 +155,24 @@ def test_method_generate_passes_keywords(models):
 
 
 def test_unported_paths_raise(models):
-    """The paths still unported raise; sampled generate(), which this test
-    once saw raise, now runs (tests/test_torch_sampling.py holds it to the
-    JAX package)."""
+    """The paths still unported raise; sampled generate() and the cached
+    forward with `adapters=`, which this test once saw raise, now run
+    (tests/test_torch_sampling.py and tests/test_torch_lora_models.py hold
+    them to the JAX package): a bank of zero rows leaves the logits
+    bit-equal."""
     from paddle_tpu_torch.models.generation import generate
+    from paddle_tpu_torch.serving.llm.lora import AdapterBank
     _, tm = models
     h = torch.zeros((1, 3, 128))
     with pytest.raises(NotImplementedError, match="padding masks"):
         tm.llama.layers[0].self_attn(h, None,
                                      attn_mask=torch.zeros((1, 3, 3)))
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tm.forward_with_cache(torch.zeros((1, 2), dtype=torch.long),
-                              tm.init_cache(1, 8), 0, adapters=object())
+    ids = torch.tensor([[5, 6]])
+    bank = AdapterBank(tm, max_adapters=1, rank=2, num_slots=1)
+    plain, _ = tm.forward_with_cache(ids, tm.init_cache(1, 8), 0)
+    armed, _ = tm.forward_with_cache(ids, tm.init_cache(1, 8), 0,
+                                     adapters=bank.device_args())
+    assert torch.equal(plain, armed)
     out = generate(tm, np.zeros((1, 2), np.int32), do_sample=True)
     assert out.shape == (1, 34) and ((out >= 0) & (out < 512)).all()
     for name, args in (("pipe_layer_prefixes", ()), ("pipe_layers", ()),
