@@ -7,8 +7,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100. It
 builds the port's CUDA kernels from `paddle_tpu_torch/csrc/`, holds each
 one against its plain PyTorch version on the card, checks cut-down models
 on the card against the same models on the CPU, serves 16 requests
-through the continuous-batching `LLMEngine` and trains 13 steps through
-`ScanTrainStep` twice, both at the full width of `gpt3-1.3b` in bf16,
+through the continuous-batching `LLMEngine` (plainly, then with
+speculative decoding, its own draft or `gpt3-125m` proposing) and trains
+13 steps through `ScanTrainStep` twice, both at the full width of
+`gpt3-1.3b` in bf16,
 serves a shared system prompt through the prefix cache, its host tier
 and a stream handoff at the same width, trains it in fp32 master weights
 through a DistributedStrategy (AMP bf16 and fp16 with dynamic loss
@@ -62,7 +64,11 @@ Phases:
                 spin kernel) beside one PyTorch library call for the same
                 function and the least time the card could take (flash
                 and paged attention: with their achieved TFLOP/s and share
-                of that bound); the prefix cache's layout, 8 rows reading one
+                of that bound); paged attention at the speculative draft's
+                shape (gpt3-125m's 12 heads of 64, block_len 8, 8 slots) at
+                Tq = 1 and 64 (`at_draft_shape`), held, run twice
+                bit-equal and timed beside its bound, its plain version
+                and SDPA; the prefix cache's layout, 8 rows reading one
                 row's 32 pages, bit-equal to the rows reading private copies
                 and timed beside them; the fp16 kernels (fp16_kernels):
                 the flash forward, dq and dk/dv at [4,16,1024,128] causal
@@ -100,9 +106,9 @@ Phases:
                 the cached forward with adapters= (four rows on bank rows
                 0-3 of three synthetic LoRA adapters; row 0 bit-equal to
                 the unadapted forward),
-                and twice 3 steps through ScanTrainStep, with AdamW and
-                with the train recipe's optimizer and recompute (first-step
-                gradient norms, losses, weights)
+                and, cut to 1 layer, twice 3 steps through ScanTrainStep,
+                with AdamW and with the train recipe's optimizer and
+                recompute (first-step gradient norms, losses, weights)
   4c. moe_model — ernie-moe-base widths cut to 2 layers (dense, MoE),
                 fp32, 2 x 256 tokens, on the card against a CPU twin: the
                 logits, the aux loss and every (token, rank)'s expert,
@@ -173,6 +179,21 @@ Phases:
                 over 8 replayed selections), the host time a step of its
                 operands, and 8 sampled steps replayed with greedy and
                 with sampled selection
+  5g. spec_serve — phase 5's cell with speculative decoding (spec_k 4):
+                A, the target its own draft; B, full gpt3-125m (random
+                weights of another seed) as the draft; C, phase 5c's mixed
+                burst on A's engine; D, B with one request's draft
+                poisoned (poison_request@6:draft). Every stream bit-equal
+                to phase 5's (C: to 5c's); launches exactly what the
+                target steps and draft forwards make, every paged launch
+                on the tensor cores (the draft's D = 64 ones included);
+                both pools balanced after each drain; C gives no
+                constrained request a draft row; D quarantines exactly
+                that request's draft and never charges the target. Reads
+                decode iterations, acceptance, tok/s, TTFT and decode step
+                beside phase 5's, and the draft phase's host ms a pump
+                and its catch-up's and propose's device ms (8 replays each
+                under torch.profiler)
   5f. serve_observed — phase 5's cell with the serving observability
                 armed (economics=True: the serving ledger and the SLO burn
                 monitor; every request traced; two tenants, two SLO
@@ -951,6 +972,41 @@ def phase_kernels():
                        D=128, block_len=8, seq_lens=lens))
         del lq, lk, lv, lm
     del llama
+    # the speculative draft's shape (gpt3-125m: H = Hkv = 12, D = 64) at
+    # the serve engine's block_len 8 and 8 slots: Tq = 1 (each propose
+    # step) and Tq = 64 (the catch-up); a generator of its own
+    dgen = torch.Generator(device="cuda")
+    dgen.manual_seed(SEED + 20)
+    at_draft = {}
+    for label, kw in {"tq1": dict(Tq=1, decode_rows=tuple(range(8))),
+                      "tq64": dict(Tq=64, decode_rows=decode_rows)}.items():
+        c = _paged_case(torch, dgen, dtype=torch.bfloat16, H=12, Hkv=12,
+                        D=64, lens=lens, **kw)
+        readings = check_paged(torch, c, f"draft bf16 H12 D64 {label}")[0]
+        dscale = 1.0 / math.sqrt(64)
+        a = (c["q"], c["k"], c["v"], c["table"], c["lens"], c["q_pos"],
+             c["block_len"], c["pages_per_row"], dscale)
+        runs = [paged_attention_cuda(*a) for _ in range(2)]
+        torch.cuda.synchronize()
+        check(torch.equal(*runs), f"paged attention draft {label}: two "
+                                  "runs differ")
+        ms, _ = time_cuda([partial(paged_attention_cuda, *a)])
+        plain_ms, _ = time_cuda([partial(paged_attention_plain, *a)],
+                                per_rep=1, warmup=1)
+        lq, lk, lv, lm = _sdpa_inputs(torch, c)
+        lib_ms, _ = time_cuda([partial(F.scaled_dot_product_attention, lq,
+                                       lk, lv, attn_mask=lm, scale=dscale)])
+        n_bytes, n_ops = _paged_bytes_ops(c)
+        bound, by = bound_ms(n_bytes, n_ops, "bfloat16")
+        at_draft[label] = dict(
+            route=paged_route(torch.bfloat16, 8, 64),
+            max_abs_err=readings["max_abs_err"], readings=readings,
+            two_runs_equal=True, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=bound, bound_by=by, bytes=n_bytes, ops=n_ops,
+            share_of_bound=bound / ms,
+            shape=dict(B=8, H=12, Hkv=12, Tq=kw["Tq"], D=64, block_len=8,
+                       pages_per_row=64, seq_lens=lens, dtype="bfloat16"))
+        del c, a, runs, lq, lk, lv, lm
     n_bytes, n_ops = _paged_bytes_ops(bf)
     pa_bound, pa_by = bound_ms(n_bytes, n_ops, "bfloat16")
     results["paged_attention"] = dict(
@@ -965,7 +1021,8 @@ def phase_kernels():
         tflops=n_ops / pa_ms / 1e9, share_of_bound=pa_bound / pa_ms,
         shape=dict(B=8, H=16, Hkv=16, Tq=64, D=128, block_len=8,
                    pages_per_row=64, seq_lens=lens, dtype="bfloat16"),
-        at_llama_shapes=at_llama, shared_pages=shared_pages, cases=cases)
+        at_llama_shapes=at_llama, at_draft_shape=at_draft,
+        shared_pages=shared_pages, cases=cases)
     emit({"phase": "kernel", "name": "paged_attention",
           **results["paged_attention"]})
 
@@ -2900,9 +2957,11 @@ MODEL_TRAIN_PHASES = {"model_train": ("gpt3-1.3b", (False, True)),
                       "moe_model": ("ernie-moe-base", (False,))}
 # their batch, B x S (moe_model: T = 512 tokens, 160 slots an expert)
 MODEL_TRAIN_BATCH = {"moe_model": (2, 256)}
-# their depth where it is not 2 layers: llama2-7b's widths at 1 layer (its
-# CPU twin's 3 steps over ~0.5 G parameters are most of the phase)
-MODEL_TRAIN_LAYERS = {"llama_model_train": 1}
+# their depth where it is not 2 layers: gpt3-1.3b's and llama2-7b's widths
+# at 1 layer (their CPU twins' 3 steps over the full-width embedding and
+# the layers are most of the phase; one layer keeps every kernel and check
+# and leaves the script's time for spec_serve)
+MODEL_TRAIN_LAYERS = {"model_train": 1, "llama_model_train": 1}
 
 
 def phase_model_train(phase="model_train"):
@@ -3923,7 +3982,8 @@ def phase_serve(cell="serve", record=None):
     emit(result)
     if record is not None:
         record.update({k: result[k] for k in (
-            "generated_tok_s", "ttft_p50_ms", "decode_step_p50_ms")},
+            "generated_tok_s", "ttft_p50_ms", "decode_step_p50_ms", "steps",
+            "decode_iterations")}, ttft_max_ms=ttfts[-1],
             streams=dict(enumerate(outs)))
     check(worst_logits <= logits_tol,
           f"engine vs generate() first-step logits differ by {worst_logits} "
@@ -5064,11 +5124,13 @@ def _first_token_on_cpu(torch, row, sp):
     return int(tok[0, 0])
 
 
-def phase_sample_serve(serve):
+def phase_sample_serve(serve, record=None):
     """The serve cell (full gpt3-1.3b, bf16, the same engine, prefix cache
     off, and 16 prompts) with a burst that mixes greedy, sampled and constrained
     requests by index (sample_params), launch counts zeroed just before
-    it and read just after. Checks: every stream in-vocab and of its
+    it and read just after. `record`, a dict, receives the burst's
+    streams and its tok/s, TTFT and decode step (phase_spec_serve holds
+    its sampled run to them). Checks: every stream in-vocab and of its
     length; each greedy stream equal to the serve phase's stream of its
     prompt (`serve`, the record phase_serve filled); the top-k streams
     equal when resubmitted in reverse order beside other batch-mates;
@@ -5206,6 +5268,10 @@ def phase_sample_serve(serve):
         "model_init_s": init_s,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     emit(result)
+    if record is not None:
+        record.update({k: result[k] for k in (
+            "generated_tok_s", "ttft_p50_ms", "decode_step_p50_ms",
+            "steps")}, streams=dict(outs))
     check(all(greedy_equal.values()),
           f"greedy streams differ from the serve phase's: {greedy_equal}")
     check(all(reorder_equal.values()),
@@ -5220,6 +5286,339 @@ def phase_sample_serve(serve):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------- phase 5g
+# spec_serve: speculative decoding on the serve cell (full gpt3-1.3b, bf16,
+# SERVE_ENGINE plus spec_k = SPEC_K, the same 16 prompts and weights). Run
+# A: the target model is also its own draft; every stream must equal the
+# serve phase's bit for bit (both engines run the same [8, 64] step, so
+# every GEMM sees one M, and a window column's attention past its own
+# position adds exact zeros). Run B: full gpt3-125m as the draft (12 heads
+# of 64, random weights from SPEC_DRAFT_SEED): the same streams, acceptance
+# near 0. Run C: sample_serve's mixed burst on run A's engine: every
+# stream equal to sample_serve's, windows committed, no constrained
+# request given a draft row. Run D: run B's configuration with
+# poison_request@SPEC_POISON:draft: exactly that request's draft
+# quarantined, every stream still equal to serve's, the target breaker
+# never charged. Each burst's launches are counted (zeroed just before,
+# read just after) and held to what its target steps and draft forwards
+# must launch, every paged launch on the tensor cores.
+SPEC_K = 4
+SPEC_ENGINE = dict(SERVE_ENGINE, spec_k=SPEC_K)
+SPEC_DRAFT = "gpt3-125m"
+SPEC_DRAFT_SEED = SEED + 20
+SPEC_POISON = 6          # submit index of burst request 5 (the warm-up is 0)
+
+
+def spec_engine(model, draft, plan=None):
+    from paddle_tpu_torch.serving.llm import LLMEngine, LLMEngineConfig
+    from paddle_tpu_torch.utils.fault_injection import FaultPlan
+    return LLMEngine(model, LLMEngineConfig(**SPEC_ENGINE), draft_model=draft,
+                     fault_plan=FaultPlan.from_spec(plan or ""))
+
+
+def count_forwards(model, box, key):
+    """Count `model.forward_with_cache` calls into box[key]."""
+    inner = model.forward_with_cache
+
+    def counted(*a, **k):
+        box[key] += 1
+        return inner(*a, **k)
+
+    model.forward_with_cache = counted
+
+
+def record_draft_phase(engine, box):
+    """Wrap the engine's draft phase: host ms of each pump's draft phase
+    (to the proposals' copy back) and whether it proposed, into
+    box["pumps"]; every catch-up's and propose's operands into
+    box["catchup"] and box["propose"], for replays after the burst."""
+    phase, catchup, propose = (engine._draft_phase, engine._catchup_attempt,
+                               engine._propose_attempt)
+    for k in ("pumps", "catchup", "propose"):
+        box[k] = []
+
+    def timed_phase():
+        t0 = time.perf_counter()
+        out = phase()
+        box["pumps"].append(((time.perf_counter() - t0) * 1e3, bool(out)))
+        return out
+
+    def rec(kind, fn):
+        def wrapped(d):
+            box[kind].append(d)
+            return fn(d)
+        return wrapped
+
+    engine._draft_phase = timed_phase
+    engine._catchup_attempt = rec("catchup", catchup)
+    engine._propose_attempt = rec("propose", propose)
+
+
+def draft_busy(engine, recorded, kind):
+    """(device-busy ms, wall ms) of one draft attempt of `kind`
+    ("catchup" or "propose"): SERVE_BUSY_STEPS of the burst's recorded
+    operands replayed after it through the engine's attempt callables
+    (their writes land past every row's committed draft length): wall on
+    the host clock to a synchronize, busy from torch.profiler (None when
+    it recorded no device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.serving.llm.llm_engine import _WriteFence
+    picks = _picks(recorded)
+    if not picks:
+        return None, None
+    make = (engine._catchup_attempt if kind == "catchup"
+            else engine._propose_attempt)
+
+    def replay():
+        for d in picks:
+            make(d)(_WriteFence())
+        torch.cuda.synchronize()
+
+    replay()
+    t0 = time.perf_counter()
+    replay()
+    wall = (time.perf_counter() - t0) * 1e3 / len(picks)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        replay()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    return (busy_us / 1e3 / len(picks) if busy_us > 0 else None), wall
+
+
+def spec_burst(engine, prompts, box, fwd, draft_key, sample=False):
+    """One burst through the started engine with the launch counts, the
+    forward counts and the draft-phase records zeroed just before it and
+    read just after: serve_burst's 16 requests, or sample_burst's mix.
+    Returns (readings, {i: stream}, {i: handle}, launches, routes)."""
+    from paddle_tpu_torch.ops import _kernels
+    m0 = engine.metrics.snapshot()
+    sp0 = (engine.spec_windows, engine.spec_drafted, engine.spec_accepted)
+    allocs0 = engine.draft_pool.stats["allocs"]
+    for k in ("pumps", "catchup", "propose"):
+        box[k] = []
+    for k in fwd:
+        fwd[k] = 0
+    _kernels.reset_launch_counts()
+    if sample:
+        handles, outs, wall, steps, dec = sample_burst(engine, prompts)
+    else:
+        hs, outs, wall, steps, dec = serve_burst(engine, prompts)
+        handles, outs = dict(enumerate(hs)), dict(enumerate(outs))
+    launches, routes = _kernels.launch_counts(), _kernels.route_counts()
+    stats = engine.metrics.snapshot()
+    windows, drafted, accepted = (engine.spec_windows - sp0[0],
+                                  engine.spec_drafted - sp0[1],
+                                  engine.spec_accepted - sp0[2])
+    ttfts = sorted(h.ttft_ms for h in handles.values())
+    gen = sum(len(o) for o in outs.values())
+    pumps = box["pumps"]
+    proposing = [ms for ms, p in pumps if p]
+    target_fwd = steps
+    draft_fwd = (fwd["all"] - steps if draft_key == "all"
+                 else fwd[draft_key])
+    readings = dict(
+        requests=len(outs), generated_tokens=gen, wall_s=wall,
+        generated_tok_s=gen / wall, ttft_p50_ms=statistics.median(ttfts),
+        ttft_max_ms=ttfts[-1],
+        decode_step_p50_ms=stats["intertoken_p50_ms"], steps=steps,
+        decode_iterations=dec, spec_windows=windows, spec_drafted=drafted,
+        spec_accepted=accepted,
+        spec_accept_rate=accepted / drafted if drafted else None,
+        draft_rows_given=engine.draft_pool.stats["allocs"] - allocs0,
+        draft_quarantines=(stats["spec_draft_quarantines"]
+                           - m0["spec_draft_quarantines"]),
+        pumps=len(pumps), proposing_pumps=len(proposing),
+        catchups=len(box["catchup"]), proposes=len(box["propose"]),
+        draft_phase_host_ms_per_pump=(statistics.mean(ms for ms, _ in pumps)
+                                      if pumps else None),
+        draft_phase_host_ms_per_proposing_pump=(
+            statistics.mean(proposing) if proposing else None),
+        target_forwards=target_fwd, draft_forwards=draft_fwd,
+        kernel_launches=launches, paged_launches_by_route=routes)
+    return readings, outs, handles, launches, routes
+
+
+def check_spec_launches(label, r, launches, routes, draft_layers):
+    """Every target step launches 24 paged attentions and 49 LayerNorm
+    forwards, every draft forward `draft_layers` and 2 * draft_layers + 1;
+    nothing else launches; every paged launch takes the tensor cores."""
+    from paddle_tpu_torch.ops.paged_attention import TENSOR_CORES
+    t, d = r["target_forwards"], r["draft_forwards"]
+    want = dict.fromkeys(launches, 0)
+    want["paged_attention"] = 24 * t + draft_layers * d
+    want["layernorm_fwd"] = 49 * t + (2 * draft_layers + 1) * d
+    check(launches == want,
+          f"spec_serve {label}: launched {launches} over {t} target steps "
+          f"and {d} draft forwards, want {want}")
+    want_routes = dict.fromkeys(routes, 0)
+    want_routes[f"paged_attention:{TENSOR_CORES}"] = want["paged_attention"]
+    check(routes == want_routes,
+          f"spec_serve {label}: paged launches by route {routes}, want "
+          f"{want_routes}")
+
+
+def check_spec_drained(label, engine):
+    engine.pool.check_balance()
+    engine.draft_pool.check_balance()
+    check(engine.draft_pool.active_slots() == 0,
+          f"spec_serve {label}: {engine.draft_pool.active_slots()} draft "
+          "rows left after the drain")
+
+
+def phase_spec_serve(serve, sample):
+    """Runs A-D above. `serve` and `sample` are the records phase_serve
+    and phase_sample_serve filled. Returns the launches of the four
+    bursts summed."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.obs.flight_recorder import flight_recorder
+    from paddle_tpu_torch.ops.paged_attention import TENSOR_CORES, paged_route
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = serve_model("serve")
+    prompts = serve_prompts(model.config.vocab_size)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SPEC_DRAFT_SEED)
+    draft = model_class(SPEC_DRAFT).from_preset(
+        SPEC_DRAFT, device="cuda", dtype="bfloat16", generator=gen)
+    dcfg = draft.config
+    fwd = {"all": 0, "draft": 0}
+    count_forwards(model, fwd, "all")
+    count_forwards(draft, fwd, "draft")
+    runs, totals = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    def equal_streams(outs, ref):
+        return {i: bool(np.array_equal(outs[i], ref[i])) for i in outs}
+
+    # run A (self draft), then run C on the same engine
+    box = {}
+    eng = spec_engine(model, model)
+    record_draft_phase(eng, box)
+    eng.start()
+    try:
+        sample_warm_up(eng, prompts)
+        ra, outs, _, la, rta = spec_burst(eng, prompts, box, fwd, "all")
+        busy = {k: draft_busy(eng, list(box[k]), k)
+                for k in ("catchup", "propose")}
+        rc, outs_c, _, lc, rtc = spec_burst(eng, prompts, box, fwd, "all",
+                                            sample=True)
+    finally:
+        eng.stop(drain=True, timeout=60)
+    check_spec_drained("A/C", eng)
+    ra["streams_equal_serve"] = equal_streams(outs, serve["streams"])
+    ra["draft_attempt_device_ms"] = {k: v[0] for k, v in busy.items()}
+    ra["draft_attempt_replay_wall_ms"] = {k: v[1] for k, v in busy.items()}
+    if None not in ra["draft_attempt_device_ms"].values():
+        ra["draft_phase_device_ms_per_pump"] = sum(
+            ra[k + "s"] * ms for k, ms in
+            ra["draft_attempt_device_ms"].items()) / ra["pumps"]
+    rc["streams_equal_sample_serve"] = equal_streams(outs_c,
+                                                     sample["streams"])
+    n_unconstrained = sum(1 for i in outs_c if sample_params(i)[0] is None
+                          or not sample_params(i)[0].constrained)
+    runs["a_self_draft"], runs["c_sampled_mix"] = ra, rc
+    check_spec_launches("A", ra, la, rta, model.config.num_hidden_layers)
+    check_spec_launches("C", rc, lc, rtc, model.config.num_hidden_layers)
+    add(la)
+    add(lc)
+    del eng, box
+
+    # run B (gpt3-125m draft), then run D with its draft poisoned
+    for label, plan in (("b_mismatched_draft", None),
+                        ("d_poisoned_draft",
+                         f"poison_request@{SPEC_POISON}:draft")):
+        box = {}
+        eng = spec_engine(model, draft, plan)
+        record_draft_phase(eng, box)
+        eng.start()
+        try:
+            serve_warm_up(eng, prompts)
+            flight_recorder().clear()
+            r, outs, handles, lb, rtb = spec_burst(eng, prompts, box, fwd,
+                                                   "draft")
+            events = flight_recorder().snapshot()["events"]
+        finally:
+            eng.stop(drain=True, timeout=60)
+        check_spec_drained(label, eng)
+        r["streams_equal_serve"] = equal_streams(outs, serve["streams"])
+        r["draft_paged_launches_d64"] = (dcfg.num_hidden_layers
+                                         * r["draft_forwards"])
+        r["supervisor"] = eng.supervisor.snapshot()
+        r["quarantined"] = eng.metrics.snapshot()["quarantined"]
+        quar = [e["submit_idx"] for e in events
+                if e["kind"] == "draft_quarantine"]
+        r["draft_quarantined_submit_idx"] = quar
+        if plan is not None:
+            r["draft_quarantined_requests"] = [
+                i for i, h in handles.items()
+                if any(e.get("rid") == h.rid for e in events
+                       if e["kind"] == "draft_quarantine")]
+        runs[label] = r
+        check_spec_launches(label, r, lb, rtb, dcfg.num_hidden_layers)
+        add(lb)
+        del eng, box
+    emit({"phase": "spec_serve", "model": "gpt3-1.3b", "dtype": "bfloat16",
+          "spec_k": SPEC_K, "draft_b": SPEC_DRAFT,
+          "draft_b_heads": dict(H=dcfg.num_attention_heads,
+                                D=dcfg.hidden_size // dcfg.num_attention_heads,
+                                layers=dcfg.num_hidden_layers),
+          "draft_b_paged_route": paged_route(
+              torch.bfloat16, SERVE_ENGINE["block_len"],
+              dcfg.hidden_size // dcfg.num_attention_heads),
+          "serve_phase": {k: serve[k] for k in (
+              "generated_tok_s", "ttft_p50_ms", "ttft_max_ms",
+              "decode_step_p50_ms", "steps", "decode_iterations")},
+          "sample_serve_phase": {k: sample[k] for k in (
+              "generated_tok_s", "ttft_p50_ms", "decode_step_p50_ms",
+              "steps")},
+          "runs": runs, "model_init_s": init_s,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    ra, rb = runs["a_self_draft"], runs["b_mismatched_draft"]
+    rc, rd = runs["c_sampled_mix"], runs["d_poisoned_draft"]
+    for label, r in runs.items():
+        key = ("streams_equal_sample_serve" if label == "c_sampled_mix"
+               else "streams_equal_serve")
+        check(len(r[key]) == len(prompts) and all(r[key].values()),
+              f"spec_serve {label}: streams differ from the plain "
+              f"engine's: {r[key]}")
+    check(ra["spec_windows"] > 0 and ra["spec_accepted"] > 0,
+          f"spec_serve A: {ra['spec_windows']} windows, "
+          f"{ra['spec_accepted']} accepted")
+    check(rb["spec_windows"] > 0, "spec_serve B: no window committed")
+    check(rc["spec_windows"] > 0, "spec_serve C: no window committed")
+    check(rc["draft_rows_given"] == n_unconstrained,
+          f"spec_serve C: {rc['draft_rows_given']} draft rows for "
+          f"{n_unconstrained} unconstrained requests")
+    check(rd["draft_quarantines"] == 1
+          and rd["draft_quarantined_submit_idx"] == [SPEC_POISON],
+          f"spec_serve D: draft quarantines {rd['draft_quarantines']} of "
+          f"submit indices {rd['draft_quarantined_submit_idx']}, want "
+          f"[{SPEC_POISON}]")
+    sup = rd["supervisor"]
+    check(sup["dispatch_failures"] == 0 and sup["quarantines"] == 0
+          and sup["breaker_trips"] == 0 and rd["quarantined"] == 0
+          and sup["exempt_failures"] >= 1,
+          f"spec_serve D: the target was charged: {sup}, quarantined "
+          f"{rd['quarantined']}")
+    check(paged_route(torch.bfloat16, SERVE_ENGINE["block_len"],
+                      dcfg.hidden_size // dcfg.num_attention_heads)
+          == TENSOR_CORES, "the draft's paged attention is not routed to "
+                           "the tensor cores")
+    del model, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
 
 
 # ---------------------------------------------------------------- phase 5d
@@ -7550,9 +7949,13 @@ LORA_ROUTE = (None, "ad1", "ad2", "ad3")
 LORA_SERVE_ENGINE = dict(SERVE_ENGINE, max_adapters=3, lora_rank=LORA_RANK)
 LORA_CHURN_NEW = 8         # new tokens a request of the churned burst
 # the churn's kernel check: profiled replays a side of the armed burst's
-# first steps (a replay of one state lost a record in 1 of ~12,000 in a
-# test run: an int add's, its ATen op counted every time)
-LORA_CHURN_REPLAYS = 2
+# first steps, each name taken at its most launches over them (a replay of
+# one state lost a record in 1 of ~12,000 in a test run: an int add's, its
+# ATen op counted every time; in other runs one replay lost a record of
+# each of 17 names, and records of a step's first kernels went missing in
+# every replay of one side, which step_kernels' discarded warm-up cycle
+# now absorbs)
+LORA_CHURN_REPLAYS = 4
 LORA_CHURN_REPLAY_STEPS = 2
 
 
@@ -7739,20 +8142,28 @@ def step_kernels(engine, recorded, n_steps=SERVE_BUSY_STEPS):
     recorded (toks, pos, adv) replayed under torch.profiler (busy and
     launches None when it recorded no kernel; launches and the names'
     counts a step, copies and fills included, see is_copy), and the first
-    one once more under op_counter()."""
+    one once more under op_counter(). The profiler traces a warm-up
+    replay first and discards it (its schedule's warmup cycle): records of
+    the first launches after the trace starts can be lost (ROADMAP §3 item
+    5), and those are the steps' first kernels."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     picks = recorded[:n_steps]
     for a in picks:                               # warm, outside the trace
         engine._step_logits(engine._step_args(*a))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for a in picks:
-            engine._step_logits(engine._step_args(*a))
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    cycles = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: cycles.append(p.key_averages())
+                 ) as prof:
+        for _ in range(2):                        # the warmup, the active
+            for a in picks:
+                engine._step_logits(engine._step_args(*a))
+            torch.cuda.synchronize()
+            prof.step()
+    evs = [e for e in cycles[0] if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in evs)
     count = sum(e.count for e in evs)
     with op_counter() as c:
@@ -8344,8 +8755,11 @@ def main():
                 "serve": timed("serve", phase_serve, record=serve)}
     by_phase["serve_fp16"] = timed("serve_fp16", phase_serve, "serve_fp16")
     timed("sampling", phase_sampling)
+    sample = {}
     by_phase["sample_serve"] = timed("sample_serve", phase_sample_serve,
-                                     serve)
+                                     serve, record=sample)
+    by_phase["spec_serve"] = timed("spec_serve", phase_spec_serve, serve,
+                                   sample)
     by_phase["prefix_serve"] = timed("prefix_serve", phase_prefix_serve)
     by_phase["serve_supervised"] = timed("serve_supervised",
                                          phase_serve_supervised, serve)
@@ -8395,7 +8809,7 @@ def main():
                   "causal_case_b", "entry_key_padding_b11s",
                   "entry_per_head_bf16",    # the flash kernels and variants
                   "at_llama_shape", "at_llama_shapes", "at_moe_shape",
-                  "shared_pages",
+                  "at_draft_shape", "shared_pages",
                   "do_update_flag",
                   # the fp16 LayerNorm and paged-attention readings
                   "at_train_shape", "at_serve_shape", "scalar_route",

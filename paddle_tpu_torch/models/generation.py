@@ -6,7 +6,8 @@ token writes at the row's position; the loop stops as soon as every row
 has emitted EOS. `make_decoder_fns` exposes the prefill and decode-step
 builders so the serving engine and `generate()` share one cache layout
 and one numeric path (the ragged paged-attention kernel at
-DEFAULT_KV_BLOCK).
+DEFAULT_KV_BLOCK); `make_verify_fn` is the prefill with a greedy token at
+every position, speculative decoding's verify.
 
 Selection is greedy, or with `do_sample=True` a temperature / top-k /
 top-p draw on JAX's own threefry stream (`core.threefry`), so a seeded
@@ -27,27 +28,55 @@ _NEG = -1e30     # a filtered-out logit, as the JAX package writes it
 def make_decoder_fns(model):
     """Return (params, prefill, decode_step) over raw tensors:
 
-      prefill(params, prompt [B, S], caches, pos, paged=None) ->
-          (logits [B, S, V], caches)
-      decode_step(params, tok [B], pos, caches, paged=None) ->
-          (logits [B, V], caches)
+      prefill(params, prompt [B, S], caches, pos, paged=None,
+              adapters=None) -> (logits [B, S, V], caches)
+      decode_step(params, tok [B], pos, caches, paged=None,
+                  adapters=None) -> (logits [B, V], caches)
 
     `pos` is an int (whole batch at one offset) or a [B] int tensor
     (per-row offsets, the slot-paged serving engine). `caches` is
-    `model.init_cache()` layout and is written in place. `params` is the
-    model's named-parameter dict, kept for signature parity with the JAX
-    builders; the functions read the model's own parameters."""
+    `model.init_cache()` layout and is written in place. `adapters` is an
+    `AdapterBank` operand (each row gathers its own LoRA delta; None: the
+    base model). `params` is the model's named-parameter dict, kept for
+    signature parity with the JAX builders; the functions read the
+    model's own parameters."""
     params = dict(model.named_parameters())
 
-    def prefill(p, prompt, caches_, pos, paged=None):
-        return model.forward_with_cache(prompt, caches_, pos, paged=paged)
+    def prefill(p, prompt, caches_, pos, paged=None, adapters=None):
+        return model.forward_with_cache(prompt, caches_, pos, paged=paged,
+                                        adapters=adapters)
 
-    def decode_step(p, tok, pos, caches_, paged=None):
-        logits, caches_ = model.forward_with_cache(tok[:, None], caches_,
-                                                   pos, paged=paged)
+    def decode_step(p, tok, pos, caches_, paged=None, adapters=None):
+        logits, caches_ = model.forward_with_cache(
+            tok[:, None], caches_, pos, paged=paged, adapters=adapters)
         return logits[:, 0], caches_
 
     return params, prefill, decode_step
+
+
+def make_verify_fn(model):
+    """Multi-position greedy verify builder for speculative decoding:
+    returns (params, verify) with
+
+      verify(params, toks [B, C], caches, pos, paged=None,
+             adapters=None) -> (tokens [B, C] int32, caches)
+
+    the prefill forward with a greedy selection at EVERY position:
+    tokens[b, t] is the token the model emits after consuming
+    toks[b, :t+1] on top of the cache at `pos`. Each position's logits
+    see the causal mask a sequential decode would, so for a verify row
+    [last_tok, d1..dK] tokens[b, t] is what t+1 decode steps give, and
+    the longest matching draft prefix plus the first divergent token is
+    the plain greedy stream. Reading column adv-1 alone is the plain
+    step."""
+    params, prefill, _ = make_decoder_fns(model)
+
+    def verify(p, toks, caches_, pos, paged=None, adapters=None):
+        logits, caches_ = prefill(p, toks, caches_, pos, paged=paged,
+                                  adapters=adapters)
+        return _select_greedy(logits), caches_
+
+    return params, verify
 
 
 def _select_greedy(logits):

@@ -9,8 +9,8 @@ Built on the same frame bookkeeping as the training goodput ledger
                         positions of the unified mixed step (or the
                         whole predict dispatch in `BatchingEngine`);
 - ``decode_compute``  — the dispatch span attributed to decode rows;
-- ``draft_compute``   — draft-model dispatches (0 until the port's
-                        engine drafts);
+- ``draft_compute``   — draft-model dispatches (the draft's catch-up
+                        and propose, when the engine has a draft);
 - ``sample_mask``, ``kv_spill``, ``kv_onboard`` — host phases booked out
                         of the host span (sampling operands, the host KV
                         tier's spills and uploads);
@@ -97,8 +97,8 @@ class ServingLedger(PhaseLedger):
         self.prefill_tokens = 0
         self.decode_tokens = 0
         self.dispatches = 0
-        # speculative decoding: draft-side position economics (0 until the
-        # port's engine drafts, ROADMAP item 7c)
+        # speculative decoding: draft-side position economics (0 on an
+        # engine without a draft model)
         self.draft_positions = 0
         self.spec_drafted = 0
         self.spec_accepted = 0

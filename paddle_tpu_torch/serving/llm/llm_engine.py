@@ -25,11 +25,12 @@ greedy stream equals the port's one-shot `generate()` on the CPU.
 
 A step in which no active request samples or is constrained runs the
 greedy selection alone: no threefry, no grammar bank. Otherwise the
-step selects only what the engine consumes, the emission column adv-1
-of every row, each drawn on its lane `(seed, sample_offset + emitted)`.
-The JAX step selects all N x C columns (it needs them for speculative
-decoding's verify window, which is not ported); the emission column's
-lane and draw are the same, so the tokens are too.
+step selects only what the engine consumes: the emission column adv-1
+of every row, drawn on its lane `(seed, sample_offset + emitted)`, and
+every column t of a speculative verify window, drawn on lane `(seed,
+sample_offset + emitted + t)`. The JAX step selects all N x C columns;
+each consumed column's lane and draw are the same, so the tokens are
+too.
 
 Prefix sharing, as in the JAX engine and on by default: admission looks
 the prompt up in a per-tenant radix `PrefixCache`; matched full blocks
@@ -156,13 +157,42 @@ swap reads the new rows. `tests/test_torch_lora_engine.py` swaps from
 another thread between two layers and holds every row of that step to
 the all-old result.
 
+Speculative decoding, as in the JAX engine: `LLMEngine(draft_model=)`
+(a model of the target's vocabulary) arms a draft with its own
+`SlotPagedKVPool` of the target's geometry and, with the prefix cache
+on, its own page-congruent `PrefixCache(name="draft")`. Admission gives
+every unconstrained request a draft row (an exhausted draft pool only
+means that request runs without speculation). Each pump first runs the
+draft phase: a chunk-wide catch-up replays the committed stream tokens
+the draft has not seen, then a propose runs `spec_k + 1` width-1 draft
+steps over every row past prefill whose draft is caught up, with at
+least 2 tokens left and room for the window (a Python loop of forwards
+on the draft's slabs; each step's selection stays on the device as the
+next step's input, and the K drafts come back in one copy). The target
+then scores each such row's window `[last_tok, d1..dK]` at adv = K+1 in
+the one unified step, and the commit takes the longest draft prefix
+that equals the target's own per-position selection plus one
+corrective token, truncated at EOS and max tokens: every stream equals
+plain decode's, greedy or seeded-sampled (the draft proposes on the
+lanes the verify draws on). Only the accepted length is committed; the
+verify's rejected columns lie past it, and the draft pool gives back
+its run-ahead with `rewind_length`. Draft dispatches announce kind
+"draft" and are breaker-exempt: after a failed one each riding request
+is probed alone, a blamed request loses only its draft (`spec_off`, its
+draft row freed), and failures no request explains count a streak that
+disables speculation engine-wide at `breaker_threshold`. The draft's
+solo probe runs at the row's own committed draft length, where a real
+propose writes (JAX probes at position 0, which here would overwrite
+the row's committed draft KV), and each draft attempt carries its own
+write token. An adapter row speculates with the base draft; its verify
+carries its adapter.
+
 Under a `SimClock` the engine runs threadless and the harness calls
 `pump()`; under the default `MonotonicClock`, `start()` runs the same
 `pump()` on a scheduler thread.
 
-Not ported yet (each is a ROADMAP item): speculative decoding (and the
-draft pool's prefix cache), the compile observatory, and rolling deploys
-with their cache flush.
+Not ported yet (each is a ROADMAP item): the compile observatory, and
+rolling deploys with their cache flush.
 """
 from __future__ import annotations
 
@@ -192,7 +222,7 @@ from .kv_pool import SlotPagedKVPool, SlotsExhaustedError
 from .lora import AdapterBank, AdapterError
 from .prefix_cache import PrefixCache
 from .sampling import (GREEDY, SamplingParams, SlotSamplingTable,
-                       compile_grammar, select_rows)
+                       compile_grammar, select_next, select_rows)
 
 _log = logging.getLogger("paddle_tpu_torch.serving.llm")
 
@@ -272,6 +302,12 @@ class LLMEngineConfig:
     lora_alpha: Optional[float] = None  # default scaling numerator for
     #                                rows loaded without an explicit alpha
     #                                (None = 2 * lora_rank)
+    # ---- speculative decoding ----
+    spec_k: int = 4                # draft tokens proposed a verify window
+    #                                (read only by an engine built with a
+    #                                draft_model, which then requires
+    #                                spec_k + 1 <= prefill_chunk: the
+    #                                window rides one unified-step row)
 
     def __post_init__(self):
         if self.num_slots < 1:
@@ -345,6 +381,8 @@ class LLMEngineConfig:
         if self.lora_alpha is not None and self.lora_alpha <= 0:
             raise ValueError(
                 f"lora_alpha must be > 0, got {self.lora_alpha}")
+        if self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
         if self.slo_ttft_target_ms is not None:
             for cls, target in self.slo_ttft_target_ms.items():
                 if cls not in SLO_CLASSES:
@@ -405,7 +443,8 @@ class _GenRequest:
                  "deadline", "handle", "slot", "emitted", "last_tok", "slo",
                  "cost", "chunk_off", "tenant", "attached_pages", "rid",
                  "want_logprobs", "sampling", "sample_offset", "gid",
-                 "dfa_state0", "kv_row", "submit_idx", "trace", "adapter")
+                 "dfa_state0", "kv_row", "submit_idx", "trace", "adapter",
+                 "draft_slot", "spec_off", "draft_attached")
 
     def __init__(self, prompt, max_new_tokens, eos_token_id, arrival,
                  deadline, slo, submit_idx=0, want_logprobs=False,
@@ -442,6 +481,19 @@ class _GenRequest:
         self.trace: Optional[RequestTrace] = None   # None unless traced
         self.adapter: Optional[str] = None    # AdapterBank id the stream
         #                                       decodes under (None: base)
+        self.draft_slot: Optional[int] = None  # row in the draft pool (None:
+        #                                       no draft, or none was free)
+        self.spec_off: bool = False       # draft quarantined: the stream
+        #                                   continues as plain decode
+        self.draft_attached: List[int] = []   # shared draft-pool pages this
+        #                                       request reads
+
+
+def _current_stream(dev: torch.device):
+    """The CUDA stream current on the calling thread for `dev` (None on
+    the CPU): an attempt runs on the engine thread's stream wherever it
+    runs."""
+    return torch.cuda.current_stream(dev) if dev.type == "cuda" else None
 
 
 class _AttemptRevoked(RuntimeError):
@@ -495,19 +547,36 @@ class _WriteFence:
 class _StepArgs:
     """The operands of one unified step (or blame probe), built on the
     engine thread before the attempt: host rows (`toks`, `pos`, `adv`,
-    and for a sampled step `ctr` and `constrained`), their device copies,
-    the lengths, the block table and the slabs, and for a sampled step the
-    sampling operands; `adapters` the adapter bank's operand (None unless
-    armed), taken once here so every layer of the attempt reads one bank
-    version; `stream` is the CUDA stream current on the engine thread
-    (None on the CPU), `mask_ms` the host time the sampling operands
-    took, and `mask_s` the same on the engine's clock (None unless the
-    ledger is armed)."""
+    `verify` the rows carrying a speculative window, and for a sampled
+    step `ctr` and `constrained`), their device copies, the lengths, the
+    block table and the slabs, and for a sampled step the sampling
+    operands of the selected positions (`sel_row`, `sel_col` on the host,
+    their flat indices `rows` on the device); `adapters` the adapter
+    bank's operand (None unless armed), taken once here so every layer of
+    the attempt reads one bank version; `stream` is the CUDA stream
+    current on the engine thread (None on the CPU), `mask_ms` the host
+    time the sampling operands took, and `mask_s` the same on the
+    engine's clock (None unless the ledger is armed)."""
 
     __slots__ = ("toks", "pos", "adv", "toks_d", "pos_d", "seq_lens",
                  "table", "slabs", "sampled", "ctr", "constrained", "keys",
                  "params", "bank", "rows", "stream", "mask_ms",
-                 "mask_s", "adapters")
+                 "mask_s", "adapters", "verify", "sel_row", "sel_col")
+
+
+class _DraftArgs:
+    """The operands of one draft attempt, built on the engine thread
+    before it. A catch-up: `toks_d [N, C]`, `pos_d [N]`, `seq_lens [N]`.
+    A propose: `toks_d [N]` (each row's first input token), `pos_d` and
+    `seq_lens` [K+1, N] (step j writes at pos + j*act and attends to
+    pos + (j+1)*act), and when a row samples `params` (temperature,
+    top_k, top_p, do_sample) and `keys [K, N, 2]`, step j's lane keys
+    (step K selects nothing). Both
+    carry the draft pool's block table and slabs and the engine thread's
+    CUDA stream."""
+
+    __slots__ = ("toks_d", "pos_d", "seq_lens", "table", "slabs", "stream",
+                 "params", "keys")
 
 
 class LLMEngine:
@@ -515,12 +584,14 @@ class LLMEngine:
     `models.gpt.GPTForCausalLM`, `models.llama.LlamaForCausalLM`); it is
     switched to eval mode. `fault_plan` (None: the env-driven
     `global_plan()`) injects dispatch faults; `on_break` is called once
-    when the circuit breaker opens."""
+    when the circuit breaker opens. `draft_model`, a model of the same
+    vocabulary on the same device (the target itself will do), arms
+    speculative decoding with `config.spec_k` drafts a window."""
 
     def __init__(self, model, config: Optional[LLMEngineConfig] = None,
                  clock: Optional[Clock] = None,
                  metrics: Optional[LLMMetrics] = None, fault_plan=None,
-                 on_break=None):
+                 on_break=None, draft_model=None):
         self.model = model
         model.eval()
         self.config = config or LLMEngineConfig()
@@ -565,6 +636,44 @@ class LLMEngine:
                 model, self.config.max_adapters, self.config.lora_rank,
                 self.config.num_slots,
                 default_alpha=self.config.lora_alpha)
+        # speculative decoding: the draft's own pool (the target's
+        # geometry, so both prefix caches attach page-congruent spans)
+        # and the engine-wide state of its failure protocol
+        self.draft_model = draft_model
+        self.draft_pool: Optional[SlotPagedKVPool] = None
+        self.draft_prefix_cache: Optional[PrefixCache] = None
+        self._spec_disabled = False     # engine-wide draft kill switch
+        self._draft_failstreak = 0      # consecutive draft failures no
+        #                                 request explains (breaker-exempt)
+        self.spec_windows = 0           # lifetime verify windows committed
+        self.spec_drafted = 0           # lifetime draft tokens verified
+        self.spec_accepted = 0          # lifetime draft tokens accepted
+        if draft_model is not None:
+            if self.config.spec_k + 1 > self.config.prefill_chunk:
+                raise ValueError(
+                    f"spec_k + 1 ({self.config.spec_k + 1}) exceeds the "
+                    f"unified step width prefill_chunk "
+                    f"({self.config.prefill_chunk}): the verify window "
+                    "must fit one step row")
+            draft_vocab = int(getattr(getattr(draft_model, "config", None),
+                                      "vocab_size", 0))
+            if draft_vocab != vocab_size:
+                raise ValueError(
+                    f"draft vocab_size {draft_vocab} differs from the "
+                    f"target's {vocab_size}")
+            draft_model.eval()
+            self.draft_pool = SlotPagedKVPool(
+                draft_model.init_cache, self.config.num_slots,
+                self.config.block_len, self.config.n_blocks,
+                dtype=self.config.cache_dtype,
+                pad_tokens=self.config.prefill_chunk)
+            if self.draft_pool.device != self.pool.device:
+                raise ValueError(
+                    f"draft model on {self.draft_pool.device}, target on "
+                    f"{self.pool.device}")
+            if self.config.enable_prefix_cache:
+                self.draft_prefix_cache = PrefixCache(self.draft_pool,
+                                                      name="draft")
         self._queues: Dict[str, deque] = {c: deque() for c in SLO_CLASSES}
         self._active: Dict[int, _GenRequest] = {}   # slot -> request
         self._cond = threading.Condition()
@@ -620,31 +729,35 @@ class LLMEngine:
     def _step_args(self, toks: np.ndarray, pos: np.ndarray, adv: np.ndarray,
                    ctr: Optional[np.ndarray] = None,
                    constrained: bool = False,
-                   adapter_rows: Optional[np.ndarray] = None) -> _StepArgs:
+                   adapter_rows: Optional[np.ndarray] = None,
+                   verify: Optional[np.ndarray] = None) -> _StepArgs:
         """The operands of one step over every slot, on the pool's device.
         `toks [N, C]` carries each slot's chunk, `pos [N]` its committed
         length (the write offset), `adv [N]` how many of the C columns are
-        real. With `ctr` (each row's stream index at its emission column)
-        the step samples: the lane keys, per-slot params, the emission
-        rows, and the grammar bank when a row is `constrained`. An armed
-        engine adds the bank's operand: the slots' bound rows, or
+        real; `verify [N]` (bool) marks the rows carrying a speculative
+        window, whose every column 0..adv-1 is consumed. With `ctr` (each
+        row's stream index at its emission column, at column 0 for a
+        verify row) the step samples: the lane keys, per-slot params, the
+        selected positions (each row's emission column, every column of a
+        verify window), and the grammar bank when a row is `constrained`.
+        An armed engine adds the bank's operand: the slots' bound rows, or
         `adapter_rows` (a bank row a batch row) for a probe. Call it on
         the engine thread, under the engine lock when the engine runs: it
         reads the pool's block table and the sampling table."""
         dev = self.pool.device
         a = _StepArgs()
         a.toks, a.pos, a.adv = toks, pos, adv
+        a.verify = verify
         a.toks_d = torch.from_numpy(toks).to(dev)
         a.pos_d = torch.from_numpy(pos).to(dev)
         a.seq_lens = a.pos_d + torch.from_numpy(adv).to(dev)
         a.table = self.pool.device_block_table()
         a.slabs = self.pool.slabs
-        a.stream = (torch.cuda.current_stream(dev) if dev.type == "cuda"
-                    else None)
+        a.stream = _current_stream(dev)
         a.sampled = ctr is not None
         a.ctr, a.constrained = ctr, constrained
         a.keys = a.params = a.bank = a.rows = a.mask_ms = a.mask_s = None
-        a.adapters = None
+        a.adapters = a.sel_row = a.sel_col = None
         if self.adapter_bank is not None:
             a.adapters = (self.adapter_bank.device_args()
                           if adapter_rows is None else
@@ -653,12 +766,24 @@ class LLMEngine:
             t0 = time.perf_counter()
             tl0 = self.clock.now() if self.ledger is not None else None
             tab = self.sampling_table
-            a.keys = tab.lane_keys(ctr)
-            a.params = tab.device_args()
-            a.bank = tab.device_bank() if constrained else None
             N, C = toks.shape
-            a.rows = torch.from_numpy(
-                np.arange(N) * C + np.maximum(adv - 1, 0)).to(dev)
+            # each row's emission column adv-1 on lane ctr; a verify row's
+            # columns 0..adv-1, column t on lane ctr + t
+            win = np.zeros(N, bool) if verify is None else verify
+            width = np.where(win, adv, 1)
+            a.sel_row = np.repeat(np.arange(N), width)
+            t = (np.arange(a.sel_row.size)
+                 - np.repeat(np.cumsum(width) - width, width))
+            w = win[a.sel_row]
+            a.sel_col = np.where(w, t, np.maximum(adv - 1, 0)[a.sel_row])
+            idx = ctr[a.sel_row] + np.where(w, t, 0).astype(ctr.dtype)
+            a.keys = tab.lane_keys(idx, rows=a.sel_row)
+            a.params = tab.device_args()
+            if a.sel_row.size != N:
+                r = torch.from_numpy(a.sel_row).to(dev)
+                a.params = tuple(p.index_select(0, r) for p in a.params)
+            a.bank = tab.device_bank() if constrained else None
+            a.rows = torch.from_numpy(a.sel_row * C + a.sel_col).to(dev)
             a.mask_ms = (time.perf_counter() - t0) * 1e3
             if tl0 is not None:
                 a.mask_s = self.clock.now() - tl0
@@ -679,22 +804,27 @@ class LLMEngine:
     @torch.no_grad()
     def _run_step(self, a: _StepArgs):
         """`_step_logits` plus greedy selection: the per-position tokens
-        and their fp32 log-probabilities, both [N, C] numpy."""
+        and their fp32 log-probabilities, both [N, C] numpy, in one copy
+        back."""
         lf = self._step_logits(a).float()
         sel = torch.argmax(lf, dim=-1)
         lp = torch.log_softmax(lf, dim=-1).gather(-1, sel[..., None])[..., 0]
-        return (sel.to(torch.int32).cpu().numpy(), lp.cpu().numpy())
+        out = torch.stack([sel.to(torch.int32),
+                           lp.view(torch.int32)]).cpu().numpy()
+        return out[0], out[1].view(np.float32)
 
     @torch.no_grad()
     def _run_sampled_step(self, a: _StepArgs):
-        """`_step_logits` plus per-slot selection of each row's emission
-        column adv-1 (`select_rows`): ([N] tokens, [N] fp32
-        log-probabilities of the raw logits, [N] DFA states after the
-        tokens), numpy. Row n draws on its lane (seed, ctr[n])."""
+        """`_step_logits` plus per-slot selection of the positions the
+        engine consumes (`select_rows` over `a.rows`: each row's emission
+        column, every column of a verify window): ([N, C] tokens, [N, C]
+        fp32 log-probabilities of the raw logits, both 0 at unselected
+        positions, [N] DFA states after each row's last selected token),
+        numpy. Selected position i draws on lane key `a.keys[i]`."""
         temp, topk, topp, samp, dstate, gid = a.params
         lg = self._step_logits(a)
-        N = a.toks.shape[0]
-        lf = lg.reshape(N * a.toks.shape[1], lg.shape[-1])[a.rows].float()
+        N, C = a.toks.shape
+        lf = lg.reshape(N * C, lg.shape[-1])[a.rows].float()
         sel, new_state = select_rows(lf, a.keys, temp, topk, topp, samp,
                                      dstate, gid, a.bank)
         lp = torch.log_softmax(lf, dim=-1).gather(
@@ -702,37 +832,43 @@ class LLMEngine:
         # one copy back: tokens, logprob bits, states
         out = torch.stack([sel, lp.view(torch.int32),
                            new_state.to(torch.int32)]).cpu().numpy()
-        return out[0], out[1].view(np.float32), out[2]
+        nxt = np.zeros((N, C), np.int32)
+        lps = np.zeros((N, C), np.float32)
+        nxt[a.sel_row, a.sel_col] = out[0]
+        lps[a.sel_row, a.sel_col] = out[1].view(np.float32)
+        states = np.zeros((N,), np.int32)
+        states[a.sel_row] = out[2]
+        return nxt, lps, states
 
     def _attempt(self, a: _StepArgs):
         """The callable of one supervised attempt over `a`: given its
         write token, it runs the step with the token guarding every KV
         write, under no_grad and on the engine thread's CUDA stream (both
         per thread, and the attempt may run on a deadline thread).
-        Returns ([N] tokens, [N] logprobs, [N] DFA states or None) at each
-        row's emission column."""
+        Returns ([N, C] tokens, [N, C] logprobs, [N] DFA states or None
+        for a greedy step)."""
         def run(fence: _WriteFence):
             stream = (torch.cuda.stream(a.stream) if a.stream is not None
                       else contextlib.nullcontext())
             with torch.no_grad(), stream, kv_write_guard(fence):
                 if a.sampled:
                     return self._run_sampled_step(a)
-                nxt, lps = self._run_step(a)
-            rows = np.arange(len(a.adv))
-            col = np.maximum(a.adv - 1, 0)
-            return nxt[rows, col], lps[rows, col], None
+                return self._run_step(a) + (None,)
         return run
 
     # ---- supervised dispatch ----
-    def _run_dispatch(self, kinds, fn):
+    def _run_dispatch(self, kinds, fn, exempt: bool = False):
         """One supervised attempt of `fn(fence)`. Every attempt, retries
         and blame probes included, consumes a dispatch index, which is
         what the fault clauses key on. `kinds` is the ordered (kind,
         submit indices) pairs riding it: prefill rows announce first,
-        then decode rows, both at the same index. The attempt's write
-        token is revoked as soon as the engine stops waiting for it; the
-        token of an attempt that ended hung is kept in
-        `abandoned_attempts`."""
+        then decode rows, both at the same index; a draft attempt
+        announces kind "draft", so a fault plan can poison only a
+        request's draft. `exempt=True` (the draft's attempts) keeps the
+        failure out of the supervisor's dispatch-failure stat, which the
+        breaker's accounting reads. The attempt's write token is revoked
+        as soon as the engine stops waiting for it; the token of an
+        attempt that ended hung is kept in `abandoned_attempts`."""
         idx = self._dispatch_idx
         self._dispatch_idx += 1
         plan = self._fault_plan
@@ -747,7 +883,7 @@ class LLMEngine:
             return fn(fence)
 
         try:
-            return self.supervisor.run(guarded, label=label)
+            return self.supervisor.run(guarded, label=label, exempt=exempt)
         except DispatchHungError:
             self.abandoned_attempts.append(fence)
             raise
@@ -821,7 +957,7 @@ class LLMEngine:
                     req.handle.future.set_exception(RejectedError(
                         "engine shut down mid-decode", reason="shutdown"))
                     self.metrics.on_reject("shutdown")
-                    self._free_slot_locked(slot)
+                    self._free_slot_locked(slot, req)
                 self._active.clear()
                 self.metrics.set_queue_depth(0)
                 self.metrics.set_slots(0, self.pool.num_slots)
@@ -867,7 +1003,7 @@ class LLMEngine:
                     "engine drain timed out mid-decode",
                     reason="drain_timeout"))
                 self.metrics.on_reject("drain_timeout")
-                self._free_slot_locked(slot)
+                self._free_slot_locked(slot, req)
                 stranded += 1
             self._active.clear()
             if stranded:
@@ -1365,7 +1501,7 @@ class LLMEngine:
                 "adapter": req.adapter,
             }
             self._conclude(req, "handoff")
-            self._free_slot_locked(slot)
+            self._free_slot_locked(slot, req)
             del self._active[slot]
             self.metrics.set_slots(self.pool.active_slots(),
                                    self.pool.num_slots)
@@ -1692,22 +1828,422 @@ class LLMEngine:
                                                tenant=req.tenant)
                         self._record_reject("unknown_adapter", rid=req.rid,
                                             tenant=req.tenant)
-                        self._free_slot_locked(slot)
+                        self._free_slot_locked(slot, req)
                         continue
+                if (self.draft_pool is not None and not self._spec_disabled
+                        and req.gid == 0):
+                    self._admit_draft_locked(req)
                 self._active[slot] = req
                 self.metrics.set_slots(self.pool.active_slots(),
                                        self.pool.num_slots)
                 self.metrics.set_sample_slots(
                     self.sampling_table.mode_counts(self._active))
 
-    def _build_rows_locked(self):
+    def _admit_draft_locked(self, req: _GenRequest):
+        """Give an unconstrained request a draft row (a constrained one's
+        mask depends on a DFA state the draft cannot see ahead of, so it
+        never speculates). An exhausted draft pool is not an error: the
+        request runs without speculation. With the prefix cache on, the
+        draft cache attaches the prompt's cached prefix under the same cap
+        as the target's (both pools share block_len, so both sides skip
+        the same span) and the draft's catch-up starts past it."""
+        dpool = self.draft_pool
+        try:
+            ds = dpool.allocate(req.cost)
+        except SlotsExhaustedError:
+            return
+        req.draft_slot = ds
+        if self.draft_prefix_cache is None:
+            return
+        plan = self.draft_prefix_cache.acquire(
+            req.tenant, req.prompt, max_tokens=len(req.prompt) - 1)
+        if plan.pages:
+            dpool.attach_blocks(ds, plan.pages)
+            req.draft_attached = list(plan.pages)
+        if plan.tail_page is not None:
+            dpool.cow_copy(plan.tail_page, ds)
+        if plan.attach_len:
+            dpool.set_length(ds, plan.attach_len)
+        self.draft_prefix_cache.release(plan)
+
+    # ---- speculative decoding ----
+    def _stream_token(self, req: _GenRequest, i: int) -> int:
+        """Token i of the request's committed stream (prompt + emitted):
+        what the draft's catch-up replays."""
+        plen = len(req.prompt)
+        return int(req.prompt[i]) if i < plen else int(req.emitted[i - plen])
+
+    def _catchup_args(self, toks: np.ndarray, pos: np.ndarray,
+                      adv: np.ndarray) -> _DraftArgs:
+        """A catch-up's operands on the draft pool's device: each draft
+        row's chunk `toks [N, C]` written at `pos [N]`, `adv [N]` of its
+        columns real (0: the row parks at the pad, pos = capacity)."""
+        dpool = self.draft_pool
+        dev = dpool.device
+        d = _DraftArgs()
+        d.toks_d = torch.from_numpy(toks).to(dev)
+        d.pos_d = torch.from_numpy(pos).to(dev)
+        d.seq_lens = d.pos_d + torch.from_numpy(adv).to(dev)
+        d.table = dpool.device_block_table()
+        d.slabs = dpool.slabs
+        d.stream = _current_stream(dev)
+        d.params = d.keys = None
+        return d
+
+    def _propose_args(self, tok0: np.ndarray, pos: np.ndarray,
+                      act: np.ndarray, lanes=None) -> _DraftArgs:
+        """A propose's operands: `tok0 [N]` each draft row's last
+        committed token, which step 0 writes at `pos [N]`; `act [N]` is 1
+        for a proposing row, 0 for a row parked at the pad (pos =
+        capacity), which advances nothing. `lanes`, when a proposing row
+        samples, is (temperature, top_k, top_p, do_sample, target slot,
+        stream index) by draft row: step j draws on lane index + j of the
+        target slot's seed. Every step's positions and lengths go up in
+        one copy, every step's lane keys in another."""
+        K = self.config.spec_k
+        dpool = self.draft_pool
+        dev = dpool.device
+        N = dpool.num_slots
+        at = pos[None, :] + np.arange(K + 2, dtype=np.int32)[:, None] * act
+        d = _DraftArgs()
+        d.toks_d = torch.from_numpy(tok0).to(dev)
+        both = torch.from_numpy(np.stack([at[:K + 1], at[1:]])).to(dev)
+        d.pos_d, d.seq_lens = both[0], both[1]
+        d.table = dpool.device_block_table()
+        d.slabs = dpool.slabs
+        d.stream = _current_stream(dev)
+        d.params = d.keys = None
+        if lanes is not None:
+            temp, topk, topp, samp, tslot, ctr = lanes
+            d.params = tuple(torch.from_numpy(x).to(dev)
+                             for x in (temp, topk, topp, samp))
+            idx = (ctr[None, :] + np.arange(K, dtype=np.int32)[:, None])
+            d.keys = self.sampling_table.lane_keys(
+                idx.reshape(-1), rows=np.tile(tslot, K)).reshape(K, N, 2)
+        return d
+
+    def _probe_draft_args(self, tok: int, ds: int, at: int) -> _DraftArgs:
+        """A greedy propose of draft row `ds` alone, its first token `tok`
+        written at `at`, every other row parked at the pad."""
+        dpool = self.draft_pool
+        N = dpool.num_slots
+        tok0 = np.zeros((N,), np.int32)
+        pos = np.full((N,), dpool.capacity, np.int32)
+        act = np.zeros((N,), np.int32)
+        tok0[ds], pos[ds], act[ds] = tok, at, 1
+        return self._propose_args(tok0, pos, act)
+
+    def _catchup_attempt(self, d: _DraftArgs):
+        """The callable of one catch-up attempt: a chunk-wide draft
+        forward under the attempt's write token, its logits discarded
+        (only the KV stripes matter). With the ledger armed it waits for
+        the device, so the booked span is the catch-up's."""
+        dpool = self.draft_pool
+
+        def run(fence: _WriteFence):
+            stream = (torch.cuda.stream(d.stream) if d.stream is not None
+                      else contextlib.nullcontext())
+            with torch.no_grad(), stream, kv_write_guard(fence):
+                paged = (d.table, d.seq_lens, dpool.block_len,
+                         dpool.n_blocks)
+                self.draft_model.forward_with_cache(d.toks_d, d.slabs,
+                                                    d.pos_d, paged=paged)
+                if d.stream is not None and self.ledger is not None:
+                    d.stream.synchronize()
+        return run
+
+    def _propose_attempt(self, d: _DraftArgs):
+        """The callable of one propose attempt: spec_k + 1 width-1 draft
+        forwards under the attempt's write token. Step j feeds step j-1's
+        selection (tok0 at step 0), which stays on the device, and the
+        drafts d1..dK come back in one copy, [N, K] numpy; step K feeds dK
+        for its KV write alone, so after an all-accept window the draft
+        needs no catch-up. A greedy propose takes the argmax (what
+        `select_next` gives a greedy row); a sampled one `select_next` on
+        step j's lane keys."""
+        K = self.config.spec_k
+        dpool = self.draft_pool
+        model = self.draft_model
+
+        def run(fence: _WriteFence):
+            stream = (torch.cuda.stream(d.stream) if d.stream is not None
+                      else contextlib.nullcontext())
+            with torch.no_grad(), stream, kv_write_guard(fence):
+                tok = d.toks_d
+                drafts = []
+                for j in range(K + 1):
+                    paged = (d.table, d.seq_lens[j], dpool.block_len,
+                             dpool.n_blocks)
+                    lg, _ = model.forward_with_cache(
+                        tok[:, None], d.slabs, d.pos_d[j], paged=paged)
+                    if j == K:
+                        break
+                    if d.keys is None:
+                        tok = torch.argmax(lg[:, 0].float(),
+                                           dim=-1).to(torch.int32)
+                    else:
+                        temp, topk, topp, samp = d.params
+                        tok = select_next(lg[:, 0], temp, topk, topp, samp,
+                                          None, None, keys=d.keys[j])
+                    drafts.append(tok)
+                return torch.stack(drafts, dim=1).cpu().numpy()
+        return run
+
+    def _draft_phase(self) -> Dict[int, List[int]]:
+        """The pump's draft work, before the target's step: one chunk-wide
+        catch-up over the rows whose draft KV trails the target's
+        committed stream (prompt chunks, a window's corrective token),
+        then one propose (`_draft_propose`). Returns {target slot: [d1..
+        dK]}, the windows `_build_rows_locked` puts into the step. Both
+        attempts announce kind "draft" and are breaker-exempt: a failure
+        costs this pump its speculation (and a blamed request its draft),
+        never a stream."""
+        if self.draft_pool is None or self._spec_disabled:
+            return {}
+        C = self.config.prefill_chunk
+        dpool = self.draft_pool
+        N = dpool.num_slots
+        with self._cond:
+            toks = np.zeros((N, C), np.int32)
+            pos = np.full((N,), dpool.capacity, np.int32)
+            adv = np.zeros((N,), np.int32)
+            catchup: List[Tuple[int, _GenRequest, int, int, int]] = []
+            for slot, req in self._active.items():
+                ds = req.draft_slot
+                if ds is None or req.spec_off:
+                    continue
+                tlen = int(self.pool.lengths[slot])
+                dlen = int(dpool.lengths[ds])
+                if dlen >= tlen:
+                    continue
+                n = min(C, tlen - dlen)
+                toks[ds, :n] = [self._stream_token(req, dlen + j)
+                                for j in range(n)]
+                pos[ds] = dlen
+                adv[ds] = n
+                catchup.append((slot, req, ds, dlen, n))
+            d = self._catchup_args(toks, pos, adv) if catchup else None
+        if catchup:
+            rids = tuple(sorted(r.submit_idx for _, r, *_ in catchup))
+            t0 = self.clock.now() if self.ledger is not None else None
+            try:
+                self._run_dispatch((("draft", rids),),
+                                   self._catchup_attempt(d), exempt=True)
+            except DispatchFailedError as e:
+                self._draft_failure([(s, r) for s, r, *_ in catchup], e,
+                                    "catchup")
+                return {}
+            if t0 is not None:
+                self.ledger.book_dispatch(
+                    self.clock.now() - t0, prefill_positions=0,
+                    decode_positions=0, total_positions=0,
+                    owners=[(r.tenant, r.slo, n)
+                            for _, r, _, _, n in catchup],
+                    draft_positions=int(sum(n for *_, n in catchup)))
+            with self._cond:
+                for slot, req, ds, dlen, n in catchup:
+                    if self._active.get(slot) is not req \
+                            or req.draft_slot != ds:
+                        continue
+                    dpool.set_length(ds, dlen + n)
+                    if (self.draft_prefix_cache is not None
+                            and dlen < len(req.prompt) <= dlen + n):
+                        # the draft's prompt KV just completed: index it,
+                        # so siblings attach on the draft side too
+                        self.draft_prefix_cache.insert(
+                            req.tenant, req.prompt, ds, req.draft_attached)
+            self._draft_failstreak = 0
+        return self._draft_propose()
+
+    def _draft_propose(self) -> Dict[int, List[int]]:
+        """One propose over every row that can take a window: past
+        prefill, its draft caught up to the target's committed length L,
+        at least 2 tokens left, and L + K + 1 within the slot. Sampling
+        operands are gathered by draft row; each row's step j draws on
+        its lane `sample_offset + emitted + j`, the lane the verify draws
+        column j on. The draft rows then hold K+1 stripes past L
+        (set_length L+K+1), which the commit rewinds to what the verify
+        accepts."""
+        K = self.config.spec_k
+        dpool = self.draft_pool
+        N = dpool.num_slots
+        with self._cond:
+            tok0 = np.zeros((N,), np.int32)
+            ppos = np.full((N,), dpool.capacity, np.int32)
+            act = np.zeros((N,), np.int32)
+            temp = np.ones((N,), np.float32)
+            topk = np.zeros((N,), np.int32)
+            topp = np.ones((N,), np.float32)
+            samp = np.zeros((N,), bool)
+            tslot = np.zeros((N,), np.int64)
+            dctr = np.zeros((N,), np.int32)
+            tab = self.sampling_table
+            eligible: List[Tuple[int, _GenRequest, int, int]] = []
+            for slot, req in self._active.items():
+                ds = req.draft_slot
+                if ds is None or req.spec_off or req.gid > 0:
+                    continue
+                if req.chunk_off < len(req.prompt):
+                    continue            # still in chunked prefill
+                L = int(self.pool.lengths[slot])
+                if int(dpool.lengths[ds]) != L:
+                    continue            # draft KV still catching up
+                if req.max_new_tokens - len(req.emitted) < 2:
+                    continue            # a window cannot beat one step
+                if L + K + 1 > self.pool.capacity:
+                    continue            # the window would overrun the slot
+                tok0[ds], ppos[ds], act[ds] = req.last_tok, L, 1
+                temp[ds] = tab.temperature[slot]
+                topk[ds] = tab.top_k[slot]
+                topp[ds] = tab.top_p[slot]
+                samp[ds] = tab.do_sample[slot]
+                tslot[ds] = slot
+                dctr[ds] = req.sample_offset + len(req.emitted)
+                eligible.append((slot, req, ds, L))
+            if not eligible:
+                return {}
+            d = self._propose_args(
+                tok0, ppos, act,
+                (temp, topk, topp, samp, tslot, dctr) if samp.any()
+                else None)
+        rids = tuple(sorted(r.submit_idx for _, r, _, _ in eligible))
+        t0 = self.clock.now() if self.ledger is not None else None
+        try:
+            drafts = self._run_dispatch((("draft", rids),),
+                                        self._propose_attempt(d),
+                                        exempt=True)
+        except DispatchFailedError as e:
+            self._draft_failure([(s, r) for s, r, _, _ in eligible], e,
+                                "propose")
+            return {}
+        if t0 is not None:
+            self.ledger.book_dispatch(
+                self.clock.now() - t0, prefill_positions=0,
+                decode_positions=0, total_positions=0,
+                owners=[(r.tenant, r.slo, K + 1) for _, r, _, _ in eligible],
+                draft_positions=(K + 1) * len(eligible))
+        spec: Dict[int, List[int]] = {}
+        with self._cond:
+            for slot, req, ds, L in eligible:
+                if self._active.get(slot) is not req or req.draft_slot != ds:
+                    continue
+                dpool.set_length(ds, L + K + 1)
+                spec[slot] = [int(t) for t in drafts[ds]]
+        self._draft_failstreak = 0
+        return spec
+
+    def _draft_failure(self, rows, err, stage: str):
+        """A draft attempt failed (no retry: a failure only costs this
+        pump its speculation). Each riding request is probed alone by a
+        greedy propose of its own draft row at its committed draft length:
+        where a real propose writes, past the committed draft KV, which
+        the probe leaves intact (JAX probes at position 0, which here
+        would overwrite it); a row without room for a window there is not
+        probed. A blamed request loses its draft (spec_off, draft row
+        freed) and its stream continues as plain decode. A failure no
+        request explains (every probe of several failed, or none did)
+        counts a streak that disables speculation engine-wide at
+        breaker_threshold. The target breaker is never charged."""
+        dpool = self.draft_pool
+        K = self.config.spec_k
+        blamed = []
+        for slot, req in rows:
+            with self._cond:
+                ds = req.draft_slot
+                if ds is None:
+                    continue
+                dlen = int(dpool.lengths[ds])
+                if dlen + K + 1 > dpool.capacity:
+                    continue
+                d = self._probe_draft_args(req.last_tok, ds, dlen)
+            try:
+                self._run_dispatch((("draft", (req.submit_idx,)),),
+                                   self._propose_attempt(d), exempt=True)
+            except DispatchFailedError as probe_err:
+                blamed.append((slot, req, probe_err))
+                flight_recorder().record(
+                    "solo_probe", engine="llm", rid=req.rid,
+                    submit_idx=req.submit_idx, stage="draft",
+                    outcome="failed")
+            else:
+                flight_recorder().record(
+                    "solo_probe", engine="llm", rid=req.rid,
+                    submit_idx=req.submit_idx, stage="draft", outcome="ok")
+        if blamed and (len(blamed) < len(rows) or len(rows) == 1):
+            with self._cond:
+                for slot, req, probe_err in blamed:
+                    if self._active.get(slot) is not req:
+                        continue
+                    req.spec_off = True
+                    ds = req.draft_slot
+                    if ds is not None and dpool.active[ds]:
+                        dpool.free(ds)
+                    req.draft_slot = None
+                    self.metrics.on_draft_quarantine()
+                    flight_recorder().record(
+                        "draft_quarantine", engine="llm", rid=req.rid,
+                        submit_idx=req.submit_idx, stage=stage,
+                        reason="poisoned_draft", error=str(probe_err))
+            _log.warning(
+                "quarantined the draft of %d request(s) after a failed "
+                "%s attempt; their streams continue as plain decode",
+                len(blamed), stage)
+            return
+        self._draft_failstreak += 1
+        flight_recorder().record(
+            "draft_failure", engine="llm", stage=stage,
+            failstreak=self._draft_failstreak, error=str(err))
+        if self._draft_failstreak >= self.config.breaker_threshold:
+            self._spec_disabled = True
+            flight_recorder().record(
+                "draft_disabled", engine="llm",
+                failstreak=self._draft_failstreak)
+            _log.error(
+                "disabling speculative decoding after %d consecutive draft "
+                "failures no request explains; the engine continues on "
+                "plain decode", self._draft_failstreak)
+
+    def _acceptance_locked(self, decode_slots, spec_drafts,
+                           nxt) -> Dict[int, Tuple[List[int], int, int]]:
+        """Verification over the step's per-position selections: for each
+        decode row, the longest prefix of its window's drafts that equals
+        the target's own selection at each position, then the target's
+        one corrective token, cut at the request's EOS or max tokens where
+        sequential decode would stop. Returns {slot: (tokens to emit,
+        accepted drafts, drafted)}; a plain decode row gives ([next
+        token], 0, 0), the plain commit."""
+        accept: Dict[int, Tuple[List[int], int, int]] = {}
+        for slot in decode_slots:
+            req = self._active.get(slot)
+            if req is None:
+                continue
+            drafts = spec_drafts.get(slot, ())
+            row = nxt[slot]
+            k = len(drafts)
+            a = 0
+            while a < k and int(row[a]) == int(drafts[a]):
+                a += 1
+            emit: List[int] = []
+            for j in range(a + 1):
+                tok = int(row[j])
+                emit.append(tok)
+                if len(req.emitted) + len(emit) >= req.max_new_tokens:
+                    break
+                if req.eos_token_id is not None and tok == req.eos_token_id:
+                    break
+            accept[slot] = (emit, min(len(emit), a), k)
+        return accept
+
+    def _build_rows_locked(self, spec_drafts=None):
         """(toks [N, C], pos [N], adv [N], ctr [N], prefill_slots,
         decode_slots). Free slots stay all-zero with adv=0 and write their
         discarded C-wide stripe into the slab's pad region (pos =
-        capacity), which no block table addresses. `ctr` is each row's
-        stream index at its emission column adv-1, sample_offset +
-        emitted for prefill and decode rows alike (the JAX engine backs
-        column 0 of a prefill row off by adv-1 to land there)."""
+        capacity), which no block table addresses. A decode row with a
+        window in `spec_drafts` carries [last_tok, d1..dk] at adv = 1+k.
+        `ctr` is each row's stream index at its emission column adv-1
+        (column 0 of a window), sample_offset + emitted for prefill and
+        decode rows alike (the JAX engine backs column 0 of a prefill row
+        off by adv-1 to land there)."""
         N = self.pool.num_slots
         C = self.config.prefill_chunk
         toks = np.zeros((N, C), np.int32)
@@ -1727,33 +2263,44 @@ class LLMEngine:
                 adv[slot] = n
                 prefill_slots.append(slot)
             else:
+                drafts = spec_drafts.get(slot, ()) if spec_drafts else ()
                 toks[slot, 0] = req.last_tok
+                toks[slot, 1:1 + len(drafts)] = drafts
                 pos[slot] = self.pool.lengths[slot]
-                adv[slot] = 1
+                adv[slot] = 1 + len(drafts)
                 decode_slots.append(slot)
         return toks, pos, adv, ctr, prefill_slots, decode_slots
 
     def _step_once(self) -> int:
         """Run ONE unified step over every slot, supervised, and commit
         its results. Returns 1 when the committed step carried at least
-        one decode row, else 0. A failed attempt is retried whole
-        `dispatch_retries` times; then `_blame_and_quarantine` probes each
-        row alone, and the survivors of a quarantine retry on a rebuilt
-        row set; a failure no row explains fails every active row and
+        one decode row, else 0. With a draft model the draft phase runs
+        first and decode rows carry its windows. A failed attempt is
+        retried whole `dispatch_retries` times; then `_blame_and_quarantine`
+        probes each row alone, and the survivors of a quarantine retry on
+        a rebuilt row set with the same windows (a failed step commits
+        nothing); a failure no row explains fails every active row and
         charges the circuit breaker. A step in which no active request
         samples or is constrained runs the greedy selection alone."""
+        spec_drafts = self._draft_phase()
         while True:
             with self._cond:
                 if not self._active:
                     return 0
                 toks, pos, adv, ctr, prefill_slots, decode_slots = \
-                    self._build_rows_locked()
+                    self._build_rows_locked(spec_drafts)
+                verify = None
+                if spec_drafts:
+                    verify = np.zeros(adv.shape, bool)
+                    verify[[s for s in decode_slots
+                            if spec_drafts.get(s)]] = True
                 kinds = self._kinds_of(prefill_slots, decode_slots)
                 modes = self.sampling_table.mode_counts(self._active)
                 sampled = bool(modes["sampled"] or modes["constrained"])
                 constrained = modes["constrained"] > 0
                 args = self._step_args(toks, pos, adv,
-                                       ctr if sampled else None, constrained)
+                                       ctr if sampled else None, constrained,
+                                       verify=verify)
             if args.mask_s is not None:
                 self.ledger.book("sample_mask", args.mask_s)
             t0 = self.clock.now()
@@ -1796,44 +2343,61 @@ class LLMEngine:
                 self._fail_all_active(attempts, last_err)
                 self.supervisor.record_failure()
                 return 0
+            with self._cond:
+                accept = self._acceptance_locked(decode_slots, spec_drafts,
+                                                 out[0])
             if tc1 is not None:
-                self._book_dispatch(args, tc1 - tc0, prefill_slots,
-                                    decode_slots)
-            return self._commit(args, out, prefill_slots, decode_slots, t0)
+                self._book_dispatch(args, tc1 - tc0, prefill_slots, accept)
+            return self._commit(args, out, prefill_slots, decode_slots,
+                                accept, t0)
 
     def _book_dispatch(self, args: _StepArgs, seconds: float,
-                       prefill_slots, decode_slots):
+                       prefill_slots, accept):
         """Book one successful step's span into the ledger, split by
-        advanced positions (each prefill row's chunk, one token a decode
-        row) and apportioned to the rows' tenants and SLO classes; an
-        armed engine re-buckets the same shares by adapter id ("base"
-        for row 0), so per-adapter seconds sum to the tenants'."""
+        useful positions (each prefill row's chunk, each decode row's
+        emitted tokens) and apportioned to the rows' tenants and SLO
+        classes; a verify row's rejected columns stay in the step's total
+        positions only, as pad waste. The windows' drafted and accepted
+        counts go with it. An armed engine re-buckets the same shares by
+        adapter id ("base" for row 0), so per-adapter seconds sum to the
+        tenants'."""
+        drafted = accepted = 0
         with self._cond:
             rows = [(self._active[s], int(args.adv[s]))
                     for s in prefill_slots if s in self._active]
-            decoded = [(self._active[s], 1)
-                       for s in decode_slots if s in self._active]
-        n_decoded = len(decoded)
+            decoded = []
+            for s, (emit, acc, k) in accept.items():
+                req = self._active.get(s)
+                if req is None:
+                    continue
+                decoded.append((req, len(emit)))
+                drafted += k
+                accepted += acc
         rows += decoded
         self.ledger.book_dispatch(
             seconds,
             prefill_positions=int(sum(args.adv[s] for s in prefill_slots)),
-            decode_positions=n_decoded,
+            decode_positions=sum(n for _, n in decoded),
             total_positions=int(args.toks.size),
             owners=[(r.tenant, r.slo, n) for r, n in rows],
+            drafted=drafted, draft_accepted=accepted,
             adapter_owners=([(r.adapter or "base", n) for r, n in rows]
                             if self.adapter_bank is not None else None))
 
     def _commit(self, args: _StepArgs, out, prefill_slots, decode_slots,
-                t0: float) -> int:
+                accept, t0: float) -> int:
         """Commit a successful step: lengths, streams, TTFT, retirements
-        and the step's metrics, booked once for the committed step."""
+        and the step's metrics, booked once for the committed step. A
+        decode row commits the tokens `accept` gives it: the target length
+        grows by them (the verify's rejected columns lie past it) and its
+        draft row rewinds to the same length."""
         nxt, lps, new_dstate = out
         adv, pos = args.adv, args.pos
         if args.sampled:
             self.metrics.on_mask_overhead(args.mask_ms)
         self.steps += 1
         now = self.clock.now()
+        total_emitted = 0
         with self._cond:
             if decode_slots:
                 self.decode_iterations += 1
@@ -1870,7 +2434,8 @@ class LLMEngine:
                         self.prefix_cache.insert(
                             self._kv_ns(req.tenant, req.adapter),
                             req.prompt, slot, req.attached_pages)
-                    self._emit(req, slot, nxt, lps, new_dstate)
+                    self._emit(req, slot, nxt[slot, n - 1],
+                               lps[slot, n - 1], new_dstate)
                     if self._finish_if_done(req, now):
                         del self._active[slot]
                     elif req.deadline is not None and now >= req.deadline:
@@ -1881,13 +2446,30 @@ class LLMEngine:
                     self._evict_expired_locked(req, slot, now)
             for slot in decode_slots:
                 req = self._active.get(slot)
-                if req is None:
+                if req is None or slot not in accept:
                     continue
-                self.pool.set_length(slot, int(pos[slot]) + 1)
+                emit, acc, k = accept[slot]
+                length = int(pos[slot]) + len(emit)
+                self.pool.set_length(slot, length)
+                ds = req.draft_slot
+                if ds is not None and self.draft_pool.active[ds]:
+                    # the draft ran ahead on its own proposals: back to
+                    # the verified stream, so the next window extends it
+                    self.draft_pool.rewind_length(
+                        ds, min(int(self.draft_pool.lengths[ds]), length))
                 if req.trace is not None:
-                    req.trace.event("decode_step", now, tok=int(nxt[slot]),
-                                    n_active=len(decode_slots))
-                self._emit(req, slot, nxt, lps, new_dstate)
+                    ev = dict(tok=emit[-1], n_active=len(decode_slots))
+                    if k:
+                        ev.update(drafted=k, accepted=acc)
+                    req.trace.event("decode_step", now, **ev)
+                for j, tok in enumerate(emit):
+                    self._emit(req, slot, tok, lps[slot, j], new_dstate)
+                total_emitted += len(emit)
+                if k:
+                    self.spec_windows += 1
+                    self.spec_drafted += k
+                    self.spec_accepted += acc
+                    self.metrics.on_spec_window(k, acc)
                 if self._finish_if_done(req, now):
                     del self._active[slot]
                 elif req.deadline is not None and now >= req.deadline:
@@ -1898,7 +2480,7 @@ class LLMEngine:
                 self.sampling_table.mode_counts(self._active))
         if decode_slots:
             self.metrics.on_decode_step(len(decode_slots), (now - t0) * 1e3,
-                                        tokens=len(decode_slots))
+                                        tokens=total_emitted)
             return 1
         return 0
 
@@ -1921,10 +2503,13 @@ class LLMEngine:
         blamed = []
         for slot, req in suspects:
             solo_toks, solo_pos, solo_adv = self._probe_rows(args, slot)
-            solo_ctr = None
+            solo_ctr = solo_verify = None
             if args.sampled:
                 solo_ctr = np.zeros_like(args.pos)
                 solo_ctr[slot] = req.sample_offset + len(req.emitted)
+            if args.verify is not None:
+                solo_verify = np.zeros_like(args.verify)
+                solo_verify[slot] = args.verify[slot]
             kind = ("prefill" if req.chunk_off < len(req.prompt)
                     else "decode")
             probe_kinds = [(kind, (req.submit_idx,))]
@@ -1942,7 +2527,8 @@ class LLMEngine:
                 # under the row's grammar mask or sampled lane must still
                 # be attributable
                 pargs = self._step_args(solo_toks, solo_pos, solo_adv,
-                                        solo_ctr, constrained, solo_rows)
+                                        solo_ctr, constrained, solo_rows,
+                                        verify=solo_verify)
             try:
                 self._run_dispatch(tuple(probe_kinds), self._attempt(pargs))
             except DispatchFailedError as e:
@@ -1972,7 +2558,7 @@ class LLMEngine:
                     "quarantine", engine="llm", rid=req.rid,
                     submit_idx=req.submit_idx, reason="poisoned",
                     tokens_emitted=len(req.emitted))
-                self._free_slot_locked(slot)
+                self._free_slot_locked(slot, req)
                 del self._active[slot]
             self.metrics.set_slots(self.pool.active_slots(),
                                    self.pool.num_slots)
@@ -2015,7 +2601,7 @@ class LLMEngine:
                 if self.burn is not None:
                     self.burn.observe(req.slo, False,
                                       outcome="engine_failure")
-                self._free_slot_locked(slot)
+                self._free_slot_locked(slot, req)
             self._active.clear()
             self.metrics.set_slots(self.pool.active_slots(),
                                    self.pool.num_slots)
@@ -2038,27 +2624,32 @@ class LLMEngine:
         self.metrics.on_expire()
         if self.burn is not None:
             self.burn.observe(req.slo, False, outcome="deadline")
-        self._free_slot_locked(slot)
+        self._free_slot_locked(slot, req)
         del self._active[slot]
 
-    def _free_slot_locked(self, slot: int):
-        """Free a slot's pool row, reset its sampling row to greedy and
-        its adapter row to 0."""
+    def _free_slot_locked(self, slot: int, req: _GenRequest):
+        """Free a slot's pool row and its request's draft row, reset the
+        slot's sampling row to greedy and its adapter row to 0. Every
+        terminal path comes here, so the draft pool's slot ledger follows
+        the target's."""
         self.pool.free(slot)
         self.sampling_table.clear(slot)
         if self.adapter_bank is not None:
             self.adapter_bank.clear_slot(slot)
+        if self.draft_pool is not None and req.draft_slot is not None:
+            if self.draft_pool.active[req.draft_slot]:
+                self.draft_pool.free(req.draft_slot)
+            req.draft_slot = None
 
-    def _emit(self, req: _GenRequest, slot: int, nxt: np.ndarray,
-              lps: np.ndarray, new_dstate: Optional[np.ndarray]):
-        """Append the slot's selected token (and its logprob) to the
+    def _emit(self, req: _GenRequest, slot: int, tok: int, lp: float,
+              new_dstate: Optional[np.ndarray]):
+        """Append one selected token (and its logprob) to the slot's
         stream; a constrained row commits the DFA state the step
         advanced past it."""
-        tok = int(nxt[slot])
+        tok = int(tok)
         req.emitted.append(tok)
         req.last_tok = tok
-        req.handle._append(tok, float(lps[slot]) if req.want_logprobs
-                           else None)
+        req.handle._append(tok, float(lp) if req.want_logprobs else None)
         if req.gid > 0:
             self.sampling_table.set_dfa_state(slot, int(new_dstate[slot]))
             self.metrics.on_sample_token("constrained")
@@ -2087,7 +2678,7 @@ class LLMEngine:
         self.metrics.on_complete((now - req.arrival) * 1e3, slo=req.slo,
                                  tenant=req.tenant)
         if req.slot is not None and self.pool.active[req.slot]:
-            self._free_slot_locked(req.slot)
+            self._free_slot_locked(req.slot, req)
         return True
 
     # ---- scheduler thread ----

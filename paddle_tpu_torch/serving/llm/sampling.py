@@ -482,11 +482,15 @@ class SlotSamplingTable:
                           self.do_sample, self.dfa_state, self.grammar_id))
         return self._dev_args
 
-    def lane_keys(self, ctr: np.ndarray) -> torch.Tensor:
-        """[N, 2] lane keys of every slot at stream indices `ctr [N]`,
-        folded on the host from the slots' seed keys and moved to the
-        device: lane_key(seed, ctr) word for word."""
-        keys = threefry.fold_in(self.seed_key, torch.from_numpy(ctr))
+    def lane_keys(self, ctr: np.ndarray,
+                  rows: Optional[np.ndarray] = None) -> torch.Tensor:
+        """[R, 2] lane keys at stream indices `ctr [R]` of the slots
+        `rows [R]` (every slot in order when None), folded on the host
+        from the slots' seed keys and moved to the device:
+        lane_key(seed, ctr) word for word."""
+        seed_key = (self.seed_key if rows is None
+                    else self.seed_key[torch.from_numpy(rows)])
+        keys = threefry.fold_in(seed_key, torch.from_numpy(ctr))
         return keys.to(self.device)
 
     def set_dfa_state(self, slot: int, state: int):
@@ -563,9 +567,10 @@ def select_tokens(logits, adv, temperature, top_k, top_p, do_sample,
     `ctr[n]` is the stream index of row n's column 0 (column t draws on
     lane (seed, ctr + t)); the grammar mask of the row's current state
     applies to every column and the DFA advances at the emission column
-    adv-1 of rows with adv > 0. The port's engine consumes only that
-    column and runs `select_rows` on it; this whole-window form is the
-    reference's, for a verify window."""
+    adv-1 of rows with adv > 0. The port's engine selects only the
+    columns it consumes (each row's emission column, every column of a
+    verify window) with `select_rows`; this whole-step form is the
+    reference's."""
     N, C, V = logits.shape
     dev = logits.device
 
@@ -586,8 +591,14 @@ def select_tokens(logits, adv, temperature, top_k, top_p, do_sample,
     return toks, torch.where(adv > 0, emitted, dfa_state)
 
 
-def select_next(logits, temperature, top_k, top_p, do_sample, seed, ctr):
+def select_next(logits, temperature, top_k, top_p, do_sample, seed, ctr,
+                keys=None):
     """Width-1 selection for a draft's propose step: [N, V] logits -> [N]
-    tokens drawn on the same lanes the target's verify uses."""
-    return _select_token(logits, do_sample, temperature, top_k,
-                         lane_key(seed, ctr), top_p)
+    tokens drawn on the same lanes the target's verify uses, so a draft
+    that agrees with the target proposes the target's own draw. `keys`
+    ([N, 2]) are those lanes' keys already folded, lane_key(seed, ctr),
+    as the engine folds them on the host before a propose; `seed` and
+    `ctr` are then not read."""
+    if keys is None:
+        keys = lane_key(seed, ctr)
+    return _select_token(logits, do_sample, temperature, top_k, keys, top_p)

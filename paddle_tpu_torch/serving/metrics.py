@@ -15,9 +15,11 @@ tokens); its `render()` gives the JAX package's `pdtpu_llm_*` families.
 An engine built with `economics=True` attaches its `ServingLedger` and
 `SLOBurnMonitor` (`ledger`, `burn`), read at snapshot and render time
 only: phase seconds, token efficiency, decode MFU, per-tenant and
-per-class device seconds and the burn rates. The speculative-decoding
-counters stay 0 until the port's engine drafts (ROADMAP item 7c), as
-the JAX families read when unused; an engine armed with an adapter bank
+per-class device seconds and the burn rates. An engine built with a
+`draft_model` counts each verified window (`on_spec_window`: windows,
+drafted and accepted tokens) and each quarantined draft
+(`on_draft_quarantine`); without one they read 0, as the JAX families
+do when unused. An engine armed with an adapter bank
 counts each emitted token under its adapter id ("base" for row-0
 streams) and its swaps and rollbacks.
 Snapshot keys are the JAX classes'.
@@ -276,8 +278,8 @@ class LLMMetrics(ServingMetrics):
             "sampled_tokens": 0, "constrained_tokens": 0,
             "prefix_hits": 0, "prefix_misses": 0, "prefix_hit_tokens": 0,
             "prefix_lookup_tokens": 0,
-            # speculative decoding: 0 until the engine drafts (ROADMAP
-            # item 7c); adapters: counted by an armed engine
+            # speculative decoding: counted by an engine with a draft
+            # model; adapters: counted by an armed engine
             "spec_windows": 0, "spec_drafted": 0, "spec_accepted": 0,
             "spec_draft_quarantines": 0, "adapter_swaps": 0,
             "adapter_rollbacks": 0})
@@ -385,6 +387,22 @@ class LLMMetrics(ServingMetrics):
     def set_inflight_tokens(self, tokens: int):
         with self._lock:
             self.inflight_tokens = int(tokens)
+
+    # ---- speculative decoding ----
+    def on_spec_window(self, drafted: int, accepted: int):
+        """One verified speculative window: `drafted` tokens proposed,
+        `accepted` of them kept (the corrective token is ordinary decode
+        output and counts in neither)."""
+        with self._lock:
+            self.counters["spec_windows"] += 1
+            self.counters["spec_drafted"] += int(drafted)
+            self.counters["spec_accepted"] += int(accepted)
+
+    def on_draft_quarantine(self):
+        """A request's draft was quarantined after a poisoned draft
+        dispatch; its target stream continues as plain decode."""
+        with self._lock:
+            self.counters["spec_draft_quarantines"] += 1
 
     # ---- multi-LoRA serving ----
     def on_adapter_token(self, adapter: str):
@@ -621,7 +639,7 @@ class LLMMetrics(ServingMetrics):
         b.sample(f"{px}_decode_steps_total", s["decode_steps"])
         b.family(f"{px}_prefills_total", "counter")
         b.sample(f"{px}_prefills_total", s["prefills"])
-        # ---- speculative decoding families (0 until 7c) ----
+        # ---- speculative decoding families ----
         b.family(f"{px}_spec_windows_total", "counter")
         b.sample(f"{px}_spec_windows_total", s["spec_windows"])
         b.family(f"{px}_spec_drafted_total", "counter")

@@ -381,15 +381,18 @@ def record_evictions(pool):
 
 
 def engine_pair(jm, tm, cfg, fault_plan=None, on_break=None,
-                jax_steps=None, **over):
+                jax_steps=None, drafts=None, **over):
     """(JAX engine, port engine) on SimClocks with the config `cfg` and
     `over`, each pool recording its evicted pages in `engine.evicted`.
 
     `fault_plan`, a spec string, gives each engine a `FaultPlan` of its own
     package (as `engine.plan`); `on_break` is a pair of callables, JAX's
-    first. `jax_steps`, a dict a test module keeps, shares the JAX
-    engines' unified-step executable among engines of one model and pool
-    geometry, so the module compiles it once a shape."""
+    first. `drafts`, a (JAX model, port model) pair, arms speculative
+    decoding with those draft models. `jax_steps`, a dict a test module
+    keeps, shares the JAX engines' unified-step executable among engines
+    of one model and pool geometry, and their draft catch-up and propose
+    executables among engines of one draft model, pool geometry and
+    spec_k, so the module compiles each once a shape."""
     from paddle_tpu.serving.clock import SimClock as JaxSimClock
     from paddle_tpu.serving.llm import LLMEngine as JaxEngine
     from paddle_tpu.serving.llm import LLMEngineConfig as JaxConfig
@@ -403,14 +406,21 @@ def engine_pair(jm, tm, cfg, fault_plan=None, on_break=None,
         jplan, tplan = JaxPlan.from_spec(fault_plan), \
             FaultPlan.from_spec(fault_plan)
     jb, tb = on_break or (None, None)
+    jd, td = drafts or (None, None)
     je = JaxEngine(jm, JaxConfig(**cfg), clock=JaxSimClock(),
-                   fault_plan=jplan, on_break=jb)
+                   fault_plan=jplan, on_break=jb, draft_model=jd)
     te = LLMEngine(tm, LLMEngineConfig(**cfg), clock=SimClock(),
-                   fault_plan=tplan, on_break=tb)
+                   fault_plan=tplan, on_break=tb, draft_model=td)
     je.plan, te.plan = jplan, tplan
     if jax_steps is not None:
         key = (id(jm), je.pool.block_len, je.pool.n_blocks)
         je._step_jit = jax_steps.setdefault(key, je._step())
+        if jd is not None:
+            key = (id(jd), je.pool.block_len, je.pool.n_blocks)
+            je._draft_step_jit = jax_steps.setdefault(
+                key + ("catchup",), je._draft_step())
+            je._draft_propose_jit = jax_steps.setdefault(
+                key + ("propose", je.config.spec_k), je._draft_propose())
     assert (te.prefix_cache is not None) == te.config.enable_prefix_cache
     je.evicted = record_evictions(je.pool)
     te.evicted = record_evictions(te.pool)
