@@ -16,12 +16,15 @@ paddle_tpu/obs):
 - `flops` — the analytic FLOPs and peak-FLOPs helpers;
 - `numerics` — the training numerics observatory: in-step grad, param
   and update-ratio telemetry, the culprit-named non-finite blame report,
-  the loss-spike sentinel, and the shared non-finite census.
+  the loss-spike sentinel, and the shared non-finite census;
+- `deploy_metrics` — the rolling-deploy controller's `pdtpu_deploy_*`
+  families.
 
-The JAX package's `compile_observatory` and `deploy_metrics` wait for
-ROADMAP §1 items 9 and 7e. Stdlib-only at import: serving and training
-both depend on this package, never the other way around.
+The JAX package's `compile_observatory` waits for ROADMAP §1 item 9.
+Stdlib-only at import: serving and training both depend on this package,
+never the other way around.
 """
+from .deploy_metrics import DeployMetrics
 from .flight_recorder import DUMP_DIR_ENV, FlightRecorder, flight_recorder
 from .flops import (conv_train_flops_per_step, decode_flops_per_token,
                     decode_mfu, lora_decode_flops_per_token, peak_flops,
@@ -38,6 +41,7 @@ from .trace import (LLM_PHASES, SERVING_PHASES, RequestTrace, TimelineStore,
                     ingest_traceparent, new_request_id)
 
 __all__ = [
+    "DeployMetrics",
     "DUMP_DIR_ENV", "FlightRecorder", "flight_recorder",
     "conv_train_flops_per_step", "decode_flops_per_token", "decode_mfu",
     "lora_decode_flops_per_token", "peak_flops", "train_flops_per_step",

@@ -187,12 +187,26 @@ the row's committed draft KV), and each draft attempt carries its own
 write token. An adapter row speculates with the base draft; its verify
 carries its adapter.
 
+Rolling weight deploys, as in the JAX engine: the engine serves
+`config.weight_version` (`weight_version` after a swap), and
+`replace_params(state, version)` swaps the model's weights between steps
+when the engine is idle, after an exact check of the names, shapes,
+dtypes and devices of `model.state_dict()`, flushing both prefix caches
+(typed `WeightSwapError` otherwise). The JAX engine rebinds an immutable
+params tree, and the deploy controller keeps the old tree as its rollback
+token. Here the swap rebinds the model's parameters to the new tensors
+(`load_state_dict(assign=True)`) and never copies into the old ones, so
+`params`, read before a swap, still holds the prior tensors untouched and
+a rollback that passes them back restores them bit for bit. An engine
+therefore owns its model: two engines on one module would swap together.
+`evacuate(reason)` fails every queued and active request of a drained
+replica whose streams the router has already moved.
+
 Under a `SimClock` the engine runs threadless and the harness calls
 `pump()`; under the default `MonotonicClock`, `start()` runs the same
 `pump()` on a scheduler thread.
 
-Not ported yet (each is a ROADMAP item): the compile observatory, and
-rolling deploys with their cache flush.
+Not ported yet (a ROADMAP item): the compile observatory.
 """
 from __future__ import annotations
 
@@ -225,6 +239,12 @@ from .sampling import (GREEDY, SamplingParams, SlotSamplingTable,
                        compile_grammar, select_next, select_rows)
 
 _log = logging.getLogger("paddle_tpu_torch.serving.llm")
+
+
+class WeightSwapError(ValueError):
+    """`replace_params` refused a hot swap: the engine still holds work,
+    or the new state's signature (names, shapes, dtypes, devices)
+    differs from the serving model's."""
 
 
 @dataclass
@@ -302,6 +322,9 @@ class LLMEngineConfig:
     lora_alpha: Optional[float] = None  # default scaling numerator for
     #                                rows loaded without an explicit alpha
     #                                (None = 2 * lora_rank)
+    # ---- rolling weight deployment ----
+    weight_version: str = "v0"     # version id of the weights the engine
+    #                                starts on; replace_params() advances it
     # ---- speculative decoding ----
     spec_k: int = 4                # draft tokens proposed a verify window
     #                                (read only by an engine built with a
@@ -597,6 +620,9 @@ class LLMEngine:
         self.config = config or LLMEngineConfig()
         self.clock = clock or MonotonicClock()
         self.metrics = metrics or LLMMetrics()
+        if not self.config.weight_version:
+            raise ValueError("weight_version must be a non-empty string")
+        self.weight_version = self.config.weight_version
         # pad_tokens=prefill_chunk: the fixed-width KV stripe written at a
         # row's position needs chunk-width scratch past the last
         # addressable block, so near-capacity writes never clamp back onto
@@ -944,23 +970,7 @@ class LLMEngine:
                 "drain_begin", engine="llm", drain=bool(drain),
                 queued=self._queue_len_locked(), active=len(self._active))
             if not drain:
-                for q in self._queues.values():
-                    while q:
-                        req = q.popleft()
-                        self._conclude(req, "rejected:shutdown")
-                        req.handle.future.set_exception(
-                            RejectedError("engine shut down before prefill",
-                                          reason="shutdown"))
-                        self.metrics.on_reject("shutdown")
-                for slot, req in list(self._active.items()):
-                    self._conclude(req, "rejected:shutdown")
-                    req.handle.future.set_exception(RejectedError(
-                        "engine shut down mid-decode", reason="shutdown"))
-                    self.metrics.on_reject("shutdown")
-                    self._free_slot_locked(slot, req)
-                self._active.clear()
-                self.metrics.set_queue_depth(0)
-                self.metrics.set_slots(0, self.pool.num_slots)
+                self._reject_all_locked("shutdown", "engine shut down")
             self._cond.notify_all()
             thread = self._thread
         if thread is not None:
@@ -987,28 +997,8 @@ class LLMEngine:
                     break
                 prev = state
         with self._cond:
-            stranded = 0
-            for q in self._queues.values():
-                while q:
-                    req = q.popleft()
-                    self._conclude(req, "rejected:drain_timeout")
-                    req.handle.future.set_exception(RejectedError(
-                        "engine drain timed out before prefill",
-                        reason="drain_timeout"))
-                    self.metrics.on_reject("drain_timeout")
-                    stranded += 1
-            for slot, req in list(self._active.items()):
-                self._conclude(req, "rejected:drain_timeout")
-                req.handle.future.set_exception(RejectedError(
-                    "engine drain timed out mid-decode",
-                    reason="drain_timeout"))
-                self.metrics.on_reject("drain_timeout")
-                self._free_slot_locked(slot, req)
-                stranded += 1
-            self._active.clear()
-            if stranded:
-                self.metrics.set_queue_depth(0)
-                self.metrics.set_slots(0, self.pool.num_slots)
+            stranded = self._reject_all_locked("drain_timeout",
+                                               "engine drain timed out")
             self._stopped = True
             self._cond.notify_all()
         flight_recorder().record("drain_end", engine="llm",
@@ -1050,6 +1040,117 @@ class LLMEngine:
                 self.on_break()
             except Exception:
                 _log.exception("on_break callback failed")
+
+    # ---- rolling weight deployment ----
+    def evacuate(self, reason: str = "deploy_drain") -> int:
+        """Deploy-drain eviction: fail every queued and active request with
+        a typed RejectedError(reason) and free their rows, without the
+        terminal stop() path, so the engine serves on afterwards. The
+        deploy controller calls it only after the router has re-queued
+        those streams on a survivor, so their handles here are orphans.
+        Returns the requests evicted."""
+        with self._cond:
+            n = self._reject_all_locked(reason,
+                                        f"engine evacuated ({reason})")
+            self._cond.notify_all()
+        if n:
+            flight_recorder().record("deploy_evacuate", engine="llm",
+                                     reason=reason, n=n)
+        return n
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The serving weights by `model.state_dict()` name: the tensors
+        the model holds now, not copies. A caller that keeps the dict
+        keeps those tensors alive and unchanged across a later
+        `replace_params`, which rebinds the model to new tensors (the
+        deploy controller's rollback token)."""
+        return dict(self.model.state_dict())
+
+    def replace_params(self, new_params, version: str):
+        """Hot weight swap between steps. `new_params` maps every name of
+        `model.state_dict()` to a tensor of the same shape, dtype and
+        device; the model's parameters and buffers are rebound to those
+        tensors (`load_state_dict(assign=True)`), so the tensors it held
+        before are neither written nor freed while a caller keeps them.
+        Refuses (typed `WeightSwapError`) another set of names, any leaf
+        of another shape, dtype or device, or an engine holding queued or
+        active work; the swap itself runs under the engine lock, so no
+        step of this engine starts during it (an abandoned attempt's
+        write token is already revoked). Flushes the prefix cache and the
+        draft's: their KV was computed under the old weights."""
+        if not version:
+            raise ValueError("version must be a non-empty string")
+        new = dict(new_params)
+        old = self.model.state_dict()
+        if set(new) != set(old):
+            missing = sorted(set(old) - set(new))
+            extra = sorted(set(new) - set(old))
+            raise WeightSwapError(
+                f"weight set {version!r} has a different tree structure "
+                f"than the serving params (missing {missing[:4]}, "
+                f"unexpected {extra[:4]})")
+        for name, cur in old.items():
+            x = new[name]
+            if not torch.is_tensor(x):
+                raise WeightSwapError(
+                    f"weight set {version!r} leaf [{name!r}] is "
+                    f"{type(x).__name__}, not a tensor")
+            if (tuple(x.shape) != tuple(cur.shape) or x.dtype != cur.dtype
+                    or x.device != cur.device):
+                raise WeightSwapError(
+                    f"weight set {version!r} leaf [{name!r}] is "
+                    f"{tuple(x.shape)}/{x.dtype} on {x.device}, serving "
+                    f"params have {tuple(cur.shape)}/{cur.dtype} on "
+                    f"{cur.device}: the signature must match exactly "
+                    "(a swap rebinds, it never casts or moves)")
+        with self._cond:
+            if self._queue_len_locked() or self._active:
+                raise WeightSwapError(
+                    f"cannot swap to {version!r} with work in flight "
+                    f"(queued={self._queue_len_locked()}, "
+                    f"active={len(self._active)}): drain first")
+            flushed = 0
+            if self.prefix_cache is not None:
+                flushed = self.prefix_cache.clear()
+            if self.draft_prefix_cache is not None:
+                flushed += self.draft_prefix_cache.clear()
+            prior = self.weight_version
+            self.model.load_state_dict(new, strict=True, assign=True)
+            self.weight_version = str(version)
+            self._cond.notify_all()
+        flight_recorder().record(
+            "weight_swap", engine="llm", version=str(version),
+            prior=prior, leaves=len(new), flushed_blocks=flushed)
+
+    def _reject_all_locked(self, reason: str, what: str) -> int:
+        """Fail every queued and active request with RejectedError(reason)
+        ("<what> before prefill" / "<what> mid-decode"), free their rows
+        and clear the tables. Returns how many; call under the lock."""
+        n = 0
+        for q in self._queues.values():
+            while q:
+                req = q.popleft()
+                self._conclude(req, f"rejected:{reason}")
+                if not req.handle.future.done():
+                    req.handle.future.set_exception(RejectedError(
+                        f"{what} before prefill", reason=reason))
+                self.metrics.on_reject(reason)
+                n += 1
+        for slot, req in list(self._active.items()):
+            self._conclude(req, f"rejected:{reason}")
+            if not req.handle.future.done():
+                req.handle.future.set_exception(RejectedError(
+                    f"{what} mid-decode", reason=reason))
+            self.metrics.on_reject(reason)
+            self._free_slot_locked(slot, req)
+            n += 1
+        self._active.clear()
+        if n:
+            self.metrics.set_queue_depth(0)
+            self.metrics.set_slots(self.pool.active_slots(),
+                                   self.pool.num_slots)
+        return n
 
     def _record_reject(self, reason: str, rid: Optional[str] = None,
                        tenant: Optional[str] = None):
@@ -1498,6 +1599,7 @@ class LLMEngine:
                     "layers": row["layers"],
                 },
                 "lane": self._lane(req, self.sampling_table.dfa_state[slot]),
+                "weight_version": self.weight_version,
                 "adapter": req.adapter,
             }
             self._conclude(req, "handoff")
@@ -1506,6 +1608,10 @@ class LLMEngine:
             self.metrics.set_slots(self.pool.active_slots(),
                                    self.pool.num_slots)
             self._cond.notify_all()
+        flight_recorder().record(
+            "kv_export", engine="llm", rid=rid,
+            tokens=int(payload["kv_row"]["length"]),
+            emitted=len(payload["emitted"]))
         return payload
 
     # ---- multi-LoRA adapter lifecycle ----
@@ -1623,6 +1729,12 @@ class LLMEngine:
             toks.append(last)
             pos += 1
         return np.asarray(toks, dtype=np.int32), finite
+
+    def inflight_tokens(self) -> int:
+        """Admitted token cost (queued + active): the router's load
+        tie-breaker."""
+        with self._cond:
+            return self._inflight_tokens_locked()
 
     # ---- scheduling ----
     def has_work(self) -> bool:

@@ -22,6 +22,10 @@ drafted and accepted tokens) and each quarantined draft
 do when unused. An engine armed with an adapter bank
 counts each emitted token under its adapter id ("base" for row-0
 streams) and its swaps and rollbacks.
+`RouterMetrics` is the fleet router's: routing decisions per replica,
+prefix-affinity hit rate, replica health, quarantines, failovers and
+resumed streams, weight versions, roles and prefill-to-decode handoffs,
+rendered as the JAX package's `pdtpu_router_*` families.
 Snapshot keys are the JAX classes'.
 
 Totals are lifetime counters, so a drain snapshot reconciles against a
@@ -742,3 +746,192 @@ class LLMMetrics(ServingMetrics):
                 for tenant in sorted(s["tenants"]):
                     b.sample(f"{px}_{fam}", s["tenants"][tenant][key],
                              {"tenant": tenant}, round_to=rnd)
+
+
+class RouterMetrics:
+    """Front-of-fleet router counters: routing decisions per replica,
+    prefix-affinity hit rate, per-replica health and quarantine state,
+    failovers with resumed-stream totals, router-level rejects, weight
+    versions, roles and handoffs. Rendered under `pdtpu_router_*`, so the
+    router's /metrics can carry the replicas' `pdtpu_llm_*` families
+    without a name collision."""
+
+    _PREFIX = "pdtpu_router"
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.counters: Dict[str, int] = {
+            "submitted": 0, "completed": 0, "rejected": 0, "failed": 0,
+        }
+        self.reject_reasons: Dict[str, int] = {}
+        self.routed: Dict[str, int] = {}           # replica -> decisions
+        self.replica_state: Dict[str, str] = {}    # replica -> health word
+        self.quarantines: Dict[str, int] = {}      # replica -> times down
+        self.failovers: Dict[str, int] = {}        # dead replica -> events
+        self.resumed_streams = 0
+        self.readmissions: Dict[str, int] = {}
+        self.affinity_hits = 0                     # routed to a prefix match
+        self.affinity_decisions = 0
+        self.replica_inflight: Dict[str, int] = {}
+        self.replica_weight_version: Dict[str, str] = {}
+        self.replica_role: Dict[str, str] = {}     # replica -> role tag
+        self.handoffs = 0                          # prefill->decode moves
+        self.handoffs_failed = 0                   # exported, but the stream
+        #                                            re-prefilled instead
+        self._handoff_ms: deque = deque(maxlen=4096)
+
+    # ---- router callbacks ----
+    def on_submit(self):
+        with self._lock:
+            self.counters["submitted"] += 1
+
+    def on_route(self, replica: str, prefix_hit: bool):
+        with self._lock:
+            self.routed[replica] = self.routed.get(replica, 0) + 1
+            self.affinity_decisions += 1
+            if prefix_hit:
+                self.affinity_hits += 1
+
+    def on_reject(self, reason: str):
+        with self._lock:
+            self.counters["rejected"] += 1
+            self.reject_reasons[reason] = \
+                self.reject_reasons.get(reason, 0) + 1
+
+    def on_complete(self):
+        with self._lock:
+            self.counters["completed"] += 1
+
+    def on_fail(self):
+        with self._lock:
+            self.counters["failed"] += 1
+
+    def set_replica(self, replica: str, state: str, inflight_tokens: int,
+                    weight_version: Optional[str] = None,
+                    role: Optional[str] = None):
+        with self._lock:
+            self.replica_state[replica] = state
+            self.replica_inflight[replica] = int(inflight_tokens)
+            if weight_version is not None:
+                self.replica_weight_version[replica] = str(weight_version)
+            if role is not None:
+                self.replica_role[replica] = str(role)
+
+    def on_handoff(self, src: str, dst: str, ms: float):
+        """One completed prefill->decode handoff: KV exported from `src`,
+        the stream admitted on `dst` `ms` milliseconds (router clock)
+        after the export."""
+        with self._lock:
+            self.handoffs += 1
+            self._handoff_ms.append(float(ms))
+
+    def on_handoff_failed(self):
+        """An exported stream re-prefilled instead (its staged KV went
+        stale before a destination took it): never dropped."""
+        with self._lock:
+            self.handoffs_failed += 1
+
+    def handoff_quantile_ms(self, q: float) -> Optional[float]:
+        with self._lock:
+            vals = sorted(self._handoff_ms)
+        return _quantile(vals, q)
+
+    def on_quarantine(self, replica: str):
+        with self._lock:
+            self.quarantines[replica] = self.quarantines.get(replica, 0) + 1
+
+    def on_readmit(self, replica: str):
+        with self._lock:
+            self.readmissions[replica] = \
+                self.readmissions.get(replica, 0) + 1
+
+    def on_failover(self, replica: str, resumed: int):
+        with self._lock:
+            self.failovers[replica] = self.failovers.get(replica, 0) + 1
+            self.resumed_streams += resumed
+
+    # ---- views ----
+    def affinity_hit_rate(self) -> float:
+        with self._lock:
+            if self.affinity_decisions == 0:
+                return 0.0
+            return self.affinity_hits / self.affinity_decisions
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                **self.counters,
+                "reject_reasons": dict(self.reject_reasons),
+                "routed": dict(self.routed),
+                "replica_state": dict(self.replica_state),
+                "replica_inflight": dict(self.replica_inflight),
+                "quarantines": dict(self.quarantines),
+                "readmissions": dict(self.readmissions),
+                "failovers": dict(self.failovers),
+                "replica_weight_version": dict(self.replica_weight_version),
+                "replica_role": dict(self.replica_role),
+                "resumed_streams": self.resumed_streams,
+                "handoffs": self.handoffs,
+                "handoffs_failed": self.handoffs_failed,
+                "affinity_hit_rate": (
+                    self.affinity_hits / self.affinity_decisions
+                    if self.affinity_decisions else 0.0),
+            }
+
+    def render(self) -> str:
+        b = PromBuilder()
+        self._render_into(b)
+        return b.render()
+
+    def _render_into(self, b: PromBuilder):
+        s = self.snapshot()
+        px = self._PREFIX
+        b.family(f"{px}_requests_total", "counter")
+        for outcome in ("submitted", "completed", "rejected", "failed"):
+            b.sample(f"{px}_requests_total", s[outcome],
+                     {"outcome": outcome})
+        for fam, key, typ in (("rejects_total", "reject_reasons", "counter"),
+                              ("routed_total", "routed", "counter")):
+            label = "reason" if key == "reject_reasons" else "replica"
+            b.family(f"{px}_{fam}", typ)
+            for k in sorted(s[key]):
+                b.sample(f"{px}_{fam}", s[key][k], {label: k})
+        b.family(f"{px}_replica_up", "gauge")
+        for replica in sorted(s["replica_state"]):
+            up = int(s["replica_state"][replica] == "ok")
+            b.sample(f"{px}_replica_up", up, {"replica": replica})
+        for fam, key, typ in (
+                ("replica_inflight_tokens", "replica_inflight", "gauge"),
+                ("quarantines_total", "quarantines", "counter"),
+                ("readmissions_total", "readmissions", "counter"),
+                ("failovers_total", "failovers", "counter")):
+            b.family(f"{px}_{fam}", typ)
+            for replica in sorted(s[key]):
+                b.sample(f"{px}_{fam}", s[key][replica],
+                         {"replica": replica})
+        b.family(f"{px}_replica_weight_info", "gauge")
+        for replica in sorted(s["replica_weight_version"]):
+            # info-style gauge: constant 1, the version rides the label
+            b.sample(f"{px}_replica_weight_info", 1,
+                     {"replica": replica,
+                      "version": s["replica_weight_version"][replica]})
+        b.family(f"{px}_resumed_streams_total", "counter")
+        b.sample(f"{px}_resumed_streams_total", s["resumed_streams"])
+        b.family(f"{px}_prefix_affinity_hit_rate", "gauge")
+        b.sample(f"{px}_prefix_affinity_hit_rate", s["affinity_hit_rate"],
+                 round_to=4)
+        if s["replica_role"]:
+            b.family(f"{px}_replica_role_info", "gauge")
+            for replica in sorted(s["replica_role"]):
+                b.sample(f"{px}_replica_role_info", 1,
+                         {"replica": replica,
+                          "role": s["replica_role"][replica]})
+        b.family(f"{px}_handoffs_total", "counter")
+        b.sample(f"{px}_handoffs_total", s["handoffs"])
+        b.family(f"{px}_handoffs_failed_total", "counter")
+        b.sample(f"{px}_handoffs_failed_total", s["handoffs_failed"])
+        hq = self.handoff_quantile_ms(0.99)
+        if hq is not None:
+            b.family(f"{px}_handoff_ms", "summary")
+            b.sample(f"{px}_handoff_ms", hq, {"quantile": "0.99"},
+                     round_to=3)

@@ -100,9 +100,10 @@ Differences from the JAX package, none in what fires when:
   `os._exit(137)`: either way no atexit handler or `finally` runs;
 - the serving clauses ``dispatch_*`` and ``poison_request`` are called
   by `serving.llm.LLMEngine` and `serving.BatchingEngine` through
-  `maybe_dispatch_fault`; ``replica_*``, ``swap_stall`` and
-  ``deploy_bad_weights`` have no caller until the serving front end is
-  ported (ROADMAP item 7e); they parse and fire as in JAX.
+  `maybe_dispatch_fault`; ``replica_*`` and ``swap_stall`` by
+  `serving.router.InProcessReplica`, ``deploy_bad_weights`` by
+  `serving.deploy.DeploymentController`, as in JAX; the poisoned weights
+  are NaN tensors of the loaded ones' shapes, dtypes and devices.
 """
 from __future__ import annotations
 

@@ -380,6 +380,30 @@ def record_evictions(pool):
     return pages
 
 
+def share_jax_steps(je, jm, jax_steps, jd=None, canary=False):
+    """Give JAX engine `je` (of model `jm`, draft `jd`) the unified-step,
+    draft catch-up and propose executables kept in the dict `jax_steps`
+    for its model and pool geometry, compiling each on first use; with
+    `canary`, also jitted canary forwards for its model."""
+    import jax
+    key = (id(jm), je.pool.block_len, je.pool.n_blocks)
+    je._step_jit = jax_steps.setdefault(key, je._step())
+    if canary:
+        # the canary's cached forwards (canary_probe), run eagerly by the
+        # JAX engine: jitted here once for the model, so a module compiles
+        # them once a prompt shape instead of every op of every probe
+        # (test_torch_deploy.py holds them equal to the eager ones)
+        je._prefill_fn, je._decode_fn = jax_steps.setdefault(
+            (id(jm), "decoder"), (jax.jit(je._prefill_fn),
+                                  jax.jit(je._decode_fn)))
+    if jd is not None:
+        key = (id(jd), je.pool.block_len, je.pool.n_blocks)
+        je._draft_step_jit = jax_steps.setdefault(
+            key + ("catchup",), je._draft_step())
+        je._draft_propose_jit = jax_steps.setdefault(
+            key + ("propose", je.config.spec_k), je._draft_propose())
+
+
 def engine_pair(jm, tm, cfg, fault_plan=None, on_break=None,
                 jax_steps=None, drafts=None, **over):
     """(JAX engine, port engine) on SimClocks with the config `cfg` and
@@ -413,18 +437,54 @@ def engine_pair(jm, tm, cfg, fault_plan=None, on_break=None,
                    fault_plan=tplan, on_break=tb, draft_model=td)
     je.plan, te.plan = jplan, tplan
     if jax_steps is not None:
-        key = (id(jm), je.pool.block_len, je.pool.n_blocks)
-        je._step_jit = jax_steps.setdefault(key, je._step())
-        if jd is not None:
-            key = (id(jd), je.pool.block_len, je.pool.n_blocks)
-            je._draft_step_jit = jax_steps.setdefault(
-                key + ("catchup",), je._draft_step())
-            je._draft_propose_jit = jax_steps.setdefault(
-                key + ("propose", je.config.spec_k), je._draft_propose())
+        share_jax_steps(je, jm, jax_steps, jd)
     assert (te.prefix_cache is not None) == te.config.enable_prefix_cache
     je.evicted = record_evictions(je.pool)
     te.evicted = record_evictions(te.pool)
     return je, te
+
+
+def fleet_pair(jm, tm, cfg, n, roles=None, fault_plan=None, jax_steps=None,
+               router_cfg=None, clocks=None):
+    """(JAX router, port router) over `n` replicas each, built alike:
+    each replica an `LLMEngine` of config `cfg` wrapped in an
+    `InProcessReplica` of index i and role `roles[i]` (default "mixed"),
+    each fleet on one clock (a SimClock each unless `clocks`, a (JAX,
+    port) pair of clocks, is given), under a `RouterConfig(**router_cfg)`.
+    The JAX replicas share `jm` (a JAX engine keeps its own params); each
+    port replica gets its own deep copy of `tm` (a swap rebinds the
+    engine's model). `fault_plan`, a spec
+    string, gives each fleet one `FaultPlan` of its own package for its
+    replicas (as `router.plan`). `jax_steps` shares the JAX engines'
+    executables (`share_jax_steps`, the canary forwards too)."""
+    import copy
+    from paddle_tpu import serving as jserving
+    from paddle_tpu.utils.fault_injection import FaultPlan as JaxPlan
+    from paddle_tpu_torch import serving as tserving
+    from paddle_tpu_torch.utils.fault_injection import FaultPlan
+    roles = roles or ["mixed"] * n
+    jc, tc = clocks or (jserving.SimClock(), tserving.SimClock())
+    jplan = tplan = None
+    if fault_plan is not None:
+        jplan, tplan = (JaxPlan.from_spec(fault_plan),
+                        FaultPlan.from_spec(fault_plan))
+    jreps, treps = [], []
+    for i in range(n):
+        je = jserving.LLMEngine(jm, jserving.LLMEngineConfig(**cfg),
+                                clock=jc)
+        if jax_steps is not None:
+            share_jax_steps(je, jm, jax_steps, canary=True)
+        te = tserving.LLMEngine(copy.deepcopy(tm),
+                                tserving.LLMEngineConfig(**cfg), clock=tc)
+        jreps.append(jserving.InProcessReplica(je, i, fault_plan=jplan,
+                                               role=roles[i]))
+        treps.append(tserving.InProcessReplica(te, i, fault_plan=tplan,
+                                               role=roles[i]))
+    rc = router_cfg or {}
+    jr = jserving.ReplicaRouter(jreps, jserving.RouterConfig(**rc))
+    tr = tserving.ReplicaRouter(treps, tserving.RouterConfig(**rc))
+    jr.plan, tr.plan = jplan, tplan
+    return jr, tr
 
 
 def adapter_tree(model, seed, rank=4, sigma=0.3):
