@@ -28,7 +28,10 @@ phases and Llama it fine-tunes LoRA adapters on full `gpt3-1.3b` and
 serves them, three at once, beside base streams; after the speculative
 phase it serves the same model through the HTTP front end, a two-replica
 router (a failover, a prefill/decode handoff) and two rolling weight
-deploys (one rolled back). It prints one JSON line per
+deploys (one rolled back); last it trains `gpt3-1.3b` over several
+ranks on the one card (tensor parallelism, ZeRO 2, hybrid data x tensor
+parallelism with a clip) against the one-rank step, and checks a
+one-rank NCCL group. It prints one JSON line per
 phase, then each phase's wall seconds, the `{"kernels": [...]}` line,
 the card's name and power limit as `nvidia-smi` reports them, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before the
@@ -378,6 +381,28 @@ Phases:
                 and the ledger's adapter seconds summing to its tenants'
                 on a third engine; the adapter token counters partitioning
                 the emitted tokens
+ 21. multirank_train — multi-rank training at one GPU: ranks started as
+                `chip_smoke.py --rank-child RUN RANK WORLD WORKDIR`
+                processes after the build (each loads the built library),
+                all on cuda:0 over gloo, through fleet.init(strategy) and
+                parallelize; the weights are the port's seeded model,
+                exported once and sharded by bridge.shard_state. A: full
+                gpt3-1.3b, bf16, AdamW fp32 moments, 4 x 1024, mp_degree 2
+                over 2 ranks, 3 steps; B: the same at sharding_degree 2,
+                ZeRO stage 2, 2 x 1024 a rank (each rank's moment bytes
+                half the one-rank step's, but leaves under min_numel);
+                C: gpt3-1.3b's widths cut to 2 layers, fp32, dp2 x mp2
+                over 4 ranks, SGD under a global-norm clip that binds, each
+                leaf's change over the steps against the one-rank step's
+                (MULTIRANK_UPDATE_TOL); each run's
+                losses against the one-rank step on the card from the same
+                weights and global batch (MULTIRANK_BF16_TOL,
+                MULTIRANK_FP32_TOL), each rank's step ms, tokens/s, peak
+                memory and collective bytes a step, and the collectives'
+                seconds in the last step; rank 0 of A counts the launches
+                of kernels 1, 3-7 (the kernels line's `multirank_train`);
+                D: a one-rank NCCL group, every collective giving the
+                one-rank result
 """
 from __future__ import annotations
 
@@ -2978,8 +3003,10 @@ def launches_per_step(n_layers, leaves, recompute, layer_norms=True):
 MODEL_TRAIN_PHASES = {"model_train": ("gpt3-1.3b", (False, True)),
                       "llama_model_train": ("llama2-7b", (False,)),
                       "moe_model": ("ernie-moe-base", (False,))}
-# their batch, B x S (moe_model: T = 512 tokens, 160 slots an expert)
-MODEL_TRAIN_BATCH = {"moe_model": (2, 256)}
+# their batch, B x S (moe_model: T = 512 tokens, 160 slots an expert;
+# llama_model_train one row, was 2: its CPU twin is most of the phase, and
+# the room goes to multirank_train)
+MODEL_TRAIN_BATCH = {"moe_model": (2, 256), "llama_model_train": (1, 128)}
 # their depth where it is not 2 layers: gpt3-1.3b's and llama2-7b's widths
 # at 1 layer (their CPU twins' steps over the full-width embedding and
 # the layers are most of the phase; one layer keeps every kernel and check
@@ -3349,7 +3376,7 @@ AMP_PARITY_CASES = {
             "decr_every_n_nan_or_inf": 1, "decr_ratio": 2.0 ** -25,
             "incr_every_n_steps": 1}, "recompute": True,
             "gradient_merge": True, "gradient_merge_configs": {"k_steps": 2}},
-        batch=(1, 16), layers=1, scan=1, calls=2, loss_tol=1e-2,
+        batch=(1, 8), layers=1, scan=1, calls=2, loss_tol=1e-2,
         level="O2", scales=(2.0 ** 15, 2.0 ** 16)),
 }
 # the fp16 cases run 1 layer over 16 tokens: their CPU twins' fp16 GEMMs
@@ -3357,7 +3384,8 @@ AMP_PARITY_CASES = {
 # (was 2) to make room for the LoRA phases (the CPU twins took 25.8 s,
 # 44.5 s and 46.5 s with case a at 2 layers, on the host of an NVIDIA
 # H100 80GB HBM3), and over 2 x 64 tokens (was 2 x 128) to make room for
-# frontend_serve: its 4 micro-steps still apply twice
+# frontend_serve: its 4 micro-steps still apply twice. Case c runs 8 tokens
+# (was 16; its fp16 CPU twin took 36.5 s) to make room for multirank_train
 AMP_PARITY_SHARE = 1e-2
 
 
@@ -9190,6 +9218,436 @@ def phase_lora_serve(serve, finetuned=None):
     return launches
 
 
+# phase 21, multirank_train: the runs, each (preset, dtype, layers or None
+# for full depth, (dp, sharding, mp), ZeRO stage, global batch B x S,
+# global-norm clip or None, optimizer); every rank shares cuda:0 over gloo
+MULTIRANK_RUNS = {
+    "A": dict(preset="gpt3-1.3b", dtype="bfloat16", layers=None,
+              dims=(1, 1, 2), zero=0, batch=(TRAIN_B, TRAIN_S), clip=None,
+              opt="adamw"),
+    "B": dict(preset="gpt3-1.3b", dtype="bfloat16", layers=None,
+              dims=(1, 2, 1), zero=2, batch=(TRAIN_B, TRAIN_S), clip=None,
+              opt="adamw"),
+    # fp32 at gpt3-1.3b's widths cut to 2 layers (a cut of depth), with a
+    # clip far below the first step's gradient norm, under SGD, whose
+    # update scales with the clip factor and the gradient average (Adam's
+    # hardly does)
+    "C": dict(preset="gpt3-1.3b", dtype="float32", layers=2,
+              dims=(2, 1, 2), zero=1, batch=(TRAIN_B, TRAIN_S), clip=0.05,
+              opt="sgd"),
+}
+MULTIRANK_STEPS = 3
+# the losses' relative tolerance against the one-rank step: bf16 (A, B)
+# and fp32 (C); and C's update check, each leaf's change over the steps
+# (its norm, and its dot with a seeded probe) against the one-rank
+# step's, relative to that change's norm
+MULTIRANK_BF16_TOL = 1e-3
+MULTIRANK_FP32_TOL = 1e-4
+MULTIRANK_UPDATE_TOL = 1e-3
+MULTIRANK_CHILD_TIMEOUT = 420
+MULTIRANK_KERNELS = ("layernorm_fwd", "flash_fwd", "flash_bwd_dq",
+                     "flash_bwd_dkv", "layernorm_bwd", "fused_adam")
+
+
+def multirank_strategy(run):
+    from paddle_tpu_torch.distributed.strategy import DistributedStrategy
+    c = MULTIRANK_RUNS[run]
+    s = DistributedStrategy()
+    dp, sh, mp = c["dims"]
+    s.hybrid_configs = {"dp_degree": dp, "sharding_degree": sh,
+                        "mp_degree": mp}
+    if c["zero"]:
+        s.sharding = True
+        s.sharding_configs = {"stage": c["zero"]}
+    return s
+
+
+def multirank_model(run, device, generator=None):
+    """The run's model on `device` in train mode, with AdamW (lr 1e-4, wd
+    0.01, fp32 moments) or SGD (lr 1) and the run's clip."""
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import SGD, AdamW
+    c = MULTIRANK_RUNS[run]
+    over = {} if c["layers"] is None else {"num_hidden_layers": c["layers"]}
+    model = model_class(c["preset"]).from_preset(
+        c["preset"], device=device, dtype=c["dtype"], generator=generator,
+        **over)
+    model.train()
+    clip = ClipGradByGlobalNorm(c["clip"]) if c["clip"] else None
+    if c["opt"] == "sgd":
+        return model, SGD(learning_rate=1.0, parameters=model.parameters(),
+                          grad_clip=clip)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters(), moment_dtype="float32",
+                grad_clip=clip)
+    return model, opt
+
+
+def multirank_update(state, directory):
+    """{name: [norm of the change, its dot with a seeded probe]} of each
+    parameter in `state` (whole tensors on the card) against the exported
+    weights in `directory`, in fp32 on the card: what the steps moved,
+    read the same way on a rank and in the one-rank step."""
+    import numpy as np
+    import torch
+    out = {}
+    gen = torch.Generator(device="cuda")
+    for i, k in enumerate(sorted(state)):
+        arr = np.load(os.path.join(directory, k + ".npy"), mmap_mode="r")
+        w0 = torch.from_numpy(np.ascontiguousarray(arr)).cuda()
+        if state[k].dtype == torch.bfloat16:
+            w0 = w0.view(torch.int16).view(torch.bfloat16)
+        d = state[k].float() - w0.float()
+        gen.manual_seed(SEED + i)
+        probe = torch.randn(d.shape, generator=gen, device="cuda")
+        out[k] = [float(d.norm()), float((d * probe).sum())]
+        del w0, d, probe
+    return out
+
+
+def multirank_export(model, directory):
+    """Each parameter of `model` as directory/<name>.npy, bf16 as its
+    uint16 bits (half the bytes of fp32)."""
+    import numpy as np
+    import torch
+    os.makedirs(directory, exist_ok=True)
+    for k, p in model.named_parameters():
+        t = p.detach().cpu()
+        arr = (t.view(torch.int16).numpy().view(np.uint16)
+               if t.dtype == torch.bfloat16 else t.numpy())
+        np.save(os.path.join(directory, k + ".npy"), arr)
+
+
+def multirank_load(model, hcg, directory):
+    """This rank's shards of the exported parameters (bridge.shard_state
+    over memory-mapped files) into `model`."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.bridge import shard_state
+    named = dict(model.named_parameters())
+    arrays = {k: np.load(os.path.join(directory, k + ".npy"),
+                         mmap_mode="r") for k in named}
+    with torch.no_grad():
+        for k, arr in shard_state(arrays, model, hcg).items():
+            p = named[k]
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+            if p.dtype == torch.bfloat16:
+                t = t.view(torch.int16).view(torch.bfloat16)
+            check(tuple(t.shape) == tuple(p.shape),
+                  f"multirank: shard of {k} {tuple(t.shape)} vs the "
+                  f"rank's {tuple(p.shape)}")
+            p.copy_(t.to(p.device))
+
+
+def multirank_steps(step, ids, labels, on_last=None):
+    """MULTIRANK_STEPS calls of `step` on the global batch, each timed
+    with a synchronize; `on_last()` runs before the last. Returns (losses,
+    step ms)."""
+    import torch
+    losses, ms = [], []
+    for i in range(MULTIRANK_STEPS):
+        if i == MULTIRANK_STEPS - 1 and on_last is not None:
+            on_last()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(ids, labels)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def moment_bytes(opt):
+    return sum(t.numel() * t.element_size() for slots in opt.state.values()
+               for k, t in slots.items() if k.startswith("moment"))
+
+
+def rank_child(run, rank, world, workdir):
+    """A rank of phase 21 (`chip_smoke.py --rank-child RUN RANK WORLD
+    WORKDIR`): run D's one-rank NCCL check, or fleet.init over a
+    FileStore in WORKDIR, the run's model with this rank's shards of the
+    exported weights, MULTIRANK_STEPS steps through parallelize on the
+    global batch; writes WORKDIR/<run>_rank<rank>.json."""
+    os.environ.update(PADDLE_TRAINER_ID=str(rank),
+                      PADDLE_TRAINERS_NUM=str(world),
+                      FLAGS_selected_gpus="0")
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    if run == "D":
+        out = nccl_one_rank()
+    else:
+        from paddle_tpu_torch.ops import _kernels
+        from paddle_tpu_torch.parallel import parallelize
+        s = multirank_strategy(run)
+        fleet.init(is_collective=True, strategy=s,
+                   init_method=f"file://{workdir}/store_{run}")
+        hcg = fleet.get_hybrid_communicate_group()
+        # a CUDA tensor from rank 0 to rank 1 (gloo's send and recv of a
+        # CUDA tensor cross through host memory)
+        ping = torch.arange(8, dtype=torch.float32, device="cuda") + 1
+        if rank == 0:
+            C.send(ping, 1)
+        elif rank == 1:
+            got = C.recv(torch.zeros_like(ping), 0)
+            check(torch.equal(got, ping), "multirank: recv of a CUDA tensor")
+        model, opt = multirank_model(run, "cuda")
+        multirank_load(model, hcg, os.path.join(workdir, f"w_{run}"))
+        step = parallelize(model, opt, strategy=s)
+        batch = np.load(os.path.join(workdir, f"batch_{run}.npz"))
+        ids, labels = batch["ids"], batch["labels"]
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        C.reset_comm_counts()
+        losses, ms = multirank_steps(step, ids, labels,
+                                     on_last=lambda: C.comm_timing(True))
+        C.comm_timing(False)
+        launches = _kernels.launch_counts()
+        B, S = MULTIRANK_RUNS[run]["batch"]
+        out = {"losses": losses, "step_ms": ms,
+               "tokens_per_s": B * S / (ms[1] / 1e3),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "comm_bytes_per_step": {k: v / MULTIRANK_STEPS for k, v in
+                                       C.comm_bytes().items()},
+               "comm_s_last_step": C.comm_seconds(),
+               "moment_bytes": moment_bytes(opt),
+               "coord": dict(step.mesh.coord),
+               "launches": launches}
+        if MULTIRANK_RUNS[run]["dtype"] == "float32":
+            # the whole parameters after the steps (a gather on every
+            # rank), read on rank 0, after the step's bytes and memory
+            names = dict(model.named_parameters())
+            full = {k: v for k, v in step.state_dict().items()
+                    if k in names}
+            out["update"] = (multirank_update(
+                full, os.path.join(workdir, f"w_{run}")) if rank == 0
+                else None)
+            del full
+        C.destroy_process_group()
+    with open(os.path.join(workdir, f"{run}_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def nccl_one_rank():
+    """Run D: a one-rank NCCL group on cuda:0; every collective of
+    collective.py must give the one-rank result (its input)."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import init_parallel_env
+    init_parallel_env()
+    backend = dist.get_backend()
+    check(backend == "nccl", f"multirank D: one rank on one GPU chose "
+          f"{backend}, not nccl")
+    x = torch.arange(12, dtype=torch.float32, device="cuda").reshape(3, 4)
+    got = {}
+    for name, op in (("sum", C.ReduceOp.SUM), ("max", C.ReduceOp.MAX),
+                     ("min", C.ReduceOp.MIN), ("prod", C.ReduceOp.PROD),
+                     ("avg", C.ReduceOp.AVG)):
+        got[f"all_reduce_{name}"] = C.all_reduce(x.clone(), op)
+    got["reduce"] = C.reduce(x.clone(), 0)
+    got["all_gather"] = C.all_gather([], x)[0]
+    got["all_gather_concat"] = C.all_gather_concat(x, concat_axis=1)
+    got["reduce_scatter"] = C.reduce_scatter(torch.empty_like(x), x.clone())
+    got["all_to_all_single"] = C.all_to_all_single(x.clone())
+    got["alltoall"] = C.alltoall([x])[0]
+    got["broadcast"] = C.broadcast(x.clone(), 0)
+    got["scatter"] = C.scatter(torch.empty_like(x), [x.clone()], src=0)
+    C.barrier()
+    C.wait(x)
+    bad = [k for k, v in got.items() if not torch.equal(v, x)]
+    moved = C.comm_bytes()
+    C.destroy_process_group()
+    check(not bad, f"multirank D: NCCL one-rank results differ: {bad}")
+    return {"backend": backend, "checked": sorted(got), "bytes": moved}
+
+
+def _launch_ranks(run, world, workdir):
+    """Start the run's ranks; return their Popen objects."""
+    env = dict(os.environ)
+    env.pop("PDTPU_FAULTS", None)
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank-child", run,
+         str(r), str(world), workdir], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+
+
+def _join_ranks(run, procs, workdir):
+    """Wait for every rank (killing them all past the timeout or when one
+    fails); returns each rank's JSON. Any failure fails the phase."""
+    deadline = time.perf_counter() + MULTIRANK_CHILD_TIMEOUT
+    outs = [None] * len(procs)
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.perf_counter() > deadline or any(
+                    p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for i, p in enumerate(procs):
+            outs[i] = p.communicate()[0]
+    for r, p in enumerate(procs):
+        check(p.returncode == 0,
+              f"multirank {run}: rank {r} exited {p.returncode}:\n"
+              f"{(outs[r] or '')[-4000:]}")
+    res = []
+    for r in range(len(procs)):
+        with open(os.path.join(workdir, f"{run}_rank{r}.json")) as f:
+            res.append(json.load(f))
+    return res
+
+
+def multirank_reference(run, workdir, ids, labels):
+    """The one-rank step on the card from the run's seeded weights: export
+    them to WORKDIR/w_<run>, then MULTIRANK_STEPS steps on the global
+    batch. Returns (losses, step ms, moment bytes by leaf, first step's
+    gradient norm)."""
+    import torch
+    from paddle_tpu_torch.nn.clip import clip_grad_norm_
+    from paddle_tpu_torch.parallel import ShardedTrainStep
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    model, opt = multirank_model(run, "cuda", generator=gen)
+    multirank_export(model, os.path.join(workdir, f"w_{run}"))
+    gnorm = None
+    if MULTIRANK_RUNS[run]["clip"]:
+        loss = model(torch.from_numpy(ids).cuda(),
+                     torch.from_numpy(labels).cuda())
+        loss.backward()
+        gnorm = float(clip_grad_norm_(model.parameters(), float("inf")))
+        model.zero_grad(set_to_none=True)
+    step = ShardedTrainStep(model, opt)
+    losses, ms = multirank_steps(step, ids, labels)
+    leaves = [(p.numel(), t.numel() * t.element_size())
+              for p, slots in opt.state.items()
+              for k, t in slots.items() if k.startswith("moment")]
+    update = None
+    if MULTIRANK_RUNS[run]["dtype"] == "float32":
+        update = multirank_update(
+            {k: p.detach() for k, p in model.named_parameters()},
+            os.path.join(workdir, f"w_{run}"))
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, ms, leaves, gnorm, update
+
+
+def phase_multirank_train(device_name, smi_line):
+    """Phase 21: multi-rank training at one GPU (module docstring)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    gc.collect()
+    workdir = tempfile.mkdtemp(prefix="pdtt_multirank_")
+    d_procs = []
+    try:
+        refs, runs = {}, {}
+        for run, c in MULTIRANK_RUNS.items():
+            B, S = c["batch"]
+            vocab = preset_config(c["preset"]).vocab_size
+            rng = np.random.RandomState(SEED + 4)
+            ids = rng.randint(0, vocab, (B, S)).astype(np.int64)
+            labels = rng.randint(0, vocab, (B, S)).astype(np.int64)
+            np.savez(os.path.join(workdir, f"batch_{run}.npz"), ids=ids,
+                     labels=labels)
+            if run == "B":      # the same model and batch as A
+                refs[run] = refs["A"]
+                shutil.copytree(os.path.join(workdir, "w_A"),
+                                os.path.join(workdir, "w_B"))
+            else:
+                refs[run] = multirank_reference(run, workdir, ids, labels)
+        # D's one rank starts beside A's ranks (it moves 624 bytes)
+        t0 = time.perf_counter()
+        d_procs = _launch_ranks("D", 1, workdir)
+        for run in ("A", "B", "C", "D"):
+            if run == "D":
+                runs[run] = _join_ranks(run, d_procs, workdir)
+            else:
+                world = int(np.prod(MULTIRANK_RUNS[run]["dims"]))
+                runs[run] = _join_ranks(
+                    run, _launch_ranks(run, world, workdir), workdir)
+                shutil.rmtree(os.path.join(workdir, f"w_{run}"))
+            runs[run + "_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            emit({"phase": "multirank_train", "run": run,
+                  "wall_s": runs[run + "_s"],
+                  "ranks": [{k: v for k, v in r.items()
+                             if k not in ("launches", "update")}
+                            for r in runs[run]]})
+    finally:
+        for p in d_procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(workdir, ignore_errors=True)
+    out = {"phase": "multirank_train", "device": device_name,
+           "smi": smi_line, "steps": MULTIRANK_STEPS,
+           "tol": {"bf16": MULTIRANK_BF16_TOL, "fp32": MULTIRANK_FP32_TOL,
+                   "update_fp32": MULTIRANK_UPDATE_TOL}}
+    for run in ("A", "B", "C"):
+        c = MULTIRANK_RUNS[run]
+        ref_losses, ref_ms, leaves, gnorm, ref_update = refs[run]
+        tol = MULTIRANK_FP32_TOL if c["dtype"] == "float32" \
+            else MULTIRANK_BF16_TOL
+        ranks = runs[run]
+        worst = max(abs(a - b) / abs(b) for r in ranks
+                    for a, b in zip(r["losses"], ref_losses))
+        check(all(math.isfinite(x) for r in ranks for x in r["losses"]),
+              f"multirank {run}: a non-finite loss")
+        check(worst <= tol, f"multirank {run}: losses {[r['losses'] for r in ranks]} "
+              f"vs one rank {ref_losses}: relative {worst:.3g} > {tol}")
+        rec = {"config": {k: v for k, v in c.items()},
+               "one_rank": {"losses": ref_losses, "step_ms": ref_ms},
+               "max_rel_loss_diff": worst, "wall_s": runs[run + "_s"],
+               "ranks": [{k: r[k] for k in (
+                   "coord", "losses", "step_ms", "tokens_per_s", "peak_gib",
+                   "comm_bytes_per_step", "comm_s_last_step",
+                   "moment_bytes")} for r in ranks]}
+        if ref_update is not None:
+            # fp32 (C): each leaf's change against the one-rank step's,
+            # relative to the norm of that change: its norm, and its dot
+            # with the probe (a bf16 update is mostly parameter rounding)
+            update = ranks[0]["update"]
+            upd = max(max(abs(a[0] - b[0]), abs(a[1] - b[1]))
+                      / max(b[0], 1e-30)
+                      for a, b in ((update[k], ref_update[k])
+                                   for k in ref_update))
+            check(upd <= MULTIRANK_UPDATE_TOL,
+                  f"multirank {run}: a leaf's update differs by {upd:.3g} "
+                  f"of its norm > {MULTIRANK_UPDATE_TOL} (the losses by "
+                  f"{worst:.3g})")
+            rec["max_rel_update_diff"] = upd
+            rec["update_norm"] = math.sqrt(sum(v[0] ** 2 for v in
+                                               ref_update.values()))
+        if gnorm is not None:
+            check(gnorm > c["clip"], f"multirank {run}: the clip "
+                  f"{c['clip']} does not bind (norm {gnorm})")
+            rec["first_grad_norm"] = gnorm
+        if c["dims"][1] > 1 and c["dims"][2] == 1:
+            # ZeRO over sharding alone: each rank holds 1/S of every
+            # moment but those of the leaves under min_numel
+            S = c["dims"][1]
+            want = sum(b // S if n >= 1024 else b for n, b in leaves)
+            got = [r["moment_bytes"] for r in ranks]
+            check(all(g == want for g in got),
+                  f"multirank {run}: moment bytes {got} a rank, want "
+                  f"{want} (one rank: {sum(b for _, b in leaves)})")
+            rec["one_rank_moment_bytes"] = sum(b for _, b in leaves)
+        out[run] = rec
+    launches = runs["A"][0]["launches"]
+    missing = [k for k in MULTIRANK_KERNELS if not launches.get(k)]
+    check(not missing, f"multirank A: rank 0 launched no {missing}")
+    out["A"]["rank0_launches"] = {k: launches[k] for k in MULTIRANK_KERNELS}
+    out["D"] = runs["D"][0]
+    out["D"]["wall_s"] = runs["D_s"]
+    emit(out)
+    return launches
+
+
 KERNEL_META = {
     "paged_attention": dict(
         source="paddle_tpu_torch/csrc/paged_attention_tc.cu",
@@ -9273,6 +9731,9 @@ def main():
     sys.path.insert(0, repo)
     if sys.argv[1:2] == ["--resilient-child"]:
         return resilient_child(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["--rank-child"]:
+        return rank_child(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
+                          sys.argv[5])
     seconds = {}
 
     def timed(phase, fn, *args, **kwargs):
@@ -9344,6 +9805,9 @@ def main():
                                         smi_line)
     by_phase["train_numerics"] = timed("train_numerics",
                                        phase_train_numerics, name, smi_line)
+    by_phase["multirank_train"] = timed("multirank_train",
+                                        phase_multirank_train, name,
+                                        smi_line)
     emit({"phase": "phase_seconds", **seconds})
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -24,6 +24,14 @@ other parameter: same names, same layout.
 `export_optimizer_state(optimizer, model)` goes the other way: the port
 optimizer's slots (master weights of fp16 or bf16 parameters among them)
 as numpy, keyed by name and slot.
+`shard_state(arrays, model, hcg)` turns a full `{name: array}` (a JAX
+tree, or the port's own `export_state` of a degree-1 model) into this
+rank's shards for a model built under the hybrid group `hcg`: each
+parameter sliced by its `partition_spec` (the model axis), and with
+`zero_stage=3` also by its ZeRO spec over sharding (`min_numel` as the
+step takes it), the slices the JAX mesh gives this rank's position; other
+keys stay whole. `load_jax_state(model, shard_state(...))` then loads the
+logical model into the rank, so one seed makes one model at every degree.
 `load_jax_step_extras(step, extras)` carries a JAX train step's extras
 (the loss scale and its good/bad counters, the gradient-merge accumulator
 and its count) into a port step built from the same plan.
@@ -198,3 +206,23 @@ def load_jax_step_extras(step, extras: Mapping[str, object]):
                                        device=step.device)
     return step
 
+
+
+def shard_state(arrays: Mapping[str, np.ndarray], model: torch.nn.Module,
+                hcg, zero_stage: int = 0, min_numel: int = 1024
+                ) -> Dict[str, np.ndarray]:
+    """This rank's block of every array of the full state `arrays` (numpy,
+    read-only views are fine: only the block is copied), by the model's
+    partition specs over `hcg`'s layout (module docstring)."""
+    from .parallel.hybrid import _param_spec, _zero_spec, shard_of
+    mesh = hcg.build_mesh()
+    named = dict(model.named_parameters())
+    out = {}
+    for k, arr in arrays.items():
+        p = named.get(k)
+        spec = () if p is None else _param_spec(p, mesh)
+        if p is not None and zero_stage >= 3:
+            spec = _zero_spec(spec, np.shape(arr), mesh,
+                              min_numel=min_numel)
+        out[k] = np.array(shard_of(np.asarray(arr), spec, mesh))
+    return out

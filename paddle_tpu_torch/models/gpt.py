@@ -332,13 +332,13 @@ class GPTForCausalLM(Layer):
             loss = loss + total_aux * self.config.moe_aux_loss_weight
         return loss
 
-    @staticmethod
-    def _can_fuse_lm_ce():
+    def _can_fuse_lm_ce(self):
         """FLAGS_fused_lm_ce (default 1) read at every call, as the JAX
-        model reads it; the port has no vocab-sharded or sequence-sharded
-        trace to rule it out."""
+        model reads it; a vocab-sharded lm head (mp degree > 1) keeps the
+        ParallelCrossEntropy path, as in JAX (gpt.py:314-327)."""
         import os
-        return os.environ.get("FLAGS_fused_lm_ce", "1") == "1"
+        return (os.environ.get("FLAGS_fused_lm_ce", "1") == "1"
+                and self.lm_head.world_size == 1)
 
     def init_cache(self, batch_size: int, max_len: int, dtype=None):
         cfg = self.config

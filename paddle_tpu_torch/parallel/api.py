@@ -30,12 +30,29 @@ as the JAX step does on a one-device mesh:
   keeps the optimizer state in host memory (pinned on CUDA) between
   updates and stages it in around each;
 - the LARS and LAMB swaps (`plan.optimizer`).
-What needs several ranks (pipeline, LocalSGD, sequence parallelism over a
-`sep` axis, a mesh over more than one device) raises and names ROADMAP §1
-item 8; asp and qat raise and name the item that ports their modules.
 `sync_batch_norm` converts the model's BatchNorms to SyncBatchNorm in
 `parallelize`, before the step is built, as the JAX parallelize does; at
 one device they are BatchNorm.
+
+Several ranks: one process a rank. After `fleet.init(is_collective=True,
+strategy)` (or given `mesh=`, a `HybridMesh` from the hybrid group's
+`build_mesh()`) the step runs data, sharding (ZeRO 1-3) and tensor
+parallelism over the hybrid group (`parallel/hybrid.py`): each call
+takes the global batch and uses this rank's slice, the gradients are
+averaged over the batch ranks, a global-norm clip becomes the hybrid
+clip (`HybridParallelClipGrad`: squared norms summed over the model and
+sharding groups, a replicated leaf counted once, never summed over
+data), an fp16 census is agreed over every rank, and `state_dict()`
+gathers the full logical state on every rank, as the JAX step's does
+(api.py:746-759). AMP, recompute, gradient merge, ScanTrainStep's lr
+vector and numerics run per rank as at one device. What stays refused
+names its sub-item of ROADMAP §1 item 8: pipeline and `pp_degree` (8b),
+`sep` and sequence parallelism (8c), LocalSGD (8d), `ep_degree` (8e),
+buffers (BatchNorm statistics) over batch ranks (8f), `comm_quant` over
+several batch ranks (8a, with compression and DGC), and LARS and LAMB over
+sharded leaves (8g); a list of several devices in one process is refused:
+one process a rank. asp and qat raise and name the item that ports their
+modules.
 
 A model with buffers (BatchNorm's running statistics) moves them in
 place in its forward, once a step, as the JAX step carries them; with
@@ -86,10 +103,24 @@ import torch
 from ..core.device import resolve_device
 from ..core.random import rng_restore, rng_snapshot
 from ..distributed.fleet.utils.recompute import recompute
+from ..distributed.topology import HybridMesh, get_mesh
 from ..obs.numerics import (all_finite, group_index, in_step_telemetry,
                             nonfinite_count, telemetry_groups, telemetry_keys)
+from .hybrid import HybridLayout, _batch_axes, _param_spec, _zero_spec  # noqa: F401
 
-_MULTI_RANK = "needs several ranks (ROADMAP §1 item 8)"
+_ONE_PROCESS_A_RANK = ("takes one process a rank: start one process for "
+                       "each device (distributed.spawn or a launcher) and "
+                       "call fleet.init in each")
+_ITEM8 = {"pipeline": "pipeline parallelism waits for ROADMAP §1 item 8b",
+          "sep": "sequence parallelism waits for ROADMAP §1 item 8c",
+          "localsgd": "waits for ROADMAP §1 item 8d",
+          "ep": "expert parallelism waits for ROADMAP §1 item 8e",
+          "buffers": "buffers (BatchNorm statistics) across batch ranks "
+                     "wait for SyncBatchNorm over ranks, ROADMAP §1 item 8f",
+          "comm_quant": "quantized gradient collectives wait for "
+                        "compression, ROADMAP §1 item 8a",
+          "trust": "takes norms of whole leaves; over sharded leaves it "
+                   "waits for ROADMAP §1 item 8g"}
 # plan fields whose modules another item ports
 _REFUSED = (("asp", "2:4 sparsity (incubate/asp) waits for ROADMAP §1 "
              "item 9"),
@@ -98,11 +129,18 @@ _REFUSED = (("asp", "2:4 sparsity (incubate/asp) waits for ROADMAP §1 "
 
 
 def _resolve_mesh(mesh, device) -> torch.device:
-    """None, a device, or a one-device sequence -> torch.device."""
+    """None, a device, a one-device sequence, or a HybridMesh (this
+    rank's device from init_parallel_env) -> torch.device."""
+    if isinstance(mesh, HybridMesh):
+        if device is not None:
+            return resolve_device(device)
+        from ..distributed.parallel_env import current_device
+        return current_device()
     if isinstance(mesh, (list, tuple)):
         if len(mesh) != 1:
             raise NotImplementedError(
-                f"a mesh over {len(mesh)} devices {_MULTI_RANK}")
+                f"a mesh over {len(mesh)} devices in one process: the port "
+                f"{_ONE_PROCESS_A_RANK}")
         mesh = mesh[0]
     if mesh is not None and device is not None and \
             resolve_device(mesh) != resolve_device(device):
@@ -111,27 +149,46 @@ def _resolve_mesh(mesh, device) -> torch.device:
 
 
 def _refuse(plan, strategy=None):
-    """Raise on what a plan asks that the one-device step cannot run."""
+    """Raise on what a plan asks that the step cannot run."""
     from ..distributed.fleet.strategy_compiler import CompiledStrategy
     if not isinstance(plan, CompiledStrategy):
         raise TypeError(f"plan must be a CompiledStrategy (StrategyCompiler"
                         f"().compile or parallelize), got "
                         f"{type(plan).__name__}")
     if plan.pipeline:
-        raise NotImplementedError(f"pipeline parallelism {_MULTI_RANK}")
+        raise NotImplementedError(f"strategy.pipeline: {_ITEM8['pipeline']}")
     if plan.localsgd_k:
         kind = "adaptive_localsgd" if plan.localsgd_adaptive else "localsgd"
-        raise NotImplementedError(f"{kind} {_MULTI_RANK}")
+        raise NotImplementedError(f"strategy.{kind}: {_ITEM8['localsgd']}")
     for field, why in _REFUSED:
         if getattr(plan, field):
             raise NotImplementedError(f"strategy.{field}: {why}")
     if strategy is not None:
         hc = strategy.hybrid_configs
-        for name in ("dp_degree", "mp_degree", "pp_degree",
-                     "sharding_degree", "sep_degree", "ep_degree"):
+        for name, why in (("pp_degree", "pipeline"), ("sep_degree", "sep"),
+                          ("ep_degree", "ep")):
             if getattr(hc, name, 1) > 1:
                 raise NotImplementedError(
-                    f"hybrid_configs.{name}={getattr(hc, name)} {_MULTI_RANK}")
+                    f"hybrid_configs.{name}={getattr(hc, name)}: "
+                    f"{_ITEM8[why]}")
+
+
+def _check_group(strategy, mesh):
+    """A strategy whose hybrid degrees ask for several ranks needs the
+    running hybrid group of those degrees (fleet.init)."""
+    hc = strategy.hybrid_configs
+    want = {"data": hc.dp_degree, "sharding": hc.sharding_degree,
+            "model": hc.mp_degree}
+    if all(v in (1, -1, None) for v in want.values()):
+        return
+    have = mesh.shape if isinstance(mesh, HybridMesh) else None
+    if have is None or any(v not in (-1, None) and have.get(a, 1) != v
+                           for a, v in want.items()):
+        raise RuntimeError(
+            f"hybrid_configs {want} need a running hybrid group of those "
+            f"degrees (fleet.init(is_collective=True, strategy=...) in "
+            f"every rank, one process a rank); the running one is "
+            f"{have or 'none'}")
 
 
 def make_compute_loss(model, loss_fn=None, amp_ctx=None):
@@ -209,15 +266,18 @@ class ShardedTrainStep:
 
     def __init__(self, model, optimizer, mesh=None,
                  loss_fn: Optional[Callable] = None, zero_stage: int = 1,
-                 plan=None, device=None, numerics: bool = False):
+                 plan=None, device=None, numerics: bool = False,
+                 min_shard_numel: int = 1024):
         if plan is not None:
             _refuse(plan)
             zero_stage = plan.zero_stage
             optimizer = plan.optimizer or optimizer
             numerics = numerics or bool(getattr(plan, "numerics", False))
+            min_shard_numel = plan.zero_min_numel
         if zero_stage not in (0, 1, 2, 3):
             raise ValueError(f"zero_stage must be 0..3, got {zero_stage}")
         self.device = _resolve_mesh(mesh, device)
+        self.mesh = mesh if isinstance(mesh, HybridMesh) else None
         named = sorted(model.named_parameters())
         off = [k for k, t in named + list(model.named_buffers())
                if t.device != self.device]
@@ -233,9 +293,20 @@ class ShardedTrainStep:
         # the global-norm clip sums in
         self._names = [k for k, p in named if p.requires_grad]
         self._params = [p for _, p in named if p.requires_grad]
+        # several ranks: this rank's layout, shards and collectives
+        self._layout = None
+        if self.mesh is not None and self.mesh.size > 1:
+            self._layout = self._hybrid_layout(model, optimizer, plan,
+                                               zero_stage, min_shard_numel)
+        # the tensors the optimizer updates: the parameters, or the ZeRO
+        # shards that stand for them
+        self._upd = (self._layout.update_tensors() if self._layout
+                     else list(self._params))
+        by_param = {id(p): u for p, u in zip(self._params, self._upd)}
         # the model's order, in which the JAX step's init_state makes the
         # optimizer's slots (Dpsgd numbers its noise streams so)
-        self._slot_order = [p for p in model.parameters() if p.requires_grad]
+        self._slot_order = [by_param[id(p)] for p in model.parameters()
+                            if p.requires_grad]
 
         amp_cfg = plan.amp if plan is not None else None
         self._amp_cfg = amp_cfg
@@ -277,7 +348,7 @@ class ShardedTrainStep:
         extras = {}
         if self._accum_k > 1:
             extras["accum"] = {k: torch.zeros_like(p) for k, p in
-                               zip(self._names, self._params)}
+                               zip(self._names, self._upd)}
             extras["accum_n"] = torch.zeros((), dtype=torch.int32,
                                             device=dev)
         if self._use_scaler:
@@ -290,8 +361,9 @@ class ShardedTrainStep:
                                               device=dev)
         # the numerics observatory's in-step telemetry, under the JAX keys
         self.numerics_armed = bool(numerics)
-        self._param_sizes = {k: p.numel() or 1
-                             for k, p in zip(self._names, self._params)}
+        self._param_sizes = {k: int(np.prod(shape)) or 1 for k, shape in zip(
+            self._names, [lf.local_shape for lf in self._layout.leaves]
+            if self._layout else [p.shape for p in self._params])}
         self._step_rng: Dict[int, tuple] = {}  # armed: the RNG state each
         #                                        step of the last call began
         #                                        from, for the blame probe
@@ -326,21 +398,59 @@ class ShardedTrainStep:
                 return recompute(inner, *arrays, use_reentrant=False)
         self._compute_loss = compute_loss
 
-    def _stage(self, a):
+    def _hybrid_layout(self, model, optimizer, plan, zero_stage,
+                       min_numel):
+        """Check what several ranks cannot run, put the hybrid clip in
+        place of a global-norm clip, and build the layout."""
+        from ..distributed.fleet.hybrid_parallel_optimizer import \
+            HybridParallelClipGrad
+        from ..nn.clip import ClipGradByGlobalNorm, ClipGradByNorm
+        mesh = self.mesh
+        for ax, why in (("pipe", "pipeline"), ("sep", "sep"), ("ep", "ep")):
+            if mesh.shape.get(ax, 1) > 1:
+                raise NotImplementedError(f"a {ax} axis: {_ITEM8[why]}")
+        ba = _batch_axes(mesh)
+        if ba is not None and any(True for _ in model.buffers()):
+            raise NotImplementedError(_ITEM8["buffers"])
+        if ba is not None and plan is not None and \
+                getattr(plan, "comm_quant", None) is not None:
+            raise NotImplementedError(f"strategy.quant_allreduce: "
+                                      f"{_ITEM8['comm_quant']}")
+        sharded = mesh.shape.get("model", 1) > 1 or (
+            zero_stage >= 1 and mesh.shape.get("sharding", 1) > 1)
+        if sharded and type(optimizer).__name__ in ("Lamb", "LarsMomentum"):
+            raise NotImplementedError(f"{type(optimizer).__name__}: "
+                                      f"{_ITEM8['trust']}")
+        clip = optimizer._grad_clip
+        if isinstance(clip, ClipGradByGlobalNorm):
+            optimizer._grad_clip = HybridParallelClipGrad(clip, mesh.hcg)
+        elif isinstance(clip, ClipGradByNorm) and sharded:
+            raise NotImplementedError(f"ClipGradByNorm {_ITEM8['trust']}")
+        return HybridLayout(mesh, self._params, zero_stage, min_numel)
+
+    def _stage(self, a, batch_dim=0):
+        """An input on the step's device; with several ranks, this rank's
+        slice of the global batch along `batch_dim`."""
         t = a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))
+        if self._layout is not None:
+            t = self._layout.local_batch(t, batch_dim)
         return t.to(self.device, non_blocking=True)
 
     # ---- the step ----
     def _grads(self, scale):
         """The gradients after the backward: unscaled in fp32 and back to
-        each gradient's dtype (with a loss scale), then rounded through
-        fp16 where fp16_allreduce asks. None where a parameter has none."""
+        each gradient's dtype (with a loss scale), with several ranks
+        averaged over the batch ranks (and this rank's ZeRO slice), then
+        rounded through fp16 where fp16_allreduce asks. None where a
+        parameter has none."""
         grads = [p.grad for p in self._params]
         for p in self._params:
             p.grad = None
         if scale is not None:
             grads = [None if g is None else (g.float() / scale).to(g.dtype)
                      for g in grads]
+        if self._layout is not None:
+            grads = self._layout.sync_grads(grads)
         if self._fp16_ar is not None:
             grads = [g.half().to(g.dtype)
                      if g is not None and g.dtype == torch.float32 else g
@@ -353,6 +463,8 @@ class ShardedTrainStep:
         zeroed. Returns (grads, finite)."""
         cfg, ex = self._amp_cfg, self._extras
         finite = all_finite([g for g in grads if g is not None])
+        if self._layout is not None:
+            finite = self._layout.agree_finite(finite)
         scale = ex["loss_scale"]
         good = torch.where(finite, ex["good_steps"] + 1, 0).int()
         bad = torch.where(finite, 0, ex["bad_steps"] + 1).int()
@@ -386,6 +498,8 @@ class ShardedTrainStep:
         if self.numerics_armed:
             self._step_rng[step] = rng_snapshot()
         scale = self._extras.get("loss_scale")
+        if self._layout is not None:
+            self._layout.before_forward()
         loss = self._compute_loss(*arrays)
         (loss if scale is None else loss * scale).backward()
         grads = self._grads(scale)
@@ -398,7 +512,7 @@ class ShardedTrainStep:
             # merge and the clip) and a copy of the parameters before the
             # update (a multi-tensor op, not a copy a leaf)
             gn = self._leaf_norms(grads)
-            old = torch._foreach_mul([p.detach() for p in self._params], 1.0)
+            old = torch._foreach_mul([p.detach() for p in self._upd], 1.0)
         do_apply = True
         if self._accum_k > 1:
             # bank every step (the accumulator in the parameter's dtype);
@@ -432,6 +546,9 @@ class ShardedTrainStep:
                     torch.where(finite, 0, self._extras["accum_n"]).int())
         if old is not None:
             self._extras["numerics"] = self._telemetry(gn, old)
+        if self._layout is not None:
+            self._layout.after_update()
+            return self._layout.mean_loss(loss)
         return loss.detach()
 
     def _telemetry(self, gn, old):
@@ -439,7 +556,7 @@ class ShardedTrainStep:
         parameters before the update (`old`, consumed: it becomes old -
         new in place): the leaves' squares summed a group in one
         index_add over the four families."""
-        new = [p.detach() for p in self._params]
+        new = [p.detach() for p in self._upd]
         fp32 = torch.float32
         wn = torch._foreach_norm(old, 2, dtype=fp32)
         pn = torch._foreach_norm(new, 2, dtype=fp32)
@@ -460,7 +577,7 @@ class ShardedTrainStep:
         if self._offload:
             self._stage_state(self.device)
         self.optimizer.apply_gradients(
-            list(zip(self._params, grads)), lr, names=self._names,
+            list(zip(self._upd, grads)), lr, names=self._names,
             do_update=do_update)
         if self._offload:
             self._stage_state(None)
@@ -525,6 +642,8 @@ class ShardedTrainStep:
         steps of its last call), so dropout masks are that step's."""
         t0 = time.perf_counter()
         arrays = [self._stage(a) for a in args]
+        if self._layout is not None:
+            self._layout.before_forward()
         rng_now = rng_snapshot()
         buffers = [(b, b.detach().clone()) for b in self.model.buffers()]
         at = self._step_rng.get(int(step))
@@ -547,6 +666,8 @@ class ShardedTrainStep:
             with torch.no_grad():
                 for b, v in buffers:
                     b.copy_(v)
+            if self._layout is not None and self._layout.zero_stage >= 3:
+                self._layout.release_params()
         n = len(self._names)
         g, p = host[1:1 + n], host[1 + n:]
         return {
@@ -558,6 +679,10 @@ class ShardedTrainStep:
         }
 
     def state_dict(self):
+        """The model's state_dict; with several ranks every parameter
+        whole (the logical state), on every rank."""
+        if self._layout is not None:
+            return self._layout.full_state(self.model)
         return self.model.state_dict()
 
 
@@ -576,12 +701,13 @@ class ScanTrainStep(ShardedTrainStep):
 
     def __init__(self, model, optimizer, mesh=None, scan_steps: int = 8,
                  loss_fn: Optional[Callable] = None, zero_stage: int = 1,
-                 plan=None, device=None, numerics: bool = False):
+                 plan=None, device=None, numerics: bool = False,
+                 min_shard_numel: int = 1024):
         if plan is not None and getattr(plan, "scan_steps", 1) > 1:
             scan_steps = plan.scan_steps
         super().__init__(model, optimizer, mesh, loss_fn=loss_fn,
                          zero_stage=zero_stage, plan=plan, device=device,
-                         numerics=numerics)
+                         numerics=numerics, min_shard_numel=min_shard_numel)
         self.scan_steps = int(scan_steps)
         if self.scan_steps < 1:
             raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
@@ -626,9 +752,9 @@ class ScanTrainStep(ShardedTrainStep):
         K = self.scan_steps
         if self.ledger is not None:
             with self.ledger.measure("h2d"):
-                arrays = [self._stage(a) for a in args]
+                arrays = [self._stage(a, 1) for a in args]
         else:
-            arrays = [self._stage(a) for a in args]
+            arrays = [self._stage(a, 1) for a in args]
         for a in arrays:
             if a.ndim < 1 or a.shape[0] != K:
                 raise ValueError(
@@ -670,11 +796,16 @@ def parallelize(model, optimizer=None, mesh=None, strategy=None,
     """The fleet entry (fleet.distributed_model + distributed_optimizer +
     minimize): compile `strategy` (StrategyCompiler) and return the train
     step that executes it, a ScanTrainStep when the plan's scan_steps > 1.
-    `mesh`: None or one device; `device` as the steps take it. What needs
-    several ranks raises before the model is touched."""
+    `mesh`: None (the hybrid group's, after fleet.init), one device or a
+    HybridMesh; `device` as the steps take it. What the step cannot run
+    raises before the model is touched."""
     from ..distributed.fleet.strategy_compiler import StrategyCompiler
+    if mesh is None and device is None:
+        mesh = get_mesh()
     plan = StrategyCompiler().compile(strategy, optimizer, mesh)
     _refuse(plan, strategy)
+    if strategy is not None:
+        _check_group(strategy, mesh)
     if plan.sync_batch_norm:
         from ..nn.layer.norm import SyncBatchNorm
         model = SyncBatchNorm.convert_sync_batchnorm(model)

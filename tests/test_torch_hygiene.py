@@ -77,6 +77,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         with pytest.raises(NoCUDADeviceError, match="device='cpu'"):
             cls(m, opt)
         assert cls(m, opt, device="cpu").device == torch.device("cpu")
+    # the multi-rank entry points: a CUDA layout raises before any process
+    # group starts
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet, init_parallel_env
+    with pytest.raises(NoCUDADeviceError, match="device='cpu'"):
+        init_parallel_env()
+    with pytest.raises(NoCUDADeviceError, match="device='cpu'"):
+        fleet.init(is_collective=True)
+    with pytest.raises(NoCUDADeviceError, match="device='cpu'"):
+        init_parallel_env(device="cuda:0")
+    assert not dist.is_initialized()
 
 
 def test_wrappers_take_plain_path_on_cpu_tensors():
